@@ -1,0 +1,147 @@
+"""Lazy builder for the port's native code.
+
+Two shared libraries, both built on first use into ``build/`` beside this
+file (or ``$KEYHUNT_TORCH_BUILD``) and loaded with ctypes:
+
+- ``libkh_kernels_<hash>.so``: nvcc over ``csrc/*.cu`` for sm_90a. Each
+  entry point takes raw device pointers, sizes and a CUDA stream, launches
+  on that stream without synchronising, and returns ``cudaGetLastError()``.
+- ``libkeyhunt_host_<hash>.so``: g++ over ``native/keyhunt_host.cpp`` (the
+  JAX package's native host library: baby-table builder). It is built here
+  because ``*.so`` is not committed, and without ``-march=native`` so the
+  library runs on any x86-64 host.
+
+``<hash>`` is a digest of the sources and flags, so an edited source
+rebuilds. Builds hold a file lock (parallel test workers) and land by
+atomic rename. Nothing is compiled at import time.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import fcntl
+import glob
+import hashlib
+import os
+import shutil
+import subprocess
+from functools import lru_cache
+from typing import List
+
+PKG_DIR = os.path.dirname(os.path.abspath(__file__))
+REPO_DIR = os.path.dirname(PKG_DIR)
+CSRC_DIR = os.path.join(PKG_DIR, "csrc")
+HOST_SRC = os.path.join(REPO_DIR, "native", "keyhunt_host.cpp")
+
+NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC"]
+GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+
+
+def build_dir() -> str:
+    return os.environ.get("KEYHUNT_TORCH_BUILD", os.path.join(PKG_DIR, "build"))
+
+
+def _digest(paths: List[str], flags: List[str]) -> str:
+    h = hashlib.sha256(" ".join(flags).encode())
+    for p in paths:
+        with open(p, "rb") as f:
+            h.update(f.read())
+    return h.hexdigest()[:16]
+
+
+def _build(name: str, sources: List[str], deps: List[str], cmd: List[str],
+           flags: List[str]) -> str:
+    """Compile `sources` (cmd + flags + -o out + sources) unless a library
+    with the same digest exists; returns the library path."""
+    out_dir = build_dir()
+    os.makedirs(out_dir, exist_ok=True)
+    digest = _digest(sources + deps, cmd[:1] + flags)
+    out = os.path.join(out_dir, f"{name}_{digest}.so")
+    with open(os.path.join(out_dir, f"{name}.lock"), "w") as lock:
+        fcntl.flock(lock, fcntl.LOCK_EX)
+        if not os.path.exists(out):
+            tmp = out + f".tmp{os.getpid()}"
+            res = subprocess.run(cmd + flags + ["-o", tmp] + sources,
+                                 capture_output=True, text=True)
+            if res.returncode != 0:
+                raise RuntimeError(
+                    f"building {name} failed ({' '.join(cmd + flags)}):\n"
+                    f"{res.stdout}{res.stderr}"
+                )
+            os.replace(tmp, out)
+            for old in glob.glob(os.path.join(out_dir, f"{name}_*.so")):
+                if old != out:
+                    os.remove(old)
+    return out
+
+
+def _nvcc() -> str:
+    for cand in (shutil.which("nvcc"),
+                 os.path.join(os.environ.get("CUDA_HOME", "/usr/local/cuda"),
+                              "bin", "nvcc")):
+        if cand and os.path.exists(cand):
+            return cand
+    raise RuntimeError("nvcc not found: the CUDA kernels need the CUDA toolkit")
+
+
+@lru_cache(maxsize=1)
+def kernels() -> ctypes.CDLL:
+    """Build (if needed) and load the CUDA kernel library."""
+    cu = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
+    cuh = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
+    lib = ctypes.CDLL(_build("libkh_kernels", cu, cuh, [_nvcc()], NVCC_FLAGS))
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    i64 = ctypes.c_longlong
+    sigs = {
+        # px py ax ay | bx by nx ny adeg scratch | T K stream
+        "kh_advance_chain": [vp] * 10 + [i, i, vp],
+        # bx by tx ty | qlo qhi deg | R U stream
+        "kh_walk_blocks": [vp] * 7 + [i64, i, vp],
+        # words1 words2 qhi qlo keep | n bits b2bits stream
+        "kh_insert_keys": [vp] * 5 + [i64, i, i, vp],
+    }
+    for fn, argtypes in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = ctypes.c_int
+    return lib
+
+
+@lru_cache(maxsize=1)
+def host_lib() -> ctypes.CDLL:
+    """Build (if needed) and load the native host library."""
+    cxx = os.environ.get("CXX", "g++")
+    lib = ctypes.CDLL(_build("libkeyhunt_host", [HOST_SRC], [], [cxx], GXX_FLAGS))
+    lib.kh_baby_build.argtypes = [ctypes.c_uint64, ctypes.c_char_p,
+                                  ctypes.c_char_p, ctypes.c_int]
+    lib.kh_baby_build.restype = ctypes.c_int
+    lib.kh_baby_keys_range.argtypes = [ctypes.c_uint64, ctypes.c_uint64,
+                                       ctypes.POINTER(ctypes.c_uint64)]
+    lib.kh_baby_keys_range.restype = ctypes.c_int
+    return lib
+
+
+def on_cuda(*tensors) -> bool:
+    """True when every tensor is on one CUDA device, False when all are on
+    the CPU; raises for mixed or other devices (no silent fallback)."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    kind = tensors[0].device.type
+    if kind not in ("cpu", "cuda"):
+        raise ValueError(f"unsupported device {tensors[0].device}")
+    return kind == "cuda"
+
+
+def launch(fn: str, *args) -> None:
+    """Call a kernel entry point; raise if the launch reported an error."""
+    rc = getattr(kernels(), fn)(*args)
+    if rc != 0:
+        raise RuntimeError(f"{fn}: CUDA launch failed (cudaError {rc})")
+
+
+def stream(t) -> int:
+    """Raw handle of the current CUDA stream on tensor t's device."""
+    import torch
+
+    return torch.cuda.current_stream(t.device).cuda_stream

@@ -1,0 +1,40 @@
+"""Carry state over from the JAX package (keyhuntm1cpu_tpu) to the port.
+
+Inputs are numpy arrays or plain attributes, never jax objects, so this
+module imports no jax: pass ``np.asarray(jax_bitmap.words)``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .engine.bsgs import BSGSParams
+from .filter.bitmap import DeviceBitmap, DeviceBloom2
+
+
+def _words(words: np.ndarray, bits_log2: int, device) -> torch.Tensor:
+    arr = np.array(words, dtype=np.uint32)  # a writable copy
+    if arr.shape != (1 << (bits_log2 - 5),):
+        raise ValueError(f"filter words {arr.shape} do not match bits_log2={bits_log2}")
+    return torch.from_numpy(arr.view(np.int32)).to(device)
+
+
+def filters_from_jax(words1: np.ndarray, bits: int, words2: np.ndarray,
+                     b2bits: int, device):
+    """JAX DeviceBitmap/DeviceBloom2 words (as numpy uint32) -> the port's
+    (DeviceBitmap, DeviceBloom2) on `device`."""
+    return (DeviceBitmap(_words(words1, bits, device), bits),
+            DeviceBloom2(_words(words2, b2bits, device), b2bits))
+
+
+def params_from_jax(p) -> BSGSParams:
+    """A keyhuntm1cpu_tpu BSGSParams (host-resolve) -> the port's BSGSParams."""
+    if getattr(p, "resolve", "host") != "host":
+        raise ValueError("the port implements resolve='host' only")
+    return BSGSParams(
+        m=p.m, block_u=p.block_u, steps_per_chunk=p.steps_per_chunk,
+        build_block=p.build_block, chunk_cand_max=p.chunk_cand_max,
+        bits_log2=p.bits_log2, pipeline_depth=p.pipeline_depth,
+        bloom2_bits=p.bloom2_bits, table_cache=p.table_cache,
+    )

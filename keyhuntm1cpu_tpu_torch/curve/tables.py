@@ -1,0 +1,34 @@
+"""Host-side exact step tables (numpy copy of keyhuntm1cpu_tpu/curve/tables.py).
+
+Built once with exact python-int arithmetic (ref/ecref.py) and uploaded
+to the device as u32 limbs.
+"""
+
+from __future__ import annotations
+
+from functools import lru_cache
+from typing import Tuple
+
+import numpy as np
+
+from ..field.fe import LIMBS, int_to_limbs
+from ..ref import ecref
+
+
+@lru_cache(maxsize=32)
+def _step_table_np(px: int, py: int, count: int) -> Tuple[np.ndarray, np.ndarray]:
+    xs = np.empty((count, LIMBS), dtype=np.uint32)
+    ys = np.empty((count, LIMBS), dtype=np.uint32)
+    cur = (px, py)
+    for i in range(count):
+        xs[i] = int_to_limbs(cur[0])
+        ys[i] = int_to_limbs(cur[1])
+        cur = ecref.point_add(cur, (px, py))
+        if cur is None and i != count - 1:
+            raise ValueError("step table hit infinity — count exceeds point order")
+    return xs, ys
+
+
+def step_table(point: Tuple[int, int], count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(x, y) numpy (count, 8) uint32 limb tables of i*point, i = 1..count."""
+    return _step_table_np(point[0], point[1], count)

@@ -1,0 +1,103 @@
+"""Shared engine machinery: found keys, exact verification, deadline, stats.
+
+Copy of the pure-Python parts of keyhuntm1cpu_tpu/engine/common.py, without
+its metrics registry (the port serves no metrics endpoint). Found keys are appended to
+KEYFOUNDKEYFOUND.txt, and every device candidate is re-verified with the
+exact python-int reference before it is reported.
+"""
+
+from __future__ import annotations
+
+import os
+import time
+from dataclasses import dataclass, field
+from typing import Optional, Tuple
+
+from ..core.security import SecureBuffer
+from ..ref import ecref, hashref
+
+
+@dataclass(frozen=True)
+class FoundKey:
+    private_key: int
+    pubkey: Tuple[int, int]
+    compressed: bool = True
+    target: str = ""
+
+    def to_lines(self) -> str:
+        pk = self.private_key
+        pub = ecref.serialize_pubkey(self.pubkey, self.compressed).hex()
+        addr = hashref.pubkey_to_address(self.pubkey, self.compressed)
+        return (
+            f"Private key: {pk:064x}\n"
+            f"Pubkey: {pub}\n"
+            f"Address: {addr}\n"
+            f"Target: {self.target}\n"
+        )
+
+
+def write_found_key(found: FoundKey, path: str = "KEYFOUNDKEYFOUND.txt") -> None:
+    """Append a found key, staging the secret through a page-locked buffer."""
+    data = found.to_lines().encode()
+    with SecureBuffer(len(data)) as sb:
+        sb.write(data)
+        fd = os.open(path, os.O_WRONLY | os.O_CREAT | os.O_APPEND, 0o600)
+        try:
+            os.write(fd, sb.view())
+        finally:
+            os.close(fd)
+
+
+class Deadline:
+    """Wall-clock bound for a search loop (None = unbounded; 0 expires
+    at once, so nothing dispatches)."""
+
+    __slots__ = ("_t",)
+
+    def __init__(self, max_seconds: Optional[float]):
+        self._t = None if max_seconds is None else time.time() + max_seconds
+
+    def expired(self) -> bool:
+        return self._t is not None and time.time() >= self._t
+
+
+def verify_candidate_scalar(k: int, target_pubkey: Tuple[int, int]) -> Optional[int]:
+    """Exact check: k*G == target (or -k, X-only symmetry)? Returns the
+    canonical private key in [1, n) or None."""
+    k_mod = k % ecref.N
+    if k_mod == 0:
+        return None
+    pt = ecref.scalar_mult(k_mod)
+    if pt == target_pubkey:
+        return k_mod
+    if pt is not None and (pt[0], (-pt[1]) % ecref.P) == target_pubkey:
+        return ecref.N - k_mod
+    return None
+
+
+@dataclass
+class SearchStats:
+    """Throughput accounting: each giant step covers its full stride of
+    candidate keys (the reference's keys = steps * N convention)."""
+
+    keys_covered: int = 0
+    started_at: float = field(default_factory=time.time)
+
+    def add(self, keys: int) -> None:
+        self.keys_covered += keys
+
+    @property
+    def elapsed(self) -> float:
+        return max(time.time() - self.started_at, 1e-9)
+
+    @property
+    def keys_per_sec(self) -> float:
+        return self.keys_covered / self.elapsed
+
+    def human(self) -> str:
+        rate = self.keys_per_sec
+        for unit in ("", "K", "M", "G", "T", "P", "E", "Z"):
+            if rate < 1000:
+                return f"{rate:.2f} {unit}keys/s"
+            rate /= 1000
+        return f"{rate:.2f} Ykeys/s"

@@ -1,0 +1,239 @@
+"""Device bitmap + level-2 bloom cascade, and the filter-insert kernel (K3).
+
+Port of the host-resolve part of keyhuntm1cpu_tpu/filter/bitmap.py:
+
+- level 1: a 2^b-bit direct-address bitmap over the low bits of each
+  64-bit key (one gather per query);
+- level 2: a k=2 hashed bloom (fmix32 mixes of the key), probed only on
+  level-1 survivors;
+- compaction keeps the first `size` survivor positions in ascending order
+  (``compact_positions``: one sort of the masked iota — no host sync).
+
+Keys are (qhi, qlo) int32 tensors holding u32 bits; filter words are
+int32 tensors holding u32 bits. Index math is done in int64 with masks
+(torch on the CPU has no u32 arithmetic); 32-bit products are split into
+16-bit halves so no int64 product overflows.
+
+``insert_keys`` ORs keys into both filters IN PLACE: the CUDA kernel K3
+(csrc/filter.cu) for CUDA tensors, the plain torch version for CPU ones.
+Nothing on the chunk path calls ``.item()``, ``.cpu()``, ``nonzero`` or
+boolean-mask indexing.
+"""
+
+from __future__ import annotations
+
+from typing import NamedTuple, Optional
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..field.fe import M16, M32, i32, u32
+
+MAX_BITS_LOG2 = 35  # 2^30 words (4 GiB): the largest filter either package builds
+
+
+class DeviceBitmap(NamedTuple):
+    words: torch.Tensor  # (2^(bits_log2-5),) int32
+    bits_log2: int
+
+
+class DeviceBloom2(NamedTuple):
+    words: torch.Tensor  # (2^(bits_log2-5),) int32
+    bits_log2: int
+
+
+def default_bits_log2(m: int) -> int:
+    """fp = m/2^b = 2^-12, capped at 2^34 bits (bitmap.default_bits_log2)."""
+    return min(34, max(16, int(np.ceil(np.log2(max(m, 2)))) + 12))
+
+
+def bloom2_bits_log2_host(m: int) -> int:
+    """Load 2m/2^b = 1/16, capped at 2^35 bits (bitmap.bloom2_bits_log2_host)."""
+    return min(35, max(16, int(np.ceil(np.log2(max(m, 2)))) + 5))
+
+
+def bloom2_fp(m: int, bits_log2: int) -> float:
+    """False-positive rate of the k=2 bloom at 2m insertions."""
+    load = 2.0 * m / float(1 << bits_log2)
+    return float((1.0 - np.exp(-load)) ** 2)
+
+
+def empty_filter(bits_log2: int, device) -> torch.Tensor:
+    if not 5 <= bits_log2 <= MAX_BITS_LOG2:
+        raise ValueError(f"bits_log2 out of range (5..{MAX_BITS_LOG2}): {bits_log2}")
+    return torch.zeros(1 << (bits_log2 - 5), dtype=torch.int32, device=device)
+
+
+# ---------------------------------------------------------------------------
+# Bit planes (int64 tensors of u32 values in, int64 word index + bit value out)
+# ---------------------------------------------------------------------------
+
+
+def _mul32(x: torch.Tensor, c: int) -> torch.Tensor:
+    """(x * c) mod 2^32 for u32 values x and a u32 constant c."""
+    return (x * (c & M16) + (((x * (c >> 16)) & M16) << 16)) & M32
+
+
+def _fmix32(h: torch.Tensor) -> torch.Tensor:
+    h = h ^ (h >> 16)
+    h = _mul32(h, 0x85EBCA6B)
+    h = h ^ (h >> 13)
+    h = _mul32(h, 0xC2B2AE35)
+    return h ^ (h >> 16)
+
+
+def bloom2_hashes(qhi: torch.Tensor, qlo: torch.Tensor):
+    """The two level-2 32-bit mixes of the 64-bit key (bitmap.bloom2_hashes)."""
+    h1 = _fmix32(qlo ^ _mul32(qhi, 0x9E3779B1) ^ 0x2545F491)
+    h2 = _fmix32(qhi ^ _mul32(qlo, 0x85EBCA77) ^ 0x633D9ABD)
+    return h1, h2
+
+
+def bloom2_ext_hashes(qhi: torch.Tensor, qlo: torch.Tensor):
+    """Index-extension mixes for blooms past 2^32 bits (bitmap.bloom2_ext_hashes)."""
+    e1 = _fmix32(qhi ^ _mul32(qlo, 0xC2B2AE3D) ^ 0x27D4EB2F)
+    e2 = _fmix32(qlo ^ _mul32(qhi, 0x165667B1) ^ 0x9E3779B9)
+    return e1, e2
+
+
+def _low_bits_index(h: torch.Tensor, ext: Optional[torch.Tensor], bits_log2: int):
+    """(word, bit) of a probe: the low bits_log2 bits of ext:h."""
+    if bits_log2 > 32:
+        emask = (1 << (bits_log2 - 32)) - 1
+        return (h >> 5) | ((ext & emask) << 27), h & 31
+    idx = h & ((1 << bits_log2) - 1)
+    return idx >> 5, idx & 31
+
+
+def bitmap_bit_planes(qhi: torch.Tensor, qlo: torch.Tensor, bits_log2: int):
+    """(word int64, bitval int64) for the direct-address bitmap."""
+    word, bit = _low_bits_index(qlo, qhi, bits_log2)
+    return word, torch.ones_like(bit) << bit
+
+
+def bloom2_bit_planes(qhi: torch.Tensor, qlo: torch.Tensor, bits_log2: int):
+    """(word int64, bitval int64), both probes concatenated."""
+    h1, h2 = bloom2_hashes(qhi, qlo)
+    e1, e2 = (bloom2_ext_hashes(qhi, qlo) if bits_log2 > 32 else (None, None))
+    w1, b1 = _low_bits_index(h1, e1, bits_log2)
+    w2, b2 = _low_bits_index(h2, e2, bits_log2)
+    bit = torch.cat([b1, b2])
+    return torch.cat([w1, w2]), torch.ones_like(bit) << bit
+
+
+# ---------------------------------------------------------------------------
+# K3: insert keys into both filters
+# ---------------------------------------------------------------------------
+
+
+def _or_into(words: torch.Tensor, word: torch.Tensor, bitval: torch.Tensor) -> None:
+    """words[word] |= bitval, exact under duplicates (torch has no scatter-OR):
+    distinct (word, bit) pairs summed per word equal their OR."""
+    pairs = torch.unique((word << 32) | bitval)
+    uw, inv = torch.unique(pairs >> 32, return_inverse=True)
+    vals = torch.zeros(uw.shape, dtype=torch.int64, device=words.device)
+    vals.scatter_add_(0, inv, pairs & M32)
+    words[uw] = i32(u32(words[uw]) | vals)
+
+
+def insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, keep) -> None:
+    """Plain torch version of K3 (see insert_keys)."""
+    hi, lo = u32(qhi)[keep], u32(qlo)[keep]
+    _or_into(words1, *bitmap_bit_planes(hi, lo, bits_log2))
+    _or_into(words2, *bloom2_bit_planes(hi, lo, b2bits))
+
+
+def insert_keys(words1: torch.Tensor, bits_log2: int, words2: torch.Tensor,
+                b2bits: int, qhi: torch.Tensor, qlo: torch.Tensor,
+                keep: torch.Tensor) -> None:
+    """OR every kept key's bitmap bit into words1 and both bloom2 bits into
+    words2, IN PLACE. qhi/qlo: (n,) int32; keep: (n,) bool."""
+    n = qhi.shape[0]
+    for name, w, b in (("words1", words1, bits_log2), ("words2", words2, b2bits)):
+        if not 5 <= b <= MAX_BITS_LOG2:
+            raise ValueError(f"{name}: bits out of range (5..{MAX_BITS_LOG2}): {b}")
+        if (w.dtype != torch.int32 or not w.is_contiguous()
+                or tuple(w.shape) != (1 << (b - 5),)):
+            raise ValueError(f"{name}: need contiguous int32 ({1 << (b - 5)},)")
+    for name, t, dt in (("qhi", qhi, torch.int32), ("qlo", qlo, torch.int32),
+                        ("keep", keep, torch.bool)):
+        if t.dtype != dt or not t.is_contiguous() or tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: need contiguous {dt} ({n},)")
+    if not _build.on_cuda(words1, words2, qhi, qlo, keep):
+        return insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, keep)
+    if n == 0:
+        return
+    _build.launch("kh_insert_keys", words1.data_ptr(), words2.data_ptr(),
+                  qhi.data_ptr(), qlo.data_ptr(), keep.data_ptr(), n,
+                  bits_log2, b2bits, _build.stream(qhi))
+    insert_keys.launches += 1
+
+
+insert_keys.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Probes, compaction, cascade
+# ---------------------------------------------------------------------------
+
+
+def _test_bits(words: torch.Tensor, word: torch.Tensor, bitval: torch.Tensor):
+    return (u32(words[word]) & bitval) != 0
+
+
+def probe(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """(B,) bool possibly-present mask — one gather per query (elem mode)."""
+    return _test_bits(bm.words, *bitmap_bit_planes(u32(qhi), u32(qlo), bm.bits_log2))
+
+
+def probe_bloom2(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """(B,) bool mask — 2 gathers per query; no false negatives."""
+    hit = _test_bits(b2.words, *bloom2_bit_planes(u32(qhi), u32(qlo), b2.bits_log2))
+    return hit[: qhi.shape[0]] & hit[qhi.shape[0]:]
+
+
+def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
+    """Ascending positions of set entries of the (B,) mask, the first `size`
+    kept, padded with `fill` (bitmap.compact_positions_sort semantics)."""
+    B = mask.shape[0]
+    iota = torch.arange(B, dtype=torch.int32, device=mask.device)
+    skey = torch.sort(torch.where(mask, iota, B)).values
+    if size > B:
+        skey = torch.cat([skey, skey.new_full((size - B,), B)])
+    pos = skey[:size]
+    return torch.where(pos < B, pos, fill).to(torch.int32)
+
+
+class FilteredSurvivors(NamedTuple):
+    pos: torch.Tensor  # (C,) int32 flat query positions, fill = B
+    qhi: torch.Tensor  # (C,) int32 survivor key planes (garbage at fill)
+    qlo: torch.Tensor
+    n_candidates: torch.Tensor  # () int32, poisoned past cand_max on overflow
+
+
+def filtered_survivors(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
+                       cand_max: int, bm2: Optional[DeviceBloom2] = None,
+                       stage1_max: Optional[int] = None) -> FilteredSurvivors:
+    """Bitmap probe -> compact -> (bloom2 probe -> compact), no exact search
+    (bitmap.filtered_survivors). Callers check n_candidates > cand_max and
+    fall back to an exact host rescan; a stage-1 overflow is poisoned to
+    n + cand_max so the one check covers both stages."""
+    b = qhi.shape[0]
+    mask = probe(bm, qhi, qlo)
+    n = mask.sum(dtype=torch.int32)
+    if bm2 is None:
+        pos = compact_positions(mask, cand_max, b)
+        safe = pos.clamp(max=b - 1).long()
+        return FilteredSurvivors(pos, qhi[safe], qlo[safe], n)
+    C1 = stage1_max if stage1_max is not None else 4 * cand_max
+    pos1 = compact_positions(mask, C1, b)
+    safe1 = pos1.clamp(max=b - 1).long()
+    qh1, ql1 = qhi[safe1], qlo[safe1]
+    mask2 = probe_bloom2(bm2, qh1, ql1) & (pos1 < b)
+    n2 = mask2.sum(dtype=torch.int32)
+    pos2 = compact_positions(mask2, cand_max, C1)
+    safe2 = pos2.clamp(max=C1 - 1).long()
+    pos = torch.where(pos2 < C1, pos1[safe2], b)
+    n_out = torch.where(n > C1, n + cand_max, n2)
+    return FilteredSurvivors(pos, qh1[safe2], ql1[safe2], n_out)

@@ -1,0 +1,114 @@
+"""Port filter cascade (keyhuntm1cpu_tpu_torch/filter/bitmap.py) vs the JAX
+package's filter/bitmap.py: bit planes, insert_keys (plain K3) against
+np.bitwise_or.at and or_bits_into, probes, compaction and
+filtered_survivors in both overflow regimes. Integer arithmetic: the
+tolerance is exact equality."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from keyhuntm1cpu_tpu.filter import bitmap as jb  # noqa: E402
+from keyhuntm1cpu_tpu_torch.filter import bitmap as tb  # noqa: E402
+
+torch.set_num_threads(1)
+RNG = np.random.default_rng(11)
+N = 4096
+HI = RNG.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+LO = RNG.integers(0, 2**32, N, dtype=np.uint64).astype(np.uint32)
+
+
+def _t(a):
+    return torch.from_numpy(np.asarray(a, dtype=np.uint32).view(np.int32).copy())
+
+
+def _np(t):
+    return t.numpy().view(np.uint32)
+
+
+@pytest.mark.parametrize("bits", [16, 32, 33, 35])
+def test_bit_planes_match_jax(bits):
+    for jfn, tfn in ((jb.bitmap_bit_planes, tb.bitmap_bit_planes),
+                     (jb.bloom2_bit_planes, tb.bloom2_bit_planes)):
+        jw, jv = jfn(jnp.asarray(HI), jnp.asarray(LO), bits)
+        tw, tv = tfn(tb.u32(_t(HI)), tb.u32(_t(LO)), bits)
+        assert np.array_equal(np.asarray(jw).astype(np.int64), tw.numpy())
+        assert np.array_equal(np.asarray(jv).astype(np.int64), tv.numpy())
+
+
+@pytest.mark.parametrize("bits,b2bits", [(14, 13), (21, 33)])
+def test_insert_keys_matches_bitwise_or_at_and_or_bits_into(bits, b2bits):
+    keep = RNG.random(N) < 0.75
+    w1, w2 = tb.empty_filter(bits, "cpu"), tb.empty_filter(b2bits, "cpu")
+    # two batches: the second ORs into words that already hold bits
+    half = N // 2
+    for sl in (slice(0, half), slice(half, N)):
+        tb.insert_keys(w1, bits, w2, b2bits, _t(HI[sl]), _t(LO[sl]),
+                       torch.from_numpy(keep[sl].copy()))
+    hi, lo = HI[keep], LO[keep]
+    want1 = np.zeros(1 << (bits - 5), np.uint32)
+    idx = jb._bit_indices(hi, lo, bits)
+    np.bitwise_or.at(want1, (idx >> np.uint64(5)).astype(np.int64),
+                     np.uint32(1) << (idx & np.uint64(31)).astype(np.uint32))
+    want2 = np.zeros(1 << (b2bits - 5), np.uint32)
+    np.bitwise_or.at(want2, *jb.bloom2_word_bit_np(hi, lo, b2bits))
+    assert np.array_equal(_np(w1), want1)
+    assert np.array_equal(_np(w2), want2)
+    if b2bits <= 32:  # the JAX scatter-OR on the same keys (keep as OOB index)
+        wi, bv = jb.bitmap_bit_planes(jnp.asarray(HI), jnp.asarray(LO), bits)
+        wi = jnp.where(jnp.asarray(keep), wi, want1.shape[0])
+        got = jb.or_bits_into(jnp.zeros(want1.shape, jnp.uint32), wi, bv)
+        assert np.array_equal(np.asarray(got), want1)
+
+
+@pytest.fixture(scope="module")
+def filters():
+    """Filters over the first 1000 keys, built by the JAX host builders."""
+    bm = jb.build_bitmap(HI[:1000], LO[:1000], 14, on_device=False)
+    b2 = jb.build_bloom2_host(HI[:1000], LO[:1000], 13)
+    return bm, b2, (tb.DeviceBitmap(_t(np.asarray(bm.words)), 14),
+                    tb.DeviceBloom2(_t(np.asarray(b2.words)), 13))
+
+
+def test_probes_match_jax(filters):
+    bm, b2, (tbm, tb2) = filters
+    assert np.array_equal(np.asarray(jb.probe(bm, jnp.asarray(HI), jnp.asarray(LO))),
+                          tb.probe(tbm, _t(HI), _t(LO)).numpy())
+    assert np.array_equal(np.asarray(jb.probe_bloom2(b2, jnp.asarray(HI), jnp.asarray(LO))),
+                          tb.probe_bloom2(tb2, _t(HI), _t(LO)).numpy())
+    assert tb.probe(tbm, _t(HI[:1000]), _t(LO[:1000])).all()
+
+
+@pytest.mark.parametrize("size", [1, 7, 64, 5000])
+def test_compact_positions_matches_jax(size):
+    mask = RNG.random(1024) < 0.05
+    want = np.asarray(jb.compact_positions(jnp.asarray(mask), size, 1024))
+    got = tb.compact_positions(torch.from_numpy(mask), size, 1024)
+    assert got.dtype == torch.int32
+    assert np.array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("C2,C1", [(1024, 4096), (16, 4096), (64, 512)],
+                         ids=["no_overflow", "n2_gt_C2", "n1_gt_C1_poison"])
+def test_filtered_survivors_matches_jax(filters, C2, C1):
+    bm, b2, (tbm, tb2) = filters
+    want = jb.filtered_survivors(bm, jnp.asarray(HI), jnp.asarray(LO), C2,
+                                 bm2=b2, stage1_max=C1)
+    got = tb.filtered_survivors(tbm, _t(HI), _t(LO), C2, bm2=tb2, stage1_max=C1)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w).view(np.int32), g.numpy())
+    n = int(want.n_candidates)
+    if C1 == 512:
+        assert n > C1 + C2  # stage-1 overflow is poisoned past cand_max
+    elif C2 == 16:
+        assert C2 < n <= C1
+    else:
+        assert n <= C2
+    # level 1 only (no bloom2)
+    want = jb.filtered_survivors(bm, jnp.asarray(HI), jnp.asarray(LO), C2)
+    got = tb.filtered_survivors(tbm, _t(HI), _t(LO), C2)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w).view(np.int32), g.numpy())
