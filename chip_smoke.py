@@ -6,13 +6,18 @@
 Needs one NVIDIA GPU (sm_90a), nvcc and g++. Phases, one progress line each;
 any failure exits non-zero before the result line:
 
-0. card and build: the card's name and power limit; the CUDA kernels
-   (csrc/*.cu) and the native host library are built from this checkout.
+0. card and build: the card's name, power limit and SM clock; the CUDA
+   kernels (csrc/*.cu, one nvcc each, in parallel) and the native host
+   library are built from this checkout; ptxas's registers and spills of
+   each kernel.
 1. each kernel against its plain torch version on the card, at the shapes
-   the main path gives it (K1 advance chain, K2 walk blocks, K3 insert keys),
-   plus K1 against ecref with P == ADV and P == -ADV lanes, K2 with planted
-   dx == 0 lanes, K3 also against np.bitwise_or.at; each kernel timed beside its
-   plain version with CUDA events.
+   the main paths give it (K1 advance chain, K2 walk blocks, K3 insert keys,
+   K4 brute walk), plus K1 against ecref with P == ADV and P == -ADV lanes,
+   K2 with planted dx == 0 lanes, K3 also against np.bitwise_or.at, K4 in
+   every mode, with the endomorphism and with a bucketed T = 4096 set at
+   K = 16 (planted hits and dx == 0 lanes) and in rmd160 at the main
+   path's K = 256; each kernel timed beside its plain version with CUDA
+   events.
 2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
 3. the main path at real state size (the bench.py protocol): host-resolve
    BSGS at m = 2^28 with the 2^35-bit bitmap and 2^35-bit bloom2 on the card,
@@ -22,17 +27,27 @@ any failure exits non-zero before the result line:
    puzzle-64 range, in keys/s = chunks*K*U*2m/s, with the device's idle share
    over that window (CUDA events around each chunk), then the chunk time
    split over K1, K2, cascade and host decode.
-4. the launch counts of phase 3's main path (filter build and the two
-   searches, counted from zero): every kernel launched, and each stage
-   launched exactly the kernels it should.
+4. the brute-force path (bench_modes.py's protocol) in rmd160, xpoint,
+   eth, address_u, rmd160 -e and rmd160 with T = 4096 bucketed targets:
+   keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
+   (U = 1024 bucketed), then 5 s of throughput at U = 16384,
+   K = 256, T = 32 over [2^40, 2^40 + 2^50): effective keys/s (keys times
+   the mode's multiplier), the device idle share, the chunk time split over
+   K1, K4 and compaction, and K1 == K4 == chunks dispatched.
+5. the launch counts of the main paths (phase 3's filter build and
+   searches, phase 4's throughput windows, each counted from zero): every
+   kernel launched, and each stage launched exactly the kernels it should.
 
-The line before the last is {"kernels": [...]}; the last line is
+The line before the last is {"kernels": [...]} with each kernel's bound
+(the larger of its 32-bit integer operations over the card's INT32 issue
+rate and its bytes over the memory rate); the last line is
 {"ok": true, "device": {"platform": "gpu", "kind": ..., "count": ...}}.
 """
 
 import argparse
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -50,7 +65,71 @@ KERNEL_SOURCES = {
                     "keyhuntm1cpu_tpu/curve/pwalk.py:195"),
     "insert_keys": ("keyhuntm1cpu_tpu_torch/csrc/filter.cu",
                     "keyhuntm1cpu_tpu/engine/bsgs.py:1644"),
+    "brute_walk_blocks": ("keyhuntm1cpu_tpu_torch/csrc/pbrute.cu",
+                          "keyhuntm1cpu_tpu/curve/pbrute.py:70"),
 }
+BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
+K4_CHECK_K = 16  # phase 1's K4 checks: 16 x 16384 points per mode
+BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
+
+# Bounds. The kernels do 32-bit integer work; an H100 (compute capability
+# 9.0) issues 64 32-bit integer add, multiply(-add), shift, compare or
+# logic instructions per clock per SM (CUDA C++ Programming Guide,
+# arithmetic instruction throughput), on 132 SMs at the clock nvidia-smi
+# reports as clocks.max.sm; HBM3 moves 3.35 TB/s. Instruction counts are
+# taken from the sources, low where in doubt so the bound stays a bound:
+INT32_PER_CLK_SM, N_SM, HBM_BYTES_PER_S = 64, 132, 3.35e12
+MUL_OPS = 160  # fe_mul: 64 wide multiply-adds, 64 carry adds, 32 for the fold
+SUB_OPS = 16  # fe_sub / fe_add: 8 subtracts with borrow + the conditional p
+INV_OPS = 270 * MUL_OPS  # fe_inv: 255 squarings + 15 multiplies
+SHA_OPS = 64 * 14 + 48 * 10  # rounds (3 funnel shifts x2, 5 LOP3/IADD3...) + schedule
+RMD_OPS = 160 * 6 + 20  # 2 lines x 80 steps (LOP3, 2 IADD3, 2 SHF, add) + output
+KECCAK_OPS = 24 * 190  # theta 90, rho 48, chi 50, iota 2 (32-bit halves)
+HASH_OPS = {"hash160": SHA_OPS + RMD_OPS + 25, "hash160_u": 2 * SHA_OPS + RMD_OPS + 40,
+            "keccak": KECCAK_OPS + 16}
+MODE_HASHES = {"xpoint": [], "rmd160": ["hash160"] * 2, "eth": ["keccak"],
+               "address_u": ["hash160_u"], "rmd160_both": ["hash160"] * 2 + ["hash160_u"]}
+
+
+def walk_point_ops(group):
+    """K2's per-point walk: dx, the chain product, two backward products,
+    lambda, x3, and 1/group of an inversion (pwalk.cu, pbrute.cu)."""
+    return 2 * (SUB_OPS + 4) + 4 * MUL_OPS + MUL_OPS + 3 * SUB_OPS + INV_OPS / group
+
+
+def k4_ops(mode, n_endo, T, TB, points):
+    """K4's 32-bit integer instructions for `points` points: the walk,
+    y3 where the mode hashes it, the GLV products, each query's hash,
+    byte swaps and T interval compares (5 each) and TB bucket reads (2)."""
+    per = walk_point_ops(32)
+    if mode in ("eth", "address_u", "rmd160_both"):
+        per += MUL_OPS + 2 * SUB_OPS
+    per += (n_endo - 1) * MUL_OPS
+    for h in MODE_HASHES[mode]:
+        per += n_endo * (HASH_OPS[h] + 2 + 5 * T + 2 * TB)
+    if mode == "xpoint":
+        per += n_endo * (5 * T + 2 * TB)
+    return per * points
+
+
+def k1_ops(T, K):
+    """K1: per step 11 products + 6 adds of the mixed add, the prefix
+    product and 6 products to normalise; one inversion per chain."""
+    return T * (K * (12 * MUL_OPS + 6 * SUB_OPS + 6 * MUL_OPS) + INV_OPS)
+
+
+def k3_ops_bytes(n, n_kept):
+    """K3: ~60 instructions per kept key (bitmap index, the four fmix32
+    mixes, three atomicOr); reads qhi, qlo, keep of every key and reads
+    and writes the 3 filter words a kept key touches."""
+    return 60 * n_kept, 9 * n + 24 * n_kept
+
+
+def bound_ms(ops, nbytes, clock_mhz):
+    """(least milliseconds, 'operations' or 'bytes')."""
+    t_ops = ops / (INT32_PER_CLK_SM * N_SM * clock_mhz * 1e6)
+    t_bytes = nbytes / HBM_BYTES_PER_S
+    return (1e3 * max(t_ops, t_bytes), "operations" if t_ops >= t_bytes else "bytes")
 
 
 def log(msg):
@@ -62,11 +141,22 @@ def fail(msg):
     sys.exit(1)
 
 
-def card_line():
-    res = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
-                          "--format=csv,noheader"], capture_output=True,
-                         text=True, timeout=60)
+def smi(query):
+    res = subprocess.run(["nvidia-smi", f"--query-gpu={query}", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
     return res.stdout.strip().splitlines()[0] if res.returncode == 0 else "nvidia-smi failed"
+
+
+def card_line():
+    return smi("name,power.limit")
+
+
+def sm_clock_mhz():
+    """clocks.max.sm, the clock the bounds assume."""
+    try:
+        return float(smi("clocks.max.sm").split()[0])
+    except ValueError:
+        fail("nvidia-smi gave no SM clock")
 
 
 def timed(fn, reps):
@@ -84,6 +174,32 @@ def timed(fn, reps):
     return start.elapsed_time(end) / reps, out
 
 
+def ptxas_summary(log):
+    """One line per function from nvcc -Xptxas -v: registers, stack, spills."""
+    regs, props, cur = {}, {}, None
+    for ln in log.splitlines():
+        if "Function properties for" in ln:
+            cur = ln.split("Function properties for")[-1].strip()
+        elif "stack frame" in ln and cur:
+            props[cur] = ln.strip()
+        elif "Compiling entry function" in ln:
+            cur = ln.split("'")[1]
+        elif "Used" in ln and "registers" in ln and cur:
+            regs[cur] = ln.split(":", 1)[1].strip()
+    names = list(props)
+    res = subprocess.run(["c++filt"], input="\n".join(names), capture_output=True,
+                         text=True, timeout=60)
+    pretty = res.stdout.splitlines() if res.returncode == 0 else names
+    if len(pretty) != len(names):
+        pretty = names
+    out = []
+    for raw, nice in zip(names, pretty):
+        nice = nice.replace("(anonymous namespace)::", "").split("(")[0]
+        nice = re.sub(r"^void |_INTERNAL_\w+::", "", nice)
+        out.append(f"{nice}: {regs.get(raw, 'device function')}; {props[raw]}")
+    return out
+
+
 def max_abs_err(got, want):
     import torch
 
@@ -94,7 +210,7 @@ def max_abs_err(got, want):
     return err
 
 
-def phase1_kernels(dev, results):
+def phase1_kernels(dev, results, clock):
     import numpy as np
     import torch
 
@@ -148,7 +264,9 @@ def phase1_kernels(dev, results):
         log(f"K1 advance_chain T={T} K={K}: equal to "
             f"{'plain and ' if T == 1 else ''}ecref; {ms:.3f} ms")
     log(f"K1 plain version at T=1: {k1_plain:.1f} ms")
-    results["advance_chain"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain)
+    bms, by_ = bound_ms(k1_ops(1, K), 64 * (K + 3), clock)
+    results["advance_chain"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
+                                    bound_ms=bms, bound_by=by_)
 
     # K2 at R=K=256, U=16384 (T=1) over every lane, with planted dx == 0
     s_pt = ecref.point_neg(ecref.scalar_mult(stride))
@@ -173,7 +291,9 @@ def phase1_kernels(dev, results):
         fail("K2 planted dx == 0 lanes not flagged")
     log(f"K2 walk_blocks R={K} U={U}: equal to plain over every lane, "
         f"dx==0 flagged; {ms:.3f} ms (plain {pms:.1f} ms)")
-    results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms)
+    bms, by_ = bound_ms(walk_point_ops(32) * K * U, 64 * (K + U) + 9 * K * U, clock)
+    results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms,
+                                  bound_ms=bms, bound_by=by_)
 
     # K3 against its plain version and np.bitwise_or.at on 4M random keys
     # at each size; timed at the streaming build's shape on 2^35-bit filters
@@ -203,12 +323,109 @@ def phase1_kernels(dev, results):
                                               qlo[:nb], keep[:nb]), 20)
         pms, _ = timed(lambda: bmp.insert_keys_ref(w1, bits, w2, bits, qhi[:nb],
                                                    qlo[:nb], keep[:nb]), 1)
-        results["insert_keys"] = dict(max_abs_err=0, ms=ms, plain_ms=pms)
+        bms, by_ = bound_ms(*k3_ops_bytes(nb, int(keep[:nb].sum())), clock)
+        results["insert_keys"] = dict(max_abs_err=0, ms=ms, plain_ms=pms,
+                                      bound_ms=bms, bound_by=by_)
         del w1, w2
         torch.cuda.empty_cache()
     log(f"K3 insert_keys {n} keys at b={K3_BITS}: equal to plain and to "
         f"np.bitwise_or.at; at b={K3_BITS[-1]} {results['insert_keys']['ms']:.3f} ms "
         f"per {nb} keys (plain {results['insert_keys']['plain_ms']:.1f} ms)")
+    torch.cuda.synchronize()
+
+
+def brute_artifact(mode, pt):
+    """The target bytes a mode compares for point pt (ref/hashref)."""
+    from keyhuntm1cpu_tpu_torch.ref import hashref
+
+    if mode == "xpoint":
+        return pt[0].to_bytes(32, "big")
+    if mode == "eth":
+        return hashref.pubkey_to_eth_address(pt)
+    return hashref.pubkey_to_hash160(pt, compressed=mode == "rmd160")
+
+
+def cmp64(mode, raw):
+    return (int.from_bytes(raw, "big") & ((1 << 64) - 1) if mode == "xpoint"
+            else int.from_bytes(raw[:8], "big"))
+
+
+def phase1_brute(dev, results, clock):
+    """K4 against its plain version: every mode at K = 16, the endomorphism,
+    a bucketed T = 4096 set, and rmd160 at the main path's K = 256 (the
+    JSON line's numbers), with planted hits and two dx == 0 lanes."""
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk, tables
+    from keyhuntm1cpu_tpu_torch.field import fe
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    def limbs(v):
+        return torch.from_numpy(fe.int_to_limbs(v).view(np.int32).copy()).to(dev)
+
+    def as_i32(a):
+        return torch.from_numpy(np.ascontiguousarray(a).view(np.int32)).to(dev)
+
+    tab_x, tab_y = tables.step_table(ecref.G, U)
+    tx, ty = pwalk.table_to_limb_major(tab_x, dev), pwalk.table_to_limb_major(tab_y, dev)
+    adv = ecref.scalar_mult(U)
+    b0 = BRUTE_RANGE[0] - 1  # base scalar of step 0: key(s, u) = b0 + s*U + u + 1
+    base = ecref.scalar_mult(b0)
+    rng = np.random.default_rng(11)
+    empty = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    err_all = 0
+    for k_rows in (K4_CHECK_K, K):
+        bx, by, _, _, _ = pwalk.advance_chain(limbs(base[0])[:, None], limbs(base[1])[:, None],
+                                              limbs(adv[0]), limbs(adv[1]), k_rows)
+        # bases 3 and 9: tab[u] and -tab[u]: dx == 0 at those lanes
+        planted_deg = ((3, U // 7), (9, U - 2))
+        for row, u in planted_deg:
+            y = fe.limbs_to_int(tab_y[u])
+            bx[:, row] = limbs(fe.limbs_to_int(tab_x[u]))
+            by[:, row] = limbs(y if row == 3 else ecref.P - y)
+        cases = ([("rmd160", 1, 32, False)] if k_rows == K else
+                 [(m, 1, 32, False) for m in pbrute.MODES]
+                 + [("rmd160", 3, 32, False), ("xpoint", 3, 32, False),
+                    ("rmd160", 1, 4096, True)])
+        for mode, n_endo, T, bucketed in cases:
+            hits = [(0, 5), (k_rows - 1, U - 1), (k_rows // 2, U // 3 + 1)]
+            pts = [ecref.scalar_mult(b0 + s * U + u + 1) for s, u in hits]
+            if mode == "rmd160":
+                pts[1] = ecref.point_neg(pts[1])  # the other parity
+            vals = [cmp64(mode, brute_artifact(mode, pt)) for pt in pts]
+            if n_endo == 3:  # lambda * key(2, 77) shows as query set e = 1
+                vals.append(cmp64(mode, brute_artifact(
+                    mode, ecref.scalar_mult(ecref.LAMBDA * (b0 + 2 * U + 78) % ecref.N))))
+            vals += [int(v) for v in rng.integers(0, 2**63, T - len(vals))]
+            if bucketed:
+                tgt = as_i32(pbrute.pack_intervals([1], [0]))
+                btab = as_i32(pbrute.pack_buckets(vals))
+                tb = btab.shape[0]
+            else:
+                tgt, btab, tb = as_i32(pbrute.pack_intervals(vals, vals)), empty, 0
+            args = (bx, by, tx, ty, tgt, btab, mode, n_endo, tb)
+            ms, got = timed(lambda: pbrute.brute_walk_blocks(*args), 5)
+            pms, want = timed(lambda: pbrute.brute_walk_blocks_ref(*args), 1)
+            err = max_abs_err([got], [want])
+            err_all = max(err_all, err)
+            name = f"{mode} n_endo={n_endo} T={T}{' bucketed' if bucketed else ''} K={k_rows}"
+            if err:
+                fail(f"K4 {name} differs from its plain version (max_abs_err {err})")
+            g = got.cpu().numpy()
+            n_hit = sum(int(g[s, u] != 0) for s, u in hits)
+            if n_hit != 3 or (n_endo == 3 and not g[2, 77] >> pbrute.n_qsets(mode, 1)):
+                fail(f"K4 {name}: planted hits missing")
+            if not all(g[row, u] == pbrute.HIT_DEGENERATE for row, u in planted_deg):
+                fail(f"K4 {name}: planted dx == 0 lanes not flagged")
+            ops = k4_ops(mode, n_endo, 8 if bucketed else T, tb, k_rows * U)
+            nbytes = 64 * (k_rows + U) + 16 * tgt.shape[1] + 512 * tb + 4 * k_rows * U
+            bms, by_ = bound_ms(ops, nbytes, clock)
+            log(f"K4 brute_walk_blocks {name}: equal to plain, hits and dx==0 lanes "
+                f"flagged; {ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+            if k_rows == K:
+                results["brute_walk_blocks"] = dict(max_abs_err=err_all, ms=ms, plain_ms=pms,
+                                                    bound_ms=bms, bound_by=by_)
     torch.cuda.synchronize()
 
 
@@ -232,11 +449,12 @@ def phase2_small(dev):
 
 
 def launch_counts():
-    from keyhuntm1cpu_tpu_torch.curve import pwalk
+    from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
 
     wrappers = {"advance_chain": pwalk.advance_chain, "walk_blocks": pwalk.walk_blocks,
-                "insert_keys": bmp.insert_keys}
+                "insert_keys": bmp.insert_keys,
+                "brute_walk_blocks": pbrute.brute_walk_blocks}
     return wrappers, {name: w.launches for name, w in wrappers.items()}
 
 
@@ -277,7 +495,8 @@ def phase3_main(dev, m, seconds):
     _, n_build = launch_counts()
     build_steps = max(0, -(-(m - 2 * BUILD_BLOCK) // (BUILD_BLOCKS * BUILD_BLOCK)))
     want = dict(advance_chain=build_steps, walk_blocks=build_steps,
-                insert_keys=build_steps + 1)  # + the native seed's insert
+                insert_keys=build_steps + 1,  # + the native seed's insert
+                brute_walk_blocks=0)
     if n_build != want:
         fail(f"streaming build launched {n_build}, expected {want}")
     log(f"phase 3: streaming filters (bits={eng.bitmap.bits_log2}, "
@@ -294,7 +513,8 @@ def phase3_main(dev, m, seconds):
         fail(f"puzzle-63 recovery failed: {[hex(k) for k in found]}")
     _, n63 = launch_counts()
     d63 = delta(n63, n_build)
-    if d63["insert_keys"] or d63["advance_chain"] < 1 or d63["walk_blocks"] != d63["advance_chain"]:
+    if (d63["insert_keys"] or d63["brute_walk_blocks"] or d63["advance_chain"] < 1
+            or d63["walk_blocks"] != d63["advance_chain"]):
         fail(f"puzzle-63 search launched {d63}, expected K1 == K2 >= 1 and no K3")
     log(f"phase 3: puzzle-63 key 0x{PUZZLE63_KEY:x} recovered bit-exact in "
         f"{time.time() - t0:.2f} s; launches {d63}")
@@ -326,8 +546,8 @@ def phase3_main(dev, m, seconds):
     _, n_main = launch_counts()
     d64 = delta(n_main, n63)
     chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
-    if d64 != dict(advance_chain=len(marks), walk_blocks=len(marks), insert_keys=0) \
-            or chunks != len(marks):
+    if d64 != dict(advance_chain=len(marks), walk_blocks=len(marks), insert_keys=0,
+                   brute_walk_blocks=0) or chunks != len(marks):
         fail(f"throughput search launched {d64} for {len(marks)} chunks dispatched, "
              f"{chunks} counted")
     keys_per_sec = eng64.stats.keys_covered / elapsed
@@ -367,6 +587,101 @@ def phase3_main(dev, m, seconds):
     return n_main
 
 
+def phase4_brute(dev, seconds, clock):
+    """The brute-force path per mode; returns the throughput windows' launch
+    counts, each window counted from zero."""
+    import hashlib
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    kind = {"rmd160": "hash160", "xpoint": "xpoint", "eth": "eth", "address_u": "hash160"}
+    total = None
+    for name, mode, endo in (("rmd160", "rmd160", False), ("xpoint", "xpoint", False),
+                             ("eth", "eth", False), ("address_u", "address_u", False),
+                             ("rmd160 -e", "rmd160", True), ("rmd160 T=4096", "rmd160", False)):
+        keys = list(range(1, 33))
+        raw = [brute_artifact(mode, ecref.scalar_mult(k)) for k in keys]
+        labels = [str(k) for k in keys]
+        bucketed = name.endswith("4096")
+        if bucketed:  # bench_modes.py's decoys
+            raw += [hashlib.sha256(f"bench-decoy{i}".encode()).digest()[:20]
+                    for i in range(4096 - len(keys))]
+            labels += [f"d{i}" for i in range(4096 - len(keys))]
+        ts = TargetSet(kind=kind[mode], raw=raw, labels=labels)
+        t0 = time.time()
+        gate = BruteParams(block_u=1024 if bucketed else 256, steps_per_chunk=4,
+                           chunk_cand=64, endo=endo)
+        eng = BruteEngine(ts, 1, 4097, mode=mode, params=gate, device=dev)
+        if bucketed and not eng._bucketed:
+            fail("T=4096 must take the bucketed path")
+        got = sorted(f.private_key for f in eng.search())
+        if got != keys:
+            fail(f"brute {name} gate: found {got}, planted 1..32")
+        t_gate = time.time() - t0
+
+        params = BruteParams(block_u=U, steps_per_chunk=K, endo=endo)
+        eng = BruteEngine(ts, *BRUTE_RANGE, mode=mode, params=params, device=dev)
+        eng.search(max_steps=K)  # warm-up chunk
+        marks = []
+        chunk_fn = eng._chunk_fn
+
+        def marked_chunk(px, py):
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = chunk_fn(px, py)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            marks.append((ev0, ev1))
+            return out
+
+        eng._chunk_fn = marked_chunk
+        wrappers, before = launch_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        k0 = eng.stats.keys_covered
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.search(max_seconds=seconds)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        _, n = launch_counts()
+        chunks = (eng.stats.keys_covered - k0) // (K * U)
+        if n != dict(advance_chain=len(marks), walk_blocks=0, insert_keys=0,
+                     brute_walk_blocks=len(marks)) or chunks != len(marks):
+            fail(f"brute {name} launched {n} for {len(marks)} chunks dispatched, "
+                 f"{chunks} counted")
+        total = n if total is None else {k: total[k] + n[k] for k in n}
+        eff = (eng.stats.keys_covered - k0) * eng.stats.multiplier / dt
+        busy = sum(a.elapsed_time(b) for a, b in marks)
+        span = marks[0][0].elapsed_time(marks[-1][1])
+        # chunk split by CUDA events: whole chunk, K1 alone, K4 alone
+        px, py = eng._fast_base(0)
+        c_ms, _ = timed(lambda: pbrute.brute_chunk(
+            px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng._tgt, eng._btab,
+            K=K, U=U, C=params.chunk_cand, mode=mode, n_endo=eng._n_endo,
+            n_bucket_rows=eng._n_bucket_rows), 5)
+        k1_ms, (bx, by, _, _, _) = timed(lambda: pwalk.advance_chain(
+            px[:, None], py[:, None], eng.adv_x, eng.adv_y, K), 5)
+        k4_ms, _ = timed(lambda: pbrute.brute_walk_blocks(
+            bx, by, eng.tab_x, eng.tab_y, eng._tgt, eng._btab, mode, eng._n_endo,
+            eng._n_bucket_rows), 5)
+        n_tgt, tb = eng._tgt.shape[1], eng._n_bucket_rows
+        k4_bound, _ = bound_ms(k4_ops(mode, eng._n_endo, n_tgt, tb, K * U),
+                               64 * (K + U) + 16 * n_tgt + 512 * tb + 4 * K * U, clock)
+        log(f"phase 4: {name}: gate keys 1..32 bit-exact in {t_gate:.1f} s; "
+            f"{chunks} chunks in {dt:.2f} s -> {eff:.4e} effective keys/s "
+            f"(x{eng.stats.multiplier}; K={K}, U={U}, T={len(raw)}, {tb} bucket rows); "
+            f"idle share {1 - busy / span:.4f}; chunk {c_ms:.3f} ms = K1 {k1_ms:.3f} + "
+            f"K4 {k4_ms:.3f} (bound {k4_bound:.3f}) + compaction "
+            f"{c_ms - k1_ms - k4_ms:.3f}; launches {n}")
+    return total
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=1 << 28,
@@ -387,7 +702,9 @@ def main():
     from keyhuntm1cpu_tpu_torch import _build
 
     card = card_line()
-    log(f"phase 0: card {card}; torch {torch.__version__} cuda {torch.version.cuda}")
+    clock = sm_clock_mhz()
+    log(f"phase 0: card {card}; SM clock max {clock:.0f} MHz, now {smi('clocks.sm')}; "
+        f"torch {torch.__version__} cuda {torch.version.cuda}")
     dev = torch.device("cuda")
     t0 = time.time()
     _build.kernels()
@@ -396,19 +713,23 @@ def main():
     _build.host_lib()
     log(f"phase 0: built CUDA kernels in {t_cuda:.1f} s, native host library in "
         f"{time.time() - t0:.1f} s")
+    for ln in ptxas_summary(_build.kernels_build_log()):
+        log(f"phase 0: ptxas {ln}")
 
     results = {}
-    phase1_kernels(dev, results)
+    phase1_kernels(dev, results, clock)
+    phase1_brute(dev, results, clock)
     phase2_small(dev)
-    launches = phase3_main(dev, args.m, args.seconds)
+    bsgs = phase3_main(dev, args.m, args.seconds)
+    brute = phase4_brute(dev, BRUTE_SECONDS, clock)
+    launches = {name: bsgs[name] + brute[name] for name in bsgs}
     if not all(launches.values()):
-        fail(f"a kernel of the main path never launched: {launches}")
-    log(f"phase 4: launches on the main path {launches}")
+        fail(f"a kernel of the main paths never launched: {launches}")
+    log(f"phase 5: launches on the main paths {launches} (BSGS {bsgs}, brute {brute})")
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCES[name][0],
                     replaces=KERNEL_SOURCES[name][1], launches=launches[name],
-                    max_abs_err=results[name]["max_abs_err"], ms=results[name]["ms"],
-                    plain_ms=results[name]["plain_ms"]) for name in launches]
+                    library_ms=None, **results[name]) for name in launches]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

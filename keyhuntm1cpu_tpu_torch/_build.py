@@ -3,9 +3,12 @@
 Two shared libraries, both built on first use into ``build/`` beside this
 file (or ``$KEYHUNT_TORCH_BUILD``) and loaded with ctypes:
 
-- ``libkh_kernels_<hash>.so``: nvcc over ``csrc/*.cu`` for sm_90a. Each
-  entry point takes raw device pointers, sizes and a CUDA stream, launches
-  on that stream without synchronising, and returns ``cudaGetLastError()``.
+- ``libkh_kernels_<hash>.so``: nvcc over ``csrc/*.cu`` for sm_90a, one
+  nvcc per source, all started together, then one link. Each entry point
+  takes raw device pointers, sizes and a CUDA stream, launches on that
+  stream without synchronising, and returns a ``cudaError_t``. The
+  compilers' output (``-Xptxas -v``: registers, spills) is kept beside the
+  library as ``libkh_kernels_<hash>.log`` (``kernels_build_log()``).
 - ``libkeyhunt_host_<hash>.so``: g++ over ``native/keyhunt_host.cpp`` (the
   JAX package's native host library: baby-table builder). It is built here
   because ``*.so`` is not committed, and without ``-march=native`` so the
@@ -33,9 +36,9 @@ REPO_DIR = os.path.dirname(PKG_DIR)
 CSRC_DIR = os.path.join(PKG_DIR, "csrc")
 HOST_SRC = os.path.join(REPO_DIR, "native", "keyhunt_host.cpp")
 
-NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC"]
-GXX_FLAGS = ["-O3", "-fPIC", "-shared", "-std=c++17"]
+NVCC_ARCH = ["-gencode", "arch=compute_90a,code=sm_90a"]
+NVCC_FLAGS = NVCC_ARCH + ["-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
+GXX_FLAGS = ["-O3", "-fPIC", "-std=c++17"]
 
 
 def build_dir() -> str:
@@ -50,28 +53,42 @@ def _digest(paths: List[str], flags: List[str]) -> str:
     return h.hexdigest()[:16]
 
 
+def _run_all(cmds: List[List[str]]) -> str:
+    """Run the commands in parallel; their output, or RuntimeError."""
+    procs = [subprocess.Popen(c, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                              text=True) for c in cmds]
+    outs = [p.communicate()[0] for p in procs]
+    for c, p, o in zip(cmds, procs, outs):
+        if p.returncode != 0:
+            raise RuntimeError(f"build step failed ({' '.join(c)}):\n{o}")
+    return "".join(outs)
+
+
 def _build(name: str, sources: List[str], deps: List[str], cmd: List[str],
-           flags: List[str]) -> str:
-    """Compile `sources` (cmd + flags + -o out + sources) unless a library
-    with the same digest exists; returns the library path."""
+           flags: List[str], link: List[str]) -> str:
+    """Build `sources` unless a library with the same digest exists;
+    returns the library path. Each source is compiled to an object by its
+    own process (cmd + flags -c), all at once, then cmd + link makes the
+    library."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
-    digest = _digest(sources + deps, cmd[:1] + flags)
+    digest = _digest(sources + deps, cmd[:1] + flags + link)
     out = os.path.join(out_dir, f"{name}_{digest}.so")
     with open(os.path.join(out_dir, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(out):
             tmp = out + f".tmp{os.getpid()}"
-            res = subprocess.run(cmd + flags + ["-o", tmp] + sources,
-                                 capture_output=True, text=True)
-            if res.returncode != 0:
-                raise RuntimeError(
-                    f"building {name} failed ({' '.join(cmd + flags)}):\n"
-                    f"{res.stdout}{res.stderr}"
-                )
+            objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
+            log = _run_all([cmd + flags + ["-c", "-o", o, src]
+                            for o, src in zip(objs, sources)])
+            log += _run_all([cmd + link + ["-o", tmp] + objs])
+            for o in objs:
+                os.remove(o)
+            with open(out[:-3] + ".log", "w") as f:
+                f.write(log)
             os.replace(tmp, out)
-            for old in glob.glob(os.path.join(out_dir, f"{name}_*.so")):
-                if old != out:
+            for old in glob.glob(os.path.join(out_dir, f"{name}_*")):
+                if not old.startswith(out[:-3]):
                     os.remove(old)
     return out
 
@@ -90,7 +107,8 @@ def kernels() -> ctypes.CDLL:
     """Build (if needed) and load the CUDA kernel library."""
     cu = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     cuh = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    lib = ctypes.CDLL(_build("libkh_kernels", cu, cuh, [_nvcc()], NVCC_FLAGS))
+    lib = ctypes.CDLL(_build("libkh_kernels", cu, cuh, [_nvcc()], NVCC_FLAGS,
+                             NVCC_ARCH + ["-shared"]))
     vp, i = ctypes.c_void_p, ctypes.c_int
     i64 = ctypes.c_longlong
     sigs = {
@@ -100,6 +118,8 @@ def kernels() -> ctypes.CDLL:
         "kh_walk_blocks": [vp] * 7 + [i64, i, vp],
         # words1 words2 qhi qlo keep | n bits b2bits stream
         "kh_insert_keys": [vp] * 5 + [i64, i, i, vp],
+        # bx by tx ty tgt btab hits | K U T TB mode n_endo stream
+        "kh_brute_walk_blocks": [vp] * 7 + [i64, i, i, i, i, i, vp],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes
@@ -107,11 +127,19 @@ def kernels() -> ctypes.CDLL:
     return lib
 
 
+def kernels_build_log() -> str:
+    """What the compilers printed when the loaded kernel library was built."""
+    path = kernels()._name
+    with open(path[:-3] + ".log") as f:
+        return f.read()
+
+
 @lru_cache(maxsize=1)
 def host_lib() -> ctypes.CDLL:
     """Build (if needed) and load the native host library."""
     cxx = os.environ.get("CXX", "g++")
-    lib = ctypes.CDLL(_build("libkeyhunt_host", [HOST_SRC], [], [cxx], GXX_FLAGS))
+    lib = ctypes.CDLL(_build("libkeyhunt_host", [HOST_SRC], [], [cxx], GXX_FLAGS,
+                             ["-shared"]))
     lib.kh_baby_build.argtypes = [ctypes.c_uint64, ctypes.c_char_p,
                                   ctypes.c_char_p, ctypes.c_int]
     lib.kh_baby_build.restype = ctypes.c_int

@@ -1,10 +1,16 @@
-"""Command-line interface of the port (BSGS host-resolve, sequential order).
+"""Command-line interface of the port: BSGS (host-resolve, sequential order)
+and the fused brute-force modes.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
-        [--all] [-q] [--max-seconds S] [--device cuda|cpu]
+        [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
+    python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint -f targets \
+        -r A:B | -b BITS [-c eth] [-l compress|uncompress|both] [-e] [-I S] \
+        [-R [--seed S] [-n N]] [-u U] [--chunk-steps K] [--all] ...
 
-Target lines are compressed (66 hex) or uncompressed (130 hex) pubkeys.
+BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
+pubkeys; brute targets are addresses or hash160 hex (address, rmd160),
+ETH addresses (-m address -c eth) or x coordinates / pubkeys (xpoint).
 Found keys are appended to KEYFOUNDKEYFOUND.txt. Exit code: 0 found,
 1 not found, 2 usage or setup error.
 """
@@ -16,6 +22,8 @@ import sys
 
 from .core.log import get_logger
 from .ref import ecref
+
+BRUTE_MODES = ("address", "rmd160", "xpoint")
 
 
 def parse_range(s: str):
@@ -30,32 +38,57 @@ def parse_range(s: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="keyhunt-torch",
-        description="secp256k1 BSGS key search on PyTorch + CUDA "
-                    "(host-resolve mode)")
+        description="secp256k1 key search on PyTorch + CUDA: BSGS "
+                    "(host-resolve) and the fused brute-force modes")
     p.add_argument("-m", "--mode", required=True,
-                   help="search mode; this port implements bsgs only")
-    p.add_argument("-f", "--file", required=True, help="pubkey target file")
+                   help="bsgs, address, rmd160 or xpoint")
+    p.add_argument("-f", "--file", required=True, help="target file")
     p.add_argument("-r", "--range", type=parse_range, default=None,
                    help="start:end hex key range")
     p.add_argument("-b", "--bits", type=int, default=None,
                    help="scan [2^(b-1), 2^b)")
     p.add_argument("--m-babies", type=int, default=None,
-                   help="baby-table size m (overrides -n/-k)")
+                   help="bsgs: baby-table size m (overrides -n/-k)")
     p.add_argument("-k", "--k-factor", type=int, default=1,
-                   help="m = sqrt(N) * k")
+                   help="bsgs: m = sqrt(N) * k")
     p.add_argument("-n", "--n-value", type=lambda s: int(s, 0), default=None,
-                   help="N (a perfect square; default 0x100000000000)")
+                   help="bsgs: N (a perfect square; default 0x100000000000); "
+                        "brute with -R: sequential keys per random base")
+    p.add_argument("-c", "--crypto", default="btc", choices=["btc", "eth"],
+                   help="eth: -m address targets ETH addresses (keccak)")
+    p.add_argument("-l", "--look", default=None,
+                   choices=["compress", "uncompress", "both"],
+                   help="pubkey form(s) hashed by -m address/rmd160")
+    p.add_argument("-e", "--endo", action="store_true",
+                   help="brute: also check the GLV endomorphism keys "
+                        "lambda*k and lambda^2*k (rmd160, xpoint)")
+    p.add_argument("-I", "--stride", type=int, default=1,
+                   help="brute: scan a, a+stride, a+2*stride, ...")
+    p.add_argument("-R", "--random", action="store_true", dest="random_mode",
+                   help="brute: random chunk order")
+    p.add_argument("--seed", type=int, default=0, help="seed of -R")
+    p.add_argument("-w", "-t", "--walkers", "--threads", type=int, default=None,
+                   help="accepted for the reference's command lines; the fused "
+                        "brute path runs one chain per chunk and ignores it")
     p.add_argument("-u", "--block-u", type=int, default=4096,
-                   help="giant centers per device step")
+                   help="keys (brute) or giant centers (bsgs) per device step")
     p.add_argument("--chunk-steps", type=int, default=8,
                    help="device steps per chunk")
     p.add_argument("-B", "--policy", default="sequential",
-                   help="range order; this port implements sequential only")
+                   help="bsgs range order; this port implements sequential only")
     p.add_argument("--all", action="store_true",
                    help="keep searching after the first found key")
     p.add_argument("-q", "--quiet", action="store_true")
     p.add_argument("--max-seconds", type=float, default=None,
                    help="stop at the next chunk boundary past this many seconds")
+    p.add_argument("--max-chunks", type=int, default=None,
+                   help="stop after N device chunks")
+    p.add_argument("-v", "--vanity", action="append", default=[],
+                   help="vanity prefixes: not in this port yet")
+    p.add_argument("-S", "--save-table", action="store_true",
+                   help="table and target caches: not in this port yet")
+    p.add_argument("--sharded", nargs="?", const="range", default=None,
+                   help="multi-device search: not in this port yet")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="torch device (default cuda; no GPU is an error)")
     return p
@@ -66,15 +99,60 @@ def read_pubkeys(path: str):
         return [ecref.parse_pubkey(ln.split()[0]) for ln in f if ln.strip()]
 
 
+def _bsgs_engine(args):
+    from .engine.bsgs import BSGSEngine, BSGSParams, resolve_m
+
+    m = resolve_m(args.m_babies, args.n_value, args.k_factor)
+    params = BSGSParams(m=m, block_u=args.block_u, steps_per_chunk=args.chunk_steps)
+    a, b = args.range
+    return BSGSEngine(read_pubkeys(args.file), a, b, params, device=args.device)
+
+
+def _brute_engine(args, log):
+    from .engine.brute import BruteEngine, BruteParams
+    from .utils.targets import parse_target_file
+
+    mode = args.mode
+    if args.crypto == "eth":
+        mode = "eth"
+    elif mode in ("address", "rmd160"):
+        mode = {"compress": mode, "uncompress": "address_u",
+                "both": "rmd160_both"}[args.look or "compress"]
+    kind = "eth" if mode == "eth" else args.mode
+    seq_per_base = None
+    if args.n_value is not None:
+        # reference -n outside bsgs: with -R, N sequential keys per random
+        # base; values below 1024 revert to its 2^32 default
+        seq_per_base = args.n_value if args.n_value >= 1024 else 0x100000000
+        if not args.random_mode:
+            log.warn("-n only affects brute modes with -R (random)")
+    params = BruteParams(block_u=args.block_u, steps_per_chunk=args.chunk_steps,
+                         endo=args.endo, stride=args.stride,
+                         random_mode=args.random_mode, seed=args.seed,
+                         seq_per_base=seq_per_base if args.random_mode else None)
+    a, b = args.range
+    return BruteEngine(parse_target_file(args.file, kind), a, b, mode=mode,
+                       params=params, device=args.device)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     log = get_logger()
     if args.quiet:
         log.set_level("warn")
-    if args.mode != "bsgs":
-        log.error(f"-m {args.mode}: this port implements -m bsgs only")
+    if args.mode not in ("bsgs",) + BRUTE_MODES:
+        log.error(f"-m {args.mode}: this port implements -m bsgs, "
+                  f"{', '.join(BRUTE_MODES)} only")
         return 2
-    if args.policy != "sequential":
+    for flag, on in (("-v", args.vanity), ("-S", args.save_table),
+                     ("--sharded", args.sharded)):
+        if on:
+            log.error(f"{flag}: not in this port yet")
+            return 2
+    if args.crypto == "eth" and args.mode != "address":
+        log.error("-c eth is only valid with -m address")
+        return 2
+    if args.mode == "bsgs" and args.policy != "sequential":
         log.error(f"-B {args.policy}: this port implements -B sequential only")
         return 2
     if args.bits is not None:
@@ -93,20 +171,15 @@ def main(argv=None) -> int:
     if args.device == "cuda" and not torch.cuda.is_available():
         log.error("--device cuda: no CUDA device is available")
         return 2
-    from .engine.bsgs import BSGSEngine, BSGSParams, resolve_m
     from .engine.common import write_found_key
 
     try:
-        targets = read_pubkeys(args.file)
-        m = resolve_m(args.m_babies, args.n_value, args.k_factor)
-        params = BSGSParams(m=m, block_u=args.block_u,
-                            steps_per_chunk=args.chunk_steps)
-        a, b = args.range
-        eng = BSGSEngine(targets, a, b, params, device=args.device)
+        eng = _bsgs_engine(args) if args.mode == "bsgs" else _brute_engine(args, log)
     except (ValueError, OSError) as e:
         log.error(str(e))
         return 2
-    found = eng.search(stop_on_first=not args.all,
+    max_steps = None if args.max_chunks is None else args.max_chunks * args.chunk_steps
+    found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
                        progress_every=0 if args.quiet else 16,
                        max_seconds=args.max_seconds)
     log.plus(f"{eng.stats.human()} ({eng.stats.keys_covered:.3e} keys)")

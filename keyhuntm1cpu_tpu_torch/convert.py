@@ -9,8 +9,10 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from .engine.brute import BruteParams
 from .engine.bsgs import BSGSParams
 from .filter.bitmap import DeviceBitmap, DeviceBloom2
+from .utils.targets import TargetSet
 
 
 def _words(words: np.ndarray, bits_log2: int, device) -> torch.Tensor:
@@ -38,3 +40,25 @@ def params_from_jax(p) -> BSGSParams:
         bits_log2=p.bits_log2, pipeline_depth=p.pipeline_depth,
         bloom2_bits=p.bloom2_bits, table_cache=p.table_cache,
     )
+
+
+def brute_params_from_jax(p) -> BruteParams:
+    """A keyhuntm1cpu_tpu BruteParams -> the port's (fused path). The TPU
+    knobs (pallas_sb, hash_rows) and the walker path's fields (walkers,
+    chain_len, cand_max) have no counterpart; pallas='off' has no path."""
+    if getattr(p, "pallas", "auto") == "off":
+        raise ValueError("the port implements the fused brute path only "
+                         "(pallas='off' selects the XLA fallback)")
+    return BruteParams(
+        block_u=p.block_u, steps_per_chunk=p.steps_per_chunk, endo=p.endo,
+        stride=p.stride, random_mode=p.random_mode, seed=p.seed,
+        seq_per_base=p.seq_per_base, chunk_cand=p.chunk_cand,
+        compare_max=p.compare_max, bucket_max=p.bucket_max,
+        pipeline_depth=p.pipeline_depth,
+    )
+
+
+def targets_from_jax(ts) -> TargetSet:
+    """A keyhuntm1cpu_tpu TargetSet -> the port's (its host-side fields)."""
+    return TargetSet(kind=ts.kind, raw=list(ts.raw), labels=list(ts.labels),
+                     pubkeys=list(ts.pubkeys))

@@ -39,7 +39,8 @@ from ..field import fe
 from ..filter import bitmap as bmp
 from ..filter import host_table as ht
 from ..ref import ecref
-from .common import Deadline, FoundKey, SearchStats, verify_candidate_scalar
+from .common import (Deadline, FoundKey, SearchStats, summary_to_host,
+                     verify_candidate_scalar)
 
 BUILD_BLOCKS = 128  # baby blocks of build_block keys per streaming-build step
 CHUNK_WORD_CAP = 1 << 27  # bound on T*K*U query words per chunk
@@ -277,19 +278,6 @@ class BSGSEngine:
             self.bitmap, self.bloom2, U=p.block_u, K=p.steps_per_chunk,
             T=len(self.targets), C1=self.C1, C2=self.C2)
 
-    @staticmethod
-    def _to_host(outs: torch.Tensor):
-        """Start the summary's copy to the host. CUDA: a non-blocking copy
-        into PINNED memory plus an event (a pageable copy would block and
-        serialise every chunk). Returns (host tensor, event or None)."""
-        if outs.device.type != "cuda":
-            return outs, None
-        host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
-        host.copy_(outs, non_blocking=True)
-        ev = torch.cuda.Event()
-        ev.record()
-        return host, ev
-
     def _consume_summary(self, step0: int, k: int, arr: np.ndarray):
         """Decode one chunk's summary -> (found, rebase, interesting)."""
         p = self.p
@@ -390,7 +378,7 @@ class BSGSEngine:
             while (disp < end_step and len(pending) < p.pipeline_depth
                    and not dl.expired()):
                 px, py, outs = self._chunk_fn(px, py)
-                pending.append((disp, self._to_host(outs)))
+                pending.append((disp, summary_to_host(outs)))
                 disp += K
             if not pending:
                 break  # deadline cut dispatch with nothing in flight

@@ -1,4 +1,5 @@
-"""Shared engine machinery: found keys, exact verification, deadline, stats.
+"""Shared engine machinery: found keys, exact verification, deadline, stats,
+summary copies.
 
 Copy of the pure-Python parts of keyhuntm1cpu_tpu/engine/common.py, without
 its metrics registry (the port serves no metrics endpoint). Found keys are appended to
@@ -12,6 +13,8 @@ import os
 import time
 from dataclasses import dataclass, field
 from typing import Optional, Tuple
+
+import torch
 
 from ..core.security import SecureBuffer
 from ..ref import ecref, hashref
@@ -75,12 +78,29 @@ def verify_candidate_scalar(k: int, target_pubkey: Tuple[int, int]) -> Optional[
     return None
 
 
+def summary_to_host(outs: torch.Tensor):
+    """Start a chunk summary's copy to the host. CUDA: a non-blocking copy
+    into PINNED memory plus an event (a pageable copy would block and
+    serialise every chunk). Returns (host tensor, event or None); wait on
+    the event before reading the tensor."""
+    if outs.device.type != "cuda":
+        return outs, None
+    host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
+    host.copy_(outs, non_blocking=True)
+    ev = torch.cuda.Event()
+    ev.record()
+    return host, ev
+
+
 @dataclass
 class SearchStats:
     """Throughput accounting: each giant step covers its full stride of
-    candidate keys (the reference's keys = steps * N convention)."""
+    candidate keys (the reference's keys = steps * N convention);
+    multiplier counts the x2 both-parity / x3 endomorphism keys each
+    brute-force point covers (keyhunt.cpp:2175-2187)."""
 
     keys_covered: int = 0
+    multiplier: int = 1
     started_at: float = field(default_factory=time.time)
 
     def add(self, keys: int) -> None:
@@ -92,7 +112,7 @@ class SearchStats:
 
     @property
     def keys_per_sec(self) -> float:
-        return self.keys_covered / self.elapsed
+        return self.keys_covered * self.multiplier / self.elapsed
 
     def human(self) -> str:
         rate = self.keys_per_sec

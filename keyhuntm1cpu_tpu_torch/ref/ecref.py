@@ -17,6 +17,11 @@ GX = 0x79BE667EF9DCBBAC55A06295CE870B07029BFCDB2DCE28D959F2815B16F81798
 GY = 0x483ADA7726A3C4655DA4FBFC0E1108A8FD17B448A68554199C47D08FFB10D4B8
 B = 7
 
+# GLV endomorphism: (x, y) -> (beta*x, y) corresponds to scalar mult by
+# lambda, where lambda^3 = 1 mod N and beta^3 = 1 mod P.
+BETA = 0x7AE96A2B657C07106E64479EAC3434E99CF0497512F58995C1396C28719501EE
+LAMBDA = 0x5363AD4CC05C30E0A5261C028812645A122E22EA20816678DF02967C1B23BD72
+
 # Affine point or None for the point at infinity.
 PointA = Optional[Tuple[int, int]]
 

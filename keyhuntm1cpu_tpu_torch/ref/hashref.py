@@ -1,8 +1,11 @@
-"""P2PKH address of a public key (host side of the port).
+"""Exact hashes and encodings on the host (python ints + hashlib).
 
 Copy of the parts of keyhuntm1cpu_tpu/ref/hashref.py that found-key
-reports need: SHA-256 from hashlib, RIPEMD-160 from its specification
-(OpenSSL 3 builds of hashlib drop it) and base58check.
+reports and brute-force verification need: SHA-256 from hashlib,
+RIPEMD-160 and Keccak-256 from their specifications (OpenSSL 3 builds of
+hashlib drop ripemd160, and hashlib's sha3_256 is NIST-padded SHA-3, not
+the 0x01-padded Keccak that Ethereum uses), hash160 of a public key, the
+ETH address and base58check.
 """
 
 from __future__ import annotations
@@ -10,40 +13,12 @@ from __future__ import annotations
 import hashlib
 import struct
 
+from ..hash.consts import _IV, _K1, _K2, _R1, _R2, _RC, _ROT, _S1, _S2
 from . import ecref
 
-_RMD_R1 = [
-    0, 1, 2, 3, 4, 5, 6, 7, 8, 9, 10, 11, 12, 13, 14, 15,
-    7, 4, 13, 1, 10, 6, 15, 3, 12, 0, 9, 5, 2, 14, 11, 8,
-    3, 10, 14, 4, 9, 15, 8, 1, 2, 7, 0, 6, 13, 11, 5, 12,
-    1, 9, 11, 10, 0, 8, 12, 4, 13, 3, 7, 15, 14, 5, 6, 2,
-    4, 0, 5, 9, 7, 12, 2, 10, 14, 1, 3, 8, 11, 6, 15, 13,
-]
-_RMD_R2 = [
-    5, 14, 7, 0, 9, 2, 11, 4, 13, 6, 15, 8, 1, 10, 3, 12,
-    6, 11, 3, 7, 0, 13, 5, 10, 14, 15, 8, 12, 4, 9, 1, 2,
-    15, 5, 1, 3, 7, 14, 6, 9, 11, 8, 12, 2, 10, 0, 4, 13,
-    8, 6, 4, 1, 3, 11, 15, 0, 5, 12, 2, 13, 9, 7, 10, 14,
-    12, 15, 10, 4, 1, 5, 8, 7, 6, 2, 13, 14, 0, 3, 9, 11,
-]
-_RMD_S1 = [
-    11, 14, 15, 12, 5, 8, 7, 9, 11, 13, 14, 15, 6, 7, 9, 8,
-    7, 6, 8, 13, 11, 9, 7, 15, 7, 12, 15, 9, 11, 7, 13, 12,
-    11, 13, 6, 7, 14, 9, 13, 15, 14, 8, 13, 6, 5, 12, 7, 5,
-    11, 12, 14, 15, 14, 15, 9, 8, 9, 14, 5, 6, 8, 6, 5, 12,
-    9, 15, 5, 11, 6, 8, 13, 12, 5, 12, 13, 14, 11, 8, 5, 6,
-]
-_RMD_S2 = [
-    8, 9, 9, 11, 13, 15, 15, 5, 7, 7, 8, 11, 14, 14, 12, 6,
-    9, 13, 15, 7, 12, 8, 9, 11, 7, 7, 12, 7, 6, 15, 13, 11,
-    9, 7, 15, 11, 8, 6, 6, 14, 12, 13, 5, 14, 13, 13, 7, 5,
-    15, 5, 8, 11, 14, 14, 6, 14, 6, 9, 12, 9, 12, 5, 15, 8,
-    8, 5, 12, 9, 12, 5, 14, 6, 8, 13, 6, 5, 15, 13, 11, 11,
-]
-_RMD_K1 = [0x00000000, 0x5A827999, 0x6ED9EBA1, 0x8F1BBCDC, 0xA953FD4E]
-_RMD_K2 = [0x50A28BE6, 0x5C4DD124, 0x6D703EF3, 0x7A6D76E9, 0x00000000]
 _B58_ALPHABET = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
 _M32 = 0xFFFFFFFF
+_M64 = (1 << 64) - 1
 
 
 def sha256(data: bytes) -> bytes:
@@ -71,17 +46,17 @@ def ripemd160(data: bytes) -> bytes:
     while len(msg) % 64 != 56:
         msg.append(0)
     msg += struct.pack("<Q", len(data) * 8)
-    h = [0x67452301, 0xEFCDAB89, 0x98BADCFE, 0x10325476, 0xC3D2E1F0]
+    h = list(_IV)
     for off in range(0, len(msg), 64):
         x = struct.unpack("<16I", bytes(msg[off : off + 64]))
         a1, b1, c1, d1, e1 = h
         a2, b2, c2, d2, e2 = h
         for j in range(80):
-            t = (_rol((a1 + _rmd_f(j, b1, c1, d1) + x[_RMD_R1[j]] + _RMD_K1[j // 16])
-                      & _M32, _RMD_S1[j]) + e1) & _M32
+            t = (_rol((a1 + _rmd_f(j, b1, c1, d1) + x[_R1[j]] + _K1[j // 16])
+                      & _M32, _S1[j]) + e1) & _M32
             a1, e1, d1, c1, b1 = e1, d1, _rol(c1, 10), b1, t
-            t = (_rol((a2 + _rmd_f(79 - j, b2, c2, d2) + x[_RMD_R2[j]] + _RMD_K2[j // 16])
-                      & _M32, _RMD_S2[j]) + e2) & _M32
+            t = (_rol((a2 + _rmd_f(79 - j, b2, c2, d2) + x[_R2[j]] + _K2[j // 16])
+                      & _M32, _S2[j]) + e2) & _M32
             a2, e2, d2, c2, b2 = e2, d2, _rol(c2, 10), b2, t
         h = [(h[1] + c1 + d2) & _M32, (h[2] + d1 + e2) & _M32,
              (h[3] + e1 + a2) & _M32, (h[4] + a1 + b2) & _M32,
@@ -89,8 +64,59 @@ def ripemd160(data: bytes) -> bytes:
     return struct.pack("<5I", *h)
 
 
-def b58check_encode(payload: bytes) -> str:
-    data = payload + sha256(sha256(payload))[:4]
+def _rol64(x: int, n: int) -> int:
+    n %= 64
+    return ((x << n) | (x >> (64 - n))) & _M64
+
+
+def _keccak_f(a) -> None:
+    for rnd in range(24):
+        c = [a[x][0] ^ a[x][1] ^ a[x][2] ^ a[x][3] ^ a[x][4] for x in range(5)]
+        d = [c[(x - 1) % 5] ^ _rol64(c[(x + 1) % 5], 1) for x in range(5)]
+        for x in range(5):
+            for y in range(5):
+                a[x][y] ^= d[x]
+        b = [[0] * 5 for _ in range(5)]
+        for x in range(5):
+            for y in range(5):
+                b[y][(2 * x + 3 * y) % 5] = _rol64(a[x][y], _ROT[x][y])
+        for x in range(5):
+            for y in range(5):
+                a[x][y] = b[x][y] ^ ((~b[(x + 1) % 5][y]) & b[(x + 2) % 5][y])
+        a[0][0] ^= _RC[rnd]
+
+
+def keccak256(data: bytes) -> bytes:
+    """Keccak-256 with the pre-NIST 0x01 padding (Ethereum's)."""
+    rate = 136
+    state = [[0] * 5 for _ in range(5)]
+    msg = bytearray(data) + b"\x01"
+    while len(msg) % rate:
+        msg.append(0)
+    msg[-1] ^= 0x80
+    for off in range(0, len(msg), rate):
+        for i in range(rate // 8):
+            lane = int.from_bytes(msg[off + 8 * i : off + 8 * i + 8], "little")
+            state[i % 5][i // 5] ^= lane
+        _keccak_f(state)
+    return b"".join(state[i % 5][i // 5].to_bytes(8, "little") for i in range(4))
+
+
+def hash160(data: bytes) -> bytes:
+    return ripemd160(sha256(data))
+
+
+def pubkey_to_hash160(pt, compressed: bool = True) -> bytes:
+    return hash160(ecref.serialize_pubkey(pt, compressed))
+
+
+def pubkey_to_eth_address(pt) -> bytes:
+    """20-byte ETH address = keccak256(x || y)[12:]."""
+    x, y = pt
+    return keccak256(x.to_bytes(32, "big") + y.to_bytes(32, "big"))[12:]
+
+
+def b58encode(data: bytes) -> str:
     n = int.from_bytes(data, "big")
     out = ""
     while n:
@@ -100,6 +126,26 @@ def b58check_encode(payload: bytes) -> str:
     return "1" * pad + out
 
 
+def b58decode(s: str) -> bytes:
+    n = 0
+    for ch in s:
+        n = n * 58 + _B58_ALPHABET.index(ch)
+    raw = n.to_bytes((n.bit_length() + 7) // 8, "big") if n else b""
+    pad = len(s) - len(s.lstrip("1"))
+    return b"\x00" * pad + raw
+
+
+def b58check_encode(payload: bytes) -> str:
+    return b58encode(payload + sha256(sha256(payload))[:4])
+
+
+def b58check_decode(s: str) -> bytes:
+    raw = b58decode(s)
+    payload, chk = raw[:-4], raw[-4:]
+    if sha256(sha256(payload))[:4] != chk:
+        raise ValueError("bad base58check checksum")
+    return payload
+
+
 def pubkey_to_address(pt, compressed: bool = True, version: int = 0x00) -> str:
-    h160 = ripemd160(sha256(ecref.serialize_pubkey(pt, compressed)))
-    return b58check_encode(bytes([version]) + h160)
+    return b58check_encode(bytes([version]) + pubkey_to_hash160(pt, compressed))

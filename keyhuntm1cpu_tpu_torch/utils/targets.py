@@ -1,0 +1,91 @@
+"""Target sets of the brute-force modes: addresses, hash160s, ETH
+addresses and x coordinates.
+
+Port of keyhuntm1cpu_tpu/utils/targets.py without the XLA fallback's
+device tables (``build_bitmap``, ``build_table``) and without the parsed
+target cache. ``raw`` holds the exact digests the host verifies against:
+20-byte hash160 / ETH digests or 32-byte big-endian x coordinates.
+"""
+
+from __future__ import annotations
+
+from dataclasses import dataclass, field
+from typing import List, Optional, Sequence, Tuple
+
+from ..ref import ecref, hashref
+
+
+@dataclass
+class TargetSet:
+    kind: str  # 'hash160' | 'eth' | 'xpoint' | 'pubkey'
+    raw: List[bytes]  # 20-byte digests or 32-byte X (exact host compare)
+    labels: List[str]  # original text form, for reports
+    pubkeys: List[Tuple[int, int]] = field(default_factory=list)  # pubkey kind
+
+    def __len__(self) -> int:
+        return len(self.raw)
+
+
+def _parse_line_address(line: str) -> Optional[bytes]:
+    line = line.strip()
+    if not line:
+        return None
+    if len(line) == 40:
+        try:
+            return bytes.fromhex(line)
+        except ValueError:
+            pass
+    return hashref.b58check_decode(line)[1:]
+
+
+def parse_target_file(path: str, kind: str) -> TargetSet:
+    """Parse a text file of targets, one per line (the first token counts).
+    kind in {'address', 'rmd160', 'eth', 'xpoint', 'pubkey'}."""
+    raw: List[bytes] = []
+    labels: List[str] = []
+    pubkeys: List[Tuple[int, int]] = []
+    with open(path) as f:
+        lines = [ln.strip() for ln in f if ln.strip()]
+    for ln in lines:
+        tok = ln.split()[0]
+        if kind in ("address", "rmd160"):
+            h = _parse_line_address(tok)
+            if h is None or len(h) != 20:
+                raise ValueError(f"bad address/rmd160 target: {ln!r}")
+            raw.append(h)
+        elif kind == "eth":
+            t = tok[2:] if tok.lower().startswith("0x") else tok
+            if len(t) != 40:
+                raise ValueError(f"bad eth target: {ln!r}")
+            raw.append(bytes.fromhex(t.lower()))
+        elif kind == "xpoint":
+            if len(tok) in (66, 130):  # a full pubkey: take X
+                raw.append(ecref.parse_pubkey(tok)[0].to_bytes(32, "big"))
+            elif len(tok) == 64:
+                raw.append(bytes.fromhex(tok))
+            else:
+                raise ValueError(f"bad xpoint target: {ln!r}")
+        elif kind == "pubkey":
+            pt = ecref.parse_pubkey(tok)
+            pubkeys.append(pt)
+            raw.append(pt[0].to_bytes(32, "big"))
+        else:
+            raise ValueError(f"unknown target kind {kind}")
+        labels.append(tok)
+    out_kind = {"address": "hash160", "rmd160": "hash160"}.get(kind, kind)
+    return TargetSet(kind=out_kind, raw=raw, labels=labels, pubkeys=pubkeys)
+
+
+def targets_from_ints(kind: str, values: "Sequence[bytes | int]",
+                      labels=None) -> TargetSet:
+    """TargetSet from raw digests. Ints are converted big-endian at the
+    kind's digest width (hash160/eth: 20 bytes, xpoint/pubkey: 32)."""
+    widths = {"hash160": 20, "address": 20, "rmd160": 20, "eth": 20,
+              "xpoint": 32, "pubkey": 32}
+    if kind not in widths:
+        raise ValueError(f"unknown target kind {kind!r}")
+    width = widths[kind]
+    raw = [v if isinstance(v, bytes) else int(v).to_bytes(width, "big")
+           for v in values]
+    return TargetSet(kind=kind, raw=raw,
+                     labels=labels or [v.hex() for v in raw])

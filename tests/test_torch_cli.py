@@ -1,12 +1,12 @@
 """Port CLI (python -m keyhuntm1cpu_tpu_torch.cli) on --device cpu: flag
-parsing through the engine to KEYFOUNDKEYFOUND.txt, and the refusals.
-Found keys are compared exactly."""
+parsing through the BSGS and brute-force engines to KEYFOUNDKEYFOUND.txt,
+and the refusals. Found keys are compared exactly."""
 
 import pytest
 
 torch = pytest.importorskip("torch")
 
-from keyhuntm1cpu_tpu.ref import ecref  # noqa: E402
+from keyhuntm1cpu_tpu.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch import cli  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import host_table as ht  # noqa: E402
 
@@ -44,9 +44,41 @@ def test_cli_refusals(workdir, monkeypatch):
     pt = ecref.scalar_mult(0xA1B2C3)
     f.write_text(f"{2 + (pt[1] & 1):02x}{pt[0]:064x}\n")
     base = ["-f", str(f), "-r", "a00000:b00000", "--device", "cpu", *ARGS]
-    assert cli.main(["-m", "address", *base]) == 2
+    assert cli.main(["-m", "minikeys", *base]) == 2
+    assert cli.main(["-m", "address", "-v", "1abc", *base]) == 2
+    assert cli.main(["-m", "bsgs", "--sharded", *base]) == 2
+    assert cli.main(["-m", "bsgs", "-c", "eth", *base]) == 2  # -c eth needs -m address
+    assert cli.main(["-m", "address", *base]) == 2  # a pubkey is no address
     assert cli.main(["-m", "bsgs", "-B", "random", *base]) == 2
     assert cli.main(["-m", "bsgs", "-b", "24", *base]) == 2  # -r and -b
     assert cli.main(["-m", "bsgs", "-f", str(f), "-q"]) == 2  # no range
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["-m", "bsgs", "-f", str(f), "-b", "24", "-q"]) == 2  # no GPU
+
+
+BRUTE_ARGS = ["-r", "1:401", "-u", "128", "--chunk-steps", "4", "--device", "cpu",
+              "--all", "-q"]
+
+
+@pytest.mark.parametrize("flags,target", [
+    ([], lambda pt: hashref.pubkey_to_address(pt, True)),
+    (["-l", "uncompress"], lambda pt: hashref.pubkey_to_hash160(pt, False).hex()),
+    (["-c", "eth"], lambda pt: "0x" + hashref.pubkey_to_eth_address(pt).hex()),
+])
+def test_cli_cpu_address_mode_finds_keys(workdir, flags, target):
+    keys = [0x7, 0x155, 0x1FF]
+    f = workdir / "addr.txt"
+    f.write_text("".join(target(ecref.scalar_mult(k)) + "\n" for k in keys))
+    assert cli.main(["-m", "address", "-f", str(f), *flags, *BRUTE_ARGS]) == 0
+    out = (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
+    assert sorted(int(ln.split()[-1], 16) for ln in out.splitlines()
+                  if ln.startswith("Private key:")) == keys
+
+
+def test_cli_cpu_xpoint_endo_stride(workdir):
+    k = ecref.LAMBDA * 0x101 % ecref.N  # reached as lambda * 0x101 with -e
+    f = workdir / "x.txt"
+    f.write_text(f"{ecref.scalar_mult(k)[0]:064x}\n")
+    args = ["-m", "xpoint", "-f", str(f), "-e", "-I", "2", *BRUTE_ARGS]
+    assert cli.main(args) == 0
+    assert f"Private key: {k:064x}" in (workdir / "KEYFOUNDKEYFOUND.txt").read_text()

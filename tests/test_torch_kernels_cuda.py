@@ -1,5 +1,5 @@
-"""CUDA kernels K1-K3 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch
-versions on the card, and the engine on CUDA vs the engine on the CPU.
+"""CUDA kernels K1-K4 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch
+versions on the card, and the engines on CUDA vs the engines on the CPU.
 Needs an NVIDIA GPU and nvcc; skipped without a GPU. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Integer arithmetic: the tolerance is exact equality."""
@@ -9,11 +9,12 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from keyhuntm1cpu_tpu_torch.curve import pwalk, tables  # noqa: E402
-from keyhuntm1cpu_tpu_torch.engine import bsgs  # noqa: E402
+from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk, tables  # noqa: E402
+from keyhuntm1cpu_tpu_torch.engine import brute, bsgs  # noqa: E402
 from keyhuntm1cpu_tpu_torch.field import fe  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
-from keyhuntm1cpu_tpu_torch.ref import ecref  # noqa: E402
+from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
+from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -91,3 +92,64 @@ def test_engine_cuda_matches_cpu(dev, tmp_path):
     assert torch.equal(got.bloom2.words.cpu(), want.bloom2.words)
     found = sorted(f.private_key for f in got.search(stop_on_first=False))
     assert found == sorted(ks)
+
+
+def _artifact(mode, pt):
+    if mode == "xpoint":
+        return pt[0].to_bytes(32, "big")
+    if mode == "eth":
+        return hashref.pubkey_to_eth_address(pt)
+    return hashref.pubkey_to_hash160(pt, compressed=mode == "rmd160")
+
+
+def _cmp64(mode, raw):
+    return (int.from_bytes(raw, "big") & ((1 << 64) - 1) if mode == "xpoint"
+            else int.from_bytes(raw[:8], "big"))
+
+
+@pytest.mark.parametrize("mode,n_endo,bucketed", [
+    (m, 1, False) for m in pbrute.MODES] + [
+    ("rmd160", 3, False), ("xpoint", 3, False), ("rmd160", 1, True), ("xpoint", 3, True)])
+def test_brute_walk_kernel_matches_plain(dev, mode, n_endo, bucketed):
+    K, U = 37, 1000  # K not a multiple of the row group, U not of 128
+    tab_x, tab_y = tables.step_table(ecref.G, U)
+    b0 = 1 << 40
+    rows = [ecref.scalar_mult(b0 + s * U) for s in range(K)]
+    rows[2] = ecref.scalar_mult(5)  # dx == 0 at u = 4
+    rows[30] = ecref.point_neg(ecref.scalar_mult(6))  # dx == 0 at u = 5
+    bx, by = _pts(rows)
+    keys = [b0 + 1, b0 + 9 * U + 500, b0 + 36 * U + U]
+    vals = [_cmp64(mode, _artifact(mode, ecref.scalar_mult(k))) for k in keys]
+    vals.append(_cmp64(mode, _artifact(
+        mode, ecref.scalar_mult(ecref.LAMBDA * (b0 + 4 * U + 7) % ecref.N))))
+    rng = np.random.default_rng(5)
+    vals += [int(v) for v in rng.integers(0, 2**63, 600 if bucketed else 20)]
+    if bucketed:
+        tgt = pbrute.pack_intervals([1], [0])
+        btab = pbrute.pack_buckets(vals)
+    else:
+        tgt, btab = pbrute.pack_intervals(vals, vals), np.zeros((8, 128), np.uint32)
+    args = [bx, by, pwalk.table_to_limb_major(tab_x, "cpu"),
+            pwalk.table_to_limb_major(tab_y, "cpu"),
+            torch.from_numpy(tgt.view(np.int32)), torch.from_numpy(btab.view(np.int32))]
+    tb = btab.shape[0] if bucketed else 0
+    want = pbrute.brute_walk_blocks_ref(*args, mode, n_endo, tb)
+    n0 = pbrute.brute_walk_blocks.launches
+    got = pbrute.brute_walk_blocks(*(a.to(dev) for a in args), mode, n_endo, tb)
+    torch.cuda.synchronize()
+    assert pbrute.brute_walk_blocks.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    assert int(want[2, 4]) == pbrute.HIT_DEGENERATE and int(want[30, 5]) == pbrute.HIT_DEGENERATE
+    assert int(want[0, 0]) and int(want[9, 499]) and int(want[36, U - 1])
+
+
+@pytest.mark.parametrize("mode", ["rmd160", "eth"])
+def test_brute_engine_cuda_matches_cpu(dev, mode):
+    keys = list(range(1, 33))
+    kind = "eth" if mode == "eth" else "hash160"
+    ts = TargetSet(kind=kind, raw=[_artifact(mode, ecref.scalar_mult(k)) for k in keys],
+                   labels=[str(k) for k in keys])
+    params = brute.BruteParams(block_u=256, steps_per_chunk=4, chunk_cand=64)
+    got = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device=dev).search()
+    want = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device="cpu").search()
+    assert sorted(f.private_key for f in got) == sorted(f.private_key for f in want) == keys
