@@ -14,10 +14,9 @@ any failure exits non-zero before the result line:
    the main paths give it (K1 advance chain, K2 walk blocks, K3 insert keys,
    K4 brute walk), plus K1 against ecref with P == ADV and P == -ADV lanes,
    K2 with planted dx == 0 lanes, K3 also against np.bitwise_or.at, K4 in
-   every mode, with the endomorphism and with a bucketed T = 4096 set at
-   K = 16 (planted hits and dx == 0 lanes) and in rmd160 at the main
-   path's K = 256; each kernel timed beside its plain version with CUDA
-   events.
+   every mode, with the endomorphism and with a bucketed T = 4096 set,
+   all at K = 256 (planted hits and dx == 0 lanes); each kernel timed
+   beside its plain version with CUDA events.
 2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
 3. the main path at real state size (the bench.py protocol): host-resolve
    BSGS at m = 2^28 with the 2^35-bit bitmap and 2^35-bit bloom2 on the card,
@@ -69,7 +68,6 @@ KERNEL_SOURCES = {
                           "keyhuntm1cpu_tpu/curve/pbrute.py:70"),
 }
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
-K4_CHECK_K = 16  # phase 1's K4 checks: 16 x 16384 points per mode
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
@@ -77,11 +75,14 @@ BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 # logic instructions per clock per SM (CUDA C++ Programming Guide,
 # arithmetic instruction throughput), on 132 SMs at the clock nvidia-smi
 # reports as clocks.max.sm; HBM3 moves 3.35 TB/s. Instruction counts are
-# taken from the sources, low where in doubt so the bound stays a bound:
+# those the function needs at least (not the kernel's own grouping: the
+# walk's inversions are one per launch), low where in doubt so the bound
+# stays a bound:
 INT32_PER_CLK_SM, N_SM, HBM_BYTES_PER_S = 64, 132, 3.35e12
 MUL_OPS = 160  # fe_mul: 64 wide multiply-adds, 64 carry adds, 32 for the fold
+SQR_OPS = 120  # a squaring: 36 wide multiply-adds, 36 carry adds, 16 to double, the fold
 SUB_OPS = 16  # fe_sub / fe_add: 8 subtracts with borrow + the conditional p
-INV_OPS = 270 * MUL_OPS  # fe_inv: 255 squarings + 15 multiplies
+INV_OPS = 255 * SQR_OPS + 15 * MUL_OPS  # a^(p-2): 255 squarings + 15 multiplies
 SHA_OPS = 64 * 14 + 48 * 10  # rounds (3 funnel shifts x2, 5 LOP3/IADD3...) + schedule
 RMD_OPS = 160 * 6 + 20  # 2 lines x 80 steps (LOP3, 2 IADD3, 2 SHF, add) + output
 KECCAK_OPS = 24 * 190  # theta 90, rho 48, chi 50, iota 2 (32-bit halves)
@@ -91,17 +92,19 @@ MODE_HASHES = {"xpoint": [], "rmd160": ["hash160"] * 2, "eth": ["keccak"],
                "address_u": ["hash160_u"], "rmd160_both": ["hash160"] * 2 + ["hash160_u"]}
 
 
-def walk_point_ops(group):
-    """K2's per-point walk: dx, the chain product, two backward products,
-    lambda, x3, and 1/group of an inversion (pwalk.cu, pbrute.cu)."""
-    return 2 * (SUB_OPS + 4) + 4 * MUL_OPS + MUL_OPS + 3 * SUB_OPS + INV_OPS / group
+def walk_point_ops(points):
+    """The least work of the affine walk per point, with all `points` of
+    a launch in one Montgomery batch: dx (with its zero test), dy, the
+    batch's three products per point, lambda, lambda^2, x3, and the
+    batch's one inversion shared out."""
+    return 2 * (SUB_OPS + 4) + 4 * MUL_OPS + SQR_OPS + 3 * SUB_OPS + INV_OPS / points
 
 
 def k4_ops(mode, n_endo, T, TB, points):
     """K4's 32-bit integer instructions for `points` points: the walk,
     y3 where the mode hashes it, the GLV products, each query's hash,
     byte swaps and T interval compares (5 each) and TB bucket reads (2)."""
-    per = walk_point_ops(32)
+    per = walk_point_ops(points)
     if mode in ("eth", "address_u", "rmd160_both"):
         per += MUL_OPS + 2 * SUB_OPS
     per += (n_endo - 1) * MUL_OPS
@@ -113,9 +116,10 @@ def k4_ops(mode, n_endo, T, TB, points):
 
 
 def k1_ops(T, K):
-    """K1: per step 11 products + 6 adds of the mixed add, the prefix
-    product and 6 products to normalise; one inversion per chain."""
-    return T * (K * (12 * MUL_OPS + 6 * SUB_OPS + 6 * MUL_OPS) + INV_OPS)
+    """K1: per step 8 products, 3 squarings and 6 adds of the mixed add,
+    the prefix product, and 5 products and a squaring to normalise; one
+    inversion per chain."""
+    return T * (K * (14 * MUL_OPS + 4 * SQR_OPS + 6 * SUB_OPS) + INV_OPS)
 
 
 def k3_ops_bytes(n, n_kept):
@@ -291,7 +295,7 @@ def phase1_kernels(dev, results, clock):
         fail("K2 planted dx == 0 lanes not flagged")
     log(f"K2 walk_blocks R={K} U={U}: equal to plain over every lane, "
         f"dx==0 flagged; {ms:.3f} ms (plain {pms:.1f} ms)")
-    bms, by_ = bound_ms(walk_point_ops(32) * K * U, 64 * (K + U) + 9 * K * U, clock)
+    bms, by_ = bound_ms(walk_point_ops(K * U) * K * U, 64 * (K + U) + 9 * K * U, clock)
     results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms,
                                   bound_ms=bms, bound_by=by_)
 
@@ -351,9 +355,10 @@ def cmp64(mode, raw):
 
 
 def phase1_brute(dev, results, clock):
-    """K4 against its plain version: every mode at K = 16, the endomorphism,
-    a bucketed T = 4096 set, and rmd160 at the main path's K = 256 (the
-    JSON line's numbers), with planted hits and two dx == 0 lanes."""
+    """K4 against its plain version at the main path's K = 256, U = 16384:
+    every mode, the endomorphism, and a bucketed T = 4096 set, with
+    planted hits and two dx == 0 lanes. rmd160 with T = 32 intervals
+    gives the JSON line's numbers."""
     import numpy as np
     import torch
 
@@ -374,58 +379,58 @@ def phase1_brute(dev, results, clock):
     base = ecref.scalar_mult(b0)
     rng = np.random.default_rng(11)
     empty = torch.zeros((8, 128), dtype=torch.int32, device=dev)
+    bx, by, _, _, _ = pwalk.advance_chain(limbs(base[0])[:, None], limbs(base[1])[:, None],
+                                          limbs(adv[0]), limbs(adv[1]), K)
+    # bases 3 and 9: tab[u] and -tab[u]: dx == 0 at those lanes
+    planted_deg = ((3, U // 7), (9, U - 2))
+    for row, u in planted_deg:
+        y = fe.limbs_to_int(tab_y[u])
+        bx[:, row] = limbs(fe.limbs_to_int(tab_x[u]))
+        by[:, row] = limbs(y if row == 3 else ecref.P - y)
+    cases = ([(m, 1, 32, False) for m in pbrute.MODES]
+             + [("rmd160", 3, 32, False), ("xpoint", 3, 32, False),
+                ("rmd160", 1, 4096, True)])
     err_all = 0
-    for k_rows in (K4_CHECK_K, K):
-        bx, by, _, _, _ = pwalk.advance_chain(limbs(base[0])[:, None], limbs(base[1])[:, None],
-                                              limbs(adv[0]), limbs(adv[1]), k_rows)
-        # bases 3 and 9: tab[u] and -tab[u]: dx == 0 at those lanes
-        planted_deg = ((3, U // 7), (9, U - 2))
-        for row, u in planted_deg:
-            y = fe.limbs_to_int(tab_y[u])
-            bx[:, row] = limbs(fe.limbs_to_int(tab_x[u]))
-            by[:, row] = limbs(y if row == 3 else ecref.P - y)
-        cases = ([("rmd160", 1, 32, False)] if k_rows == K else
-                 [(m, 1, 32, False) for m in pbrute.MODES]
-                 + [("rmd160", 3, 32, False), ("xpoint", 3, 32, False),
-                    ("rmd160", 1, 4096, True)])
-        for mode, n_endo, T, bucketed in cases:
-            hits = [(0, 5), (k_rows - 1, U - 1), (k_rows // 2, U // 3 + 1)]
-            pts = [ecref.scalar_mult(b0 + s * U + u + 1) for s, u in hits]
-            if mode == "rmd160":
-                pts[1] = ecref.point_neg(pts[1])  # the other parity
-            vals = [cmp64(mode, brute_artifact(mode, pt)) for pt in pts]
-            if n_endo == 3:  # lambda * key(2, 77) shows as query set e = 1
-                vals.append(cmp64(mode, brute_artifact(
-                    mode, ecref.scalar_mult(ecref.LAMBDA * (b0 + 2 * U + 78) % ecref.N))))
-            vals += [int(v) for v in rng.integers(0, 2**63, T - len(vals))]
-            if bucketed:
-                tgt = as_i32(pbrute.pack_intervals([1], [0]))
-                btab = as_i32(pbrute.pack_buckets(vals))
-                tb = btab.shape[0]
-            else:
-                tgt, btab, tb = as_i32(pbrute.pack_intervals(vals, vals)), empty, 0
-            args = (bx, by, tx, ty, tgt, btab, mode, n_endo, tb)
-            ms, got = timed(lambda: pbrute.brute_walk_blocks(*args), 5)
-            pms, want = timed(lambda: pbrute.brute_walk_blocks_ref(*args), 1)
-            err = max_abs_err([got], [want])
-            err_all = max(err_all, err)
-            name = f"{mode} n_endo={n_endo} T={T}{' bucketed' if bucketed else ''} K={k_rows}"
-            if err:
-                fail(f"K4 {name} differs from its plain version (max_abs_err {err})")
-            g = got.cpu().numpy()
-            n_hit = sum(int(g[s, u] != 0) for s, u in hits)
-            if n_hit != 3 or (n_endo == 3 and not g[2, 77] >> pbrute.n_qsets(mode, 1)):
-                fail(f"K4 {name}: planted hits missing")
-            if not all(g[row, u] == pbrute.HIT_DEGENERATE for row, u in planted_deg):
-                fail(f"K4 {name}: planted dx == 0 lanes not flagged")
-            ops = k4_ops(mode, n_endo, 8 if bucketed else T, tb, k_rows * U)
-            nbytes = 64 * (k_rows + U) + 16 * tgt.shape[1] + 512 * tb + 4 * k_rows * U
-            bms, by_ = bound_ms(ops, nbytes, clock)
-            log(f"K4 brute_walk_blocks {name}: equal to plain, hits and dx==0 lanes "
-                f"flagged; {ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
-            if k_rows == K:
-                results["brute_walk_blocks"] = dict(max_abs_err=err_all, ms=ms, plain_ms=pms,
-                                                    bound_ms=bms, bound_by=by_)
+    for mode, n_endo, T, bucketed in cases:
+        hits = [(0, 5), (K - 1, U - 1), (K // 2, U // 3 + 1)]
+        pts = [ecref.scalar_mult(b0 + s * U + u + 1) for s, u in hits]
+        if mode == "rmd160":
+            pts[1] = ecref.point_neg(pts[1])  # the other parity
+        vals = [cmp64(mode, brute_artifact(mode, pt)) for pt in pts]
+        if n_endo == 3:  # lambda * key(2, 77) shows as query set e = 1
+            vals.append(cmp64(mode, brute_artifact(
+                mode, ecref.scalar_mult(ecref.LAMBDA * (b0 + 2 * U + 78) % ecref.N))))
+        vals += [int(v) for v in rng.integers(0, 2**63, T - len(vals))]
+        if bucketed:
+            tgt = as_i32(pbrute.pack_intervals([1], [0]))
+            btab = as_i32(pbrute.pack_buckets(vals))
+            tb = btab.shape[0]
+        else:
+            tgt, btab, tb = as_i32(pbrute.pack_intervals(vals, vals)), empty, 0
+        args = (bx, by, tx, ty, tgt, btab, mode, n_endo, tb)
+        ms, got = timed(lambda: pbrute.brute_walk_blocks(*args), 5)
+        pms, want = timed(lambda: pbrute.brute_walk_blocks_ref(*args), 1)
+        err = max_abs_err([got], [want])
+        err_all = max(err_all, err)
+        name = f"{mode} n_endo={n_endo} T={T}{' bucketed' if bucketed else ''} K={K}"
+        if err:
+            fail(f"K4 {name} differs from its plain version (max_abs_err {err})")
+        g = got.cpu().numpy()
+        n_hit = sum(int(g[s, u] != 0) for s, u in hits)
+        if n_hit != 3 or (n_endo == 3 and not g[2, 77] >> pbrute.n_qsets(mode, 1)):
+            fail(f"K4 {name}: planted hits missing")
+        if not all(g[row, u] == pbrute.HIT_DEGENERATE for row, u in planted_deg):
+            fail(f"K4 {name}: planted dx == 0 lanes not flagged")
+        ops = k4_ops(mode, n_endo, 8 if bucketed else T, tb, K * U)
+        nbytes = 64 * (K + U) + 16 * tgt.shape[1] + 512 * tb + 4 * K * U
+        bms, by_ = bound_ms(ops, nbytes, clock)
+        log(f"K4 brute_walk_blocks {name}: equal to plain, hits and dx==0 lanes "
+            f"flagged; {ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+        if (mode, n_endo, bucketed) == ("rmd160", 1, False):
+            results["brute_walk_blocks"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
+                                                bound_by=by_)
+        del got, want
+    results["brute_walk_blocks"]["max_abs_err"] = err_all
     torch.cuda.synchronize()
 
 

@@ -118,6 +118,67 @@ def test_bucketed_membership_finds_the_interval_paths_keys(mode):
     assert sorted(f.private_key for f in bk.search()) == want
 
 
+@pytest.mark.parametrize("mode", ["rmd160", "xpoint"])
+def test_bucketed_hit_words_match_jax_bucket_compare(mode):
+    """K4's plain version, bucketed, word for word against the JAX kernel's
+    own formulation: its hash words (hash/phash.py) and its bucket compare
+    (curve/pbrute.py:185-200, the high word against btab[r][b & 127])
+    written with the same jnp ops outside pallas_call. The Pallas kernel
+    itself cannot be the reference here: its interpret mode does not
+    compile on the CPU in useful time (xla_brute_chunk's docstring), and
+    its XLA twin has interval membership only. One decoy shares a point's
+    bucket and high word but not its low word: the half-compare's
+    spurious hit must show in both."""
+    from keyhuntm1cpu_tpu.hash.phash import _bswap
+    from keyhuntm1cpu_tpu.hash import phash as jphash
+
+    b0 = 1 << 40  # key(s, u) = b0 + s*U + u + 1; no dx == 0 lane
+    pts, p = [], ecref.scalar_mult(b0 + 1)
+    for _ in range(K * U):
+        pts.append(p)
+        p = ecref.point_add(p, ecref.G)
+    planted = [(0, 3), (1, 200), (3, 255)]
+    vals = [cmp64(mode, artifact(mode, pts[s * U + u])) for s, u in planted]
+    spurious = cmp64(mode, artifact(mode, pts[2 * U + 17])) ^ (1 << 12)
+    rng = np.random.default_rng(9)
+    vals += [spurious] + [int(v) for v in rng.integers(0, 2**63, 36)]
+    tgt = pbrute.pack_intervals([1], [0])  # the empty interval
+    btab = pbrute.pack_buckets(vals)
+    assert np.array_equal(btab, jpbrute.pack_buckets(vals)) and btab.shape == (8, 128)
+
+    bases = [ecref.scalar_mult(b0 + s * U) for s in range(K)]
+    tab_x, tab_y = tables.step_table(ecref.G, U)
+    got = pbrute.brute_walk_blocks_ref(
+        torch.stack([_i32(q[0]) for q in bases], dim=1),
+        torch.stack([_i32(q[1]) for q in bases], dim=1),
+        pwalk.table_to_limb_major(tab_x, "cpu"), pwalk.table_to_limb_major(tab_y, "cpu"),
+        torch.from_numpy(tgt.view(np.int32)), torch.from_numpy(btab.view(np.int32)),
+        mode, 1, btab.shape[0])
+
+    xl = [jnp.asarray(np.array([(q[0] >> (32 * i)) & 0xFFFFFFFF for q in pts],
+                               dtype=np.uint32)) for i in range(8)]
+    if mode == "xpoint":
+        pairs = [(xl[1], xl[0])]
+    else:
+        pairs = [(_bswap(lo), _bswap(hi)) for lo, hi in
+                 (jphash.hash160_parity_words(xl, 2), jphash.hash160_parity_words(xl, 3))]
+    jt, jb = jnp.asarray(tgt), jnp.asarray(btab)
+    want = jnp.zeros((K * U // 128, 128), jnp.uint32)
+    for q, (a, b) in enumerate(pairs):
+        a, b = a.reshape(-1, 128), b.reshape(-1, 128)
+        ge = (a > jt[0, 0]) | ((a == jt[0, 0]) & (b >= jt[1, 0]))
+        le = (a < jt[2, 0]) | ((a == jt[2, 0]) & (b <= jt[3, 0]))
+        m = ge & le
+        idx = (b & np.uint32(127)).astype(jnp.int32)
+        for r in range(btab.shape[0]):
+            row = jnp.broadcast_to(jb[r][None, :], a.shape)
+            m = m | (a == jnp.take_along_axis(row, idx, axis=-1))
+        want = want | (m.astype(jnp.uint32) << q)
+    want = np.asarray(want).reshape(K, U)
+    assert got.numpy().view(np.uint32).tolist() == want.tolist()
+    assert sorted(zip(*np.nonzero(want))) == sorted(planted + [(2, 17)])
+
+
 def test_row_overflow_reports_c_plus_one():
     Kc, Uc = 16, 256  # 32 rows of 128 hit words
     hits = torch.zeros((Kc, Uc), dtype=torch.int32)
