@@ -12,11 +12,15 @@ any failure exits non-zero before the result line:
    each kernel.
 1. each kernel against its plain torch version on the card, at the shapes
    the main paths give it (K1 advance chain, K2 walk blocks, K3 insert keys,
-   K4 brute walk), plus K1 against ecref with P == ADV and P == -ADV lanes,
-   K2 with planted dx == 0 lanes, K3 also against np.bitwise_or.at, K4 in
-   every mode, with the endomorphism and with a bucketed T = 4096 set,
-   all at K = 256 (planted hits and dx == 0 lanes); each kernel timed
-   beside its plain version with CUDA events.
+   K4 brute walk, K5 minikey validity, the minikey key derivation, K6
+   scalar-mult ladder, K7 and K8 hash160), plus K1 against ecref with
+   P == ADV and P == -ADV lanes, K2 with planted dx == 0 lanes, K3 also
+   against np.bitwise_or.at, K4 in every mode, with the endomorphism and
+   with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
+   lanes); K5 over every lane of B = 2^23 in the canonical and a custom
+   alphabet and against hashlib on a sample, the key derivation, K6 (edge
+   scalars planted, a sample against ecref), K7 and K8 at V = 34,816; each
+   kernel timed beside its plain version with CUDA events.
 2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
 3. the main path at real state size (the bench.py protocol): host-resolve
    BSGS at m = 2^28 with the 2^35-bit bitmap and 2^35-bit bloom2 on the card,
@@ -33,6 +37,13 @@ any failure exits non-zero before the result line:
    K = 256, T = 32 over [2^40, 2^40 + 2^50): effective keys/s (keys times
    the mode's multiplier), the device idle share, the chunk time split over
    K1, K4 and compaction, and K1 == K4 == chunks dispatched.
+4b. the minikeys path (bench_modes.py's protocol, B = 2^23, V = 34,816,
+   HM = 64, prefix "Sbenchmark1x"): the planted minikey recovered
+   bit-exact in one chunk, then 5 s of throughput from counter 2^31 with
+   1 target and with 2^20 decoy hash160 targets: minikeys/s, the device
+   idle share, the chunk time split over K5, compaction, key derivation,
+   K6, K7 + K8 and lookup + summary, and K5 == keys == K6 == K7 == K8 ==
+   chunks dispatched.
 5. the launch counts of the main paths (phase 3's filter build and
    searches, phase 4's throughput windows, each counted from zero): every
    kernel launched, and each stage launched exactly the kernels it should.
@@ -66,9 +77,23 @@ KERNEL_SOURCES = {
                     "keyhuntm1cpu_tpu/engine/bsgs.py:1644"),
     "brute_walk_blocks": ("keyhuntm1cpu_tpu_torch/csrc/pbrute.cu",
                           "keyhuntm1cpu_tpu/curve/pbrute.py:70"),
+    "minikey_valid": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
+                      "keyhuntm1cpu_tpu/hash/pminikey.py:128"),
+    "minikey_keys": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
+                     "keyhuntm1cpu_tpu/engine/minikeys.py:476"),
+    "scalar_mult": ("keyhuntm1cpu_tpu_torch/csrc/ladder.cu",
+                    "keyhuntm1cpu_tpu/curve/pladder.py:187"),
+    "hash160_x2": ("keyhuntm1cpu_tpu_torch/csrc/phash.cu",
+                   "keyhuntm1cpu_tpu/hash/phash.py:136"),
+    "hash160_u": ("keyhuntm1cpu_tpu_torch/csrc/phash.cu",
+                  "keyhuntm1cpu_tpu/hash/phash.py:421"),
 }
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
+MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_modes.py:154-191
+MK_DECOYS = 1 << 20  # a user's list of funded addresses
+MK_SECONDS = 5.0  # throughput window of each minikeys target set
+MK_CUSTOM = ("abcdefghijkmnopqrstuvwxyz123456789ABCDEFGHJKLMNPQRSTUVWXYZ")  # a -8 alphabet
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
 # 9.0) issues 64 32-bit integer add, multiply(-add), shift, compare or
@@ -90,6 +115,26 @@ HASH_OPS = {"hash160": SHA_OPS + RMD_OPS + 25, "hash160_u": 2 * SHA_OPS + RMD_OP
             "keccak": KECCAK_OPS + 16}
 MODE_HASHES = {"xpoint": [], "rmd160": ["hash160"] * 2, "eth": ["keccak"],
                "address_u": ["hash160_u"], "rmd160_both": ["hash160"] * 2 + ["hash160_u"]}
+
+
+def mk_suffix_ops(n_runs):
+    """The 5 base-58 digits of a counter (a multiply-high, a shift and a
+    multiply-subtract each), the alphabet's runs and the OR into the block."""
+    return 20 + 3 * n_runs
+
+
+def ladder_ops(k_lm):
+    """K6's least work for the (8, V) scalars k_lm (numpy uint32): one mixed
+    add (8 products, 3 squarings, 6 subtractions) per non-zero byte after a
+    lane's first, the batch's 3 products per lane and one inversion, and 3
+    products and a squaring to affine."""
+    import numpy as np
+
+    nz = (((k_lm[:, None, :] >> (8 * np.arange(4)[None, :, None])) & 0xFF) != 0).sum((0, 1))
+    adds = np.maximum(nz.astype(np.int64) - 1, 0).sum()
+    V = k_lm.shape[1]
+    return (int(adds) * (8 * MUL_OPS + 3 * SQR_OPS + 6 * SUB_OPS)
+            + V * (6 * MUL_OPS + SQR_OPS) + INV_OPS)
 
 
 def walk_point_ops(points):
@@ -434,6 +479,128 @@ def phase1_brute(dev, results, clock):
     torch.cuda.synchronize()
 
 
+def minikey_bases(eng, alphabet, counter):
+    """(low, prefix17, w22, w23) of the chunk at `counter` (engine/minikeys.py)."""
+    from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
+
+    high, low = divmod(counter, mk.LOW_SPAN)
+    prefix17 = MK_PREFIX + mk._b58_digits(high, 5, alphabet)
+    return (low, prefix17) + eng._base_words(prefix17)
+
+
+def phase1_minikeys(dev, results, clock):
+    """K5 at B = 2^23 over every lane (canonical and custom alphabet), the
+    key derivation, K6, K7 and K8 at V = 34,816, against their plain
+    versions; K5 and the keys against hashlib on samples, K6 with edge
+    scalars planted and a sample against ecref."""
+    import hashlib
+
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pladder
+    from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
+    from keyhuntm1cpu_tpu_torch.field import fe
+    from keyhuntm1cpu_tpu_torch.filter.bitmap import compact_positions
+    from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    B, V = MK_BATCH, mk.valid_budget(MK_BATCH)
+    ts = TargetSet(kind="hash160", raw=[b"\x01" * 20], labels=["t"])
+    rng = np.random.default_rng(23)
+    for alphabet in (mk._B58, MK_CUSTOM):
+        eng = mk.MinikeyEngine(ts, prefix=MK_PREFIX, params=mk.tuned_params(batch=B),
+                               alphabet=alphabet, device=dev)
+        low, prefix17, w22, w23 = minikey_bases(eng, alphabet, MK_COUNTER)
+        ms, valid = timed(lambda: pminikey.minikey_valid(low, w23, B, alphabet), 10)
+        pms, want = timed(lambda: pminikey.minikey_valid_ref(low, w23, B, alphabet), 1)
+        err = max_abs_err([valid], [want])
+        if err:
+            fail(f"K5 minikey_valid ({alphabet[:4]}...) differs from its plain version")
+        got = valid.cpu().numpy()
+        lanes = np.concatenate([rng.choice(B, min(B, 20000), replace=False),
+                                np.nonzero(got)[0][:200]])
+        for lane in lanes:
+            s_ = prefix17 + mk._b58_digits(low + int(lane), 5, alphabet)
+            if (hashlib.sha256((s_ + "?").encode()).digest()[0] == 0) != bool(got[lane]):
+                fail(f"K5 lane {lane} differs from hashlib")
+        n_valid = int(got.sum())
+        if abs(n_valid - B / 256) > 6 * (B / 256) ** 0.5:
+            fail(f"K5 found {n_valid} valid lanes of {B}, expected ~{B // 256}")
+        runs = len(pminikey.b58_runs(alphabet))
+        bms, by_ = bound_ms(B * (mk_suffix_ops(runs) + SHA_OPS), 64 + B, clock)
+        log(f"K5 minikey_valid B={B} ({runs} alphabet runs): equal to plain over every "
+            f"lane, {n_valid} valid, {len(lanes)} lanes equal to hashlib; {ms:.3f} ms "
+            f"(plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+        if alphabet == mk._B58:
+            results["minikey_valid"] = dict(max_abs_err=err, ms=ms, plain_ms=pms,
+                                            bound_ms=bms, bound_by=by_)
+            canon = (eng, low, prefix17, w22, valid)
+    eng, low, prefix17, w22, valid = canon
+
+    vidx = compact_positions(valid, V, B)
+    ms, k = timed(lambda: pminikey.minikey_keys(vidx, low, w22, B, mk._B58), 10)
+    pms, want = timed(lambda: pminikey.minikey_keys_ref(vidx, low, w22, B, mk._B58), 1)
+    err = max_abs_err([k], [want])
+    if err:
+        fail("minikey_keys differs from its plain version")
+    vi, kn = vidx.cpu().numpy(), k.cpu().numpy().view(np.uint32)
+    for j in list(range(0, V, V // 40)) + [V - 1]:
+        s_ = prefix17 + mk._b58_digits(low + min(int(vi[j]), B - 1), 5)
+        if fe.limbs_to_int(kn[:, j]) != int.from_bytes(hashlib.sha256(s_.encode()).digest(), "big"):
+            fail(f"minikey_keys lane {j} differs from hashlib")
+    bms, by_ = bound_ms(V * (mk_suffix_ops(6) + SHA_OPS), 64 + 36 * V, clock)
+    results["minikey_keys"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                   bound_by=by_)
+    log(f"minikey_keys V={V}: equal to plain and to hashlib on a sample; {ms:.3f} ms "
+        f"(plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+
+    # K6 on those keys with the edge scalars planted in the first columns
+    edges = [0, 1, 2, ecref.N - 1, ecref.N, 2 ** 256 - 1,
+             0x00FF00000000FF000000000000AB0000000000CD0000000000000000000100]
+    for j, e in enumerate(edges):
+        k[:, j] = torch.from_numpy(fe.int_to_limbs(e).view(np.int32)).to(dev)
+    gx, gy = eng._gx, eng._gy
+    ms, pt = timed(lambda: pladder.scalar_mult_tiles(k, gx, gy), 10)
+    pms, want = timed(lambda: pladder.scalar_mult_ref(k, gx, gy), 1)
+    err = max_abs_err(pt, want)
+    if err:
+        fail("K6 scalar_mult differs from its plain version")
+    x, y, inf, irr = (t.cpu().numpy() for t in pt)
+    if not (inf[0] and irr[4]) or inf[1:].any() or irr[:4].any() or irr[5:].any():
+        fail(f"K6 flags wrong: inf {np.nonzero(inf)[0][:5]}, irr {np.nonzero(irr)[0][:5]}")
+    kn = k.cpu().numpy().view(np.uint32)
+    for j in [1, 2, 3, 5, 6] + list(range(7, V, V // 30)):
+        want_pt = ecref.scalar_mult(fe.limbs_to_int(kn[:, j]) % ecref.N)
+        if (fe.limbs_to_int(x[:, j].view(np.uint32)),
+                fe.limbs_to_int(y[:, j].view(np.uint32))) != want_pt:
+            fail(f"K6 lane {j} differs from ecref")
+    bms, by_ = bound_ms(ladder_ops(kn), 2 * 32 * 256 * 32 + 32 * V + 66 * V, clock)
+    results["scalar_mult"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by_)
+    log(f"K6 scalar_mult V={V}: equal to plain, k=0 infinite, k=N irregular, a sample "
+        f"equal to ecref; {ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+
+    px, py = pt[0], pt[1]
+    for name, fn, ref, ops, nbytes in (
+            ("hash160_x2", lambda: phash.hash160_x2_from_batch(px),
+             lambda: phash.hash160_x2_ref(px), 2 * HASH_OPS["hash160"], 48),
+            ("hash160_u", lambda: phash.hash160_u_from_batch(px, py),
+             lambda: phash.hash160_u_ref(px, py), HASH_OPS["hash160_u"], 72)):
+        ms, got = timed(fn, 10)
+        pms, want = timed(ref, 1)
+        flat = lambda o: [t for pair in o for t in pair] if name == "hash160_x2" else list(o)
+        err = max_abs_err(flat(got), flat(want))
+        if err:
+            fail(f"{name} differs from its plain version")
+        bms, by_ = bound_ms(V * ops, V * nbytes, clock)
+        results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_)
+        log(f"{'K7' if name == 'hash160_x2' else 'K8'} {name} V={V}: equal to plain; "
+            f"{ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+    torch.cuda.synchronize()
+
+
 def phase2_small(dev):
     from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine, BSGSParams
     from keyhuntm1cpu_tpu_torch.ref import ecref
@@ -454,13 +621,22 @@ def phase2_small(dev):
 
 
 def launch_counts():
-    from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk
+    from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
 
     wrappers = {"advance_chain": pwalk.advance_chain, "walk_blocks": pwalk.walk_blocks,
                 "insert_keys": bmp.insert_keys,
-                "brute_walk_blocks": pbrute.brute_walk_blocks}
+                "brute_walk_blocks": pbrute.brute_walk_blocks,
+                "minikey_valid": pminikey.minikey_valid, "minikey_keys": pminikey.minikey_keys,
+                "scalar_mult": pladder.scalar_mult_tiles,
+                "hash160_x2": phash.hash160_x2_from_batch,
+                "hash160_u": phash.hash160_u_from_batch}
     return wrappers, {name: w.launches for name, w in wrappers.items()}
+
+
+def zero_counts():
+    return dict.fromkeys(KERNEL_SOURCES, 0)
 
 
 def delta(after, before):
@@ -499,9 +675,8 @@ def phase3_main(dev, m, seconds):
     t_build = time.time() - t0
     _, n_build = launch_counts()
     build_steps = max(0, -(-(m - 2 * BUILD_BLOCK) // (BUILD_BLOCKS * BUILD_BLOCK)))
-    want = dict(advance_chain=build_steps, walk_blocks=build_steps,
-                insert_keys=build_steps + 1,  # + the native seed's insert
-                brute_walk_blocks=0)
+    want = zero_counts() | dict(advance_chain=build_steps, walk_blocks=build_steps,
+                                insert_keys=build_steps + 1)  # + the native seed's insert
     if n_build != want:
         fail(f"streaming build launched {n_build}, expected {want}")
     log(f"phase 3: streaming filters (bits={eng.bitmap.bits_log2}, "
@@ -518,8 +693,8 @@ def phase3_main(dev, m, seconds):
         fail(f"puzzle-63 recovery failed: {[hex(k) for k in found]}")
     _, n63 = launch_counts()
     d63 = delta(n63, n_build)
-    if (d63["insert_keys"] or d63["brute_walk_blocks"] or d63["advance_chain"] < 1
-            or d63["walk_blocks"] != d63["advance_chain"]):
+    if (d63["advance_chain"] < 1 or d63["walk_blocks"] != d63["advance_chain"]
+            or any(v for name, v in d63.items() if name not in ("advance_chain", "walk_blocks"))):
         fail(f"puzzle-63 search launched {d63}, expected K1 == K2 >= 1 and no K3")
     log(f"phase 3: puzzle-63 key 0x{PUZZLE63_KEY:x} recovered bit-exact in "
         f"{time.time() - t0:.2f} s; launches {d63}")
@@ -551,8 +726,8 @@ def phase3_main(dev, m, seconds):
     _, n_main = launch_counts()
     d64 = delta(n_main, n63)
     chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
-    if d64 != dict(advance_chain=len(marks), walk_blocks=len(marks), insert_keys=0,
-                   brute_walk_blocks=0) or chunks != len(marks):
+    if (d64 != zero_counts() | dict(advance_chain=len(marks), walk_blocks=len(marks))
+            or chunks != len(marks)):
         fail(f"throughput search launched {d64} for {len(marks)} chunks dispatched, "
              f"{chunks} counted")
     keys_per_sec = eng64.stats.keys_covered / elapsed
@@ -656,8 +831,8 @@ def phase4_brute(dev, seconds, clock):
         dt = time.time() - t0
         _, n = launch_counts()
         chunks = (eng.stats.keys_covered - k0) // (K * U)
-        if n != dict(advance_chain=len(marks), walk_blocks=0, insert_keys=0,
-                     brute_walk_blocks=len(marks)) or chunks != len(marks):
+        if (n != zero_counts() | dict(advance_chain=len(marks), brute_walk_blocks=len(marks))
+                or chunks != len(marks)):
             fail(f"brute {name} launched {n} for {len(marks)} chunks dispatched, "
                  f"{chunks} counted")
         total = n if total is None else {k: total[k] + n[k] for k in n}
@@ -684,6 +859,105 @@ def phase4_brute(dev, seconds, clock):
             f"idle share {1 - busy / span:.4f}; chunk {c_ms:.3f} ms = K1 {k1_ms:.3f} + "
             f"K4 {k4_ms:.3f} (bound {k4_bound:.3f}) + compaction "
             f"{c_ms - k1_ms - k4_ms:.3f}; launches {n}")
+    return total
+
+
+def phase4b_minikeys(dev, seconds):
+    """The minikeys path; returns the throughput windows' launch counts, each
+    window counted from zero."""
+    import hashlib
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pladder
+    from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
+    from keyhuntm1cpu_tpu_torch.filter.bitmap import compact_positions
+    from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    # the bench gate: the first valid minikey of the prefix, found in one chunk
+    for c in range(1 << 18):
+        s_ = MK_PREFIX + mk._b58_digits(c // mk.LOW_SPAN, 5) + mk._b58_digits(c % mk.LOW_SPAN, 5)
+        if hashlib.sha256((s_ + "?").encode()).digest()[0] == 0:
+            break
+    key = int.from_bytes(hashlib.sha256(s_.encode()).digest(), "big")
+    target = hashref.pubkey_to_hash160(ecref.scalar_mult(key), compressed=False)
+    params = mk.tuned_params(batch=MK_BATCH)  # the card's: tuned_params(device="cuda")
+    B, V = params.batch, params.valid_max
+    t0 = time.time()
+    eng = mk.MinikeyEngine(TargetSet(kind="hash160", raw=[target], labels=["planted"]),
+                           prefix=MK_PREFIX, params=params, device=dev)
+    found = eng.search(max_chunks=1)
+    if [f.private_key for f in found] != [key] or s_ not in found[0].target:
+        fail(f"minikeys gate: found {found}, planted {s_}")
+    log(f"phase 4b: minikeys gate: planted minikey {s_} (counter {c}) recovered bit-exact "
+        f"in one chunk of {B} in {time.time() - t0:.1f} s")
+
+    total = None
+    for name, n_decoys in (("1 target", 0), (f"{MK_DECOYS} targets", MK_DECOYS)):
+        raw = [target] + [hashlib.sha256(b"mk-decoy%d" % i).digest()[:20]
+                          for i in range(n_decoys)]
+        t0 = time.time()
+        eng = mk.MinikeyEngine(TargetSet(kind="hash160", raw=raw, labels=["planted"] * len(raw)),
+                               prefix=MK_PREFIX, params=params, device=dev)
+        t_setup = time.time() - t0
+        eng.counter = MK_COUNTER
+        eng.search(max_chunks=1, stop_on_first=False)  # warm-up chunk
+        marks, enqueue = [], []
+        chunk_fn = eng._chunk_fn
+
+        def marked_chunk(*a):
+            t = time.perf_counter()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = chunk_fn(*a)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            marks.append((ev0, ev1))
+            enqueue.append(time.perf_counter() - t)
+            return out
+
+        eng._chunk_fn = marked_chunk
+        wrappers, _ = launch_counts()
+        for w in wrappers.values():
+            w.launches = 0
+        k0 = eng.stats.keys_covered
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.search(max_seconds=seconds, stop_on_first=False)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        _, n = launch_counts()
+        chunks = (eng.stats.keys_covered - k0) // B
+        mk_names = ("minikey_valid", "minikey_keys", "scalar_mult", "hash160_x2", "hash160_u")
+        if n != zero_counts() | dict.fromkeys(mk_names, len(marks)) or chunks != len(marks):
+            fail(f"minikeys {name} launched {n} for {len(marks)} chunks dispatched, "
+                 f"{chunks} counted")
+        total = n if total is None else {k: total[k] + n[k] for k in n}
+        rate = (eng.stats.keys_covered - k0) / dt
+        busy = sum(a.elapsed_time(b) for a, b in marks)
+        span = marks[0][0].elapsed_time(marks[-1][1])
+        enq_ms = 1000 * sum(enqueue) / chunks
+
+        # chunk split by CUDA events at this engine's shapes
+        low, _, w22, w23 = minikey_bases(eng, mk._B58, MK_COUNTER)
+        reps = 20
+        c_ms, _ = timed(lambda: chunk_fn(low, w22, w23), reps)
+        k5_ms, valid = timed(lambda: pminikey.minikey_valid(low, w23, B, mk._B58), reps)
+        cp_ms, vidx = timed(lambda: (valid.sum(dtype=torch.int32),
+                                     compact_positions(valid, V, B))[1], reps)
+        kd_ms, k = timed(lambda: pminikey.minikey_keys(vidx, low, w22, B, mk._B58), reps)
+        k6_ms, pt = timed(lambda: pladder.scalar_mult_tiles(k, eng._gx, eng._gy), reps)
+        h_ms, _ = timed(lambda: (phash.hash160_x2_from_batch(pt[0]),
+                                 phash.hash160_u_from_batch(pt[0], pt[1])), reps)
+        rest = c_ms - k5_ms - cp_ms - kd_ms - k6_ms - h_ms
+        log(f"phase 4b: minikeys, {name} (table set-up {t_setup:.1f} s): {chunks} chunks in "
+            f"{dt:.2f} s -> {rate:.4e} minikeys/s (B={B}, V={V}); idle share "
+            f"{1 - busy / span:.4f} (busy {busy / chunks:.3f} ms per chunk, host enqueue "
+            f"{enq_ms:.3f} ms); chunk {c_ms:.3f} ms = K5 {k5_ms:.3f} "
+            f"+ compaction {cp_ms:.3f} + keys {kd_ms:.3f} + K6 {k6_ms:.3f} + K7+K8 "
+            f"{h_ms:.3f} + lookup and summary {rest:.3f}; launches {n}")
     return total
 
 
@@ -724,13 +998,16 @@ def main():
     results = {}
     phase1_kernels(dev, results, clock)
     phase1_brute(dev, results, clock)
+    phase1_minikeys(dev, results, clock)
     phase2_small(dev)
     bsgs = phase3_main(dev, args.m, args.seconds)
     brute = phase4_brute(dev, BRUTE_SECONDS, clock)
-    launches = {name: bsgs[name] + brute[name] for name in bsgs}
+    minikeys = phase4b_minikeys(dev, MK_SECONDS)
+    launches = {name: bsgs[name] + brute[name] + minikeys[name] for name in bsgs}
     if not all(launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")
-    log(f"phase 5: launches on the main paths {launches} (BSGS {bsgs}, brute {brute})")
+    log(f"phase 5: launches on the main paths {launches} (BSGS {bsgs}, brute {brute}, "
+        f"minikeys {minikeys})")
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCES[name][0],
                     replaces=KERNEL_SOURCES[name][1], launches=launches[name],

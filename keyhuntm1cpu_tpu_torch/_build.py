@@ -110,8 +110,18 @@ def kernels() -> ctypes.CDLL:
     lib = ctypes.CDLL(_build("libkh_kernels", cu, cuh, [_nvcc()], NVCC_FLAGS,
                              NVCC_ARCH + ["-shared"]))
     vp, i = ctypes.c_void_p, ctypes.c_int
-    i64 = ctypes.c_longlong
+    i64, u32 = ctypes.c_longlong, ctypes.c_uint
     sigs = {
+        # w23 mask | base_lo B runs(host) n_runs stream
+        "kh_minikey_valid": [vp, vp, u32, i64, vp, i, vp],
+        # vidx w22 k | base_lo B V runs(host) n_runs stream
+        "kh_minikey_keys": [vp, vp, vp, u32, i64, i, vp, i, vp],
+        # k gtx gty ax ay inf irr | V stream
+        "kh_scalar_mult": [vp] * 7 + [i, vp],
+        # x lo_e hi_e lo_o hi_o | n stream
+        "kh_hash160_x2": [vp] * 5 + [i, vp],
+        # x y lo hi | n stream
+        "kh_hash160_u": [vp] * 4 + [i, vp],
         # px py ax ay | bx by nx ny adeg scratch | T K stream
         "kh_advance_chain": [vp] * 10 + [i, i, vp],
         # bx by tx ty | qlo qhi deg | R U stream

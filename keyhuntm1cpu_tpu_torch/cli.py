@@ -1,5 +1,5 @@
-"""Command-line interface of the port: BSGS (host-resolve, sequential order)
-and the fused brute-force modes.
+"""Command-line interface of the port: BSGS (host-resolve, sequential order),
+the fused brute-force modes and minikeys.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
@@ -7,10 +7,16 @@ and the fused brute-force modes.
     python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint -f targets \
         -r A:B | -b BITS [-c eth] [-l compress|uncompress|both] [-e] [-I S] \
         [-R [--seed S] [-n N]] [-u U] [--chunk-steps K] [--all] ...
+    python -m keyhuntm1cpu_tpu_torch.cli -m minikeys -f addresses \
+        [-C PREFIX] [-8 ALPHABET] [-u B] [--max-chunks N] [--max-seconds S] [--all]
 
 BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
 pubkeys; brute targets are addresses or hash160 hex (address, rmd160),
-ETH addresses (-m address -c eth) or x coordinates / pubkeys (xpoint).
+ETH addresses (-m address -c eth) or x coordinates / pubkeys (xpoint);
+minikeys targets are addresses or hash160 hex (compressed or uncompressed
+keys both match). Minikeys scans a counter, not a key range: it takes no
+-r or -b; its batch is 2^22 minikeys on the card and 4096 on the CPU, or
+-u when that is larger.
 Found keys are appended to KEYFOUNDKEYFOUND.txt. Exit code: 0 found,
 1 not found, 2 usage or setup error.
 """
@@ -24,6 +30,7 @@ from .core.log import get_logger
 from .ref import ecref
 
 BRUTE_MODES = ("address", "rmd160", "xpoint")
+MODES = ("bsgs",) + BRUTE_MODES + ("minikeys",)
 
 
 def parse_range(s: str):
@@ -41,7 +48,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="secp256k1 key search on PyTorch + CUDA: BSGS "
                     "(host-resolve) and the fused brute-force modes")
     p.add_argument("-m", "--mode", required=True,
-                   help="bsgs, address, rmd160 or xpoint")
+                   help="bsgs, address, rmd160, xpoint or minikeys")
     p.add_argument("-f", "--file", required=True, help="target file")
     p.add_argument("-r", "--range", type=parse_range, default=None,
                    help="start:end hex key range")
@@ -71,7 +78,8 @@ def build_parser() -> argparse.ArgumentParser:
                    help="accepted for the reference's command lines; the fused "
                         "brute path runs one chain per chunk and ignores it")
     p.add_argument("-u", "--block-u", type=int, default=4096,
-                   help="keys (brute) or giant centers (bsgs) per device step")
+                   help="keys (brute) or giant centers (bsgs) per device step; "
+                        "minikeys: the least batch")
     p.add_argument("--chunk-steps", type=int, default=8,
                    help="device steps per chunk")
     p.add_argument("-B", "--policy", default="sequential",
@@ -89,6 +97,10 @@ def build_parser() -> argparse.ArgumentParser:
                    help="table and target caches: not in this port yet")
     p.add_argument("--sharded", nargs="?", const="range", default=None,
                    help="multi-device search: not in this port yet")
+    p.add_argument("-8", "--alphabet", default=None,
+                   help="minikeys: custom 58-character base58 alphabet")
+    p.add_argument("-C", "--minikey-prefix", default=None,
+                   help="minikeys: scan prefix, 'S' + 11 characters (default random)")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="torch device (default cuda; no GPU is an error)")
     return p
@@ -135,14 +147,28 @@ def _brute_engine(args, log):
                        params=params, device=args.device)
 
 
+def _minikey_engine(args):
+    from .engine.minikeys import MinikeyEngine, tuned_params
+    from .utils.targets import parse_target_file
+
+    default_batch = (1 << 22) if args.device == "cuda" else 4096
+    params = tuned_params(batch=max(default_batch, args.block_u), device=args.device)
+    return MinikeyEngine(parse_target_file(args.file, "address"),
+                         prefix=args.minikey_prefix, params=params,
+                         alphabet=args.alphabet, device=args.device)
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     log = get_logger()
     if args.quiet:
         log.set_level("warn")
-    if args.mode not in ("bsgs",) + BRUTE_MODES:
-        log.error(f"-m {args.mode}: this port implements -m bsgs, "
-                  f"{', '.join(BRUTE_MODES)} only")
+    if args.mode not in MODES:
+        log.error(f"-m {args.mode}: this port implements -m {', '.join(MODES)} only")
+        return 2
+    minikeys = args.mode == "minikeys"
+    if not minikeys and (args.alphabet is not None or args.minikey_prefix is not None):
+        log.error("-8 and -C only apply to -m minikeys")
         return 2
     for flag, on in (("-v", args.vanity), ("-S", args.save_table),
                      ("--sharded", args.sharded)):
@@ -155,6 +181,9 @@ def main(argv=None) -> int:
     if args.mode == "bsgs" and args.policy != "sequential":
         log.error(f"-B {args.policy}: this port implements -B sequential only")
         return 2
+    if minikeys and (args.range is not None or args.bits is not None):
+        log.error("-m minikeys scans minikey counters and takes no -r or -b")
+        return 2
     if args.bits is not None:
         if args.range is not None:
             log.error("-r and -b are mutually exclusive")
@@ -163,7 +192,7 @@ def main(argv=None) -> int:
             log.error("-b bits must be in 1..256")
             return 2
         args.range = (max(1, 1 << (args.bits - 1)), 1 << args.bits)
-    if args.range is None:
+    if args.range is None and not minikeys:
         log.error("-r start:end or -b bits is required")
         return 2
     import torch
@@ -174,14 +203,23 @@ def main(argv=None) -> int:
     from .engine.common import write_found_key
 
     try:
-        eng = _bsgs_engine(args) if args.mode == "bsgs" else _brute_engine(args, log)
+        if minikeys:
+            eng = _minikey_engine(args)
+        elif args.mode == "bsgs":
+            eng = _bsgs_engine(args)
+        else:
+            eng = _brute_engine(args, log)
     except (ValueError, OSError) as e:
         log.error(str(e))
         return 2
-    max_steps = None if args.max_chunks is None else args.max_chunks * args.chunk_steps
-    found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
-                       progress_every=0 if args.quiet else 16,
-                       max_seconds=args.max_seconds)
+    progress = 0 if args.quiet else 16
+    if minikeys:
+        found = eng.search(max_chunks=args.max_chunks or (1 << 30), stop_on_first=not args.all,
+                           progress_every=progress, max_seconds=args.max_seconds)
+    else:
+        max_steps = None if args.max_chunks is None else args.max_chunks * args.chunk_steps
+        found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
+                           progress_every=progress, max_seconds=args.max_seconds)
     log.plus(f"{eng.stats.human()} ({eng.stats.keys_covered:.3e} keys)")
     for f in found:
         write_found_key(f)

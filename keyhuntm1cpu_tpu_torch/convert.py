@@ -11,6 +11,7 @@ import torch
 
 from .engine.brute import BruteParams
 from .engine.bsgs import BSGSParams
+from .engine.minikeys import MinikeyParams
 from .filter.bitmap import DeviceBitmap, DeviceBloom2
 from .utils.targets import TargetSet
 
@@ -56,6 +57,14 @@ def brute_params_from_jax(p) -> BruteParams:
         compare_max=p.compare_max, bucket_max=p.bucket_max,
         pipeline_depth=p.pipeline_depth,
     )
+
+
+def minikey_params_from_jax(p) -> MinikeyParams:
+    """A keyhuntm1cpu_tpu MinikeyParams -> the port's. pallas (the TPU
+    kernel switch) and chain_len (the XLA ladder's inversion chain) have no
+    counterpart; neither changes what a chunk finds."""
+    return MinikeyParams(batch=p.batch, valid_max=p.valid_max, hit_max=p.hit_max,
+                         pipeline_depth=p.pipeline_depth)
 
 
 def targets_from_jax(ts) -> TargetSet:

@@ -1,0 +1,104 @@
+"""Scalar-mult ladder (K6): k*G for arbitrary 256-bit scalars.
+
+Port of keyhuntm1cpu_tpu/curve/pladder.py. Byte w of k selects the window
+table point gtable[w][byte] = (byte * 2^(8w)) * G (curve/tables.gtable_np);
+the accumulator starts at infinity, a zero byte keeps it, the first
+non-zero byte loads its point and every later one is a Jacobian + affine
+mixed add without a doubling fallback: an h == 0 lane (doubling or
+cancellation mid-ladder) sets h = 1, carries on and is flagged irregular,
+for the caller's exact host check (probability ~2^-250 per random scalar,
+but k = N is one). Then Z is normalised to affine.
+
+``scalar_mult_tiles`` runs ``scalar_mult_ref`` (the ``_ladder_blocks`` math
+on field/fe.py) for CPU tensors and the kernel of csrc/ladder.cu for CUDA
+tensors, counting launches in ``scalar_mult_tiles.launches``. The TPU's
+one-hot int8 MXU table gather and window-major slab layout have no
+counterpart: the kernel reads the table directly. Layouts: k, x, y
+limb-major (8, V) int32; tables (32, 256, 8) int32 (u32 bits).
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from .. import _build
+from ..field import fe
+from .tables import gtable_np
+
+
+def gtable_tensors(device):
+    """The window tables (curve/tables.gtable_np) as (32, 256, 8) int32 on
+    `device`."""
+    return tuple(torch.from_numpy(t.view(np.int32)).to(device) for t in gtable_np())
+
+
+def _madd_flag(X, Y, Z, qx, qy):
+    """Jacobian P + affine Q (madd-2007-bl), h == 0 lanes flagged, h := 1."""
+    z2 = fe.sqr(Z)
+    u2 = fe.mul(qx, z2)
+    s2 = fe.mul(qy, fe.mul(Z, z2))
+    h = fe.sub(u2, X)
+    r = fe.sub(s2, Y)
+    h_zero = fe.is_zero(h)
+    h = fe.select(h_zero, fe.one_like(h), h)
+    hh = fe.sqr(h)
+    v = fe.mul(X, hh)
+    hhh = fe.mul(h, hh)
+    x3 = fe.sub(fe.sub(fe.sqr(r), hhh), fe.dbl(v))
+    y3 = fe.sub(fe.mul(r, fe.sub(v, x3)), fe.mul(Y, hhh))
+    z3 = fe.mul(Z, h)
+    return x3, y3, z3, h_zero
+
+
+def scalar_mult_ref(k: torch.Tensor, gtx: torch.Tensor, gty: torch.Tensor):
+    """Plain torch version of K6 (see scalar_mult_tiles)."""
+    kk = fe.u32(k)
+    gx, gy = fe.u32(gtx), fe.u32(gty)
+    X = torch.zeros_like(kk)
+    Y = torch.zeros_like(kk)
+    Z = fe.one_like(kk)
+    one = fe.one_like(kk)
+    inf = torch.ones(kk.shape[1:], dtype=torch.bool, device=k.device)
+    irr = torch.zeros_like(inf)
+    for w in range(32):
+        byte = (kk[w // 4] >> (8 * (w % 4))) & 0xFF
+        qx, qy = gx[w][byte].t(), gy[w][byte].t()
+        q_inf = byte == 0
+        x3, y3, z3, hz = _madd_flag(X, Y, Z, qx, qy)
+        irr = irr | (hz & ~inf & ~q_inf)
+        X = fe.select(q_inf, X, fe.select(inf, qx, x3))
+        Y = fe.select(q_inf, Y, fe.select(inf, qy, y3))
+        Z = fe.select(q_inf, Z, fe.select(inf, one, z3))
+        inf = inf & q_inf
+    z_safe = fe.select(fe.is_zero(Z) | inf, one, Z)
+    zi = fe.inv(z_safe)  # per lane here; the kernel shares one per block
+    zi2 = fe.sqr(zi)
+    return (fe.i32(fe.mul(X, zi2)), fe.i32(fe.mul(Y, fe.mul(zi, zi2))), inf, irr)
+
+
+def scalar_mult_tiles(k: torch.Tensor, gtx: torch.Tensor, gty: torch.Tensor):
+    """Batched k*G. k: (8, V) int32 scalar limbs (any 256-bit value);
+    gtx/gty: (32, 256, 8) int32 window tables (gtable_tensors). Returns
+    (x, y, inf, irregular): affine (8, V) int32 limbs, (V,) bool flags.
+    inf lanes (k == 0) carry x = y = 0; irregular lanes are not trusted."""
+    V = k.shape[1] if k.dim() == 2 else 0
+    if k.dtype != torch.int32 or not k.is_contiguous() or tuple(k.shape) != (8, V) or V < 1:
+        raise ValueError(f"k: need contiguous int32 (8, V) limbs, got {k.dtype} "
+                         f"{tuple(k.shape)}")
+    for name, t in (("gtx", gtx), ("gty", gty)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != (32, 256, 8):
+            raise ValueError(f"{name}: need a contiguous int32 (32, 256, 8) table")
+    if not _build.on_cuda(k, gtx, gty):
+        return scalar_mult_ref(k, gtx, gty)
+    x = torch.empty((8, V), dtype=torch.int32, device=k.device)
+    y = torch.empty_like(x)
+    inf = torch.empty(V, dtype=torch.bool, device=k.device)
+    irr = torch.empty_like(inf)
+    _build.launch("kh_scalar_mult", k.data_ptr(), gtx.data_ptr(), gty.data_ptr(), x.data_ptr(),
+                  y.data_ptr(), inf.data_ptr(), irr.data_ptr(), V, _build.stream(k))
+    scalar_mult_tiles.launches += 1
+    return x, y, inf, irr
+
+
+scalar_mult_tiles.launches = 0

@@ -1,4 +1,4 @@
-"""Host-side exact step tables (numpy copy of keyhuntm1cpu_tpu/curve/tables.py).
+"""Host-side exact point tables (numpy copy of keyhuntm1cpu_tpu/curve/tables.py).
 
 Built once with exact python-int arithmetic (ref/ecref.py) and uploaded
 to the device as u32 limbs.
@@ -32,3 +32,22 @@ def _step_table_np(px: int, py: int, count: int) -> Tuple[np.ndarray, np.ndarray
 def step_table(point: Tuple[int, int], count: int) -> Tuple[np.ndarray, np.ndarray]:
     """(x, y) numpy (count, 8) uint32 limb tables of i*point, i = 1..count."""
     return _step_table_np(point[0], point[1], count)
+
+
+@lru_cache(maxsize=1)
+def gtable_np() -> Tuple[np.ndarray, np.ndarray]:
+    """Windowed generator table of the scalar-mult ladder (curve/pladder.py):
+    [w, b] = (b * 2^(8w)) * G for b = 1..255; the b == 0 entries are
+    zero-filled (the ladder treats a zero byte as infinity and never reads
+    them). Shape (32, 256, 8) uint32, x and y."""
+    xs = np.zeros((32, 256, LIMBS), dtype=np.uint32)
+    ys = np.zeros((32, 256, LIMBS), dtype=np.uint32)
+    base = ecref.G
+    for w in range(32):
+        cur = base
+        for b in range(1, 256):
+            xs[w, b] = int_to_limbs(cur[0])
+            ys[w, b] = int_to_limbs(cur[1])
+            cur = ecref.point_add(cur, base)
+        base = cur  # 256 * the window's base: the next window's base
+    return xs, ys

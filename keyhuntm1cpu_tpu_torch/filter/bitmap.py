@@ -7,7 +7,7 @@ Port of the host-resolve part of keyhuntm1cpu_tpu/filter/bitmap.py:
 - level 2: a k=2 hashed bloom (fmix32 mixes of the key), probed only on
   level-1 survivors;
 - compaction keeps the first `size` survivor positions in ascending order
-  (``compact_positions``: one sort of the masked iota — no host sync).
+  (``compact_positions``: a prefix sum and one searchsorted — no host sync).
 
 Keys are (qhi, qlo) int32 tensors holding u32 bits; filter words are
 int32 tensors holding u32 bits. Index math is done in int64 with masks
@@ -195,14 +195,17 @@ def probe_bloom2(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> torc
 
 def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     """Ascending positions of set entries of the (B,) mask, the first `size`
-    kept, padded with `fill` (bitmap.compact_positions_sort semantics)."""
+    kept, padded with `fill` (bitmap.compact_positions_sort semantics), by a
+    prefix sum instead of a B-wide sort: the j-th set entry is the first
+    position where the inclusive count reaches j + 1 (one searchsorted of
+    `size` queries). Exact at any density, so it also stands for the JAX
+    package's compact_positions_dense, whose kmax = 8 lanes per 128-lane row
+    drop the rest of a denser row."""
     B = mask.shape[0]
-    iota = torch.arange(B, dtype=torch.int32, device=mask.device)
-    skey = torch.sort(torch.where(mask, iota, B)).values
-    if size > B:
-        skey = torch.cat([skey, skey.new_full((size - B,), B)])
-    pos = skey[:size]
-    return torch.where(pos < B, pos, fill).to(torch.int32)
+    csum = torch.cumsum(mask, 0, dtype=torch.int32)
+    want = torch.arange(1, size + 1, dtype=torch.int32, device=mask.device)
+    pos = torch.searchsorted(csum, want, out_int32=True)
+    return torch.where(pos < B, pos, fill)
 
 
 class FilteredSurvivors(NamedTuple):

@@ -1,10 +1,16 @@
-"""SHA-256, RIPEMD-160 and Keccak-f[1600] as plain torch tile functions.
+"""SHA-256, RIPEMD-160 and Keccak-f[1600] as plain torch tile functions,
+and the standalone hash160 kernels K7 and K8.
 
 Port of the pure tile functions of keyhuntm1cpu_tpu/hash/phash.py: the
 hash160 of a compressed public key from its x limbs, the hash160 of the
 uncompressed key (two chained SHA-256 blocks) and the Keccak-256 ETH
 compare words. They are the plain versions of the device hashes in
 csrc/hash.cuh, and run inside curve/pbrute.brute_walk_blocks_ref.
+
+``hash160_x2_from_batch`` (K7) and ``hash160_u_from_batch`` (K8) hash a
+batch of points, limb-major (8, n) int32: their plain versions for CPU
+tensors, the kernels of csrc/phash.cu for CUDA tensors (launches counted
+in ``<wrapper>.launches``).
 
 Words are int64 tensors holding u32 values in [0, 2^32) (torch on the CPU
 has no u32 shifts), masked with ``& 0xFFFFFFFF`` after every add and left
@@ -20,6 +26,8 @@ from typing import List, Tuple
 
 import torch
 
+from .. import _build
+from ..field import fe
 from .consts import _H0, _IV, _K, _K1, _K2, _R1, _R2, _RC, _ROT, _S1, _S2
 
 M32 = 0xFFFFFFFF
@@ -196,3 +204,65 @@ def keccak_eth_words(xl: Words, yl: Words) -> Tuple[torch.Tensor, torch.Tensor]:
     for rc in _RC:
         state = _keccak_round_tiles(state, rc >> 32, rc & M32)
     return state[1][0][0], state[2][0][1]
+
+
+# ---------------------------------------------------------------------------
+# K7 / K8: hash160 of a batch of points (phash.hash160_x2_from_batch,
+# hash160_u_from_batch), limb-major (8, n) int32 in, (n,) int32 words out
+# ---------------------------------------------------------------------------
+
+
+def _check_points(*pts) -> int:
+    n = pts[0].shape[1] if pts[0].dim() == 2 else 0
+    for t in pts:
+        if (t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != (8, n)
+                or n < 1):
+            raise ValueError(f"need contiguous int32 (8, n) limbs with n >= 1, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    return n
+
+
+def hash160_x2_ref(x: torch.Tensor):
+    """Plain torch version of K7 (see hash160_x2_from_batch)."""
+    xl = list(fe.u32(x))
+    return tuple(tuple(fe.i32(wd) for wd in hash160_parity_words(xl, prefix))
+                 for prefix in (2, 3))
+
+
+def hash160_x2_from_batch(x: torch.Tensor):
+    """x: (8, n) int32 limbs. Returns ((lo_even, hi_even), (lo_odd, hi_odd)),
+    (n,) int32 words of hash160(02 || X) and hash160(03 || X): digest bytes
+    0..3 and 4..7 as little-endian words."""
+    n = _check_points(x)
+    if not _build.on_cuda(x):
+        return hash160_x2_ref(x)
+    out = [torch.empty(n, dtype=torch.int32, device=x.device) for _ in range(4)]
+    _build.launch("kh_hash160_x2", x.data_ptr(), *(o.data_ptr() for o in out), n,
+                  _build.stream(x))
+    hash160_x2_from_batch.launches += 1
+    return (out[0], out[1]), (out[2], out[3])
+
+
+hash160_x2_from_batch.launches = 0
+
+
+def hash160_u_ref(x: torch.Tensor, y: torch.Tensor):
+    """Plain torch version of K8 (see hash160_u_from_batch)."""
+    lo, hi = hash160_u_words(list(fe.u32(x)), list(fe.u32(y)))
+    return fe.i32(lo), fe.i32(hi)
+
+
+def hash160_u_from_batch(x: torch.Tensor, y: torch.Tensor):
+    """x, y: (8, n) int32 limbs. Returns (lo, hi), (n,) int32 words of
+    hash160(04 || X || Y)."""
+    n = _check_points(x, y)
+    if not _build.on_cuda(x, y):
+        return hash160_u_ref(x, y)
+    lo, hi = (torch.empty(n, dtype=torch.int32, device=x.device) for _ in range(2))
+    _build.launch("kh_hash160_u", x.data_ptr(), y.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                  n, _build.stream(x))
+    hash160_u_from_batch.launches += 1
+    return lo, hi
+
+
+hash160_u_from_batch.launches = 0

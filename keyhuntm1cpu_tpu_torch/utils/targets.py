@@ -2,9 +2,11 @@
 addresses and x coordinates.
 
 Port of keyhuntm1cpu_tpu/utils/targets.py without the XLA fallback's
-device tables (``build_bitmap``, ``build_table``) and without the parsed
-target cache. ``raw`` holds the exact digests the host verifies against:
-20-byte hash160 / ETH digests or 32-byte big-endian x coordinates.
+device bitmap (``build_bitmap``) and without the parsed target cache.
+``raw`` holds the exact digests the host verifies against: 20-byte
+hash160 / ETH digests or 32-byte big-endian x coordinates.
+``build_table`` packs them into the sorted 64-bit key table the minikeys
+path searches (filter/sorted_table.py).
 """
 
 from __future__ import annotations
@@ -12,6 +14,9 @@ from __future__ import annotations
 from dataclasses import dataclass, field
 from typing import List, Optional, Sequence, Tuple
 
+import numpy as np
+
+from ..filter import sorted_table as st
 from ..ref import ecref, hashref
 
 
@@ -21,6 +26,33 @@ class TargetSet:
     raw: List[bytes]  # 20-byte digests or 32-byte X (exact host compare)
     labels: List[str]  # original text form, for reports
     pubkeys: List[Tuple[int, int]] = field(default_factory=list)  # pubkey kind
+    _built: dict = field(default_factory=dict, repr=False, compare=False)
+
+    def target_words(self) -> Tuple[np.ndarray, np.ndarray]:
+        """(lo, hi) uint32 arrays of the 64-bit truncated target keys,
+        unsorted (row i = raw[i]). Packing matches the device hashes:
+        hash160 / ETH digest bytes 0..3 and 4..7 as little-endian words;
+        xpoint the low 64 bits of X."""
+        los, his = [], []
+        for b in self.raw:
+            if self.kind == "xpoint":
+                x = int.from_bytes(b, "big")
+                los.append(x & 0xFFFFFFFF)
+                his.append((x >> 32) & 0xFFFFFFFF)
+            else:
+                los.append(int.from_bytes(b[0:4], "little"))
+                his.append(int.from_bytes(b[4:8], "little"))
+        return np.asarray(los, dtype=np.uint32), np.asarray(his, dtype=np.uint32)
+
+    def build_table(self, device="cpu") -> st.SortedXTable:
+        """The sorted key table on `device` (payload: row in raw),
+        memoized per device."""
+        key = ("table", str(device))
+        if key not in self._built:
+            lo, hi = self.target_words()
+            idx = np.arange(len(self.raw), dtype=np.uint32)
+            self._built[key] = st.build_sorted_table(hi, lo, idx, device)
+        return self._built[key]
 
     def __len__(self) -> int:
         return len(self.raw)

@@ -1,6 +1,8 @@
 """Port CLI (python -m keyhuntm1cpu_tpu_torch.cli) on --device cpu: flag
-parsing through the BSGS and brute-force engines to KEYFOUNDKEYFOUND.txt,
-and the refusals. Found keys are compared exactly."""
+parsing through the BSGS, brute-force and minikeys engines to
+KEYFOUNDKEYFOUND.txt, and the refusals. Found keys are compared exactly."""
+
+import hashlib
 
 import pytest
 
@@ -44,7 +46,8 @@ def test_cli_refusals(workdir, monkeypatch):
     pt = ecref.scalar_mult(0xA1B2C3)
     f.write_text(f"{2 + (pt[1] & 1):02x}{pt[0]:064x}\n")
     base = ["-f", str(f), "-r", "a00000:b00000", "--device", "cpu", *ARGS]
-    assert cli.main(["-m", "minikeys", *base]) == 2
+    assert cli.main(["-m", "minikeys", *base]) == 2  # minikeys takes no -r
+    assert cli.main(["-m", "bsgs", "-8", "x" * 58, *base]) == 2  # -8 is for minikeys
     assert cli.main(["-m", "address", "-v", "1abc", *base]) == 2
     assert cli.main(["-m", "bsgs", "--sharded", *base]) == 2
     assert cli.main(["-m", "bsgs", "-c", "eth", *base]) == 2  # -c eth needs -m address
@@ -54,6 +57,7 @@ def test_cli_refusals(workdir, monkeypatch):
     assert cli.main(["-m", "bsgs", "-f", str(f), "-q"]) == 2  # no range
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     assert cli.main(["-m", "bsgs", "-f", str(f), "-b", "24", "-q"]) == 2  # no GPU
+    assert cli.main(["-m", "minikeys", "-f", str(f), "-q"]) == 2  # no GPU
 
 
 BRUTE_ARGS = ["-r", "1:401", "-u", "128", "--chunk-steps", "4", "--device", "cpu",
@@ -80,5 +84,23 @@ def test_cli_cpu_xpoint_endo_stride(workdir):
     f = workdir / "x.txt"
     f.write_text(f"{ecref.scalar_mult(k)[0]:064x}\n")
     args = ["-m", "xpoint", "-f", str(f), "-e", "-I", "2", *BRUTE_ARGS]
+    assert cli.main(args) == 0
+    assert f"Private key: {k:064x}" in (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
+
+
+def test_cli_cpu_minikeys_finds_key(workdir):
+    prefix = "SkeyhuntCLIx"
+    alpha = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
+    c = 0
+    while True:  # the first valid minikey of the scan: counter c < 4096
+        mk = prefix + "11111" + "".join(alpha[c // 58 ** i % 58] for i in range(4, -1, -1))
+        if hashlib.sha256((mk + "?").encode()).digest()[0] == 0:
+            break
+        c += 1
+    k = int.from_bytes(hashlib.sha256(mk.encode()).digest(), "big")
+    f = workdir / "addr.txt"
+    f.write_text(hashref.pubkey_to_address(ecref.scalar_mult(k), False) + "\n")
+    args = ["-m", "minikeys", "-f", str(f), "-C", prefix, "--max-chunks", "1",
+            "--device", "cpu", "-q"]
     assert cli.main(args) == 0
     assert f"Private key: {k:064x}" in (workdir / "KEYFOUNDKEYFOUND.txt").read_text()

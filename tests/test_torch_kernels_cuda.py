@@ -1,5 +1,7 @@
-"""CUDA kernels K1-K4 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch
-versions on the card, and the engines on CUDA vs the engines on the CPU.
+"""CUDA kernels K1-K8 and the minikey key derivation
+(keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
+at small odd sizes (partial blocks), and the engines on CUDA vs the
+engines on the CPU.
 Needs an NVIDIA GPU and nvcc; skipped without a GPU. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Integer arithmetic: the tolerance is exact equality."""
@@ -9,10 +11,11 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk, tables  # noqa: E402
-from keyhuntm1cpu_tpu_torch.engine import brute, bsgs  # noqa: E402
+from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk, tables  # noqa: E402
+from keyhuntm1cpu_tpu_torch.engine import brute, bsgs, minikeys  # noqa: E402
 from keyhuntm1cpu_tpu_torch.field import fe  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
+from keyhuntm1cpu_tpu_torch.hash import phash, pminikey  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
 
@@ -153,3 +156,68 @@ def test_brute_engine_cuda_matches_cpu(dev, mode):
     got = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device=dev).search()
     want = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device="cpu").search()
     assert sorted(f.private_key for f in got) == sorted(f.private_key for f in want) == keys
+
+
+CUSTOM = minikeys._B58[29:] + minikeys._B58[:29]
+
+
+def _minikey_bases():
+    eng = minikeys.MinikeyEngine(TargetSet(kind="hash160", raw=[b"\x01" * 20], labels=["t"]),
+                                 prefix="SkeyhuntCUDA", device="cpu")
+    return eng._base_words("SkeyhuntCUDA11112")
+
+
+@pytest.mark.parametrize("alphabet", [minikeys._B58, CUSTOM], ids=["canonical", "custom"])
+def test_minikey_valid_and_keys_kernels_match_plain(dev, alphabet):
+    B, base = 3 * 1024, 58 ** 5 - 3 * 1024  # the last block of the counter span
+    w22, w23 = _minikey_bases()
+    want = pminikey.minikey_valid_ref(base, w23, B, alphabet)
+    n0 = pminikey.minikey_valid.launches
+    got = pminikey.minikey_valid(base, w23.to(dev), B, alphabet)
+    torch.cuda.synchronize()
+    assert pminikey.minikey_valid.launches == n0 + 1
+    assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
+    vidx = torch.nonzero(want).flatten().to(torch.int32)
+    vidx = torch.cat([vidx, torch.full((37 - len(vidx) % 37,), B, dtype=torch.int32)])[:37]
+    want_k = pminikey.minikey_keys_ref(vidx, base, w22, B, alphabet)
+    got_k = pminikey.minikey_keys(vidx.to(dev), base, w22.to(dev), B, alphabet)
+    torch.cuda.synchronize()
+    assert torch.equal(got_k.cpu(), want_k)
+
+
+def test_scalar_mult_and_hash_kernels_match_plain(dev):
+    rng = np.random.default_rng(12)
+    ks = [0, 1, 2, ecref.N - 1, ecref.N, 2 ** 256 - 1,
+          0x00FF00000000FF000000000000AB0000000000CD0000000000000000000100]
+    ks += [int.from_bytes(rng.bytes(32), "big") for _ in range(37 - len(ks))]
+    k = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in ks]).T.copy().view(np.int32))
+    gtx, gty = pladder.gtable_tensors("cpu")
+    want = pladder.scalar_mult_ref(k, gtx, gty)
+    got = pladder.scalar_mult_tiles(k.to(dev), gtx.to(dev), gty.to(dev))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want[2][0]) and bool(want[3][4])  # k = 0: infinity; k = N: irregular
+    x, y = want[0], want[1]
+    for g, w in zip(phash.hash160_x2_from_batch(x.to(dev)), phash.hash160_x2_ref(x)):
+        assert torch.equal(g[0].cpu(), w[0]) and torch.equal(g[1].cpu(), w[1])
+    for g, w in zip(phash.hash160_u_from_batch(x.to(dev), y.to(dev)), phash.hash160_u_ref(x, y)):
+        assert torch.equal(g.cpu(), w)
+
+
+def test_minikey_engine_cuda_matches_cpu(dev):
+    prefix = "SkeyhuntCUDA"
+    c = 0
+    while True:
+        s = prefix + minikeys._b58_digits(0, 5) + minikeys._b58_digits(c, 5)
+        if hashref.sha256((s + "?").encode())[0] == 0:
+            break
+        c += 1
+    key = int.from_bytes(hashref.sha256(s.encode()), "big")
+    ts = TargetSet(kind="hash160", raw=[hashref.pubkey_to_hash160(ecref.scalar_mult(key), False)],
+                   labels=["planted"])
+    params = minikeys.MinikeyParams(batch=4096, valid_max=128)
+    got = minikeys.MinikeyEngine(ts, prefix=prefix, params=params, device=dev).search(max_chunks=2)
+    want = minikeys.MinikeyEngine(ts, prefix=prefix, params=params, device="cpu").search(
+        max_chunks=2)
+    assert [f.private_key for f in got] == [f.private_key for f in want] == [key]

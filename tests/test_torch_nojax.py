@@ -23,14 +23,18 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.field.fe",
     "keyhuntm1cpu_tpu_torch.hash.consts",
     "keyhuntm1cpu_tpu_torch.hash.phash",
+    "keyhuntm1cpu_tpu_torch.hash.pminikey",
     "keyhuntm1cpu_tpu_torch.curve.tables",
     "keyhuntm1cpu_tpu_torch.curve.pwalk",
     "keyhuntm1cpu_tpu_torch.curve.pbrute",
+    "keyhuntm1cpu_tpu_torch.curve.pladder",
     "keyhuntm1cpu_tpu_torch.filter.bitmap",
+    "keyhuntm1cpu_tpu_torch.filter.sorted_table",
     "keyhuntm1cpu_tpu_torch.filter.host_table",
     "keyhuntm1cpu_tpu_torch.engine.common",
     "keyhuntm1cpu_tpu_torch.engine.bsgs",
     "keyhuntm1cpu_tpu_torch.engine.brute",
+    "keyhuntm1cpu_tpu_torch.engine.minikeys",
     "keyhuntm1cpu_tpu_torch.utils.targets",
     "keyhuntm1cpu_tpu_torch.convert",
     "keyhuntm1cpu_tpu_torch.cli",

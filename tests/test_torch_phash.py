@@ -2,8 +2,11 @@
 phash.py, the plain versions of csrc/hash.cuh) against the JAX package's
 tile functions (hash/phash.py, run as plain XLA ops on the CPU, as
 tests/test_hash.py runs them), against hashlib plus the port's ref/hashref,
-and the port's hashref against the JAX package's. Points come from a numpy
-seed. Integer and byte arithmetic: the tolerance is exact equality."""
+and the port's hashref against the JAX package's; the batch hash160s
+(K7 hash160_x2_from_batch, K8 hash160_u_from_batch, their plain versions
+here) against hash160.hash160_from_x_parity / hash160_from_xy. Points come
+from a numpy seed. Integer and byte arithmetic: the tolerance is exact
+equality."""
 
 import numpy as np
 import pytest
@@ -12,8 +15,10 @@ torch = pytest.importorskip("torch")
 
 import jax.numpy as jnp  # noqa: E402
 
+from keyhuntm1cpu_tpu.hash import hash160 as jh160  # noqa: E402
 from keyhuntm1cpu_tpu.hash import phash as jphash  # noqa: E402
 from keyhuntm1cpu_tpu.ref import hashref as jhash  # noqa: E402
+from keyhuntm1cpu_tpu_torch.curve import tables  # noqa: E402
 from keyhuntm1cpu_tpu_torch.hash import phash  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 
@@ -96,3 +101,32 @@ def test_hashref_matches_jax(pts):
             assert hashref.b58check_decode(addr) == jhash.b58check_decode(addr)
     with pytest.raises(ValueError):
         hashref.b58check_decode(addr[:-1] + ("2" if addr[-1] != "2" else "3"))
+
+
+def test_batch_hash160_match_jax_and_host_reference():
+    rng = np.random.default_rng(77)
+    start = ecref.scalar_mult(int.from_bytes(rng.bytes(32), "big") % ecref.N)
+    xs, ys = tables.step_table(start, 1024)  # (1024, 8) uint32: i * start
+    x = torch.from_numpy(np.ascontiguousarray(xs.T).view(np.int32))
+    y = torch.from_numpy(np.ascontiguousarray(ys.T).view(np.int32))
+    (le, he), (lo, ho) = phash.hash160_x2_from_batch(x)
+    ul, uh = phash.hash160_u_from_batch(x, y)
+    got = {name: np.stack([a.numpy().view(np.uint32), b.numpy().view(np.uint32)])
+           for name, (a, b) in (("even", (le, he)), ("odd", (lo, ho)), ("u", (ul, uh)))}
+    jx, jy = jnp.asarray(xs), jnp.asarray(ys)
+    for name, words in (("even", jh160.hash160_from_x_parity(jx, jnp.zeros(1024, bool))),
+                        ("odd", jh160.hash160_from_x_parity(jx, jnp.ones(1024, bool))),
+                        ("u", jh160.hash160_from_xy(jx, jy))):
+        np.testing.assert_array_equal(got[name], np.stack([np.asarray(words[0]),
+                                                           np.asarray(words[1])]))
+    pt = start
+    for j in range(1024):
+        for name, msg in (("even", b"\x02" + pt[0].to_bytes(32, "big")),
+                          ("odd", b"\x03" + pt[0].to_bytes(32, "big")),
+                          ("u", ecref.serialize_pubkey(pt, False))):
+            d = hashref.hash160(msg)
+            assert got[name][:, j].tolist() == [int.from_bytes(d[0:4], "little"),
+                                               int.from_bytes(d[4:8], "little")]
+        pt = ecref.point_add(pt, start)
+    with pytest.raises(ValueError):
+        phash.hash160_u_from_batch(x, y[:, :5].contiguous())
