@@ -19,8 +19,15 @@ any failure exits non-zero before the result line:
    with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
    lanes); K5 over every lane of B = 2^23 in the canonical and a custom
    alphabet and against hashlib on a sample, the key derivation, K6 (edge
-   scalars planted, a sample against ecref), K7 and K8 at V = 34,816; each
-   kernel timed beside its plain version with CUDA events.
+   scalars planted, a sample against ecref), K7 and K8 at V = 34,816; the
+   walker path's kernels at its main-path shapes (W = 8, U = 4096,
+   chain_len = 32): walk_prefix and walk_emit with C == ADV, C == -ADV and
+   dx == 0 lanes, pinv on the step's 1,025 chain totals with zeros planted,
+   Keccak ETH, K7 and K8 on the step's 65,544 points, the probe on 131,088
+   rmd160 queries against a 2^34-bit bitmap (beside words[idx], one torch
+   index) and in bloom2 form at phase 3's sizes; each kernel's device time
+   (device_ms: CUDA events around back-to-back runs queued behind a sleep
+   kernel) beside its plain version's time.
 2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
 3. the main path at real state size (the bench.py protocol): host-resolve
    BSGS at m = 2^28 with the 2^35-bit bitmap and 2^35-bit bloom2 on the card,
@@ -29,7 +36,10 @@ any failure exits non-zero before the result line:
    bit-exact from a +-3 step window; then --seconds of throughput on the
    puzzle-64 range, in keys/s = chunks*K*U*2m/s, with the device's idle share
    over that window (CUDA events around each chunk), then the chunk time
-   split over K1, K2, cascade and host decode.
+   split over K1, K2, cascade and host decode; the cascade of one chunk's
+   T*K*U queries through the probe kernel held to the same cascade through
+   the plain torch probes, and the probe timed at that shape beside
+   words[idx] (the probe's entry in the kernels line).
 4. the brute-force path (bench_modes.py's protocol) in rmd160, xpoint,
    eth, address_u, rmd160 -e and rmd160 with T = 4096 bucketed targets:
    keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
@@ -44,9 +54,22 @@ any failure exits non-zero before the result line:
    idle share, the chunk time split over K5, compaction, key derivation,
    K6, K7 + K8 and lookup + summary, and K5 == keys == K6 == K7 == K8 ==
    chunks dispatched.
+4c. the large-target brute path (the walker path, taken past bucket_max
+   targets): keys 1..32 recovered bit-exact over [1, 4097) at W = 2,
+   U = 256, K = 4 in rmd160, xpoint, eth, address_u, rmd160_both and
+   rmd160 / xpoint -e (with lambda*k keys planted); then T = 2^22 targets
+   (an address list and an ETH list, parsed from files: 2^22 - 32 seeded
+   decoys and 32 planted keys in the first chunk of walkers 0 and 7), the
+   JAX CLI's shape W = 8, U = 4096, K = 8, over [2^40, 2^40 + 2^50): the
+   planted keys recovered in one chunk, then 5 s of throughput per mode
+   with effective keys/s, the device idle share, host enqueue per chunk,
+   the device operations of one chunk (torch.profiler), the chunk split
+   over walk_prefix, pinv, walk_emit, hash, probe and the rest, set-up
+   times, device memory and launch counts.
 5. the launch counts of the main paths (phase 3's filter build and
-   searches, phase 4's throughput windows, each counted from zero): every
-   kernel launched, and each stage launched exactly the kernels it should.
+   searches, the throughput windows of phases 4, 4b and 4c, each counted
+   from zero): every kernel launched, and each stage launched exactly the
+   kernels it should.
 
 The line before the last is {"kernels": [...]} with each kernel's bound
 (the larger of its 32-bit integer operations over the card's INT32 issue
@@ -87,6 +110,16 @@ KERNEL_SOURCES = {
                    "keyhuntm1cpu_tpu/hash/phash.py:136"),
     "hash160_u": ("keyhuntm1cpu_tpu_torch/csrc/phash.cu",
                   "keyhuntm1cpu_tpu/hash/phash.py:421"),
+    "inv_batch": ("keyhuntm1cpu_tpu_torch/csrc/pinv.cu",
+                  "keyhuntm1cpu_tpu/field/pinv.py:26"),
+    "keccak_eth": ("keyhuntm1cpu_tpu_torch/csrc/phash.cu",
+                   "keyhuntm1cpu_tpu/hash/phash.py:321"),
+    "probe": ("keyhuntm1cpu_tpu_torch/csrc/probe.cu",
+              "keyhuntm1cpu_tpu/filter/bitmap.py:280"),
+    "walk_prefix": ("keyhuntm1cpu_tpu_torch/csrc/walk.cu",
+                    "keyhuntm1cpu_tpu/curve/walk.py:144"),
+    "walk_emit": ("keyhuntm1cpu_tpu_torch/csrc/walk.cu",
+                  "keyhuntm1cpu_tpu/curve/walk.py:144"),
 }
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
@@ -94,6 +127,11 @@ MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_mode
 MK_DECOYS = 1 << 20  # a user's list of funded addresses
 MK_SECONDS = 5.0  # throughput window of each minikeys target set
 MK_CUSTOM = ("abcdefghijkmnopqrstuvwxyz123456789ABCDEFGHJKLMNPQRSTUVWXYZ")  # a -8 alphabet
+WK_W, WK_U, WK_K, WK_L = 8, 4096, 8, 32  # the JAX CLI's walker shape (cli.py:85-96)
+WK_T = 1 << 22  # targets of the large-target cells: 64x bucket_max
+WK_BITS = 34  # their bitmap: default_bits_log2(2^22), the JAX package's cap
+WK_SECONDS = 5.0  # throughput window of each phase-4c mode
+PROBE_BYTES = 32 + 8 + 1  # a random DRAM sector for the word, the key, the mask byte
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
 # 9.0) issues 64 32-bit integer add, multiply(-add), shift, compare or
@@ -109,7 +147,10 @@ SQR_OPS = 120  # a squaring: 36 wide multiply-adds, 36 carry adds, 16 to double,
 SUB_OPS = 16  # fe_sub / fe_add: 8 subtracts with borrow + the conditional p
 INV_OPS = 255 * SQR_OPS + 15 * MUL_OPS  # a^(p-2): 255 squarings + 15 multiplies
 SHA_OPS = 64 * 14 + 48 * 10  # rounds (3 funnel shifts x2, 5 LOP3/IADD3...) + schedule
-RMD_OPS = 160 * 6 + 20  # 2 lines x 80 steps (LOP3, 2 IADD3, 2 SHF, add) + output
+# 2 lines x 80 steps (LOP3, IADD3, 2 SHF, add, and a second IADD3 where the
+# message word is not a constant of the digest's padding) + output; counted
+# at 5 a step
+RMD_OPS = 160 * 5 + 20
 KECCAK_OPS = 24 * 190  # theta 90, rho 48, chi 50, iota 2 (32-bit halves)
 HASH_OPS = {"hash160": SHA_OPS + RMD_OPS + 25, "hash160_u": 2 * SHA_OPS + RMD_OPS + 40,
             "keccak": KECCAK_OPS + 16}
@@ -158,6 +199,22 @@ def k4_ops(mode, n_endo, T, TB, points):
     if mode == "xpoint":
         per += n_endo * (5 * T + 2 * TB)
     return per * points
+
+
+def walk_prefix_ops(W, U):
+    """walk_prefix: per element of the W*(U+2) batch a subtraction, its zero
+    test and one prefix product; per walker the advance lane's product."""
+    return W * (U + 2) * (SUB_OPS + 4 + MUL_OPS) + W * (MUL_OPS + SUB_OPS)
+
+
+def walk_emit_ops(W, U, need_y, n_endo):
+    """walk_emit: two peel products per element; per table lane and sign
+    lambda, lambda^2 and x3 (y3 with need_y), dy; the GLV products of every
+    lane; the advance lane's add and doubling."""
+    lane = MUL_OPS + SQR_OPS + 2 * SUB_OPS + (MUL_OPS + 2 * SUB_OPS if need_y else 0)
+    per_w = 2 * MUL_OPS + 7 * MUL_OPS + 3 * SQR_OPS + 12 * SUB_OPS
+    return (2 * W * (U + 2) * MUL_OPS + W * U * (2 * lane + 3 * SUB_OPS)
+            + (n_endo - 1) * W * (2 * U + 1) * MUL_OPS + W * per_w)
 
 
 def k1_ops(T, K):
@@ -221,6 +278,43 @@ def timed(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def device_ms(fn, reps):
+    """Mean device milliseconds of fn() over reps back-to-back runs after
+    one warm-up run: a sleep kernel holds the stream while the host
+    enqueues all reps, so the CUDA events time the card's work alone and
+    not the host's launch rate (a small kernel's wrapper takes longer to
+    call than the kernel takes to run). The sleep lasts twice the host's
+    enqueue time of the reps, at least 50 ms (cycles at 2 GHz, above the
+    card's clock, so the sleep is no shorter)."""
+    import torch
+
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda._sleep(int(2e9 * max(0.05, 2 * reps * host_s)))
+    start.record()
+    for _ in range(reps):
+        out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps, out
+
+
+def device_launches(fn):
+    """Kernels, copies and fills that fn() put on the card, counted from
+    torch.profiler's CUDA activity (0 when the profiler saw none)."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
 
 
 def ptxas_summary(log):
@@ -289,7 +383,7 @@ def phase1_kernels(dev, results, clock):
         if T == 16:
             ks[0], ks[1] = adv_k, (-3 * adv_k) % ecref.N
         px, py = cols([ecref.scalar_mult(k) for k in ks])
-        ms, got = timed(lambda: pwalk.advance_chain(px, py, ax, ay, K), 5)
+        ms, got = device_ms(lambda: pwalk.advance_chain(px, py, ax, ay, K), 5)
         if T == 1:  # the main path's shape; the plain version takes a minute
             pms, want = timed(lambda: pwalk.advance_chain_ref(px, py, ax, ay, K), 1)
             k1_ms, k1_plain, k1_err = ms, pms, max_abs_err(got, want)
@@ -331,7 +425,7 @@ def phase1_kernels(dev, results, clock):
         bx[:, col] = limbs(fe.limbs_to_int(tab_x[u])).to(dev)
         by[:, col] = limbs(y if sign > 0 else ecref.P - y).to(dev)
     pms, want = timed(lambda: pwalk.walk_blocks_ref(bx, by, tx, ty), 1)
-    ms, got = timed(lambda: pwalk.walk_blocks(bx, by, tx, ty), 5)
+    ms, got = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty), 5)
     k2_err = max_abs_err(got, want)
     if k2_err:
         fail("K2 walk_blocks differs from its plain version")
@@ -368,7 +462,7 @@ def phase1_kernels(dev, results, clock):
             if not np.array_equal(words.cpu().numpy().view(np.uint32), ref):
                 fail(f"K3 insert_keys b={bits} differs from np.bitwise_or.at")
             del ref
-        ms, _ = timed(lambda: bmp.insert_keys(w1, bits, w2, bits, qhi[:nb],
+        ms, _ = device_ms(lambda: bmp.insert_keys(w1, bits, w2, bits, qhi[:nb],
                                               qlo[:nb], keep[:nb]), 20)
         pms, _ = timed(lambda: bmp.insert_keys_ref(w1, bits, w2, bits, qhi[:nb],
                                                    qlo[:nb], keep[:nb]), 1)
@@ -453,7 +547,7 @@ def phase1_brute(dev, results, clock):
         else:
             tgt, btab, tb = as_i32(pbrute.pack_intervals(vals, vals)), empty, 0
         args = (bx, by, tx, ty, tgt, btab, mode, n_endo, tb)
-        ms, got = timed(lambda: pbrute.brute_walk_blocks(*args), 5)
+        ms, got = device_ms(lambda: pbrute.brute_walk_blocks(*args), 5)
         pms, want = timed(lambda: pbrute.brute_walk_blocks_ref(*args), 1)
         err = max_abs_err([got], [want])
         err_all = max(err_all, err)
@@ -513,7 +607,7 @@ def phase1_minikeys(dev, results, clock):
         eng = mk.MinikeyEngine(ts, prefix=MK_PREFIX, params=mk.tuned_params(batch=B),
                                alphabet=alphabet, device=dev)
         low, prefix17, w22, w23 = minikey_bases(eng, alphabet, MK_COUNTER)
-        ms, valid = timed(lambda: pminikey.minikey_valid(low, w23, B, alphabet), 10)
+        ms, valid = device_ms(lambda: pminikey.minikey_valid(low, w23, B, alphabet), 10)
         pms, want = timed(lambda: pminikey.minikey_valid_ref(low, w23, B, alphabet), 1)
         err = max_abs_err([valid], [want])
         if err:
@@ -540,7 +634,7 @@ def phase1_minikeys(dev, results, clock):
     eng, low, prefix17, w22, valid = canon
 
     vidx = compact_positions(valid, V, B)
-    ms, k = timed(lambda: pminikey.minikey_keys(vidx, low, w22, B, mk._B58), 10)
+    ms, k = device_ms(lambda: pminikey.minikey_keys(vidx, low, w22, B, mk._B58), 10)
     pms, want = timed(lambda: pminikey.minikey_keys_ref(vidx, low, w22, B, mk._B58), 1)
     err = max_abs_err([k], [want])
     if err:
@@ -562,7 +656,7 @@ def phase1_minikeys(dev, results, clock):
     for j, e in enumerate(edges):
         k[:, j] = torch.from_numpy(fe.int_to_limbs(e).view(np.int32)).to(dev)
     gx, gy = eng._gx, eng._gy
-    ms, pt = timed(lambda: pladder.scalar_mult_tiles(k, gx, gy), 10)
+    ms, pt = device_ms(lambda: pladder.scalar_mult_tiles(k, gx, gy), 10)
     pms, want = timed(lambda: pladder.scalar_mult_ref(k, gx, gy), 1)
     err = max_abs_err(pt, want)
     if err:
@@ -588,7 +682,7 @@ def phase1_minikeys(dev, results, clock):
              lambda: phash.hash160_x2_ref(px), 2 * HASH_OPS["hash160"], 48),
             ("hash160_u", lambda: phash.hash160_u_from_batch(px, py),
              lambda: phash.hash160_u_ref(px, py), HASH_OPS["hash160_u"], 72)):
-        ms, got = timed(fn, 10)
+        ms, got = device_ms(fn, 10)
         pms, want = timed(ref, 1)
         flat = lambda o: [t for pair in o for t in pair] if name == "hash160_x2" else list(o)
         err = max_abs_err(flat(got), flat(want))
@@ -598,6 +692,185 @@ def phase1_minikeys(dev, results, clock):
         results[name] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_)
         log(f"{'K7' if name == 'hash160_x2' else 'K8'} {name} V={V}: equal to plain; "
             f"{ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+    torch.cuda.synchronize()
+
+
+def phase1_walker(dev, results, clock):
+    """The walker path's kernels at its main-path shapes (W = 8, U = 4096,
+    chain_len = 32) against their plain versions: walk_prefix and walk_emit
+    with C == ADV, C == -ADV and a dx == 0 lane, pinv on the step's chain
+    totals with zeros planted, Keccak ETH, K7 and K8 on the step's points
+    (the probe's entry in the kernels line comes from phase 3), the probe on
+    the step's rmd160 queries against a 2^34-bit bitmap of 2^22 keys (and
+    words[idx] beside it), and in bloom2 form on phase 3's C1 queries
+    against a 2^35-bit bloom2."""
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pwalk, tables, walk
+    from keyhuntm1cpu_tpu_torch.curve.points import point_batch_from_ints
+    from keyhuntm1cpu_tpu_torch.field import fe, pinv
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.hash import phash
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+
+    W, U, L = WK_W, WK_U, WK_L
+    npts = 2 * U + 1
+
+    def limbs(v):
+        return torch.from_numpy(fe.int_to_limbs(v).view(np.int32).copy()).to(dev)
+
+    tab_x, tab_y = tables.step_table(ecref.G, U)
+    adv = ecref.scalar_mult(npts)
+    rng = np.random.default_rng(41)
+    # C == ADV (doubling), C == -ADV (flagged), C == 9G (dx == 0 at u = 9)
+    keys = [npts, ecref.N - npts, 9] + [int(k) for k in rng.integers(2**40, 2**50, W - 3)]
+    c = point_batch_from_ints([ecref.scalar_mult(k) for k in keys], dev)
+    args = (c.x, c.y, pwalk.table_to_limb_major(tab_x, dev),
+            pwalk.table_to_limb_major(tab_y, dev), limbs(adv[0]), limbs(adv[1]))
+    D = W * (U + 2)
+    C = walk.n_chains(W, U, L)
+
+    ms, (pre, tot) = device_ms(lambda: walk.walk_prefix(*args, L), 20)
+    pms, want = timed(lambda: walk.walk_prefix_ref(*args, L), 1)
+    err = max_abs_err([pre, tot], want)
+    if err:
+        fail(f"walk_prefix differs from its plain version (max_abs_err {err})")
+    bms, by_ = bound_ms(walk_prefix_ops(W, U), 32 * (W + U + 1) + 32 * (L * C + C), clock)
+    results["walk_prefix"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by_)
+    log(f"walk_prefix W={W} U={U} L={L} ({C} chains): equal to plain; {ms:.4f} ms "
+        f"(plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
+
+    tz = tot.clone()
+    tz[:, 0] = 0
+    tz[:, C // 2] = 0
+    ms, got = device_ms(lambda: pinv.inv_batch(tz), 20)
+    pms, want = timed(lambda: pinv.inv_batch_ref(tz), 1)
+    err = max_abs_err([got], [want])
+    g = got.cpu().numpy().view(np.uint32)
+    z = tz.cpu().numpy().view(np.uint32)
+    if err or g[:, 0].any() or g[:, C // 2].any():
+        fail(f"pinv differs from its plain version or maps 0 to non-zero (max_abs_err {err})")
+    for j in (1, C - 1):
+        if fe.limbs_to_int(g[:, j]) * fe.limbs_to_int(z[:, j]) % fe.P_INT != 1:
+            fail(f"pinv column {j} is no inverse")
+    bms, by_ = bound_ms(C * INV_OPS, 64 * C, clock)
+    results["inv_batch"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                bound_by=by_)
+    log(f"pinv inv_batch n={C} (two zeros): equal to plain, 0 -> 0, inverses checked; "
+        f"{ms:.4f} ms (plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
+
+    inv_tot = pinv.inv_batch(tot)
+    ms, out = device_ms(lambda: walk.walk_emit(*args, pre, inv_tot, L, 1, True), 20)
+    pms, want = timed(lambda: walk.walk_emit_ref(*args, pre, inv_tot, L, 1, True), 1)
+    err = max_abs_err(out, want)
+    if err:
+        fail(f"walk_emit differs from its plain version (max_abs_err {err})")
+    x_all, y_all, deg, nx, ny, adeg = out
+    if adeg.tolist() != [False, True] + [False] * (W - 2) or not bool(deg[2, 8]):
+        fail(f"walk_emit flags wrong: adv {adeg.tolist()}, deg {deg.nonzero().tolist()[:4]}")
+    xs = x_all[0].cpu().numpy().view(np.uint32)
+    for w in (0, 3, W - 1):
+        for lane, k in ((0, keys[w] + 1), (U + 7, keys[w] - 8), (npts - 1, keys[w])):
+            if fe.limbs_to_int(xs[:, w, lane]) != ecref.scalar_mult(k)[0]:
+                fail(f"walk_emit walker {w} lane {lane} differs from ecref")
+    if fe.limbs_to_int(nx[:, 0].cpu().numpy().view(np.uint32)) != ecref.scalar_mult(2 * npts)[0]:
+        fail("walk_emit's doubling lane (C == ADV) differs from ecref")
+    nbytes = 32 * (L * C + C + 2 * U + 2 * W) + 2 * 32 * W * npts + W * U + 65 * W
+    bms, by_ = bound_ms(walk_emit_ops(W, U, True, 1), nbytes, clock)
+    results["walk_emit"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                bound_by=by_)
+    log(f"walk_emit W={W} U={U} need_y: equal to plain; C == ADV doubled, C == -ADV and "
+        f"dx == 0 flagged, lanes equal to ecref; {ms:.4f} ms (plain {pms:.1f} ms, bound "
+        f"{bms:.4f} ms by {by_})")
+
+    x, y = x_all[0].reshape(8, -1), y_all.reshape(8, -1)  # the step's 65,544 points
+    n = x.shape[1]
+    ms, got = device_ms(lambda: phash.keccak_eth_from_batch(x, y), 20)
+    pms, want = timed(lambda: phash.keccak_eth_ref(x, y), 1)
+    err = max_abs_err(got, want)
+    if err:
+        fail("keccak_eth differs from its plain version")
+    lo, hi = (t.cpu().numpy().view(np.uint32) for t in got)
+    for w, lane, k in ((3, 0, keys[3] + 1), (W - 1, npts - 1, keys[W - 1])):
+        d = hashref.pubkey_to_eth_address(ecref.scalar_mult(k))
+        j = w * npts + lane
+        if [lo[j], hi[j]] != [int.from_bytes(d[0:4], "little"), int.from_bytes(d[4:8], "little")]:
+            fail(f"keccak_eth point {j} differs from hashref")
+    bms, by_ = bound_ms(n * HASH_OPS["keccak"], 72 * n, clock)
+    results["keccak_eth"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                 bound_by=by_)
+    log(f"keccak_eth n={n}: equal to plain and to hashref on a sample; {ms:.4f} ms "
+        f"(plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
+
+    # K7 and K8 on the step's points (rmd160 and address_u / rmd160_both)
+    for name, fn, ref, ops, nbytes in (
+            ("hash160_x2", lambda: phash.hash160_x2_from_batch(x),
+             lambda: phash.hash160_x2_ref(x), 2 * HASH_OPS["hash160"], 48),
+            ("hash160_u", lambda: phash.hash160_u_from_batch(x, y),
+             lambda: phash.hash160_u_ref(x, y), HASH_OPS["hash160_u"], 72)):
+        ms, got = device_ms(fn, 20)
+        pms, want = timed(ref, 1)
+        flat = lambda o: [t for pair in o for t in pair] if name == "hash160_x2" else list(o)
+        err = max_abs_err(flat(got), flat(want))
+        if err:
+            fail(f"{name} differs from its plain version at n={n} (max_abs_err {err})")
+        bms, by_ = bound_ms(n * ops, n * nbytes, clock)
+        log(f"{'K7' if name == 'hash160_x2' else 'K8'} {name} n={n} (the walker step): equal "
+            f"to plain; {ms:.4f} ms (plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
+
+    # the probe on the step's rmd160 queries against a 2^34-bit bitmap
+    (le, he), (lo_, ho_) = phash.hash160_x2_from_batch(x)
+    qhi, qlo = torch.cat([he, ho_]), torch.cat([le, lo_])
+    B = qhi.shape[0]
+    dummy = bmp.empty_filter(10, dev)
+
+    def filled(bits, keys_hi, keys_lo, level2):
+        """A 2^bits filter of the keys: the bitmap, or (level2) the bloom2."""
+        words = bmp.empty_filter(bits, dev)
+        keep = torch.ones(keys_hi.shape, dtype=torch.bool, device=dev)
+        if level2:
+            bmp.insert_keys(dummy, 10, words, bits, keys_hi, keys_lo, keep)
+        else:
+            bmp.insert_keys(words, bits, dummy, 10, keys_hi, keys_lo, keep)
+        return words
+
+    rnd = lambda k: torch.from_numpy(rng.integers(-2**31, 2**31, k).astype(np.int32)).to(dev)
+    members = 1000  # the first queries are members, the rest almost all not
+    words = filled(WK_BITS, torch.cat([qhi[:members], rnd(WK_T - members)]),
+                   torch.cat([qlo[:members], rnd(WK_T - members)]), False)
+    bm = bmp.DeviceBitmap(words, WK_BITS)
+    ms, got = device_ms(lambda: bmp.probe(bm, qhi, qlo), 50)
+    pms, want = timed(lambda: bmp.probe_ref(bm, qhi, qlo), 3)
+    err = max_abs_err([got], [want])
+    if err or not bool(got[:members].all()):
+        fail(f"probe differs from its plain version or misses a member (max_abs_err {err})")
+    word_idx = bmp.bitmap_bit_planes(fe.u32(qhi), fe.u32(qlo), WK_BITS)[0]
+    lib_ms, _ = device_ms(lambda: words[word_idx], 50)
+    bms, by_ = bound_ms(12 * B, PROBE_BYTES * B, clock)
+    log(f"probe B={B} against 2^{WK_BITS} bits ({WK_T} keys): equal to plain, members found, "
+        f"{int(got.sum())} set; {ms:.4f} ms (plain {pms:.3f} ms, words[idx] "
+        f"{lib_ms:.4f} ms, bound {bms:.4f} ms by {by_}: {PROBE_BYTES} B a query)")
+    del words, bm, word_idx
+    torch.cuda.empty_cache()
+
+    # bloom2 form at phase 3's sizes: C1 = 34,816 stage-1 survivors, 2^35 bits
+    n2 = 34816
+    q2h, q2l = rnd(n2), rnd(n2)
+    words = filled(MAIN_BITS, torch.cat([q2h[:members], rnd(WK_T - members)]),
+                   torch.cat([q2l[:members], rnd(WK_T - members)]), True)
+    b2 = bmp.DeviceBloom2(words, MAIN_BITS)
+    ms2, got = device_ms(lambda: bmp.probe_bloom2(b2, q2h, q2l), 50)
+    pms2, want = timed(lambda: bmp.probe_bloom2_ref(b2, q2h, q2l), 3)
+    err2 = max_abs_err([got], [want])
+    if err2 or not bool(got[:members].all()):
+        fail(f"probe (bloom2) differs from its plain version or misses a member")
+    bms2, by2 = bound_ms(40 * n2, (2 * 32 + 9) * n2, clock)
+    log(f"probe bloom2 n={n2} against 2^{MAIN_BITS} bits: equal to plain, members found; "
+        f"{ms2:.4f} ms (plain {pms2:.3f} ms, bound {bms2:.4f} ms by {by2})")
+    del words, b2, dummy
+    torch.cuda.empty_cache()
     torch.cuda.synchronize()
 
 
@@ -621,18 +894,32 @@ def phase2_small(dev):
 
 
 def launch_counts():
-    from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk
+    """(kernel -> its wrappers, kernel -> launches): each wrapper counts the
+    launches of its kernel; the probe kernel has two wrappers."""
+    from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk, walk
+    from keyhuntm1cpu_tpu_torch.field import pinv
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
 
-    wrappers = {"advance_chain": pwalk.advance_chain, "walk_blocks": pwalk.walk_blocks,
-                "insert_keys": bmp.insert_keys,
-                "brute_walk_blocks": pbrute.brute_walk_blocks,
-                "minikey_valid": pminikey.minikey_valid, "minikey_keys": pminikey.minikey_keys,
-                "scalar_mult": pladder.scalar_mult_tiles,
-                "hash160_x2": phash.hash160_x2_from_batch,
-                "hash160_u": phash.hash160_u_from_batch}
-    return wrappers, {name: w.launches for name, w in wrappers.items()}
+    wrappers = {"advance_chain": (pwalk.advance_chain,), "walk_blocks": (pwalk.walk_blocks,),
+                "insert_keys": (bmp.insert_keys,),
+                "brute_walk_blocks": (pbrute.brute_walk_blocks,),
+                "minikey_valid": (pminikey.minikey_valid,),
+                "minikey_keys": (pminikey.minikey_keys,),
+                "scalar_mult": (pladder.scalar_mult_tiles,),
+                "hash160_x2": (phash.hash160_x2_from_batch,),
+                "hash160_u": (phash.hash160_u_from_batch,),
+                "inv_batch": (pinv.inv_batch,), "keccak_eth": (phash.keccak_eth_from_batch,),
+                "probe": (bmp.probe, bmp.probe_bloom2),
+                "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,)}
+    return wrappers, {name: sum(w.launches for w in ws) for name, ws in wrappers.items()}
+
+
+def reset_counts():
+    """Set every kernel's launch count to 0."""
+    for ws in launch_counts()[0].values():
+        for w in ws:
+            w.launches = 0
 
 
 def zero_counts():
@@ -643,13 +930,15 @@ def delta(after, before):
     return {name: after[name] - before[name] for name in after}
 
 
-def phase3_main(dev, m, seconds):
+def phase3_main(dev, m, seconds, results, clock):
     """The main path; returns its launch counts, counted from zero."""
     import torch
 
     from keyhuntm1cpu_tpu_torch.curve import pwalk
     from keyhuntm1cpu_tpu_torch.engine.bsgs import (BUILD_BLOCKS, BSGSEngine,
                                                      BSGSParams, chunk_impl_host)
+    from keyhuntm1cpu_tpu_torch.field import fe
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.filter import host_table as ht
     from keyhuntm1cpu_tpu_torch.ref import ecref
 
@@ -665,9 +954,7 @@ def phase3_main(dev, m, seconds):
 
     # the main path's run: every launch from here to the end of the
     # throughput window is counted
-    wrappers, _ = launch_counts()
-    for w in wrappers.values():
-        w.launches = 0
+    reset_counts()
     torch.cuda.synchronize()
     t0 = time.time()
     eng = BSGSEngine([pub63], 1 << 63, 1 << 64, params, device=dev, host_table=htab)
@@ -693,9 +980,12 @@ def phase3_main(dev, m, seconds):
         fail(f"puzzle-63 recovery failed: {[hex(k) for k in found]}")
     _, n63 = launch_counts()
     d63 = delta(n63, n_build)
+    cascade = ("advance_chain", "walk_blocks", "probe")
     if (d63["advance_chain"] < 1 or d63["walk_blocks"] != d63["advance_chain"]
-            or any(v for name, v in d63.items() if name not in ("advance_chain", "walk_blocks"))):
-        fail(f"puzzle-63 search launched {d63}, expected K1 == K2 >= 1 and no K3")
+            or d63["probe"] != 2 * d63["advance_chain"]
+            or any(v for name, v in d63.items() if name not in cascade)):
+        fail(f"puzzle-63 search launched {d63}, expected K1 == K2 == probe / 2 >= 1 "
+             "and nothing else")
     log(f"phase 3: puzzle-63 key 0x{PUZZLE63_KEY:x} recovered bit-exact in "
         f"{time.time() - t0:.2f} s; launches {d63}")
 
@@ -726,7 +1016,8 @@ def phase3_main(dev, m, seconds):
     _, n_main = launch_counts()
     d64 = delta(n_main, n63)
     chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
-    if (d64 != zero_counts() | dict(advance_chain=len(marks), walk_blocks=len(marks))
+    if (d64 != zero_counts() | dict(advance_chain=len(marks), walk_blocks=len(marks),
+                                    probe=2 * len(marks))
             or chunks != len(marks)):
         fail(f"throughput search launched {d64} for {len(marks)} chunks dispatched, "
              f"{chunks} counted")
@@ -752,6 +1043,47 @@ def phase3_main(dev, m, seconds):
     k1_ms, (bx, by, _, _, _) = timed(
         lambda: pwalk.advance_chain(pxt, pyt, eng64.adv_x, eng64.adv_y, K), reps)
     k2_ms, _ = timed(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x, eng64.tab_y), reps)
+    # the cascade on this chunk's queries, once through the probe kernel and
+    # once through the plain torch probes: the level-1 bitmap probe of the
+    # T*K*U queries, compaction to C1, the bloom2 probe of the C1 stage-1
+    # survivors, compaction to C2 (bmp.filtered_survivors' stages)
+    bm, b2 = eng64.bitmap, eng64.bloom2
+    res = pwalk.chunk_multi(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
+                            K=K, U=U, T=1)
+    qhi, qlo = res.qhi.reshape(-1), res.qlo.reshape(-1)
+    B = qhi.shape[0]
+
+    def cascade(probe1, probe2):
+        mask = probe1(bm, qhi, qlo)
+        pos1 = bmp.compact_positions(mask, eng64.C1, B)
+        safe1 = pos1.clamp(max=B - 1).long()
+        qh1, ql1 = qhi[safe1], qlo[safe1]
+        mask2 = probe2(b2, qh1, ql1) & (pos1 < B)
+        return mask, qh1, ql1, mask2, bmp.compact_positions(mask2, eng64.C2, eng64.C1)
+
+    cas_ms, got = timed(lambda: cascade(bmp.probe, bmp.probe_bloom2), reps)
+    plain_ms, want = timed(lambda: cascade(bmp.probe_ref, bmp.probe_bloom2_ref), reps)
+    err = max_abs_err(got, want)
+    if err:
+        fail(f"phase 3: the cascade through the probe kernel differs from the plain "
+             f"probes' (max_abs_err {err})")
+    n1, qh1, ql1 = int(got[0].sum()), got[1], got[2]
+    pr_ms, _ = device_ms(lambda: bmp.probe(bm, qhi, qlo), reps)
+    ppr_ms, _ = timed(lambda: bmp.probe_ref(bm, qhi, qlo), reps)
+    word_idx = bmp.bitmap_bit_planes(fe.u32(qhi), fe.u32(qlo), bm.bits_log2)[0]
+    lib_ms, _ = device_ms(lambda: bm.words[word_idx], reps)
+    b2_ms, _ = device_ms(lambda: bmp.probe_bloom2(b2, qh1, ql1), reps)
+    pb2_ms, _ = timed(lambda: bmp.probe_bloom2_ref(b2, qh1, ql1), reps)
+    bms, by_ = bound_ms(12 * B, PROBE_BYTES * B, clock)
+    results["probe"] = dict(max_abs_err=err, ms=pr_ms, plain_ms=ppr_ms, bound_ms=bms,
+                            bound_by=by_, library_ms=lib_ms)
+    log(f"phase 3: probe B={B} against 2^{bm.bits_log2} bits (this chunk's queries, "
+        f"{n1} pass): {pr_ms:.4f} ms (plain {ppr_ms:.3f} ms, words[idx] {lib_ms:.4f} ms, "
+        f"bound {bms:.4f} ms by {by_}); bloom2 probe of the C1={eng64.C1} stage-1 "
+        f"survivors {b2_ms:.4f} ms (plain {pb2_ms:.3f} ms); the cascade equal to the "
+        f"plain probes' (max_abs_err 0): {cas_ms:.3f} ms, with the plain probes "
+        f"{plain_ms:.3f} ms")
+    del res, qhi, qlo, word_idx, got, want
     arr = outs[2].cpu().numpy()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -759,8 +1091,8 @@ def phase3_main(dev, m, seconds):
     dec_ms = (time.perf_counter() - t0) * 1000 / reps
     n_surv = int((arr[: eng64.C2] < K * U).sum())
     log(f"phase 3: chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} "
-        f"+ cascade {tot_ms - k1_ms - k2_ms:.3f}; host decode {dec_ms:.3f} ms "
-        f"({n_surv} survivors, C1={eng64.C1}, C2={eng64.C2})")
+        f"+ cascade and summary {tot_ms - k1_ms - k2_ms:.3f}; host decode "
+        f"{dec_ms:.3f} ms ({n_surv} survivors, C1={eng64.C1}, C2={eng64.C2})")
     log(f"phase 3: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated, {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak; "
         f"card {card_line()}")
@@ -820,9 +1152,7 @@ def phase4_brute(dev, seconds, clock):
             return out
 
         eng._chunk_fn = marked_chunk
-        wrappers, before = launch_counts()
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts()
         k0 = eng.stats.keys_covered
         torch.cuda.synchronize()
         t0 = time.time()
@@ -919,9 +1249,7 @@ def phase4b_minikeys(dev, seconds):
             return out
 
         eng._chunk_fn = marked_chunk
-        wrappers, _ = launch_counts()
-        for w in wrappers.values():
-            w.launches = 0
+        reset_counts()
         k0 = eng.stats.keys_covered
         torch.cuda.synchronize()
         t0 = time.time()
@@ -958,6 +1286,162 @@ def phase4b_minikeys(dev, seconds):
             f"{enq_ms:.3f} ms); chunk {c_ms:.3f} ms = K5 {k5_ms:.3f} "
             f"+ compaction {cp_ms:.3f} + keys {kd_ms:.3f} + K6 {k6_ms:.3f} + K7+K8 "
             f"{h_ms:.3f} + lookup and summary {rest:.3f}; launches {n}")
+    return total
+
+
+def phase4c_walker(dev, seconds):
+    """The large-target brute path; returns the throughput windows' launch
+    counts, each window counted from zero."""
+    import tempfile
+
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import walk
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams
+    from keyhuntm1cpu_tpu_torch.field import pinv
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet, parse_target_file
+
+    kind = {"xpoint": "xpoint", "eth": "eth"}
+    lam, lam2 = ecref.LAMBDA, ecref.LAMBDA * ecref.LAMBDA % ecref.N
+    for name, mode, endo in (("rmd160", "rmd160", False), ("xpoint", "xpoint", False),
+                             ("eth", "eth", False), ("address_u", "address_u", False),
+                             ("rmd160_both", "rmd160_both", False),
+                             ("rmd160 -e", "rmd160", True), ("xpoint -e", "xpoint", True)):
+        keys = list(range(1, 33)) + ([lam * 5 % ecref.N, lam2 * 600 % ecref.N] if endo else [])
+        ts = TargetSet(kind=kind.get(mode, "hash160"), labels=[str(k) for k in keys],
+                       raw=[brute_artifact(mode, ecref.scalar_mult(k)) for k in keys])
+        gate = BruteParams(walkers=2, block_u=256, steps_per_chunk=4, compare_max=0,
+                           bucket_max=0, endo=endo)
+        t0 = time.time()
+        eng = BruteEngine(ts, 1, 4097, mode=mode, params=gate, device=dev)
+        got = sorted(f.private_key for f in eng.search())
+        if not eng._walker or got != sorted(keys):
+            fail(f"walker gate {name}: found {got}, planted {sorted(keys)}")
+        log(f"phase 4c: walker gate {name}: keys 1..32{' and lambda*5, lambda^2*600' if endo else ''} "
+            f"bit-exact over [1, 4097) in {time.time() - t0:.1f} s")
+
+    W, U, K, L = WK_W, WK_U, WK_K, WK_L
+    a, b = BRUTE_RANGE
+    window = 2 * U + 1
+    slice_len = -(-(b - a) // W)  # each walker's slice, in whole windows
+    slice_len = -(-slice_len // window) * window
+    # 32 planted keys in the first chunk of walkers 0 and 7: (step, window offset)
+    spots = [(0, 0), (0, U), (0, 2 * U), (1, 1), (2, 100), (3, U - 1), (3, 5000), (4, 2),
+             (5, 8000), (5, U + 1), (6, 77), (6, 6000), (7, 3), (7, U), (7, 2 * U - 1),
+             (7, 2 * U)]
+    planted = sorted({a + w * slice_len + s % K * window + o % window
+                      for w in (0, W - 1) for s, o in spots})
+    rng = np.random.default_rng(43)
+    decoys = rng.integers(0, 256, (WK_T - len(planted), 20), dtype=np.uint8).tobytes().hex()
+    decoys = [decoys[i:i + 40] for i in range(0, len(decoys), 40)]
+    params = BruteParams(walkers=W, block_u=U, steps_per_chunk=K, chain_len=L, cand_max=256)
+    total = None
+    for mode in ("rmd160", "eth"):
+        art = [brute_artifact(mode, ecref.scalar_mult(k)).hex() for k in planted]
+        lines = ([f"0x{h}" for h in art + decoys] if mode == "eth" else art + decoys)
+        with tempfile.TemporaryDirectory() as tmp:
+            path = os.path.join(tmp, "targets.txt")
+            with open(path, "w") as f:
+                f.write("\n".join(lines) + "\n")
+            t0 = time.time()
+            ts = parse_target_file(path, "eth" if mode == "eth" else "rmd160")
+            t_parse = time.time() - t0
+        del lines
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        ts.build_table(dev)
+        torch.cuda.synchronize()
+        t_table = time.time() - t0
+        t0 = time.time()
+        ts.build_bitmap(device=dev)
+        torch.cuda.synchronize()
+        t_bitmap = time.time() - t0
+        t0 = time.time()
+        eng = BruteEngine(ts, a, b, mode=mode, params=params, device=dev)
+        t_engine = time.time() - t0
+        if not eng._walker or eng.bitmap.bits_log2 != WK_BITS or eng.slice_len != slice_len:
+            fail(f"T = {WK_T} must take the walker path with a 2^{WK_BITS}-bit bitmap")
+        t0 = time.time()
+        got = sorted(f.private_key for f in eng.search(max_steps=K))
+        if got != planted:
+            fail(f"walker {mode} T={WK_T}: found {len(got)} keys, planted {len(planted)}")
+        t_gate = time.time() - t0
+
+        marks, enqueue = [], []
+        chunk_fn = eng._chunk_fn
+
+        def marked_chunk(cx, cy):
+            t = time.perf_counter()
+            ev0 = torch.cuda.Event(enable_timing=True)
+            ev0.record()
+            out = chunk_fn(cx, cy)
+            ev1 = torch.cuda.Event(enable_timing=True)
+            ev1.record()
+            marks.append((ev0, ev1))
+            enqueue.append(time.perf_counter() - t)
+            return out
+
+        eng._chunk_fn = marked_chunk
+        reset_counts()
+        k0 = eng.stats.keys_covered
+        torch.cuda.synchronize()
+        t0 = time.time()
+        eng.search(max_seconds=seconds)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        _, n = launch_counts()
+        chunks = (eng.stats.keys_covered - k0) // (K * W * window)
+        steps = K * len(marks)
+        hashed = {"rmd160": "hash160_x2", "eth": "keccak_eth"}[mode]
+        want = zero_counts() | {k: steps for k in ("walk_prefix", "inv_batch", "walk_emit",
+                                                   "probe", hashed)}
+        if n != want or chunks != len(marks):
+            fail(f"walker {mode} launched {n} for {len(marks)} chunks dispatched, "
+                 f"{chunks} counted")
+        total = n if total is None else {k: total[k] + n[k] for k in n}
+        eff = (eng.stats.keys_covered - k0) * eng.stats.multiplier / dt
+        busy = sum(e0.elapsed_time(e1) for e0, e1 in marks)
+        span = marks[0][0].elapsed_time(marks[-1][1])
+        enq_ms = 1000 * sum(enqueue) / len(marks)
+        peak = torch.cuda.max_memory_allocated() / 2**30
+
+        # the card's own work per chunk (device_ms), each piece K times
+        reps = 10
+        ctr = eng._centers_for_bases(eng._sequential_bases(0))
+        args = (ctr.x, ctr.y, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y)
+        need_y = mode == "eth"
+        n_dev = device_launches(lambda: eng._walker_chunk(ctr.x, ctr.y))
+        # 2 chunks, within the stream's queue of pending work
+        c_ms, _ = device_ms(lambda: eng._walker_chunk(ctr.x, ctr.y), 2)
+        p_ms, (pre, tot) = device_ms(lambda: walk.walk_prefix(*args, L), reps)
+        i_ms, itot = device_ms(lambda: pinv.inv_batch(tot), reps)
+        e_ms, _ = device_ms(lambda: walk.walk_emit(*args, pre, itot, L, 1, need_y), reps)
+        res = walk.walk_fused(ctr, *args[2:], need_y=need_y, chain_len=L)
+        h_ms, (qhi, qlo) = device_ms(lambda: eng._queries(res), reps)
+        pr_ms, _ = device_ms(lambda: bmp.probe(eng.bitmap, qhi, qlo), reps)
+        rest = c_ms - K * (p_ms + i_ms + e_ms + h_ms + pr_ms)
+        log(f"phase 4c: walker {mode} T={WK_T} (bitmap 2^{WK_BITS} bits, table "
+            f"{(eng.table.key.numel() * 12) / 2**20:.0f} MiB): set-up parse {t_parse:.1f} s, "
+            f"table {t_table:.2f} s, bitmap {t_bitmap:.2f} s, engine {t_engine:.1f} s; "
+            f"32 planted keys bit-exact in one chunk ({t_gate:.2f} s)")
+        wall = 1000 * dt / len(marks)
+        log(f"phase 4c: walker {mode}: {len(marks)} chunks in {dt:.2f} s -> {eff:.4e} "
+            f"effective keys/s (x{eng.stats.multiplier}; W={W}, U={U}, K={K}, L={L}); idle "
+            f"share {1 - busy / span:.4f} between chunk events (busy {busy / len(marks):.3f} "
+            f"ms per chunk, host enqueue {enq_ms:.3f} ms per chunk); the card's work per "
+            f"chunk {c_ms:.3f} ms of {wall:.3f} ms wall (idle {1 - c_ms / wall:.4f}) in "
+            f"{n_dev or 'not measured: the profiler saw no'} device operations (kernels, "
+            f"copies, fills; torch.profiler) = K x "
+            f"(walk_prefix {p_ms:.4f} + pinv {i_ms:.4f} + walk_emit {e_ms:.4f} + hash "
+            f"{h_ms:.4f} + probe {pr_ms:.4f}) + compaction, lookup and summary "
+            f"{rest:.3f}; device memory "
+            f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {peak:.2f} GiB; "
+            f"launches {n}")
+        del eng, ts, res, pre, tot, itot, qhi, qlo
+        torch.cuda.empty_cache()
     return total
 
 
@@ -999,19 +1483,22 @@ def main():
     phase1_kernels(dev, results, clock)
     phase1_brute(dev, results, clock)
     phase1_minikeys(dev, results, clock)
+    phase1_walker(dev, results, clock)
     phase2_small(dev)
-    bsgs = phase3_main(dev, args.m, args.seconds)
+    bsgs = phase3_main(dev, args.m, args.seconds, results, clock)
     brute = phase4_brute(dev, BRUTE_SECONDS, clock)
     minikeys = phase4b_minikeys(dev, MK_SECONDS)
-    launches = {name: bsgs[name] + brute[name] + minikeys[name] for name in bsgs}
+    walker = phase4c_walker(dev, WK_SECONDS)
+    launches = {name: bsgs[name] + brute[name] + minikeys[name] + walker[name]
+                for name in bsgs}
     if not all(launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")
     log(f"phase 5: launches on the main paths {launches} (BSGS {bsgs}, brute {brute}, "
-        f"minikeys {minikeys})")
+        f"minikeys {minikeys}, walker {walker})")
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCES[name][0],
                     replaces=KERNEL_SOURCES[name][1], launches=launches[name],
-                    library_ms=None, **results[name]) for name in launches]
+                    **({"library_ms": None} | results[name])) for name in launches]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

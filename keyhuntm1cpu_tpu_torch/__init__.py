@@ -1,17 +1,21 @@
 """keyhuntm1cpu_tpu_torch — the PyTorch + CUDA port of keyhuntm1cpu_tpu.
 
 The JAX package ``keyhuntm1cpu_tpu`` is the reference; this package
-re-implements its BSGS host-resolve path for an NVIDIA Hopper GPU
+re-implements its BSGS host-resolve path, the brute-force modes (fused and
+large-target walker paths) and minikeys for an NVIDIA Hopper GPU
 (sm_90a). Module and public function names follow the JAX package so
 each counterpart is easy to find:
 
-- ``field.fe``        : plain torch mod-p limb arithmetic (CPU version of
-                        ``csrc/fe.cuh``) and numpy limb helpers.
-- ``curve.pwalk``     : advance chain + walk blocks (CUDA kernels K1/K2).
-- ``filter.bitmap``   : bitmap / bloom2 membership cascade and the fused
-                        filter-insert kernel K3.
-- ``filter.host_table``: the native-built, disk-cached exact baby table.
-- ``engine.bsgs``     : the BSGS host-resolve engine.
+- ``field.fe``, ``field.pinv``: plain torch mod-p limb arithmetic (CPU
+                        version of ``csrc/fe.cuh``), numpy limb helpers and
+                        the batched inverse kernel.
+- ``curve``           : the BSGS walk (K1/K2), the fused brute kernel (K4),
+                        the walker walk and the scalar-mult ladder (K6).
+- ``hash``            : SHA-256 / RIPEMD-160 / Keccak tile functions, the
+                        batch hash kernels and the minikey kernels.
+- ``filter``          : bitmap / bloom2 cascade, the insert (K3) and probe
+                        kernels, the sorted target table, the host table.
+- ``engine``          : the BSGS, brute-force and minikeys engines.
 - ``convert``         : carries filters and params over from the JAX package.
 - ``cli``             : ``python -m keyhuntm1cpu_tpu_torch.cli -m bsgs ...``.
 - ``ref``, ``core``   : copies of the JAX package's exact curve arithmetic,

@@ -130,6 +130,16 @@ def kernels() -> ctypes.CDLL:
         "kh_insert_keys": [vp] * 5 + [i64, i, i, vp],
         # bx by tx ty tgt btab hits | K U T TB mode n_endo stream
         "kh_brute_walk_blocks": [vp] * 7 + [i64, i, i, i, i, i, vp],
+        # a out | n stream
+        "kh_inv_batch": [vp, vp, i64, vp],
+        # x y lo hi | n stream
+        "kh_keccak_eth": [vp] * 4 + [i, vp],
+        # words qhi qlo mask | n bits bloom2 stream
+        "kh_probe": [vp] * 4 + [i64, i, i, vp],
+        # cx cy tx ty ax ay pre totals | W U L C stream
+        "kh_walk_prefix": [vp] * 8 + [i, i, i, i64, vp],
+        # cx cy tx ty ax ay pre inv_totals x y deg nx ny adeg | W U L C n_endo stream
+        "kh_walk_emit": [vp] * 14 + [i, i, i, i64, i, vp],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes

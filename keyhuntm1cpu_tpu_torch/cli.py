@@ -1,18 +1,21 @@
 """Command-line interface of the port: BSGS (host-resolve, sequential order),
-the fused brute-force modes and minikeys.
+the brute-force modes and minikeys.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
         [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
     python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint -f targets \
         -r A:B | -b BITS [-c eth] [-l compress|uncompress|both] [-e] [-I S] \
-        [-R [--seed S] [-n N]] [-u U] [--chunk-steps K] [--all] ...
+        [-R [--seed S] [-n N]] [-t W] [-u U] [--chunk-steps K] [--all] ...
     python -m keyhuntm1cpu_tpu_torch.cli -m minikeys -f addresses \
         [-C PREFIX] [-8 ALPHABET] [-u B] [--max-chunks N] [--max-seconds S] [--all]
 
 BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
 pubkeys; brute targets are addresses or hash160 hex (address, rmd160),
-ETH addresses (-m address -c eth) or x coordinates / pubkeys (xpoint);
+ETH addresses (-m address -c eth) or x coordinates / pubkeys (xpoint).
+Brute target sets of up to 65,536 entries run the fused path (one chain
+per chunk, -u a multiple of 128); larger sets run the walker path (-t
+walkers, each moving 2U+1 keys per step).
 minikeys targets are addresses or hash160 hex (compressed or uncompressed
 keys both match). Minikeys scans a counter, not a key range: it takes no
 -r or -b; its batch is 2^22 minikeys on the card and 4096 on the CPU, or
@@ -46,7 +49,7 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="keyhunt-torch",
         description="secp256k1 key search on PyTorch + CUDA: BSGS "
-                    "(host-resolve) and the fused brute-force modes")
+                    "(host-resolve), the brute-force modes and minikeys")
     p.add_argument("-m", "--mode", required=True,
                    help="bsgs, address, rmd160, xpoint or minikeys")
     p.add_argument("-f", "--file", required=True, help="target file")
@@ -74,9 +77,10 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("-R", "--random", action="store_true", dest="random_mode",
                    help="brute: random chunk order")
     p.add_argument("--seed", type=int, default=0, help="seed of -R")
-    p.add_argument("-w", "-t", "--walkers", "--threads", type=int, default=None,
-                   help="accepted for the reference's command lines; the fused "
-                        "brute path runs one chain per chunk and ignores it")
+    p.add_argument("-w", "-t", "--walkers", "--threads", type=int, default=8,
+                   help="brute: walkers of the walker path, taken by target sets "
+                        "past 65,536 entries (reference -t threads); the fused "
+                        "path runs one chain per chunk")
     p.add_argument("-u", "--block-u", type=int, default=4096,
                    help="keys (brute) or giant centers (bsgs) per device step; "
                         "minikeys: the least batch")
@@ -138,8 +142,8 @@ def _brute_engine(args, log):
         seq_per_base = args.n_value if args.n_value >= 1024 else 0x100000000
         if not args.random_mode:
             log.warn("-n only affects brute modes with -R (random)")
-    params = BruteParams(block_u=args.block_u, steps_per_chunk=args.chunk_steps,
-                         endo=args.endo, stride=args.stride,
+    params = BruteParams(walkers=args.walkers, block_u=args.block_u,
+                         steps_per_chunk=args.chunk_steps, endo=args.endo, stride=args.stride,
                          random_mode=args.random_mode, seed=args.seed,
                          seq_per_base=seq_per_base if args.random_mode else None)
     a, b = args.range

@@ -44,18 +44,17 @@ def params_from_jax(p) -> BSGSParams:
 
 
 def brute_params_from_jax(p) -> BruteParams:
-    """A keyhuntm1cpu_tpu BruteParams -> the port's (fused path). The TPU
-    knobs (pallas_sb, hash_rows) and the walker path's fields (walkers,
-    chain_len, cand_max) have no counterpart; pallas='off' has no path."""
-    if getattr(p, "pallas", "auto") == "off":
-        raise ValueError("the port implements the fused brute path only "
-                         "(pallas='off' selects the XLA fallback)")
+    """A keyhuntm1cpu_tpu BruteParams -> the port's. The TPU knobs
+    (pallas_sb, hash_rows) have no counterpart. pallas='off' (the JAX XLA
+    fallback) maps to compare_max = bucket_max = 0, which sends any
+    non-empty target set down the port's walker path."""
+    off = getattr(p, "pallas", "auto") == "off"
     return BruteParams(
-        block_u=p.block_u, steps_per_chunk=p.steps_per_chunk, endo=p.endo,
-        stride=p.stride, random_mode=p.random_mode, seed=p.seed,
-        seq_per_base=p.seq_per_base, chunk_cand=p.chunk_cand,
-        compare_max=p.compare_max, bucket_max=p.bucket_max,
-        pipeline_depth=p.pipeline_depth,
+        walkers=p.walkers, block_u=p.block_u, steps_per_chunk=p.steps_per_chunk,
+        chain_len=p.chain_len, endo=p.endo, stride=p.stride, cand_max=p.cand_max,
+        random_mode=p.random_mode, seed=p.seed, seq_per_base=p.seq_per_base,
+        chunk_cand=p.chunk_cand, compare_max=0 if off else p.compare_max,
+        bucket_max=0 if off else p.bucket_max, pipeline_depth=p.pipeline_depth,
     )
 
 

@@ -1,21 +1,39 @@
-"""Brute-force scanning engine: address / rmd160 / xpoint / eth, fused path.
+"""Brute-force scanning engine: address / rmd160 / xpoint / eth.
 
-Port of the fused-kernel path of keyhuntm1cpu_tpu/engine/brute.py
-(``_init_fast`` and ``_search_pallas``). One chunk walks K device steps of
-U consecutive stride-spaced keys from a single chain (curve/pbrute.py: K1
-advance chain, K4 walk + hash + membership, compaction) and returns one
-packed summary; the host verifies every candidate exactly.
+Port of keyhuntm1cpu_tpu/engine/brute.py without checkpoints and vanity
+intervals. The path is chosen by the target set alone, never by the
+device:
 
-Index algebra (the JAX package's): key(j) = a' + j*stride for the flat
-index j = s*U + u, u in 0..U-1; the base scalar of step s is
+- **Fused path** (``_search_fused``; the JAX package's ``_init_fast`` and
+  ``_search_pallas``), for up to bucket_max exact targets: one chunk walks
+  K device steps of U consecutive stride-spaced keys from a single chain
+  (curve/pbrute.py: K1 advance chain, K4 walk + hash + membership,
+  compaction) and returns one packed summary. Up to compare_max targets
+  are point intervals compared in the kernel; larger sets go to the
+  lane-bucketed table. U must be a multiple of 128.
+- **Walker path** (``_search_walker``; the JAX package's XLA fallback,
+  ``_brute_chunk_impl`` and its ``search``), past bucket_max targets, or
+  for any set with compare_max = bucket_max = 0 (the JAX pallas="off"): W
+  walkers each own a slice of the range; a device step moves every walker
+  by a window of 2U+1 keys around its center (curve/walk.py: one batched
+  inversion), hashes every point (hash/phash.py kernels, or the raw x in
+  xpoint mode) and probes the target bitmap, then searches the compacted
+  survivors in the sorted target table (filter/bitmap.filtered_lookup).
+  Any U works.
+
+The JAX package runs the walker path on its CPU backend whatever the set;
+the port's CPU runs either path through the kernels' plain versions. The
+host verifies every candidate exactly.
+
+Fused index algebra: key(j) = a' + j*stride for the flat index
+j = s*U + u, u in 0..U-1; the base scalar of step s is
 a' - stride + s*U*stride, and the table holds (u+1)*stride*G. a' = a,
 shifted by one stride when a - stride == 0 (mod n): that base would be the
 point at infinity, and the skipped key a is verified on the host.
 
-Membership: up to compare_max exact targets are point intervals compared
-in the kernel; larger exact sets, up to bucket_max, go to the lane-bucketed
-table (high-word compares, spurious candidates removed by host
-verification). Past bucket_max there is no path in this port yet.
+Walker index algebra: walker w starts at window index w*slice_len; at
+step s its center is key a + (base + s*(2U+1) + U)*stride and it covers
+the 2U+1 keys around it (lanes +u, -u, the center).
 
 Modes (the reference's -m and -l):
 - 'xpoint'     : the low 64 bits of X
@@ -31,13 +49,18 @@ from __future__ import annotations
 import math
 from collections import deque
 from dataclasses import dataclass
-from typing import List, Optional, Tuple
+from typing import List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..curve import pbrute, pwalk, tables
+from ..core.log import get_logger
+from ..curve import pbrute, pwalk, tables, walk
+from ..curve.points import PointBatch, point_batch_from_ints
 from ..field import fe
+from ..filter import bitmap as bmp
+from ..filter import sorted_table as st
+from ..hash import phash
 from ..ref import ecref, hashref
 from ..utils.targets import TargetSet
 from .common import Deadline, FoundKey, SearchStats, summary_to_host
@@ -48,23 +71,32 @@ _LAM_POW = (1, ecref.LAMBDA, ecref.LAMBDA * ecref.LAMBDA % ecref.N)
 
 @dataclass(frozen=True)
 class BruteParams:
-    """The fused-path subset of keyhuntm1cpu_tpu's BruteParams."""
+    """keyhuntm1cpu_tpu's BruteParams without its TPU knobs (pallas,
+    pallas_sb, hash_rows)."""
 
-    block_u: int = 256  # U: consecutive keys per device step (multiple of 128)
+    walkers: int = 4  # W walkers of the walker path (reference -t)
+    block_u: int = 256  # U: keys per device step on the fused path (a
+    # multiple of 128); the walker path's window is 2U+1 keys per walker
     steps_per_chunk: int = 8  # K: device steps per chunk
+    chain_len: int = 32  # walker path: Montgomery chain length of a step's
+    # batched inversion (pinv.inv_batch inverts ceil(W*(U+2)/chain_len) totals)
     endo: bool = False  # GLV endomorphism (reference -e): also check
-    # beta*x and beta^2*x, covering lambda*k and lambda^2*k (rmd160, xpoint)
+    # beta*x and beta^2*x, covering lambda*k and lambda^2*k (rmd160 and
+    # xpoint; the walker path, like the JAX one, runs it in every mode)
     stride: int = 1  # key-space stride (reference -I)
-    random_mode: bool = False  # reference -R: each chunk starts at a random
-    # step-aligned position instead of scanning in order
+    random_mode: bool = False  # reference -R: each chunk (each walker, on the
+    # walker path) starts at a random step-aligned position
     seed: int = 0
     seq_per_base: Optional[int] = None  # reference -n with -R: scan this many
-    # sequential keys from each random base (rounded up to whole chunks of
-    # K*U keys); None = one chunk per base
-    chunk_cand: int = 1024  # compacted candidates per chunk; overflow ->
-    # exact host rescan of the chunk
+    # sequential keys from each random base (rounded up to whole chunks);
+    # None = one chunk per base
+    cand_max: int = 256  # walker path: compacted probe survivors per step;
+    # overflow -> exact host rescan of the step
+    chunk_cand: int = 1024  # fused path: compacted candidates per chunk;
+    # overflow -> exact host rescan of the chunk
     compare_max: int = 512  # largest exact target set for interval compares
-    bucket_max: int = 1 << 16  # largest exact target set for the bucketed table
+    bucket_max: int = 1 << 16  # largest exact target set for the bucketed
+    # table; larger sets take the walker path
     pipeline_depth: int = 8  # chunks in flight ahead of host decode
 
 
@@ -89,16 +121,9 @@ class BruteEngine:
         if self.device.type not in ("cuda", "cpu"):
             raise ValueError(f"unsupported device {self.device}")
         p = params
-        if p.block_u % pbrute.LANES or p.block_u < pbrute.LANES:
-            raise ValueError(f"block_u must be a positive multiple of {pbrute.LANES}")
         if p.stride < 1:
             raise ValueError("stride must be >= 1")
         n_exact = len(targets.raw)
-        if n_exact > p.bucket_max:
-            raise ValueError(
-                f"{n_exact} targets exceed bucket_max={p.bucket_max}: larger sets need "
-                "the large-T brute fallback (ROADMAP.md section 1, item 5b), which "
-                "this port does not have yet")
         self.mode = "rmd160" if mode == "address" else mode
         self.targets = targets
         # first occurrence wins on duplicate targets
@@ -112,9 +137,22 @@ class BruteEngine:
         if p.endo and self.mode in pbrute.ENDO_MODES:
             mult *= 3
         self.stats.multiplier = mult
-
-        self._n_endo = 3 if (p.endo and self.mode in pbrute.ENDO_MODES) else 1
         self._parities = {"rmd160": 2, "rmd160_both": 3}.get(self.mode, 1)
+        self._walker = n_exact > p.bucket_max
+        if self._walker:
+            get_logger().warn(
+                f"brute fused-kernel path disabled (target set {n_exact} > "
+                f"{p.compare_max} (bucketed cap {p.bucket_max})): the walker path "
+                "runs instead")
+            self._init_walker()
+        else:
+            self._init_fused()
+
+    def _init_fused(self) -> None:
+        p, n_exact = self.p, len(self.targets.raw)
+        if p.block_u % pbrute.LANES or p.block_u < pbrute.LANES:
+            raise ValueError(f"block_u must be a positive multiple of {pbrute.LANES}")
+        self._n_endo = 3 if (p.endo and self.mode in pbrute.ENDO_MODES) else 1
         tab_x, tab_y = tables.step_table(ecref.scalar_mult(self.stride), p.block_u)
         self.tab_x = pwalk.table_to_limb_major(tab_x, self.device)
         self.tab_y = pwalk.table_to_limb_major(tab_y, self.device)
@@ -124,7 +162,7 @@ class BruteEngine:
 
         # exact targets: point intervals, or the bucketed table past compare_max
         self._bucketed = n_exact > p.compare_max
-        vals = [self._cmp64(r) for r in targets.raw]
+        vals = [self._cmp64(r) for r in self.targets.raw]
         if self._bucketed:
             # one impossible interval (lo > hi) keeps the kernel uniform
             tgt = pbrute.pack_intervals([1], [0])
@@ -147,6 +185,33 @@ class BruteEngine:
             self._fast_a = self.a + self.stride
         self._fast_total_idx = max(0, math.ceil((self.b - self._fast_a) / self.stride))
         self._fast_total_steps = math.ceil(self._fast_total_idx / p.block_u)
+        self._chunk_fn = self._fused_chunk
+
+    def _init_walker(self) -> None:
+        """The walker path's state (the JAX engine's __init__ past
+        _use_pallas, and _make_chunk_fn)."""
+        p = self.p
+        if min(p.walkers, p.block_u, p.steps_per_chunk, p.chain_len, p.cand_max) < 1:
+            raise ValueError("walkers, block_u, steps_per_chunk, chain_len and cand_max "
+                             "must be >= 1")
+        self.window = 2 * p.block_u + 1
+        total_idx = math.ceil((self.b - self.a) / self.stride)
+        slice_len = math.ceil(total_idx / p.walkers)
+        # whole windows per slice keep the walkers aligned
+        self.slice_len = math.ceil(slice_len / self.window) * self.window
+        self.steps_per_walker = self.slice_len // self.window
+        self.total_steps = self.steps_per_walker * p.walkers
+        tab_x, tab_y = tables.step_table(ecref.scalar_mult(self.stride), p.block_u)
+        self.tab_x = pwalk.table_to_limb_major(tab_x, self.device)
+        self.tab_y = pwalk.table_to_limb_major(tab_y, self.device)
+        adv = ecref.scalar_mult(self.window * self.stride)
+        self.adv_x = _limbs(adv[0], self.device)
+        self.adv_y = _limbs(adv[1], self.device)
+        self._n_endo = 3 if p.endo else 1
+        self.n_qsets = pbrute.n_qsets(self.mode, self._n_endo)
+        self.table = self.targets.build_table(self.device)
+        self.bitmap = self.targets.build_bitmap(device=self.device)
+        self._chunk_fn = self._walker_chunk
 
     def _cmp64(self, raw: bytes) -> int:
         """64-bit big-endian compare value of a target: the low 64 bits of
@@ -155,7 +220,7 @@ class BruteEngine:
             return int.from_bytes(raw, "big") & ((1 << 64) - 1)
         return int.from_bytes(raw[:8], "big")
 
-    def _chunk_fn(self, px, py):
+    def _fused_chunk(self, px, py):
         p = self.p
         return pbrute.brute_chunk(
             px, py, self.tab_x, self.tab_y, self.adv_x, self.adv_y, self._tgt,
@@ -177,7 +242,10 @@ class BruteEngine:
     def search(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                progress_every: int = 0,
                max_seconds: Optional[float] = None) -> List[FoundKey]:
-        return self._search_fused(max_steps, stop_on_first, progress_every, max_seconds)
+        """Scan up to max_steps device steps (per walker on the walker path);
+        max_seconds stops dispatch at the first chunk boundary past it."""
+        fn = self._search_walker if self._walker else self._search_fused
+        return fn(max_steps, stop_on_first, progress_every, max_seconds)
 
     def _search_fused(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                       progress_every: int = 0,
@@ -355,6 +423,200 @@ class BruteEngine:
                   else (ecref.scalar_mult(nxt) if nxt else None))
         return found
 
+    # ------------------------------------------------------------------
+    # walker path (the JAX package's XLA fallback)
+    # ------------------------------------------------------------------
+
+    def _centers_for_bases(self, bases: Sequence[int]) -> PointBatch:
+        """Walker centers for per-walker window-start indices `bases`
+        (flat index units: key = a + idx*stride)."""
+        return point_batch_from_ints(
+            [ecref.scalar_mult(self.a + (b + self.p.block_u) * self.stride) for b in bases],
+            self.device)
+
+    def _sequential_bases(self, step0: int = 0) -> List[int]:
+        return [w * self.slice_len + step0 * self.window for w in range(self.p.walkers)]
+
+    def _queries(self, res: walk.FusedWalkResult):
+        """(qhi, qlo) (nq*W*npts,) int32: the mode's compare words of every
+        point, GLV variant major, then the mode's hashes, then walker and
+        lane (the JAX chunk's concatenation order)."""
+        y = None if res.y_all is None else res.y_all.reshape(8, -1)
+        qhis, qlos = [], []
+        for xv in res.x_all.reshape(self._n_endo, 8, -1):
+            if self.mode == "xpoint":
+                hi, lo = st.trunc64_from_limbs(xv)
+                qhis.append(hi)
+                qlos.append(lo)
+                continue
+            words = []
+            if self.mode in ("rmd160", "rmd160_both"):
+                words += list(phash.hash160_x2_from_batch(xv))
+            if self.mode in ("address_u", "rmd160_both"):
+                words.append(phash.hash160_u_from_batch(xv, y))
+            elif self.mode == "eth":
+                words.append(phash.keccak_eth_from_batch(xv, y))
+            qlos += [lo for lo, _ in words]
+            qhis += [hi for _, hi in words]
+        return torch.cat(qhis), torch.cat(qlos)
+
+    def _walker_chunk(self, cx, cy):
+        """K walker steps from centers (8, W) -> (next centers x2, the
+        (K, 2C + 3W + 1) int32 summary of _brute_chunk_impl): per step the
+        C candidate positions (nq*W*npts = none), their table rows, per
+        walker the degenerate-lane count, the first degenerate lane and the
+        advance degeneracy, and the true survivor count."""
+        p = self.p
+        W, U, C = p.walkers, p.block_u, p.cand_max
+        npts = self.window
+        total = self.n_qsets * W * npts
+        outs = []
+        for _ in range(p.steps_per_chunk):
+            res = walk.walk_fused(PointBatch(cx, cy, None), self.tab_x, self.tab_y,
+                                  self.adv_x, self.adv_y, need_y=self.mode in pbrute.NEEDS_Y,
+                                  chain_len=p.chain_len, n_endo=self._n_endo)
+            qhi, qlo = self._queries(res)
+            fl = bmp.filtered_lookup(self.bitmap, self.table, qhi, qlo, C)
+            # hits on degenerate lanes (garbage x) are dropped: lanes +u and
+            # -u share the flag, the center never has one
+            degm = torch.cat([res.degenerate, res.degenerate,
+                              torch.zeros_like(res.degenerate[:, :1])], dim=1).reshape(-1)
+            live = ~degm[fl.pos.clamp(max=total - 1).long() % (W * npts)]
+            hitmask = (fl.result.found | fl.result.found2) & live
+            outs.append(torch.cat([
+                torch.where(hitmask, fl.pos, total).to(torch.int32),
+                torch.where(hitmask, fl.result.idx, 0).to(torch.int32),
+                res.degenerate.sum(dim=1, dtype=torch.int32),
+                res.degenerate.to(torch.uint8).argmax(dim=1).to(torch.int32),
+                res.adv_degenerate.to(torch.int32),
+                fl.n_candidates.reshape(1)]))
+            cx, cy = res.adv_x, res.adv_y
+        return cx, cy, torch.stack(outs)
+
+    def _search_walker(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
+                       progress_every: int = 0,
+                       max_seconds: Optional[float] = None) -> List[FoundKey]:
+        """The JAX walker search without checkpoints: one chunk of K steps
+        in flight, its summary read back and decoded before the next."""
+        p = self.p
+        dl = Deadline(max_seconds)
+        total = self.steps_per_walker if max_steps is None else min(self.steps_per_walker,
+                                                                     max_steps)
+        W, U, C, K = p.walkers, p.block_u, p.cand_max, p.steps_per_chunk
+        npts = self.window
+        found: List[FoundKey] = []
+        seen = set()
+        step = 0
+        rng = np.random.default_rng(p.seed) if p.random_mode else None
+        # chunks per random base (reference -n): each walker scans that many
+        # sequential keys from its random base before drawing again
+        cpb = 1
+        if rng is not None and p.seq_per_base:
+            cpb = max(1, math.ceil(p.seq_per_base / (K * npts)))
+        chunks_since_base = 0
+        bases = self._sequential_bases(0)
+        ctr = self._centers_for_bases(bases)
+        cx, cy = ctr.x, ctr.y
+        while step < total:
+            if dl.expired():
+                break
+            k = min(K, total - step)
+            if rng is not None:
+                # each walker re-bases to a uniform window-aligned position
+                # and scans K windows per chunk; with -n it keeps its chained
+                # walk for cpb chunks before drawing again
+                max_start = max(1, self.total_steps - K)
+                overrun = any(b // npts + K > self.total_steps for b in bases)
+                if chunks_since_base % cpb == 0 or overrun:
+                    starts = rng.integers(0, max_start, size=W)
+                    bases = [int(s0) * npts for s0 in starts]
+                    ctr = self._centers_for_bases(bases)
+                    cx, cy = ctr.x, ctr.y
+                    chunks_since_base = 0
+                chunks_since_base += 1
+            cx, cy, outs = self._chunk_fn(cx, cy)
+            host, ev = summary_to_host(outs)
+            if ev is not None:
+                ev.synchronize()
+            arr = host.numpy()  # (K, 2C + 3W + 1): one transfer
+            cand_pos = arr[:, :C]
+            cand_row = arr[:, C : 2 * C].view(np.uint32)
+            n_deg = arr[:, 2 * C : 2 * C + W]
+            first_deg = arr[:, 2 * C + W : 2 * C + 2 * W]
+            adv_deg = arr[:, 2 * C + 2 * W : 2 * C + 3 * W]
+            ncand = arr[:, 2 * C + 3 * W]
+            total_q = self.n_qsets * W * npts
+            for s in range(k):
+                if ncand[s] > C:
+                    found += self._host_rescan_step(bases, s)
+                for c in np.nonzero(cand_pos[s] < total_q)[0]:
+                    q, rem = divmod(int(cand_pos[s, c]), W * npts)
+                    w, lane = divmod(rem, npts)
+                    e = q // self._parities  # endomorphism power
+                    cand = self._key_for_lane(bases[w], s, lane)
+                    if e:
+                        cand = cand * _LAM_POW[e] % ecref.N
+                    fk = self._verify(cand, int(cand_row[s, c]))
+                    if fk and fk.private_key not in seen:
+                        seen.add(fk.private_key)
+                        found.append(fk)
+                        if stop_on_first:
+                            return found
+                for w in range(W):
+                    offs = []
+                    if n_deg[s, w] > 0:
+                        offs.append(int(first_deg[s, w]) + 1)
+                    if adv_deg[s, w]:
+                        offs.append(npts)
+                    for off in offs:
+                        # degenerate lane: x(center) == x(off*stride*G), so
+                        # the center scalar is +-off*stride mod n; also the
+                        # doubling lane 2c
+                        c0 = self._key_for_lane(bases[w], s, 2 * U)
+                        d = off * self.stride % ecref.N
+                        for cand in (d, ecref.N - d, (2 * c0) % ecref.N):
+                            fk = self._verify(cand, 0)
+                            if fk and fk.private_key not in seen:
+                                seen.add(fk.private_key)
+                                found.append(fk)
+            rebase = bool(adv_deg[:k].any())
+            self.stats.add(k * W * npts)
+            step += K
+            if rng is None or chunks_since_base % cpb != 0:
+                # the next chunk's bases (sequential scan, or a -n group
+                # continuing on the same random bases)
+                bases = [b + K * npts for b in bases]
+                if rebase and step < total:
+                    ctr = self._centers_for_bases(bases)
+                    cx, cy = ctr.x, ctr.y
+            if progress_every and (step // K) % progress_every == 0:
+                print(f"[brute] step {step}/{total} {self.stats.human()}")
+        return found
+
+    def _host_rescan_step(self, bases: Sequence[int], s: int) -> List[FoundKey]:
+        """Exact host rescan of one walker step (probe-survivor overflow):
+        every key of every walker's window is verified with python ints."""
+        found = []
+        for w in range(self.p.walkers):
+            for lane in range(self.window):
+                fk = self._verify(self._key_for_lane(bases[w], s, lane), 0)
+                if fk:
+                    found.append(fk)
+        return found
+
+    def _key_for_lane(self, base_idx: int, s: int, lane: int) -> int:
+        """Scalar of point lane `lane` of step s from window-start index
+        base_idx: lanes 0..U-1 = +u, U..2U-1 = -u, 2U = the center."""
+        u = self.p.block_u
+        center = base_idx + s * self.window + u
+        if lane < u:
+            idx = center + (lane + 1)
+        elif lane < 2 * u:
+            idx = center - (lane - u + 1)
+        else:
+            idx = center
+        return self.a + idx * self.stride
+
     def _artifacts(self, pt):
         """[(artifact bytes, compressed?)] the mode checks per point."""
         if self.mode == "xpoint":
@@ -368,8 +630,10 @@ class BruteEngine:
                     (hashref.pubkey_to_hash160(pt, compressed=False), False)]
         return [(hashref.pubkey_to_eth_address(pt), True)]  # eth
 
-    def _verify(self, k: int) -> Optional[FoundKey]:
-        """Exact host check of candidate scalar k and its negation."""
+    def _verify(self, k: int, row: int = 0) -> Optional[FoundKey]:
+        """Exact host check of candidate scalar k and its negation. row (the
+        device's table row of a walker candidate) is not needed: the
+        artifact's exact bytes find the target."""
         for cand in (k, ecref.N - (k % ecref.N)):
             if not (1 <= cand < ecref.N):
                 continue

@@ -222,6 +222,48 @@ def inv(a: torch.Tensor) -> torch.Tensor:
     return mul(sqr_n(t, 2), x1)
 
 
+def batch_inv_mod_p(a: torch.Tensor, chain_len: int = 32) -> torch.Tensor:
+    """Inverses of the (8, B) elements of a by the chunked Montgomery trick
+    of fe.batch_inv_mod_p: B is padded with ones to a multiple of
+    L = chain_len, element i sits in chain i % C at position i // C
+    (C = B / L after padding), the L positions are multiplied forward, the
+    C chain totals inverted at once (pinv.inv_batch's plain version) and
+    the inverses peeled backward. A zero spoils its whole chain, so callers
+    mask zeros to 1 first. On the card the walker walk runs the prefix and
+    the peel in csrc/walk.cu around pinv.inv_batch."""
+    chains, prefixes = chain_prefix(a, chain_len)
+    return chain_peel(chains, prefixes, inv(prefixes[:, -1]))[:, : a.shape[1]]
+
+
+def chain_prefix(a: torch.Tensor, chain_len: int) -> Tuple[torch.Tensor, torch.Tensor]:
+    """(8, B) -> (chains, prefixes), both (8, L, C): the elements padded
+    with ones, element i = l*C + c at [:, l, c], and their running products
+    along l (prefixes[:, -1] are the chain totals)."""
+    pad = (-a.shape[1]) % chain_len
+    if pad:
+        ones = a.new_zeros((LIMBS, pad))
+        ones[0] = 1
+        a = torch.cat([a, ones], dim=1)
+    chains = a.reshape(LIMBS, chain_len, -1)
+    prefixes = [chains[:, 0]]
+    for l in range(1, chain_len):
+        prefixes.append(mul(prefixes[-1], chains[:, l]))
+    return chains, torch.stack(prefixes, dim=1)
+
+
+def chain_peel(chains: torch.Tensor, prefixes: torch.Tensor,
+               inv_totals: torch.Tensor) -> torch.Tensor:
+    """Backward peel of chain_prefix: (8, L*C) inverses of the chain
+    elements from the (8, C) inverses of the chain totals."""
+    running = inv_totals
+    invs: List[torch.Tensor] = [running] * chains.shape[1]
+    for l in range(chains.shape[1] - 1, 0, -1):
+        invs[l] = mul(running, prefixes[:, l - 1])
+        running = mul(running, chains[:, l])
+    invs[0] = running
+    return torch.stack(invs, dim=1).reshape(LIMBS, -1)
+
+
 def montgomery_inv_groups(dens: torch.Tensor, n_groups: int) -> torch.Tensor:
     """Batched inverse of (8, G*S, ...) denominators by chained groups
     along dim 1: prefix products over groups, ONE inversion, backward

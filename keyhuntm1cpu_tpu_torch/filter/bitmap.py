@@ -1,13 +1,22 @@
-"""Device bitmap + level-2 bloom cascade, and the filter-insert kernel (K3).
+"""Device bitmap + level-2 bloom cascade, the filter-insert kernel (K3) and
+the probe kernel.
 
-Port of the host-resolve part of keyhuntm1cpu_tpu/filter/bitmap.py:
+Port of keyhuntm1cpu_tpu/filter/bitmap.py without the device-resolve
+two-stage lookup:
 
 - level 1: a 2^b-bit direct-address bitmap over the low bits of each
-  64-bit key (one gather per query);
+  64-bit key (one gather per query), built on the host for a brute target
+  set (``build_bitmap``) or streamed on the card for BSGS (``insert_keys``);
 - level 2: a k=2 hashed bloom (fmix32 mixes of the key), probed only on
   level-1 survivors;
 - compaction keeps the first `size` survivor positions in ascending order
-  (``compact_positions``: a prefix sum and one searchsorted — no host sync).
+  (``compact_positions``: a prefix sum and one searchsorted — no host sync);
+- ``filtered_lookup``: probe, compaction, then the exact sorted-table
+  search of the survivors (the large-target brute path).
+
+``probe`` and ``probe_bloom2`` run the probe kernel (csrc/probe.cu: the
+word gather of ``dma_gather`` fused with the bit test) for CUDA tensors
+and their plain torch versions for CPU ones.
 
 Keys are (qhi, qlo) int32 tensors holding u32 bits; filter words are
 int32 tensors holding u32 bits. Index math is done in int64 with masks
@@ -29,6 +38,7 @@ import torch
 
 from .. import _build
 from ..field.fe import M16, M32, i32, u32
+from .sorted_table import LookupResult, SortedXTable, lookup
 
 MAX_BITS_LOG2 = 35  # 2^30 words (4 GiB): the largest filter either package builds
 
@@ -57,6 +67,32 @@ def bloom2_fp(m: int, bits_log2: int) -> float:
     """False-positive rate of the k=2 bloom at 2m insertions."""
     load = 2.0 * m / float(1 << bits_log2)
     return float((1.0 - np.exp(-load)) ** 2)
+
+
+def build_bitmap(hi: np.ndarray, lo: np.ndarray, bits_log2: Optional[int] = None,
+                 device="cpu") -> DeviceBitmap:
+    """Host build of the bitmap over 64-bit keys (hi, lo) (u32 arrays), the
+    level-1 filter of a brute target set, uploaded to `device`. bits_log2
+    defaults to default_bits_log2(len(lo)). The distinct bit indices are
+    sorted and OR-reduced per word, so no word is written twice."""
+    if bits_log2 is None:
+        bits_log2 = default_bits_log2(len(lo))
+    if not 5 <= bits_log2 <= MAX_BITS_LOG2:
+        raise ValueError(f"bits_log2 out of range (5..{MAX_BITS_LOG2}): {bits_log2}")
+    idx = np.asarray(lo, dtype=np.uint64)
+    if bits_log2 > 32:
+        ext = np.asarray(hi, dtype=np.uint64) & np.uint64((1 << (bits_log2 - 32)) - 1)
+        idx = idx | (ext << np.uint64(32))
+    else:
+        idx = idx & np.uint64((1 << bits_log2) - 1)
+    words = np.zeros(1 << (bits_log2 - 5), dtype=np.uint32)
+    uniq = np.unique(idx)
+    if len(uniq):
+        word = uniq >> np.uint64(5)
+        vals = np.left_shift(np.uint32(1), (uniq & np.uint64(31)).astype(np.uint32))
+        starts = np.flatnonzero(np.concatenate([[True], word[1:] != word[:-1]]))
+        words[word[starts].astype(np.int64)] = np.bitwise_or.reduceat(vals, starts)
+    return DeviceBitmap(torch.from_numpy(words.view(np.int32)).to(device), bits_log2)
 
 
 def empty_filter(bits_log2: int, device) -> torch.Tensor:
@@ -182,15 +218,51 @@ def _test_bits(words: torch.Tensor, word: torch.Tensor, bitval: torch.Tensor):
     return (u32(words[word]) & bitval) != 0
 
 
-def probe(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
-    """(B,) bool possibly-present mask — one gather per query (elem mode)."""
+def probe_ref(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the bitmap probe (see probe)."""
     return _test_bits(bm.words, *bitmap_bit_planes(u32(qhi), u32(qlo), bm.bits_log2))
 
 
-def probe_bloom2(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
-    """(B,) bool mask — 2 gathers per query; no false negatives."""
+def probe_bloom2_ref(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """Plain torch version of the bloom2 probe (see probe_bloom2)."""
     hit = _test_bits(b2.words, *bloom2_bit_planes(u32(qhi), u32(qlo), b2.bits_log2))
     return hit[: qhi.shape[0]] & hit[qhi.shape[0]:]
+
+
+def _probe(filt, qhi: torch.Tensor, qlo: torch.Tensor, bloom2: bool, ref) -> torch.Tensor:
+    n = qhi.shape[0] if qhi.dim() == 1 else -1
+    for name, t in (("qhi", qhi), ("qlo", qlo)):
+        if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != (n,):
+            raise ValueError(f"{name}: need contiguous int32 ({n},) keys, got "
+                             f"{t.dtype} {tuple(t.shape)}")
+    w, bits = filt.words, filt.bits_log2
+    if not 5 <= bits <= MAX_BITS_LOG2:
+        raise ValueError(f"bits_log2 out of range (5..{MAX_BITS_LOG2}): {bits}")
+    if w.dtype != torch.int32 or not w.is_contiguous() or tuple(w.shape) != (1 << (bits - 5),):
+        raise ValueError(f"filter words: need contiguous int32 ({1 << (bits - 5)},)")
+    if not _build.on_cuda(w, qhi, qlo):
+        return ref(filt, qhi, qlo)
+    mask = torch.empty((n,), dtype=torch.bool, device=qhi.device)
+    if n:
+        _build.launch("kh_probe", w.data_ptr(), qhi.data_ptr(), qlo.data_ptr(),
+                      mask.data_ptr(), n, bits, int(bloom2), _build.stream(qhi))
+        (probe_bloom2 if bloom2 else probe).launches += 1
+    return mask
+
+
+def probe(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """(B,) bool possibly-present mask — one word read per query. qhi/qlo:
+    (B,) int32 key words."""
+    return _probe(bm, qhi, qlo, False, probe_ref)
+
+
+def probe_bloom2(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """(B,) bool mask — 2 word reads per query; no false negatives."""
+    return _probe(b2, qhi, qlo, True, probe_bloom2_ref)
+
+
+probe.launches = 0
+probe_bloom2.launches = 0
 
 
 def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -206,6 +278,29 @@ def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     want = torch.arange(1, size + 1, dtype=torch.int32, device=mask.device)
     pos = torch.searchsorted(csum, want, out_int32=True)
     return torch.where(pos < B, pos, fill)
+
+
+class FilteredLookup(NamedTuple):
+    pos: torch.Tensor  # (C,) int32 flat query positions of survivors (B = none)
+    result: LookupResult  # exact lookup over the C compacted survivors
+    n_candidates: torch.Tensor  # () int32: the true survivor count (overflow check)
+
+
+def filtered_lookup(bm: DeviceBitmap, table: SortedXTable, qhi: torch.Tensor,
+                    qlo: torch.Tensor, cand_max: int) -> FilteredLookup:
+    """Bitmap probe -> compact survivors -> exact search of the cand_max
+    compacted keys (bitmap.filtered_lookup without its bm2 stage).
+    Survivors past cand_max are dropped: callers check n_candidates >
+    cand_max and rescan exactly. No host sync."""
+    b = qhi.shape[0]
+    mask = probe(bm, qhi, qlo)
+    n = mask.sum(dtype=torch.int32)
+    pos = compact_positions(mask, cand_max, b)
+    safe = pos.clamp(max=b - 1).long()
+    lr = lookup(table, qhi[safe], qlo[safe])
+    valid = pos < b
+    return FilteredLookup(pos, LookupResult(lr.found & valid, lr.idx,
+                                            lr.found2 & valid, lr.idx2), n)
 
 
 class FilteredSurvivors(NamedTuple):

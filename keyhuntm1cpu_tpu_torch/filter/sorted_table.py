@@ -1,7 +1,8 @@
 """Sorted 64-bit-truncated key table with a batched lower-bound search.
 
 Port of the part of keyhuntm1cpu_tpu/filter/sorted_table.py the minikeys
-path needs (``SortedXTable``, ``build_sorted_table``, ``lookup``). Keys are
+and brute paths need (``SortedXTable``, ``build_sorted_table``, ``lookup``,
+``trunc64_from_limbs``). Keys are
 64-bit truncations (hi, lo) of a hash160 or an x coordinate with a payload
 index. The JAX package keeps two u32 planes and runs a lock-step binary
 search; here the packed key (hi << 32 | lo) is stored with bit 63 flipped,
@@ -70,3 +71,9 @@ def lookup(table: SortedXTable, qhi: torch.Tensor, qlo: torch.Tensor) -> LookupR
     found = (lb < m) & (table.key[pos] == q)
     found2 = (lb + 1 < m) & (table.key[pos2] == q)
     return LookupResult(found, table.idx[pos], found2, table.idx[pos2])
+
+
+def trunc64_from_limbs(x: torch.Tensor):
+    """(hi, lo) 64-bit truncation of (8, ...) limb-major field elements:
+    the low 64 bits, limbs 1 and 0 (the xpoint compare key)."""
+    return x[1], x[0]

@@ -1,5 +1,5 @@
 """SHA-256, RIPEMD-160 and Keccak-f[1600] as plain torch tile functions,
-and the standalone hash160 kernels K7 and K8.
+and the standalone hash kernels K7, K8 and the Keccak ETH kernel.
 
 Port of the pure tile functions of keyhuntm1cpu_tpu/hash/phash.py: the
 hash160 of a compressed public key from its x limbs, the hash160 of the
@@ -7,10 +7,10 @@ uncompressed key (two chained SHA-256 blocks) and the Keccak-256 ETH
 compare words. They are the plain versions of the device hashes in
 csrc/hash.cuh, and run inside curve/pbrute.brute_walk_blocks_ref.
 
-``hash160_x2_from_batch`` (K7) and ``hash160_u_from_batch`` (K8) hash a
-batch of points, limb-major (8, n) int32: their plain versions for CPU
-tensors, the kernels of csrc/phash.cu for CUDA tensors (launches counted
-in ``<wrapper>.launches``).
+``hash160_x2_from_batch`` (K7), ``hash160_u_from_batch`` (K8) and
+``keccak_eth_from_batch`` hash a batch of points, limb-major (8, n) int32:
+their plain versions for CPU tensors, the kernels of csrc/phash.cu for
+CUDA tensors (launches counted in ``<wrapper>.launches``).
 
 Words are int64 tensors holding u32 values in [0, 2^32) (torch on the CPU
 has no u32 shifts), masked with ``& 0xFFFFFFFF`` after every add and left
@@ -266,3 +266,30 @@ def hash160_u_from_batch(x: torch.Tensor, y: torch.Tensor):
 
 
 hash160_u_from_batch.launches = 0
+
+
+# ---------------------------------------------------------------------------
+# Keccak-256 ETH words of a batch of points (phash.keccak_eth_from_batch)
+# ---------------------------------------------------------------------------
+
+
+def keccak_eth_ref(x: torch.Tensor, y: torch.Tensor):
+    """Plain torch version of the kernel (see keccak_eth_from_batch)."""
+    lo, hi = keccak_eth_words(list(fe.u32(x)), list(fe.u32(y)))
+    return fe.i32(lo), fe.i32(hi)
+
+
+def keccak_eth_from_batch(x: torch.Tensor, y: torch.Tensor):
+    """x, y: (8, n) int32 limbs. Returns (lo, hi), (n,) int32: bytes 12..15
+    and 16..19 of keccak256(X || Y) as little-endian words."""
+    n = _check_points(x, y)
+    if not _build.on_cuda(x, y):
+        return keccak_eth_ref(x, y)
+    lo, hi = (torch.empty(n, dtype=torch.int32, device=x.device) for _ in range(2))
+    _build.launch("kh_keccak_eth", x.data_ptr(), y.data_ptr(), lo.data_ptr(), hi.data_ptr(),
+                  n, _build.stream(x))
+    keccak_eth_from_batch.launches += 1
+    return lo, hi
+
+
+keccak_eth_from_batch.launches = 0

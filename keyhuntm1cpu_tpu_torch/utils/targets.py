@@ -1,12 +1,13 @@
 """Target sets of the brute-force modes: addresses, hash160s, ETH
 addresses and x coordinates.
 
-Port of keyhuntm1cpu_tpu/utils/targets.py without the XLA fallback's
-device bitmap (``build_bitmap``) and without the parsed target cache.
-``raw`` holds the exact digests the host verifies against: 20-byte
+Port of keyhuntm1cpu_tpu/utils/targets.py without the parsed target
+cache. ``raw`` holds the exact digests the host verifies against: 20-byte
 hash160 / ETH digests or 32-byte big-endian x coordinates.
 ``build_table`` packs them into the sorted 64-bit key table the minikeys
-path searches (filter/sorted_table.py).
+and large-target brute paths search (filter/sorted_table.py);
+``build_bitmap`` into the level-1 bitmap the brute path probes first
+(filter/bitmap.py).
 """
 
 from __future__ import annotations
@@ -33,16 +34,14 @@ class TargetSet:
         unsorted (row i = raw[i]). Packing matches the device hashes:
         hash160 / ETH digest bytes 0..3 and 4..7 as little-endian words;
         xpoint the low 64 bits of X."""
-        los, his = [], []
-        for b in self.raw:
-            if self.kind == "xpoint":
-                x = int.from_bytes(b, "big")
-                los.append(x & 0xFFFFFFFF)
-                his.append((x >> 32) & 0xFFFFFFFF)
-            else:
-                los.append(int.from_bytes(b[0:4], "little"))
-                his.append(int.from_bytes(b[4:8], "little"))
-        return np.asarray(los, dtype=np.uint32), np.asarray(his, dtype=np.uint32)
+        if not self.raw:
+            return np.zeros(0, np.uint32), np.zeros(0, np.uint32)
+        rows = np.frombuffer(b"".join(self.raw), dtype=np.uint8).reshape(len(self.raw), -1)
+        if self.kind == "xpoint":  # the last 8 big-endian bytes
+            return (rows[:, -4:].copy().view(">u4")[:, 0].astype(np.uint32),
+                    rows[:, -8:-4].copy().view(">u4")[:, 0].astype(np.uint32))
+        return (rows[:, 0:4].copy().view("<u4")[:, 0].astype(np.uint32),
+                rows[:, 4:8].copy().view("<u4")[:, 0].astype(np.uint32))
 
     def build_table(self, device="cpu") -> st.SortedXTable:
         """The sorted key table on `device` (payload: row in raw),
@@ -52,6 +51,18 @@ class TargetSet:
             lo, hi = self.target_words()
             idx = np.arange(len(self.raw), dtype=np.uint32)
             self._built[key] = st.build_sorted_table(hi, lo, idx, device)
+        return self._built[key]
+
+    def build_bitmap(self, bits_log2: Optional[int] = None, device="cpu"):
+        """The level-1 bitmap over the target keys on `device`
+        (bitmap.build_bitmap; default size default_bits_log2(len)),
+        memoized per size and device."""
+        key = ("bitmap", bits_log2, str(device))
+        if key not in self._built:
+            from ..filter import bitmap as bmp
+
+            lo, hi = self.target_words()
+            self._built[key] = bmp.build_bitmap(hi, lo, bits_log2, device)
         return self._built[key]
 
     def __len__(self) -> int:

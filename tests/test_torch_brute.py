@@ -1,8 +1,9 @@
 """The port's BruteEngine (keyhuntm1cpu_tpu_torch/engine/brute.py) on the
 CPU, through the plain versions of its kernels: keys 1..32 recovered in
 every mode, the -e lambda*k keys, a stride scan, random order with
-seq_per_base, the engine's refusals, and its found set against the JAX
-package's BruteEngine (its CPU XLA path) over the same range. Found keys
+seq_per_base, the engine's refusals and path choice, and its found set
+against the JAX package's BruteEngine (its CPU XLA path) over the same
+range. Found keys
 are compared exactly."""
 
 import math
@@ -96,16 +97,18 @@ def test_random_mode_seq_per_base_follows_its_schedule():
 
 def test_refusals():
     ts = _targets("rmd160", [5])
-    with pytest.raises(ValueError, match="large-T"):
-        BruteEngine(ts, 1, 1025, mode="rmd160", device="cpu",
-                    params=BruteParams(block_u=256, compare_max=0, bucket_max=0))
-    with pytest.raises(ValueError):
+    # past bucket_max the walker path runs (here for one target), any U
+    walker = BruteEngine(ts, 1, 1025, mode="rmd160", device="cpu",
+                         params=BruteParams(block_u=200, compare_max=0, bucket_max=0))
+    assert walker._walker and walker.window == 401
+    with pytest.raises(ValueError):  # the fused path needs U % 128 == 0
         BruteEngine(ts, 1, 1025, mode="rmd160", device="cpu",
                     params=BruteParams(block_u=200))
     with pytest.raises(ValueError):
         BruteEngine(ts, 1, 1025, mode="minikeys", device="cpu")
-    with pytest.raises(ValueError):
-        convert.brute_params_from_jax(jbrute.BruteParams(pallas="off"))
+    off = convert.brute_params_from_jax(jbrute.BruteParams(pallas="off"))
+    assert off.compare_max == off.bucket_max == 0
+    assert BruteEngine(ts, 1, 1025, mode="rmd160", params=off, device="cpu")._walker
 
 
 @pytest.mark.parametrize("mode", ["rmd160", "eth"])

@@ -1,7 +1,8 @@
-"""CUDA kernels K1-K8 and the minikey key derivation
+"""CUDA kernels K1-K8, the minikey key derivation, pinv, the Keccak ETH
+hash, the probe and the two walker walk kernels
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
-at small odd sizes (partial blocks), and the engines on CUDA vs the
-engines on the CPU.
+at small odd sizes (partial blocks), and the engines (the brute walker
+path included) on CUDA vs the engines on the CPU.
 Needs an NVIDIA GPU and nvcc; skipped without a GPU. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Integer arithmetic: the tolerance is exact equality."""
@@ -11,9 +12,10 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk, tables  # noqa: E402
+from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk, tables, walk  # noqa: E402
+from keyhuntm1cpu_tpu_torch.curve.points import point_batch_from_ints  # noqa: E402
 from keyhuntm1cpu_tpu_torch.engine import brute, bsgs, minikeys  # noqa: E402
-from keyhuntm1cpu_tpu_torch.field import fe  # noqa: E402
+from keyhuntm1cpu_tpu_torch.field import fe, pinv  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
 from keyhuntm1cpu_tpu_torch.hash import phash, pminikey  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
@@ -221,3 +223,108 @@ def test_minikey_engine_cuda_matches_cpu(dev):
     want = minikeys.MinikeyEngine(ts, prefix=prefix, params=params, device="cpu").search(
         max_chunks=2)
     assert [f.private_key for f in got] == [f.private_key for f in want] == [key]
+
+
+def test_inv_batch_kernel_matches_plain(dev):
+    rng = np.random.default_rng(21)
+    vals = [int.from_bytes(rng.bytes(32), "big") % fe.P_INT for _ in range(1025)]
+    vals[0] = vals[500] = vals[1024] = 0  # 0 -> 0
+    vals[3] = 1
+    a = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in vals]).T.copy().view(np.int32))
+    n0 = pinv.inv_batch.launches
+    got = pinv.inv_batch(a.to(dev))
+    torch.cuda.synchronize()
+    assert pinv.inv_batch.launches == n0 + 1
+    assert torch.equal(got.cpu(), pinv.inv_batch_ref(a))
+    assert fe.limbs_to_int(got[:, 7].cpu().numpy().view(np.uint32)) == pow(vals[7], fe.P_INT - 2,
+                                                                         fe.P_INT)
+
+
+def test_keccak_eth_kernel_matches_plain(dev):
+    xs, ys = tables.step_table(ecref.scalar_mult(0xE7E7), 1000)
+    x = torch.from_numpy(np.ascontiguousarray(xs.T).view(np.int32))
+    y = torch.from_numpy(np.ascontiguousarray(ys.T).view(np.int32))
+    n0 = phash.keccak_eth_from_batch.launches
+    got = phash.keccak_eth_from_batch(x.to(dev), y.to(dev))
+    torch.cuda.synchronize()
+    assert phash.keccak_eth_from_batch.launches == n0 + 1
+    for g, w in zip(got, phash.keccak_eth_ref(x, y)):
+        assert torch.equal(g.cpu(), w)
+    d = hashref.pubkey_to_eth_address(ecref.scalar_mult(0xE7E7))
+    assert int(got[0][0]) & 0xFFFFFFFF == int.from_bytes(d[0:4], "little")
+
+
+@pytest.mark.parametrize("bits", [20, 32, 35])
+def test_probe_kernels_match_plain(dev, bits):
+    rng = np.random.default_rng(bits)
+    n = 100003
+    hi = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
+    qhi, qlo = (torch.from_numpy(v.view(np.int32)).to(dev) for v in (hi, lo))
+    words = bmp.empty_filter(bits, dev)
+    keep = torch.from_numpy(rng.random(n) < 0.3).to(dev)
+    bmp.insert_keys(words, bits, words, bits, qhi, qlo, keep)  # members in both forms
+    n1, n2 = bmp.probe.launches, bmp.probe_bloom2.launches
+    got1 = bmp.probe(bmp.DeviceBitmap(words, bits), qhi, qlo)
+    got2 = bmp.probe_bloom2(bmp.DeviceBloom2(words, bits), qhi, qlo)
+    torch.cuda.synchronize()
+    assert (bmp.probe.launches, bmp.probe_bloom2.launches) == (n1 + 1, n2 + 1)
+    assert torch.equal(got1, bmp.probe_ref(bmp.DeviceBitmap(words, bits), qhi, qlo))
+    assert torch.equal(got2, bmp.probe_bloom2_ref(bmp.DeviceBloom2(words, bits), qhi, qlo))
+    assert bool(got1[keep].all()) and bool(got2[keep].all())
+
+
+@pytest.mark.parametrize("W,U,L", [(7, 1000, 32), (3, 64, 7)])
+def test_walk_kernels_match_plain(dev, W, U, L):
+    stride = 5
+    tab_x, tab_y = tables.step_table(ecref.scalar_mult(stride), U)
+    adv_k = (2 * U + 1) * stride
+    keys = [adv_k, ecref.N - adv_k, stride * 9, ecref.N - stride * 2, 10 ** 9, 77, 123456]
+    c = point_batch_from_ints([ecref.scalar_mult(k) for k in keys[:W]])
+    adv = ecref.scalar_mult(adv_k)
+    cpu = (c.x, c.y, pwalk.table_to_limb_major(tab_x, "cpu"),
+           pwalk.table_to_limb_major(tab_y, "cpu"), _limbs(adv[0]), _limbs(adv[1]))
+    gpu = tuple(t.to(dev) for t in cpu)
+    n0, n1, n2 = walk.walk_prefix.launches, walk.walk_emit.launches, pinv.inv_batch.launches
+    pre, tot = walk.walk_prefix(*gpu, L)
+    want_pre, want_tot = walk.walk_prefix_ref(*cpu, L)
+    torch.cuda.synchronize()
+    assert torch.equal(pre.cpu(), want_pre) and torch.equal(tot.cpu(), want_tot)
+    inv_tot = pinv.inv_batch(tot)
+    for n_endo, need_y in ((1, False), (3, True)):
+        got = walk.walk_emit(*gpu, pre, inv_tot, L, n_endo, need_y)
+        want = walk.walk_emit_ref(*cpu, want_pre, inv_tot.cpu(), L, n_endo, need_y)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None) and (g is None or torch.equal(g.cpu(), w))
+    assert (walk.walk_prefix.launches, walk.walk_emit.launches) == (n0 + 1, n1 + 2)
+    assert pinv.inv_batch.launches == n2 + 1
+    res = walk.walk_fused(type(c)(*gpu[:2], None), *gpu[2:], need_y=True, chain_len=L)
+    ref = walk.walk_fused(type(c)(*cpu[:2], None), *cpu[2:], need_y=True, chain_len=L)
+    torch.cuda.synchronize()
+    for g, w in zip(res, ref):
+        assert torch.equal(g.cpu(), w)
+    assert ref.adv_degenerate.tolist()[:3] == [False, True, False][:W]
+    assert bool(ref.degenerate[2, 8]) if W > 2 else True
+
+
+@pytest.mark.parametrize("mode", ["rmd160", "eth", "xpoint"])
+def test_brute_walker_engine_cuda_matches_cpu(dev, mode):
+    keys = list(range(1, 33))
+    kind = {"eth": "eth", "xpoint": "xpoint"}.get(mode, "hash160")
+    ts = TargetSet(kind=kind, raw=[_artifact(mode, ecref.scalar_mult(k)) for k in keys],
+                   labels=[str(k) for k in keys])
+    params = brute.BruteParams(walkers=2, block_u=200, steps_per_chunk=3, chain_len=16,
+                               compare_max=0, bucket_max=0, endo=mode == "xpoint")
+    got = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device=dev)
+    want = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device="cpu")
+    assert got._walker and want._walker
+    c = got._centers_for_bases(got._sequential_bases(0))
+    n0 = walk.walk_emit.launches
+    gx, gy, gs = got._walker_chunk(c.x, c.y)
+    wx, wy, ws = want._walker_chunk(c.x.cpu(), c.y.cpu())
+    torch.cuda.synchronize()
+    assert walk.walk_emit.launches == n0 + 3
+    assert torch.equal(gs.cpu(), ws) and torch.equal(gx.cpu(), wx) and torch.equal(gy.cpu(), wy)
+    found = sorted(f.private_key for f in got.search())
+    assert found == sorted(f.private_key for f in want.search()) == keys

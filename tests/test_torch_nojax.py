@@ -21,6 +21,7 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.ref.ecref",
     "keyhuntm1cpu_tpu_torch.ref.hashref",
     "keyhuntm1cpu_tpu_torch.field.fe",
+    "keyhuntm1cpu_tpu_torch.field.pinv",
     "keyhuntm1cpu_tpu_torch.hash.consts",
     "keyhuntm1cpu_tpu_torch.hash.phash",
     "keyhuntm1cpu_tpu_torch.hash.pminikey",
@@ -28,6 +29,8 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.curve.pwalk",
     "keyhuntm1cpu_tpu_torch.curve.pbrute",
     "keyhuntm1cpu_tpu_torch.curve.pladder",
+    "keyhuntm1cpu_tpu_torch.curve.points",
+    "keyhuntm1cpu_tpu_torch.curve.walk",
     "keyhuntm1cpu_tpu_torch.filter.bitmap",
     "keyhuntm1cpu_tpu_torch.filter.sorted_table",
     "keyhuntm1cpu_tpu_torch.filter.host_table",

@@ -4,8 +4,9 @@ tile functions (hash/phash.py, run as plain XLA ops on the CPU, as
 tests/test_hash.py runs them), against hashlib plus the port's ref/hashref,
 and the port's hashref against the JAX package's; the batch hash160s
 (K7 hash160_x2_from_batch, K8 hash160_u_from_batch, their plain versions
-here) against hash160.hash160_from_x_parity / hash160_from_xy. Points come
-from a numpy seed. Integer and byte arithmetic: the tolerance is exact
+here) against hash160.hash160_from_x_parity / hash160_from_xy, and
+keccak_eth_from_batch (its plain version) against keccak.keccak256_pubkey64,
+phash.keccak_eth_words and hashref. Points come from a numpy seed. Integer and byte arithmetic: the tolerance is exact
 equality."""
 
 import numpy as np
@@ -16,6 +17,7 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from keyhuntm1cpu_tpu.hash import hash160 as jh160  # noqa: E402
+from keyhuntm1cpu_tpu.hash import keccak as jkeccak  # noqa: E402
 from keyhuntm1cpu_tpu.hash import phash as jphash  # noqa: E402
 from keyhuntm1cpu_tpu.ref import hashref as jhash  # noqa: E402
 from keyhuntm1cpu_tpu_torch.curve import tables  # noqa: E402
@@ -130,3 +132,28 @@ def test_batch_hash160_match_jax_and_host_reference():
         pt = ecref.point_add(pt, start)
     with pytest.raises(ValueError):
         phash.hash160_u_from_batch(x, y[:, :5].contiguous())
+
+
+def test_batch_keccak_eth_matches_jax_and_host_reference():
+    rng = np.random.default_rng(78)
+    start = ecref.scalar_mult(int.from_bytes(rng.bytes(32), "big") % ecref.N)
+    xs, ys = tables.step_table(start, 300)  # (300, 8) uint32: i * start
+    x = torch.from_numpy(np.ascontiguousarray(xs.T).view(np.int32))
+    y = torch.from_numpy(np.ascontiguousarray(ys.T).view(np.int32))
+    lo, hi = phash.keccak_eth_from_batch(x, y)
+    got = np.stack([lo.numpy().view(np.uint32), hi.numpy().view(np.uint32)])
+    words = jkeccak.keccak256_pubkey64(jnp.asarray(xs), jnp.asarray(ys))
+    np.testing.assert_array_equal(got, np.stack([np.asarray(words[0]), np.asarray(words[1])]))
+    xl = [jnp.asarray(xs[:, i]) for i in range(8)]
+    yl = [jnp.asarray(ys[:, i]) for i in range(8)]
+    np.testing.assert_array_equal(got, np.stack([np.asarray(w) for w in
+                                                 jphash.keccak_eth_words(xl, yl)]))
+    pt = start
+    for j in range(300):
+        d = hashref.pubkey_to_eth_address(pt)
+        assert got[:, j].tolist() == [int.from_bytes(d[0:4], "little"),
+                                      int.from_bytes(d[4:8], "little")]
+        pt = ecref.point_add(pt, start)
+    assert phash.keccak_eth_from_batch.launches == 0  # CPU tensors: the plain version
+    with pytest.raises(ValueError):
+        phash.keccak_eth_from_batch(x, y[:, :5].contiguous())
