@@ -13,8 +13,11 @@ any failure exits non-zero before the result line:
 1. each kernel against its plain torch version on the card, at the shapes
    the main paths give it (K1 advance chain, K2 walk blocks, K3 insert keys,
    K4 brute walk, K5 minikey validity, the minikey key derivation, K6
-   scalar-mult ladder, K7 and K8 hash160), plus K1 against ecref with
-   P == ADV and P == -ADV lanes, K2 with planted dx == 0 lanes, K3 also
+   scalar-mult ladder, K7 and K8 hash160), plus K1 against ecref at T = 1
+   and 16 with P == j*ADV (doubling lanes: j = 1, K/2) and P == -j*ADV
+   (infinity lanes: j = 3, K) planted, K1 and K2 also at the filter
+   build's shape (K = 128; R = 128, U = 4096), K2 with planted dx == 0
+   lanes at block edges, K3 also
    against np.bitwise_or.at, K4 in every mode, with the endomorphism and
    with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
    lanes); K5 over every lane of B = 2^23 in the canonical and a custom
@@ -34,9 +37,11 @@ any failure exits non-zero before the result line:
    U = 16384, K = 256, build_block = 4096; the native host table built and
    prefaulted; the streaming filter build timed; puzzle 63's key recovered
    bit-exact from a +-3 step window; then --seconds of throughput on the
-   puzzle-64 range, in keys/s = chunks*K*U*2m/s, with the device's idle share
-   over that window (CUDA events around each chunk), then the chunk time
-   split over K1, K2, cascade and host decode; the cascade of one chunk's
+   puzzle-64 range (every chunk decoded: the window may reach puzzle 64's
+   key, or the range's end), in keys/s = chunks*K*U*2m/s, with the device's
+   idle share over that window (CUDA events around each chunk), then the
+   chunk time split over K1, K2, cascade and host decode (on the card:
+   device_ms); the cascade of one chunk's
    T*K*U queries through the probe kernel held to the same cascade through
    the plain torch probes, and the probe timed at that shape beside
    words[idx] (the probe's entry in the kernels line).
@@ -218,10 +223,16 @@ def walk_emit_ops(W, U, need_y, n_endo):
 
 
 def k1_ops(T, K):
-    """K1: per step 8 products, 3 squarings and 6 adds of the mixed add,
-    the prefix product, and 5 products and a squaring to normalise; one
-    inversion per chain."""
-    return T * (K * (14 * MUL_OPS + 4 * SQR_OPS + 6 * SUB_OPS) + INV_OPS)
+    """K1's least work: T*K affine adds with y (the denominator with its
+    zero test, the numerator, the batch's three products, lambda,
+    lambda^2, x3 and y3), all sharing one inversion."""
+    return T * K * (2 * (SUB_OPS + 4) + 5 * MUL_OPS + SQR_OPS + 4 * SUB_OPS) + INV_OPS
+
+
+def k1_bytes(T, K):
+    """K1 reads P (T points) and the table (K points) and writes the T*K
+    bases, the T next states and T*K flag bytes."""
+    return 64 * (T + K) + 64 * T * K + 64 * T + T * K
 
 
 def k3_ops_bytes(n, n_kept):
@@ -359,7 +370,7 @@ def phase1_kernels(dev, results, clock):
 
     from keyhuntm1cpu_tpu_torch.curve import pwalk, tables
     from keyhuntm1cpu_tpu_torch.engine.bsgs import BUILD_BLOCKS
-    from keyhuntm1cpu_tpu_torch.field import fe
+    from keyhuntm1cpu_tpu_torch.field import fe, pinv
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.ref import ecref
 
@@ -374,69 +385,128 @@ def phase1_kernels(dev, results, clock):
     adv = ecref.point_neg(ecref.scalar_mult(U * stride))  # the search ADV = U*S
     adv_k = (-U * stride) % ecref.N
     ax, ay = limbs(adv[0]).to(dev), limbs(adv[1]).to(dev)
+    tab = pwalk.adv_multiples(adv, K, dev)  # the engine's table, built once
 
-    # K1 at T=1 (against its plain version and ecref) and T=16 (against
-    # ecref); lane 0 of T=16 starts at ADV (doubling), lane 1 at -3*ADV
-    # (P == -ADV at step 3)
-    for T in (1, 16):
-        ks = [0x1234567890ABCDEF + 99991 * t for t in range(T)]
-        if T == 16:
-            ks[0], ks[1] = adv_k, (-3 * adv_k) % ecref.N
-        px, py = cols([ecref.scalar_mult(k) for k in ks])
-        ms, got = device_ms(lambda: pwalk.advance_chain(px, py, ax, ay, K), 5)
-        if T == 1:  # the main path's shape; the plain version takes a minute
-            pms, want = timed(lambda: pwalk.advance_chain_ref(px, py, ax, ay, K), 1)
-            k1_ms, k1_plain, k1_err = ms, pms, max_abs_err(got, want)
-            if k1_err:
-                fail("K1 advance_chain differs from its plain version")
-        bx = got[0].cpu().numpy().view(np.uint32)
-        adeg = got[4].cpu().numpy()
+    def check_k1(ks, adv_pt, ak, got):
+        """Every lane of K1's output against ecref: lane s of target t is
+        P_t + s*ADV (the next state at s = K; ADV = ak*G); flagged exactly
+        where that is the point at infinity. Returns the number of doubling
+        lanes."""
+        bx, by, nx, ny, adeg = (t.cpu().numpy() for t in got)
+        T_, K_ = adeg.shape
+        n_dbl = 0
         for t, k in enumerate(ks):
             pt = ecref.scalar_mult(k)
-            for s in range(K):
-                if T == 16 and t == 1 and s >= 3:
-                    break
-                if fe.limbs_to_int(bx[:, t * K + s]) != pt[0]:
-                    fail(f"K1 base t={t} s={s} differs from ecref")
-                pt = ecref.point_add(pt, adv)
-        want_flags = np.zeros((T, K), bool)
-        if T == 16:
-            want_flags[1, 2] = True
-        if not np.array_equal(adeg, want_flags):
-            fail(f"K1 P == -ADV flags wrong at T={T}")
-        log(f"K1 advance_chain T={T} K={K}: equal to "
-            f"{'plain and ' if T == 1 else ''}ecref; {ms:.3f} ms")
-    log(f"K1 plain version at T=1: {k1_plain:.1f} ms")
-    bms, by_ = bound_ms(k1_ops(1, K), 64 * (K + 3), clock)
+            for s in range(K_ + 1):
+                if s:
+                    n_dbl += ((k - s * ak) % ecref.N == 0)  # P == s*ADV
+                    pt = ecref.point_add(pt, adv_pt)
+                    if bool(adeg[t, s - 1]) != (pt is None):
+                        fail(f"K1 flag t={t} s={s - 1} is not the infinity of P + {s}*ADV")
+                if pt is None:
+                    continue
+                x, y = ((bx[:, t * K_ + s], by[:, t * K_ + s]) if s < K_
+                        else (nx[:, t], ny[:, t]))
+                if (fe.limbs_to_int(x.view(np.uint32)), fe.limbs_to_int(y.view(np.uint32))) != pt:
+                    fail(f"K1 lane t={t} s={s} differs from ecref")
+        return n_dbl
+
+    # K1 at the main path's shape T=1 (the kernels line) and planted: a
+    # doubling at the middle lane (P == K/2*ADV) and the point at infinity
+    # in the next state (P == -K*ADV); at T=16 those and P == ADV (lane 1
+    # doubles) and P == -3*ADV (lane 3 is infinite) side by side
+    base_k = [0x1234567890ABCDEF + 99991 * t for t in range(16)]
+    plants = [K // 2 * adv_k % ecref.N, -K * adv_k % ecref.N, adv_k, -3 * adv_k % ecref.N]
+    for name, ks in (("T=1", base_k[:1]), ("T=1 P=K/2*ADV", plants[:1]),
+                     ("T=1 P=-K*ADV", plants[1:2]), ("T=16 planted", plants + base_k[4:])):
+        px, py = cols([ecref.scalar_mult(k) for k in ks])
+        ms, got = device_ms(lambda: pwalk.advance_chain(px, py, ax, ay, K, tab), 20)
+        pms, want = timed(lambda: pwalk.advance_chain_ref(px, py, ax, ay, K, tab), 1)
+        err = max_abs_err(got, want)
+        if err:
+            fail(f"K1 advance_chain {name} differs from its plain version (max_abs_err {err})")
+        n_dbl = check_k1(ks, adv, adv_k, got)
+        log(f"K1 advance_chain {name} K={K}: equal to plain and to ecref on every lane "
+            f"({n_dbl} doubling, {int(got[4].sum())} infinite); {ms:.4f} ms (plain {pms:.1f} ms)")
+        if name == "T=1":
+            k1_ms, k1_plain, k1_err = ms, pms, err
+    # the latency floor: one fe_inv chain on one thread (pinv at n = 1)
+    # plus the tile's product tree, 3*log2(256) dependent products
+    one = limbs(3).to(dev)[:, None]
+    inv1_ms, _ = device_ms(lambda: pinv.inv_batch(one), 20)
+    floor_ms = inv1_ms * (1 + 3 * 8 / 270)
+    bms, by_ = bound_ms(k1_ops(1, K), k1_bytes(1, K), clock)
+    log(f"K1 at T=1 K={K}: {k1_ms:.4f} ms; least work {bms:.6f} ms by {by_}; latency floor "
+        f"~{floor_ms:.4f} ms (one fe_inv on one thread {inv1_ms:.4f} ms, pinv at n = 1, "
+        f"+ 24 dependent products of the tree); plain {k1_plain:.1f} ms")
     results["advance_chain"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                                     bound_ms=bms, bound_by=by_)
 
     # K2 at R=K=256, U=16384 (T=1) over every lane, with planted dx == 0
+    # lanes: two inside blocks, the rest at the first and last thread of a
+    # block and in the last row
     s_pt = ecref.point_neg(ecref.scalar_mult(stride))
     tab_x, tab_y = tables.step_table(s_pt, U)
     tx = pwalk.table_to_limb_major(tab_x, dev)
     ty = pwalk.table_to_limb_major(tab_y, dev)
     px, py = cols([ecref.scalar_mult(0x7CCE5EFDACCF6808 - 12345)])
-    bx, by, _, _, _ = pwalk.advance_chain(px, py, ax, ay, K)
-    # one base == tab[u1] and one == -tab[u2]: dx == 0 at those lanes
-    plants = ((K // 32, U // 164, 1), (K * 25 // 32, U * 5 // 16, -1))
-    for col, u, sign in plants:
-        y = fe.limbs_to_int(tab_y[u])
-        bx[:, col] = limbs(fe.limbs_to_int(tab_x[u])).to(dev)
-        by[:, col] = limbs(y if sign > 0 else ecref.P - y).to(dev)
+    bx, by, _, _, _ = pwalk.advance_chain(px, py, ax, ay, K, tab)
+
+    def plant_k2(bx, by, tab_x, tab_y, plants):
+        """base row = tab[u] (sign 1) or -tab[u]: dx == 0 at (row, u)"""
+        for row, u, sign in plants:
+            y = fe.limbs_to_int(tab_y[u])
+            bx[:, row] = limbs(fe.limbs_to_int(tab_x[u])).to(dev)
+            by[:, row] = limbs(y if sign > 0 else ecref.P - y).to(dev)
+
+    def edges(R_, U_):
+        return ((0, 0, 1), (1, 127, -1), (R_ // 2, 128, 1), (R_ // 2 + 1, 255, -1),
+                (R_ - 2, U_ // 2, 1), (R_ - 1, U_ - 1, -1))
+
+    plants = ((K // 32, U // 164, 1), (K * 25 // 32, U * 5 // 16, -1)) + edges(K, U)
+    plant_k2(bx, by, tab_x, tab_y, plants)
     pms, want = timed(lambda: pwalk.walk_blocks_ref(bx, by, tx, ty), 1)
-    ms, got = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty), 5)
+    ms, got = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty), 20)
     k2_err = max_abs_err(got, want)
     if k2_err:
         fail("K2 walk_blocks differs from its plain version")
     deg = got[2].cpu().numpy()
-    if not all(deg[col, u] for col, u, _ in plants):
+    if not all(deg[row, u] for row, u, _ in plants):
         fail("K2 planted dx == 0 lanes not flagged")
     log(f"K2 walk_blocks R={K} U={U}: equal to plain over every lane, "
-        f"dx==0 flagged; {ms:.3f} ms (plain {pms:.1f} ms)")
+        f"dx==0 flagged; {ms:.4f} ms (plain {pms:.1f} ms)")
     bms, by_ = bound_ms(walk_point_ops(K * U) * K * U, 64 * (K + U) + 9 * K * U, clock)
     results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms,
                                   bound_ms=bms, bound_by=by_)
+
+    # K1 and K2 at the streaming filter build's shape: K = BUILD_BLOCKS,
+    # ADV = build_block*G from base 2*build_block*G; R = 128, U = 4096
+    badv = ecref.scalar_mult(BUILD_BLOCK)
+    btab = pwalk.adv_multiples(badv, BUILD_BLOCKS, dev)
+    bks = [2 * BUILD_BLOCK, 77 * BUILD_BLOCK, -BUILD_BLOCKS * BUILD_BLOCK % ecref.N]
+    px, py = cols([ecref.scalar_mult(k) for k in bks])
+    bax, bay = limbs(badv[0]).to(dev), limbs(badv[1]).to(dev)
+    got = pwalk.advance_chain(px, py, bax, bay, BUILD_BLOCKS, btab)
+    err = max_abs_err(got, pwalk.advance_chain_ref(px, py, bax, bay, BUILD_BLOCKS, btab))
+    if err:
+        fail("K1 at the build shape differs from its plain version")
+    n_dbl = check_k1(bks, badv, BUILD_BLOCK, got)
+    ms1, (bx, by, _, _, _) = device_ms(
+        lambda: pwalk.advance_chain(px[:, :1].contiguous(), py[:, :1].contiguous(), bax, bay,
+                                    BUILD_BLOCKS, btab), 20)
+    btab_x, btab_y = tables.step_table(ecref.G, BUILD_BLOCK)
+    btx = pwalk.table_to_limb_major(btab_x, dev)
+    bty = pwalk.table_to_limb_major(btab_y, dev)
+    bplants = edges(BUILD_BLOCKS, BUILD_BLOCK)
+    plant_k2(bx, by, btab_x, btab_y, bplants)
+    want = pwalk.walk_blocks_ref(bx, by, btx, bty)
+    ms2, got = device_ms(lambda: pwalk.walk_blocks(bx, by, btx, bty), 20)
+    if max_abs_err(got, want) or not all(bool(got[2][r, u]) for r, u, _ in bplants):
+        fail("K2 at the build shape differs from its plain version or misses a dx == 0 lane")
+    log(f"build shape: K1 T=3 K={BUILD_BLOCKS} equal to plain and ecref ({n_dbl} doubling, "
+        f"{int(got[2].sum())} dx == 0 lanes in K2), K1 at T=1 {ms1:.4f} ms; K2 "
+        f"R={BUILD_BLOCKS} U={BUILD_BLOCK} equal to plain, block-edge dx == 0 flagged, "
+        f"{ms2:.4f} ms")
 
     # K3 against its plain version and np.bitwise_or.at on 4M random keys
     # at each size; timed at the streaming build's shape on 2^35-bit filters
@@ -1010,9 +1080,11 @@ def phase3_main(dev, m, seconds, results, clock):
     eng64._chunk_fn = marked_chunk
     torch.cuda.synchronize()
     t0 = time.time()
-    found = eng64.search(max_seconds=seconds)
+    found = eng64.search(max_seconds=seconds, stop_on_first=False)
     torch.cuda.synchronize()
     elapsed = time.time() - t0
+    if any(f.private_key != PUZZLE64_KEY for f in found):
+        fail(f"throughput search found a wrong key: {[hex(f.private_key) for f in found]}")
     _, n_main = launch_counts()
     d64 = delta(n_main, n63)
     chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
@@ -1026,30 +1098,31 @@ def phase3_main(dev, m, seconds, results, clock):
     span = marks[0][0].elapsed_time(marks[-1][1])
     log(f"phase 3: throughput {chunks} chunks in {elapsed:.2f} s -> "
         f"{keys_per_sec:.4e} keys/s (= chunks*K*U*2m/s; K={K}, U={U}, "
-        f"m=2^{m.bit_length() - 1}); {len(found)} keys found on the way; launches {d64}")
+        f"m=2^{m.bit_length() - 1}); puzzle 64's key "
+        f"{'found bit-exact' if found else 'not reached'} on the way; launches {d64}")
     log(f"phase 3: device idle share {1 - busy / span:.4f} over the window "
         f"(busy {busy:.1f} of {span:.1f} ms between the first chunk's start and the "
         f"last one's end; {busy / chunks:.3f} ms per chunk); host enqueue "
         f"{1000 * sum(enqueue) / chunks:.3f} ms per chunk")
 
-    # chunk-time split by CUDA events: whole chunk, K1 alone, K2 alone;
-    # the cascade is the rest; host decode by wall clock
+    # chunk-time split on the card (device_ms): whole chunk, K1 alone, K2
+    # alone; the cascade is the rest; host decode by wall clock
     reps = 10
     px, py = eng64._initial_base(0)
-    tot_ms, outs = timed(lambda: chunk_impl_host(
+    tot_ms, outs = device_ms(lambda: chunk_impl_host(
         px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y, eng64.bitmap,
-        eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2), reps)
+        eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2, adv_tab=eng64.adv_tab), reps)
     pxt, pyt = px.t().contiguous(), py.t().contiguous()
-    k1_ms, (bx, by, _, _, _) = timed(
-        lambda: pwalk.advance_chain(pxt, pyt, eng64.adv_x, eng64.adv_y, K), reps)
-    k2_ms, _ = timed(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x, eng64.tab_y), reps)
+    k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
+        pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab), reps)
+    k2_ms, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x, eng64.tab_y), reps)
     # the cascade on this chunk's queries, once through the probe kernel and
     # once through the plain torch probes: the level-1 bitmap probe of the
     # T*K*U queries, compaction to C1, the bloom2 probe of the C1 stage-1
     # survivors, compaction to C2 (bmp.filtered_survivors' stages)
     bm, b2 = eng64.bitmap, eng64.bloom2
     res = pwalk.chunk_multi(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
-                            K=K, U=U, T=1)
+                            K=K, U=U, T=1, adv_tab=eng64.adv_tab)
     qhi, qlo = res.qhi.reshape(-1), res.qlo.reshape(-1)
     B = qhi.shape[0]
 
@@ -1169,15 +1242,15 @@ def phase4_brute(dev, seconds, clock):
         eff = (eng.stats.keys_covered - k0) * eng.stats.multiplier / dt
         busy = sum(a.elapsed_time(b) for a, b in marks)
         span = marks[0][0].elapsed_time(marks[-1][1])
-        # chunk split by CUDA events: whole chunk, K1 alone, K4 alone
+        # chunk split on the card (device_ms): whole chunk, K1 alone, K4 alone
         px, py = eng._fast_base(0)
-        c_ms, _ = timed(lambda: pbrute.brute_chunk(
+        c_ms, _ = device_ms(lambda: pbrute.brute_chunk(
             px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng._tgt, eng._btab,
             K=K, U=U, C=params.chunk_cand, mode=mode, n_endo=eng._n_endo,
-            n_bucket_rows=eng._n_bucket_rows), 5)
-        k1_ms, (bx, by, _, _, _) = timed(lambda: pwalk.advance_chain(
-            px[:, None], py[:, None], eng.adv_x, eng.adv_y, K), 5)
-        k4_ms, _ = timed(lambda: pbrute.brute_walk_blocks(
+            n_bucket_rows=eng._n_bucket_rows, adv_tab=eng.adv_tab), 5)
+        k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
+            px[:, None], py[:, None], eng.adv_x, eng.adv_y, K, eng.adv_tab), 5)
+        k4_ms, _ = device_ms(lambda: pbrute.brute_walk_blocks(
             bx, by, eng.tab_x, eng.tab_y, eng._tgt, eng._btab, mode, eng._n_endo,
             eng._n_bucket_rows), 5)
         n_tgt, tb = eng._tgt.shape[1], eng._n_bucket_rows

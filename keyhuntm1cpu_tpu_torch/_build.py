@@ -122,8 +122,8 @@ def kernels() -> ctypes.CDLL:
         "kh_hash160_x2": [vp] * 5 + [i, vp],
         # x y lo hi | n stream
         "kh_hash160_u": [vp] * 4 + [i, vp],
-        # px py ax ay | bx by nx ny adeg scratch | T K stream
-        "kh_advance_chain": [vp] * 10 + [i, i, vp],
+        # px py tab_x tab_y | bx by nx ny adeg | T K stream
+        "kh_advance_chain": [vp] * 9 + [i, i, vp],
         # bx by tx ty | qlo qhi deg | R U stream
         "kh_walk_blocks": [vp] * 7 + [i64, i, vp],
         # words1 words2 qhi qlo keep | n bits b2bits stream

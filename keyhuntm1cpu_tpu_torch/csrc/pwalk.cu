@@ -1,9 +1,10 @@
 // BSGS giant-step walk kernels for Hopper (sm_90a):
-//   K1 kh_advance_chain  replaces keyhuntm1cpu_tpu/curve/pwalk.py _advance_kernel
-//   K2 kh_walk_blocks    replaces keyhuntm1cpu_tpu/curve/pwalk.py _walk_kernel
+//   K1 kh_advance_chain  replaces keyhuntm1cpu_tpu/curve/pwalk.py:96 _advance_kernel
+//   K2 kh_walk_blocks    replaces keyhuntm1cpu_tpu/curve/pwalk.py:195 _walk_kernel
 // Wrappers and plain torch versions: keyhuntm1cpu_tpu_torch/curve/pwalk.py.
-// Layouts: field elements limb-major (8, n) u32; bases (8, T*K) with column
-// t*K + s; qlo/qhi/deg (R, U) row-major. Each entry point launches on the
+// Layouts: field elements limb-major (8, n) u32; the ADV table (8, K) with
+// column j - 1 = j*ADV; bases (8, T*K) with column t*K + s; adeg (T, K)
+// bytes; qlo/qhi/deg (R, U) row-major. Each entry point launches on the
 // given stream, does not synchronise, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 
@@ -13,153 +14,159 @@ using kh::Fe;
 
 namespace {
 
-// Jacobian P + affine Q (madd-2007-bl) with the doubling fallback
-// (dbl-2009-l, a = 0) for P == Q, as pwalk._mixed_add. Returns true when
-// P == -Q (the result is garbage; the caller flags the lane). The TPU code
-// evaluates both lanes and selects; here only the taken lane runs, with the
-// same arithmetic, so the results are identical.
-__device__ bool mixed_add(Fe& X, Fe& Y, Fe& Z, const Fe& qx, const Fe& qy) {
-  Fe z2 = kh::fe_sqr(Z);
-  Fe u2 = kh::fe_mul(qx, z2);
-  Fe s2 = kh::fe_mul(qy, kh::fe_mul(Z, z2));
-  Fe h = kh::fe_sub(u2, X);
-  Fe r = kh::fe_sub(s2, Y);
-  bool h_zero = kh::fe_is_zero(h);
-  if (h_zero && kh::fe_eq(s2, Y)) {  // P == Q: doubling
-    Fe a_ = kh::fe_sqr(X);
-    Fe b_ = kh::fe_sqr(Y);
-    Fe c_ = kh::fe_sqr(b_);
-    Fe t = kh::fe_sqr(kh::fe_add(X, b_));
-    Fe d_ = kh::fe_dbl(kh::fe_sub(kh::fe_sub(t, a_), c_));
-    Fe e_ = kh::fe_add(kh::fe_dbl(a_), a_);
-    Fe xd = kh::fe_sub(kh::fe_sqr(e_), kh::fe_dbl(d_));
-    Fe yd = kh::fe_sub(kh::fe_mul(e_, kh::fe_sub(d_, xd)),
-                       kh::fe_dbl(kh::fe_dbl(kh::fe_dbl(c_))));
-    Fe zd = kh::fe_dbl(kh::fe_mul(Y, Z));
-    X = xd;
-    Y = yd;
-    Z = zd;
-    return false;
+// Inverts the n = blockDim.x (a power of two) elements tree[n + i] in
+// place: a heap-ordered product tree (node k = node 2k * node 2k+1, root
+// at 1; n - 1 products up), ONE fe_inv on thread 0, then n - 1 steps down
+// (each node's inverse times its sibling gives the child's inverse). Every
+// thread of the block must call it; none of the leaves may be zero.
+__device__ void block_batch_inv(Fe* tree) {
+  const int n = blockDim.x, i = threadIdx.x;
+  __syncthreads();
+  for (int s = n / 2; s >= 1; s >>= 1) {
+    if (i < s) tree[s + i] = kh::fe_mul(tree[2 * (s + i)], tree[2 * (s + i) + 1]);
+    __syncthreads();
   }
-  if (h_zero) h = kh::fe_one();  // P == -Q: keep going on garbage, flagged
-  Fe hh = kh::fe_sqr(h);
-  Fe v = kh::fe_mul(X, hh);
-  Fe hhh = kh::fe_mul(h, hh);
-  Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(r), hhh), kh::fe_dbl(v));
-  Fe y3 = kh::fe_sub(kh::fe_mul(r, kh::fe_sub(v, x3)), kh::fe_mul(Y, hhh));
-  Z = kh::fe_mul(Z, h);
-  X = x3;
-  Y = y3;
-  return h_zero;
+  if (i == 0) tree[1] = kh::fe_inv(tree[1]);
+  __syncthreads();
+  for (int s = 1; s < n; s <<= 1) {
+    if (i < s) {
+      const int k = s + i;
+      const Fe inv = tree[k], a = tree[2 * k], b = tree[2 * k + 1];
+      tree[2 * k] = kh::fe_mul(inv, b);
+      tree[2 * k + 1] = kh::fe_mul(inv, a);
+    }
+    __syncthreads();
+  }
 }
 
-// K1: one thread per target chain, serial over the K steps.
+// K1: the K walk bases P + s*ADV, s < K, and the next state P + K*ADV, as
+// K independent affine adds P + j*ADV (j = 1..K) from the table of j*ADV.
 //
-// Bound on the H100: latency. With T = 1 (the flagship single-target run)
-// one thread runs ~16 dependent field multiplies per step, K steps, then
-// one inversion (~270 multiplies) and 3 multiplies per point to normalise:
-// the card is idle but for one warp. The design keeps the chain in Jacobian
-// coordinates (no inversion per step) and normalises all K points with ONE
-// Montgomery batch inversion; the Jacobian points and prefix products go to
-// a global scratch buffer (4 x T*K rows of 32 B, L1/L2 resident). A later
-// change can compute the K bases as P + s*ADV in parallel (ADV is constant,
-// so s*ADV is a table), which removes the serial chain.
-__global__ void advance_chain_kernel(const uint32_t* __restrict__ px,
-                                     const uint32_t* __restrict__ py,
-                                     const uint32_t* __restrict__ ax,
-                                     const uint32_t* __restrict__ ay,
-                                     uint32_t* __restrict__ bx,
-                                     uint32_t* __restrict__ by,
-                                     uint32_t* __restrict__ nx,
-                                     uint32_t* __restrict__ ny,
-                                     uint8_t* __restrict__ adeg,
-                                     uint32_t* __restrict__ scratch, int T, int K) {
-  int t = blockIdx.x * blockDim.x + threadIdx.x;
-  if (t >= T) return;
-  const long long TK = (long long)T * K;
-  uint32_t* sx = scratch;
-  uint32_t* sy = scratch + TK * 8;
-  uint32_t* sz = scratch + 2 * TK * 8;
-  uint32_t* pref = scratch + 3 * TK * 8;
-  const Fe qx = kh::fe_load_lm(ax, 1, 0);
-  const Fe qy = kh::fe_load_lm(ay, 1, 0);
-  const Fe p0x = kh::fe_load_lm(px, T, t);
-  const Fe p0y = kh::fe_load_lm(py, T, t);
-  const long long row0 = (long long)t * K;
-
-  Fe X = p0x, Y = p0y, Z = kh::fe_one(), acc;
-  for (int s = 0; s < K; s++) {
-    adeg[row0 + s] = mixed_add(X, Y, Z, qx, qy) ? 1 : 0;
-    if (kh::fe_is_zero(Z)) Z = kh::fe_one();  // keep Z invertible (pwalk.py:111)
-    kh::fe_store_row(sx, row0 + s, X);
-    kh::fe_store_row(sy, row0 + s, Y);
-    kh::fe_store_row(sz, row0 + s, Z);
-    acc = s ? kh::fe_mul(acc, Z) : Z;
-    kh::fe_store_row(pref, row0 + s, acc);
-  }
-  Fe inv = kh::fe_inv(acc);
-  for (int s = K - 1; s >= 0; s--) {
-    Fe zi = inv;
-    if (s > 0) {
-      zi = kh::fe_mul(inv, kh::fe_load_row(pref, row0 + s - 1));
-      inv = kh::fe_mul(inv, kh::fe_load_row(sz, row0 + s));
-    }
-    Fe zi2 = kh::fe_sqr(zi);
-    Fe x = kh::fe_mul(kh::fe_load_row(sx, row0 + s), zi2);
-    Fe y = kh::fe_mul(kh::fe_load_row(sy, row0 + s), kh::fe_mul(zi, zi2));
-    // chain point s+1 is walk base s+1, or the next state after the last
-    if (s + 1 < K) {
-      kh::fe_store_lm(bx, TK, row0 + s + 1, x);
-      kh::fe_store_lm(by, TK, row0 + s + 1, y);
-    } else {
-      kh::fe_store_lm(nx, T, t, x);
-      kh::fe_store_lm(ny, T, t, y);
-    }
-  }
-  kh::fe_store_lm(bx, TK, row0, p0x);
-  kh::fe_store_lm(by, TK, row0, p0y);
-}
-
-// K2: thread = one offset column u and kWalkGroup = G consecutive base rows.
+// The TPU kernel walks a serial chain of K Jacobian mixed adds per target
+// (128 targets side by side in its lanes). On this card a chain is one
+// thread: at T = 1 it ran ~4,600 dependent field products on one lane
+// while the card idled (2.37 ms at K = 256). ADV is a constant of the
+// engine, so the table j*ADV is built once on the host and every lane is
+// independent: block = a tile of kAdvTile lanes of one target, thread = one
+// lane. The tile's denominators x(j*ADV) - x(P) share one inversion
+// through a shared-memory product tree. Bound on the H100: latency, one
+// fe_inv chain (255 squarings, 15 products) plus 3*log2(tile) products of
+// the tree, against ~4,600 products for the serial chain. A tile of one
+// warp has the shortest tree; more tiles only add inversions that run side
+// by side (an H100 at 700 W, K = 256: 0.117 ms at 32 lanes, 0.124 at 256).
 //
-// Bound on the H100: 32-bit integer multiply throughput (~5 field multiplies
-// per point plus 1/G of an inversion; each field multiply is 64 IMAD.WIDE
-// plus the fold). The design gives every thread its own Montgomery chain of
-// G denominators (prefix products in local memory, ONE inversion per thread,
-// dx recomputed in the backward pass instead of stored), so no thread waits
-// on another and the inversion is amortised over G points. Neighbouring
-// threads own neighbouring u: table loads and qlo/qhi/deg stores coalesce;
-// the G base rows are warp-uniform broadcast loads. G = 32 was chosen on an
-// H100 (700 W) at 256 x 16384 points: 1.03 ms, against 1.54 ms at G = 16
-// and 2.60 ms at G = 8.
-constexpr int kWalkGroup = 32;
+// Lane j is a doubling when P == j*ADV (lambda = 3x^2 / 2y) and the point
+// at infinity when P == -j*ADV: it is flagged, inverts 1 and emits
+// garbage, the same garbage as the plain version.
+constexpr int kAdvTile = 32;
 
-__global__ void walk_blocks_kernel(const uint32_t* __restrict__ bx,
-                                   const uint32_t* __restrict__ by,
-                                   const uint32_t* __restrict__ tx,
-                                   const uint32_t* __restrict__ ty,
-                                   uint32_t* __restrict__ qlo,
-                                   uint32_t* __restrict__ qhi,
-                                   uint8_t* __restrict__ deg, long long R, int U) {
-  const int u = blockIdx.y * blockDim.x + threadIdx.x;
-  if (u >= U) return;
-  constexpr int G = kWalkGroup;
-  const long long r0 = (long long)blockIdx.x * G;
-  const int n = (int)min((long long)G, R - r0);
-  const Fe tX = kh::fe_load_lm(tx, U, u);
-  const Fe tY = kh::fe_load_lm(ty, U, u);
+__global__ void __launch_bounds__(kAdvTile)
+advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict__ py,
+                     const uint32_t* __restrict__ tab_x, const uint32_t* __restrict__ tab_y,
+                     uint32_t* __restrict__ bx, uint32_t* __restrict__ by,
+                     uint32_t* __restrict__ nx, uint32_t* __restrict__ ny,
+                     uint8_t* __restrict__ adeg, int T, int K) {
+  __shared__ Fe tree[2 * kAdvTile];
+  const int i = threadIdx.x, t = blockIdx.x;
+  const int j = blockIdx.y * kAdvTile + i + 1;  // this lane computes P + j*ADV
+  const bool live = j <= K;
+  const long long TK = (long long)T * K, col0 = (long long)t * K;
   const Fe one = kh::fe_one();
+  const Fe p_x = kh::fe_load_lm(px, T, t), p_y = kh::fe_load_lm(py, T, t);
+  Fe q_x = p_x, num = one, den = one;
+  bool inf = false;
+  if (live) {
+    q_x = kh::fe_load_lm(tab_x, K, j - 1);
+    const Fe q_y = kh::fe_load_lm(tab_y, K, j - 1);
+    den = kh::fe_sub(q_x, p_x);
+    num = kh::fe_sub(q_y, p_y);
+    if (kh::fe_is_zero(den)) {
+      if (kh::fe_eq(q_y, p_y)) {  // P == j*ADV: tangent slope 3x^2 / 2y
+        const Fe x2 = kh::fe_sqr(p_x);
+        num = kh::fe_add(kh::fe_dbl(x2), x2);
+        den = kh::fe_dbl(p_y);
+      } else {  // P == -j*ADV: infinity, flagged; invert 1
+        inf = true;
+        den = one;
+      }
+    }
+  }
+  tree[kAdvTile + i] = den;
+  block_batch_inv(tree);
+  if (!live) return;
+  const Fe lam = kh::fe_mul(num, tree[kAdvTile + i]);
+  const Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(lam), p_x), q_x);
+  const Fe y3 = kh::fe_sub(kh::fe_mul(lam, kh::fe_sub(p_x, x3)), p_y);
+  if (j < K) {
+    kh::fe_store_lm(bx, TK, col0 + j, x3);
+    kh::fe_store_lm(by, TK, col0 + j, y3);
+  } else {
+    kh::fe_store_lm(nx, T, t, x3);
+    kh::fe_store_lm(ny, T, t, y3);
+  }
+  adeg[col0 + j - 1] = inf ? 1 : 0;
+  if (j == 1) {  // base 0 is P itself
+    kh::fe_store_lm(bx, TK, col0, p_x);
+    kh::fe_store_lm(by, TK, col0, p_y);
+  }
+}
+
+// K2: thread = one offset column u and kWalkGroup = G consecutive base rows;
+// block = kWalkThreads neighbouring columns.
+//
+// Bound on the H100: 32-bit integer multiply issue (~4 field products and a
+// squaring per point; each product is 64 IMAD.WIDE plus the fold). The TPU
+// kernel batch-inverts each grid block's SB*U denominators with one
+// powering, its 128 lanes side by side; one inversion per thread over its
+// G points would cost ~1,350 instructions a point at G = 32, more than the
+// walk's own ~830. Here every thread still runs its own Montgomery chain
+// over its G denominators (prefix products in local memory, dx recomputed
+// in the backward pass instead of stored), but the chain totals of the
+// block go into a shared-memory product tree with ONE fe_inv per block
+// (block_batch_inv), so the inversion costs a point 1/(G * threads) of an
+// fe_inv plus ~3/G products. A flagged dx == 0 lane
+// enters its chain as 1, and so do ragged rows and columns, so a zero
+// never poisons the block. Neighbouring threads own neighbouring u: table
+// loads and qlo/qhi/deg stores coalesce; the G base rows are warp-uniform
+// broadcast loads. A block's inverting thread stalls the block for one
+// fe_inv chain, and resident blocks reach it together, so the shape is the
+// one whose grid at R = 256, U = 16384 fits one wave of resident blocks
+// (128 registers: 4 blocks of 128 threads an SM): on an H100 (700 W)
+// 0.584 ms at G = 64, 0.699 at G = 32, 0.928 at G = 16; the other pairs
+// measured are in PERF.md.
+constexpr int kWalkGroup = 64;
+constexpr int kWalkThreads = 128;
+
+__global__ void __launch_bounds__(kWalkThreads)
+walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
+                   const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
+                   uint32_t* __restrict__ qlo, uint32_t* __restrict__ qhi,
+                   uint8_t* __restrict__ deg, long long R, int U) {
+  constexpr int G = kWalkGroup;
+  __shared__ Fe tree[2 * kWalkThreads];
+  const int i = threadIdx.x;
+  const int u = blockIdx.y * kWalkThreads + i;
+  const long long r0 = (long long)blockIdx.x * G;
+  const int n = u < U ? (int)min((long long)G, R - r0) : 0;  // rows of this thread
+  const Fe one = kh::fe_one();
+  Fe tX = one, tY = one;
+  if (n) {
+    tX = kh::fe_load_lm(tx, U, u);
+    tY = kh::fe_load_lm(ty, U, u);
+  }
   Fe pref[G];
-  Fe acc;
+  Fe acc = one;
   for (int j = 0; j < n; j++) {
     Fe dx = kh::fe_sub(tX, kh::fe_load_lm(bx, R, r0 + j));
-    bool z = kh::fe_is_zero(dx);
+    const bool z = kh::fe_is_zero(dx);
     deg[(r0 + j) * U + u] = z ? 1 : 0;
     if (z) dx = one;  // flagged lane: invert 1 instead of 0
     acc = j ? kh::fe_mul(acc, dx) : dx;
     pref[j] = acc;
   }
-  Fe inv = kh::fe_inv(acc);
+  tree[kWalkThreads + i] = acc;
+  block_batch_inv(tree);
+  Fe inv = tree[kWalkThreads + i];  // 1 / (this thread's chain total)
   for (int j = n - 1; j >= 0; j--) {
     const Fe bX = kh::fe_load_lm(bx, R, r0 + j);
     const Fe bY = kh::fe_load_lm(by, R, r0 + j);
@@ -170,8 +177,8 @@ __global__ void walk_blocks_kernel(const uint32_t* __restrict__ bx,
       inv_j = kh::fe_mul(inv, pref[j - 1]);
       inv = kh::fe_mul(inv, dx);
     }
-    Fe lam = kh::fe_mul(kh::fe_sub(tY, bY), inv_j);
-    Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(lam), bX), tX);
+    const Fe lam = kh::fe_mul(kh::fe_sub(tY, bY), inv_j);
+    const Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(lam), bX), tX);
     qlo[(r0 + j) * U + u] = x3.v[0];  // only the 64-bit truncation leaves
     qhi[(r0 + j) * U + u] = x3.v[1];
   }
@@ -179,26 +186,25 @@ __global__ void walk_blocks_kernel(const uint32_t* __restrict__ bx,
 
 }  // namespace
 
-extern "C" int kh_advance_chain(const void* px, const void* py, const void* ax,
-                                const void* ay, void* bx, void* by, void* nx,
-                                void* ny, void* adeg, void* scratch, int T, int K,
-                                void* stream) {
-  const int threads = 32;
-  advance_chain_kernel<<<(T + threads - 1) / threads, threads, 0,
-                         (cudaStream_t)stream>>>(
-      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)ax,
-      (const uint32_t*)ay, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)nx,
-      (uint32_t*)ny, (uint8_t*)adeg, (uint32_t*)scratch, T, K);
+extern "C" int kh_advance_chain(const void* px, const void* py, const void* tab_x,
+                                const void* tab_y, void* bx, void* by, void* nx, void* ny,
+                                void* adeg, int T, int K, void* stream) {
+  if (T < 1 || K < 1) return (int)cudaErrorInvalidValue;
+  dim3 grid((unsigned)T, (unsigned)((K + kAdvTile - 1) / kAdvTile));
+  advance_chain_kernel<<<grid, kAdvTile, 0, (cudaStream_t)stream>>>(
+      (const uint32_t*)px, (const uint32_t*)py, (const uint32_t*)tab_x,
+      (const uint32_t*)tab_y, (uint32_t*)bx, (uint32_t*)by, (uint32_t*)nx,
+      (uint32_t*)ny, (uint8_t*)adeg, T, K);
   return (int)cudaGetLastError();
 }
 
 extern "C" int kh_walk_blocks(const void* bx, const void* by, const void* tx,
                               const void* ty, void* qlo, void* qhi, void* deg,
                               long long R, int U, void* stream) {
-  const int threads = 128;
+  if (R < 1 || U < 1) return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((R + kWalkGroup - 1) / kWalkGroup),
-            (unsigned)((U + threads - 1) / threads));
-  walk_blocks_kernel<<<grid, threads, 0, (cudaStream_t)stream>>>(
+            (unsigned)((U + kWalkThreads - 1) / kWalkThreads));
+  walk_blocks_kernel<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
       (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
       (const uint32_t*)ty, (uint32_t*)qlo, (uint32_t*)qhi, (uint8_t*)deg, R, U);
   return (int)cudaGetLastError();

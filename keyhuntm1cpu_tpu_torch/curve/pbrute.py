@@ -230,14 +230,16 @@ def compact_hits(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor
 
 
 def brute_chunk(px, py, tab_x_lm, tab_y_lm, ax, ay, tgt, btab, *, K: int, U: int,
-                C: int, mode: str, n_endo: int, n_bucket_rows: int = 0):
+                C: int, mode: str, n_endo: int, n_bucket_rows: int = 0, adv_tab=None):
     """px/py: (8,) int32 limbs of the chunk's base point; tab_*_lm: (8, U);
-    ax/ay: (8,) ADV = U * stride * G. Returns (next_x, next_y, summary):
-    the base K steps on and the (2C + 3K + 1,) int32 summary (see
-    compact_hits). No host sync: the summary stays where it was made."""
+    ax/ay: (8,) ADV = U * stride * G and adv_tab its table
+    (pwalk.adv_multiples(ADV, K), built per call when None). Returns
+    (next_x, next_y, summary): the base K steps on and the (2C + 3K + 1,)
+    int32 summary (see compact_hits). No host sync: the summary stays where it was made."""
     if U % LANES:
         raise ValueError(f"brute_chunk needs U % {LANES} == 0 (U={U})")
-    bx, by, nx, ny, adeg = pwalk.advance_chain(px[:, None], py[:, None], ax, ay, K)
+    bx, by, nx, ny, adeg = pwalk.advance_chain(px[:, None], py[:, None], ax, ay, K,
+                                               adv_tab)
     hits = brute_walk_blocks(bx, by, tab_x_lm, tab_y_lm, tgt, btab, mode, n_endo,
                              n_bucket_rows)
     return nx[:, 0], ny[:, 0], compact_hits(hits, adeg[0], C)

@@ -3,9 +3,11 @@
 Port of keyhuntm1cpu_tpu/curve/pwalk.py. The chunk is split the same way:
 
 - **K1 advance chain** (``advance_chain``): the K walk bases of each
-  target are a serial chain P, P+ADV, ..., P+(K-1)ADV. It runs in Jacobian
-  coordinates (mixed adds, no inversions), then one batched inversion
-  normalises all K points.
+  target, P, P+ADV, ..., P+(K-1)ADV, and the next state P+K*ADV. The JAX
+  kernel walks them as a serial chain of Jacobian mixed adds; here ADV is
+  a constant of the engine, so they are K independent affine adds
+  P + j*ADV from a table of j*ADV (``adv_multiples``, built once by the
+  engine) sharing one batched inversion.
 - **K2 walk blocks** (``walk_blocks``): with the bases known, the
   T*K*U additions base_r + tab[u] are independent. Each emits the low 64
   bits of x3 (qlo = limb 0, qhi = limb 1) and flags dx == 0 lanes.
@@ -15,20 +17,22 @@ and launches its CUDA kernel (csrc/pwalk.cu) for a CUDA tensor; each
 counts its kernel launches in ``<wrapper>.launches``.
 
 Layouts (the JAX package's, without its 128-lane tiling): field elements
-are limb-major int32 tensors holding u32 bits, ``(8, n)``. Bases are
-``(8, T*K)`` with column ``t*K + s``; qlo/qhi/deg are ``(T*K, U)``;
-adv_degenerate is ``(T, K)``.
+are limb-major int32 tensors holding u32 bits, ``(8, n)``. The ADV table
+is ``(8, K)`` with column j - 1 = j*ADV; bases are ``(8, T*K)`` with
+column ``t*K + s``; qlo/qhi/deg are ``(T*K, U)``; adv_degenerate is
+``(T, K)``.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..field import fe
+from ..ref import ecref
 
 def _check(name: str, t: torch.Tensor, shape) -> None:
     if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
@@ -47,89 +51,103 @@ def table_to_limb_major(tab_bm: np.ndarray, device) -> torch.Tensor:
 # ---------------------------------------------------------------------------
 
 
-def _mixed_add(X, Y, Z, qx, qy):
-    """Jacobian P + affine Q (madd-2007-bl) with the doubling fallback
-    (dbl-2009-l, a = 0) for P == Q, exactly as pwalk._mixed_add: returns
-    (X3, Y3, Z3, inf) where inf flags P == -Q (the result is garbage)."""
-    z2 = fe.sqr(Z)
-    u2 = fe.mul(qx, z2)
-    s2 = fe.mul(qy, fe.mul(Z, z2))
-    h = fe.sub(u2, X)
-    r = fe.sub(s2, Y)
-    h_zero = fe.is_zero(h)
-    is_dbl = h_zero & fe.eq(s2, Y)
-    h = fe.select(h_zero, fe.one_like(h), h)
-    hh = fe.sqr(h)
-    v = fe.mul(X, hh)
-    hhh = fe.mul(h, hh)
-    x3 = fe.sub(fe.sub(fe.sqr(r), hhh), fe.dbl(v))
-    y3 = fe.sub(fe.mul(r, fe.sub(v, x3)), fe.mul(Y, hhh))
-    z3 = fe.mul(Z, h)
-    a_ = fe.sqr(X)
-    b_ = fe.sqr(Y)
-    c_ = fe.sqr(b_)
-    t = fe.sqr(fe.add(X, b_))
-    d_ = fe.dbl(fe.sub(fe.sub(t, a_), c_))
-    e_ = fe.add(fe.dbl(a_), a_)
-    xd = fe.sub(fe.sqr(e_), fe.dbl(d_))
-    yd = fe.sub(fe.mul(e_, fe.sub(d_, xd)), fe.dbl(fe.dbl(fe.dbl(c_))))
-    zd = fe.dbl(fe.mul(Y, Z))
-    x3 = fe.select(is_dbl, xd, x3)
-    y3 = fe.select(is_dbl, yd, y3)
-    z3 = fe.select(is_dbl, zd, z3)
-    return x3, y3, z3, h_zero & ~is_dbl
+def adv_multiples(adv, K: int, device) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The table of K1: j*ADV for j = 1..K as affine limb-major (8, K) int32
+    x and y on `device` (column j - 1), computed exactly on the host with
+    ref/ecref. adv is an affine point of python ints or the (8,) int32 limb
+    tensors adv_x, adv_y (then one host copy). Engines build it once."""
+    ax, ay = adv
+    if isinstance(ax, torch.Tensor):
+        ax, ay = (fe.limbs_to_int(fe.u32(t).cpu().numpy()) for t in (ax, ay))
+    if K < 1 or not ecref.is_on_curve((ax, ay)):
+        raise ValueError(f"adv_multiples needs K >= 1 and a point on the curve (K={K})")
+    xs, ys = np.empty((K, 8), np.uint32), np.empty((K, 8), np.uint32)
+    pt = (ax, ay)
+    for j in range(K):
+        xs[j], ys[j] = fe.int_to_limbs(pt[0]), fe.int_to_limbs(pt[1])
+        pt = ecref.point_add(pt, (ax, ay))  # never infinity: ADV's order is N > K
+    return table_to_limb_major(xs, device), table_to_limb_major(ys, device)
 
 
-def advance_chain_ref(px, py, adv_x, adv_y, K: int):
-    """Plain torch version of K1 (see advance_chain)."""
+def _tree_inv(den: torch.Tensor) -> torch.Tensor:
+    """Inverses of the (8, T, n) non-zero elements along the last axis by
+    one product tree per row t (K1's block_batch_inv): n padded with ones
+    to a power of two, pairwise products up to the root, ONE vectorised
+    inversion of the T roots, then each child's inverse is its parent's
+    times its sibling."""
+    n = den.shape[2]
+    width = 1 << (n - 1).bit_length()
+    level = torch.cat([den, fe.one_like(den[:, :, :1]).expand(8, den.shape[1], width - n)], 2)
+    levels = [level]
+    while level.shape[2] > 1:
+        level = fe.mul(level[:, :, 0::2], level[:, :, 1::2])
+        levels.append(level)
+    inv = fe.inv(level)
+    for below in reversed(levels[:-1]):
+        left, right = below[:, :, 0::2], below[:, :, 1::2]
+        inv = torch.stack([fe.mul(inv, right), fe.mul(inv, left)], dim=3).reshape(below.shape)
+    return inv[:, :, :n]
+
+
+def advance_chain_ref(px, py, adv_x, adv_y, K: int, adv_tab=None):
+    """Plain torch version of K1 (see advance_chain): the same T*K affine
+    adds P_t + j*ADV with one batched inversion per target."""
+    tab_x, tab_y = adv_tab if adv_tab is not None else adv_multiples((adv_x, adv_y), K,
+                                                                      px.device)
     T = px.shape[1]
-    X, Y = fe.u32(px), fe.u32(py)
-    qx = fe.u32(adv_x)[:, None].expand(8, T)
-    qy = fe.u32(adv_y)[:, None].expand(8, T)
-    Z = fe.one_like(X)
-    xs, ys, zs, degs = [], [], [], []
-    for _ in range(K):
-        X, Y, Z, hz = _mixed_add(X, Y, Z, qx, qy)
-        degs.append(hz)
-        # once degenerate, keep Z invertible (pwalk.py:111-112)
-        Z = fe.select(fe.is_zero(Z), fe.one_like(Z), Z)
-        xs.append(X)
-        ys.append(Y)
-        zs.append(Z)
-    zinv = fe.montgomery_inv_groups(torch.stack(zs, dim=1), n_groups=K)
-    zi2 = fe.sqr(zinv)
-    cx = fe.mul(torch.stack(xs, dim=1), zi2)  # (8, K, T): P+ADV .. P+K*ADV
-    cy = fe.mul(torch.stack(ys, dim=1), fe.mul(zinv, zi2))
-    # walk-base order: base_0 = P, base_s = chain_{s-1}; column t*K + s
-    bx = torch.cat([fe.u32(px)[:, None], cx[:, : K - 1]], dim=1)
-    by = torch.cat([fe.u32(py)[:, None], cy[:, : K - 1]], dim=1)
-    bx = fe.i32(bx.permute(0, 2, 1).reshape(8, T * K))
-    by = fe.i32(by.permute(0, 2, 1).reshape(8, T * K))
-    adeg = torch.stack(degs, dim=1)  # (T, K)
-    return bx, by, fe.i32(cx[:, K - 1]), fe.i32(cy[:, K - 1]), adeg
+    p_x = fe.u32(px)[:, :, None].expand(8, T, K)
+    p_y = fe.u32(py)[:, :, None].expand(8, T, K)
+    q_x = fe.u32(tab_x)[:, None, :].expand(8, T, K)
+    q_y = fe.u32(tab_y)[:, None, :].expand(8, T, K)
+    den = fe.sub(q_x, p_x)
+    num = fe.sub(q_y, p_y)
+    zero = fe.is_zero(den)
+    dbl = zero & fe.eq(q_y, p_y)  # P == j*ADV: tangent slope 3x^2 / 2y
+    inf = zero & ~dbl  # P == -j*ADV: flagged, inverts 1
+    x2 = fe.sqr(p_x)
+    num = fe.select(dbl, fe.add(fe.dbl(x2), x2), num)
+    den = fe.select(dbl, fe.dbl(p_y), fe.select(inf, fe.one_like(den), den))
+    lam = fe.mul(num, _tree_inv(den))
+    x3 = fe.sub(fe.sub(fe.sqr(lam), p_x), q_x)  # (8, T, K): P + ADV .. P + K*ADV
+    y3 = fe.sub(fe.mul(lam, fe.sub(p_x, x3)), p_y)
+    # walk-base order: base_0 = P, base_s = lane s; column t*K + s
+    bx = fe.i32(torch.cat([p_x[:, :, :1], x3[:, :, : K - 1]], dim=2).reshape(8, T * K))
+    by = fe.i32(torch.cat([p_y[:, :, :1], y3[:, :, : K - 1]], dim=2).reshape(8, T * K))
+    return bx, by, fe.i32(x3[:, :, K - 1]), fe.i32(y3[:, :, K - 1]), inf
 
 
-def advance_chain(px, py, adv_x, adv_y, K: int):
+def advance_chain(px, py, adv_x, adv_y, K: int, adv_tab=None):
     """px/py: (8, T) int32 limbs, one affine chain start per target.
-    adv_x/adv_y: (8,) affine ADV. Returns walk bases (8, T*K) x2 (column
+    adv_x/adv_y: (8,) affine ADV; adv_tab: its table (adv_multiples(ADV,
+    K)), built here when None (a host copy: for tests and one-off calls;
+    the search loops pass theirs). Returns walk bases (8, T*K) x2 (column
     t*K + s = P_t + s*ADV), next state (8, T) x2 = P_t + K*ADV, and
-    adv_degenerate (T, K) bool (step s+1 hit P == -ADV)."""
+    adv_degenerate (T, K) bool: P_t + (s+1)*ADV is the point at infinity.
+
+    Every lane is computed from P_t and the table, so a flagged lane's x/y
+    are garbage but the lanes after it are true points. The JAX chain adds
+    ADV serially and carries garbage past a flag; nothing downstream reads
+    those lanes (BSGS rescans every step after the first flag and rebases,
+    the brute decode cuts at the flag)."""
     T = px.shape[1] if px.dim() == 2 else -1
     for name, t, shape in (("px", px, (8, T)), ("py", py, (8, T)),
                            ("adv_x", adv_x, (8,)), ("adv_y", adv_y, (8,))):
         _check(name, t, shape)
     if K < 1 or T < 1:
         raise ValueError(f"advance_chain needs K >= 1 and T >= 1 (K={K}, T={T})")
-    if not _build.on_cuda(px, py, adv_x, adv_y):
-        return advance_chain_ref(px, py, adv_x, adv_y, K)
+    if adv_tab is None:
+        adv_tab = adv_multiples((adv_x, adv_y), K, px.device)
+    for name, t in zip(("adv_tab x", "adv_tab y"), adv_tab):
+        _check(name, t, (8, K))
+    if not _build.on_cuda(px, py, *adv_tab):
+        return advance_chain_ref(px, py, adv_x, adv_y, K, adv_tab)
     dev = px.device
     bx = torch.empty((8, T * K), dtype=torch.int32, device=dev)
     by = torch.empty_like(bx)
     nx = torch.empty((8, T), dtype=torch.int32, device=dev)
     ny = torch.empty_like(nx)
     adeg = torch.empty((T, K), dtype=torch.bool, device=dev)
-    scratch = torch.empty((4, T * K, 8), dtype=torch.int32, device=dev)
-    ptrs = [t.data_ptr() for t in (px, py, adv_x, adv_y, bx, by, nx, ny, adeg, scratch)]
+    ptrs = [t.data_ptr() for t in (px, py, *adv_tab, bx, by, nx, ny, adeg)]
     _build.launch("kh_advance_chain", *ptrs, T, K, _build.stream(px))
     advance_chain.launches += 1
     return bx, by, nx, ny, adeg
@@ -199,15 +217,15 @@ class ChunkMultiResult(NamedTuple):
 
 
 def chunk_multi(px_bm, py_bm, tab_x_lm, tab_y_lm, adv_x, adv_y,
-                K: int, U: int, T: int) -> ChunkMultiResult:
+                K: int, U: int, T: int, adv_tab=None) -> ChunkMultiResult:
     """px_bm/py_bm: (T, 8) walk base per target; tab_*_lm: (8, U);
-    adv_*: (8,). All T chains share one K1 launch (a thread each); K2
-    walks all T*K rows in one launch."""
+    adv_*: (8,) and adv_tab its table (see advance_chain). All T*K bases
+    come from one K1 launch; K2 walks all T*K rows in one launch."""
     if tuple(px_bm.shape) != (T, 8) or tuple(tab_x_lm.shape) != (8, U):
         raise ValueError(f"chunk_multi: px {tuple(px_bm.shape)} / tab "
                          f"{tuple(tab_x_lm.shape)} do not match T={T}, U={U}")
     bx, by, nx, ny, adeg = advance_chain(
-        px_bm.t().contiguous(), py_bm.t().contiguous(), adv_x, adv_y, K
+        px_bm.t().contiguous(), py_bm.t().contiguous(), adv_x, adv_y, K, adv_tab
     )
     qlo, qhi, deg = walk_blocks(bx, by, tab_x_lm, tab_y_lm)
     return ChunkMultiResult(nx.t().contiguous(), ny.t().contiguous(),

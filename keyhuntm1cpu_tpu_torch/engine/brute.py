@@ -159,6 +159,7 @@ class BruteEngine:
         adv = ecref.scalar_mult(p.block_u * self.stride)
         self.adv_x = _limbs(adv[0], self.device)
         self.adv_y = _limbs(adv[1], self.device)
+        self.adv_tab = pwalk.adv_multiples(adv, p.steps_per_chunk, self.device)
 
         # exact targets: point intervals, or the bucketed table past compare_max
         self._bucketed = n_exact > p.compare_max
@@ -225,7 +226,8 @@ class BruteEngine:
         return pbrute.brute_chunk(
             px, py, self.tab_x, self.tab_y, self.adv_x, self.adv_y, self._tgt,
             self._btab, K=p.steps_per_chunk, U=p.block_u, C=p.chunk_cand,
-            mode=self.mode, n_endo=self._n_endo, n_bucket_rows=self._n_bucket_rows)
+            mode=self.mode, n_endo=self._n_endo, n_bucket_rows=self._n_bucket_rows,
+            adv_tab=self.adv_tab)
 
     def _fast_base(self, step0: int):
         """Device point of the chunk's base scalar, or (None, None) when it

@@ -86,11 +86,13 @@ def _limbs(v: int, device) -> torch.Tensor:
 
 
 def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
-                    *, U: int, K: int, T: int, C1: int, C2: int):
+                    *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None):
     """One host-resolve chunk (bsgs._pallas_chunk_impl_host): walk, cascade,
     packed summary. Returns (next_x, next_y, summary (3*C2+3*T*K+1,) int32).
+    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None.
     No host sync: the summary stays on the device until the caller copies it."""
-    res = pwalk.chunk_multi(px, py, tab_x, tab_y, adv_x, adv_y, K=K, U=U, T=T)
+    res = pwalk.chunk_multi(px, py, tab_x, tab_y, adv_x, adv_y, K=K, U=U, T=T,
+                            adv_tab=adv_tab)
     adv_flat = res.adv_degenerate.reshape(-1)  # (T*K,)
     deg = res.degenerate
     # adv degenerate == walk lane U degenerate (ADV = U*S = tab[U-1]); fresh
@@ -167,6 +169,7 @@ class BSGSEngine:
                 self.p = dataclasses.replace(self.p, steps_per_chunk=k_new)
         self.C1, self.C2 = self._cascade_budgets(
             T * self.p.steps_per_chunk * U)
+        self.adv_tab = pwalk.adv_multiples(big, self.p.steps_per_chunk, self.device)
 
     # ------------------------------------------------------------------
     # streaming filter build
@@ -214,6 +217,7 @@ class BSGSEngine:
             base = ecref.scalar_mult(2 * ub)
             px, py = _limbs(base[0], dev)[None], _limbs(base[1], dev)[None]
             K = min(BUILD_BLOCKS, -(-rest // ub))
+            adv_tab = pwalk.adv_multiples(adv, K, dev)
             KU = K * ub
             n_iter = -(-rest // KU)
             slice_iters = max(1, int(os.environ.get("KEYHUNT_STREAM_SLICE", 256)))
@@ -221,7 +225,8 @@ class BSGSEngine:
             bad = torch.zeros((), dtype=torch.int64, device=dev)
             t0 = time.time()
             for it in range(n_iter):
-                res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1)
+                res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1,
+                                        adv_tab=adv_tab)
                 keep = lane < rest - it * KU  # key j = 2*Ub + it*KU + lane + 1 <= m
                 bmp.insert_keys(words1, bits_log2, words2, b2bits,
                                 res.qhi.reshape(-1), res.qlo.reshape(-1), keep)
@@ -276,7 +281,7 @@ class BSGSEngine:
         return chunk_impl_host(
             px, py, self.tab_x, self.tab_y, self.adv_x, self.adv_y,
             self.bitmap, self.bloom2, U=p.block_u, K=p.steps_per_chunk,
-            T=len(self.targets), C1=self.C1, C2=self.C2)
+            T=len(self.targets), C1=self.C1, C2=self.C2, adv_tab=self.adv_tab)
 
     def _consume_summary(self, step0: int, k: int, arr: np.ndarray):
         """Decode one chunk's summary -> (found, rebase, interesting)."""

@@ -53,6 +53,54 @@ def test_advance_chain_kernel_matches_plain(dev):
         assert torch.equal(g.cpu(), w)
 
 
+@pytest.mark.parametrize("T,K", [(1, 1), (3, 7), (1, 256), (2, 300), (130, 16), (1, 1024)])
+def test_advance_chain_kernel_planted_lanes(dev, T, K):
+    """K1 with P == j*ADV (doubling lanes) and P == -j*ADV (flagged) planted
+    at the first, middle and last lane, one tile and several."""
+    advk = 0xA5A5 * 4096
+    adv = ecref.scalar_mult(advk)
+    ks = [0xC0FFEE + 7919 * t for t in range(T)]
+    plants = [(0, K), (T - 1, -(K // 2 + 1)), (T // 2, 1), (min(2, T - 1), -K)]
+    for t, j in plants:
+        ks[t] = j * advk % ecref.N
+    px, py = _pts([ecref.scalar_mult(k) for k in ks])
+    args = (px, py, _limbs(adv[0]), _limbs(adv[1]))
+    tab = pwalk.adv_multiples(adv, K, "cpu")
+    want = pwalk.advance_chain_ref(*args, K, tab)
+    n0 = pwalk.advance_chain.launches
+    got = pwalk.advance_chain(*(a.to(dev) for a in args), K, tuple(t.to(dev) for t in tab))
+    torch.cuda.synchronize()
+    assert pwalk.advance_chain.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    flagged = {(t, -j - 1) for t, j in plants if j < 0 and ks[t] == (j * advk) % ecref.N}
+    assert {tuple(f) for f in want[4].nonzero().tolist()} == flagged
+
+
+def test_walk_blocks_kernel_block_edges(dev):
+    """K2 at ragged R and U with dx == 0 at the first and last thread of a
+    block (64, 128 or 256 threads) and in the last, ragged row."""
+    R, U = 70, 300
+    tab_x, tab_y = tables.step_table(ecref.scalar_mult(7), U)
+    rows = [ecref.scalar_mult(100 + 3 * r) for r in range(R)]
+    plants = [(0, 0), (31, 127), (32, 128), (45, 63), (46, 64), (63, 255), (64, 256),
+              (R - 1, U - 1)]
+    for n, (r, u) in enumerate(plants):
+        pt = ecref.scalar_mult(7 * (u + 1))
+        rows[r] = pt if n % 2 else ecref.point_neg(pt)
+    bx, by = _pts(rows)
+    tx = pwalk.table_to_limb_major(tab_x, "cpu")
+    ty = pwalk.table_to_limb_major(tab_y, "cpu")
+    want = pwalk.walk_blocks_ref(bx, by, tx, ty)
+    n0 = pwalk.walk_blocks.launches
+    got = pwalk.walk_blocks(bx.to(dev), by.to(dev), tx.to(dev), ty.to(dev))
+    torch.cuda.synchronize()
+    assert pwalk.walk_blocks.launches == n0 + 1
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert all(bool(want[2][r, u]) for r, u in plants)
+
+
 @pytest.mark.parametrize("R,U", [(45, 1000), (32, 128), (64, 7)])
 def test_walk_blocks_kernel_matches_plain(dev, R, U):
     tab_x, tab_y = tables.step_table(ecref.scalar_mult(7), U)

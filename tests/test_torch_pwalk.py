@@ -1,7 +1,7 @@
 """Port walk (keyhuntm1cpu_tpu_torch/curve/pwalk.py, plain versions of the
 K1/K2 kernels) vs the JAX package's XLA walk (curve/walk.walk_fused with
 filter/sorted_table.trunc64_from_limbs) and ref/ecref, including the
-degenerate cases: P == ADV (doubling lane), P == -ADV (flagged) and
+degenerate cases: P == j*ADV (doubling lanes), P == -j*ADV (flagged) and
 dx == 0 walk lanes, and the T=3 row layout t*K + s. Integer arithmetic:
 the tolerance is exact equality."""
 
@@ -128,3 +128,113 @@ def test_chunk_multi_matches_walk_fused():
     for t in range(2):
         want = np.asarray(cx)[t]
         assert np.array_equal(res.next_x[t].numpy().view(np.uint32), want)
+
+
+ADVK = 1000  # ADV = 1000*G in the chain tests
+_WF = jax.jit(walk.walk_fused)
+
+
+def _jax_chain(pts, adv, K):
+    """The chain K1 replaces: K serial walk_fused steps from each start
+    point, each step's advance lane feeding the next (T=3, U=16, as
+    test_chunk_multi_matches_walk_fused). Returns x, y (K+1, T, 8) uint32
+    of P + s*ADV and the (T, K) advance flags."""
+    tab_x, tab_y = tables.step_table(ecref.scalar_mult(5), 16)
+    cx = jnp.asarray(np.stack([fe.int_to_limbs(p[0]) for p in pts]))
+    cy = jnp.asarray(np.stack([fe.int_to_limbs(p[1]) for p in pts]))
+    xs, ys, flags = [np.asarray(cx)], [np.asarray(cy)], []
+    for _ in range(K):
+        r = _WF(points.PointBatch(cx, cy, jnp.zeros((len(pts),), bool)),
+                jnp.asarray(tab_x), jnp.asarray(tab_y),
+                jnp.asarray(fe.int_to_limbs(adv[0])), jnp.asarray(fe.int_to_limbs(adv[1])))
+        cx, cy = r.adv_x, r.adv_y
+        xs.append(np.asarray(cx)), ys.append(np.asarray(cy))
+        flags.append(np.asarray(r.adv_degenerate))
+    return np.stack(xs), np.stack(ys), np.stack(flags, 1)
+
+
+def _check_chain(ks, K):
+    """advance_chain from P_t = ks[t]*G against ecref on every lane that is
+    not infinity (lanes past a flag included; the flags are exactly the
+    infinity lanes) and against the JAX chain up to each target's first
+    flag: the same flags and points. Past it the JAX chain walks garbage
+    (it flags again every other step); nothing downstream reads it."""
+    adv = ecref.scalar_mult(ADVK)
+    pts = [ecref.scalar_mult(k) for k in ks]
+    px, py = _pts(pts)
+    bx, by, nx, ny, adeg = pwalk.advance_chain(
+        px.t().contiguous(), py.t().contiguous(), _limbs(adv[0]), _limbs(adv[1]), K)
+    T = len(ks)
+    assert bx.shape == (8, T * K) and nx.shape == (8, T) and adeg.shape == (T, K)
+    # lane s = P_t + s*ADV: bases s < K, the next state at s = K
+    gx = torch.cat([bx.reshape(8, T, K), nx[:, :, None]], 2).numpy().view(np.uint32)
+    gy = torch.cat([by.reshape(8, T, K), ny[:, :, None]], 2).numpy().view(np.uint32)
+    jx, jy, jflags = _jax_chain(pts, adv, K)
+    for t in range(T):
+        upto = int(np.argmax(jflags[t])) + 1 if jflags[t].any() else K
+        assert np.array_equal(adeg[t, :upto].numpy(), jflags[t, :upto])
+    for t in range(T):
+        pt, chain_ok = pts[t], True
+        for s in range(K + 1):
+            if s:
+                pt = ecref.point_add(pt, adv)
+                assert bool(adeg[t, s - 1]) == (pt is None)
+            if pt is None:
+                chain_ok = False  # the JAX chain carries garbage from here
+                continue
+            got = (fe.limbs_to_int(gx[:, t, s]), fe.limbs_to_int(gy[:, t, s]))
+            assert got == pt, (t, s)
+            if chain_ok:
+                assert np.array_equal(gx[:, t, s], jx[s, t]) and np.array_equal(gy[:, t, s], jy[s, t])
+    return adeg
+
+
+@pytest.mark.parametrize("form", ["point", "limbs"])
+def test_adv_multiples_vs_ecref(form):
+    K, advk = 9, 0xDEADBEEF
+    adv = ecref.scalar_mult(advk)
+    arg = adv if form == "point" else (_limbs(adv[0]), _limbs(adv[1]))
+    tx, ty = pwalk.adv_multiples(arg, K, "cpu")
+    assert tx.shape == ty.shape == (8, K) and tx.dtype == torch.int32
+    for j in range(1, K + 1):
+        want = ecref.scalar_mult(j * advk)
+        assert fe.limbs_to_int(tx[:, j - 1].numpy().view(np.uint32)) == want[0]
+        assert fe.limbs_to_int(ty[:, j - 1].numpy().view(np.uint32)) == want[1]
+
+
+@pytest.mark.parametrize("j", [1, 2, 8, 16])
+def test_advance_chain_doubling_lanes(j):
+    """P == j*ADV makes lane j a doubling (j = K: the next state)."""
+    adeg = _check_chain([j * ADVK, 0xBEEF01, 3 * ADVK + 1], K=16)
+    assert not adeg.any()
+
+
+@pytest.mark.parametrize("j", [1, 8, 16])
+def test_advance_chain_infinity_lanes(j):
+    """P == -j*ADV: lane j is the point at infinity, flagged at s = j - 1;
+    the lanes after it are true points (the JAX chain's are garbage)."""
+    adeg = _check_chain([0xBEEF02, ecref.N - j * ADVK, 5 * ADVK], K=16)
+    assert adeg.nonzero().tolist() == [[1, j - 1]]
+
+
+@pytest.mark.parametrize("K", [1, 7, 33])
+def test_advance_chain_any_k(K):
+    """K = 1, a K that is no power of two and one past a power of two, in
+    the T = 3 column layout: a plain target, a doubling at lane 1 and the
+    point at infinity in the next state."""
+    adeg = _check_chain([0x123456789, ADVK, ecref.N - K * ADVK], K=K)
+    assert adeg.nonzero().tolist() == [[2, K - 1]]
+
+
+def test_advance_chain_takes_the_engine_table():
+    """A table passed in gives what the built-in one gives; one of another
+    length is refused."""
+    K = 5
+    adv = ecref.scalar_mult(ADVK)
+    px, py = _pts([ecref.scalar_mult(77), ecref.scalar_mult(ADVK)])
+    args = (px.t().contiguous(), py.t().contiguous(), _limbs(adv[0]), _limbs(adv[1]))
+    got = pwalk.advance_chain(*args, K, pwalk.adv_multiples(adv, K, "cpu"))
+    for g, w in zip(got, pwalk.advance_chain(*args, K)):
+        assert torch.equal(g, w)
+    with pytest.raises(ValueError):
+        pwalk.advance_chain(*args, K, pwalk.adv_multiples(adv, K + 1, "cpu"))
