@@ -13,7 +13,8 @@ any failure exits non-zero before the result line:
 1. each kernel against its plain torch version on the card, at the shapes
    the main paths give it (K1 advance chain, K2 walk blocks, K3 insert keys,
    K4 brute walk, K5 minikey validity, the minikey key derivation, K6
-   scalar-mult ladder, K7 and K8 hash160), plus K1 against ecref at T = 1
+   scalar-mult ladder in its own order, K7 and K8 hash160), plus K1 against
+   ecref at T = 1
    and 16 with P == j*ADV (doubling lanes: j = 1, K/2) and P == -j*ADV
    (infinity lanes: j = 3, K) planted, K1 and K2 also at the filter
    build's shape (K = 128; R = 128, U = 4096), K2 with planted dx == 0
@@ -22,9 +23,11 @@ any failure exits non-zero before the result line:
    with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
    lanes); K5 over every lane of B = 2^23 in the canonical and a custom
    alphabet and against hashlib on a sample, the key derivation, K6 (edge
-   scalars planted, a sample against ecref), K7 and K8 at V = 34,816; the
+   scalars planted, x, y, inf and irr equal to scalar_mult_split_ref, every
+   unflagged lane against ecref), K7 and K8 at V = 34,816; the
    walker path's kernels at its main-path shapes (W = 8, U = 4096,
-   chain_len = 32): walk_prefix and walk_emit with C == ADV, C == -ADV and
+   chain_len = 32, and 33 for walk_emit): walk_prefix and walk_emit with
+   C == ADV, C == -ADV and
    dx == 0 lanes, pinv on the step's 1,025 chain totals with zeros planted,
    Keccak ETH, K7 and K8 on the step's 65,544 points, the probe on 131,088
    rmd160 queries against a 2^34-bit bitmap (beside words[idx], one torch
@@ -126,6 +129,10 @@ KERNEL_SOURCES = {
     "walk_emit": ("keyhuntm1cpu_tpu_torch/csrc/walk.cu",
                   "keyhuntm1cpu_tpu/curve/walk.py:144"),
 }
+# what a kernel's entry in the kernels line says beyond its numbers
+KERNEL_NOTES = {"scalar_mult": {"note": "launches counts K6 calls; a call is two launches, "
+                                        "kh_ladder_jac then kh_ladder_affine, and ms "
+                                        "times the two together"}}
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_modes.py:154-191
@@ -352,6 +359,59 @@ def ptxas_summary(log):
         nice = re.sub(r"^void |_INTERNAL_\w+::", "", nice)
         out.append(f"{nice}: {regs.get(raw, 'device function')}; {props[raw]}")
     return out
+
+
+def ecref_window_sums(ks):
+    """k*G for each python int k: the sum of its non-zero byte windows'
+    table points gtable[w][b] = b*2^(8w)*G, added in window order by ecref's
+    affine law, the lanes of a window sharing one inversion (Montgomery's
+    trick); a lane whose sum meets infinity or a doubling takes
+    ecref.point_add. Exact, ~6 products a lane a window."""
+    from keyhuntm1cpu_tpu_torch.curve.tables import gtable_np
+    from keyhuntm1cpu_tpu_torch.field import fe
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    P = ecref.P
+    tx, ty = ([[fe.limbs_to_int(g[w, b]) for b in range(256)] for w in range(32)]
+              for g in gtable_np())
+    acc = [None] * len(ks)
+    for w in range(32):
+        adds, dens = [], []
+        for j, k in enumerate(ks):
+            b = (k >> (8 * w)) & 0xFF
+            if not b:
+                continue
+            q, a = (tx[w][b], ty[w][b]), acc[j]
+            if a is None or a[0] == q[0]:
+                acc[j] = ecref.point_add(a, q)
+            else:
+                adds.append((j, q))
+                dens.append((q[0] - a[0]) % P)
+        pre, run = [], 1
+        for d in dens:
+            run = run * d % P
+            pre.append(run)
+        inv = ecref.inv_mod(run)
+        for n in range(len(dens) - 1, -1, -1):
+            j, (qx, qy) = adds[n]
+            inv_d = inv * pre[n - 1] % P if n else inv
+            inv = inv * dens[n] % P
+            x1, y1 = acc[j]
+            lam = (qy - y1) * inv_d % P
+            x3 = (lam * lam - x1 - qx) % P
+            acc[j] = (x3, (lam * (x1 - x3) - y1) % P)
+    return acc
+
+
+def ecref_check(ks, x_lm, y_lm, lanes):
+    """The lanes (indices) of `lanes` whose affine (x, y) (numpy (8, V)
+    uint32 limbs) is not k*G (ks: python ints), by ecref_window_sums."""
+    from keyhuntm1cpu_tpu_torch.field import fe
+
+    lanes = list(lanes)
+    want = ecref_window_sums([ks[j] for j in lanes])
+    return [j for j, pt in zip(lanes, want)
+            if pt is None or (fe.limbs_to_int(x_lm[:, j]), fe.limbs_to_int(y_lm[:, j])) != pt]
 
 
 def max_abs_err(got, want):
@@ -727,24 +787,36 @@ def phase1_minikeys(dev, results, clock):
         k[:, j] = torch.from_numpy(fe.int_to_limbs(e).view(np.int32)).to(dev)
     gx, gy = eng._gx, eng._gy
     ms, pt = device_ms(lambda: pladder.scalar_mult_tiles(k, gx, gy), 10)
-    pms, want = timed(lambda: pladder.scalar_mult_ref(k, gx, gy), 1)
+    pms, want = timed(lambda: pladder.scalar_mult_split_ref(k, gx, gy, pladder.SPLIT), 1)
+    if not all(torch.equal(g, w) for g, w in zip(pt, want)):
+        fail("K6 scalar_mult differs from scalar_mult_split_ref on x, y, inf or irr")
     err = max_abs_err(pt, want)
-    if err:
-        fail("K6 scalar_mult differs from its plain version")
     x, y, inf, irr = (t.cpu().numpy() for t in pt)
-    if not (inf[0] and irr[4]) or inf[1:].any() or irr[:4].any() or irr[5:].any():
+    if not (inf[0] and irr[4]) or inf[1:].any() or irr.sum() != 1:
         fail(f"K6 flags wrong: inf {np.nonzero(inf)[0][:5]}, irr {np.nonzero(irr)[0][:5]}")
     kn = k.cpu().numpy().view(np.uint32)
+    ks = [fe.limbs_to_int(kn[:, j]) for j in range(V)]
+    t0 = time.time()
+    unflagged = [j for j in range(1, V) if not irr[j]]
+    bad = ecref_check(ks, x.view(np.uint32), y.view(np.uint32), unflagged)
+    if bad:
+        fail(f"K6 lanes {bad[:5]} ({len(bad)} of {len(unflagged)} unflagged) differ from ecref")
+    t_check = time.time() - t0
     for j in [1, 2, 3, 5, 6] + list(range(7, V, V // 30)):
-        want_pt = ecref.scalar_mult(fe.limbs_to_int(kn[:, j]) % ecref.N)
+        if irr[j]:
+            continue
+        want_pt = ecref.scalar_mult(ks[j] % ecref.N)
         if (fe.limbs_to_int(x[:, j].view(np.uint32)),
                 fe.limbs_to_int(y[:, j].view(np.uint32))) != want_pt:
-            fail(f"K6 lane {j} differs from ecref")
+            fail(f"K6 lane {j} differs from ecref.scalar_mult")
     bms, by_ = bound_ms(ladder_ops(kn), 2 * 32 * 256 * 32 + 32 * V + 66 * V, clock)
     results["scalar_mult"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                                   bound_by=by_)
-    log(f"K6 scalar_mult V={V}: equal to plain, k=0 infinite, k=N irregular, a sample "
-        f"equal to ecref; {ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+    log(f"K6 scalar_mult V={V} (split {pladder.SPLIT}): equal to scalar_mult_split_ref on "
+        f"x, y, inf and irr, k=0 infinite, k=N the one irregular lane, every one of the "
+        f"{len(unflagged)} unflagged "
+        f"lanes equal to ecref ({t_check:.1f} s) and a sample to ecref.scalar_mult; "
+        f"{ms:.3f} ms (plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
 
     px, py = pt[0], pt[1]
     for name, fn, ref, ops, nbytes in (
@@ -854,6 +926,19 @@ def phase1_walker(dev, results, clock):
     log(f"walk_emit W={W} U={U} need_y: equal to plain; C == ADV doubled, C == -ADV and "
         f"dx == 0 flagged, lanes equal to ecref; {ms:.4f} ms (plain {pms:.1f} ms, bound "
         f"{bms:.4f} ms by {by_})")
+    # an odd chain length: a warp per chain takes a full segment of 32 and a
+    # segment of one
+    L2 = 33
+    pre2, tot2 = walk.walk_prefix(*args, L2)
+    if max_abs_err([pre2, tot2], walk.walk_prefix_ref(*args, L2)):
+        fail(f"walk_prefix differs from its plain version at L={L2}")
+    inv2 = pinv.inv_batch(tot2)
+    ms2, out2 = device_ms(lambda: walk.walk_emit(*args, pre2, inv2, L2, 1, True), 20)
+    err2 = max_abs_err(out2, walk.walk_emit_ref(*args, pre2, inv2, L2, 1, True))
+    if err2:
+        fail(f"walk_emit differs from its plain version at L={L2} (max_abs_err {err2})")
+    log(f"walk_emit W={W} U={U} L={L2} ({walk.n_chains(W, U, L2)} chains) need_y: equal to "
+        f"plain; {ms2:.4f} ms")
 
     x, y = x_all[0].reshape(8, -1), y_all.reshape(8, -1)  # the step's 65,544 points
     n = x.shape[1]
@@ -1571,7 +1656,8 @@ def main():
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCES[name][0],
                     replaces=KERNEL_SOURCES[name][1], launches=launches[name],
-                    **({"library_ms": None} | results[name])) for name in launches]
+                    **({"library_ms": None} | results[name] | KERNEL_NOTES.get(name, {})))
+               for name in launches]
     print(card_line(), flush=True)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {

@@ -116,8 +116,10 @@ def kernels() -> ctypes.CDLL:
         "kh_minikey_valid": [vp, vp, u32, i64, vp, i, vp],
         # vidx w22 k | base_lo B V runs(host) n_runs stream
         "kh_minikey_keys": [vp, vp, vp, u32, i64, i, vp, i, vp],
-        # k gtx gty ax ay inf irr | V stream
-        "kh_scalar_mult": [vp] * 7 + [i, vp],
+        # k gtx gty jac inf irr | V stream
+        "kh_ladder_jac": [vp] * 6 + [i, vp],
+        # jac inf ax ay | V stream
+        "kh_ladder_affine": [vp] * 4 + [i, vp],
         # x lo_e hi_e lo_o hi_o | n stream
         "kh_hash160_x2": [vp] * 5 + [i, vp],
         # x y lo hi | n stream

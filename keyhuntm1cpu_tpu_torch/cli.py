@@ -4,7 +4,7 @@ the brute-force modes and minikeys.
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
         [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
-    python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint -f targets \
+    python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint|eth -f targets \
         -r A:B | -b BITS [-c eth] [-l compress|uncompress|both] [-e] [-I S] \
         [-R [--seed S] [-n N]] [-t W] [-u U] [--chunk-steps K] [--all] ...
     python -m keyhuntm1cpu_tpu_torch.cli -m minikeys -f addresses \
@@ -12,10 +12,10 @@ the brute-force modes and minikeys.
 
 BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
 pubkeys; brute targets are addresses or hash160 hex (address, rmd160),
-ETH addresses (-m address -c eth) or x coordinates / pubkeys (xpoint).
-Brute target sets of up to 65,536 entries run the fused path (one chain
-per chunk, -u a multiple of 128); larger sets run the walker path (-t
-walkers, each moving 2U+1 keys per step).
+ETH addresses (-m eth, or -m address -c eth) or x coordinates / pubkeys
+(xpoint). Brute target sets of up to 65,536 entries run the fused path (one
+chain per chunk) when -u is a multiple of 128; larger sets, or any other
+-u, run the walker path (-t walkers, each moving 2U+1 keys per step).
 minikeys targets are addresses or hash160 hex (compressed or uncompressed
 keys both match). Minikeys scans a counter, not a key range: it takes no
 -r or -b; its batch is 2^22 minikeys on the card and 4096 on the CPU, or
@@ -32,7 +32,7 @@ import sys
 from .core.log import get_logger
 from .ref import ecref
 
-BRUTE_MODES = ("address", "rmd160", "xpoint")
+BRUTE_MODES = ("address", "rmd160", "xpoint", "eth")
 MODES = ("bsgs",) + BRUTE_MODES + ("minikeys",)
 
 
@@ -51,7 +51,7 @@ def build_parser() -> argparse.ArgumentParser:
         description="secp256k1 key search on PyTorch + CUDA: BSGS "
                     "(host-resolve), the brute-force modes and minikeys")
     p.add_argument("-m", "--mode", required=True,
-                   help="bsgs, address, rmd160, xpoint or minikeys")
+                   help="bsgs, address, rmd160, xpoint, eth or minikeys")
     p.add_argument("-f", "--file", required=True, help="target file")
     p.add_argument("-r", "--range", type=parse_range, default=None,
                    help="start:end hex key range")
@@ -82,8 +82,9 @@ def build_parser() -> argparse.ArgumentParser:
                         "past 65,536 entries (reference -t threads); the fused "
                         "path runs one chain per chunk")
     p.add_argument("-u", "--block-u", type=int, default=4096,
-                   help="keys (brute) or giant centers (bsgs) per device step; "
-                        "minikeys: the least batch")
+                   help="keys (brute) or giant centers (bsgs) per device step "
+                        "(brute: a multiple of 128 for the fused path, any other "
+                        "value runs the walker path); minikeys: the least batch")
     p.add_argument("--chunk-steps", type=int, default=8,
                    help="device steps per chunk")
     p.add_argument("-B", "--policy", default="sequential",

@@ -225,6 +225,194 @@ static __device__ __noinline__ Fe fe_inv(const Fe& a) {
   return fe_mul(fe_sqr_n(t, 2), x1);
 }
 
+// a^-1 mod p by safegcd divsteps (Bernstein-Yang, variable time, in the
+// formulation of libsecp256k1's modinv32): batches of 30 divsteps on the
+// low bits of f, g give a 2x2 transition matrix, applied to f, g and to the
+// Bezout-style d, e in signed 30-bit limbs; ~20 batches instead of
+// fe_inv's 270 dependent products, so a much shorter chain of dependent
+// operations for one thread. Maps 0 -> 0, like fe_inv; the inverse is
+// exact, so the result equals fe_inv's.
+struct Fe30 {
+  int32_t v[9];  // value = sum v[i] * 2^(30 i), limbs signed
+};
+
+// p = 2^256 - 2^32 - 977 in signed 30-bit limbs, and p^-1 mod 2^30
+static __device__ __forceinline__ Fe30 fe30_p() {
+  Fe30 m = {{-0x3D1, -4, 0, 0, 0, 0, 0, 0, 65536}};
+  return m;
+}
+constexpr uint32_t kPInv30 = 0x2DDACACFu;
+constexpr int32_t kM30 = 0x3FFFFFFF;
+
+// 30 divsteps from eta on the low words of f and g; returns the new eta
+// and the transition matrix (u, v; q, r), scaled by 2^30.
+static __device__ __forceinline__ int32_t divsteps_30(int32_t eta, uint32_t f0, uint32_t g0,
+                                                      int32_t& tu, int32_t& tv, int32_t& tq,
+                                                      int32_t& tr) {
+  uint32_t u = 1, v = 0, q = 0, r = 1, f = f0, g = g0;
+  int i = 30;
+#pragma unroll 1
+  for (;;) {
+    // the zero bits of g, up to i, are divsteps that halve g
+    const int zeros = __ffs(g | (0xFFFFFFFFu << i)) - 1;
+    g >>= zeros;
+    u <<= zeros;
+    v <<= zeros;
+    eta -= zeros;
+    i -= zeros;
+    if (i == 0) break;
+    if (eta < 0) {  // swap: f, g = g, -f
+      uint32_t t;
+      eta = -eta;
+      t = f; f = g; g = 0u - t;
+      t = u; u = q; q = 0u - t;
+      t = v; v = r; r = 0u - t;
+    }
+    // cancel the low min(eta + 1, i, 8) bits of g with a multiple of f
+    const int limit = (eta + 1) > i ? i : (eta + 1);
+    const uint32_t m = (0xFFFFFFFFu >> (32 - limit)) & 255u;
+    uint32_t fi = f;  // f^-1 mod 2^8 (f is odd): Newton from 3 correct bits
+    fi *= 2u - f * fi;
+    fi *= 2u - f * fi;
+    const uint32_t w = (g * (0u - fi)) & m;
+    g += f * w;
+    q += u * w;
+    r += v * w;
+  }
+  tu = (int32_t)u;
+  tv = (int32_t)v;
+  tq = (int32_t)q;
+  tr = (int32_t)r;
+  return eta;
+}
+
+// d, e = (t [d, e] + p [md, me]) / 2^30, md and me chosen to make the
+// division exact and to keep d, e in range.
+static __device__ __forceinline__ void update_de_30(Fe30& d, Fe30& e, int32_t u, int32_t v,
+                                                    int32_t q, int32_t r) {
+  const Fe30 p = fe30_p();
+  const int32_t sd = d.v[8] >> 31, se = e.v[8] >> 31;
+  int32_t md = (u & sd) + (v & se);
+  int32_t me = (q & sd) + (r & se);
+  int64_t cd = (int64_t)u * d.v[0] + (int64_t)v * e.v[0];
+  int64_t ce = (int64_t)q * d.v[0] + (int64_t)r * e.v[0];
+  md -= (int32_t)((kPInv30 * (uint32_t)cd + (uint32_t)md) & (uint32_t)kM30);
+  me -= (int32_t)((kPInv30 * (uint32_t)ce + (uint32_t)me) & (uint32_t)kM30);
+  cd += (int64_t)p.v[0] * md;
+  ce += (int64_t)p.v[0] * me;
+  cd >>= 30;
+  ce >>= 30;
+#pragma unroll
+  for (int i = 1; i < 9; i++) {
+    const int32_t di = d.v[i], ei = e.v[i];
+    cd += (int64_t)u * di + (int64_t)v * ei + (int64_t)p.v[i] * md;
+    ce += (int64_t)q * di + (int64_t)r * ei + (int64_t)p.v[i] * me;
+    d.v[i - 1] = (int32_t)cd & kM30;
+    cd >>= 30;
+    e.v[i - 1] = (int32_t)ce & kM30;
+    ce >>= 30;
+  }
+  d.v[8] = (int32_t)cd;
+  e.v[8] = (int32_t)ce;
+}
+
+// f, g = t [f, g] / 2^30 over their len low limbs (exact by construction).
+// Limbs are picked by unrolled compares, not by len as an index, so f and g
+// stay in registers.
+static __device__ __forceinline__ void update_fg_30(int len, Fe30& f, Fe30& g, int32_t u,
+                                                    int32_t v, int32_t q, int32_t r) {
+  int64_t cf = (int64_t)u * f.v[0] + (int64_t)v * g.v[0];
+  int64_t cg = (int64_t)q * f.v[0] + (int64_t)r * g.v[0];
+  cf >>= 30;
+  cg >>= 30;
+#pragma unroll
+  for (int i = 1; i <= 9; i++) {
+    if (i < len) {
+      const int32_t fi = f.v[i], gi = g.v[i];
+      cf += (int64_t)u * fi + (int64_t)v * gi;
+      cg += (int64_t)q * fi + (int64_t)r * gi;
+      f.v[i - 1] = (int32_t)cf & kM30;
+      cf >>= 30;
+      g.v[i - 1] = (int32_t)cg & kM30;
+      cg >>= 30;
+    } else if (i == len) {
+      f.v[i - 1] = (int32_t)cf;
+      g.v[i - 1] = (int32_t)cg;
+    }
+  }
+}
+
+static __device__ __noinline__ Fe fe_inv_var(const Fe& a) {
+  Fe30 d = {{0, 0, 0, 0, 0, 0, 0, 0, 0}}, e = {{1, 0, 0, 0, 0, 0, 0, 0, 0}};
+  Fe30 f = fe30_p(), g;
+#pragma unroll
+  for (int i = 0; i < 9; i++) {  // bits [30 i, 30 i + 30) of a
+    const int lo = 30 * i, w = lo >> 5, s = lo & 31;
+    uint64_t bits = a.v[w] >> s;
+    if (w + 1 < 8) bits |= (uint64_t)a.v[w + 1] << (32 - s);
+    g.v[i] = (int32_t)(bits & kM30);
+  }
+  int len = 9;
+  int32_t eta = -1, fn = 0;
+#pragma unroll 1
+  for (;;) {
+    int32_t u, v, q, r;
+    eta = divsteps_30(eta, (uint32_t)f.v[0], (uint32_t)g.v[0], u, v, q, r);
+    update_de_30(d, e, u, v, q, r);
+    update_fg_30(len, f, g, u, v, q, r);
+    int32_t gn = 0, any = 0;
+#pragma unroll
+    for (int j = 0; j < 9; j++) {
+      if (j < len) any |= g.v[j];
+      if (j == len - 1) {
+        fn = f.v[j];
+        gn = g.v[j];
+      }
+    }
+    if (any == 0) break;
+    // drop the top limb once it is 0 or -1 in both f and g, its sign
+    // moving into the limb below
+    if (len > 1 && ((fn ^ (fn >> 31)) | (gn ^ (gn >> 31))) == 0) {
+#pragma unroll
+      for (int j = 0; j < 8; j++) {
+        if (j == len - 2) {
+          f.v[j] = (int32_t)((uint32_t)f.v[j] | ((uint32_t)fn << 30));
+          g.v[j] = (int32_t)((uint32_t)g.v[j] | ((uint32_t)gn << 30));
+        }
+      }
+      --len;
+    }
+  }
+  // g = 0 and f = +-1 (fn, its top limb, holds the sign); d = +-a^-1 in
+  // (-2p, p): to [0, p), negated when f < 0
+  const Fe30 p = fe30_p();
+  const int32_t sign = fn >> 31;
+  int32_t add = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d.v[i] = ((d.v[i] + (p.v[i] & add)) ^ sign) - sign;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= kM30;
+  }
+  add = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d.v[i] += p.v[i] & add;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= kM30;
+  }
+  Fe out;
+#pragma unroll
+  for (int w = 0; w < 8; w++) {  // bits [32 w, 32 w + 32) of d (32 w % 30 <= 14)
+    const int lo = 32 * w, i = lo / 30, s = lo % 30;
+    out.v[w] = (uint32_t)(((uint64_t)(uint32_t)d.v[i] >> s) |
+                          ((uint64_t)(uint32_t)d.v[i + 1] << (30 - s)));
+  }
+  return out;
+}
+
 // Limb-major (8, n) access: limb i of column col at p[i * n + col].
 static __device__ __forceinline__ Fe fe_load_lm(const uint32_t* p, long long n,
                                                 long long col) {

@@ -14,11 +14,16 @@
 //      (tx_u - cx for the U table lanes, with zeros set to 1), writes the
 //      running prefix products and the chain total.
 //   2. kh_inv_batch (pinv.cu) inverts the C chain totals.
-//   3. kh_walk_emit: thread c peels its chain backwards (one inverse per
-//      element from the running inverse and the stored prefix) and emits
-//      every element at once: lambda, x3 (and y3 when need_y) for the + and
-//      - lanes, the GLV variants x*beta and x*beta^2 with the endomorphism,
-//      and the degenerate flags.
+//   3. kh_walk_emit: one warp per chain. The chain's L elements go in
+//      segments of 32 from the top; lane j takes element l = lo + j of the
+//      segment [lo, hi), recomputes its denominator, and a warp suffix scan
+//      (5 shuffle levels of fe_mul) gives the product of the segment's
+//      denominators above it. Its inverse is running * that product *
+//      prefix[l-1], where running is the inverted total times every
+//      denominator above the segment (carried down from segment to
+//      segment). Then every lane emits its element: lambda, x3 (and y3 when
+//      need_y) for the + and - lanes, the GLV variants x*beta and x*beta^2
+//      with the endomorphism, and the degenerate flags.
 // The advance lane needs two inverses, 1/(ADVx - cx) and 1/(2*cy) (the
 // doubling fallback for C == ADV). Its element is their product, so one
 // thread owns both: 1/dx = inv*2cy and 1/2cy = inv*dx. The JAX batch's
@@ -28,10 +33,15 @@
 //
 // Bound on the H100: 32-bit integer issue, ~7 field products per point
 // and the inversion shared out (chip_smoke.walk_point_ops). The C ~ 1,025
-// chains of a W = 8, U = 4096 step are 9 blocks of 128 threads, so each
-// launch is latency-bound with few warps per SM; a wider step (more
-// walkers) fills the card without changing the design. Element loads and
-// stores of neighbouring threads are neighbouring columns (coalesced).
+// chains of a W = 8, U = 4096 step are 9 blocks of 128 threads in
+// walk_prefix, which stays latency-bound with few warps per SM (a wider
+// step fills the card without changing the design): its loads and stores
+// of neighbouring threads are neighbouring columns (coalesced). walk_emit
+// did the same backward peel with the whole emit of every element inline,
+// ~300 dependent products a thread on 9 SMs; a warp per chain puts the C
+// chains on C warps (257 blocks) with ~8 dependent products and one emit a
+// lane, at the price of strided element columns (in L2) and 5 scan
+// products per element.
 //
 // Layouts, limb-major u32: centers (8, W), table (8, U), ADV (8,),
 // prefixes (8, L*C), totals (8, C), x out (n_endo, 8, W*npts) and y out
@@ -187,21 +197,53 @@ __device__ void emit(const WalkArgs& a, const EmitOut& o, long long i, const Fe&
   if (o.y) kh::fe_store_lm(o.y, npts_all, col0 + npts - 1, cy);
 }
 
+__device__ __forceinline__ Fe shfl_down_fe(const Fe& a, int d) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = __shfl_down_sync(0xFFFFFFFFu, a.v[j], d);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_fe(const Fe& a, int src) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = __shfl_sync(0xFFFFFFFFu, a.v[j], src);
+  return r;
+}
+
 __global__ void __launch_bounds__(kThreads)
 walk_emit_kernel(WalkArgs a, const uint32_t* __restrict__ pre,
                  const uint32_t* __restrict__ inv_totals, EmitOut o) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
+  // the warp's chain (uniform across the warp, so whole warps leave here
+  // and the shuffles below see all 32 lanes)
+  const long long c = ((long long)blockIdx.x * kThreads + threadIdx.x) >> 5;
+  const int lane = threadIdx.x & 31;
   if (c >= a.C) return;
   const long long n = a.C * a.L;
-  Fe running = kh::fe_load_lm(inv_totals, a.C, c);
-  for (int l = a.L - 1; l >= 0; l--) {
+  const long long D = (long long)a.W * (a.U + 2);
+  Fe running = kh::fe_load_lm(inv_totals, a.C, c);  // 1 / the chain's total
+  for (int hi = a.L; hi > 0; hi -= 32) {
+    const int lo = hi > 32 ? hi - 32 : 0;
+    const int l = lo + lane;
+    const bool act = l < hi;
     const long long i = (long long)l * a.C + c;
-    Fe inv = running;
-    if (l > 0) {
-      inv = kh::fe_mul(running, kh::fe_load_lm(pre, n, i - a.C));
-      running = kh::fe_mul(running, denominator(a, i));
+    const Fe den = act ? denominator(a, i) : kh::fe_one();
+    // suf = den(l) * ... * den(hi - 1): inclusive suffix products
+    Fe suf = den;
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Fe up = shfl_down_fe(suf, d);
+      if (lane + d < 32) suf = kh::fe_mul(suf, up);
     }
-    if (i < (long long)a.W * (a.U + 2)) emit(a, o, i, inv);
+    Fe above = shfl_down_fe(suf, 1);  // den(l+1) * ... * den(hi - 1)
+    if (lane == 31) above = kh::fe_one();
+    if (act) {
+      // 1/den(l) = 1/total * den(l+1..L-1) * den(0..l-1)
+      Fe inv = kh::fe_mul(running, above);
+      if (l > 0) inv = kh::fe_mul(inv, kh::fe_load_lm(pre, n, i - a.C));
+      if (i < D) emit(a, o, i, inv);
+    }
+    running = kh::fe_mul(running, shfl_fe(suf, 0));
   }
 }
 
@@ -232,7 +274,7 @@ extern "C" int kh_walk_emit(const void* cx, const void* cy, const void* tx, cons
                    (const uint32_t*)ty, (const uint32_t*)ax, (const uint32_t*)ay, W, U, L, C};
   const EmitOut o{(uint32_t*)x, (uint32_t*)y, (uint8_t*)deg, (uint32_t*)nx, (uint32_t*)ny,
                   (uint8_t*)adeg, n_endo};
-  walk_emit_kernel<<<(unsigned)((C + kThreads - 1) / kThreads), kThreads, 0,
+  walk_emit_kernel<<<(unsigned)((32 * C + kThreads - 1) / kThreads), kThreads, 0,
                      (cudaStream_t)stream>>>(a, (const uint32_t*)pre,
                                              (const uint32_t*)inv_totals, o);
   return (int)cudaGetLastError();

@@ -11,8 +11,8 @@ dx == 0 is flagged ``degenerate`` and its x is garbage.
 
 On the card the step is three launches: ``walk_prefix`` (csrc/walk.cu:
 the denominators and the chains' prefix products), ``pinv.inv_batch`` of
-the chain totals, ``walk_emit`` (csrc/walk.cu: the backward peel and every
-output). The batch differs from the JAX one only in the advance lane:
+the chain totals, ``walk_emit`` (csrc/walk.cu: one warp per chain peels
+the inverses by a suffix scan and emits every output). The batch differs from the JAX one only in the advance lane:
 1/(ADVx - cx) and 1/(2*cy) come from the inverse of their product, so one
 thread owns both; the walker's second slot is a 1, which keeps the chain
 width ceil(W*(U+2)/chain_len) that pinv sees. The inverses are exact, so

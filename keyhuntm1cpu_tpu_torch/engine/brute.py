@@ -12,8 +12,10 @@ device:
   are point intervals compared in the kernel; larger sets go to the
   lane-bucketed table. U must be a multiple of 128.
 - **Walker path** (``_search_walker``; the JAX package's XLA fallback,
-  ``_brute_chunk_impl`` and its ``search``), past bucket_max targets, or
-  for any set with compare_max = bucket_max = 0 (the JAX pallas="off"): W
+  ``_brute_chunk_impl`` and its ``search``), past bucket_max targets, for
+  a U that is not a positive multiple of 128 (the JAX engine's "shapes
+  untiled"), or for any set with compare_max = bucket_max = 0 (the JAX
+  pallas="off"): W
   walkers each own a slice of the range; a device step moves every walker
   by a window of 2U+1 keys around its center (curve/walk.py: one batched
   inversion), hashes every point (hash/phash.py kernels, or the raw x in
@@ -76,7 +78,8 @@ class BruteParams:
 
     walkers: int = 4  # W walkers of the walker path (reference -t)
     block_u: int = 256  # U: keys per device step on the fused path (a
-    # multiple of 128); the walker path's window is 2U+1 keys per walker
+    # multiple of 128, or the walker path runs); the walker path's window is
+    # 2U+1 keys per walker
     steps_per_chunk: int = 8  # K: device steps per chunk
     chain_len: int = 32  # walker path: Montgomery chain length of a step's
     # batched inversion (pinv.inv_batch inverts ceil(W*(U+2)/chain_len) totals)
@@ -138,20 +141,19 @@ class BruteEngine:
             mult *= 3
         self.stats.multiplier = mult
         self._parities = {"rmd160": 2, "rmd160_both": 3}.get(self.mode, 1)
-        self._walker = n_exact > p.bucket_max
+        untiled = p.block_u % pbrute.LANES != 0 or p.block_u < pbrute.LANES
+        self._walker = n_exact > p.bucket_max or untiled
         if self._walker:
             get_logger().warn(
                 f"brute fused-kernel path disabled (target set {n_exact} > "
-                f"{p.compare_max} (bucketed cap {p.bucket_max})): the walker path "
-                "runs instead")
+                f"{p.compare_max} (bucketed cap {p.bucket_max}) or shapes untiled): "
+                "the walker path runs instead")
             self._init_walker()
         else:
             self._init_fused()
 
     def _init_fused(self) -> None:
         p, n_exact = self.p, len(self.targets.raw)
-        if p.block_u % pbrute.LANES or p.block_u < pbrute.LANES:
-            raise ValueError(f"block_u must be a positive multiple of {pbrute.LANES}")
         self._n_endo = 3 if (p.endo and self.mode in pbrute.ENDO_MODES) else 1
         tab_x, tab_y = tables.step_table(ecref.scalar_mult(self.stride), p.block_u)
         self.tab_x = pwalk.table_to_limb_major(tab_x, self.device)

@@ -101,9 +101,12 @@ def test_refusals():
     walker = BruteEngine(ts, 1, 1025, mode="rmd160", device="cpu",
                          params=BruteParams(block_u=200, compare_max=0, bucket_max=0))
     assert walker._walker and walker.window == 401
-    with pytest.raises(ValueError):  # the fused path needs U % 128 == 0
-        BruteEngine(ts, 1, 1025, mode="rmd160", device="cpu",
-                    params=BruteParams(block_u=200))
+    # a U the fused path cannot tile runs the walker path, as the JAX engine
+    # does on an accelerator, and finds the planted key
+    untiled = BruteEngine(ts, 1, 1025, mode="rmd160", device="cpu",
+                          params=BruteParams(walkers=1, block_u=200))
+    assert untiled._walker and untiled.window == 401
+    assert [f.private_key for f in untiled.search()] == [5]
     with pytest.raises(ValueError):
         BruteEngine(ts, 1, 1025, mode="minikeys", device="cpu")
     off = convert.brute_params_from_jax(jbrute.BruteParams(pallas="off"))

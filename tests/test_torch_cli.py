@@ -79,6 +79,23 @@ def test_cli_cpu_address_mode_finds_keys(workdir, flags, target):
                   if ln.startswith("Private key:")) == keys
 
 
+@pytest.mark.parametrize("flags,target", [
+    # -m eth is -m address -c eth
+    (["-m", "eth"], lambda pt: "0x" + hashref.pubkey_to_eth_address(pt).hex()),
+    # a -u the fused path cannot tile runs the walker path
+    (["-m", "rmd160", "-u", "1000", "-t", "1"],
+     lambda pt: hashref.pubkey_to_hash160(pt, True).hex()),
+])
+def test_cli_cpu_eth_mode_and_untiled_u(workdir, flags, target):
+    keys = [0x9, 0x18F]
+    f = workdir / "t.txt"
+    f.write_text("".join(target(ecref.scalar_mult(k)) + "\n" for k in keys))
+    assert cli.main(["-f", str(f), *BRUTE_ARGS, *flags]) == 0
+    out = (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
+    assert sorted(int(ln.split()[-1], 16) for ln in out.splitlines()
+                  if ln.startswith("Private key:")) == keys
+
+
 def test_cli_cpu_xpoint_endo_stride(workdir):
     k = ecref.LAMBDA * 0x101 % ecref.N  # reached as lambda * 0x101 with -e
     f = workdir / "x.txt"

@@ -1,8 +1,11 @@
 """CUDA kernels K1-K8, the minikey key derivation, pinv, the Keccak ETH
 hash, the probe and the two walker walk kernels
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
-at small odd sizes (partial blocks), and the engines (the brute walker
-path included) on CUDA vs the engines on the CPU.
+at small odd sizes (partial blocks; K6 at V not a multiple of its
+inversion group, walk_emit at several chain lengths), and the engines (the
+brute walker path included) on CUDA vs the engines on the CPU. K6's other
+compile-time shapes are held to their plain version by
+scripts/torch_ladder_shapes.py.
 Needs an NVIDIA GPU and nvcc; skipped without a GPU. Run on the card with
 ``python -m pytest tests/test_torch_kernels_cuda.py -m cuda``.
 Integer arithmetic: the tolerance is exact equality."""
@@ -242,9 +245,11 @@ def test_scalar_mult_and_hash_kernels_match_plain(dev):
     ks += [int.from_bytes(rng.bytes(32), "big") for _ in range(37 - len(ks))]
     k = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in ks]).T.copy().view(np.int32))
     gtx, gty = pladder.gtable_tensors("cpu")
-    want = pladder.scalar_mult_ref(k, gtx, gty)
+    want = pladder.scalar_mult_split_ref(k, gtx, gty, pladder.SPLIT)
+    n0 = pladder.scalar_mult_tiles.launches
     got = pladder.scalar_mult_tiles(k.to(dev), gtx.to(dev), gty.to(dev))
     torch.cuda.synchronize()
+    assert pladder.scalar_mult_tiles.launches == n0 + 1
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
     assert bool(want[2][0]) and bool(want[3][4])  # k = 0: infinity; k = N: irregular
@@ -253,6 +258,23 @@ def test_scalar_mult_and_hash_kernels_match_plain(dev):
         assert torch.equal(g[0].cpu(), w[0]) and torch.equal(g[1].cpu(), w[1])
     for g, w in zip(phash.hash160_u_from_batch(x.to(dev), y.to(dev)), phash.hash160_u_ref(x, y)):
         assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("V", [300, 1000])
+def test_scalar_mult_kernel_shapes_match_split_ref(dev, V):
+    """K6 at V not a multiple of its inversion group (128 scalars) equal to
+    its plain version in its own order, k = 0 and k = N planted."""
+    rng = np.random.default_rng(V)
+    ks = [int.from_bytes(rng.bytes(32), "big") for _ in range(V)]
+    ks[0], ks[V // 2], ks[-1] = 0, ecref.N, 2 ** 256 - 1
+    k = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in ks]).T.copy().view(np.int32))
+    gtx, gty = pladder.gtable_tensors("cpu")
+    want = pladder.scalar_mult_split_ref(k, gtx, gty, pladder.SPLIT)
+    got = pladder.scalar_mult_tiles(k.to(dev), gtx.to(dev), gty.to(dev))
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    assert bool(want[2][0]) and bool(want[3][V // 2])
 
 
 def test_minikey_engine_cuda_matches_cpu(dev):
@@ -354,6 +376,30 @@ def test_walk_kernels_match_plain(dev, W, U, L):
         assert torch.equal(g.cpu(), w)
     assert ref.adv_degenerate.tolist()[:3] == [False, True, False][:W]
     assert bool(ref.degenerate[2, 8]) if W > 2 else True
+
+
+@pytest.mark.parametrize("L", [7, 32, 33, 64])
+def test_walk_emit_kernel_chain_lengths(dev, L):
+    """walk_emit (a warp per chain, segments of 32 from the top) at chain
+    lengths below, at, just past and twice one segment, need_y off and on,
+    n_endo = 3, equal to its plain version."""
+    W, U, stride = 3, 500, 3
+    tab_x, tab_y = tables.step_table(ecref.scalar_mult(stride), U)
+    adv_k = (2 * U + 1) * stride
+    c = point_batch_from_ints([ecref.scalar_mult(k) for k in (adv_k, stride * 4, 10 ** 12)])
+    adv = ecref.scalar_mult(adv_k)
+    cpu = (c.x, c.y, pwalk.table_to_limb_major(tab_x, "cpu"),
+           pwalk.table_to_limb_major(tab_y, "cpu"), _limbs(adv[0]), _limbs(adv[1]))
+    gpu = tuple(t.to(dev) for t in cpu)
+    pre, tot = walk.walk_prefix_ref(*cpu, L)
+    inv_tot = pinv.inv_batch_ref(tot)
+    for need_y in (False, True):
+        got = walk.walk_emit(*gpu, pre.to(dev), inv_tot.to(dev), L, 3, need_y)
+        want = walk.walk_emit_ref(*cpu, pre, inv_tot, L, 3, need_y)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert (g is None) == (w is None) and (g is None or torch.equal(g.cpu(), w))
+    assert bool(want[2][1, 3]) and not bool(want[5][0])  # dx == 0 at u = 4; C == ADV doubles
 
 
 @pytest.mark.parametrize("mode", ["rmd160", "eth", "xpoint"])

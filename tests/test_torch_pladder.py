@@ -2,9 +2,11 @@
 against the JAX package on the CPU: scalar_mult_ref against
 points.scalar_mult_batch_jac (the JAX engine's CPU ladder, the same
 (points, irregular) contract as pladder.scalar_mult_tiles) on x, y, inf and
-irregular, edge scalars included, and the regular lanes against ecref.
-Exact equality. The CUDA kernel K6 is held to scalar_mult_ref on the card
-(tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
+irregular, edge scalars included, and the regular lanes against ecref;
+scalar_mult_split_ref (K6's own order: 2, 4 or 8 lanes per scalar, merged
+by Jacobian adds) against both and ecref on the lanes it leaves unflagged.
+Exact equality. The CUDA kernel K6 is held to scalar_mult_split_ref on the
+card (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import numpy as np
 import pytest
@@ -65,3 +67,46 @@ def test_scalar_mult_refuses_bad_inputs():
         pladder.scalar_mult_tiles(torch.zeros((8, 4), dtype=torch.int64), gtx, gty)
     with pytest.raises(ValueError):
         pladder.scalar_mult_tiles(torch.zeros((8, 4), dtype=torch.int32), gtx[:31], gty)
+
+
+@pytest.fixture(scope="module")
+def sequential():
+    """The scalars, their limbs, scalar_mult_ref's and the JAX ladder's
+    outputs (numpy) and ecref's k*G."""
+    ks = _scalars()
+    k_bm = np.stack([fe.int_to_limbs(k) for k in ks])
+    k = torch.from_numpy(k_bm.T.copy().view(np.int32))
+    gtx, gty = pladder.gtable_tensors("cpu")
+    ref = [t.numpy() for t in pladder.scalar_mult_ref(k, gtx, gty)]
+    gx, gy = (jnp.asarray(t) for t in jtables.gtable_np())
+    pub, jirr = jax.jit(points.scalar_mult_batch_jac)(jnp.asarray(k_bm), gx, gy)
+    jax_out = [np.asarray(pub.x).T, np.asarray(pub.y).T, np.asarray(pub.inf), np.asarray(jirr)]
+    return ks, k, ref, jax_out, [ecref.scalar_mult(v % N) for v in ks]
+
+
+def test_scalar_mult_split_ref_one_lane_is_the_sequential_ladder(sequential):
+    _, k, ref, _, _ = sequential
+    got = pladder.scalar_mult_split_ref(k, *pladder.gtable_tensors("cpu"), 1)
+    for g, w in zip(got, ref):
+        np.testing.assert_array_equal(g.numpy(), w)
+
+
+@pytest.mark.parametrize("split", [2, 4, 8])
+def test_scalar_mult_split_ref_contract(sequential, split):
+    ks, k, ref, jax_out, want = sequential
+    x, y, inf, irr = (t.numpy() for t in pladder.scalar_mult_split_ref(
+        k, *pladder.gtable_tensors("cpu"), split))
+    np.testing.assert_array_equal(inf, ref[2])  # k == 0 exactly, as the ladder
+    np.testing.assert_array_equal(inf, jax_out[2])
+    assert inf[EDGES.index(0)]
+    assert np.flatnonzero(irr).tolist() == [EDGES.index(N)]  # k = N alone cancels
+    xs, ys = x.view(np.uint32), y.view(np.uint32)
+    for other in (ref, jax_out):  # lanes neither flags: bit for bit
+        both = ~irr & ~other[3].astype(bool)
+        np.testing.assert_array_equal(xs[:, both], other[0].view(np.uint32)[:, both])
+        np.testing.assert_array_equal(ys[:, both], other[1].view(np.uint32)[:, both])
+    for j, pt in enumerate(want):  # every lane it leaves unflagged is k*G
+        if irr[j]:
+            continue
+        got = None if inf[j] else (fe.limbs_to_int(xs[:, j]), fe.limbs_to_int(ys[:, j]))
+        assert got == pt, hex(ks[j])
