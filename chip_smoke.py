@@ -28,10 +28,13 @@ any failure exits non-zero before the result line:
    walker path's kernels at its main-path shapes (W = 8, U = 4096,
    chain_len = 32, and 33 for walk_emit): walk_prefix and walk_emit with
    C == ADV, C == -ADV and
-   dx == 0 lanes, pinv on the step's 1,025 chain totals with zeros planted,
-   Keccak ETH, K7 and K8 on the step's 65,544 points, the probe on 131,088
-   rmd160 queries against a 2^34-bit bitmap (beside words[idx], one torch
-   index) and in bloom2 form at phase 3's sizes; each kernel's device time
+   dx == 0 lanes, pinv on the step's 1,025 chain totals with zeros planted
+   (every column checked as an inverse; beside it the four pinv designs of
+   scripts/torch_pinv_shapes.py at that width), Keccak ETH, K7 and K8 on
+   the step's 65,544 points, the probe on 131,088 rmd160 queries against a
+   2^34-bit bitmap (beside words[idx], one torch index), in its fused form
+   (ordered compaction to cand_max = 256) and in bloom2 form at phase 3's
+   sizes; each kernel's device time
    (device_ms: CUDA events around back-to-back runs queued behind a sleep
    kernel) beside its plain version's time.
 2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
@@ -45,9 +48,12 @@ any failure exits non-zero before the result line:
    idle share over that window (CUDA events around each chunk), then the
    chunk time split over K1, K2, cascade and host decode (on the card:
    device_ms); the cascade of one chunk's
-   T*K*U queries through the probe kernel held to the same cascade through
-   the plain torch probes, and the probe timed at that shape beside
-   words[idx] (the probe's entry in the kernels line).
+   T*K*U queries through the fused probe (probe_compact) and the bloom2
+   probe held to the same cascade through their plain versions and to the
+   composition the fusion replaced; the level-1 stage timed beside that
+   composition, the card's random-read ceiling at 2^34 and 2^35 bits
+   (scripts/torch_probe_shapes.py) and words[idx] (the probe's entry in
+   the kernels line).
 4. the brute-force path (bench_modes.py's protocol) in rmd160, xpoint,
    eth, address_u, rmd160 -e and rmd160 with T = 4096 bucketed targets:
    keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
@@ -72,7 +78,8 @@ any failure exits non-zero before the result line:
    planted keys recovered in one chunk, then 5 s of throughput per mode
    with effective keys/s, the device idle share, host enqueue per chunk,
    the device operations of one chunk (torch.profiler), the chunk split
-   over walk_prefix, pinv, walk_emit, hash, probe and the rest, set-up
+   over walk_prefix, pinv, walk_emit, hash, probe with its compaction and
+   the rest, set-up
    times, device memory and launch counts.
 5. the launch counts of the main paths (phase 3's filter build and
    searches, the throughput windows of phases 4, 4b and 4c, each counted
@@ -132,7 +139,13 @@ KERNEL_SOURCES = {
 # what a kernel's entry in the kernels line says beyond its numbers
 KERNEL_NOTES = {"scalar_mult": {"note": "launches counts K6 calls; a call is two launches, "
                                         "kh_ladder_jac then kh_ladder_affine, and ms "
-                                        "times the two together"}}
+                                        "times the two together"},
+                "probe": {"note": "ms, plain_ms and bound_ms: the fused level-1 form "
+                                  "(kh_probe_compact: probe, ordered compaction to C1 and "
+                                  "the survivors' keys) at the BSGS chunk's 4,194,304 "
+                                  "queries against 2^35 bits; library_ms: words[idx], "
+                                  "the gather alone; launches count the fused, mask and "
+                                  "bloom2 forms"}}
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_modes.py:154-191
@@ -157,7 +170,11 @@ INT32_PER_CLK_SM, N_SM, HBM_BYTES_PER_S = 64, 132, 3.35e12
 MUL_OPS = 160  # fe_mul: 64 wide multiply-adds, 64 carry adds, 32 for the fold
 SQR_OPS = 120  # a squaring: 36 wide multiply-adds, 36 carry adds, 16 to double, the fold
 SUB_OPS = 16  # fe_sub / fe_add: 8 subtracts with borrow + the conditional p
-INV_OPS = 255 * SQR_OPS + 15 * MUL_OPS  # a^(p-2): 255 squarings + 15 multiplies
+# a^-1 by safegcd: 20 batches of 30 divsteps (~12 logic operations each)
+# and the batch's matrix applied to d, e, f, g (~150: 72 wide multiply-adds
+# and their carries); the addition chain a^(p-2) needs 255 squarings and 15
+# products, 3x as many
+INV_OPS = 20 * (30 * 12 + 150)
 SHA_OPS = 64 * 14 + 48 * 10  # rounds (3 funnel shifts x2, 5 LOP3/IADD3...) + schedule
 # 2 lines x 80 steps (LOP3, IADD3, 2 SHF, add, and a second IADD3 where the
 # message word is not a constant of the digest's padding) + output; counted
@@ -490,15 +507,14 @@ def phase1_kernels(dev, results, clock):
             f"({n_dbl} doubling, {int(got[4].sum())} infinite); {ms:.4f} ms (plain {pms:.1f} ms)")
         if name == "T=1":
             k1_ms, k1_plain, k1_err = ms, pms, err
-    # the latency floor: one fe_inv chain on one thread (pinv at n = 1)
-    # plus the tile's product tree, 3*log2(256) dependent products
+    # the latency floor: one inversion on one thread (pinv at n = 1, the
+    # same fe_inv_const) plus the tile's product tree
     one = limbs(3).to(dev)[:, None]
     inv1_ms, _ = device_ms(lambda: pinv.inv_batch(one), 20)
-    floor_ms = inv1_ms * (1 + 3 * 8 / 270)
     bms, by_ = bound_ms(k1_ops(1, K), k1_bytes(1, K), clock)
     log(f"K1 at T=1 K={K}: {k1_ms:.4f} ms; least work {bms:.6f} ms by {by_}; latency floor "
-        f"~{floor_ms:.4f} ms (one fe_inv on one thread {inv1_ms:.4f} ms, pinv at n = 1, "
-        f"+ 24 dependent products of the tree); plain {k1_plain:.1f} ms")
+        f"one inversion on one thread ({inv1_ms:.4f} ms, pinv at n = 1) and the tile's "
+        f"product tree; plain {k1_plain:.1f} ms")
     results["advance_chain"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
                                     bound_ms=bms, bound_by=by_)
 
@@ -894,14 +910,20 @@ def phase1_walker(dev, results, clock):
     z = tz.cpu().numpy().view(np.uint32)
     if err or g[:, 0].any() or g[:, C // 2].any():
         fail(f"pinv differs from its plain version or maps 0 to non-zero (max_abs_err {err})")
-    for j in (1, C - 1):
+    for j in set(range(C)) - {0, C // 2}:
         if fe.limbs_to_int(g[:, j]) * fe.limbs_to_int(z[:, j]) % fe.P_INT != 1:
             fail(f"pinv column {j} is no inverse")
     bms, by_ = bound_ms(C * INV_OPS, 64 * C, clock)
     results["inv_batch"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
                                 bound_by=by_)
-    log(f"pinv inv_batch n={C} (two zeros): equal to plain, 0 -> 0, inverses checked; "
-        f"{ms:.4f} ms (plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
+    log(f"pinv inv_batch n={C} (two zeros): equal to plain, 0 -> 0, every other column an "
+        f"inverse; {ms:.4f} ms (plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
+    # the four designs of scripts/torch_pinv_shapes.py at this width
+    import torch_pinv_shapes
+
+    designs = torch_pinv_shapes.pinv_designs(dev, ns=(C,), log=lambda m: None)
+    log(f"pinv designs at n={C} (scripts/torch_pinv_shapes.py, each equal to inv_batch_ref): "
+        + ", ".join(f"{k} {v[C]:.4f} ms" for k, v in designs.items()))
 
     inv_tot = pinv.inv_batch(tot)
     ms, out = device_ms(lambda: walk.walk_emit(*args, pre, inv_tot, L, 1, True), 20)
@@ -1007,6 +1029,15 @@ def phase1_walker(dev, results, clock):
     log(f"probe B={B} against 2^{WK_BITS} bits ({WK_T} keys): equal to plain, members found, "
         f"{int(got.sum())} set; {ms:.4f} ms (plain {pms:.3f} ms, words[idx] "
         f"{lib_ms:.4f} ms, bound {bms:.4f} ms by {by_}: {PROBE_BYTES} B a query)")
+    # the fused form at the walker's cand_max, its survivors in order
+    cmax = 256
+    ms, got = device_ms(lambda: bmp.probe_compact(bm, qhi, qlo, cmax), 50)
+    pms, want = timed(lambda: bmp.probe_compact_ref(bm, qhi, qlo, cmax), 3)
+    err = max_abs_err(got, want)
+    if err or int(got.n) < members:
+        fail(f"probe_compact differs from its plain version (max_abs_err {err})")
+    log(f"probe_compact B={B} C={cmax}: equal to plain ({int(got.n)} survivors, the first "
+        f"{cmax} in order); {ms:.4f} ms (plain {pms:.3f} ms)")
     del words, bm, word_idx
     torch.cuda.empty_cache()
 
@@ -1201,47 +1232,69 @@ def phase3_main(dev, m, seconds, results, clock):
     k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
         pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab), reps)
     k2_ms, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x, eng64.tab_y), reps)
-    # the cascade on this chunk's queries, once through the probe kernel and
-    # once through the plain torch probes: the level-1 bitmap probe of the
-    # T*K*U queries, compaction to C1, the bloom2 probe of the C1 stage-1
-    # survivors, compaction to C2 (bmp.filtered_survivors' stages)
+    # the cascade on this chunk's queries, once through the probe kernels and
+    # once through their plain versions: the level-1 bitmap probe of the
+    # T*K*U queries fused with its compaction to C1, the bloom2 probe of the
+    # C1 stage-1 survivors, compaction to C2 (bmp.filtered_survivors' stages)
     bm, b2 = eng64.bitmap, eng64.bloom2
     res = pwalk.chunk_multi(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
                             K=K, U=U, T=1, adv_tab=eng64.adv_tab)
     qhi, qlo = res.qhi.reshape(-1), res.qlo.reshape(-1)
     B = qhi.shape[0]
 
-    def cascade(probe1, probe2):
-        mask = probe1(bm, qhi, qlo)
-        pos1 = bmp.compact_positions(mask, eng64.C1, B)
-        safe1 = pos1.clamp(max=B - 1).long()
-        qh1, ql1 = qhi[safe1], qlo[safe1]
-        mask2 = probe2(b2, qh1, ql1) & (pos1 < B)
-        return mask, qh1, ql1, mask2, bmp.compact_positions(mask2, eng64.C2, eng64.C1)
+    C1, C2 = eng64.C1, eng64.C2
 
-    cas_ms, got = timed(lambda: cascade(bmp.probe, bmp.probe_bloom2), reps)
-    plain_ms, want = timed(lambda: cascade(bmp.probe_ref, bmp.probe_bloom2_ref), reps)
+    def cascade(level1, probe2):
+        pos1, qh1, ql1, n = level1(bm, qhi, qlo, C1)
+        mask2 = probe2(b2, qh1, ql1) & (pos1 < B)
+        return pos1, qh1, ql1, n, mask2, bmp.compact_positions(mask2, C2, C1)
+
+    def composition():
+        """The level-1 stage before its fusion (PR 6): the mask form, the
+        count, compact_positions and the key gathers."""
+        mask = bmp.probe(bm, qhi, qlo)
+        n = mask.sum(dtype=torch.int32)
+        pos1 = bmp.compact_positions(mask, C1, B)
+        safe1 = pos1.clamp(max=B - 1).long()
+        return pos1, qhi[safe1], qlo[safe1], n
+
+    got = cascade(bmp.probe_compact, bmp.probe_bloom2)
+    want = cascade(bmp.probe_compact_ref, bmp.probe_bloom2_ref)
     err = max_abs_err(got, want)
-    if err:
-        fail(f"phase 3: the cascade through the probe kernel differs from the plain "
-             f"probes' (max_abs_err {err})")
-    n1, qh1, ql1 = int(got[0].sum()), got[1], got[2]
-    pr_ms, _ = device_ms(lambda: bmp.probe(bm, qhi, qlo), reps)
-    ppr_ms, _ = timed(lambda: bmp.probe_ref(bm, qhi, qlo), reps)
+    if err or max_abs_err(composition(), got[:4]):
+        fail(f"phase 3: the cascade through the fused probe differs from the plain probes' "
+             f"or from the composition it replaced (max_abs_err {err})")
+    n1, qh1, ql1 = int(got[3]), got[1], got[2]
+    pr_ms, _ = device_ms(lambda: bmp.probe_compact(bm, qhi, qlo, C1), reps)
+    ppr_ms, _ = timed(lambda: bmp.probe_compact_ref(bm, qhi, qlo, C1), reps)
+    comp_ms, _ = device_ms(composition, reps)
+    mask_ms, _ = device_ms(lambda: bmp.probe(bm, qhi, qlo), reps)
+    cas_ms, _ = device_ms(lambda: bmp.filtered_survivors(bm, qhi, qlo, C2, bm2=b2,
+                                                         stage1_max=C1), reps)
     word_idx = bmp.bitmap_bit_planes(fe.u32(qhi), fe.u32(qlo), bm.bits_log2)[0]
     lib_ms, _ = device_ms(lambda: bm.words[word_idx], reps)
     b2_ms, _ = device_ms(lambda: bmp.probe_bloom2(b2, qh1, ql1), reps)
     pb2_ms, _ = timed(lambda: bmp.probe_bloom2_ref(b2, qh1, ql1), reps)
-    bms, by_ = bound_ms(12 * B, PROBE_BYTES * B, clock)
+    # the card's ceiling for B random word reads over 2^34 and 2^35 bits
+    # (scripts/torch_probe_shapes.py's gather, 1-16 reads in flight a thread)
+    import torch_probe_shapes
+
+    ceiling = torch_probe_shapes.read_ceiling(bm.words, bits_list=(34, MAIN_BITS), reads=B,
+                                              log=lambda m: None)
+    ceil = {bits: min(row.values()) for bits, row in ceiling.items()}
+    bms, by_ = bound_ms(12 * B, 40 * B + 12 * C1 + 4, clock)
     results["probe"] = dict(max_abs_err=err, ms=pr_ms, plain_ms=ppr_ms, bound_ms=bms,
                             bound_by=by_, library_ms=lib_ms)
-    log(f"phase 3: probe B={B} against 2^{bm.bits_log2} bits (this chunk's queries, "
-        f"{n1} pass): {pr_ms:.4f} ms (plain {ppr_ms:.3f} ms, words[idx] {lib_ms:.4f} ms, "
-        f"bound {bms:.4f} ms by {by_}); bloom2 probe of the C1={eng64.C1} stage-1 "
-        f"survivors {b2_ms:.4f} ms (plain {pb2_ms:.3f} ms); the cascade equal to the "
-        f"plain probes' (max_abs_err 0): {cas_ms:.3f} ms, with the plain probes "
-        f"{plain_ms:.3f} ms")
-    del res, qhi, qlo, word_idx, got, want
+    log(f"phase 3: level-1 stage B={B} against 2^{bm.bits_log2} bits (this chunk's queries, "
+        f"{n1} pass, C1={C1}): fused probe_compact {pr_ms:.4f} ms against PR 6's composition "
+        f"(mask {mask_ms:.4f} + count, compact_positions, gathers) {comp_ms:.4f} ms; the "
+        f"card's random-read ceiling for {B} reads "
+        + ", ".join(f"2^{bits} bits {ms:.4f} ms" for bits, ms in ceil.items())
+        + f"; words[idx] {lib_ms:.4f} ms; plain {ppr_ms:.3f} ms; bound {bms:.4f} ms by {by_}")
+    log(f"phase 3: bloom2 probe of the C1={C1} stage-1 survivors {b2_ms:.4f} ms (plain "
+        f"{pb2_ms:.3f} ms); the cascade (filtered_survivors) {cas_ms:.4f} ms on the card; "
+        f"through the fused probe equal to the plain probes' (max_abs_err 0)")
+    del res, qhi, qlo, word_idx, got, want, ceiling
     arr = outs[2].cpu().numpy()
     t0 = time.perf_counter()
     for _ in range(reps):
@@ -1579,7 +1632,8 @@ def phase4c_walker(dev, seconds):
         e_ms, _ = device_ms(lambda: walk.walk_emit(*args, pre, itot, L, 1, need_y), reps)
         res = walk.walk_fused(ctr, *args[2:], need_y=need_y, chain_len=L)
         h_ms, (qhi, qlo) = device_ms(lambda: eng._queries(res), reps)
-        pr_ms, _ = device_ms(lambda: bmp.probe(eng.bitmap, qhi, qlo), reps)
+        pr_ms, _ = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, params.cand_max),
+                             reps)
         rest = c_ms - K * (p_ms + i_ms + e_ms + h_ms + pr_ms)
         log(f"phase 4c: walker {mode} T={WK_T} (bitmap 2^{WK_BITS} bits, table "
             f"{(eng.table.key.numel() * 12) / 2**20:.0f} MiB): set-up parse {t_parse:.1f} s, "
@@ -1594,7 +1648,7 @@ def phase4c_walker(dev, seconds):
             f"{n_dev or 'not measured: the profiler saw no'} device operations (kernels, "
             f"copies, fills; torch.profiler) = K x "
             f"(walk_prefix {p_ms:.4f} + pinv {i_ms:.4f} + walk_emit {e_ms:.4f} + hash "
-            f"{h_ms:.4f} + probe {pr_ms:.4f}) + compaction, lookup and summary "
+            f"{h_ms:.4f} + probe and compaction {pr_ms:.4f}) + lookup and summary "
             f"{rest:.3f}; device memory "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {peak:.2f} GiB; "
             f"launches {n}")
@@ -1620,6 +1674,7 @@ def main():
     if not os.path.isdir(os.path.join(here, "keyhuntm1cpu_tpu_torch")):
         fail("run from a checkout of the repository (keyhuntm1cpu_tpu_torch/ missing)")
     sys.path.insert(0, here)
+    sys.path.insert(0, os.path.join(here, "scripts"))
     from keyhuntm1cpu_tpu_torch import _build
 
     card = card_line()

@@ -198,40 +198,18 @@ static __device__ __forceinline__ Fe fe_sqr(const Fe& a) {
   return fe_reduce(t);
 }
 
-static __device__ __noinline__ Fe fe_sqr_n(Fe x, int n) {
-#pragma unroll 1
-  for (int i = 0; i < n; i++) x = fe_sqr(x);
-  return x;
-}
-
-// a^(p-2) by the secp256k1 addition chain (255 squarings, 15 multiplies),
-// the chain of fe_tiles.inv; maps 0 -> 0.
-static __device__ __noinline__ Fe fe_inv(const Fe& a) {
-  Fe x1 = a;
-  Fe x2 = fe_mul(fe_sqr_n(x1, 1), x1);
-  Fe x3 = fe_mul(fe_sqr_n(x2, 1), x1);
-  Fe x6 = fe_mul(fe_sqr_n(x3, 3), x3);
-  Fe x9 = fe_mul(fe_sqr_n(x6, 3), x3);
-  Fe x11 = fe_mul(fe_sqr_n(x9, 2), x2);
-  Fe x22 = fe_mul(fe_sqr_n(x11, 11), x11);
-  Fe x44 = fe_mul(fe_sqr_n(x22, 22), x22);
-  Fe x88 = fe_mul(fe_sqr_n(x44, 44), x44);
-  Fe x176 = fe_mul(fe_sqr_n(x88, 88), x88);
-  Fe x220 = fe_mul(fe_sqr_n(x176, 44), x44);
-  Fe x223 = fe_mul(fe_sqr_n(x220, 3), x3);
-  Fe t = fe_mul(fe_sqr_n(x223, 23), x22);
-  t = fe_mul(fe_sqr_n(t, 5), x1);
-  t = fe_mul(fe_sqr_n(t, 3), x2);
-  return fe_mul(fe_sqr_n(t, 2), x1);
-}
-
-// a^-1 mod p by safegcd divsteps (Bernstein-Yang, variable time, in the
-// formulation of libsecp256k1's modinv32): batches of 30 divsteps on the
-// low bits of f, g give a 2x2 transition matrix, applied to f, g and to the
-// Bezout-style d, e in signed 30-bit limbs; ~20 batches instead of
-// fe_inv's 270 dependent products, so a much shorter chain of dependent
-// operations for one thread. Maps 0 -> 0, like fe_inv; the inverse is
-// exact, so the result equals fe_inv's.
+// a^-1 mod p by safegcd divsteps (Bernstein-Yang, in the formulation of
+// libsecp256k1's modinv32): batches of 30 divsteps on the low bits of f, g
+// give a 2x2 transition matrix, applied to f, g and to the Bezout-style d,
+// e in signed 30-bit limbs; ~20 batches where the addition chain a^(p-2)
+// needs 270 dependent products, so a much shorter chain of dependent
+// operations for one thread. Two forms, both exact and mapping 0 -> 0:
+// fe_inv_var (variable time: stops when g = 0, skips runs of zero bits)
+// and fe_inv_const (a fixed count of branch-free divsteps). Which kernel
+// takes which was measured on the card (scripts/torch_pinv_shapes.py):
+// pinv, K1 and K6's to-affine launch are fastest with fe_inv_const, K2 and
+// K4 (which pay one inversion per thread or block among their walks) with
+// fe_inv_var (PERF.md has the times).
 struct Fe30 {
   int32_t v[9];  // value = sum v[i] * 2^(30 i), limbs signed
 };
@@ -243,6 +221,51 @@ static __device__ __forceinline__ Fe30 fe30_p() {
 }
 constexpr uint32_t kPInv30 = 0x2DDACACFu;
 constexpr int32_t kM30 = 0x3FFFFFFF;
+
+// a (< 2^256) in 9 non-negative 30-bit limbs
+static __device__ __forceinline__ Fe30 fe30_from_fe(const Fe& a) {
+  Fe30 g;
+#pragma unroll
+  for (int i = 0; i < 9; i++) {  // bits [30 i, 30 i + 30) of a
+    const int lo = 30 * i, w = lo >> 5, s = lo & 31;
+    uint64_t bits = a.v[w] >> s;
+    if (w + 1 < 8) bits |= (uint64_t)a.v[w + 1] << (32 - s);
+    g.v[i] = (int32_t)(bits & kM30);
+  }
+  return g;
+}
+
+// The end of a divsteps inversion: g = 0 and f = +-1 (fn, its top limb,
+// holds the sign); d = +-a^-1 in (-2p, p): to [0, p), negated when f < 0.
+static __device__ __forceinline__ Fe fe30_normalize(Fe30 d, int32_t fn) {
+  const Fe30 p = fe30_p();
+  const int32_t sign = fn >> 31;
+  int32_t add = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d.v[i] = ((d.v[i] + (p.v[i] & add)) ^ sign) - sign;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= kM30;
+  }
+  add = d.v[8] >> 31;
+#pragma unroll
+  for (int i = 0; i < 9; i++) d.v[i] += p.v[i] & add;
+#pragma unroll
+  for (int i = 0; i < 8; i++) {
+    d.v[i + 1] += d.v[i] >> 30;
+    d.v[i] &= kM30;
+  }
+  Fe out;
+#pragma unroll
+  for (int w = 0; w < 8; w++) {  // bits [32 w, 32 w + 32) of d (32 w % 30 <= 14)
+    const int lo = 32 * w, i = lo / 30, s = lo % 30;
+    out.v[w] = (uint32_t)(((uint64_t)(uint32_t)d.v[i] >> s) |
+                          ((uint64_t)(uint32_t)d.v[i + 1] << (30 - s)));
+  }
+  return out;
+}
+
 
 // 30 divsteps from eta on the low words of f and g; returns the new eta
 // and the transition matrix (u, v; q, r), scaled by 2^30.
@@ -344,14 +367,7 @@ static __device__ __forceinline__ void update_fg_30(int len, Fe30& f, Fe30& g, i
 
 static __device__ __noinline__ Fe fe_inv_var(const Fe& a) {
   Fe30 d = {{0, 0, 0, 0, 0, 0, 0, 0, 0}}, e = {{1, 0, 0, 0, 0, 0, 0, 0, 0}};
-  Fe30 f = fe30_p(), g;
-#pragma unroll
-  for (int i = 0; i < 9; i++) {  // bits [30 i, 30 i + 30) of a
-    const int lo = 30 * i, w = lo >> 5, s = lo & 31;
-    uint64_t bits = a.v[w] >> s;
-    if (w + 1 < 8) bits |= (uint64_t)a.v[w + 1] << (32 - s);
-    g.v[i] = (int32_t)(bits & kM30);
-  }
+  Fe30 f = fe30_p(), g = fe30_from_fe(a);
   int len = 9;
   int32_t eta = -1, fn = 0;
 #pragma unroll 1
@@ -383,34 +399,58 @@ static __device__ __noinline__ Fe fe_inv_var(const Fe& a) {
       --len;
     }
   }
-  // g = 0 and f = +-1 (fn, its top limb, holds the sign); d = +-a^-1 in
-  // (-2p, p): to [0, p), negated when f < 0
-  const Fe30 p = fe30_p();
-  const int32_t sign = fn >> 31;
-  int32_t add = d.v[8] >> 31;
+  return fe30_normalize(d, fn);
+}
+
+// a^-1 mod p by a fixed count of safegcd divsteps (libsecp256k1's
+// constant-time modinv32): 20 batches of 30 branch-free divsteps (590
+// suffice for a 256-bit input), each batch's matrix applied to d, e and
+// to all 9 limbs of f, g. Every input runs the same instructions, so the
+// lanes of a warp never diverge; the divstep itself is a few dependent
+// logic operations where fe_inv_var's loop pays a bit scan, a branch and a
+// Newton inverse per group of bits. Maps 0 -> 0 (g = 0 leaves d = 0); the
+// result equals fe_inv_var's.
+static __device__ __forceinline__ int32_t divsteps_30_const(int32_t zeta, uint32_t f0,
+                                                            uint32_t g0, int32_t& tu,
+                                                            int32_t& tv, int32_t& tq,
+                                                            int32_t& tr) {
+  // zeta = -(delta + 1/2); masks in place of branches
+  uint32_t u = 1, v = 0, q = 0, r = 1, f = f0, g = g0;
 #pragma unroll
-  for (int i = 0; i < 9; i++) d.v[i] = ((d.v[i] + (p.v[i] & add)) ^ sign) - sign;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    d.v[i + 1] += d.v[i] >> 30;
-    d.v[i] &= kM30;
+  for (int i = 0; i < 30; i++) {
+    const uint32_t neg = (uint32_t)(zeta >> 31);  // zeta < 0: swap when g is odd
+    const uint32_t odd = 0u - (g & 1u);
+    g += ((f ^ neg) - neg) & odd;
+    q += ((u ^ neg) - neg) & odd;
+    r += ((v ^ neg) - neg) & odd;
+    const uint32_t swap = neg & odd;
+    zeta = (zeta ^ (int32_t)swap) - 1;
+    f += g & swap;
+    u += q & swap;
+    v += r & swap;
+    g >>= 1;
+    u <<= 1;
+    v <<= 1;
   }
-  add = d.v[8] >> 31;
-#pragma unroll
-  for (int i = 0; i < 9; i++) d.v[i] += p.v[i] & add;
-#pragma unroll
-  for (int i = 0; i < 8; i++) {
-    d.v[i + 1] += d.v[i] >> 30;
-    d.v[i] &= kM30;
+  tu = (int32_t)u;
+  tv = (int32_t)v;
+  tq = (int32_t)q;
+  tr = (int32_t)r;
+  return zeta;
+}
+
+static __device__ __noinline__ Fe fe_inv_const(const Fe& a) {
+  Fe30 d = {{0, 0, 0, 0, 0, 0, 0, 0, 0}}, e = {{1, 0, 0, 0, 0, 0, 0, 0, 0}};
+  Fe30 f = fe30_p(), g = fe30_from_fe(a);
+  int32_t zeta = -1;
+#pragma unroll 1
+  for (int b = 0; b < 20; b++) {
+    int32_t u, v, q, r;
+    zeta = divsteps_30_const(zeta, (uint32_t)f.v[0], (uint32_t)g.v[0], u, v, q, r);
+    update_de_30(d, e, u, v, q, r);
+    update_fg_30(9, f, g, u, v, q, r);
   }
-  Fe out;
-#pragma unroll
-  for (int w = 0; w < 8; w++) {  // bits [32 w, 32 w + 32) of d (32 w % 30 <= 14)
-    const int lo = 32 * w, i = lo / 30, s = lo % 30;
-    out.v[w] = (uint32_t)(((uint64_t)(uint32_t)d.v[i] >> s) |
-                          ((uint64_t)(uint32_t)d.v[i + 1] << (30 - s)));
-  }
-  return out;
+  return fe30_normalize(d, f.v[8]);
 }
 
 // Limb-major (8, n) access: limb i of column col at p[i * n + col].

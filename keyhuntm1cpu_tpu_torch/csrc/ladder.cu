@@ -24,7 +24,7 @@
 // 2. kh_ladder_affine: one inversion per group of G = kAffineGroup scalars
 //    (one block): a
 //    product tree over the group's Z in shared memory (G-1 products up,
-//    2(G-1) down), one fe_inv_var (safegcd divsteps) on thread 0, then
+//    2(G-1) down), one fe_inv_const (safegcd divsteps) on thread 0, then
 //    x = X/Z^2, y = Y/Z^3.
 //
 // Bound on the H100: 32-bit integer multiply issue (~31 mixed adds of 8
@@ -36,9 +36,10 @@
 // S = 2, calls, 128 threads and 5 blocks an SM (96 registers, one wave of
 // 544 blocks). The inversion is its own launch (one thread's inversion
 // stalls its block, and the ladder launch then needs no barrier), and it
-// is paid once a call, as latency: fe_inv's chain of 270 dependent products
-// took ~0.1 ms, so it inverts by divsteps (fe_inv_var), a much shorter
-// chain. The table (2 x 256 KiB) stays in L2 and is read through
+// is paid once a call, as latency: the addition chain a^(p-2), 270
+// dependent products, took the launch 0.116 ms; divsteps took it to 0.045
+// (fe_inv_var) and to 0.036 (fe_inv_const, a fixed count of branch-free
+// divsteps, the one used). The table (2 x 256 KiB) stays in L2 and is read through
 // the read-only path, 2 x 16 B per load; the TPU's one-hot MXU gather and
 // window-major slabs have no counterpart.
 // Layouts: k, x, y limb-major (8, V) u32; Jacobian (3, 8, V) u32 (X, Y, Z);
@@ -247,7 +248,7 @@ ladder_affine_kernel(const uint32_t* __restrict__ jac, const uint8_t* __restrict
     if (t < s) tree[s + t] = kh::fe_mul(tree[2 * (s + t)], tree[2 * (s + t) + 1]);
     __syncthreads();
   }
-  if (t == 0) tree[1] = kh::fe_inv_var(tree[1]);
+  if (t == 0) tree[1] = kh::fe_inv_const(tree[1]);
   __syncthreads();
   for (int s = 1; s < G; s <<= 1) {
     if (t < s) {

@@ -2,18 +2,24 @@
 //   kh_inv_batch  replaces keyhuntm1cpu_tpu/field/pinv.py _inv_kernel / inv_batch
 // Wrapper and plain torch version: keyhuntm1cpu_tpu_torch/field/pinv.py.
 //
-// a^(p-2) mod p for every column of a limb-major (8, n) u32 array, by the
-// secp256k1 addition chain of fe.cuh's fe_inv (255 squarings, 15
-// multiplies); 0 maps to 0. The walker walk (walk.cu) calls it once per
-// step on the chain totals of its batched inversion.
+// a^-1 mod p for every column of a limb-major (8, n) u32 array, 0 mapped
+// to 0. The walker walk (walk.cu) calls it once per step on the chain
+// totals of its batched inversion: n = 1,025 at the JAX CLI's shape.
 //
-// Bound on the H100: 32-bit integer issue, ~270 field products per element
-// (the 64 bytes moved per element are nothing next to that). The design is
-// one thread per element: neighbouring threads read neighbouring columns,
-// so every limb load and store coalesces, and the chain is straight-line
-// register code. At the walk's width (~1,025 totals per step) that is 9
-// blocks on 132 SMs, so the launch is latency-bound, not issue-bound; a
-// larger batch fills the card.
+// Bound on the H100: latency. At n = 1,025 the launch is 9 blocks on 132
+// SMs, one warp per scheduler, so it lasts as long as one thread's
+// inversion. The secp256k1 addition chain (255 squarings and 15 products,
+// each product a few hundred dependent instructions) took ~0.096 ms. Here
+// each thread inverts by a fixed count of safegcd divsteps (fe.cuh
+// fe_inv_const: 20 batches of 30 branch-free divsteps on 30-bit limbs), a
+// chain of a few dependent logic operations per divstep; the same
+// instructions for every input, so the lanes of a warp stay together
+// where the variable-time divsteps (fe_inv_var) would diverge.
+// scripts/torch_pinv_shapes.py times this design against the addition
+// chain, the variable-time divsteps and one inversion per block (a product
+// tree), at n = 1, 1,025 and 65,536. One thread per column: neighbouring
+// threads read neighbouring columns, so every limb load and store
+// coalesces.
 // The entry point launches on the given stream, does not synchronise, and
 // returns cudaGetLastError().
 #include <cuda_runtime.h>
@@ -28,7 +34,7 @@ __global__ void __launch_bounds__(kThreads)
 inv_batch_kernel(const uint32_t* __restrict__ a, uint32_t* __restrict__ out, long long n) {
   const long long i = (long long)blockIdx.x * kThreads + threadIdx.x;
   if (i >= n) return;
-  kh::fe_store_lm(out, n, i, kh::fe_inv(kh::fe_load_lm(a, n, i)));
+  kh::fe_store_lm(out, n, i, kh::fe_inv_const(kh::fe_load_lm(a, n, i)));
 }
 
 }  // namespace

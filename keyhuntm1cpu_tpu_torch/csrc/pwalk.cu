@@ -16,9 +16,10 @@ namespace {
 
 // Inverts the n = blockDim.x (a power of two) elements tree[n + i] in
 // place: a heap-ordered product tree (node k = node 2k * node 2k+1, root
-// at 1; n - 1 products up), ONE fe_inv on thread 0, then n - 1 steps down
-// (each node's inverse times its sibling gives the child's inverse). Every
-// thread of the block must call it; none of the leaves may be zero.
+// at 1; n - 1 products up), ONE inversion INV on thread 0, then n - 1 steps
+// down (each node's inverse times its sibling gives the child's inverse).
+// Every thread of the block must call it; none of the leaves may be zero.
+template <Fe (*INV)(const Fe&)>
 __device__ void block_batch_inv(Fe* tree) {
   const int n = blockDim.x, i = threadIdx.x;
   __syncthreads();
@@ -26,7 +27,7 @@ __device__ void block_batch_inv(Fe* tree) {
     if (i < s) tree[s + i] = kh::fe_mul(tree[2 * (s + i)], tree[2 * (s + i) + 1]);
     __syncthreads();
   }
-  if (i == 0) tree[1] = kh::fe_inv(tree[1]);
+  if (i == 0) tree[1] = INV(tree[1]);
   __syncthreads();
   for (int s = 1; s < n; s <<= 1) {
     if (i < s) {
@@ -50,10 +51,12 @@ __device__ void block_batch_inv(Fe* tree) {
 // independent: block = a tile of kAdvTile lanes of one target, thread = one
 // lane. The tile's denominators x(j*ADV) - x(P) share one inversion
 // through a shared-memory product tree. Bound on the H100: latency, one
-// fe_inv chain (255 squarings, 15 products) plus 3*log2(tile) products of
-// the tree, against ~4,600 products for the serial chain. A tile of one
+// inversion plus 3*log2(tile) products of the tree, against ~4,600
+// products for the serial chain. The inversion is fe_inv_const, 600
+// branch-free divsteps (an H100 at 700 W: 0.030 ms at K = 256, where the
+// addition chain a^(p-2) took 0.120 and fe_inv_var 0.038). A tile of one
 // warp has the shortest tree; more tiles only add inversions that run side
-// by side (an H100 at 700 W, K = 256: 0.117 ms at 32 lanes, 0.124 at 256).
+// by side (with the addition chain: 0.117 ms at 32 lanes, 0.124 at 256).
 //
 // Lane j is a doubling when P == j*ADV (lambda = 3x^2 / 2y) and the point
 // at infinity when P == -j*ADV: it is flagged, inverts 1 and emits
@@ -92,7 +95,7 @@ advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
     }
   }
   tree[kAdvTile + i] = den;
-  block_batch_inv(tree);
+  block_batch_inv<kh::fe_inv_const>(tree);
   if (!live) return;
   const Fe lam = kh::fe_mul(num, tree[kAdvTile + i]);
   const Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(lam), p_x), q_x);
@@ -122,18 +125,21 @@ advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
 // walk's own ~830. Here every thread still runs its own Montgomery chain
 // over its G denominators (prefix products in local memory, dx recomputed
 // in the backward pass instead of stored), but the chain totals of the
-// block go into a shared-memory product tree with ONE fe_inv per block
+// block go into a shared-memory product tree with ONE inversion per block
 // (block_batch_inv), so the inversion costs a point 1/(G * threads) of an
-// fe_inv plus ~3/G products. A flagged dx == 0 lane
+// inversion plus ~3/G products. A flagged dx == 0 lane
 // enters its chain as 1, and so do ragged rows and columns, so a zero
 // never poisons the block. Neighbouring threads own neighbouring u: table
 // loads and qlo/qhi/deg stores coalesce; the G base rows are warp-uniform
 // broadcast loads. A block's inverting thread stalls the block for one
-// fe_inv chain, and resident blocks reach it together, so the shape is the
+// inversion, and resident blocks reach it together, so the shape is the
 // one whose grid at R = 256, U = 16384 fits one wave of resident blocks
-// (128 registers: 4 blocks of 128 threads an SM): on an H100 (700 W)
-// 0.584 ms at G = 64, 0.699 at G = 32, 0.928 at G = 16; the other pairs
-// measured are in PERF.md.
+// (at most 128 registers: 4 blocks of 128 threads an SM): on an H100 (700
+// W), with the addition chain a^(p-2) as the inversion, 0.584 ms at G = 64,
+// 0.699 at G = 32, 0.928 at G = 16; the other pairs measured are in
+// PERF.md. The inversion is fe_inv_var: 0.493 ms, against 0.520 with
+// fe_inv_const (126 registers to fe_inv_var's 112) and 0.580 with the
+// chain.
 constexpr int kWalkGroup = 64;
 constexpr int kWalkThreads = 128;
 
@@ -165,7 +171,7 @@ walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__
     pref[j] = acc;
   }
   tree[kWalkThreads + i] = acc;
-  block_batch_inv(tree);
+  block_batch_inv<kh::fe_inv_var>(tree);
   Fe inv = tree[kWalkThreads + i];  // 1 / (this thread's chain total)
   for (int j = n - 1; j >= 0; j--) {
     const Fe bX = kh::fe_load_lm(bx, R, r0 + j);

@@ -16,7 +16,10 @@ two-stage lookup:
 
 ``probe`` and ``probe_bloom2`` run the probe kernel (csrc/probe.cu: the
 word gather of ``dma_gather`` fused with the bit test) for CUDA tensors
-and their plain torch versions for CPU ones.
+and their plain torch versions for CPU ones. ``probe_compact`` is the
+level-1 probe fused with the ordered compaction of its survivors (one
+launch in place of the mask, its prefix sum, the searchsorted and the key
+gathers); the cascade's level-1 stage and ``filtered_lookup`` run it.
 
 Keys are (qhi, qlo) int32 tensors holding u32 bits; filter words are
 int32 tensors holding u32 bits. Index math is done in int64 with masks
@@ -31,6 +34,7 @@ boolean-mask indexing.
 
 from __future__ import annotations
 
+from functools import lru_cache
 from typing import NamedTuple, Optional
 
 import numpy as np
@@ -229,7 +233,8 @@ def probe_bloom2_ref(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> 
     return hit[: qhi.shape[0]] & hit[qhi.shape[0]:]
 
 
-def _probe(filt, qhi: torch.Tensor, qlo: torch.Tensor, bloom2: bool, ref) -> torch.Tensor:
+def _check_probe(filt, qhi: torch.Tensor, qlo: torch.Tensor) -> int:
+    """The number of keys; raises on what the probe kernels do not take."""
     n = qhi.shape[0] if qhi.dim() == 1 else -1
     for name, t in (("qhi", qhi), ("qlo", qlo)):
         if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != (n,):
@@ -240,12 +245,18 @@ def _probe(filt, qhi: torch.Tensor, qlo: torch.Tensor, bloom2: bool, ref) -> tor
         raise ValueError(f"bits_log2 out of range (5..{MAX_BITS_LOG2}): {bits}")
     if w.dtype != torch.int32 or not w.is_contiguous() or tuple(w.shape) != (1 << (bits - 5),):
         raise ValueError(f"filter words: need contiguous int32 ({1 << (bits - 5)},)")
+    return n
+
+
+def _probe(filt, qhi: torch.Tensor, qlo: torch.Tensor, bloom2: bool, ref) -> torch.Tensor:
+    n = _check_probe(filt, qhi, qlo)
+    w = filt.words
     if not _build.on_cuda(w, qhi, qlo):
         return ref(filt, qhi, qlo)
     mask = torch.empty((n,), dtype=torch.bool, device=qhi.device)
     if n:
         _build.launch("kh_probe", w.data_ptr(), qhi.data_ptr(), qlo.data_ptr(),
-                      mask.data_ptr(), n, bits, int(bloom2), _build.stream(qhi))
+                      mask.data_ptr(), n, filt.bits_log2, int(bloom2), _build.stream(qhi))
         (probe_bloom2 if bloom2 else probe).launches += 1
     return mask
 
@@ -263,6 +274,54 @@ def probe_bloom2(b2: DeviceBloom2, qhi: torch.Tensor, qlo: torch.Tensor) -> torc
 
 probe.launches = 0
 probe_bloom2.launches = 0
+
+
+class ProbeCompact(NamedTuple):
+    pos: torch.Tensor  # (C,) int32 ascending positions of the first C survivors, fill = B
+    qhi: torch.Tensor  # (C,) int32 their key words (the last query's at fill)
+    qlo: torch.Tensor
+    n: torch.Tensor  # () int32: the true survivor count
+
+
+def probe_compact_ref(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
+                      size: int) -> ProbeCompact:
+    """Plain torch version of the fused probe (see probe_compact)."""
+    b = qhi.shape[0]
+    mask = probe_ref(bm, qhi, qlo)
+    pos = compact_positions(mask, size, b)
+    safe = pos.clamp(max=b - 1).long()
+    return ProbeCompact(pos, qhi[safe], qlo[safe], mask.sum(dtype=torch.int32))
+
+
+def probe_compact(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
+                  size: int) -> ProbeCompact:
+    """The bitmap probe of the (B,) keys fused with the ordered compaction
+    of its survivors: the first `size` positions in ascending order, padded
+    with B, their keys (the last key at the padding) and the survivor count
+    (compact_positions of the probe mask, then the gathers). One launch of
+    the probe kernel (csrc/probe.cu kh_probe_compact), counted in
+    probe.launches; B >= 1."""
+    n = _check_probe(bm, qhi, qlo)
+    if size < 0 or n < 1:
+        raise ValueError(f"probe_compact needs B >= 1 keys and size >= 0 (B={n}, size={size})")
+    if not _build.on_cuda(bm.words, qhi, qlo):
+        return probe_compact_ref(bm, qhi, qlo, size)
+    dev = qhi.device
+    pos = torch.empty((size,), dtype=torch.int32, device=dev)
+    ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty((1 + -(-n // _probe_tile()),), dtype=torch.int64, device=dev)
+    _build.launch("kh_probe_compact", bm.words.data_ptr(), qhi.data_ptr(), qlo.data_ptr(),
+                  pos.data_ptr(), ohi.data_ptr(), olo.data_ptr(), count.data_ptr(),
+                  scratch.data_ptr(), n, bm.bits_log2, size, _build.stream(qhi))
+    probe.launches += 1
+    return ProbeCompact(pos, ohi, olo, count)
+
+
+@lru_cache(maxsize=1)
+def _probe_tile() -> int:
+    """Keys per tile of kh_probe_compact (its scratch holds one word a tile)."""
+    return _build.kernels().kh_probe_tile()
 
 
 def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -292,15 +351,11 @@ def filtered_lookup(bm: DeviceBitmap, table: SortedXTable, qhi: torch.Tensor,
     compacted keys (bitmap.filtered_lookup without its bm2 stage).
     Survivors past cand_max are dropped: callers check n_candidates >
     cand_max and rescan exactly. No host sync."""
-    b = qhi.shape[0]
-    mask = probe(bm, qhi, qlo)
-    n = mask.sum(dtype=torch.int32)
-    pos = compact_positions(mask, cand_max, b)
-    safe = pos.clamp(max=b - 1).long()
-    lr = lookup(table, qhi[safe], qlo[safe])
-    valid = pos < b
-    return FilteredLookup(pos, LookupResult(lr.found & valid, lr.idx,
-                                            lr.found2 & valid, lr.idx2), n)
+    pc = probe_compact(bm, qhi, qlo, cand_max)
+    lr = lookup(table, pc.qhi, pc.qlo)
+    valid = pc.pos < qhi.shape[0]
+    return FilteredLookup(pc.pos, LookupResult(lr.found & valid, lr.idx,
+                                               lr.found2 & valid, lr.idx2), pc.n)
 
 
 class FilteredSurvivors(NamedTuple):
@@ -317,17 +372,11 @@ def filtered_survivors(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
     (bitmap.filtered_survivors). Callers check n_candidates > cand_max and
     fall back to an exact host rescan; a stage-1 overflow is poisoned to
     n + cand_max so the one check covers both stages."""
-    b = qhi.shape[0]
-    mask = probe(bm, qhi, qlo)
-    n = mask.sum(dtype=torch.int32)
     if bm2 is None:
-        pos = compact_positions(mask, cand_max, b)
-        safe = pos.clamp(max=b - 1).long()
-        return FilteredSurvivors(pos, qhi[safe], qlo[safe], n)
+        return FilteredSurvivors(*probe_compact(bm, qhi, qlo, cand_max))
+    b = qhi.shape[0]
     C1 = stage1_max if stage1_max is not None else 4 * cand_max
-    pos1 = compact_positions(mask, C1, b)
-    safe1 = pos1.clamp(max=b - 1).long()
-    qh1, ql1 = qhi[safe1], qlo[safe1]
+    pos1, qh1, ql1, n = probe_compact(bm, qhi, qlo, C1)
     mask2 = probe_bloom2(bm2, qh1, ql1) & (pos1 < b)
     n2 = mask2.sum(dtype=torch.int32)
     pos2 = compact_positions(mask2, cand_max, C1)

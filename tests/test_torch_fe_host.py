@@ -1,8 +1,9 @@
 """The device field arithmetic of keyhuntm1cpu_tpu_torch/csrc/fe.cuh compiled
 as host C++ (g++, with __device__ and the one intrinsic it uses defined
-away): fe_inv_var (the safegcd inversion of K6's to-affine launch) and
-fe_inv against python's exact inverse, on edge values and seeded random
-ones. Exact equality; the kernels themselves run on the card
+away): the two safegcd inversions, fe_inv_var (variable time: K2, K4) and
+fe_inv_const (a fixed count of divsteps: pinv, K1, K6's to-affine launch),
+against python's exact inverse, on edge values (0, 1, p - 1, values with
+long runs of zero or one bits) and seeded random ones. Exact equality; the kernels themselves run on the card
 (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
 import os
@@ -30,12 +31,12 @@ static inline uint4 make_uint4(unsigned a, unsigned b, unsigned c, unsigned d) {
 static inline int __ffs(unsigned x) { return __builtin_ffs(x); }
 #include "fe.cuh"
 // each input line: 8 hex limbs, least significant first; output: the
-// limbs of fe_inv_var(a), then of fe_inv(a)
+// limbs of fe_inv_var(a), then of fe_inv_const(a)
 int main() {
   kh::Fe a;
   while (scanf("%x %x %x %x %x %x %x %x", &a.v[0], &a.v[1], &a.v[2], &a.v[3], &a.v[4],
                &a.v[5], &a.v[6], &a.v[7]) == 8) {
-    const kh::Fe r[2] = {kh::fe_inv_var(a), kh::fe_inv(a)};
+    const kh::Fe r[2] = {kh::fe_inv_var(a), kh::fe_inv_const(a)};
     for (const kh::Fe& x : r)
       for (int i = 0; i < 8; i++) printf("%08x%c", x.v[i], i == 7 ? '\n' : ' ');
   }
@@ -62,6 +63,9 @@ def _values():
     rng = np.random.default_rng(30)
     vals = [0, 1, 2, 3, P - 1, P - 2, 2 ** 255, 2 ** 32 + 977, P // 2, (P + 1) // 2]
     vals += [1 << b for b in range(0, 256, 7)] + [P - (1 << b) for b in range(0, 256, 9)]
+    # long zero runs between set bits, and long runs of ones
+    vals += [(1 << b) | 1 for b in range(31, 256, 16)] + [(1 << 255) | (1 << b) for b in (0, 64, 200)]
+    vals += [((1 << b) - 1) << (255 - b) for b in (30, 60, 128)] + [(1 << 128) - 1]
     vals += [int.from_bytes(rng.bytes(32), "big") % P for _ in range(2000)]
     vals += [int.from_bytes(rng.bytes(4), "big") for _ in range(100)]  # small
     return vals

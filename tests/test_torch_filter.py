@@ -112,3 +112,75 @@ def test_filtered_survivors_matches_jax(filters, C2, C1):
     got = tb.filtered_survivors(tbm, _t(HI), _t(LO), C2)
     for w, g in zip(want, got):
         assert np.array_equal(np.asarray(w).view(np.int32), g.numpy())
+
+
+TILE = 2048  # keys a block of csrc/probe.cu's fused form takes: kProbeQ * kProbeThreads
+
+
+@pytest.mark.parametrize("bits", [16, 20])
+@pytest.mark.parametrize("case", ["zero", "below", "at", "past", "tile_edge"])
+def test_probe_compact_matches_jax(case, bits):
+    """The fused probe + compaction's plain version (probe_compact, CPU
+    tensors) against the JAX level-1 filtered_survivors, and the port's
+    filtered_survivors (level 1, and the cascade with bloom2 whose stage
+    1 budget is the case's: an overflow is poisoned to n + cand_max) and
+    filtered_lookup through it against the JAX ones. B = 2 tiles + 5 (not
+    a multiple of the kernel's tile); no survivors, fewer than the budget,
+    exactly the budget, past it, and survivors on both sides of a tile
+    boundary."""
+    from keyhuntm1cpu_tpu.filter import sorted_table as jst
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as tst
+
+    rng = np.random.default_rng(bits + len(case))
+    B = 2 * TILE + 5
+    hi = rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.uint32)
+    lo = rng.integers(0, 2**32, B, dtype=np.uint64).astype(np.uint32)
+    members = {"zero": [], "tile_edge": [TILE - 2, TILE - 1, TILE, TILE + 1, B - 1]}.get(
+        case, sorted(rng.choice(B, 60, replace=False)))
+    words = np.zeros(1 << (bits - 5), np.uint32)
+    idx = jb._bit_indices(hi[members], lo[members], bits)
+    np.bitwise_or.at(words, (idx >> np.uint64(5)).astype(np.int64),
+                     np.uint32(1) << (idx & np.uint64(31)).astype(np.uint32))
+    jbm = jb.DeviceBitmap(jnp.asarray(words), bits)
+    tbm = tb.DeviceBitmap(_t(words), bits)
+    n = int(tb.probe_ref(tbm, _t(hi), _t(lo)).sum())
+    assert n >= len(members) and (n == 0) == (case == "zero")
+    C = {"zero": 64, "below": n + 40, "at": n, "past": n // 2, "tile_edge": 64}[case]
+    got = tb.probe_compact(tbm, _t(hi), _t(lo), C)
+    want = jb.filtered_survivors(jbm, jnp.asarray(hi), jnp.asarray(lo), C)
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w).view(np.int32), g.numpy())
+    assert int(got.n) == n and tb.probe.launches == 0
+    pos = got.pos.numpy()
+    assert np.array_equal(pos[: min(n, C)], np.flatnonzero(tb.probe_ref(tbm, _t(hi), _t(lo))
+                                                           .numpy())[:C])
+    assert (pos[min(n, C):] == B).all()
+    if case == "tile_edge":
+        assert set(members) <= set(pos.tolist())
+    if case == "zero":
+        with pytest.raises(ValueError):
+            tb.probe_compact(tbm, _t(hi[:0]), _t(lo[:0]), C)
+    # the cascade with the case's stage-1 budget, and the exact lookup
+    b2 = jb.build_bloom2_host(hi[members[:3]], lo[members[:3]], 13)
+    want = jb.filtered_survivors(jbm, jnp.asarray(hi), jnp.asarray(lo), 16, bm2=b2,
+                                 stage1_max=max(C, 1))
+    got = tb.filtered_survivors(tbm, _t(hi), _t(lo), 16,
+                                bm2=tb.DeviceBloom2(_t(np.asarray(b2.words)), 13),
+                                stage1_max=max(C, 1))
+    for w, g in zip(want, got):
+        assert np.array_equal(np.asarray(w).view(np.int32), g.numpy())
+    if n > max(C, 1):
+        assert int(got.n_candidates) == n + 16
+    keys = np.arange(len(members) + 1, dtype=np.uint32)
+    thi, tlo = np.append(hi[members], 7), np.append(lo[members], 9)
+    want = jb.filtered_lookup(jbm, jst.build_sorted_table(thi, tlo, keys), jnp.asarray(hi),
+                              jnp.asarray(lo), C)
+    got = tb.filtered_lookup(tbm, tst.build_sorted_table(thi, tlo, keys), _t(hi), _t(lo), C)
+    assert np.array_equal(got.pos.numpy(), np.asarray(want.pos))
+    for name in ("found", "found2"):
+        assert np.array_equal(getattr(got.result, name).numpy(),
+                              np.asarray(getattr(want.result, name)))
+    for name in ("idx", "idx2"):
+        assert np.array_equal(getattr(got.result, name).numpy().view(np.uint32),
+                              np.asarray(getattr(want.result, name)))
+    assert int(got.n_candidates) == int(want.n_candidates) == n

@@ -295,19 +295,28 @@ def test_minikey_engine_cuda_matches_cpu(dev):
     assert [f.private_key for f in got] == [f.private_key for f in want] == [key]
 
 
-def test_inv_batch_kernel_matches_plain(dev):
-    rng = np.random.default_rng(21)
-    vals = [int.from_bytes(rng.bytes(32), "big") % fe.P_INT for _ in range(1025)]
-    vals[0] = vals[500] = vals[1024] = 0  # 0 -> 0
-    vals[3] = 1
+@pytest.mark.parametrize("n", [1, 31, 32, 33, 1025, 65536])
+def test_inv_batch_kernel_matches_plain(dev, n):
+    """pinv (one thread a column, fixed-count divsteps) at widths around a
+    warp and the walker step's 1,025, zeros planted at warp and block
+    edges (0 -> 0), every column equal to the plain version."""
+    rng = np.random.default_rng(21 + n)
+    vals = [int.from_bytes(rng.bytes(32), "big") % fe.P_INT for _ in range(n)]
+    for j in (0, 31, 32, 127, 128, 500, 1024, n - 1):
+        if j < n and j != 3:
+            vals[j] = 0
+    if n > 3:
+        vals[3] = 1
     a = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in vals]).T.copy().view(np.int32))
     n0 = pinv.inv_batch.launches
     got = pinv.inv_batch(a.to(dev))
     torch.cuda.synchronize()
     assert pinv.inv_batch.launches == n0 + 1
-    assert torch.equal(got.cpu(), pinv.inv_batch_ref(a))
-    assert fe.limbs_to_int(got[:, 7].cpu().numpy().view(np.uint32)) == pow(vals[7], fe.P_INT - 2,
-                                                                         fe.P_INT)
+    assert torch.equal(got.cpu(), pinv.inv_batch_ref(a.to(dev)).cpu())
+    g = got.cpu().numpy().view(np.uint32)
+    for j in range(min(n, 40)):
+        want = pow(vals[j], fe.P_INT - 2, fe.P_INT) if vals[j] else 0
+        assert fe.limbs_to_int(g[:, j]) == want
 
 
 def test_keccak_eth_kernel_matches_plain(dev):
@@ -342,6 +351,33 @@ def test_probe_kernels_match_plain(dev, bits):
     assert torch.equal(got1, bmp.probe_ref(bmp.DeviceBitmap(words, bits), qhi, qlo))
     assert torch.equal(got2, bmp.probe_bloom2_ref(bmp.DeviceBloom2(words, bits), qhi, qlo))
     assert bool(got1[keep].all()) and bool(got2[keep].all())
+
+
+@pytest.mark.parametrize("regime", ["below", "at", "past"])
+@pytest.mark.parametrize("B", [1, 255, 131088, 4194304])
+def test_probe_compact_kernel_matches_plain(dev, B, regime):
+    """The fused probe + ordered compaction against probe_compact_ref:
+    survivors below, at and past the budget C; B = 255 from unaligned
+    views (the kernel's scalar key loads), B = 4,194,304 against a 2^35-bit
+    filter (the BSGS level-1 shape); one probe launch a call."""
+    bits = 35 if B == 4194304 else 24
+    g = torch.Generator(device=dev).manual_seed(B)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    words = rnd(1 << (bits - 5)) & rnd(1 << (bits - 5)) & rnd(1 << (bits - 5))  # density 1/8
+    bm = bmp.DeviceBitmap(words, bits)
+    off = 1 if B == 255 else 0
+    qhi, qlo = rnd(B + off)[off:], rnd(B + off)[off:]
+    n = int(bmp.probe_compact_ref(bm, qhi, qlo, 0).n)
+    C = {"below": n + 100, "at": n, "past": n // 2}[regime]
+    launches = bmp.probe.launches
+    got = bmp.probe_compact(bm, qhi, qlo, C)
+    torch.cuda.synchronize()
+    assert bmp.probe.launches == launches + 1
+    want = bmp.probe_compact_ref(bm, qhi, qlo, C)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    assert int(got.n) == n
 
 
 @pytest.mark.parametrize("W,U,L", [(7, 1000, 32), (3, 64, 7)])

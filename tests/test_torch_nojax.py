@@ -79,6 +79,9 @@ def _imported_roots(path):
 
 def test_port_sources_have_no_jax_import():
     paths = [os.path.join(REPO, "chip_smoke.py")]
+    # the port's measurement scripts, which chip_smoke.py imports
+    paths += [os.path.join(REPO, "scripts", n) for n in os.listdir(os.path.join(REPO, "scripts"))
+              if n.startswith("torch_") and n.endswith(".py")]
     for root, _, files in os.walk(os.path.join(REPO, "keyhuntm1cpu_tpu_torch")):
         paths += [os.path.join(root, n) for n in files if n.endswith(".py")]
     for path in paths:
