@@ -34,7 +34,11 @@ any failure exits non-zero before the result line:
    the step's 65,544 points, the probe on 131,088 rmd160 queries against a
    2^34-bit bitmap (beside words[idx], one torch index), in its fused form
    (ordered compaction to cand_max = 256) and in bloom2 form at phase 3's
-   sizes; each kernel's device time
+   sizes, walk_prefix also at L = 7, 64 and 65, and the step's lookup and
+   summary (C = 256 survivors over 2^22 table keys, hits planted on
+   degenerate lanes and a duplicated key; beside sorted_table.lookup, the
+   torch.searchsorted composition, and its latency floor at C = 1, W = 1);
+   each kernel's device time
    (device_ms: CUDA events around back-to-back runs queued behind a sleep
    kernel) beside its plain version's time.
 2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
@@ -78,8 +82,8 @@ any failure exits non-zero before the result line:
    planted keys recovered in one chunk, then 5 s of throughput per mode
    with effective keys/s, the device idle share, host enqueue per chunk,
    the device operations of one chunk (torch.profiler), the chunk split
-   over walk_prefix, pinv, walk_emit, hash, probe with its compaction and
-   the rest, set-up
+   over walk_prefix, pinv, walk_emit, hash, probe with its compaction,
+   lookup and summary, and the rest (torch work left), set-up
    times, device memory and launch counts.
 5. the launch counts of the main paths (phase 3's filter build and
    searches, the throughput windows of phases 4, 4b and 4c, each counted
@@ -135,6 +139,8 @@ KERNEL_SOURCES = {
                     "keyhuntm1cpu_tpu/curve/walk.py:144"),
     "walk_emit": ("keyhuntm1cpu_tpu_torch/csrc/walk.cu",
                   "keyhuntm1cpu_tpu/curve/walk.py:144"),
+    "lookup_summary": ("keyhuntm1cpu_tpu_torch/csrc/lookup.cu",
+                       "keyhuntm1cpu_tpu/engine/brute.py:1064"),
 }
 # what a kernel's entry in the kernels line says beyond its numbers
 KERNEL_NOTES = {"scalar_mult": {"note": "launches counts K6 calls; a call is two launches, "
@@ -145,7 +151,16 @@ KERNEL_NOTES = {"scalar_mult": {"note": "launches counts K6 calls; a call is two
                                   "the survivors' keys) at the BSGS chunk's 4,194,304 "
                                   "queries against 2^35 bits; library_ms: words[idx], "
                                   "the gather alone; launches count the fused, mask and "
-                                  "bloom2 forms"}}
+                                  "bloom2 forms"},
+                "lookup_summary": {"note": "replaces XLA glue, not a Pallas kernel: the "
+                                           "summary ops of _brute_chunk_impl "
+                                           "(engine/brute.py:1064-1093) and the lower-bound "
+                                           "search of filter/sorted_table.py:68; bound_ms: "
+                                           "the bytes of the searched keys, beside "
+                                           "latency_floor_ms, the kernel at C = 1, W = 1 (one "
+                                           "binary search); library_ms: sorted_table.lookup "
+                                           "(torch.searchsorted and the gathers) of the same "
+                                           "C = 256 keys over 2^22"}}
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_modes.py:154-191
@@ -853,6 +868,47 @@ def phase1_minikeys(dev, results, clock):
     torch.cuda.synchronize()
 
 
+def walker_lookup_inputs(qhi, qlo, deg, adeg, rng, cmax=256, n_surv=200, m=WK_T):
+    """lookup_summary's arguments at the walker step's shape from the
+    step's queries qhi, qlo (total,) int32 and flags deg (W, U), adeg (W,)
+    on the card: cmax survivor slots (n_surv survivors at ascending random
+    positions, then padding with the last one's key), a sorted table of m
+    keys (random payloads) holding the keys of every 4th survivor, one of
+    them twice, and of walker 2's lanes +9, -9 and its center in each query
+    set (walker 2 at 9*stride makes the first two degenerate). Returns
+    (arguments, the live hits the row must show)."""
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
+
+    dev = qhi.device
+    W, U = deg.shape
+    npts = 2 * U + 1
+    total = qhi.shape[0]
+    sets = total // (W * npts)
+    flagged = np.array([q * W * npts + 2 * npts + lane for q in range(sets)
+                        for lane in (8, U + 8, 2 * U)])
+    rest = rng.choice(np.setdiff1d(np.arange(total), flagged), n_surv - len(flagged),
+                      replace=False)
+    pos = np.sort(np.concatenate([flagged, rest]))
+    qh, ql = qhi.cpu().numpy().view(np.uint32), qlo.cpu().numpy().view(np.uint32)
+    hits = np.unique(np.concatenate([pos[::4], flagged]))
+    rnd = lambda k: rng.integers(0, 2**32, k, dtype=np.uint64).astype(np.uint32)
+    fill = m - len(hits) - 1
+    table = st.build_sorted_table(np.concatenate([qh[hits], qh[pos[4:5]], rnd(fill)]),
+                                  np.concatenate([ql[hits], ql[pos[4:5]], rnd(fill)]), rnd(m),
+                                  dev)
+    src = torch.from_numpy(np.append(pos, [pos[-1]] * (cmax - len(pos)))).to(dev)
+    lpos = torch.where(torch.arange(cmax, device=dev) < len(pos), src, total).to(torch.int32)
+    deg_np = deg.cpu().numpy()
+    lane = hits % (W * npts) % npts
+    dead = (lane < 2 * U) & deg_np[hits % (W * npts) // npts, lane % U]
+    args = (table, lpos, qhi[src].contiguous(), qlo[src].contiguous(),
+            torch.tensor(len(pos), dtype=torch.int32, device=dev), deg, adeg, total)
+    return args, int((~dead).sum())
+
+
 def phase1_walker(dev, results, clock):
     """The walker path's kernels at its main-path shapes (W = 8, U = 4096,
     chain_len = 32) against their plain versions: walk_prefix and walk_emit
@@ -869,6 +925,7 @@ def phase1_walker(dev, results, clock):
     from keyhuntm1cpu_tpu_torch.curve.points import point_batch_from_ints
     from keyhuntm1cpu_tpu_torch.field import fe, pinv
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
     from keyhuntm1cpu_tpu_torch.hash import phash
     from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
 
@@ -961,6 +1018,12 @@ def phase1_walker(dev, results, clock):
         fail(f"walk_emit differs from its plain version at L={L2} (max_abs_err {err2})")
     log(f"walk_emit W={W} U={U} L={L2} ({walk.n_chains(W, U, L2)} chains) need_y: equal to "
         f"plain; {ms2:.4f} ms")
+    # walk_prefix (a warp per chain, segments of 32 from the bottom) at the
+    # other chain lengths of the CUDA tests
+    for L3 in (7, 64, 65):
+        if max_abs_err(walk.walk_prefix(*args, L3), walk.walk_prefix_ref(*args, L3)):
+            fail(f"walk_prefix differs from its plain version at L={L3}")
+    log(f"walk_prefix W={W} U={U}: equal to plain at L = 7, 32, 33, 64, 65")
 
     x, y = x_all[0].reshape(8, -1), y_all.reshape(8, -1)  # the step's 65,544 points
     n = x.shape[1]
@@ -1038,6 +1101,33 @@ def phase1_walker(dev, results, clock):
         fail(f"probe_compact differs from its plain version (max_abs_err {err})")
     log(f"probe_compact B={B} C={cmax}: equal to plain ({int(got.n)} survivors, the first "
         f"{cmax} in order); {ms:.4f} ms (plain {pms:.3f} ms)")
+
+    # the step's exact lookup and summary at the walker's shape
+    largs, n_live = walker_lookup_inputs(qhi, qlo, deg, adeg, rng)
+    total = largs[-1]
+    table, lpos, lqhi, lqlo = largs[:4]
+    ms, got = device_ms(lambda: st.lookup_summary(*largs), 50)
+    pms, want = timed(lambda: st.lookup_summary_ref(*largs), 3)
+    err = max_abs_err([got], [want])
+    g = got.cpu().numpy()
+    n_hit = int((g[:cmax] < total).sum())
+    if err or n_hit != n_live or (g[2 * cmax + 2], g[2 * cmax + W + 2]) != (1, 8):
+        fail(f"lookup_summary differs from its plain version (max_abs_err {err}) or from the "
+             f"planted hits ({n_hit} of {n_live})")
+    lib_ms, _ = device_ms(lambda: st.lookup(table, lqhi, lqlo), 50)
+    floor_ms, _ = device_ms(lambda: st.lookup_summary(
+        table, lpos[:1], lqhi[:1], lqlo[:1], largs[4], deg[:1], adeg[:1], total), 50)
+    levels = WK_T.bit_length()  # ceil(log2(m + 1)) dependent reads a search
+    bms, by_ = bound_ms(cmax * levels * 8 + W * U // 4,
+                        cmax * (16 + 8 * (levels + 2)) + W * U + W + 4 * (2 * cmax + 3 * W + 2),
+                        clock)
+    results["lookup_summary"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                     bound_by=by_, library_ms=lib_ms, latency_floor_ms=floor_ms)
+    log(f"lookup_summary C={cmax} W={W} U={U} m={WK_T}: equal to plain, {n_hit} live hits (the "
+        f"degenerate lanes' dropped, walker 2's first degenerate lane 8); {ms:.4f} ms (plain "
+        f"{pms:.3f} ms, sorted_table.lookup {lib_ms:.4f} ms, bound {bms:.5f} ms by {by_}, "
+        f"latency floor (C = 1, W = 1) {floor_ms:.4f} ms)")
+    del table, largs, lpos, lqhi, lqlo
     del words, bm, word_idx
     torch.cuda.empty_cache()
 
@@ -1085,6 +1175,7 @@ def launch_counts():
     from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk, walk
     from keyhuntm1cpu_tpu_torch.field import pinv
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
     from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
 
     wrappers = {"advance_chain": (pwalk.advance_chain,), "walk_blocks": (pwalk.walk_blocks,),
@@ -1097,7 +1188,8 @@ def launch_counts():
                 "hash160_u": (phash.hash160_u_from_batch,),
                 "inv_batch": (pinv.inv_batch,), "keccak_eth": (phash.keccak_eth_from_batch,),
                 "probe": (bmp.probe, bmp.probe_bloom2),
-                "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,)}
+                "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,),
+                "lookup_summary": (st.lookup_summary,)}
     return wrappers, {name: sum(w.launches for w in ws) for name, ws in wrappers.items()}
 
 
@@ -1512,6 +1604,7 @@ def phase4c_walker(dev, seconds):
     from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams
     from keyhuntm1cpu_tpu_torch.field import pinv
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
     from keyhuntm1cpu_tpu_torch.ref import ecref
     from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet, parse_target_file
 
@@ -1608,7 +1701,7 @@ def phase4c_walker(dev, seconds):
         steps = K * len(marks)
         hashed = {"rmd160": "hash160_x2", "eth": "keccak_eth"}[mode]
         want = zero_counts() | {k: steps for k in ("walk_prefix", "inv_batch", "walk_emit",
-                                                   "probe", hashed)}
+                                                   "probe", hashed, "lookup_summary")}
         if n != want or chunks != len(marks):
             fail(f"walker {mode} launched {n} for {len(marks)} chunks dispatched, "
                  f"{chunks} counted")
@@ -1632,9 +1725,12 @@ def phase4c_walker(dev, seconds):
         e_ms, _ = device_ms(lambda: walk.walk_emit(*args, pre, itot, L, 1, need_y), reps)
         res = walk.walk_fused(ctr, *args[2:], need_y=need_y, chain_len=L)
         h_ms, (qhi, qlo) = device_ms(lambda: eng._queries(res), reps)
-        pr_ms, _ = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, params.cand_max),
-                             reps)
-        rest = c_ms - K * (p_ms + i_ms + e_ms + h_ms + pr_ms)
+        pr_ms, pc = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, params.cand_max),
+                              reps)
+        n_query = eng.n_qsets * W * window
+        lk_ms, _ = device_ms(lambda: st.lookup_summary(eng.table, *pc, res.degenerate,
+                                                       res.adv_degenerate, n_query), reps)
+        rest = c_ms - K * (p_ms + i_ms + e_ms + h_ms + pr_ms + lk_ms)
         log(f"phase 4c: walker {mode} T={WK_T} (bitmap 2^{WK_BITS} bits, table "
             f"{(eng.table.key.numel() * 12) / 2**20:.0f} MiB): set-up parse {t_parse:.1f} s, "
             f"table {t_table:.2f} s, bitmap {t_bitmap:.2f} s, engine {t_engine:.1f} s; "
@@ -1648,11 +1744,11 @@ def phase4c_walker(dev, seconds):
             f"{n_dev or 'not measured: the profiler saw no'} device operations (kernels, "
             f"copies, fills; torch.profiler) = K x "
             f"(walk_prefix {p_ms:.4f} + pinv {i_ms:.4f} + walk_emit {e_ms:.4f} + hash "
-            f"{h_ms:.4f} + probe and compaction {pr_ms:.4f}) + lookup and summary "
-            f"{rest:.3f}; device memory "
+            f"{h_ms:.4f} + probe and compaction {pr_ms:.4f} + lookup and summary "
+            f"{lk_ms:.4f}) + the rest {rest:.3f}; device memory "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {peak:.2f} GiB; "
             f"launches {n}")
-        del eng, ts, res, pre, tot, itot, qhi, qlo
+        del eng, ts, res, pre, tot, itot, qhi, qlo, pc
         torch.cuda.empty_cache()
     return total
 

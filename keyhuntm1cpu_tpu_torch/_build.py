@@ -145,6 +145,8 @@ def kernels() -> ctypes.CDLL:
         "kh_walk_prefix": [vp] * 8 + [i, i, i, i64, vp],
         # cx cy tx ty ax ay pre inv_totals x y deg nx ny adeg | W U L C n_endo stream
         "kh_walk_emit": [vp] * 14 + [i, i, i, i64, i, vp],
+        # pos qhi qlo count key idx deg adeg out | m C W U total stream
+        "kh_lookup_summary": [vp] * 9 + [i64, i, i, i, i, vp],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes

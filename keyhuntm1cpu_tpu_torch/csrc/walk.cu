@@ -8,11 +8,17 @@
 // points C_w + u*S and C_w - u*S (u = 1..U, S the stride point) and the
 // next center C_w + ADV, with ONE batched inversion of all W*(U+2)
 // denominators by the chunked Montgomery trick, in three launches:
-//   1. kh_walk_prefix: thread c owns chain c of L = chain_len elements
+//   1. kh_walk_prefix: one warp per chain c of L = chain_len elements
 //      (element i = l*C + c, C = ceil(W*(U+2)/L) chains: the JAX chunking,
-//      so the chain totals have the JAX width). It forms each denominator
-//      (tx_u - cx for the U table lanes, with zeros set to 1), writes the
-//      running prefix products and the chain total.
+//      so the chain totals have the JAX width). The chain's elements go in
+//      segments of 32 from the bottom; lane j forms the denominator of
+//      element l = lo + j (tx_u - cx for the U table lanes, with zeros set
+//      to 1; 1 past the chain's end), a warp prefix scan (5 shuffle levels
+//      of fe_mul) gives the segment's inclusive prefix products, each is
+//      multiplied by the product of the segments below (carried up from
+//      segment to segment) and stored, staged in shared memory so that the
+//      block's 4 chains (neighbouring columns) write together; the last is
+//      the chain total.
 //   2. kh_inv_batch (pinv.cu) inverts the C chain totals.
 //   3. kh_walk_emit: one warp per chain. The chain's L elements go in
 //      segments of 32 from the top; lane j takes element l = lo + j of the
@@ -33,15 +39,15 @@
 //
 // Bound on the H100: 32-bit integer issue, ~7 field products per point
 // and the inversion shared out (chip_smoke.walk_point_ops). The C ~ 1,025
-// chains of a W = 8, U = 4096 step are 9 blocks of 128 threads in
-// walk_prefix, which stays latency-bound with few warps per SM (a wider
-// step fills the card without changing the design): its loads and stores
-// of neighbouring threads are neighbouring columns (coalesced). walk_emit
-// did the same backward peel with the whole emit of every element inline,
-// ~300 dependent products a thread on 9 SMs; a warp per chain puts the C
-// chains on C warps (257 blocks) with ~8 dependent products and one emit a
-// lane, at the price of strided element columns (in L2) and 5 scan
-// products per element.
+// chains of a W = 8, U = 4096 step would be 9 blocks of 128 threads as a
+// thread per chain, L = 32 dependent products a thread on 9 of the 132
+// SMs: latency, not arithmetic, bounds such a kernel. A warp per chain
+// puts the C chains on C warps (257 blocks) with ~7 dependent products a
+// lane in walk_prefix and ~8 and one emit a lane in walk_emit, at the
+// price of strided element columns (C*4 bytes apart; the 1 MB of
+// prefixes stays in L2) and 5 scan products per element. walk_prefix's
+// stores, a word a lane, took a third of its time until they went through
+// shared memory (scripts/torch_walker_shapes.py).
 //
 // Layouts, limb-major u32: centers (8, W), table (8, U), ADV (8,),
 // prefixes (8, L*C), totals (8, C), x out (n_endo, 8, W*npts) and y out
@@ -107,19 +113,62 @@ __device__ __forceinline__ Fe denominator(const WalkArgs& a, long long i) {
   return kh::fe_mul(dx, two_cy_safe(kh::fe_load_lm(a.cy, a.W, w)));
 }
 
-__global__ void __launch_bounds__(kThreads)
+__device__ __forceinline__ Fe shfl_up_fe(const Fe& a, int d) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = __shfl_up_sync(0xFFFFFFFFu, a.v[j], d);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_down_fe(const Fe& a, int d) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = __shfl_down_sync(0xFFFFFFFFu, a.v[j], d);
+  return r;
+}
+
+__device__ __forceinline__ Fe shfl_fe(const Fe& a, int src) {
+  Fe r;
+#pragma unroll
+  for (int j = 0; j < 8; j++) r.v[j] = __shfl_sync(0xFFFFFFFFu, a.v[j], src);
+  return r;
+}
+
+// a block of WARPS warps owns WARPS consecutive chains: each segment's
+// prefixes go through shared memory, so row l of each limb leaves as WARPS
+// contiguous words in place of one word a lane C*4 bytes apart
+template <int WARPS>
+__global__ void __launch_bounds__(32 * WARPS)
 walk_prefix_kernel(WalkArgs a, uint32_t* __restrict__ pre, uint32_t* __restrict__ totals) {
-  const long long c = (long long)blockIdx.x * kThreads + threadIdx.x;
-  if (c >= a.C) return;
+  __shared__ uint32_t stage[8][32][WARPS + 1];  // [limb][l - lo][chain], padded
+  const int wid = threadIdx.x >> 5, lane = threadIdx.x & 31;
+  const long long c0 = (long long)blockIdx.x * WARPS, c = c0 + wid;
+  const bool chain = c < a.C;  // no early exit: the block meets at barriers
   const long long n = a.C * a.L;
-  Fe acc = denominator(a, c);
-  kh::fe_store_lm(pre, n, c, acc);
-  for (int l = 1; l < a.L; l++) {
-    const long long i = (long long)l * a.C + c;
-    acc = kh::fe_mul(acc, denominator(a, i));
-    kh::fe_store_lm(pre, n, i, acc);
+  Fe running = kh::fe_one();  // den(0) * ... * den(lo - 1)
+  for (int lo = 0; lo < a.L; lo += 32) {
+    const int l = lo + lane;
+    // p = den(lo) * ... * den(l): inclusive prefix products of the segment
+    Fe p = chain && l < a.L ? denominator(a, (long long)l * a.C + c) : kh::fe_one();
+#pragma unroll
+    for (int d = 1; d < 32; d <<= 1) {
+      const Fe below = shfl_up_fe(p, d);
+      if (lane >= d) p = kh::fe_mul(below, p);
+    }
+    if (lo > 0) p = kh::fe_mul(running, p);
+    if (chain && l == a.L - 1) kh::fe_store_lm(totals, a.C, c, p);
+    running = shfl_fe(p, 31);  // lanes past the chain's end hold its total
+#pragma unroll
+    for (int j = 0; j < 8; j++) stage[j][lane][wid] = p.v[j];
+    __syncthreads();
+    for (int k = threadIdx.x; k < 8 * 32 * WARPS; k += 32 * WARPS) {
+      const int j = k / (32 * WARPS), r = k % (32 * WARPS);
+      const int l2 = lo + r / WARPS, cl = r % WARPS;
+      if (c0 + cl < a.C && l2 < a.L)
+        pre[j * n + (long long)l2 * a.C + c0 + cl] = stage[j][r / WARPS][cl];
+    }
+    __syncthreads();
   }
-  kh::fe_store_lm(totals, a.C, c, acc);
 }
 
 struct EmitOut {
@@ -197,20 +246,6 @@ __device__ void emit(const WalkArgs& a, const EmitOut& o, long long i, const Fe&
   if (o.y) kh::fe_store_lm(o.y, npts_all, col0 + npts - 1, cy);
 }
 
-__device__ __forceinline__ Fe shfl_down_fe(const Fe& a, int d) {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < 8; j++) r.v[j] = __shfl_down_sync(0xFFFFFFFFu, a.v[j], d);
-  return r;
-}
-
-__device__ __forceinline__ Fe shfl_fe(const Fe& a, int src) {
-  Fe r;
-#pragma unroll
-  for (int j = 0; j < 8; j++) r.v[j] = __shfl_sync(0xFFFFFFFFu, a.v[j], src);
-  return r;
-}
-
 __global__ void __launch_bounds__(kThreads)
 walk_emit_kernel(WalkArgs a, const uint32_t* __restrict__ pre,
                  const uint32_t* __restrict__ inv_totals, EmitOut o) {
@@ -259,8 +294,9 @@ extern "C" int kh_walk_prefix(const void* cx, const void* cy, const void* tx, co
   if (bad_shape(W, U, L, C)) return (int)cudaErrorInvalidValue;
   const WalkArgs a{(const uint32_t*)cx, (const uint32_t*)cy, (const uint32_t*)tx,
                    (const uint32_t*)ty, (const uint32_t*)ax, (const uint32_t*)ay, W, U, L, C};
-  walk_prefix_kernel<<<(unsigned)((C + kThreads - 1) / kThreads), kThreads, 0,
-                       (cudaStream_t)stream>>>(a, (uint32_t*)pre, (uint32_t*)totals);
+  constexpr int kWarps = kThreads / 32;
+  walk_prefix_kernel<kWarps><<<(unsigned)((C + kWarps - 1) / kWarps), kThreads, 0,
+                               (cudaStream_t)stream>>>(a, (uint32_t*)pre, (uint32_t*)totals);
   return (int)cudaGetLastError();
 }
 

@@ -10,7 +10,8 @@ batch); C_w == -ADV is flagged (``adv_degenerate``); a lane with
 dx == 0 is flagged ``degenerate`` and its x is garbage.
 
 On the card the step is three launches: ``walk_prefix`` (csrc/walk.cu:
-the denominators and the chains' prefix products), ``pinv.inv_batch`` of
+one warp per chain forms the denominators and their prefix products by a
+prefix scan), ``pinv.inv_batch`` of
 the chain totals, ``walk_emit`` (csrc/walk.cu: one warp per chain peels
 the inverses by a suffix scan and emits every output). The batch differs from the JAX one only in the advance lane:
 1/(ADVx - cx) and 1/(2*cy) come from the inverse of their product, so one

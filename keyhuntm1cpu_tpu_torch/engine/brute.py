@@ -19,8 +19,9 @@ device:
   walkers each own a slice of the range; a device step moves every walker
   by a window of 2U+1 keys around its center (curve/walk.py: one batched
   inversion), hashes every point (hash/phash.py kernels, or the raw x in
-  xpoint mode) and probes the target bitmap, then searches the compacted
-  survivors in the sorted target table (filter/bitmap.filtered_lookup).
+  xpoint mode) and probes the target bitmap (filter/bitmap.probe_compact),
+  then searches the compacted survivors in the sorted target table and
+  writes the step's summary row (filter/sorted_table.lookup_summary).
   Any U works.
 
 The JAX package runs the walker path on its CPU backend whatever the set;
@@ -462,6 +463,8 @@ class BruteEngine:
                 words.append(phash.keccak_eth_from_batch(xv, y))
             qlos += [lo for lo, _ in words]
             qhis += [hi for _, hi in words]
+        if len(qhis) == 1:
+            return qhis[0], qlos[0]
         return torch.cat(qhis), torch.cat(qlos)
 
     def _walker_chunk(self, cx, cy):
@@ -471,31 +474,20 @@ class BruteEngine:
         walker the degenerate-lane count, the first degenerate lane and the
         advance degeneracy, and the true survivor count."""
         p = self.p
-        W, U, C = p.walkers, p.block_u, p.cand_max
-        npts = self.window
-        total = self.n_qsets * W * npts
-        outs = []
-        for _ in range(p.steps_per_chunk):
+        W, C = p.walkers, p.cand_max
+        total = self.n_qsets * W * self.window
+        out = torch.empty((p.steps_per_chunk, st.summary_width(C, W)), dtype=torch.int32,
+                          device=cx.device)
+        for s in range(p.steps_per_chunk):
             res = walk.walk_fused(PointBatch(cx, cy, None), self.tab_x, self.tab_y,
                                   self.adv_x, self.adv_y, need_y=self.mode in pbrute.NEEDS_Y,
                                   chain_len=p.chain_len, n_endo=self._n_endo)
             qhi, qlo = self._queries(res)
-            fl = bmp.filtered_lookup(self.bitmap, self.table, qhi, qlo, C)
-            # hits on degenerate lanes (garbage x) are dropped: lanes +u and
-            # -u share the flag, the center never has one
-            degm = torch.cat([res.degenerate, res.degenerate,
-                              torch.zeros_like(res.degenerate[:, :1])], dim=1).reshape(-1)
-            live = ~degm[fl.pos.clamp(max=total - 1).long() % (W * npts)]
-            hitmask = (fl.result.found | fl.result.found2) & live
-            outs.append(torch.cat([
-                torch.where(hitmask, fl.pos, total).to(torch.int32),
-                torch.where(hitmask, fl.result.idx, 0).to(torch.int32),
-                res.degenerate.sum(dim=1, dtype=torch.int32),
-                res.degenerate.to(torch.uint8).argmax(dim=1).to(torch.int32),
-                res.adv_degenerate.to(torch.int32),
-                fl.n_candidates.reshape(1)]))
+            pc = bmp.probe_compact(self.bitmap, qhi, qlo, C)
+            st.lookup_summary(self.table, *pc, res.degenerate, res.adv_degenerate, total,
+                              out=out[s])
             cx, cy = res.adv_x, res.adv_y
-        return cx, cy, torch.stack(outs)
+        return cx, cy, out
 
     def _search_walker(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                        progress_every: int = 0,

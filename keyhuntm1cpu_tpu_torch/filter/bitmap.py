@@ -12,7 +12,9 @@ two-stage lookup:
 - compaction keeps the first `size` survivor positions in ascending order
   (``compact_positions``: a prefix sum and one searchsorted — no host sync);
 - ``filtered_lookup``: probe, compaction, then the exact sorted-table
-  search of the survivors (the large-target brute path).
+  search of the survivors (the JAX package's form; the large-target brute
+  path's step runs the probe and then sorted_table.lookup_summary, the
+  search fused with the step's summary).
 
 ``probe`` and ``probe_bloom2`` run the probe kernel (csrc/probe.cu: the
 word gather of ``dma_gather`` fused with the bit test) for CUDA tensors

@@ -13,14 +13,23 @@ Truncation collisions: two entries may share a key; the lower-bound
 position and its successor are both checked (``found``, ``found2``), so a
 duplicated key still surfaces both payloads. The engines verify every
 candidate exactly on the host anyway.
+
+``lookup_summary`` is the walker step's exact lookup of its compacted
+probe survivors fused with the step's summary row (the XLA glue of the
+JAX ``_brute_chunk_impl`` after its filtered lookup): one launch of
+csrc/lookup.cu ``kh_lookup_summary`` on the card, counted in
+``lookup_summary.launches``; its plain version ``lookup_summary_ref``
+(``lookup`` and the same torch ops) runs for CPU tensors.
 """
 
 from __future__ import annotations
 
-from typing import NamedTuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
+
+from .. import _build
 
 _FLIP = -(1 << 63)  # bit 63, as an int64
 
@@ -77,3 +86,86 @@ def trunc64_from_limbs(x: torch.Tensor):
     """(hi, lo) 64-bit truncation of (8, ...) limb-major field elements:
     the low 64 bits, limbs 1 and 0 (the xpoint compare key)."""
     return x[1], x[0]
+
+
+# ---------------------------------------------------------------------------
+# lookup_summary: the walker step's exact lookup and summary row
+# ---------------------------------------------------------------------------
+
+
+def summary_width(C: int, W: int) -> int:
+    """Words of a walker step's summary row: C positions, C table rows,
+    per walker n_deg, first_deg and adv_deg, and the survivor count."""
+    return 2 * C + 3 * W + 1
+
+
+def lookup_summary_ref(table: SortedXTable, pos, qhi, qlo, n, degenerate, adv_degenerate,
+                       total: int) -> torch.Tensor:
+    """Plain torch version of the kernel (see lookup_summary): ``lookup``
+    of the survivors and the summary ops of the JAX _brute_chunk_impl."""
+    W, U = degenerate.shape
+    npts = 2 * U + 1
+    lr = lookup(table, qhi, qlo)
+    valid = pos < total
+    # hits on degenerate lanes (garbage x) are dropped: lanes +u and -u
+    # share the flag, the center never has one
+    degm = torch.cat([degenerate, degenerate, torch.zeros_like(degenerate[:, :1])],
+                     dim=1).reshape(-1)
+    live = ~degm[pos.clamp(max=total - 1).long() % (W * npts)]
+    hit = (lr.found | lr.found2) & valid & live
+    return torch.cat([
+        torch.where(hit, pos, total).to(torch.int32),
+        torch.where(hit, lr.idx, 0).to(torch.int32),
+        degenerate.sum(dim=1, dtype=torch.int32),
+        degenerate.to(torch.uint8).argmax(dim=1).to(torch.int32),
+        adv_degenerate.to(torch.int32),
+        n.reshape(1)])
+
+
+def _check(name: str, t: torch.Tensor, dtype, shape) -> None:
+    if t.dtype != dtype or not t.is_contiguous() or tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor of shape {tuple(shape)}, "
+                         f"got {t.dtype} {tuple(t.shape)}")
+
+
+def lookup_summary(table: SortedXTable, pos: torch.Tensor, qhi: torch.Tensor,
+                   qlo: torch.Tensor, n: torch.Tensor, degenerate: torch.Tensor,
+                   adv_degenerate: torch.Tensor, total: int,
+                   out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """One walker step's summary row (2C + 3W + 1,) int32 from the probe's
+    C compacted survivors: pos (C,) int32 (total = padding), their key
+    words qhi, qlo (C,) int32 and count n () int32; the step's degenerate
+    (W, U) and adv_degenerate (W,) bool flags; total = nq*W*(2U+1).
+    Words: the candidate positions (total where no live hit), their table
+    payloads (0 there), per walker the degenerate-lane count, the first
+    degenerate lane (0 when none) and the advance flag, then n. Written
+    into `out` (a contiguous (2C + 3W + 1,) int32 row) when given."""
+    C = pos.shape[0] if pos.dim() == 1 else -1
+    W, U = degenerate.shape if degenerate.dim() == 2 else (-1, -1)
+    m = table.key.shape[0]
+    for name, t, dtype, shape in (
+            ("pos", pos, torch.int32, (C,)), ("qhi", qhi, torch.int32, (C,)),
+            ("qlo", qlo, torch.int32, (C,)), ("n", n, torch.int32, ()),
+            ("table key", table.key, torch.int64, (m,)),
+            ("table idx", table.idx, torch.int32, (m,)),
+            ("degenerate", degenerate, torch.bool, (W, U)),
+            ("adv_degenerate", adv_degenerate, torch.bool, (W,))):
+        _check(name, t, dtype, shape)
+    if min(C, W, U, m, total) < 1 or total >= 1 << 31:
+        raise ValueError(f"lookup_summary needs C, W, U, m, total >= 1 and total < 2^31 "
+                         f"(C={C}, W={W}, U={U}, m={m}, total={total})")
+    if out is not None:
+        _check("out", out, torch.int32, (summary_width(C, W),))
+    args = (pos, qhi, qlo, n, table.key, table.idx, degenerate, adv_degenerate)
+    if not _build.on_cuda(*args, *(() if out is None else (out,))):
+        row = lookup_summary_ref(table, pos, qhi, qlo, n, degenerate, adv_degenerate, total)
+        return row if out is None else out.copy_(row)
+    if out is None:
+        out = torch.empty((summary_width(C, W),), dtype=torch.int32, device=pos.device)
+    _build.launch("kh_lookup_summary", *(t.data_ptr() for t in args + (out,)), m, C, W, U,
+                  total, _build.stream(pos))
+    lookup_summary.launches += 1
+    return out
+
+
+lookup_summary.launches = 0

@@ -1,8 +1,9 @@
 """CUDA kernels K1-K8, the minikey key derivation, pinv, the Keccak ETH
-hash, the probe and the two walker walk kernels
-(keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
-at small odd sizes (partial blocks; K6 at V not a multiple of its
-inversion group, walk_emit at several chain lengths), and the engines (the
+hash, the probe, the two walker walk kernels and the walker step's lookup
+and summary (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions
+on the card, at small odd sizes (partial blocks; K6 at V not a multiple
+of its inversion group, walk_prefix and walk_emit at several chain
+lengths), and the engines (the
 brute walker path included) on CUDA vs the engines on the CPU. K6's other
 compile-time shapes are held to their plain version by
 scripts/torch_ladder_shapes.py.
@@ -20,9 +21,11 @@ from keyhuntm1cpu_tpu_torch.curve.points import point_batch_from_ints  # noqa: E
 from keyhuntm1cpu_tpu_torch.engine import brute, bsgs, minikeys  # noqa: E402
 from keyhuntm1cpu_tpu_torch.field import fe, pinv  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
+from keyhuntm1cpu_tpu_torch.filter import sorted_table as st  # noqa: E402
 from keyhuntm1cpu_tpu_torch.hash import phash, pminikey  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
+import walker_lookup_cases  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -438,6 +441,59 @@ def test_walk_emit_kernel_chain_lengths(dev, L):
     assert bool(want[2][1, 3]) and not bool(want[5][0])  # dx == 0 at u = 4; C == ADV doubles
 
 
+@pytest.mark.parametrize("L", [7, 32, 33, 64, 65])
+def test_walk_prefix_kernel_chain_lengths(dev, L):
+    """walk_prefix (a warp per chain, segments of 32 from the bottom) at
+    chain lengths below, at, just past and twice one segment, and past
+    two; W*(U+2) = 535 is no multiple of L and the chain count C (77, 17,
+    17, 9, 9) no multiple of a block's 4 warps. Centers at ADV (the
+    advance lane's product), -ADV and 9S (dx == 0 at u = 9)."""
+    W, U, stride = 5, 105, 7
+    tab_x, tab_y = tables.step_table(ecref.scalar_mult(stride), U)
+    adv_k = (2 * U + 1) * stride
+    keys = [adv_k, ecref.N - adv_k, 9 * stride, 10 ** 15, 31337]
+    c = point_batch_from_ints([ecref.scalar_mult(k) for k in keys])
+    adv = ecref.scalar_mult(adv_k)
+    cpu = (c.x, c.y, pwalk.table_to_limb_major(tab_x, "cpu"),
+           pwalk.table_to_limb_major(tab_y, "cpu"), _limbs(adv[0]), _limbs(adv[1]))
+    C = walk.n_chains(W, U, L)
+    assert (W * (U + 2)) % L and C % 4
+    n0 = walk.walk_prefix.launches
+    pre, tot = walk.walk_prefix(*(t.to(dev) for t in cpu), L)
+    want_pre, want_tot = walk.walk_prefix_ref(*cpu, L)
+    torch.cuda.synchronize()
+    assert walk.walk_prefix.launches == n0 + 1
+    assert torch.equal(pre.cpu(), want_pre) and torch.equal(tot.cpu(), want_tot)
+
+
+@pytest.mark.parametrize("case", walker_lookup_cases.CASES + ["smoke"])
+def test_lookup_summary_kernel_matches_plain(dev, case):
+    """kh_lookup_summary against lookup_summary_ref on the cases of
+    tests/walker_lookup_cases.py (found2, a key above the table, m = 1,
+    padding, degenerate hits, a walker without flags, overflow, more
+    walkers and survivors than the block's warps and threads) and at
+    chip_smoke.py's shape (C = 256, W = 8, U = 4096, 2^22 keys), both
+    into a fresh row and into a row of a summary."""
+    d = walker_lookup_cases.make_case(case)
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.uint32).view(np.int32).copy())
+    table = st.build_sorted_table(d["hi"], d["lo"], d["idx"])
+    cpu = (torch.from_numpy(d["pos"]), i32(d["qhi"]), i32(d["qlo"]),
+           torch.tensor(d["n"], dtype=torch.int32), torch.from_numpy(d["deg"]),
+           torch.from_numpy(d["adeg"]))
+    want = st.lookup_summary_ref(table, *cpu, d["total"])
+    gtab = st.SortedXTable(table.key.to(dev), table.idx.to(dev))
+    gpu = tuple(t.to(dev) for t in cpu)
+    n0 = st.lookup_summary.launches
+    got = st.lookup_summary(gtab, *gpu, d["total"])
+    out = torch.full((3, want.shape[0]), -1, dtype=torch.int32, device=dev)
+    st.lookup_summary(gtab, *gpu, d["total"], out=out[1])
+    torch.cuda.synchronize()
+    assert st.lookup_summary.launches == n0 + 2
+    assert torch.equal(got.cpu(), want) and torch.equal(out[1].cpu(), want)
+    assert (out[0] == -1).all() and (out[2] == -1).all()
+    assert torch.equal(st.lookup_summary_ref(gtab, *gpu, d["total"]).cpu(), want)
+
+
 @pytest.mark.parametrize("mode", ["rmd160", "eth", "xpoint"])
 def test_brute_walker_engine_cuda_matches_cpu(dev, mode):
     keys = list(range(1, 33))
@@ -450,11 +506,11 @@ def test_brute_walker_engine_cuda_matches_cpu(dev, mode):
     want = brute.BruteEngine(ts, 1, 4097, mode=mode, params=params, device="cpu")
     assert got._walker and want._walker
     c = got._centers_for_bases(got._sequential_bases(0))
-    n0 = walk.walk_emit.launches
+    n0, n1 = walk.walk_emit.launches, st.lookup_summary.launches
     gx, gy, gs = got._walker_chunk(c.x, c.y)
     wx, wy, ws = want._walker_chunk(c.x.cpu(), c.y.cpu())
     torch.cuda.synchronize()
-    assert walk.walk_emit.launches == n0 + 3
+    assert (walk.walk_emit.launches, st.lookup_summary.launches) == (n0 + 3, n1 + 3)
     assert torch.equal(gs.cpu(), ws) and torch.equal(gx.cpu(), wx) and torch.equal(gy.cpu(), wy)
     found = sorted(f.private_key for f in got.search())
     assert found == sorted(f.private_key for f in want.search()) == keys
