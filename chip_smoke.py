@@ -21,7 +21,10 @@ any failure exits non-zero before the result line:
    lanes at block edges, K3 also
    against np.bitwise_or.at, K4 in every mode, with the endomorphism and
    with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
-   lanes); K5 over every lane of B = 2^23 in the canonical and a custom
+   lanes); the fused chunk's compaction and summary (kh_compact_hits) at
+   C = 1024 on K4's rmd160 hit words and on planted ones (R + 1 flagged
+   rows, more than C words in R rows, a dense row and degenerate words);
+   K5 over every lane of B = 2^23 in the canonical and a custom
    alphabet and against hashlib on a sample, the key derivation, K6 (edge
    scalars planted, x, y, inf and irr equal to scalar_mult_split_ref, every
    unflagged lane against ecref), K7 and K8 at V = 34,816; the
@@ -63,8 +66,10 @@ any failure exits non-zero before the result line:
    keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
    (U = 1024 bucketed), then 5 s of throughput at U = 16384,
    K = 256, T = 32 over [2^40, 2^40 + 2^50): effective keys/s (keys times
-   the mode's multiplier), the device idle share, the chunk time split over
-   K1, K4 and compaction, and K1 == K4 == chunks dispatched.
+   the mode's multiplier), the device idle share, the host's enqueue time
+   a chunk, the device operations of one chunk (torch.profiler), the chunk
+   time split over K1, K4 and the compaction, and K1 == K4 == compaction
+   == chunks dispatched.
 4b. the minikeys path (bench_modes.py's protocol, B = 2^23, V = 34,816,
    HM = 64, prefix "Sbenchmark1x"): the planted minikey recovered
    bit-exact in one chunk, then 5 s of throughput from counter 2^31 with
@@ -119,6 +124,8 @@ KERNEL_SOURCES = {
                     "keyhuntm1cpu_tpu/engine/bsgs.py:1644"),
     "brute_walk_blocks": ("keyhuntm1cpu_tpu_torch/csrc/pbrute.cu",
                           "keyhuntm1cpu_tpu/curve/pbrute.py:70"),
+    "compact_hits": ("keyhuntm1cpu_tpu_torch/csrc/compact.cu",
+                     "keyhuntm1cpu_tpu/curve/pbrute.py:300"),
     "minikey_valid": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
                       "keyhuntm1cpu_tpu/hash/pminikey.py:128"),
     "minikey_keys": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
@@ -152,6 +159,12 @@ KERNEL_NOTES = {"scalar_mult": {"note": "launches counts K6 calls; a call is two
                                   "queries against 2^35 bits; library_ms: words[idx], "
                                   "the gather alone; launches count the fused, mask and "
                                   "bloom2 forms"},
+                "compact_hits": {"note": "replaces XLA glue, not a Pallas kernel: the "
+                                         "compaction and summary of pallas_brute_chunk "
+                                         "(curve/pbrute.py:300-344), at the fused chunk's "
+                                         "K = 256, U = 16384, C = 1024 on K4's rmd160 hit "
+                                         "words; ms includes the ticket's memset; no torch "
+                                         "call computes it"},
                 "lookup_summary": {"note": "replaces XLA glue, not a Pallas kernel: the "
                                            "summary ops of _brute_chunk_impl "
                                            "(engine/brute.py:1064-1093) and the lower-bound "
@@ -276,9 +289,9 @@ def k1_bytes(T, K):
 
 def k3_ops_bytes(n, n_kept):
     """K3: ~60 instructions per kept key (bitmap index, the four fmix32
-    mixes, three atomicOr); reads qhi, qlo, keep of every key and reads
-    and writes the 3 filter words a kept key touches."""
-    return 60 * n_kept, 9 * n + 24 * n_kept
+    mixes, three atomicOr); reads qhi, qlo, keep of every key, and each of
+    a kept key's three random atomics reads and writes a 32-byte sector."""
+    return 60 * n_kept, 9 * n + 3 * 64 * n_kept
 
 
 def bound_ms(ops, nbytes, clock_mhz):
@@ -658,11 +671,14 @@ def phase1_brute(dev, results, clock):
     """K4 against its plain version at the main path's K = 256, U = 16384:
     every mode, the endomorphism, and a bucketed T = 4096 set, with
     planted hits and two dx == 0 lanes. rmd160 with T = 32 intervals
-    gives the JSON line's numbers."""
+    gives the JSON line's numbers. Then the chunk's compaction and summary
+    (kh_compact_hits) against its plain version at C = 1024 on those hit
+    words and on planted ones."""
     import numpy as np
     import torch
 
     from keyhuntm1cpu_tpu_torch.curve import pbrute, pwalk, tables
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteParams
     from keyhuntm1cpu_tpu_torch.field import fe
     from keyhuntm1cpu_tpu_torch.ref import ecref
 
@@ -729,8 +745,54 @@ def phase1_brute(dev, results, clock):
         if (mode, n_endo, bucketed) == ("rmd160", 1, False):
             results["brute_walk_blocks"] = dict(ms=ms, plain_ms=pms, bound_ms=bms,
                                                 bound_by=by_)
+            k4_hits = got
         del got, want
     results["brute_walk_blocks"]["max_abs_err"] = err_all
+
+    # the compaction: K4's rmd160 hit words (3 hits, 2 degenerate lanes) and
+    # planted words: R + 1 flagged rows (the overflow), R rows holding more
+    # than C words, a dense row beside degenerate words in the first, a
+    # middle and the last step; advance flags at steps 0, 77 and K - 1
+    C = BruteParams().chunk_cand
+    R, nr = pbrute.row_budget(C), K * U // pbrute.LANES
+    adeg = torch.zeros(K, dtype=torch.bool, device=dev)
+    adeg[[0, 77, K - 1]] = True
+    planted = {}
+    for name, n_rows, per_row in (("R + 1 rows", R + 1, 2),
+                                  ("R rows, more than C words", R, C // R + 3)):
+        h = np.zeros((nr, pbrute.LANES), np.uint32)
+        for r in np.sort(rng.choice(nr, n_rows, replace=False)):
+            h[r, rng.choice(pbrute.LANES, per_row, replace=False)] = rng.integers(1, 512, per_row)
+        planted[name] = h
+    h = np.zeros((nr, pbrute.LANES), np.uint32)
+    h[int(rng.integers(nr))] = rng.integers(1, 1 << 30, pbrute.LANES)
+    h = h.reshape(K, U)
+    h[0, [0, U // 2]] = h[K // 2, 5] = h[K - 1, U - 1] = pbrute.HIT_DEGENERATE
+    h[K // 2, 6] = pbrute.HIT_DEGENERATE | 3
+    planted["a dense row, degenerate words"] = h
+    cases = {"K4 rmd160 hits": k4_hits} | {k: as_i32(v).reshape(K, U)
+                                          for k, v in planted.items()}
+    err = 0
+    for name, h in cases.items():
+        got = pbrute.compact_hits(h, adeg, C)
+        want = pbrute.compact_hits_ref(h, adeg, C)
+        err = max(err, max_abs_err([got], [want]))
+        if err:
+            fail(f"kh_compact_hits on {name} differs from its plain version "
+                 f"(max_abs_err {err})")
+        n = int(want[-1])
+        if name == "K4 rmd160 hits" and (n != 3 or int(want[2 * C + 3]) != 1):
+            fail(f"compact_hits_ref on K4's hit words: n = {n}, want the 3 planted hits")
+        if (name == "R + 1 rows") != (n == C + 1):
+            fail(f"compact_hits_ref on {name}: n = {n}")
+    ms, _ = device_ms(lambda: pbrute.compact_hits(k4_hits, adeg, C), 20)
+    pms, _ = timed(lambda: pbrute.compact_hits_ref(k4_hits, adeg, C), 5)
+    bms, by_ = bound_ms(0, 4 * K * U + K + 4 * (2 * C + 3 * K + 1), clock)
+    results["compact_hits"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_,
+                                   max_abs_err=err)
+    log(f"kh_compact_hits K={K} U={U} C={C} (R={R}): equal to compact_hits_ref on "
+        f"{', '.join(cases)}; {ms:.4f} ms on K4's hit words (plain {pms:.3f} ms, "
+        f"bound {bms:.4f} ms by {by_})")
     torch.cuda.synchronize()
 
 
@@ -1181,6 +1243,7 @@ def launch_counts():
     wrappers = {"advance_chain": (pwalk.advance_chain,), "walk_blocks": (pwalk.walk_blocks,),
                 "insert_keys": (bmp.insert_keys,),
                 "brute_walk_blocks": (pbrute.brute_walk_blocks,),
+                "compact_hits": (pbrute.compact_hits,),
                 "minikey_valid": (pminikey.minikey_valid,),
                 "minikey_keys": (pminikey.minikey_keys,),
                 "scalar_mult": (pladder.scalar_mult_tiles,),
@@ -1442,16 +1505,18 @@ def phase4_brute(dev, seconds, clock):
         params = BruteParams(block_u=U, steps_per_chunk=K, endo=endo)
         eng = BruteEngine(ts, *BRUTE_RANGE, mode=mode, params=params, device=dev)
         eng.search(max_steps=K)  # warm-up chunk
-        marks = []
+        marks, enqueue = [], []
         chunk_fn = eng._chunk_fn
 
         def marked_chunk(px, py):
+            t = time.perf_counter()
             ev0 = torch.cuda.Event(enable_timing=True)
             ev0.record()
             out = chunk_fn(px, py)
             ev1 = torch.cuda.Event(enable_timing=True)
             ev1.record()
             marks.append((ev0, ev1))
+            enqueue.append(time.perf_counter() - t)
             return out
 
         eng._chunk_fn = marked_chunk
@@ -1464,7 +1529,8 @@ def phase4_brute(dev, seconds, clock):
         dt = time.time() - t0
         _, n = launch_counts()
         chunks = (eng.stats.keys_covered - k0) // (K * U)
-        if (n != zero_counts() | dict(advance_chain=len(marks), brute_walk_blocks=len(marks))
+        if (n != zero_counts() | dict.fromkeys(("advance_chain", "brute_walk_blocks",
+                                                "compact_hits"), len(marks))
                 or chunks != len(marks)):
             fail(f"brute {name} launched {n} for {len(marks)} chunks dispatched, "
                  f"{chunks} counted")
@@ -1472,26 +1538,36 @@ def phase4_brute(dev, seconds, clock):
         eff = (eng.stats.keys_covered - k0) * eng.stats.multiplier / dt
         busy = sum(a.elapsed_time(b) for a, b in marks)
         span = marks[0][0].elapsed_time(marks[-1][1])
-        # chunk split on the card (device_ms): whole chunk, K1 alone, K4 alone
+        enq_ms = 1000 * sum(enqueue) / len(marks)
+        # chunk split on the card (device_ms): whole chunk, K1, K4 and the
+        # compaction alone; the chunk's device operations (torch.profiler)
         px, py = eng._fast_base(0)
-        c_ms, _ = device_ms(lambda: pbrute.brute_chunk(
-            px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng._tgt, eng._btab,
-            K=K, U=U, C=params.chunk_cand, mode=mode, n_endo=eng._n_endo,
-            n_bucket_rows=eng._n_bucket_rows, adv_tab=eng.adv_tab), 5)
-        k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
+
+        def chunk():
+            return pbrute.brute_chunk(
+                px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng._tgt, eng._btab,
+                K=K, U=U, C=params.chunk_cand, mode=mode, n_endo=eng._n_endo,
+                n_bucket_rows=eng._n_bucket_rows, adv_tab=eng.adv_tab)
+        n_dev = device_launches(chunk)
+        c_ms, _ = device_ms(chunk, 5)
+        k1_ms, (bx, by, _, _, adeg) = device_ms(lambda: pwalk.advance_chain(
             px[:, None], py[:, None], eng.adv_x, eng.adv_y, K, eng.adv_tab), 5)
-        k4_ms, _ = device_ms(lambda: pbrute.brute_walk_blocks(
+        k4_ms, hits = device_ms(lambda: pbrute.brute_walk_blocks(
             bx, by, eng.tab_x, eng.tab_y, eng._tgt, eng._btab, mode, eng._n_endo,
             eng._n_bucket_rows), 5)
+        cp_ms, _ = device_ms(lambda: pbrute.compact_hits(hits, adeg[0], params.chunk_cand), 20)
         n_tgt, tb = eng._tgt.shape[1], eng._n_bucket_rows
         k4_bound, _ = bound_ms(k4_ops(mode, eng._n_endo, n_tgt, tb, K * U),
                                64 * (K + U) + 16 * n_tgt + 512 * tb + 4 * K * U, clock)
         log(f"phase 4: {name}: gate keys 1..32 bit-exact in {t_gate:.1f} s; "
             f"{chunks} chunks in {dt:.2f} s -> {eff:.4e} effective keys/s "
             f"(x{eng.stats.multiplier}; K={K}, U={U}, T={len(raw)}, {tb} bucket rows); "
-            f"idle share {1 - busy / span:.4f}; chunk {c_ms:.3f} ms = K1 {k1_ms:.3f} + "
-            f"K4 {k4_ms:.3f} (bound {k4_bound:.3f}) + compaction "
-            f"{c_ms - k1_ms - k4_ms:.3f}; launches {n}")
+            f"idle share {1 - busy / span:.4f}; host enqueue {enq_ms:.3f} ms a chunk; "
+            f"chunk {c_ms:.3f} ms on the card in "
+            f"{n_dev or 'not measured: the profiler saw no'} device operations (kernels, "
+            f"copies, fills; torch.profiler) = K1 {k1_ms:.3f} + K4 {k4_ms:.3f} (bound "
+            f"{k4_bound:.3f}) + compaction {cp_ms:.4f} (the rest "
+            f"{c_ms - k1_ms - k4_ms - cp_ms:.4f}); launches {n}")
     return total
 
 

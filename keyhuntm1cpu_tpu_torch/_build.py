@@ -132,6 +132,8 @@ def kernels() -> ctypes.CDLL:
         "kh_insert_keys": [vp] * 5 + [i64, i, i, vp],
         # bx by tx ty tgt btab hits | K U T TB mode n_endo stream
         "kh_brute_walk_blocks": [vp] * 7 + [i64, i, i, i, i, i, vp],
+        # hits adeg out scratch | K U C stream
+        "kh_compact_hits": [vp] * 4 + [i, i, i, vp],
         # a out | n stream
         "kh_inv_batch": [vp, vp, i64, vp],
         # x y lo hi | n stream

@@ -11,20 +11,29 @@
 // words leaves the kernel.
 //
 // Bound on the H100: 32-bit integer issue. In rmd160 mode a point costs
-// ~14 field multiplies (the walk and 1/G of an inversion) plus two
-// SHA-256 compressions and two RIPEMD-160 double lines, ~10^4 integer
-// instructions; the 4 B hit word per point is nothing next to that. The
-// design is K2's (pwalk.cu): one thread owns one offset column u and G
-// consecutive base rows, with its own Montgomery chain of G denominators
-// (prefix products in local memory, ONE inversion), so no thread waits on
-// another. The inversion is fe_inv_var (safegcd divsteps): on an H100 at
-// 700 W, K = 256, U = 16384, rmd160 2.001 ms and xpoint 0.603, against
-// 2.018 / 0.637 with fe_inv_const and 2.229 / 0.970 with the addition
-// chain a^(p-2). The hashes are straight-line register code (hash.cuh) called
-// once per query set. The T interval bounds are read by every thread at
-// the same address, so they sit in shared memory (broadcast reads); the
-// bucket table joins them there when it fits, else it is read from
-// global memory through the read-only cache.
+// ~5 field multiplies of the walk plus two SHA-256 compressions and two
+// RIPEMD-160 double lines, ~6,000 integer instructions; the 4 B hit word
+// per point is nothing next to that. The design is K2's (pwalk.cu): one
+// thread owns one offset column u and G consecutive base rows with its
+// own Montgomery chain of G denominators (prefix products in local
+// memory, dx recomputed on the way back), and the chain totals of the
+// block share ONE inversion (fe_inv_var, safegcd divsteps) through a
+// shared-memory product tree (batch_inv.cuh), so a point pays 1/(G *
+// threads) of an inversion and ~3/G tree products where a thread of its
+// own paid 1/G. The shape is the block: on an H100 at 700 W, K = 256,
+// U = 16384, 512 threads x 64 rows ran xpoint 0.510 ms, rmd160 1.603,
+// eth 2.027, against 0.555 / 1.822 / 2.283 at 128 x 64 and 0.600 / 1.953
+// / 2.360 at 128 x 32 (the design before, with an inversion a thread:
+// 0.613 / 1.967 / 2.403; every shape in PERF.md,
+// scripts/torch_pbrute_shapes.py). At 118 registers a 512-thread block
+// fills an SM, and 128 blocks are one wave on 132 SMs. Why the larger
+// block wins at the same occupancy is not measured; a guess: its 16 warps
+// leave the barrier together and run the same hash code, which the
+// instruction cache favours. The hashes are straight-line register code
+// (hash.cuh) called once per query set. The T interval bounds are read by
+// every thread at the same address, so they sit in shared memory
+// (broadcast reads); the bucket table joins them there when it fits, else
+// it is read from global memory through the read-only cache.
 //
 // Layouts: bases (8, K) and tables (8, U) limb-major u32; tgt (4, T) rows
 // [lo_hi, lo_lo, hi_hi, hi_lo]; btab (TB, 128); hits (K, U) row-major.
@@ -32,9 +41,11 @@
 // returns a cudaError_t.
 #include <cuda_runtime.h>
 
+#include "batch_inv.cuh"
 #include "fe.cuh"
 #include "hash.cuh"
 
+using kh::block_batch_inv;
 using kh::Fe;
 
 namespace {
@@ -42,11 +53,14 @@ namespace {
 // pbrute.MODES order
 enum Mode { kXpoint = 0, kRmd160 = 1, kEth = 2, kAddressU = 3, kRmd160Both = 4 };
 
-constexpr int kBruteGroup = 32;  // base rows per thread (K2's kWalkGroup)
-constexpr int kThreads = 128;
+constexpr int kBruteGroup = 64;  // base rows per thread
+constexpr int kThreads = 512;    // offset columns per block
 constexpr uint32_t kHitDegenerate = 1u << 30;
-constexpr size_t kSmemDefault = 48 * 1024;
-constexpr size_t kSmemMax = 232448;  // the most a block may use on sm_90
+constexpr size_t kTreeBytes = 2 * kThreads * sizeof(Fe);  // the static product tree
+// dynamic shared memory (targets, bucket table): the most a block may use
+// on sm_90 and the most it may use without opting in, less the tree
+constexpr size_t kSmemMax = 232448 - kTreeBytes;
+constexpr size_t kSmemDefault = 48 * 1024 - kTreeBytes;
 
 __device__ __forceinline__ Fe fe_beta(int e) {
   // beta and beta^2 mod p, the GLV x multipliers of lambda and lambda^2
@@ -118,7 +132,10 @@ __device__ __forceinline__ uint32_t point_hits(const Fe& x3, const Fe& y3, const
   return hit;
 }
 
-// K4: thread = one offset column u and kBruteGroup = G consecutive base rows.
+// K4: thread = one offset column u and kBruteGroup = G consecutive base
+// rows; block = kThreads neighbouring columns. Every thread reaches the
+// block's inversion: ragged columns (u >= U) and rows (K % G) and dx == 0
+// lanes enter the chain as 1, so no zero poisons the block.
 template <int MODE, int NENDO>
 __global__ void __launch_bounds__(kThreads)
 brute_walk_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
@@ -127,6 +144,7 @@ brute_walk_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ 
                   uint32_t* __restrict__ hits, long long K, int U, int T, int TB,
                   int btab_smem) {
   extern __shared__ unsigned long long smem[];
+  __shared__ Fe tree[2 * kThreads];
   unsigned long long* lo = smem;
   unsigned long long* hi = smem + T;
   uint32_t* sbtab = reinterpret_cast<uint32_t*>(smem + 2 * T);
@@ -137,27 +155,31 @@ brute_walk_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ 
   if (btab_smem) {
     for (int i = threadIdx.x; i < TB * 128; i += blockDim.x) sbtab[i] = btab[i];
   }
-  __syncthreads();
   const Members m{lo, hi, T, btab_smem ? sbtab : btab, TB, !btab_smem};
 
-  const int u = blockIdx.y * blockDim.x + threadIdx.x;
-  if (u >= U) return;
   constexpr int G = kBruteGroup;
   constexpr bool kNeedsY = MODE == kEth || MODE == kAddressU || MODE == kRmd160Both;
+  const int i = threadIdx.x;
+  const int u = blockIdx.y * kThreads + i;
   const long long r0 = (long long)blockIdx.x * G;
-  const int n = (int)min((long long)G, K - r0);
-  const Fe tX = kh::fe_load_lm(tx, U, u);
-  const Fe tY = kh::fe_load_lm(ty, U, u);
+  const int n = u < U ? (int)min((long long)G, K - r0) : 0;  // rows of this thread
   const Fe one = kh::fe_one();
+  Fe tX = one, tY = one;
+  if (n) {
+    tX = kh::fe_load_lm(tx, U, u);
+    tY = kh::fe_load_lm(ty, U, u);
+  }
   Fe pref[G];
-  Fe acc;
+  Fe acc = one;
   for (int j = 0; j < n; j++) {
     Fe dx = kh::fe_sub(tX, kh::fe_load_lm(bx, K, r0 + j));
     if (kh::fe_is_zero(dx)) dx = one;  // degenerate lane: invert 1 instead of 0
     acc = j ? kh::fe_mul(acc, dx) : dx;
     pref[j] = acc;
   }
-  Fe inv = kh::fe_inv_var(acc);
+  tree[kThreads + i] = acc;
+  block_batch_inv<kh::fe_inv_var>(tree);  // its first barrier also covers smem
+  Fe inv = tree[kThreads + i];  // 1 / (this thread's chain total)
   for (int j = n - 1; j >= 0; j--) {
     const Fe bX = kh::fe_load_lm(bx, K, r0 + j);
     const Fe bY = kh::fe_load_lm(by, K, r0 + j);

@@ -12,15 +12,16 @@ Port of keyhuntm1cpu_tpu/curve/pbrute.py. One chunk is:
   lane-bucketed high-word table. One u32 hit word per point: bit q for
   query set q (GLV power major, then the mode's hashes), 1 << 30 in place
   of every bit on a degenerate (dx == 0) lane.
-- **Compaction** (torch ops, no host sync): rows of 128 hit words are
-  reduced, the flagged rows compacted (budget R = max(8, C // 32)), then
-  the flagged words within them; one (2C + 3K + 1,) int32 summary
+- **Compaction** (``compact_hits``, no host sync): rows of 128 hit words
+  are reduced, the flagged rows compacted (budget R = max(8, C // 32)),
+  then the flagged words within them; one (2C + 3K + 1,) int32 summary
   [cand_pos (C), cand_bits (C), n_deg (K), first_deg (K), adv_deg (K), n].
 
-``brute_walk_blocks`` runs its plain torch version for CPU tensors and
-launches the CUDA kernel (csrc/pbrute.cu) for CUDA tensors; it counts
-its kernel launches in ``brute_walk_blocks.launches``. Layouts are
-pwalk's: limb-major int32 (8, n) field elements holding u32 bits.
+``brute_walk_blocks`` and ``compact_hits`` run their plain torch versions
+(``*_ref``) for CPU tensors and launch their CUDA kernels (csrc/pbrute.cu,
+csrc/compact.cu) for CUDA tensors; each counts its kernel launches in
+``<wrapper>.launches``. Layouts are pwalk's: limb-major int32 (8, n)
+field elements holding u32 bits.
 """
 
 from __future__ import annotations
@@ -200,14 +201,18 @@ brute_walk_blocks.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def compact_hits(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor:
-    """(K, U) hit words + (K,) adv-degenerate flags -> the packed summary.
-    A row overflow (more flagged 128-word rows than R) reports n = C + 1,
-    which sends the host to an exact rescan of the chunk."""
+def row_budget(C: int) -> int:
+    """R: the flagged 128-word rows a chunk's compaction picks."""
+    return max(8, C // 32)
+
+
+def compact_hits_ref(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor:
+    """Plain torch version of the kernel (see compact_hits): the JAX
+    chunk's compaction ops."""
     K, U = hits.shape
     rows2 = hits.reshape(-1, LANES)
     qbits2 = rows2 & (HIT_DEGENERATE - 1)
-    R = max(8, C // 32)  # row budget
+    R = row_budget(C)
     nr = rows2.shape[0]
     rowflag = (qbits2 != 0).any(dim=1)
     n_rows = rowflag.sum(dtype=torch.int32)
@@ -227,6 +232,44 @@ def compact_hits(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor
                       deg.sum(dim=1, dtype=torch.int32),
                       deg.argmax(dim=1).to(torch.int32),
                       adeg.to(torch.int32), n.reshape(1)])
+
+
+def compact_hits(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor:
+    """(K, U) int32 hit words (U % 128 == 0) + (K,) bool adv-degenerate
+    flags -> the packed (2C + 3K + 1,) int32 summary [cand_pos (C),
+    cand_bits (C), n_deg (K), first_deg (K), adv_deg (K), n]: the first C
+    non-zero query words (bits 0..29) of the first R = max(8, C // 32)
+    flagged 128-word rows, their flat positions (K*U = padding) and bits;
+    per step the words with the degenerate bit 30 and the first of them (0
+    when none); the advance flags; n, their count in the picked rows. A
+    row overflow (more flagged rows than R) reports n = C + 1, which sends
+    the host to an exact rescan of the chunk. One launch of csrc/compact.cu
+    kh_compact_hits on the card (a memset of its ticket, then the kernel),
+    counted in ``compact_hits.launches``; its plain version
+    ``compact_hits_ref`` for CPU tensors."""
+    K, U = hits.shape if hits.dim() == 2 else (-1, -1)
+    if (hits.dtype != torch.int32 or not hits.is_contiguous() or adeg.dtype != torch.bool
+            or not adeg.is_contiguous() or tuple(adeg.shape) != (K,)):
+        raise ValueError(f"compact_hits: need contiguous (K, U) int32 hits and (K,) bool "
+                         f"adeg, got {hits.dtype} {tuple(hits.shape)}, {adeg.dtype} "
+                         f"{tuple(adeg.shape)}")
+    if K < 1 or U < LANES or U % LANES or C < 1 or K * U >= 1 << 31:
+        raise ValueError(f"compact_hits needs K, C >= 1, U a multiple of {LANES} and "
+                         f"K*U < 2^31 (K={K}, U={U}, C={C})")
+    if not _build.on_cuda(hits, adeg):
+        return compact_hits_ref(hits, adeg, C)
+    if hits.data_ptr() % 16:
+        raise ValueError("compact_hits: the hit words must be 16-byte aligned")
+    out = torch.empty((2 * C + 3 * K + 1,), dtype=torch.int32, device=hits.device)
+    scratch = torch.empty((1 + K + K * -(-U // LANES // 32),), dtype=torch.int32,
+                          device=hits.device)
+    _build.launch("kh_compact_hits", hits.data_ptr(), adeg.data_ptr(), out.data_ptr(),
+                  scratch.data_ptr(), K, U, C, _build.stream(hits))
+    compact_hits.launches += 1
+    return out
+
+
+compact_hits.launches = 0
 
 
 def brute_chunk(px, py, tab_x_lm, tab_y_lm, ax, ay, tgt, btab, *, K: int, U: int,

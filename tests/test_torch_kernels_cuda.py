@@ -1,8 +1,11 @@
 """CUDA kernels K1-K8, the minikey key derivation, pinv, the Keccak ETH
-hash, the probe, the two walker walk kernels and the walker step's lookup
-and summary (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions
-on the card, at small odd sizes (partial blocks; K6 at V not a multiple
-of its inversion group, walk_prefix and walk_emit at several chain
+hash, the probe, the two walker walk kernels, the walker step's lookup
+and summary and the fused brute chunk's compaction and summary
+(keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
+at small odd sizes (partial blocks; K4 at ragged row groups and column
+blocks, the compaction on the cases of tests/brute_compact_cases.py and at
+the main path's K = 256, U = 16384; K6 at V not a multiple of its
+inversion group, walk_prefix and walk_emit at several chain
 lengths), and the engines (the
 brute walker path included) on CUDA vs the engines on the CPU. K6's other
 compile-time shapes are held to their plain version by
@@ -26,6 +29,7 @@ from keyhuntm1cpu_tpu_torch.hash import phash, pminikey  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
 import walker_lookup_cases  # noqa: E402
+from brute_compact_cases import CASES, make_case  # noqa: E402
 
 pytestmark = pytest.mark.cuda
 
@@ -200,6 +204,62 @@ def test_brute_walk_kernel_matches_plain(dev, mode, n_endo, bucketed):
     assert torch.equal(got.cpu(), want)
     assert int(want[2, 4]) == pbrute.HIT_DEGENERATE and int(want[30, 5]) == pbrute.HIT_DEGENERATE
     assert int(want[0, 0]) and int(want[9, 499]) and int(want[36, U - 1])
+
+
+@pytest.mark.parametrize("K", [33, 65])
+@pytest.mark.parametrize("mode,n_endo", [("rmd160", 1), ("xpoint", 1), ("eth", 1),
+                                         ("xpoint", 3)])
+def test_brute_walk_kernel_ragged_blocks(dev, mode, n_endo, K):
+    """K4 at K past a multiple of its row group (33 rows: one ragged group
+    of 64 or a group of 32 and one row; 65 rows: one row past 64) and
+    U = 1000 (the last block of columns 488 wide at 512 threads, 104 at
+    128), with dx == 0 lanes at the edges of row groups and column blocks:
+    every thread of a block reaches the shared inversion, and a
+    degenerate or idle lane enters it as 1."""
+    U = 1000
+    tab_x, tab_y = tables.step_table(ecref.G, U)
+    b0 = 1 << 41
+    rows = [ecref.scalar_mult(b0 + s * U) for s in range(K)]
+    # row s = (u + 1)*G or its negation: dx == 0 at column u (first and last
+    # rows of row groups, first and last columns of column blocks)
+    plants = ([(0, 0), (27, 896), (30, 511), (31, 127), (32, 999)] if K == 33 else
+              [(0, 0), (31, 127), (32, 128), (40, 511), (41, 512), (63, 255), (64, 999)])
+    for s, u in plants:
+        pt = ecref.scalar_mult(u + 1)
+        rows[s] = pt if s % 2 else ecref.point_neg(pt)
+    bx, by = _pts(rows)
+    hit_at = [(1, 0), (2, 128), (K - 4, 999)]  # key(s, u) = b0 + s*U + u + 1
+    keys = [b0 + s * U + u + 1 for s, u in hit_at]
+    vals = [_cmp64(mode, _artifact(mode, ecref.scalar_mult(k))) for k in keys]
+    vals += [int(v) for v in np.random.default_rng(K).integers(0, 2**63, 13)]
+    tgt = pbrute.pack_intervals(vals, vals)
+    args = [bx, by, pwalk.table_to_limb_major(tab_x, "cpu"),
+            pwalk.table_to_limb_major(tab_y, "cpu"), torch.from_numpy(tgt.view(np.int32)),
+            torch.zeros((8, 128), dtype=torch.int32)]
+    args = [a.to(dev) for a in args]
+    want = pbrute.brute_walk_blocks_ref(*args, mode, n_endo, 0).cpu()  # on the card: fast
+    got = pbrute.brute_walk_blocks(*args, mode, n_endo, 0)
+    torch.cuda.synchronize()
+    assert torch.equal(got.cpu(), want)
+    assert all(int(want[s, u]) == pbrute.HIT_DEGENERATE for s, u in plants)
+    assert all(int(want[s, u]) for s, u in hit_at)
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 64), (8, 384, 300), (256, 16384, 1024)],
+                         ids=["K16_U256_C64", "K8_U384_C300", "K256_U16384_C1024"])
+@pytest.mark.parametrize("case", CASES)
+def test_compact_hits_kernel_matches_plain(dev, case, shape):
+    K, U, C = shape
+    hits, adeg = make_case(case, K, U, C, seed=CASES.index(case))
+    th, ta = torch.from_numpy(hits.view(np.int32)), torch.from_numpy(adeg)
+    want = pbrute.compact_hits_ref(th, ta, C)
+    n0 = pbrute.compact_hits.launches
+    got = pbrute.compact_hits(th.to(dev), ta.to(dev), C)
+    torch.cuda.synchronize()
+    assert pbrute.compact_hits.launches == n0 + 1
+    assert torch.equal(got.cpu(), want)
+    again = pbrute.compact_hits(th.to(dev), ta.to(dev), C)  # the ticket starts at 0 again
+    assert torch.equal(again.cpu(), want)
 
 
 @pytest.mark.parametrize("mode", ["rmd160", "eth"])

@@ -4,8 +4,10 @@ twin pbrute.xla_brute_chunk, word for word over the packed summary, for
 every mode at n_endo = 1 and rmd160 / xpoint at n_endo = 3, with planted
 hits and a planted dx == 0 lane; pack_intervals / pack_buckets against the
 JAX functions; the bucketed membership against the interval path through
-the engine; and the compaction's row-overflow report. Integer arithmetic:
-the tolerance is exact equality."""
+the engine; the compaction's plain version (compact_hits_ref) against the
+JAX compaction restated in jnp on the seeded cases of
+tests/brute_compact_cases.py, its input checks and its row-overflow
+report. Integer arithmetic: the tolerance is exact equality."""
 
 import hashlib
 
@@ -22,6 +24,7 @@ from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams  # noqa
 from keyhuntm1cpu_tpu_torch.field import fe  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
+from brute_compact_cases import CASES, make_case  # noqa: E402
 
 torch.set_num_threads(1)
 K, U, C = 4, 256, 64
@@ -177,6 +180,68 @@ def test_bucketed_hit_words_match_jax_bucket_compare(mode):
     want = np.asarray(want).reshape(K, U)
     assert got.numpy().view(np.uint32).tolist() == want.tolist()
     assert sorted(zip(*np.nonzero(want))) == sorted(planted + [(2, 17)])
+
+
+def jax_compaction(hits, adeg, C):
+    """The JAX chunk's compaction and summary (keyhuntm1cpu_tpu/curve/
+    pbrute.py:299-343, pallas_brute_chunk after the kernel), restated with
+    the same jnp ops on (K, U) uint32 hit words and (K,) advance flags."""
+    LANES = 128
+    K, U = hits.shape
+    rows2 = hits.reshape(-1, LANES)  # (K*U/128, 128)
+    qbits2 = rows2 & jnp.uint32((1 << 30) - 1)
+    degf = (rows2 >> 30) & 1
+    R = max(8, C // 32)  # row budget
+    rowflag = qbits2.max(axis=1)  # (K*U/128,)
+    n_rows_t = (rowflag != 0).sum().astype(jnp.int32)
+    nr = rows2.shape[0]
+    (rsel,) = jnp.nonzero(rowflag != 0, size=R, fill_value=nr)
+    rsel = rsel.astype(jnp.int32)
+    picked = qbits2[jnp.minimum(rsel, nr - 1)]  # (R, 128)
+    picked = jnp.where((rsel < nr)[:, None], picked, 0)
+    mask = (picked != 0).reshape(-1)
+    n = mask.sum().astype(jnp.int32)
+    n = jnp.where(n_rows_t > R, jnp.int32(C + 1), n)
+    (ip,) = jnp.nonzero(mask, size=C, fill_value=R * LANES)
+    ip = ip.astype(jnp.int32)
+    ips = jnp.minimum(ip, R * LANES - 1)
+    bits = picked.reshape(-1)[ips]
+    pos = rsel[ips // LANES] * LANES + ips % LANES
+    pos = jnp.where(ip < R * LANES, pos, K * U)
+    bits = jnp.where(ip < R * LANES, bits, 0)
+    deg = degf.reshape(K, U)
+    n_deg = deg.sum(axis=1).astype(jnp.int32)
+    first_deg = jnp.argmax(deg, axis=1).astype(jnp.int32)
+    return jnp.concatenate([pos, bits.astype(jnp.int32), n_deg, first_deg,
+                            (adeg != 0).astype(jnp.int32), n[None]])
+
+
+@pytest.mark.parametrize("shape", [(16, 256, 64), (8, 384, 300)], ids=["K16_U256_C64",
+                                                                      "K8_U384_C300"])
+@pytest.mark.parametrize("case", CASES)
+def test_compact_hits_ref_matches_jax_compaction(case, shape):
+    K_, U_, C_ = shape
+    hits, adeg = make_case(case, K_, U_, C_, seed=CASES.index(case))
+    want = np.asarray(jax_compaction(jnp.asarray(hits), jnp.asarray(adeg), C_))
+    th, ta = torch.from_numpy(hits.view(np.int32)), torch.from_numpy(adeg)
+    got = pbrute.compact_hits_ref(th, ta, C_)
+    assert got.dtype == torch.int32 and got.numpy().tolist() == want.tolist()
+    assert torch.equal(pbrute.compact_hits(th, ta, C_), got)  # the CPU route
+    R = pbrute.row_budget(C_)
+    n_rows = int((hits.reshape(-1, 128) & ((1 << 30) - 1)).any(axis=1).sum())
+    assert (want[-1] == C_ + 1) == (n_rows > R)
+    if case == "over_c":
+        assert want[-1] > C_ and (want[:C_] < K_ * U_).all()
+
+
+def test_compact_hits_checks_its_inputs():
+    hits = torch.zeros((4, 256), dtype=torch.int32)
+    adeg = torch.zeros(4, dtype=torch.bool)
+    for h, a, c in ((hits[:, :200], adeg, 64), (hits.to(torch.int64), adeg, 64),
+                    (hits, adeg[:3], 64), (hits, adeg.to(torch.int32), 64), (hits, adeg, 0),
+                    (hits.t(), adeg, 64)):
+        with pytest.raises(ValueError):
+            pbrute.compact_hits(h, a, c)
 
 
 def test_row_overflow_reports_c_plus_one():
