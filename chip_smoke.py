@@ -12,20 +12,28 @@ any failure exits non-zero before the result line:
    each kernel.
 1. each kernel against its plain torch version on the card, at the shapes
    the main paths give it (K1 advance chain, K2 walk blocks, K3 insert keys,
-   K4 brute walk, K5 minikey validity, the minikey key derivation, K6
-   scalar-mult ladder in its own order, K7 and K8 hash160), plus K1 against
+   K4 brute walk, K5 minikey validity, the minikey compaction and key
+   derivation, K6 scalar-mult ladder in its own order, K7 and K8 hash160),
+   plus K1 against
    ecref at T = 1
    and 16 with P == j*ADV (doubling lanes: j = 1, K/2) and P == -j*ADV
    (infinity lanes: j = 3, K) planted, K1 and K2 also at the filter
    build's shape (K = 128; R = 128, U = 4096), K2 with planted dx == 0
    lanes at block edges, K3 also
-   against np.bitwise_or.at, K4 in every mode, with the endomorphism and
+   against np.bitwise_or.at, with its degeneracy count (degenerate lanes
+   planted inside and past the kept prefix) and in its bitmap-only form,
+   timed at the build step beside the card's random atomicOr ceiling
+   (scripts/torch_filter_shapes.py), K4 in every mode, with the
+   endomorphism and
    with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
    lanes); the fused chunk's compaction and summary (kh_compact_hits) at
    C = 1024 on K4's rmd160 hit words and on planted ones (R + 1 flagged
    rows, more than C words in R rows, a dense row and degenerate words);
    K5 over every lane of B = 2^23 in the canonical and a custom
-   alphabet and against hashlib on a sample, the key derivation, K6 (edge
+   alphabet and against hashlib on a sample, the compaction and key
+   derivation (on K5's mask and on planted ones: none valid, more valid
+   lanes than V, lanes at every tile edge, B not a multiple of the tile),
+   K6 (edge
    scalars planted, x, y, inf and irr equal to scalar_mult_split_ref, every
    unflagged lane against ecref), K7 and K8 at V = 34,816; the
    walker path's kernels at its main-path shapes (W = 8, U = 4096,
@@ -54,7 +62,8 @@ any failure exits non-zero before the result line:
    key, or the range's end), in keys/s = chunks*K*U*2m/s, with the device's
    idle share over that window (CUDA events around each chunk), then the
    chunk time split over K1, K2, cascade and host decode (on the card:
-   device_ms); the cascade of one chunk's
+   device_ms), one streaming-build step's device operations
+   (torch.profiler) and card time; the cascade of one chunk's
    T*K*U queries through the fused probe (probe_compact) and the bloom2
    probe held to the same cascade through their plain versions and to the
    composition the fusion replaced; the level-1 stage timed beside that
@@ -74,17 +83,19 @@ any failure exits non-zero before the result line:
    HM = 64, prefix "Sbenchmark1x"): the planted minikey recovered
    bit-exact in one chunk, then 5 s of throughput from counter 2^31 with
    1 target and with 2^20 decoy hash160 targets: minikeys/s, the device
-   idle share, the chunk time split over K5, compaction, key derivation,
-   K6, K7 + K8 and lookup + summary, and K5 == keys == K6 == K7 == K8 ==
-   chunks dispatched.
+   idle share, the chunk's device operations (torch.profiler), the chunk
+   time split over K5, the compaction and keys (one kernel), K6, K7 + K8
+   and lookup + summary, and K5 == compaction == K6 == K7 == K8 == chunks
+   dispatched.
 4c. the large-target brute path (the walker path, taken past bucket_max
    targets): keys 1..32 recovered bit-exact over [1, 4097) at W = 2,
    U = 256, K = 4 in rmd160, xpoint, eth, address_u, rmd160_both and
    rmd160 / xpoint -e (with lambda*k keys planted); then T = 2^22 targets
    (an address list and an ETH list, parsed from files: 2^22 - 32 seeded
-   decoys and 32 planted keys in the first chunk of walkers 0 and 7), the
-   JAX CLI's shape W = 8, U = 4096, K = 8, over [2^40, 2^40 + 2^50): the
-   planted keys recovered in one chunk, then 5 s of throughput per mode
+   decoys and 32 planted keys in the first chunk of walkers 0 and 7; the
+   bitmap built on the card by K3, checked once word for word against the
+   host build outside the timed set-up), the JAX CLI's shape W = 8,
+   U = 4096, K = 8, over [2^40, 2^40 + 2^50): the planted keys recovered in one chunk, then 5 s of throughput per mode
    with effective keys/s, the device idle share, host enqueue per chunk,
    the device operations of one chunk (torch.profiler), the chunk split
    over walk_prefix, pinv, walk_emit, hash, probe with its compaction,
@@ -128,8 +139,8 @@ KERNEL_SOURCES = {
                      "keyhuntm1cpu_tpu/curve/pbrute.py:300"),
     "minikey_valid": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
                       "keyhuntm1cpu_tpu/hash/pminikey.py:128"),
-    "minikey_keys": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
-                     "keyhuntm1cpu_tpu/engine/minikeys.py:476"),
+    "minikey_compact_keys": ("keyhuntm1cpu_tpu_torch/csrc/minikey.cu",
+                             "keyhuntm1cpu_tpu/engine/minikeys.py:458"),
     "scalar_mult": ("keyhuntm1cpu_tpu_torch/csrc/ladder.cu",
                     "keyhuntm1cpu_tpu/curve/pladder.py:187"),
     "hash160_x2": ("keyhuntm1cpu_tpu_torch/csrc/phash.cu",
@@ -150,7 +161,24 @@ KERNEL_SOURCES = {
                        "keyhuntm1cpu_tpu/engine/brute.py:1064"),
 }
 # what a kernel's entry in the kernels line says beyond its numbers
-KERNEL_NOTES = {"scalar_mult": {"note": "launches counts K6 calls; a call is two launches, "
+KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel: the bit "
+                                        "planes and or_bits_into of the streaming filter "
+                                        "build (engine/bsgs.py:1644-1649) and the on-device "
+                                        "bitmap build (filter/bitmap.py:74-110); ms at the "
+                                        "build step's 524,288 keys into 2^35 + 2^35 bits with "
+                                        "its degeneracy count; bound_ms: 64 bytes a random "
+                                        "atomic (a DRAM sector read and written back), "
+                                        "beside ceiling_ms, the card's random atomicOr "
+                                        "ceiling for the same 1,572,864 atomics "
+                                        "(scripts/torch_filter_shapes.py); no torch call "
+                                        "ORs into words (scatter_reduce has no OR)"},
+                "minikey_compact_keys": {"note": "replaces XLA glue, not a Pallas kernel: the "
+                                                 "count, compaction and key derivation of "
+                                                 "_minikey_finish_impl (engine/minikeys.py:"
+                                                 "458-479) at B = 2^23, V = 34,816; ms "
+                                                 "includes the scratch's memset; no torch call "
+                                                 "computes it"},
+                "scalar_mult": {"note": "launches counts K6 calls; a call is two launches, "
                                         "kh_ladder_jac then kh_ladder_affine, and ms "
                                         "times the two together"},
                 "probe": {"note": "ms, plain_ms and bound_ms: the fused level-1 form "
@@ -287,11 +315,12 @@ def k1_bytes(T, K):
     return 64 * (T + K) + 64 * T * K + 64 * T + T * K
 
 
-def k3_ops_bytes(n, n_kept):
+def k3_ops_bytes(n_kept, bloom2=True):
     """K3: ~60 instructions per kept key (bitmap index, the four fmix32
-    mixes, three atomicOr); reads qhi, qlo, keep of every key, and each of
-    a kept key's three random atomics reads and writes a 32-byte sector."""
-    return 60 * n_kept, 9 * n + 3 * 64 * n_kept
+    mixes, three atomicOr; 10 for the bitmap alone); reads the kept keys'
+    qhi and qlo, and each of a kept key's random atomics (three, or one
+    into the bitmap alone) reads and writes a 32-byte sector."""
+    return (60 if bloom2 else 10) * n_kept, (8 + (3 if bloom2 else 1) * 64) * n_kept
 
 
 def bound_ms(ops, nbytes, clock_mhz):
@@ -613,21 +642,36 @@ def phase1_kernels(dev, results, clock):
         f"{ms2:.4f} ms")
 
     # K3 against its plain version and np.bitwise_or.at on 4M random keys
-    # at each size; timed at the streaming build's shape on 2^35-bit filters
+    # (a prefix kept) at each size, with the degeneracy counter (degenerate
+    # lanes planted inside and past the prefix) and in its bitmap-only form;
+    # timed at the streaming build's step on 2^35-bit filters beside the
+    # card's random atomicOr ceiling for the same atomics
+    import torch_filter_shapes
+
     rng = np.random.default_rng(7)
     n = K3_KEYS
     qhi = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
     qlo = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
-    keep = torch.from_numpy(rng.random(n) < 0.9).to(dev)
-    kh, kl = bmp.u32(qhi[keep]).cpu(), bmp.u32(qlo[keep]).cpu()
+    n_keep = n - 123457
+    deg = np.zeros(n, bool)
+    deg[[0, 31, 32, n_keep - 1, n_keep, n - 1]] = True
+    deg[rng.choice(n, 500, replace=False)] = True
+    adeg = rng.random(BUILD_BLOCKS) < 0.05
+    flags = (torch.from_numpy(deg).to(dev), torch.from_numpy(adeg).to(dev))
+    want_bad = int(deg[:n_keep].sum()) + int(adeg.sum())
+    kh, kl = bmp.u32(qhi[:n_keep]).cpu(), bmp.u32(qlo[:n_keep]).cpu()
     nb = BUILD_BLOCKS * BUILD_BLOCK  # keys per streaming-build step
+    step_flags = (flags[0][:nb], flags[1], torch.zeros((), dtype=torch.int64, device=dev))
     for bits in K3_BITS:
         w1, w2 = bmp.empty_filter(bits, dev), bmp.empty_filter(bits, dev)
         r1, r2 = w1.clone(), w2.clone()
-        bmp.insert_keys(w1, bits, w2, bits, qhi, qlo, keep)
-        bmp.insert_keys_ref(r1, bits, r2, bits, qhi, qlo, keep)
-        if not (torch.equal(w1, r1) and torch.equal(w2, r2)):
+        bad, rbad = (torch.zeros((), dtype=torch.int64, device=dev) for _ in range(2))
+        bmp.insert_keys(w1, bits, w2, bits, qhi, qlo, n_keep, *flags, bad)
+        bmp.insert_keys_ref(r1, bits, r2, bits, qhi, qlo, n_keep, *flags, rbad)
+        if not (torch.equal(w1, r1) and torch.equal(w2, r2)) or int(bad) != int(rbad):
             fail(f"K3 insert_keys b={bits} differs from its plain version")
+        if int(bad) != want_bad:
+            fail(f"K3 counted {int(bad)} degenerate lanes, planted {want_bad}")
         del r1, r2
         for words, planes in ((w1, bmp.bitmap_bit_planes(kh, kl, bits)),
                               (w2, bmp.bloom2_bit_planes(kh, kl, bits))):
@@ -636,18 +680,33 @@ def phase1_kernels(dev, results, clock):
             if not np.array_equal(words.cpu().numpy().view(np.uint32), ref):
                 fail(f"K3 insert_keys b={bits} differs from np.bitwise_or.at")
             del ref
-        ms, _ = device_ms(lambda: bmp.insert_keys(w1, bits, w2, bits, qhi[:nb],
-                                              qlo[:nb], keep[:nb]), 20)
-        pms, _ = timed(lambda: bmp.insert_keys_ref(w1, bits, w2, bits, qhi[:nb],
-                                                   qlo[:nb], keep[:nb]), 1)
-        bms, by_ = bound_ms(*k3_ops_bytes(nb, int(keep[:nb].sum())), clock)
+        # the bitmap alone (a brute target set's form)
+        w3, r3 = bmp.empty_filter(bits, dev), bmp.empty_filter(bits, dev)
+        bmp.insert_keys(w3, bits, None, 0, qhi, qlo, n_keep)
+        bmp.insert_keys_ref(r3, bits, None, 0, qhi, qlo, n_keep)
+        if not (torch.equal(w3, r3) and torch.equal(w3, w1)):
+            fail(f"K3 bitmap-only form b={bits} differs from its plain version or the bitmap")
+        del w3, r3
+        ms, _ = device_ms(lambda: bmp.insert_keys(w1, bits, w2, bits, qhi[:nb], qlo[:nb], nb,
+                                                  *step_flags), 20)
+        pms, _ = timed(lambda: bmp.insert_keys_ref(w1, bits, w2, bits, qhi[:nb], qlo[:nb], nb,
+                                                   *step_flags), 1)
+        bms, by_ = bound_ms(*k3_ops_bytes(nb), clock)
+        if bits == MAIN_BITS:
+            ceil = torch_filter_shapes.rmw_ceiling(w2, bits_list=(bits,), ns=(3 * nb,),
+                                                   log=lambda m: None)
+            ceil_ms = min(next(iter(ceil.values())).values())
         results["insert_keys"] = dict(max_abs_err=0, ms=ms, plain_ms=pms,
                                       bound_ms=bms, bound_by=by_)
         del w1, w2
         torch.cuda.empty_cache()
-    log(f"K3 insert_keys {n} keys at b={K3_BITS}: equal to plain and to "
-        f"np.bitwise_or.at; at b={K3_BITS[-1]} {results['insert_keys']['ms']:.3f} ms "
-        f"per {nb} keys (plain {results['insert_keys']['plain_ms']:.1f} ms)")
+    results["insert_keys"]["ceiling_ms"] = ceil_ms
+    log(f"K3 insert_keys {n} keys ({n_keep} kept) at b={K3_BITS}: equal to plain and to "
+        f"np.bitwise_or.at, {want_bad} planted degenerate flags counted, the bitmap-only "
+        f"form equal; at b={K3_BITS[-1]} {results['insert_keys']['ms']:.4f} ms per {nb} "
+        f"keys (plain {results['insert_keys']['plain_ms']:.1f} ms, bound "
+        f"{results['insert_keys']['bound_ms']:.4f} ms by {results['insert_keys']['bound_by']}, "
+        f"the card's random atomicOr ceiling for {3 * nb} atomics {ceil_ms:.4f} ms)")
     torch.cuda.synchronize()
 
 
@@ -818,7 +877,6 @@ def phase1_minikeys(dev, results, clock):
     from keyhuntm1cpu_tpu_torch.curve import pladder
     from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
     from keyhuntm1cpu_tpu_torch.field import fe
-    from keyhuntm1cpu_tpu_torch.filter.bitmap import compact_positions
     from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
     from keyhuntm1cpu_tpu_torch.ref import ecref
     from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
@@ -856,22 +914,46 @@ def phase1_minikeys(dev, results, clock):
             canon = (eng, low, prefix17, w22, valid)
     eng, low, prefix17, w22, valid = canon
 
-    vidx = compact_positions(valid, V, B)
-    ms, k = device_ms(lambda: pminikey.minikey_keys(vidx, low, w22, B, mk._B58), 10)
-    pms, want = timed(lambda: pminikey.minikey_keys_ref(vidx, low, w22, B, mk._B58), 1)
-    err = max_abs_err([k], [want])
-    if err:
-        fail("minikey_keys differs from its plain version")
+    # the compaction and keys: K5's mask, then planted masks: none valid,
+    # more valid lanes than V, lanes on both sides of every tile edge, and
+    # B not a multiple of the tile
+    def check_ck(mask, V_, name):
+        got = pminikey.compact_keys(mask, V_, low, w22, mask.shape[0], mk._B58)
+        want = pminikey.compact_keys_ref(mask, V_, low, w22, mask.shape[0], mk._B58)
+        err = max_abs_err(got, want)
+        if err:
+            fail(f"compact_keys ({name}) differs from its plain version")
+        return got
+
+    ms, (n_valid, vidx, k) = device_ms(
+        lambda: pminikey.compact_keys(valid, V, low, w22, B, mk._B58), 10)
+    pms, want = timed(lambda: pminikey.compact_keys_ref(valid, V, low, w22, B, mk._B58), 1)
+    err = max_abs_err((n_valid, vidx, k), want)
+    if err or int(n_valid) != int(valid.sum()):
+        fail("compact_keys differs from its plain version")
     vi, kn = vidx.cpu().numpy(), k.cpu().numpy().view(np.uint32)
     for j in list(range(0, V, V // 40)) + [V - 1]:
         s_ = prefix17 + mk._b58_digits(low + min(int(vi[j]), B - 1), 5)
         if fe.limbs_to_int(kn[:, j]) != int.from_bytes(hashlib.sha256(s_.encode()).digest(), "big"):
-            fail(f"minikey_keys lane {j} differs from hashlib")
-    bms, by_ = bound_ms(V * (mk_suffix_ops(6) + SHA_OPS), 64 + 36 * V, clock)
-    results["minikey_keys"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                                   bound_by=by_)
-    log(f"minikey_keys V={V}: equal to plain and to hashlib on a sample; {ms:.3f} ms "
-        f"(plain {pms:.1f} ms, bound {bms:.3f} ms by {by_})")
+            fail(f"compact_keys lane {j} differs from hashlib")
+    tile = pminikey._tile()
+    edges = valid.clone()
+    for e in range(tile, B, tile):
+        edges[e - 1:e + 1] = True
+    cases = {"none valid": (torch.zeros_like(valid), V),
+             "n_valid > V": (valid, int(n_valid) // 2),
+             "tile edges": (edges, V),
+             "B not a multiple of the tile": (valid[:B - tile // 2 - 77], V)}
+    for name, (mask, V_) in cases.items():
+        got = check_ck(mask, V_, name)
+        if int(got[0]) != int(mask.sum()):
+            fail(f"compact_keys ({name}) counted {int(got[0])} valid lanes")
+    bms, by_ = bound_ms(V * (mk_suffix_ops(6) + SHA_OPS), B + 64 + 4 + 36 * V, clock)
+    results["minikey_compact_keys"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                           bound_by=by_)
+    log(f"minikey compact_keys B={B} V={V} ({int(n_valid)} valid, tile {tile}): equal to "
+        f"plain and to hashlib on a sample, and to plain with {', '.join(cases)}; {ms:.4f} ms "
+        f"(plain {pms:.1f} ms, bound {bms:.4f} ms by {by_})")
 
     # K6 on those keys with the edge scalars planted in the first columns
     edges = [0, 1, 2, ecref.N - 1, ecref.N, 2 ** 256 - 1,
@@ -1131,11 +1213,10 @@ def phase1_walker(dev, results, clock):
     def filled(bits, keys_hi, keys_lo, level2):
         """A 2^bits filter of the keys: the bitmap, or (level2) the bloom2."""
         words = bmp.empty_filter(bits, dev)
-        keep = torch.ones(keys_hi.shape, dtype=torch.bool, device=dev)
         if level2:
-            bmp.insert_keys(dummy, 10, words, bits, keys_hi, keys_lo, keep)
+            bmp.insert_keys(dummy, 10, words, bits, keys_hi, keys_lo, keys_hi.shape[0])
         else:
-            bmp.insert_keys(words, bits, dummy, 10, keys_hi, keys_lo, keep)
+            bmp.insert_keys(words, bits, None, 0, keys_hi, keys_lo, keys_hi.shape[0])
         return words
 
     rnd = lambda k: torch.from_numpy(rng.integers(-2**31, 2**31, k).astype(np.int32)).to(dev)
@@ -1245,7 +1326,7 @@ def launch_counts():
                 "brute_walk_blocks": (pbrute.brute_walk_blocks,),
                 "compact_hits": (pbrute.compact_hits,),
                 "minikey_valid": (pminikey.minikey_valid,),
-                "minikey_keys": (pminikey.minikey_keys,),
+                "minikey_compact_keys": (pminikey.compact_keys,),
                 "scalar_mult": (pladder.scalar_mult_tiles,),
                 "hash160_x2": (phash.hash160_x2_from_batch,),
                 "hash160_u": (phash.hash160_u_from_batch,),
@@ -1273,11 +1354,12 @@ def delta(after, before):
 
 def phase3_main(dev, m, seconds, results, clock):
     """The main path; returns its launch counts, counted from zero."""
+    import numpy as np
     import torch
 
-    from keyhuntm1cpu_tpu_torch.curve import pwalk
-    from keyhuntm1cpu_tpu_torch.engine.bsgs import (BUILD_BLOCKS, BSGSEngine,
-                                                     BSGSParams, chunk_impl_host)
+    from keyhuntm1cpu_tpu_torch.curve import pwalk, tables
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import (BUILD_BLOCKS, BSGSEngine, BSGSParams,
+                                                     chunk_impl_host, filter_build_step)
     from keyhuntm1cpu_tpu_torch.field import fe
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.filter import host_table as ht
@@ -1309,7 +1391,7 @@ def phase3_main(dev, m, seconds, results, clock):
         fail(f"streaming build launched {n_build}, expected {want}")
     log(f"phase 3: streaming filters (bits={eng.bitmap.bits_log2}, "
         f"b2={eng.bloom2.bits_log2}, {2 * eng.bitmap.words.numel() * 4 / 2**30:.0f} GiB) "
-        f"built on the card in {t_build:.1f} s; launches {n_build}")
+        f"built on the card in {t_build:.2f} s; launches {n_build}")
 
     window = U * eng.stride
     eng63 = BSGSEngine([pub63], PUZZLE63_KEY - 3 * window, PUZZLE63_KEY + 3 * window,
@@ -1459,6 +1541,29 @@ def phase3_main(dev, m, seconds, results, clock):
     log(f"phase 3: chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} "
         f"+ cascade and summary {tot_ms - k1_ms - k2_ms:.3f}; host decode "
         f"{dec_ms:.3f} ms ({n_surv} survivors, C1={eng64.C1}, C2={eng64.C2})")
+    # one streaming-build step (the first: its keys are in the filters
+    # already, so the ORs change nothing), its device operations and time
+    btab_x, btab_y = tables.step_table(ecref.G, BUILD_BLOCK)
+    btx, bty = (pwalk.table_to_limb_major(t, dev) for t in (btab_x, btab_y))
+    badv, bbase = ecref.scalar_mult(BUILD_BLOCK), ecref.scalar_mult(2 * BUILD_BLOCK)
+    limbs = lambda v: torch.from_numpy(fe.int_to_limbs(v).view(np.int32).copy()).to(dev)
+    bax, bay = limbs(badv[0]), limbs(badv[1])
+    bpx, bpy = limbs(bbase[0])[None], limbs(bbase[1])[None]
+    btab = pwalk.adv_multiples(badv, BUILD_BLOCKS, dev)
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    nb = BUILD_BLOCKS * BUILD_BLOCK
+    step = lambda: filter_build_step(bpx, bpy, btx, bty, bax, bay, btab, BUILD_BLOCKS,
+                                     BUILD_BLOCK, bm.words, bm.bits_log2, b2.words,
+                                     b2.bits_log2, nb, bad)
+    w_before = (int(bm.words.sum()), int(b2.words.sum()))
+    step()
+    step_ops = device_launches(step)
+    step_ms, _ = device_ms(step, reps)
+    if int(bad) or (int(bm.words.sum()), int(b2.words.sum())) != w_before:
+        fail("phase 3: the build step flagged a degenerate lane or changed the filters")
+    log(f"phase 3: a streaming-build step ({nb} keys: K1, K2, K3 with its degeneracy "
+        f"count) {step_ops or 'not measured: the profiler saw no'} device operations "
+        f"(torch.profiler), {step_ms:.4f} ms on the card ({build_steps} steps in the build)")
     log(f"phase 3: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated, {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak; "
         f"card {card_line()}")
@@ -1580,7 +1685,6 @@ def phase4b_minikeys(dev, seconds):
 
     from keyhuntm1cpu_tpu_torch.curve import pladder
     from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
-    from keyhuntm1cpu_tpu_torch.filter.bitmap import compact_positions
     from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
     from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
     from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
@@ -1637,7 +1741,8 @@ def phase4b_minikeys(dev, seconds):
         dt = time.time() - t0
         _, n = launch_counts()
         chunks = (eng.stats.keys_covered - k0) // B
-        mk_names = ("minikey_valid", "minikey_keys", "scalar_mult", "hash160_x2", "hash160_u")
+        mk_names = ("minikey_valid", "minikey_compact_keys", "scalar_mult", "hash160_x2",
+                    "hash160_u")
         if n != zero_counts() | dict.fromkeys(mk_names, len(marks)) or chunks != len(marks):
             fail(f"minikeys {name} launched {n} for {len(marks)} chunks dispatched, "
                  f"{chunks} counted")
@@ -1651,19 +1756,23 @@ def phase4b_minikeys(dev, seconds):
         low, _, w22, w23 = minikey_bases(eng, mk._B58, MK_COUNTER)
         reps = 20
         c_ms, _ = timed(lambda: chunk_fn(low, w22, w23), reps)
+        n_dev = device_launches(lambda: chunk_fn(low, w22, w23))
         k5_ms, valid = timed(lambda: pminikey.minikey_valid(low, w23, B, mk._B58), reps)
-        cp_ms, vidx = timed(lambda: (valid.sum(dtype=torch.int32),
-                                     compact_positions(valid, V, B))[1], reps)
-        kd_ms, k = timed(lambda: pminikey.minikey_keys(vidx, low, w22, B, mk._B58), reps)
+        ck_ms, (_, _, k) = timed(lambda: pminikey.compact_keys(valid, V, low, w22, B, mk._B58),
+                                 reps)
+        ck_dev, _ = device_ms(lambda: pminikey.compact_keys(valid, V, low, w22, B, mk._B58),
+                              reps)
         k6_ms, pt = timed(lambda: pladder.scalar_mult_tiles(k, eng._gx, eng._gy), reps)
         h_ms, _ = timed(lambda: (phash.hash160_x2_from_batch(pt[0]),
                                  phash.hash160_u_from_batch(pt[0], pt[1])), reps)
-        rest = c_ms - k5_ms - cp_ms - kd_ms - k6_ms - h_ms
+        rest = c_ms - k5_ms - ck_ms - k6_ms - h_ms
         log(f"phase 4b: minikeys, {name} (table set-up {t_setup:.1f} s): {chunks} chunks in "
             f"{dt:.2f} s -> {rate:.4e} minikeys/s (B={B}, V={V}); idle share "
             f"{1 - busy / span:.4f} (busy {busy / chunks:.3f} ms per chunk, host enqueue "
-            f"{enq_ms:.3f} ms); chunk {c_ms:.3f} ms = K5 {k5_ms:.3f} "
-            f"+ compaction {cp_ms:.3f} + keys {kd_ms:.3f} + K6 {k6_ms:.3f} + K7+K8 "
+            f"{enq_ms:.3f} ms); chunk {c_ms:.3f} ms in "
+            f"{n_dev or 'not measured: the profiler saw no'} device operations (torch.profiler) "
+            f"= K5 {k5_ms:.3f} + compaction and keys {ck_ms:.4f} (the card's time alone "
+            f"{ck_dev:.4f}) + K6 {k6_ms:.3f} + K7+K8 "
             f"{h_ms:.3f} + lookup and summary {rest:.3f}; launches {n}")
     return total
 
@@ -1736,9 +1845,22 @@ def phase4c_walker(dev, seconds):
         torch.cuda.synchronize()
         t_table = time.time() - t0
         t0 = time.time()
-        ts.build_bitmap(device=dev)
+        card_bm = ts.build_bitmap(device=dev)
         torch.cuda.synchronize()
         t_bitmap = time.time() - t0
+        if mode == "rmd160":  # once, outside the timed set-up: word for word the host build
+            t0 = time.time()
+            lo, hi = ts.target_words()
+            host_bm = bmp.build_bitmap(hi, lo, WK_BITS)
+            t_host = time.time() - t0
+            same = torch.equal(host_bm.words.to(dev), card_bm.words)
+            del host_bm
+            if not same or card_bm.bits_log2 != WK_BITS:
+                fail(f"the card-built 2^{WK_BITS}-bit bitmap differs from the host build")
+            log(f"phase 4c: the card-built bitmap of {WK_T} targets (2^{WK_BITS} bits, K3 "
+                f"from the uploaded keys) equals the host build (numpy, {t_host:.2f} s) word "
+                f"for word")
+        del card_bm
         t0 = time.time()
         eng = BruteEngine(ts, a, b, mode=mode, params=params, device=dev)
         t_engine = time.time() - t0

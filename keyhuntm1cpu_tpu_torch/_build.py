@@ -114,8 +114,9 @@ def kernels() -> ctypes.CDLL:
     sigs = {
         # w23 mask | base_lo B runs(host) n_runs stream
         "kh_minikey_valid": [vp, vp, u32, i64, vp, i, vp],
-        # vidx w22 k | base_lo B V runs(host) n_runs stream
-        "kh_minikey_keys": [vp, vp, vp, u32, i64, i, vp, i, vp],
+        # valid w22 n_valid vidx k scratch | base_lo B V runs(host) n_runs stream
+        "kh_minikey_compact_keys": [vp] * 6 + [u32, i64, i, vp, i, vp],
+        "kh_minikey_tile": [],
         # k gtx gty jac inf irr | V stream
         "kh_ladder_jac": [vp] * 6 + [i, vp],
         # jac inf ax ay | V stream
@@ -128,8 +129,8 @@ def kernels() -> ctypes.CDLL:
         "kh_advance_chain": [vp] * 9 + [i, i, vp],
         # bx by tx ty | qlo qhi deg | R U stream
         "kh_walk_blocks": [vp] * 7 + [i64, i, vp],
-        # words1 words2 qhi qlo keep | n bits b2bits stream
-        "kh_insert_keys": [vp] * 5 + [i64, i, i, vp],
+        # words1 words2 qhi qlo | n_keep | deg adeg | n_adeg | bad | bits b2bits stream
+        "kh_insert_keys": [vp] * 4 + [i64, vp, vp, i, vp, i, i, vp],
         # bx by tx ty tgt btab hits | K U T TB mode n_endo stream
         "kh_brute_walk_blocks": [vp] * 7 + [i64, i, i, i, i, i, vp],
         # hits adeg out scratch | K U C stream

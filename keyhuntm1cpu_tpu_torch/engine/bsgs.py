@@ -76,6 +76,21 @@ class BSGSParams:
     table_cache: Optional[str] = None  # host-table cache dir override
 
 
+def filter_build_step(px, py, tx, ty, ax, ay, adv_tab, K: int, ub: int, words1,
+                      bits_log2: int, words2, b2bits: int, n_keep: int, bad):
+    """One step of the streaming filter build: K1 and K2 walk K*ub baby keys
+    from the base (px, py) ((1, 8) limbs) by the step table (tx, ty) and ADV
+    (ax, ay; adv_tab its multiples); K3 ORs the first n_keep into both
+    filters and adds the kept lanes' degenerate flags and the advance flags
+    to `bad` (a () int64 tensor). Three device operations. Returns the next
+    base."""
+    res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1, adv_tab=adv_tab)
+    bmp.insert_keys(words1, bits_log2, words2, b2bits, res.qhi.reshape(-1),
+                    res.qlo.reshape(-1), n_keep, res.degenerate.reshape(-1),
+                    res.adv_degenerate.reshape(-1), bad)
+    return res.next_x, res.next_y
+
+
 class _ImmediateHit(Exception):
     def __init__(self, scalar: int):
         self.scalar = scalar
@@ -204,8 +219,7 @@ class BSGSEngine:
         seed = ht.native_keys_range(1, n_seed)
         shi = torch.from_numpy((seed >> np.uint64(32)).astype(np.uint32).view(np.int32))
         slo = torch.from_numpy(seed.astype(np.uint32).view(np.int32))
-        bmp.insert_keys(words1, bits_log2, words2, b2bits, shi.to(dev),
-                        slo.to(dev), torch.ones(n_seed, dtype=torch.bool, device=dev))
+        bmp.insert_keys(words1, bits_log2, words2, b2bits, shi.to(dev), slo.to(dev), n_seed)
 
         rest = m - 2 * ub
         if rest > 0:
@@ -221,18 +235,13 @@ class BSGSEngine:
             KU = K * ub
             n_iter = -(-rest // KU)
             slice_iters = max(1, int(os.environ.get("KEYHUNT_STREAM_SLICE", 256)))
-            lane = torch.arange(KU, dtype=torch.int64, device=dev)
             bad = torch.zeros((), dtype=torch.int64, device=dev)
             t0 = time.time()
             for it in range(n_iter):
-                res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1,
-                                        adv_tab=adv_tab)
-                keep = lane < rest - it * KU  # key j = 2*Ub + it*KU + lane + 1 <= m
-                bmp.insert_keys(words1, bits_log2, words2, b2bits,
-                                res.qhi.reshape(-1), res.qlo.reshape(-1), keep)
-                bad += (res.degenerate.reshape(-1) & keep).sum()
-                bad += res.adv_degenerate.sum()
-                px, py = res.next_x, res.next_y
+                # key j = 2*Ub + it*KU + lane + 1 <= m: the step keeps a prefix
+                px, py = filter_build_step(px, py, tx, ty, ax, ay, adv_tab, K, ub, words1,
+                                           bits_log2, words2, b2bits,
+                                           min(KU, rest - it * KU), bad)
                 if (it + 1) % slice_iters == 0 or it + 1 == n_iter:
                     if int(bad) != 0:
                         raise RuntimeError(

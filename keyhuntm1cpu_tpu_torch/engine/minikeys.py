@@ -8,14 +8,14 @@ high counter digits are fixed per chunk, the 5 low digits are generated on
 the card. One chunk of B minikeys is:
 
 1. **K5** validity (hash/pminikey.minikey_valid): a (B,) mask;
-2. **compaction**: the positions of the valid lanes, ascending, the first
-   V kept (filter/bitmap.compact_positions: exact, no host sync);
-3. **key derivation** (pminikey.minikey_keys): sha256(minikey) of the V
-   lanes as scalar limbs;
-4. **K6** the scalar-mult ladder (curve/pladder.scalar_mult_tiles);
-5. **K7, K8** hash160 of the compressed (parity from y) and uncompressed
+2. **compaction and key derivation** (pminikey.compact_keys, one
+   kernel): the exact count of valid lanes, the positions of the first V
+   in ascending order (no host sync) and sha256(minikey) of those lanes
+   as scalar limbs;
+3. **K6** the scalar-mult ladder (curve/pladder.scalar_mult_tiles);
+4. **K7, K8** hash160 of the compressed (parity from y) and uncompressed
    public keys (hash/phash.py);
-6. lookup of both in the sorted target table, and a packed int32 summary
+5. lookup of both in the sorted target table, and a packed int32 summary
    [n_valid, n_check, lanes (HM)]: the lanes to verify on the host (table
    hits and irregular ladder lanes), fill B.
 
@@ -104,14 +104,12 @@ def _pack_block_words(msgs: np.ndarray, msg_len: int) -> np.ndarray:
 def minikey_finish(base_lo: int, valid: torch.Tensor, w22_base: torch.Tensor,
                    gtx: torch.Tensor, gty: torch.Tensor, table: st.SortedXTable, *,
                    B: int, V: int, HM: int, alphabet: str = _B58) -> torch.Tensor:
-    """Port of _minikey_finish_impl: steps 2-6 of a chunk. Returns the
+    """Port of _minikey_finish_impl: steps 2-5 of a chunk. Returns the
     (2 + HM,) int32 summary [n_valid, n_check, lanes]; lanes are batch
     indices to verify on the host, ascending, fill B. Unlike the JAX
     package, n_valid is never poisoned: the compaction is exact."""
-    n_valid = valid.sum(dtype=torch.int32)
-    vidx = compact_positions(valid, V, B)
+    n_valid, vidx, k = pminikey.compact_keys(valid, V, base_lo, w22_base, B, alphabet)
     live = vidx < B
-    k = pminikey.minikey_keys(vidx, base_lo, w22_base, B, alphabet)
     x, y, inf, irr = pladder.scalar_mult_tiles(k, gtx, gty)
     odd = (y[0] & 1) == 1
     (cle, che), (clo, cho) = phash.hash160_x2_from_batch(x)

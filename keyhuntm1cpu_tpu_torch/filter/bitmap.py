@@ -5,8 +5,9 @@ Port of keyhuntm1cpu_tpu/filter/bitmap.py without the device-resolve
 two-stage lookup:
 
 - level 1: a 2^b-bit direct-address bitmap over the low bits of each
-  64-bit key (one gather per query), built on the host for a brute target
-  set (``build_bitmap``) or streamed on the card for BSGS (``insert_keys``);
+  64-bit key (one gather per query), built by K3 on the card for a brute
+  target set (``build_bitmap``, on the host for CPU tensors) or streamed
+  on the card for BSGS (``insert_keys``);
 - level 2: a k=2 hashed bloom (fmix32 mixes of the key), probed only on
   level-1 survivors;
 - compaction keeps the first `size` survivor positions in ascending order
@@ -28,8 +29,11 @@ int32 tensors holding u32 bits. Index math is done in int64 with masks
 (torch on the CPU has no u32 arithmetic); 32-bit products are split into
 16-bit halves so no int64 product overflows.
 
-``insert_keys`` ORs keys into both filters IN PLACE: the CUDA kernel K3
-(csrc/filter.cu) for CUDA tensors, the plain torch version for CPU ones.
+``insert_keys`` ORs the first n_keep keys into both filters, or into a
+bitmap alone, IN PLACE, and may count the walk's degenerate lanes in the
+same launch: the CUDA kernel K3 (csrc/filter.cu) for CUDA tensors, the
+plain torch version for CPU ones. ``build_bitmap`` builds a brute target
+bitmap with it on the card.
 Nothing on the chunk path calls ``.item()``, ``.cpu()``, ``nonzero`` or
 boolean-mask indexing.
 """
@@ -77,14 +81,23 @@ def bloom2_fp(m: int, bits_log2: int) -> float:
 
 def build_bitmap(hi: np.ndarray, lo: np.ndarray, bits_log2: Optional[int] = None,
                  device="cpu") -> DeviceBitmap:
-    """Host build of the bitmap over 64-bit keys (hi, lo) (u32 arrays), the
-    level-1 filter of a brute target set, uploaded to `device`. bits_log2
-    defaults to default_bits_log2(len(lo)). The distinct bit indices are
-    sorted and OR-reduced per word, so no word is written twice."""
+    """The bitmap over 64-bit keys (hi, lo) (u32 arrays), the level-1
+    filter of a brute target set, on `device`. bits_log2 defaults to
+    default_bits_log2(len(lo)). On a CUDA device it is built there, as the
+    JAX package's on_device build is: the keys are uploaded (8 bytes a
+    key) and one K3 launch ORs their bits into an empty bitmap (duplicates
+    are harmless under OR). On the CPU the distinct bit indices are sorted
+    and OR-reduced per word on the host."""
     if bits_log2 is None:
         bits_log2 = default_bits_log2(len(lo))
     if not 5 <= bits_log2 <= MAX_BITS_LOG2:
         raise ValueError(f"bits_log2 out of range (5..{MAX_BITS_LOG2}): {bits_log2}")
+    if torch.device(device).type == "cuda":
+        words = empty_filter(bits_log2, device)
+        qhi, qlo = (torch.from_numpy(np.ascontiguousarray(a, dtype=np.uint32).view(np.int32))
+                    .to(device) for a in (hi, lo))
+        insert_keys(words, bits_log2, None, 0, qhi, qlo, qhi.shape[0])
+        return DeviceBitmap(words, bits_log2)
     idx = np.asarray(lo, dtype=np.uint64)
     if bits_log2 > 32:
         ext = np.asarray(hi, dtype=np.uint64) & np.uint64((1 << (bits_log2 - 32)) - 1)
@@ -179,36 +192,62 @@ def _or_into(words: torch.Tensor, word: torch.Tensor, bitval: torch.Tensor) -> N
     words[uw] = i32(u32(words[uw]) | vals)
 
 
-def insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, keep) -> None:
+def insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, n_keep, degenerate=None,
+                    adv_degenerate=None, bad=None) -> None:
     """Plain torch version of K3 (see insert_keys)."""
-    hi, lo = u32(qhi)[keep], u32(qlo)[keep]
+    hi, lo = u32(qhi[:n_keep]), u32(qlo[:n_keep])
     _or_into(words1, *bitmap_bit_planes(hi, lo, bits_log2))
-    _or_into(words2, *bloom2_bit_planes(hi, lo, b2bits))
+    if words2 is not None:
+        _or_into(words2, *bloom2_bit_planes(hi, lo, b2bits))
+    if bad is not None:
+        bad += degenerate[:n_keep].sum() + adv_degenerate.sum()
 
 
-def insert_keys(words1: torch.Tensor, bits_log2: int, words2: torch.Tensor,
-                b2bits: int, qhi: torch.Tensor, qlo: torch.Tensor,
-                keep: torch.Tensor) -> None:
-    """OR every kept key's bitmap bit into words1 and both bloom2 bits into
-    words2, IN PLACE. qhi/qlo: (n,) int32; keep: (n,) bool."""
-    n = qhi.shape[0]
-    for name, w, b in (("words1", words1, bits_log2), ("words2", words2, b2bits)):
+def insert_keys(words1: torch.Tensor, bits_log2: int, words2: Optional[torch.Tensor],
+                b2bits: int, qhi: torch.Tensor, qlo: torch.Tensor, n_keep: int,
+                degenerate: Optional[torch.Tensor] = None,
+                adv_degenerate: Optional[torch.Tensor] = None,
+                bad: Optional[torch.Tensor] = None) -> None:
+    """OR the bitmap bit of each of the first n_keep keys into words1 and,
+    unless words2 is None, both its bloom2 bits into words2, IN PLACE.
+    qhi/qlo: (n,) int32, 0 <= n_keep <= n. With `bad` (a () int64 tensor):
+    bad += the set flags of degenerate[:n_keep] ((n,) bool) and of
+    adv_degenerate ((k,) bool), in the same launch."""
+    n = qhi.shape[0] if qhi.dim() == 1 else -1
+    filters = [("words1", words1, bits_log2)]
+    if words2 is not None:
+        filters.append(("words2", words2, b2bits))
+    for name, w, b in filters:
         if not 5 <= b <= MAX_BITS_LOG2:
             raise ValueError(f"{name}: bits out of range (5..{MAX_BITS_LOG2}): {b}")
         if (w.dtype != torch.int32 or not w.is_contiguous()
                 or tuple(w.shape) != (1 << (b - 5),)):
             raise ValueError(f"{name}: need contiguous int32 ({1 << (b - 5)},)")
-    for name, t, dt in (("qhi", qhi, torch.int32), ("qlo", qlo, torch.int32),
-                        ("keep", keep, torch.bool)):
-        if t.dtype != dt or not t.is_contiguous() or tuple(t.shape) != (n,):
-            raise ValueError(f"{name}: need contiguous {dt} ({n},)")
-    if not _build.on_cuda(words1, words2, qhi, qlo, keep):
-        return insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, keep)
-    if n == 0:
+    checks = [("qhi", qhi, torch.int32, (n,)), ("qlo", qlo, torch.int32, (n,))]
+    flags = (degenerate, adv_degenerate, bad)
+    if any(t is not None for t in flags):
+        if any(t is None for t in flags):
+            raise ValueError("degenerate, adv_degenerate and bad go together")
+        checks += [("degenerate", degenerate, torch.bool, (n,)),
+                   ("adv_degenerate", adv_degenerate, torch.bool, (adv_degenerate.numel(),)),
+                   ("bad", bad, torch.int64, ())]
+    for name, t, dt, shape in checks:
+        if t.dtype != dt or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: need contiguous {dt} {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if not 0 <= n_keep <= n:
+        raise ValueError(f"n_keep must be in [0, {n}], got {n_keep}")
+    tensors = [t for _, t, _, _ in checks] + [w for _, w, _ in filters]
+    if not _build.on_cuda(*tensors):
+        return insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, n_keep,
+                               degenerate, adv_degenerate, bad)
+    n_adeg = 0 if bad is None else adv_degenerate.numel()
+    if n_keep == 0 and n_adeg == 0:
         return
-    _build.launch("kh_insert_keys", words1.data_ptr(), words2.data_ptr(),
-                  qhi.data_ptr(), qlo.data_ptr(), keep.data_ptr(), n,
-                  bits_log2, b2bits, _build.stream(qhi))
+    ptr = lambda t: None if t is None else t.data_ptr()
+    _build.launch("kh_insert_keys", words1.data_ptr(), ptr(words2), qhi.data_ptr(),
+                  qlo.data_ptr(), n_keep, ptr(degenerate), ptr(adv_degenerate), n_adeg,
+                  ptr(bad), bits_log2, b2bits, _build.stream(qhi))
     insert_keys.launches += 1
 
 

@@ -1,14 +1,16 @@
 """Minikey validity (K5) and key derivation: base58 suffixes and SHA-256.
 
-Port of keyhuntm1cpu_tpu/hash/pminikey.py and of the key-derivation glue
-of keyhuntm1cpu_tpu/engine/minikeys.py (``_minikey_finish_impl``, lines
-476-479). A minikey is 'S' + 16 prefix characters + 5 device digits; lane
-i of a chunk is the counter v = base_lo + i (v < 58^5 < 2^31), whose 5
-base-58 digits, mapped through the alphabet, fill message bytes 17..21.
+Port of keyhuntm1cpu_tpu/hash/pminikey.py and of the compaction and
+key-derivation glue of keyhuntm1cpu_tpu/engine/minikeys.py
+(``_minikey_finish_impl``, lines 458-479). A minikey is 'S' + 16 prefix
+characters + 5 device digits; lane i of a chunk is the counter v =
+base_lo + i (v < 58^5 < 2^31), whose 5 base-58 digits, mapped through the
+alphabet, fill message bytes 17..21.
 
 - **K5** ``minikey_valid``: (B,) bool mask, sha256(minikey + '?')[0] == 0.
-- ``minikey_keys``: the V compacted lanes' private keys sha256(minikey) as
-  (8, V) little-endian scalar limbs (limb j = digest word 7 - j).
+- ``compact_keys``: the exact count of valid lanes, the first V of them in
+  ascending order and their private keys sha256(minikey) as (8, V)
+  little-endian scalar limbs (limb j = digest word 7 - j), in one launch.
 
 Each wrapper runs its plain torch version for CPU tensors and launches its
 kernel (csrc/minikey.cu) for CUDA tensors; launches are counted in
@@ -31,6 +33,7 @@ import torch
 
 from .. import _build
 from ..field import fe
+from ..filter.bitmap import compact_positions
 from .phash import M32, _sha256_compress_unrolled
 
 DEVICE_DIGITS = 5
@@ -145,40 +148,57 @@ minikey_valid.launches = 0
 
 
 # ---------------------------------------------------------------------------
-# Key derivation
+# Compaction of the valid lanes and key derivation
 # ---------------------------------------------------------------------------
 
 
-def minikey_keys_ref(vidx: torch.Tensor, base_lo: int, w22_base: torch.Tensor, B: int,
-                     alphabet: str) -> torch.Tensor:
-    """Plain torch version of the key derivation (see minikey_keys)."""
+def compact_keys_ref(valid: torch.Tensor, V: int, base_lo: int, w22_base: torch.Tensor,
+                     B: int, alphabet: str):
+    """Plain torch version of compact_keys: the count, compact_positions
+    and the key derivation of the compacted lanes."""
+    n_valid = valid.sum(dtype=torch.int32)
+    vidx = compact_positions(valid, V, B)
     v = (base_lo + vidx.to(torch.int64).clamp(max=B - 1)) & M32
     kw = _sha256_compress_unrolled(_block_words(fe.u32(w22_base).tolist(), v,
                                                 b58_runs(alphabet)))
-    return fe.i32(torch.stack([kw[7 - i] for i in range(8)]))
+    return n_valid, vidx, fe.i32(torch.stack([kw[7 - i] for i in range(8)]))
 
 
-def minikey_keys(vidx: torch.Tensor, base_lo: int, w22_base: torch.Tensor, B: int,
-                 alphabet: str) -> torch.Tensor:
-    """(8, V) int32 scalar limbs sha256(minikey) of the compacted lanes
-    vidx ((V,) int32 lane indices, fill B: those lanes hash lane B - 1);
-    w22_base: (16,) int32 block words of the 22-byte message."""
+def compact_keys(valid: torch.Tensor, V: int, base_lo: int, w22_base: torch.Tensor, B: int,
+                 alphabet: str) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """(n_valid, vidx, k) of K5's (B,) bool mask `valid` of the counters
+    [base_lo, base_lo + B): the exact number of valid lanes (() int32), the
+    first V valid lanes in ascending order ((V,) int32, fill B) and their
+    private keys sha256(minikey) as (8, V) int32 little-endian scalar limbs
+    (limb j = digest word 7 - j; a fill slot hashes lane B - 1). w22_base:
+    (16,) int32 block words of the 22-byte message. One launch of
+    csrc/minikey.cu kh_minikey_compact_keys (with its scratch's memset)."""
     _check_base("w22_base", w22_base)
     _check_alphabet(alphabet)
-    if vidx.dtype != torch.int32 or vidx.dim() != 1 or not vidx.is_contiguous() or not len(vidx):
-        raise ValueError(f"vidx: need a contiguous non-empty int32 (V,) tensor, got "
-                         f"{vidx.dtype} {tuple(vidx.shape)}")
-    if B < 1:
-        raise ValueError(f"minikey_keys needs B >= 1, got {B}")
-    if not _build.on_cuda(vidx, w22_base):
-        return minikey_keys_ref(vidx, base_lo, w22_base, B, alphabet)
-    V = vidx.shape[0]
-    k = torch.empty((8, V), dtype=torch.int32, device=vidx.device)
+    if not 1 <= B < 1 << 31 or V < 1:
+        raise ValueError(f"compact_keys needs 1 <= B < 2^31 and V >= 1, got B={B}, V={V}")
+    if valid.dtype != torch.bool or not valid.is_contiguous() or tuple(valid.shape) != (B,):
+        raise ValueError(f"valid: need a contiguous bool ({B},) tensor, got "
+                         f"{valid.dtype} {tuple(valid.shape)}")
+    if not _build.on_cuda(valid, w22_base):
+        return compact_keys_ref(valid, V, base_lo, w22_base, B, alphabet)
+    dev = valid.device
+    n_valid = torch.empty((), dtype=torch.int32, device=dev)
+    vidx = torch.empty((V,), dtype=torch.int32, device=dev)
+    k = torch.empty((8, V), dtype=torch.int32, device=dev)
+    scratch = torch.empty((1 + -(-B // _tile()),), dtype=torch.int64, device=dev)
     runs = _runs_array(alphabet)
-    _build.launch("kh_minikey_keys", vidx.data_ptr(), w22_base.data_ptr(), k.data_ptr(),
-                  base_lo & M32, B, V, runs.ctypes.data, runs.shape[1], _build.stream(vidx))
-    minikey_keys.launches += 1
-    return k
+    _build.launch("kh_minikey_compact_keys", valid.data_ptr(), w22_base.data_ptr(),
+                  n_valid.data_ptr(), vidx.data_ptr(), k.data_ptr(), scratch.data_ptr(),
+                  base_lo & M32, B, V, runs.ctypes.data, runs.shape[1], _build.stream(valid))
+    compact_keys.launches += 1
+    return n_valid, vidx, k
 
 
-minikey_keys.launches = 0
+compact_keys.launches = 0
+
+
+@lru_cache(maxsize=1)
+def _tile() -> int:
+    """Lanes per tile of kh_minikey_compact_keys (its scratch holds one word a tile)."""
+    return _build.kernels().kh_minikey_tile()

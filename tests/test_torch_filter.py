@@ -1,7 +1,9 @@
 """Port filter cascade (keyhuntm1cpu_tpu_torch/filter/bitmap.py) vs the JAX
-package's filter/bitmap.py: bit planes, insert_keys (plain K3) against
-np.bitwise_or.at and or_bits_into, probes, compaction and
-filtered_survivors in both overflow regimes. Integer arithmetic: the
+package's filter/bitmap.py: bit planes, insert_keys (plain K3: the count
+form, the degeneracy counter and the bitmap-only form) against
+np.bitwise_or.at, the mask form it replaced, or_bits_into and
+build_bitmap, probes, compaction and filtered_survivors in both overflow
+regimes. Integer arithmetic: the
 tolerance is exact equality."""
 
 import numpy as np
@@ -39,20 +41,29 @@ def test_bit_planes_match_jax(bits):
         assert np.array_equal(np.asarray(jv).astype(np.int64), tv.numpy())
 
 
+def _or_at(bits, hi, lo):
+    """np.bitwise_or.at of the keys' bitmap bits into 2^bits zero bits."""
+    want = np.zeros(1 << (bits - 5), np.uint32)
+    idx = jb._bit_indices(hi, lo, bits)
+    np.bitwise_or.at(want, (idx >> np.uint64(5)).astype(np.int64),
+                     np.uint32(1) << (idx & np.uint64(31)).astype(np.uint32))
+    return want
+
+
 @pytest.mark.parametrize("bits,b2bits", [(14, 13), (21, 33)])
 def test_insert_keys_matches_bitwise_or_at_and_or_bits_into(bits, b2bits):
-    keep = RNG.random(N) < 0.75
     w1, w2 = tb.empty_filter(bits, "cpu"), tb.empty_filter(b2bits, "cpu")
-    # two batches: the second ORs into words that already hold bits
+    # two batches, each keeping a prefix: the second ORs into words that
+    # already hold bits
     half = N // 2
-    for sl in (slice(0, half), slice(half, N)):
-        tb.insert_keys(w1, bits, w2, b2bits, _t(HI[sl]), _t(LO[sl]),
-                       torch.from_numpy(keep[sl].copy()))
+    keeps = (half - 300, half - 17)
+    keep = np.zeros(N, bool)
+    for start, n_keep in zip((0, half), keeps):
+        tb.insert_keys(w1, bits, w2, b2bits, _t(HI[start:start + half]),
+                       _t(LO[start:start + half]), n_keep)
+        keep[start:start + n_keep] = True
     hi, lo = HI[keep], LO[keep]
-    want1 = np.zeros(1 << (bits - 5), np.uint32)
-    idx = jb._bit_indices(hi, lo, bits)
-    np.bitwise_or.at(want1, (idx >> np.uint64(5)).astype(np.int64),
-                     np.uint32(1) << (idx & np.uint64(31)).astype(np.uint32))
+    want1 = _or_at(bits, hi, lo)
     want2 = np.zeros(1 << (b2bits - 5), np.uint32)
     np.bitwise_or.at(want2, *jb.bloom2_word_bit_np(hi, lo, b2bits))
     assert np.array_equal(_np(w1), want1)
@@ -62,6 +73,74 @@ def test_insert_keys_matches_bitwise_or_at_and_or_bits_into(bits, b2bits):
         wi = jnp.where(jnp.asarray(keep), wi, want1.shape[0])
         got = jb.or_bits_into(jnp.zeros(want1.shape, jnp.uint32), wi, bv)
         assert np.array_equal(np.asarray(got), want1)
+
+
+def _mask_form(words1, bits, words2, b2bits, qhi, qlo, keep, deg, adeg, bad):
+    """K3's plain version before the count form: a (n,) keep mask, and the
+    build step's degeneracy count as torch ops."""
+    hi, lo = tb.u32(qhi)[keep], tb.u32(qlo)[keep]
+    tb._or_into(words1, *tb.bitmap_bit_planes(hi, lo, bits))
+    tb._or_into(words2, *tb.bloom2_bit_planes(hi, lo, b2bits))
+    bad += (deg & keep).sum()
+    bad += adeg.sum()
+
+
+@pytest.mark.parametrize("bits,b2bits", [(16, 15), (20, 35)])
+@pytest.mark.parametrize("n_keep", [0, 1000, N])
+def test_insert_keys_count_form_and_bad_counter_match_mask_form(bits, b2bits, n_keep):
+    """The count form with the degeneracy counter against the mask form
+    it replaced (keep = lane < n_keep, the streaming build's mask) and
+    against the JAX or_bits_into; degenerate lanes are planted inside and
+    past the kept prefix."""
+    rng = np.random.default_rng(bits + n_keep)
+    deg = np.zeros(N, bool)
+    deg[[0, 999, 1000, N - 1]] = True
+    deg[rng.choice(N, 20, replace=False)] = True
+    adeg = rng.random(37) < 0.2
+    got = [tb.empty_filter(bits, "cpu"), tb.empty_filter(b2bits, "cpu"),
+           torch.full((), 5, dtype=torch.int64)]
+    want = [t.clone() for t in got]
+    tb.insert_keys(got[0], bits, got[1], b2bits, _t(HI), _t(LO), n_keep,
+                   torch.from_numpy(deg), torch.from_numpy(adeg), got[2])
+    keep = torch.arange(N) < n_keep
+    _mask_form(want[0], bits, want[1], b2bits, _t(HI), _t(LO), keep, torch.from_numpy(deg),
+               torch.from_numpy(adeg), want[2])
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    assert int(got[2]) == 5 + int(deg[:n_keep].sum()) + int(adeg.sum())
+    wi, bv = jb.bitmap_bit_planes(jnp.asarray(HI), jnp.asarray(LO), bits)
+    wi = jnp.where(jnp.arange(N) < n_keep, wi, 1 << (bits - 5))
+    jw = jb.or_bits_into(jnp.zeros(1 << (bits - 5), jnp.uint32), wi, bv)
+    assert np.array_equal(_np(got[0]), np.asarray(jw))
+    assert tb.insert_keys.launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("bits", [14, 33])
+def test_insert_keys_bitmap_only_matches_jax_build_bitmap(bits):
+    """words2 = None: the brute target bitmap's form, duplicates included."""
+    hi, lo = np.concatenate([HI, HI[:50]]), np.concatenate([LO, LO[:50]])
+    words = tb.empty_filter(bits, "cpu")
+    tb.insert_keys(words, bits, None, 0, _t(hi), _t(lo), len(hi))
+    jbm = jb.build_bitmap(hi, lo, bits, on_device=False)
+    assert np.array_equal(_np(words), np.asarray(jbm.words))
+
+
+def test_insert_keys_checks_its_inputs():
+    w1, w2 = tb.empty_filter(14, "cpu"), tb.empty_filter(13, "cpu")
+    hi, lo = _t(HI[:64]), _t(LO[:64])
+    deg, adeg = torch.zeros(64, dtype=torch.bool), torch.zeros(3, dtype=torch.bool)
+    bad = torch.zeros((), dtype=torch.int64)
+    for n_keep in (-1, 65):
+        with pytest.raises(ValueError):
+            tb.insert_keys(w1, 14, w2, 13, hi, lo, n_keep)
+    with pytest.raises(ValueError):  # the flags go together
+        tb.insert_keys(w1, 14, w2, 13, hi, lo, 64, deg, None, bad)
+    with pytest.raises(ValueError):  # the counter is int64
+        tb.insert_keys(w1, 14, w2, 13, hi, lo, 64, deg, adeg, bad.to(torch.int32))
+    with pytest.raises(ValueError):
+        tb.insert_keys(w1, 14, w2, 13, hi, lo, 64, deg[:63], adeg, bad)
+    with pytest.raises(ValueError):
+        tb.insert_keys(w1, 15, None, 0, hi, lo, 64)
 
 
 @pytest.fixture(scope="module")

@@ -1,4 +1,5 @@
-"""CUDA kernels K1-K8, the minikey key derivation, pinv, the Keccak ETH
+"""CUDA kernels K1-K8 (K3 in each form), the minikey compaction and key
+derivation, pinv, the Keccak ETH
 hash, the probe, the two walker walk kernels, the walker step's lookup
 and summary and the fused brute chunk's compaction and summary
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
@@ -133,13 +134,58 @@ def test_insert_keys_kernel_matches_plain(dev, bits, b2bits):
     n = 1 << 20
     qhi = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
     qlo = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
-    keep = torch.from_numpy(rng.random(n) < 0.9).to(dev)
+    n_keep = n - 77777  # the streaming build's last step keeps a prefix
     w1, w2 = bmp.empty_filter(bits, dev), bmp.empty_filter(b2bits, dev)
     r1, r2 = w1.clone(), w2.clone()
-    bmp.insert_keys(w1, bits, w2, b2bits, qhi, qlo, keep)
-    bmp.insert_keys_ref(r1, bits, r2, b2bits, qhi, qlo, keep)
+    n0 = bmp.insert_keys.launches
+    bmp.insert_keys(w1, bits, w2, b2bits, qhi, qlo, n_keep)
+    bmp.insert_keys_ref(r1, bits, r2, b2bits, qhi, qlo, n_keep)
     torch.cuda.synchronize()
+    assert bmp.insert_keys.launches == n0 + 1
     assert torch.equal(w1, r1) and torch.equal(w2, r2)
+
+
+@pytest.mark.parametrize("form", ["bitmap_only", "bad_counter", "bad_no_keys", "ragged"])
+def test_insert_keys_kernel_forms_match_plain(dev, form):
+    """K3's other forms against its plain version: the bitmap alone (a
+    brute target set, duplicates included, 2^34 bits), the degeneracy
+    counter with degenerate lanes planted inside and past the kept prefix
+    and at warp edges, the counter with no key kept (the advance flags
+    alone), and a key count that is not a multiple of a warp."""
+    rng = np.random.default_rng(len(form))
+    n = {"ragged": 1000003}.get(form, 1 << 19)
+    hi = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    lo = rng.integers(-2**31, 2**31, n).astype(np.int32)
+    hi[-100:], lo[-100:] = hi[:100], lo[:100]  # duplicate keys
+    qhi, qlo = torch.from_numpy(hi).to(dev), torch.from_numpy(lo).to(dev)
+    bits, b2bits = (34, 0) if form == "bitmap_only" else (24, 23)
+    n_keep = {"bad_counter": n - 4097, "bad_no_keys": 0}.get(form, n)
+    w1 = bmp.empty_filter(bits, dev)
+    w2 = None if form == "bitmap_only" else bmp.empty_filter(b2bits, dev)
+    flags = ()
+    if form.startswith("bad"):
+        deg = np.zeros(n, bool)
+        deg[[0, 31, 32, 63, 1000, n_keep - 1, n_keep, n - 1]] = True
+        deg[rng.choice(n, 300, replace=False)] = True
+        adeg = rng.random(128) < 0.1
+        flags = (torch.from_numpy(deg).to(dev), torch.from_numpy(adeg).to(dev),
+                 torch.full((), 3, dtype=torch.int64, device=dev))
+    want = [t.clone() for t in (w1, w2) + flags[2:] if t is not None]
+    bmp.insert_keys(w1, bits, w2, b2bits, qhi, qlo, n_keep, *flags)
+    bmp.insert_keys_ref(want[0], bits, want[1] if w2 is not None else None, b2bits, qhi, qlo,
+                        n_keep, *flags[:2], *want[2:])
+    torch.cuda.synchronize()
+    got = [t for t in (w1, w2) + flags[2:] if t is not None]
+    for g, w in zip(got, want):
+        assert torch.equal(g, w)
+    if flags:
+        assert int(flags[2]) == 3 + int(deg[:n_keep].sum()) + int(adeg.sum())
+    if form == "bitmap_only":
+        ts_hi, ts_lo = hi.view(np.uint32), lo.view(np.uint32)
+        host = bmp.build_bitmap(ts_hi, ts_lo, bits)  # the host build on the CPU
+        card = bmp.build_bitmap(ts_hi, ts_lo, bits, dev)
+        torch.cuda.synchronize()
+        assert torch.equal(card.words, w1) and torch.equal(card.words.cpu(), host.words)
 
 
 def test_engine_cuda_matches_cpu(dev, tmp_path):
@@ -293,12 +339,52 @@ def test_minikey_valid_and_keys_kernels_match_plain(dev, alphabet):
     torch.cuda.synchronize()
     assert pminikey.minikey_valid.launches == n0 + 1
     assert torch.equal(got.cpu(), want) and int(want.sum()) > 0
-    vidx = torch.nonzero(want).flatten().to(torch.int32)
-    vidx = torch.cat([vidx, torch.full((37 - len(vidx) % 37,), B, dtype=torch.int32)])[:37]
-    want_k = pminikey.minikey_keys_ref(vidx, base, w22, B, alphabet)
-    got_k = pminikey.minikey_keys(vidx.to(dev), base, w22.to(dev), B, alphabet)
+    V = 37
+    want_k = pminikey.compact_keys_ref(want, V, base, w22, B, alphabet)
+    got_k = pminikey.compact_keys(got, V, base, w22.to(dev), B, alphabet)
     torch.cuda.synchronize()
-    assert torch.equal(got_k.cpu(), want_k)
+    for g, w in zip(got_k, want_k):
+        assert torch.equal(g.cpu(), w)
+
+
+@pytest.mark.parametrize("case", ["tile_edge", "none_valid", "past_V", "dense_rounds",
+                                  "ragged_B", "unaligned", "main_shape"])
+def test_compact_keys_kernel_matches_plain(dev, case):
+    """kh_minikey_compact_keys against compact_keys_ref: valid lanes on both
+    sides of tile edges, no valid lane (every slot a fill slot), more
+    valid lanes than V, a dense mask (many rounds of hashing within a
+    tile), B not a multiple of the tile, a mask not 16-byte aligned (the
+    byte loads), and the main path's B = 2^23, V = 34,816; each launched
+    twice (the scratch is zeroed per launch)."""
+    tile = pminikey._tile()
+    rng = np.random.default_rng(len(case))
+    B = {"ragged_B": 2 * tile + 12345, "main_shape": 1 << 23,
+         "dense_rounds": 3 * tile + 5}.get(case, 4 * tile)
+    valid = rng.random(B + 1) < 1 / 256
+    if case == "tile_edge":
+        for e in range(tile, B, tile):
+            valid[[e - 1, e, e + 1]] = True
+    if case == "none_valid":
+        valid[:] = False
+    if case == "dense_rounds":
+        valid[:] = True
+        valid[rng.choice(B, B // 3, replace=False)] = False
+    mask = torch.from_numpy(valid).to(dev)
+    mask = mask[1:] if case == "unaligned" else mask[:B]
+    n = int(mask.sum())
+    V = {"past_V": n // 2, "dense_rounds": 3000, "none_valid": 999,
+         "main_shape": minikeys.valid_budget(B)}.get(case, n + 100)
+    w22, _ = _minikey_bases()
+    base = 58 ** 5 - B - 10
+    want = pminikey.compact_keys_ref(mask.cpu(), V, base, w22, B, minikeys._B58)
+    n0 = pminikey.compact_keys.launches
+    for _ in range(2):
+        got = pminikey.compact_keys(mask, V, base, w22.to(dev), B, minikeys._B58)
+        torch.cuda.synchronize()
+        for g, w in zip(got, want):
+            assert torch.equal(g.cpu(), w)
+    assert pminikey.compact_keys.launches == n0 + 2
+    assert int(got[0]) == n and (n > V) == (case in ("past_V", "dense_rounds"))
 
 
 def test_scalar_mult_and_hash_kernels_match_plain(dev):
@@ -404,8 +490,8 @@ def test_probe_kernels_match_plain(dev, bits):
     lo = rng.integers(0, 2**32, n, dtype=np.uint64).astype(np.uint32)
     qhi, qlo = (torch.from_numpy(v.view(np.int32)).to(dev) for v in (hi, lo))
     words = bmp.empty_filter(bits, dev)
-    keep = torch.from_numpy(rng.random(n) < 0.3).to(dev)
-    bmp.insert_keys(words, bits, words, bits, qhi, qlo, keep)  # members in both forms
+    n_keep = int(0.3 * n)
+    bmp.insert_keys(words, bits, words, bits, qhi, qlo, n_keep)  # members in both forms
     n1, n2 = bmp.probe.launches, bmp.probe_bloom2.launches
     got1 = bmp.probe(bmp.DeviceBitmap(words, bits), qhi, qlo)
     got2 = bmp.probe_bloom2(bmp.DeviceBloom2(words, bits), qhi, qlo)
@@ -413,7 +499,7 @@ def test_probe_kernels_match_plain(dev, bits):
     assert (bmp.probe.launches, bmp.probe_bloom2.launches) == (n1 + 1, n2 + 1)
     assert torch.equal(got1, bmp.probe_ref(bmp.DeviceBitmap(words, bits), qhi, qlo))
     assert torch.equal(got2, bmp.probe_bloom2_ref(bmp.DeviceBloom2(words, bits), qhi, qlo))
-    assert bool(got1[keep].all()) and bool(got2[keep].all())
+    assert bool(got1[:n_keep].all()) and bool(got2[:n_keep].all())
 
 
 @pytest.mark.parametrize("regime", ["below", "at", "past"])

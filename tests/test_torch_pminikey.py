@@ -1,8 +1,9 @@
 """Minikey validity (K5) and key derivation of the port
 (keyhuntm1cpu_tpu_torch/hash/pminikey.py) against the JAX package on the
 CPU: the plain torch versions against pminikey.minikey_valid_tile under
-plain jnp, engine/minikeys._xla_valid_impl, the finish's key-derivation
-formula (minikeys.py:476-479) and hashlib. Integer hashes: the tolerance is
+plain jnp, engine/minikeys._xla_valid_impl, the finish's compaction and
+key-derivation formula (bitmap.compact_positions, minikeys.py:476-479)
+and hashlib. Integer hashes: the tolerance is
 exact equality. The CUDA kernels are held to these plain versions on the
 card (tests/test_torch_kernels_cuda.py, chip_smoke.py)."""
 
@@ -80,24 +81,48 @@ def test_minikey_valid_matches_jax_and_hashlib(alphabet):
     assert 2 <= got.sum() <= 40  # ~B/256 valid lanes
 
 
-@pytest.mark.parametrize("alphabet", ALPHABETS, ids=["canonical", "custom"])
-def test_minikey_keys_match_jax_and_hashlib(alphabet):
-    w22, _ = _bases()
-    rng = np.random.default_rng(9)
-    vidx = np.sort(rng.choice(B, 61, replace=False)).astype(np.int32)
-    vidx[-4:] = B  # fill lanes hash lane B - 1
-    got = pminikey.minikey_keys(torch.from_numpy(vidx), BASE, _t(w22), B, alphabet).numpy()
-    assert got.shape == (8, 61)
-    # minikeys.py:476-479
-    vv = jnp.uint32(BASE) + jnp.minimum(jnp.asarray(vidx), B - 1).astype(jnp.uint32)
+def _jax_compact_keys(valid, V, w22, alphabet):
+    """The JAX composition compact_keys replaces: the count, the exact
+    compaction (filter/bitmap.compact_positions) and the key derivation
+    of minikeys.py:476-479."""
+    from keyhuntm1cpu_tpu.filter.bitmap import compact_positions
+
+    vidx = compact_positions(jnp.asarray(valid), V, B)
+    vv = jnp.uint32(BASE) + jnp.minimum(vidx, B - 1).astype(jnp.uint32)
     w4or, w5or = jmk._suffix_or_words(vv, alphabet)
-    kw = sha256_block_words(jmk._mk_words(jnp.asarray(w22), w4or, w5or, 61))
-    kv = np.stack([np.asarray(kw[7 - i]) for i in range(8)])
-    np.testing.assert_array_equal(got.view(np.uint32), kv)
-    for j, lane in enumerate(np.minimum(vidx, B - 1)):
-        k = int.from_bytes(hashlib.sha256(_minikey(BASE + int(lane), alphabet).encode())
-                           .digest(), "big")
-        assert sum(int(got[i, j].view(np.uint32)) << (32 * i) for i in range(8)) == k
+    kw = sha256_block_words(jmk._mk_words(jnp.asarray(w22), w4or, w5or, V))
+    return (int(valid.sum()), np.asarray(vidx),
+            np.stack([np.asarray(kw[7 - i]) for i in range(8)]))
+
+
+@pytest.mark.parametrize("case", ["none_valid", "density", "past_V"])
+@pytest.mark.parametrize("alphabet", ALPHABETS, ids=["canonical", "custom"])
+def test_compact_keys_match_jax_and_hashlib(alphabet, case):
+    """compact_keys (its plain version on CPU tensors) against the JAX
+    composition and hashlib on K5's mask: no valid lane (every slot a
+    fill slot, hashing lane B - 1), the true density with room to spare,
+    and more valid lanes than V (the count stays exact)."""
+    w22, w23 = _bases()
+    valid = pminikey.minikey_valid(BASE, _t(w23), B, alphabet).numpy()
+    if case == "none_valid":
+        valid[:] = False
+    n = int(valid.sum())
+    V = {"none_valid": 37, "density": n + 45, "past_V": n // 2}[case]
+    n_valid, vidx, k = pminikey.compact_keys(torch.from_numpy(valid), V, BASE, _t(w22), B,
+                                             alphabet)
+    assert n_valid.dtype == vidx.dtype == k.dtype == torch.int32
+    assert tuple(vidx.shape) == (V,) and tuple(k.shape) == (8, V)
+    jn, jvidx, jk = _jax_compact_keys(valid, V, w22, alphabet)
+    assert int(n_valid) == jn == n and (n > V) == (case == "past_V")
+    np.testing.assert_array_equal(vidx.numpy(), jvidx)
+    np.testing.assert_array_equal(k.numpy().view(np.uint32), jk)
+    np.testing.assert_array_equal(vidx.numpy()[: min(n, V)], np.flatnonzero(valid)[:V])
+    assert (vidx.numpy()[min(n, V):] == B).all()
+    for j, lane in enumerate(np.minimum(vidx.numpy(), B - 1)):
+        want = int.from_bytes(hashlib.sha256(_minikey(BASE + int(lane), alphabet).encode())
+                              .digest(), "big")
+        assert sum(int(k[i, j].numpy().view(np.uint32)) << (32 * i) for i in range(8)) == want
+    assert pminikey.compact_keys.launches == 0  # CPU tensors take the plain version
 
 
 def test_wrappers_refuse_bad_inputs():
@@ -106,5 +131,11 @@ def test_wrappers_refuse_bad_inputs():
         pminikey.minikey_valid(0, _t(w23)[:15], B, mk._B58)
     with pytest.raises(ValueError):
         pminikey.minikey_valid(0, _t(w23), B, "abc")
+    valid = torch.zeros(B, dtype=torch.bool)
+    for bad in (torch.zeros(B, dtype=torch.int64), valid[:-1], valid[::2]):
+        with pytest.raises(ValueError):
+            pminikey.compact_keys(bad, 64, 0, _t(w22), B, mk._B58)
     with pytest.raises(ValueError):
-        pminikey.minikey_keys(torch.zeros(4, dtype=torch.int64), 0, _t(w22), B, mk._B58)
+        pminikey.compact_keys(valid, 0, 0, _t(w22), B, mk._B58)
+    with pytest.raises(ValueError):
+        pminikey.compact_keys(valid, 64, 0, _t(w22)[:15], B, mk._B58)

@@ -2,9 +2,10 @@
 bitmap.py, sorted_table.py, utils/targets.py) against the JAX package on
 the CPU: probe and probe_bloom2 (the probe kernel's plain versions)
 against bitmap.probe (elem mode) and dma_gather in interpret mode plus the
-bit test, at bits <= 32 and > 32; build_bitmap and TargetSet.build_bitmap
-against the JAX host builds; filtered_lookup against bitmap.filtered_lookup
-with and without overflow and with duplicate keys; trunc64_from_limbs.
+bit test, at bits <= 32 and > 32; build_bitmap (at 2^14 and 2^34 bits)
+and TargetSet.build_bitmap against the JAX host builds; filtered_lookup
+against bitmap.filtered_lookup with and without overflow and with
+duplicate keys; trunc64_from_limbs.
 Inputs come from numpy seeds; integer arithmetic, so the tolerance is
 exact equality."""
 
@@ -50,6 +51,21 @@ def test_build_bitmap_and_probe_match_jax(bits):
     words = jb.dma_gather(wi, jbm.words, BQ=64, interpret=True)
     assert np.array_equal(got[:G].numpy(), (np.asarray(words) & np.asarray(bv)) != 0)
     assert tb.probe.launches == 0  # CPU tensors take the plain version
+
+
+@pytest.mark.parametrize("bits", [14, 34])
+def test_build_bitmap_matches_jax_host_build(bits):
+    """build_bitmap on the CPU (the host build the card's K3 build is held
+    to) against the JAX build_bitmap(on_device=False), word for word, with
+    duplicate keys; at 2^34 bits (2 GiB) by the set words and their values."""
+    hi, lo = np.concatenate([HI[:M], HI[:9]]), np.concatenate([LO[:M], LO[:9]])
+    jw = np.asarray(jb.build_bitmap(hi, lo, bits, on_device=False).words)
+    bm = tb.build_bitmap(hi, lo, bits)
+    tw = bm.words.numpy().view(np.uint32)
+    assert bm.bits_log2 == bits and tw.shape == jw.shape == (1 << (bits - 5),)
+    nz = np.flatnonzero(jw)
+    assert np.array_equal(np.flatnonzero(tw), nz) and np.array_equal(tw[nz], jw[nz])
+    assert len(nz) > M // 2
 
 
 def test_probe_bloom2_matches_jax():
