@@ -26,7 +26,9 @@ any failure exits non-zero before the result line:
    (scripts/torch_filter_shapes.py), K4 in every mode, with the
    endomorphism and
    with a bucketed T = 4096 set, all at K = 256 (planted hits and dx == 0
-   lanes); the fused chunk's compaction and summary (kh_compact_hits) at
+   lanes), and rmd160 with real intervals (bench_vanity's 9 for key 777's
+   prefix beside 3 point targets; every interval hit checked on the host);
+   the fused chunk's compaction and summary (kh_compact_hits) at
    C = 1024 on K4's rmd160 hit words and on planted ones (R + 1 flagged
    rows, more than C words in R rows, a dense row and degenerate words);
    K5 over every lane of B = 2^23 in the canonical and a custom
@@ -70,6 +72,12 @@ any failure exits non-zero before the result line:
    composition, the card's random-read ceiling at 2^34 and 2^35 bits
    (scripts/torch_probe_shapes.py) and words[idx] (the probe's entry in
    the kernels line).
+3s. scheduled BSGS (search_scheduled) on phase 3's table and filters: a
+   random order over 8 chunks stopped after 4 and resumed by a fresh engine
+   from its checkpoint (puzzle 63's key in the order's second half, found
+   once, every chunk covered once), then 5 s of -B random and 5 s of -B
+   sequential over the puzzle-64 range: keys/s, the idle share, the host's
+   enqueue and rebase a chunk (the host-table bases, beside _initial_base).
 4. the brute-force path (bench_modes.py's protocol) in rmd160, xpoint,
    eth, address_u, rmd160 -e and rmd160 with T = 4096 bucketed targets:
    keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
@@ -79,6 +87,14 @@ any failure exits non-zero before the result line:
    a chunk, the device operations of one chunk (torch.profiler), the chunk
    time split over K1, K4 and the compaction, and K1 == K4 == compaction
    == chunks dispatched.
+4v. vanity (bench_modes.bench_vanity's protocol): key 777's 5-character
+   prefix over [1, 2049) at U = 256, K = 4, the found set equal to a host
+   scan's; the prefix beside keys 1..32 over [1, 4097); then 5 s at
+   U = 16384, K = 256 over phase 4's range: effective keys/s, candidates
+   a chunk, the idle share, the card's chunk, the host's enqueue, decode
+   and check a chunk (the check's K6 batches beside two and one ecref
+   scalar mults a candidate), K1 == K4 == compaction == chunks and K6 ==
+   batches.
 4b. the minikeys path (bench_modes.py's protocol, B = 2^23, V = 34,816,
    HM = 64, prefix "Sbenchmark1x"): the planted minikey recovered
    bit-exact in one chunk, then 5 s of throughput from counter 2^31 with
@@ -87,6 +103,10 @@ any failure exits non-zero before the result line:
    time split over K5, the compaction and keys (one kernel), K6, K7 + K8
    and lookup + summary, and K5 == compaction == K6 == K7 == K8 == chunks
    dispatched.
+4r. kill and resume at full width: fused rmd160 (T = 32, keys in chunks 0
+   and 3: 2 chunks, then a fresh engine from the checkpoint for 2 more),
+   minikeys at B = 2^23 (one chunk, then the prefix and counter adopted
+   and 2 more), and, in phase 4c, the walker path (one chunk, then one).
 4c. the large-target brute path (the walker path, taken past bucket_max
    targets): keys 1..32 recovered bit-exact over [1, 4097) at W = 2,
    U = 256, K = 4 in rmd160, xpoint, eth, address_u, rmd160_both and
@@ -102,8 +122,8 @@ any failure exits non-zero before the result line:
    lookup and summary, and the rest (torch work left), set-up
    times, device memory and launch counts.
 5. the launch counts of the main paths (phase 3's filter build and
-   searches, the throughput windows of phases 4, 4b and 4c, each counted
-   from zero): every kernel launched, and each stage launched exactly the
+   searches, the throughput windows of phases 3s, 4, 4v, 4b and 4c, each
+   counted from zero): every kernel launched, and each stage launched exactly the
    kernels it should.
 
 The line before the last is {"kernels": [...]} with each kernel's bound
@@ -122,6 +142,7 @@ import time
 
 PUZZLE63_KEY = 0x7CCE5EFDACCF6808
 PUZZLE64_KEY = 0xF7051F27B09112D4
+PUZZLE64_RANGE = (1 << 63, 1 << 64)
 U, K, BUILD_BLOCK = 16384, 256, 4096  # bench.py's main-path shape
 MAIN_BITS = 35  # bitmap and bloom2 sizes of the main path (4 GiB each)
 SMALL_M = 1 << 20  # phase 2
@@ -178,6 +199,11 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                                  "458-479) at B = 2^23, V = 34,816; ms "
                                                  "includes the scratch's memset; no torch call "
                                                  "computes it"},
+                "brute_walk_blocks": {"note": "ms, plain_ms, bound_ms: rmd160 at K = 256, "
+                                              "U = 16384 against 32 point intervals; "
+                                              "vanity_ms, vanity_bound_ms: the same with "
+                                              "the 9 real intervals of key 777's 5-character "
+                                              "prefix and 3 points (T = 16)"},
                 "scalar_mult": {"note": "launches counts K6 calls; a call is two launches, "
                                         "kh_ladder_jac then kh_ladder_affine, and ms "
                                         "times the two together"},
@@ -212,6 +238,7 @@ WK_W, WK_U, WK_K, WK_L = 8, 4096, 8, 32  # the JAX CLI's walker shape (cli.py:85
 WK_T = 1 << 22  # targets of the large-target cells: 64x bucket_max
 WK_BITS = 34  # their bitmap: default_bits_log2(2^22), the JAX package's cap
 WK_SECONDS = 5.0  # throughput window of each phase-4c mode
+SCHED_SECONDS = 5.0  # throughput window of each phase-3s range order
 PROBE_BYTES = 32 + 8 + 1  # a random DRAM sector for the word, the key, the mask byte
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
@@ -496,6 +523,52 @@ def max_abs_err(got, want):
         d = (g.to(torch.int64) - w.to(torch.int64)).abs()
         err = max(err, int(d.max()) if d.numel() else 0)
     return err
+
+
+def marked(eng, name="_chunk_fn"):
+    """Wrap an engine's chunk function: a CUDA event pair around each call's
+    work on the stream and the host's enqueue time. Returns (marks, enqueue)."""
+    import torch
+
+    marks, enqueue = [], []
+    fn = getattr(eng, name)
+
+    def wrapped(*a):
+        t = time.perf_counter()
+        ev0 = torch.cuda.Event(enable_timing=True)
+        ev0.record()
+        out = fn(*a)
+        ev1 = torch.cuda.Event(enable_timing=True)
+        ev1.record()
+        marks.append((ev0, ev1))
+        enqueue.append(time.perf_counter() - t)
+        return out
+
+    setattr(eng, name, wrapped)
+    return marks, enqueue
+
+
+def host_timed(eng, name, log_args=None):
+    """Wrap an engine method with a host clock: returns [seconds, calls,
+    calls with a non-empty first argument]; log_args collects the first
+    arguments."""
+    acc = [0.0, 0, 0]
+    fn = getattr(eng, name)
+
+    def wrapped(*a):
+        t = time.perf_counter()
+        out = fn(*a)
+        acc[0] += time.perf_counter() - t
+        acc[1] += 1
+        if a and hasattr(a[0], "__len__"):
+            acc[2] += bool(len(a[0]))
+            if log_args is not None:
+                log_args.extend(a[0])
+        return out
+
+    wrapped.__wrapped__ = fn
+    setattr(eng, name, wrapped)
+    return acc
 
 
 def phase1_kernels(dev, results, clock):
@@ -806,6 +879,52 @@ def phase1_brute(dev, results, clock):
                                                 bound_by=by_)
             k4_hits = got
         del got, want
+
+    # K4 with real intervals (lo < hi): bench_vanity's 9 intervals of key
+    # 777's prefix beside the three planted hits as point intervals; every
+    # hit word past the planted ones must be a hash inside an interval
+    from keyhuntm1cpu_tpu_torch.engine.vanity import vanity_intervals
+    from keyhuntm1cpu_tpu_torch.ref import hashref
+
+    prefix = hashref.pubkey_to_address(ecref.scalar_mult(777))[:5]
+    ivs = [(int.from_bytes(lo[:8], "big"), int.from_bytes(hi[:8], "big"))
+           for lo, hi in vanity_intervals(prefix)]
+    hits = [(0, 5), (K - 1, U - 1), (K // 2, U // 3 + 1)]
+    pts = [ecref.scalar_mult(b0 + s * U + u + 1) for s, u in hits]
+    pts[1] = ecref.point_neg(pts[1])
+    vals = [cmp64("rmd160", brute_artifact("rmd160", pt)) for pt in pts]
+    tgt = as_i32(pbrute.pack_intervals(vals + [lo for lo, _ in ivs], vals + [hi for _, hi in ivs]))
+    args = (bx, by, tx, ty, tgt, empty, "rmd160", 1, 0)
+    ms, got = device_ms(lambda: pbrute.brute_walk_blocks(*args), 5)
+    pms, want = timed(lambda: pbrute.brute_walk_blocks_ref(*args), 1)
+    err = max_abs_err([got], [want])
+    err_all = max(err_all, err)
+    name = f"rmd160 with {len(ivs)} intervals of prefix {prefix} and 3 points (T={tgt.shape[1]})"
+    if err:
+        fail(f"K4 {name} differs from its plain version (max_abs_err {err})")
+    g = got.cpu().numpy()
+    if not all(g[s, u] for s, u in hits):
+        fail(f"K4 {name}: planted hits missing")
+    extra = [(int(s), int(u)) for s, u in zip(*np.nonzero((g > 0) & (g < pbrute.HIT_DEGENERATE)))
+             if (s, u) not in hits]
+    # the base keys of the rows: b0 + s*U, but tab[U // 7] and -tab[U - 2] in
+    # the planted dx == 0 rows 3 and 9
+    base_key = {3: U // 7 + 1, 9: -(U - 1)}
+    for s, u in extra:  # each an interval hit of the parity its bit names
+        pt = ecref.scalar_mult((base_key.get(s, b0 + s * U) + u + 1) % ecref.N)
+        for q in range(2):
+            if g[s, u] >> q & 1:
+                par = pt if (pt[1] & 1) == q else ecref.point_neg(pt)
+                v = cmp64("rmd160", hashref.pubkey_to_hash160(par))
+                if not any(lo <= v <= hi for lo, hi in ivs):
+                    fail(f"K4 {name}: lane ({s}, {u}) parity {q} is no interval hit")
+    bms, by_ = bound_ms(k4_ops("rmd160", 1, tgt.shape[1], 0, K * U),
+                        64 * (K + U) + 16 * tgt.shape[1] + 4 * K * U, clock)
+    results["brute_walk_blocks"] |= dict(vanity_ms=ms, vanity_bound_ms=bms)
+    log(f"K4 brute_walk_blocks {name} K={K}: equal to plain, {len(extra)} interval hits "
+        f"besides the planted ones, each checked on the host; {ms:.3f} ms (plain {pms:.1f} ms, "
+        f"bound {bms:.3f} ms by {by_})")
+    del got, want
     results["brute_walk_blocks"]["max_abs_err"] = err_all
 
     # the compaction: K4's rmd160 hit words (3 hits, 2 degenerate lanes) and
@@ -1416,21 +1535,7 @@ def phase3_main(dev, m, seconds, results, clock):
     # gives the device's busy time (the summary copies fall in the gaps)
     eng64 = BSGSEngine([ecref.scalar_mult(PUZZLE64_KEY)], 1 << 63, 1 << 64, params,
                        device=dev, host_table=htab, bitmap=eng.bitmap, bloom2=eng.bloom2)
-    marks, enqueue = [], []
-    chunk_fn = eng64._chunk_fn
-
-    def marked_chunk(px, py):
-        t = time.perf_counter()
-        ev0 = torch.cuda.Event(enable_timing=True)
-        ev0.record()
-        out = chunk_fn(px, py)
-        ev1 = torch.cuda.Event(enable_timing=True)
-        ev1.record()
-        marks.append((ev0, ev1))
-        enqueue.append(time.perf_counter() - t)
-        return out
-
-    eng64._chunk_fn = marked_chunk
+    marks, enqueue = marked(eng64)
     torch.cuda.synchronize()
     t0 = time.time()
     found = eng64.search(max_seconds=seconds, stop_on_first=False)
@@ -1567,7 +1672,7 @@ def phase3_main(dev, m, seconds, results, clock):
     log(f"phase 3: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB "
         f"allocated, {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak; "
         f"card {card_line()}")
-    return n_main
+    return n_main, htab, eng.bitmap, eng.bloom2
 
 
 def phase4_brute(dev, seconds, clock):
@@ -1610,21 +1715,10 @@ def phase4_brute(dev, seconds, clock):
         params = BruteParams(block_u=U, steps_per_chunk=K, endo=endo)
         eng = BruteEngine(ts, *BRUTE_RANGE, mode=mode, params=params, device=dev)
         eng.search(max_steps=K)  # warm-up chunk
-        marks, enqueue = [], []
-        chunk_fn = eng._chunk_fn
-
-        def marked_chunk(px, py):
-            t = time.perf_counter()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = chunk_fn(px, py)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev1.record()
-            marks.append((ev0, ev1))
-            enqueue.append(time.perf_counter() - t)
-            return out
-
-        eng._chunk_fn = marked_chunk
+        marks, enqueue = marked(eng)
+        cands = []
+        ver = host_timed(eng, "_verify_all", cands)
+        dec = host_timed(eng, "_decode_fast")
         reset_counts()
         k0 = eng.stats.keys_covered
         torch.cuda.synchronize()
@@ -1672,7 +1766,34 @@ def phase4_brute(dev, seconds, clock):
             f"{n_dev or 'not measured: the profiler saw no'} device operations (kernels, "
             f"copies, fills; torch.profiler) = K1 {k1_ms:.3f} + K4 {k4_ms:.3f} (bound "
             f"{k4_bound:.3f}) + compaction {cp_ms:.4f} (the rest "
-            f"{c_ms - k1_ms - k4_ms - cp_ms:.4f}); launches {n}")
+            f"{c_ms - k1_ms - k4_ms - cp_ms:.4f}); host decode "
+            f"{1000 * dec[0] / chunks:.3f} ms a chunk with {len(cands) / chunks:.4f} "
+            f"candidates a chunk, each checked by one ecref scalar mult ("
+            + (f"{1000 * ver[0] / len(cands):.3f} ms a candidate" if cands else "none")
+            + f"); launches {n}")
+        if bucketed:
+            # the same window with the JAX engine's check (two scalar mults
+            # a candidate) in place of the port's; not counted
+            eng._verify = lambda k, row=0, pt=None: verify_two_mults(eng, k)
+            marks.clear()
+            cands.clear()
+            dec[:] = ver[:] = [0.0, 0, 0]
+            k0 = eng.stats.keys_covered
+            torch.cuda.synchronize()
+            t0 = time.time()
+            eng.search(max_seconds=seconds)
+            torch.cuda.synchronize()
+            dt = time.time() - t0
+            chunks = (eng.stats.keys_covered - k0) // (K * U)
+            busy = sum(a.elapsed_time(b) for a, b in marks)
+            span = marks[0][0].elapsed_time(marks[-1][1])
+            log(f"phase 4: {name} with two ecref scalar mults a candidate (the JAX "
+                f"engine's check), not counted: {chunks} chunks in {dt:.2f} s -> "
+                f"{(eng.stats.keys_covered - k0) * eng.stats.multiplier / dt:.4e} effective "
+                f"keys/s; idle share {1 - busy / span:.4f}; host decode "
+                f"{1000 * dec[0] / chunks:.3f} ms a chunk with {len(cands) / chunks:.4f} "
+                f"candidates a chunk ("
+                + (f"{1000 * ver[0] / len(cands):.3f} ms a candidate" if cands else "none") + ")")
     return total
 
 
@@ -1717,21 +1838,8 @@ def phase4b_minikeys(dev, seconds):
         t_setup = time.time() - t0
         eng.counter = MK_COUNTER
         eng.search(max_chunks=1, stop_on_first=False)  # warm-up chunk
-        marks, enqueue = [], []
         chunk_fn = eng._chunk_fn
-
-        def marked_chunk(*a):
-            t = time.perf_counter()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = chunk_fn(*a)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev1.record()
-            marks.append((ev0, ev1))
-            enqueue.append(time.perf_counter() - t)
-            return out
-
-        eng._chunk_fn = marked_chunk
+        marks, enqueue = marked(eng)
         reset_counts()
         k0 = eng.stats.keys_covered
         torch.cuda.synchronize()
@@ -1872,21 +1980,7 @@ def phase4c_walker(dev, seconds):
             fail(f"walker {mode} T={WK_T}: found {len(got)} keys, planted {len(planted)}")
         t_gate = time.time() - t0
 
-        marks, enqueue = [], []
-        chunk_fn = eng._chunk_fn
-
-        def marked_chunk(cx, cy):
-            t = time.perf_counter()
-            ev0 = torch.cuda.Event(enable_timing=True)
-            ev0.record()
-            out = chunk_fn(cx, cy)
-            ev1 = torch.cuda.Event(enable_timing=True)
-            ev1.record()
-            marks.append((ev0, ev1))
-            enqueue.append(time.perf_counter() - t)
-            return out
-
-        eng._chunk_fn = marked_chunk
+        marks, enqueue = marked(eng)
         reset_counts()
         k0 = eng.stats.keys_covered
         torch.cuda.synchronize()
@@ -1946,9 +2040,324 @@ def phase4c_walker(dev, seconds):
             f"{lk_ms:.4f}) + the rest {rest:.3f}; device memory "
             f"{torch.cuda.memory_allocated() / 2**30:.2f} GiB, peak {peak:.2f} GiB; "
             f"launches {n}")
-        del eng, ts, res, pre, tot, itot, qhi, qlo, pc
+        del res, pre, tot, itot, qhi, qlo, pc
+        if mode == "rmd160":
+            walker_resume(ts, a, b, params, dev, planted)
+        del eng, ts
         torch.cuda.empty_cache()
     return total
+
+
+def verify_two_mults(eng, k, row=0, pt=None):
+    """The JAX engine's host check of a candidate (engine/brute.py:763-789):
+    a scalar mult for k, then another for N - k."""
+    from keyhuntm1cpu_tpu_torch.engine.common import FoundKey
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+
+    for cand in (k, ecref.N - (k % ecref.N)):
+        if not 1 <= cand < ecref.N:
+            continue
+        p = ecref.scalar_mult(cand)
+        for got, compressed in eng._artifacts(p):
+            i = eng._raw_index.get(got)
+            if i is not None:
+                return FoundKey(private_key=cand, pubkey=p, compressed=compressed,
+                                target=eng.targets.labels[i])
+            if eng.prefixes and eng.mode != "xpoint":
+                addr = hashref.b58check_encode(b"\x00" + got)
+                if any(addr.startswith(pref) for pref in eng.prefixes):
+                    return FoundKey(private_key=cand, pubkey=p, compressed=compressed,
+                                    target=addr)
+    return None
+
+
+def prefix_keys(prefix, n):
+    """The keys a compressed-address prefix scan of [1, n + 1) reports, by
+    the JAX engine's rule (k if its address has the prefix, else N - k if
+    that one's has): {k: reported key}, on the host."""
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+
+    out, pt = {}, ecref.G
+    for k in range(1, n + 1):
+        for key, p in ((k, pt), (ecref.N - k, ecref.point_neg(pt))):
+            if hashref.pubkey_to_address(p).startswith(prefix):
+                out[k] = key
+                break
+        pt = ecref.point_add(pt, ecref.G)
+    return out
+
+
+def phase4v_vanity(dev, seconds):
+    """Vanity (bench_modes.bench_vanity's protocol): the gate over [1, 2049)
+    at U = 256, K = 4, -v beside phase 4's 32 targets, then `seconds` of
+    throughput at U = 16384, K = 256; returns the window's launch counts."""
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams
+    from keyhuntm1cpu_tpu_torch.engine.vanity import vanity_intervals
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    prefix = hashref.pubkey_to_address(ecref.scalar_mult(777))[:5]
+    ivs = vanity_intervals(prefix)
+    empty = TargetSet(kind="hash160", raw=[], labels=[])
+    t0 = time.time()
+    ref = prefix_keys(prefix, 4096)
+    t_ref = time.time() - t0
+    gate = BruteParams(block_u=256, steps_per_chunk=4, chunk_cand=64)
+    t0 = time.time()
+    eng = BruteEngine(empty, 1, 2049, mode="rmd160", params=gate, device=dev, intervals=ivs,
+                      prefixes=[prefix])
+    found = eng.search()
+    want = sorted(v for k, v in ref.items() if k < 2049)
+    if 777 not in want or sorted(f.private_key for f in found) != want:
+        fail(f"vanity gate {prefix}: found {sorted(f.private_key for f in found)}, want {want}")
+    t_gate = time.time() - t0
+    keys = list(range(1, 33))
+    ts = TargetSet(kind="hash160", labels=[str(k) for k in keys],
+                   raw=[brute_artifact("rmd160", ecref.scalar_mult(k)) for k in keys])
+    eng = BruteEngine(ts, 1, 4097, mode="rmd160", params=gate, device=dev, intervals=ivs,
+                      prefixes=[prefix])
+    got = sorted(f.private_key for f in eng.search())
+    if got != sorted(set(keys) | set(ref.values())):
+        fail(f"-v {prefix} beside keys 1..32: found {got}")
+    log(f"phase 4v: vanity gate: prefix {prefix} ({len(ivs)} intervals) over [1, 2049): "
+        f"{len(want)} keys, key 777 among them, bit-exact in {t_gate:.1f} s (the host's "
+        f"reference scan of 4096 keys {t_ref:.1f} s); -v {prefix} beside keys 1..32 over "
+        f"[1, 4097): all {len(got)} keys")
+
+    params = BruteParams(block_u=U, steps_per_chunk=K)
+    eng = BruteEngine(empty, *BRUTE_RANGE, mode="rmd160", params=params, device=dev,
+                      intervals=ivs, prefixes=[prefix])
+    eng.search(max_steps=K)  # warm-up chunk
+    marks, enqueue = marked(eng)
+    cands = []
+    ver = host_timed(eng, "_verify_all", cands)
+    dec = host_timed(eng, "_decode_fast")
+    k6 = host_timed(pladder, "scalar_mult_points")  # the batch's round trip
+    reset_counts()
+    k0 = eng.stats.keys_covered
+    torch.cuda.synchronize()
+    t0 = time.time()
+    found = eng.search(max_seconds=seconds)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    _, n = launch_counts()
+    pladder.scalar_mult_points = pladder.scalar_mult_points.__wrapped__
+    chunks = (eng.stats.keys_covered - k0) // (K * U)
+    want = zero_counts() | dict.fromkeys(("advance_chain", "brute_walk_blocks", "compact_hits"),
+                                         len(marks)) | dict(scalar_mult=ver[2])
+    if n != want or chunks != len(marks):
+        fail(f"vanity launched {n} for {len(marks)} chunks dispatched, {chunks} counted, "
+             f"{ver[2]} verify batches")
+    for f in found[:16] + found[-16:]:  # reported keys' addresses, computed again
+        if (f.target != hashref.pubkey_to_address(ecref.scalar_mult(f.private_key))
+                or not f.target.startswith(prefix)):
+            fail(f"vanity window reported {f.private_key:x} -> {f.target}")
+    eff = (eng.stats.keys_covered - k0) * eng.stats.multiplier / dt
+    busy = sum(a.elapsed_time(b) for a, b in marks)
+    span = marks[0][0].elapsed_time(marks[-1][1])
+    px, py = eng._fast_base(0)
+    c_ms, _ = device_ms(lambda: pbrute.brute_chunk(
+        px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng._tgt, eng._btab, K=K, U=U,
+        C=params.chunk_cand, mode="rmd160", n_endo=1, adv_tab=eng.adv_tab), 5)
+    # the host check without the batch: two ecref scalar mults a candidate
+    # (the JAX engine's), and one (k and its negation)
+    sample = cands[:16]
+    t = time.perf_counter()
+    for k in sample:
+        verify_two_mults(eng, k)
+    two_ms = 1000 * (time.perf_counter() - t) / max(1, len(sample))
+    t = time.perf_counter()
+    for k in sample:
+        eng._verify(k)
+    one_ms = 1000 * (time.perf_counter() - t) / max(1, len(sample))
+    per = len(cands) / chunks
+    log(f"phase 4v: vanity {prefix}: {chunks} chunks in {dt:.2f} s -> {eff:.4e} effective "
+        f"keys/s (x{eng.stats.multiplier}; K={K}, U={U}, {len(ivs)} intervals); {len(found)} "
+        f"keys found, {per:.2f} candidates a chunk, each address checked again; idle share "
+        f"{1 - busy / span:.4f} (busy {busy / chunks:.3f} ms per chunk); the card's chunk "
+        f"{c_ms:.3f} ms (device_ms); host a chunk: enqueue {1000 * sum(enqueue) / chunks:.3f} "
+        f"ms, decode {1000 * dec[0] / chunks:.3f} ms of which the check {1000 * ver[0] / chunks:.3f} "
+        f"ms ({ver[2]} K6 batches on the check's stream, {1000 * ver[0] / max(1, ver[2]):.3f} "
+        f"ms each, of which K6's round trip {1000 * k6[0] / max(1, k6[1]):.3f} ms and the "
+        f"addresses on the host the rest); the check without the batch: two ecref scalar mults a candidate (the "
+        f"JAX engine's) {two_ms:.3f} ms = {two_ms * per:.3f} ms a chunk, one {one_ms:.3f} ms = "
+        f"{one_ms * per:.3f} ms a chunk; launches {n}")
+    return n
+
+
+def phase3s_scheduled(dev, m, seconds, htab, bm, b2):
+    """Scheduled BSGS on phase 3's table and filters: kill and resume of a
+    random order (puzzle 63's chunk in the order's second half), then
+    `seconds` of -B random and of -B sequential over the puzzle-64 range;
+    returns the two windows' launch counts."""
+    import tempfile
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointManager
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine, BSGSParams
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    params = BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=BUILD_BLOCK,
+                        bits_log2=MAIN_BITS, bloom2_bits=MAIN_BITS)
+    span = K * U * 2 * m  # keys a chunk
+    n_ck, pos = 8, 5
+    a = PUZZLE63_KEY - pos * span - 12345
+    pub63 = ecref.scalar_mult(PUZZLE63_KEY)
+
+    def engine(pub, a, b):
+        return BSGSEngine([pub], a, b, params, device=dev, host_table=htab, bitmap=bm,
+                          bloom2=b2)
+
+    eng = engine(pub63, a, a + n_ck * span)
+    seed = next(s for s in range(1000) if eng.chunk_order("random", s).index(pos) >= n_ck // 2)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ck.json"), every_s=0)
+        first = eng.search_scheduled("random", seed, max_chunks=n_ck // 2, stop_on_first=False,
+                                     checkpoint=mgr)
+        eng2 = engine(pub63, a, a + n_ck * span)
+        found = eng2.search_scheduled("random", seed, stop_on_first=False, checkpoint=mgr)
+        ck = mgr.load()
+    if (first or [f.private_key for f in found] != [PUZZLE63_KEY] or ck.chunks_done != n_ck
+            or ck.keys_covered != n_ck * span or eng2.stats.keys_covered != n_ck * span):
+        fail(f"scheduled kill and resume: first run {first}, resumed {found}, checkpoint "
+             f"{ck.chunks_done} chunks {ck.keys_covered} keys")
+    log(f"phase 3s: -B random (seed {seed}) over {n_ck} chunks, puzzle 63's at place "
+        f"{eng.chunk_order('random', seed).index(pos)} of the order: {n_ck // 2} chunks, then "
+        f"a fresh engine resumed from the checkpoint found the key once, {ck.chunks_done} "
+        f"chunks and {ck.keys_covered} keys covered exactly ({time.time() - t0:.1f} s)")
+
+    total = None
+    pub64 = ecref.scalar_mult(PUZZLE64_KEY)
+    for policy in ("random", "sequential"):
+        eng = engine(pub64, *PUZZLE64_RANGE)
+        t = time.perf_counter()
+        for c in eng.chunk_order(policy, 1)[:8]:  # the rebase by one scalar mult
+            eng._initial_base(c * K)
+        init_ms = 1000 * (time.perf_counter() - t) / 8
+        eng._scheduled_bases([1])  # its host table, built once per engine
+        marks, enqueue = marked(eng)
+        reb = host_timed(eng, "_scheduled_bases")
+        reset_counts()
+        torch.cuda.synchronize()
+        t0 = time.time()
+        found = eng.search_scheduled(policy, seed=1, stop_on_first=False, max_seconds=seconds)
+        torch.cuda.synchronize()
+        dt = time.time() - t0
+        _, n = launch_counts()
+        chunks = eng.stats.keys_covered // span
+        if (n != zero_counts() | dict(advance_chain=len(marks), walk_blocks=len(marks),
+                                      probe=2 * len(marks)) or chunks != len(marks)):
+            fail(f"-B {policy} launched {n} for {len(marks)} chunks dispatched, {chunks} "
+                 "counted")
+        if any(f.private_key != PUZZLE64_KEY for f in found):
+            fail(f"-B {policy} found a wrong key: {[hex(f.private_key) for f in found]}")
+        total = n if total is None else {k: total[k] + n[k] for k in n}
+        busy = sum(e0.elapsed_time(e1) for e0, e1 in marks)
+        span_ms = marks[0][0].elapsed_time(marks[-1][1])
+        log(f"phase 3s: -B {policy}: {chunks} chunks in {dt:.2f} s -> "
+            f"{eng.stats.keys_covered / dt:.4e} keys/s; idle share {1 - busy / span_ms:.4f} "
+            f"(busy {busy / chunks:.3f} ms per chunk); host a chunk: enqueue "
+            f"{1000 * sum(enqueue) / chunks:.3f} ms, rebase {1000 * reb[0] / chunks:.3f} ms "
+            f"({reb[1]} host-table batches; _initial_base, a scalar mult a chunk: "
+            f"{init_ms:.3f} ms a chunk); puzzle 64's key "
+            f"{'found bit-exact' if found else 'not reached'}; launches {n}")
+    return total
+
+
+def phase4r_resume(dev):
+    """Kill and resume at full width: the fused rmd160 chunk (T = 32, keys
+    in chunks 0 and 3) and minikeys at B = 2^23."""
+    import hashlib
+    import tempfile
+
+    from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointManager
+    from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    a = BRUTE_RANGE[0]
+    early, late = a + 5, a + 3 * K * U + 77
+    keys = list(range(1, 31)) + [early, late]
+    ts = TargetSet(kind="hash160", labels=[str(k) for k in keys],
+                   raw=[brute_artifact("rmd160", ecref.scalar_mult(k)) for k in keys])
+    params = BruteParams(block_u=U, steps_per_chunk=K)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ck.json"), every_s=0)
+        eng = BruteEngine(ts, *BRUTE_RANGE, mode="rmd160", params=params, device=dev)
+        f1 = [f.private_key for f in eng.search(max_steps=2 * K, checkpoint=mgr)]
+        ck1 = mgr.load()
+        eng = BruteEngine(ts, *BRUTE_RANGE, mode="rmd160", params=params, device=dev)
+        f2 = sorted(f.private_key for f in eng.search(max_steps=4 * K, checkpoint=mgr))
+        ck2 = mgr.load()
+    if (f1 != [early] or ck1.chunks_done != 2 * K or f2 != [early, late]
+            or ck2.chunks_done != 4 * K or ck2.keys_covered != 4 * K * U
+            or eng.stats.keys_covered != 4 * K * U):
+        fail(f"fused resume: {f1} then {f2}, checkpoints {ck1.chunks_done}, {ck2.chunks_done}")
+    log(f"phase 4r: fused rmd160 T=32 (U={U}, K={K}): 2 chunks found the chunk-0 key, a fresh "
+        f"engine resumed from the checkpoint, reported it again from the file and found the "
+        f"chunk-3 key; {ck2.chunks_done} steps, {ck2.keys_covered} keys ({time.time() - t0:.1f} s)")
+
+    for c in range(1 << 18):  # phase 4b's gate key, in chunk 0
+        s_ = MK_PREFIX + mk._b58_digits(c // mk.LOW_SPAN, 5) + mk._b58_digits(c % mk.LOW_SPAN, 5)
+        if hashlib.sha256((s_ + "?").encode()).digest()[0] == 0:
+            break
+    key = int.from_bytes(hashlib.sha256(s_.encode()).digest(), "big")
+    target = TargetSet(kind="hash160", labels=["planted"], raw=[
+        hashref.pubkey_to_hash160(ecref.scalar_mult(key), compressed=False)])
+    params = mk.tuned_params(batch=MK_BATCH)
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ck.json"), every_s=0)
+        eng = mk.MinikeyEngine(target, prefix=MK_PREFIX, params=params, device=dev)
+        f1 = [f.private_key for f in eng.search(max_chunks=1, checkpoint=mgr)]
+        ck1 = mgr.load()
+        eng = mk.MinikeyEngine(target, params=params, device=dev)  # a random prefix
+        f2 = [f.private_key for f in eng.search(max_chunks=2, stop_on_first=False,
+                                                 checkpoint=mgr)]
+        ck2 = mgr.load()
+    if (f1 != [key] or ck1.extra != {"prefix": MK_PREFIX, "counter": MK_BATCH} or f2 != [key]
+            or eng.prefix != MK_PREFIX or eng.counter != 3 * MK_BATCH
+            or ck2.extra != {"prefix": MK_PREFIX, "counter": 3 * MK_BATCH}
+            or ck2.keys_covered != 3 * MK_BATCH):
+        fail(f"minikeys resume: {f1} {ck1.extra} then {f2} {ck2.extra}, engine at "
+             f"{eng.prefix} {eng.counter}")
+    log(f"phase 4r: minikeys B={MK_BATCH}: one chunk found the planted key, a fresh engine "
+        f"adopted prefix {MK_PREFIX} and counter {MK_BATCH} from the checkpoint, reported the "
+        f"key again and ran 2 more chunks to counter {eng.counter} ({time.time() - t0:.1f} s)")
+
+
+def walker_resume(ts, a, b, params, dev, planted):
+    """Kill and resume on the walker path at phase 4c's shape: one chunk,
+    then a fresh engine resumes for a second."""
+    import tempfile
+
+    from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointManager
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine
+
+    K_, W = params.steps_per_chunk, params.walkers
+    t0 = time.time()
+    with tempfile.TemporaryDirectory() as tmp:
+        mgr = CheckpointManager(os.path.join(tmp, "ck.json"), every_s=0)
+        eng = BruteEngine(ts, a, b, mode="rmd160", params=params, device=dev)
+        f1 = sorted(f.private_key for f in eng.search(max_steps=K_, checkpoint=mgr))
+        eng = BruteEngine(ts, a, b, mode="rmd160", params=params, device=dev)
+        f2 = sorted(f.private_key for f in eng.search(max_steps=2 * K_, checkpoint=mgr))
+        ck = mgr.load()
+    per = K_ * W * (2 * params.block_u + 1)  # keys a chunk
+    if (f1 != planted or f2 != planted or ck.chunks_done != 2 * K_
+            or ck.keys_covered != 2 * per or eng.stats.keys_covered != 2 * per):
+        fail(f"walker resume: {len(f1)} then {len(f2)} keys, checkpoint {ck.chunks_done} steps")
+    log(f"phase 4r: walker rmd160 at phase 4c's shape: one chunk found the {len(planted)} "
+        f"planted keys, a fresh engine resumed for the second chunk and reported them again "
+        f"from the checkpoint; {ck.chunks_done} steps, {ck.keys_covered} keys "
+        f"({time.time() - t0:.1f} s)")
 
 
 def main():
@@ -1992,16 +2401,22 @@ def main():
     phase1_minikeys(dev, results, clock)
     phase1_walker(dev, results, clock)
     phase2_small(dev)
-    bsgs = phase3_main(dev, args.m, args.seconds, results, clock)
+    bsgs, htab, bm, b2 = phase3_main(dev, args.m, args.seconds, results, clock)
+    scheduled = phase3s_scheduled(dev, args.m, SCHED_SECONDS, htab, bm, b2)
+    del htab, bm, b2
+    torch.cuda.empty_cache()
     brute = phase4_brute(dev, BRUTE_SECONDS, clock)
+    vanity = phase4v_vanity(dev, BRUTE_SECONDS)
     minikeys = phase4b_minikeys(dev, MK_SECONDS)
+    phase4r_resume(dev)
     walker = phase4c_walker(dev, WK_SECONDS)
-    launches = {name: bsgs[name] + brute[name] + minikeys[name] + walker[name]
-                for name in bsgs}
+    paths = dict(bsgs=bsgs, scheduled=scheduled, brute=brute, vanity=vanity,
+                 minikeys=minikeys, walker=walker)
+    launches = {name: sum(n[name] for n in paths.values()) for name in bsgs}
     if not all(launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")
-    log(f"phase 5: launches on the main paths {launches} (BSGS {bsgs}, brute {brute}, "
-        f"minikeys {minikeys}, walker {walker})")
+    log(f"phase 5: launches on the main paths {launches} ("
+        + ", ".join(f"{k} {v}" for k, v in paths.items()) + ")")
 
     kernels = [dict(name=name, route="cuda", source=KERNEL_SOURCES[name][0],
                     replaces=KERNEL_SOURCES[name][1], launches=launches[name],

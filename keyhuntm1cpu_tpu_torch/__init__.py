@@ -1,8 +1,9 @@
 """keyhuntm1cpu_tpu_torch — the PyTorch + CUDA port of keyhuntm1cpu_tpu.
 
 The JAX package ``keyhuntm1cpu_tpu`` is the reference; this package
-re-implements its BSGS host-resolve path, the brute-force modes (fused and
-large-target walker paths) and minikeys for an NVIDIA Hopper GPU
+re-implements its BSGS host-resolve path (with its five range orders), the
+brute-force modes (fused and large-target walker paths), vanity prefixes,
+minikeys and resumable checkpoints for an NVIDIA Hopper GPU
 (sm_90a). Module and public function names follow the JAX package so
 each counterpart is easy to find:
 
@@ -15,11 +16,13 @@ each counterpart is easy to find:
                         batch hash kernels and the minikey kernels.
 - ``filter``          : bitmap / bloom2 cascade, the insert (K3) and probe
                         kernels, the sorted target table, the host table.
-- ``engine``          : the BSGS, brute-force and minikeys engines.
+- ``engine``          : the BSGS, brute-force and minikeys engines, vanity
+                        intervals, the stop flag.
 - ``convert``         : carries filters and params over from the JAX package.
 - ``cli``             : ``python -m keyhuntm1cpu_tpu_torch.cli -m bsgs ...``.
 - ``ref``, ``core``   : copies of the JAX package's exact curve arithmetic,
-                        address encoding, logger and key staging buffer.
+                        address encoding, logger, key staging buffer,
+                        errors and checkpoint files.
 
 The package imports neither jax nor the JAX package. Importing it compiles nothing: ``_build`` builds the CUDA
 kernels (nvcc) and the native host library (g++) on first use. Every

@@ -1,14 +1,22 @@
-"""Command-line interface of the port: BSGS (host-resolve, sequential order),
-the brute-force modes and minikeys.
+"""Command-line interface of the port: BSGS (host-resolve), the brute-force
+modes, vanity prefixes and minikeys.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
+        [-B sequential|backward|both|random|dance [--seed S]] \
         [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
     python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint|eth -f targets \
         -r A:B | -b BITS [-c eth] [-l compress|uncompress|both] [-e] [-I S] \
-        [-R [--seed S] [-n N]] [-t W] [-u U] [--chunk-steps K] [--all] ...
+        [-R [--seed S] [-n N]] [-t W] [-u U] [--chunk-steps K] [-v PREFIX] [--all] ...
+    python -m keyhuntm1cpu_tpu_torch.cli -m vanity -v PREFIX [-v ...] | -f prefixes \
+        [-r A:B | -b BITS] [-l compress|uncompress|both] [-e] [-u U] [--chunk-steps K]
     python -m keyhuntm1cpu_tpu_torch.cli -m minikeys -f addresses \
         [-C PREFIX] [-8 ALPHABET] [-u B] [--max-chunks N] [--max-seconds S] [--all]
+
+Every mode takes --checkpoint FILE (resume if it exists) and
+--checkpoint-every SECONDS. The first SIGTERM or SIGINT stops the search at
+its next chunk boundary and saves the checkpoint; a second one exits at
+once.
 
 BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
 pubkeys; brute targets are addresses or hash160 hex (address, rmd160),
@@ -16,6 +24,9 @@ ETH addresses (-m eth, or -m address -c eth) or x coordinates / pubkeys
 (xpoint). Brute target sets of up to 65,536 entries run the fused path (one
 chain per chunk) when -u is a multiple of 128; larger sets, or any other
 -u, run the walker path (-t walkers, each moving 2U+1 keys per step).
+Vanity prefixes (-m vanity, or -v beside -m address|rmd160) run the fused
+path only; -m vanity scans [1, 2^63) unless -r or -b is given, and on the
+card with -u at least 4096 and --chunk-steps at least 32.
 minikeys targets are addresses or hash160 hex (compressed or uncompressed
 keys both match). Minikeys scans a counter, not a key range: it takes no
 -r or -b; its batch is 2^22 minikeys on the card and 4096 on the CPU, or
@@ -33,7 +44,9 @@ from .core.log import get_logger
 from .ref import ecref
 
 BRUTE_MODES = ("address", "rmd160", "xpoint", "eth")
-MODES = ("bsgs",) + BRUTE_MODES + ("minikeys",)
+MODES = ("bsgs",) + BRUTE_MODES + ("vanity", "minikeys")
+POLICIES = ("sequential", "backward", "both", "random", "dance")
+LOOK_MODES = {"compress": "rmd160", "uncompress": "address_u", "both": "rmd160_both"}
 
 
 def parse_range(s: str):
@@ -49,10 +62,11 @@ def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="keyhunt-torch",
         description="secp256k1 key search on PyTorch + CUDA: BSGS "
-                    "(host-resolve), the brute-force modes and minikeys")
+                    "(host-resolve), the brute-force modes, vanity and minikeys")
     p.add_argument("-m", "--mode", required=True,
-                   help="bsgs, address, rmd160, xpoint, eth or minikeys")
-    p.add_argument("-f", "--file", required=True, help="target file")
+                   help="bsgs, address, rmd160, xpoint, eth, vanity or minikeys")
+    p.add_argument("-f", "--file", default=None,
+                   help="target file (-m vanity: prefixes, one a line)")
     p.add_argument("-r", "--range", type=parse_range, default=None,
                    help="start:end hex key range")
     p.add_argument("-b", "--bits", type=int, default=None,
@@ -76,7 +90,7 @@ def build_parser() -> argparse.ArgumentParser:
                    help="brute: scan a, a+stride, a+2*stride, ...")
     p.add_argument("-R", "--random", action="store_true", dest="random_mode",
                    help="brute: random chunk order")
-    p.add_argument("--seed", type=int, default=0, help="seed of -R")
+    p.add_argument("--seed", type=int, default=0, help="seed of -R and -B")
     p.add_argument("-w", "-t", "--walkers", "--threads", type=int, default=8,
                    help="brute: walkers of the walker path, taken by target sets "
                         "past 65,536 entries (reference -t threads); the fused "
@@ -88,7 +102,7 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--chunk-steps", type=int, default=8,
                    help="device steps per chunk")
     p.add_argument("-B", "--policy", default="sequential",
-                   help="bsgs range order; this port implements sequential only")
+                   help="bsgs range order: " + ", ".join(POLICIES))
     p.add_argument("--all", action="store_true",
                    help="keep searching after the first found key")
     p.add_argument("-q", "--quiet", action="store_true")
@@ -97,7 +111,12 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--max-chunks", type=int, default=None,
                    help="stop after N device chunks")
     p.add_argument("-v", "--vanity", action="append", default=[],
-                   help="vanity prefixes: not in this port yet")
+                   help="vanity prefix (repeatable): -m vanity, or beside "
+                        "-m address|rmd160")
+    p.add_argument("--checkpoint", default=None,
+                   help="search-position checkpoint file (resume if it exists)")
+    p.add_argument("--checkpoint-every", type=float, default=60.0,
+                   help="seconds between checkpoint writes")
     p.add_argument("-S", "--save-table", action="store_true",
                    help="table and target caches: not in this port yet")
     p.add_argument("--sharded", nargs="?", const="range", default=None,
@@ -133,8 +152,7 @@ def _brute_engine(args, log):
     if args.crypto == "eth":
         mode = "eth"
     elif mode in ("address", "rmd160"):
-        mode = {"compress": mode, "uncompress": "address_u",
-                "both": "rmd160_both"}[args.look or "compress"]
+        mode = LOOK_MODES[args.look or "compress"]
     kind = "eth" if mode == "eth" else args.mode
     seq_per_base = None
     if args.n_value is not None:
@@ -147,9 +165,43 @@ def _brute_engine(args, log):
                          steps_per_chunk=args.chunk_steps, endo=args.endo, stride=args.stride,
                          random_mode=args.random_mode, seed=args.seed,
                          seq_per_base=seq_per_base if args.random_mode else None)
+    intervals = []
+    if args.vanity and args.mode in ("address", "rmd160") and args.crypto != "eth":
+        # -v beside address mode: the same scan also flags the hash160s
+        # inside the vanity intervals
+        intervals = _intervals(args.vanity)
     a, b = args.range
     return BruteEngine(parse_target_file(args.file, kind), a, b, mode=mode,
-                       params=params, device=args.device)
+                       params=params, device=args.device, intervals=intervals,
+                       prefixes=list(args.vanity) if intervals else [])
+
+
+def _intervals(prefixes):
+    from .engine.vanity import vanity_intervals
+
+    return [iv for pref in prefixes for iv in vanity_intervals(pref)]
+
+
+def _vanity_engine(args):
+    """-m vanity: the fused brute path with an interval-only target set,
+    at least U = 4096 and K = 32 on the card (the JAX CLI's floors)."""
+    from .engine.brute import BruteEngine, BruteParams
+    from .utils.targets import TargetSet
+
+    prefixes = list(args.vanity)
+    if args.file:
+        with open(args.file) as f:
+            prefixes += [ln.strip() for ln in f if ln.strip()]
+    if not prefixes:
+        raise ValueError("vanity mode needs -v prefixes or a -f prefix file")
+    card = args.device == "cuda"
+    params = BruteParams(block_u=max(4096, args.block_u) if card else args.block_u,
+                         steps_per_chunk=max(32, args.chunk_steps) if card else args.chunk_steps,
+                         endo=args.endo)
+    a, b = args.range or (1, 1 << 63)
+    return BruteEngine(TargetSet(kind="hash160", raw=[], labels=[]), a, b,
+                       mode=LOOK_MODES[args.look or "compress"], params=params,
+                       device=args.device, intervals=_intervals(prefixes), prefixes=prefixes)
 
 
 def _minikey_engine(args):
@@ -171,20 +223,19 @@ def main(argv=None) -> int:
     if args.mode not in MODES:
         log.error(f"-m {args.mode}: this port implements -m {', '.join(MODES)} only")
         return 2
-    minikeys = args.mode == "minikeys"
+    minikeys, vanity = args.mode == "minikeys", args.mode == "vanity"
     if not minikeys and (args.alphabet is not None or args.minikey_prefix is not None):
         log.error("-8 and -C only apply to -m minikeys")
         return 2
-    for flag, on in (("-v", args.vanity), ("-S", args.save_table),
-                     ("--sharded", args.sharded)):
+    for flag, on in (("-S", args.save_table), ("--sharded", args.sharded)):
         if on:
             log.error(f"{flag}: not in this port yet")
             return 2
+    if args.policy not in POLICIES:
+        log.error(f"-B {args.policy}: the range orders are {', '.join(POLICIES)}")
+        return 2
     if args.crypto == "eth" and args.mode != "address":
         log.error("-c eth is only valid with -m address")
-        return 2
-    if args.mode == "bsgs" and args.policy != "sequential":
-        log.error(f"-B {args.policy}: this port implements -B sequential only")
         return 2
     if minikeys and (args.range is not None or args.bits is not None):
         log.error("-m minikeys scans minikey counters and takes no -r or -b")
@@ -197,34 +248,49 @@ def main(argv=None) -> int:
             log.error("-b bits must be in 1..256")
             return 2
         args.range = (max(1, 1 << (args.bits - 1)), 1 << args.bits)
-    if args.range is None and not minikeys:
+    if args.range is None and not (minikeys or vanity):
         log.error("-r start:end or -b bits is required")
+        return 2
+    if args.file is None and not vanity:
+        log.error("-f target file is required for this mode")
         return 2
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
         log.error("--device cuda: no CUDA device is available")
         return 2
-    from .engine.common import write_found_key
+    from .core.checkpoint import CheckpointManager
+    from .core.errors import KeyhuntError
+    from .engine.common import install_stop_handlers, write_found_key
 
+    install_stop_handlers(log)
+    ckmgr = (CheckpointManager(args.checkpoint, every_s=args.checkpoint_every)
+             if args.checkpoint else None)
+    progress = 0 if args.quiet else 16
     try:
         if minikeys:
             eng = _minikey_engine(args)
+            found = eng.search(max_chunks=args.max_chunks or (1 << 30),
+                               stop_on_first=not args.all, progress_every=progress,
+                               checkpoint=ckmgr, max_seconds=args.max_seconds)
         elif args.mode == "bsgs":
             eng = _bsgs_engine(args)
+            found = eng.search_scheduled(policy=args.policy, seed=args.seed,
+                                         max_chunks=args.max_chunks,
+                                         stop_on_first=not args.all,
+                                         progress_every=progress, checkpoint=ckmgr,
+                                         max_seconds=args.max_seconds)
         else:
-            eng = _brute_engine(args, log)
-    except (ValueError, OSError) as e:
+            eng = _vanity_engine(args) if vanity else _brute_engine(args, log)
+            # --max-chunks counts chunks; the brute engine counts device steps
+            max_steps = (None if args.max_chunks is None
+                         else args.max_chunks * eng.p.steps_per_chunk)
+            found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
+                               progress_every=progress, checkpoint=ckmgr,
+                               max_seconds=args.max_seconds)
+    except (ValueError, OSError, KeyhuntError) as e:
         log.error(str(e))
         return 2
-    progress = 0 if args.quiet else 16
-    if minikeys:
-        found = eng.search(max_chunks=args.max_chunks or (1 << 30), stop_on_first=not args.all,
-                           progress_every=progress, max_seconds=args.max_seconds)
-    else:
-        max_steps = None if args.max_chunks is None else args.max_chunks * args.chunk_steps
-        found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
-                           progress_every=progress, max_seconds=args.max_seconds)
     log.plus(f"{eng.stats.human()} ({eng.stats.keys_covered:.3e} keys)")
     for f in found:
         write_found_key(f)

@@ -31,6 +31,7 @@ import torch
 
 from .. import _build
 from ..field import fe
+from ..ref import ecref
 from .tables import gtable_np
 
 # K6's lanes per scalar: csrc/ladder.cu's kLadderSplit, chosen with its other
@@ -186,3 +187,17 @@ def scalar_mult_tiles(k: torch.Tensor, gtx: torch.Tensor, gty: torch.Tensor):
 
 
 scalar_mult_tiles.launches = 0
+
+
+def scalar_mult_points(ks, gtx: torch.Tensor, gty: torch.Tensor):
+    """k*G for each python int of ks (reduced mod N) as ecref points (None
+    for infinity): one scalar_mult_tiles call on the tables' device, its
+    irregular lanes recomputed exactly by ecref. The engines' batched
+    host check of candidate keys."""
+    ks = [k % ecref.N for k in ks]
+    k = torch.from_numpy(np.stack([fe.int_to_limbs(v) for v in ks], axis=1).view(np.int32))
+    x, y, inf, irr = (t.cpu().numpy() for t in scalar_mult_tiles(k.to(gtx.device), gtx, gty))
+    x, y = x.view(np.uint32), y.view(np.uint32)
+    return [ecref.scalar_mult(v) if irr[j] else None if inf[j]
+            else (fe.limbs_to_int(x[:, j]), fe.limbs_to_int(y[:, j]))
+            for j, v in enumerate(ks)]

@@ -1,21 +1,25 @@
 """Brute-force scanning engine: address / rmd160 / xpoint / eth.
 
-Port of keyhuntm1cpu_tpu/engine/brute.py without checkpoints and vanity
-intervals. The path is chosen by the target set alone, never by the
-device:
+Port of keyhuntm1cpu_tpu/engine/brute.py with its vanity intervals and
+position checkpoints. The path is chosen by the target set alone, never by
+the device:
 
 - **Fused path** (``_search_fused``; the JAX package's ``_init_fast`` and
   ``_search_pallas``), for up to bucket_max exact targets: one chunk walks
   K device steps of U consecutive stride-spaced keys from a single chain
   (curve/pbrute.py: K1 advance chain, K4 walk + hash + membership,
-  compaction) and returns one packed summary. Up to compare_max targets
-  are point intervals compared in the kernel; larger sets go to the
-  lane-bucketed table. U must be a multiple of 128.
+  compaction) and returns one packed summary. Exact targets are point
+  intervals and vanity prefixes real 64-bit [lo, hi] ranges of one
+  compare, up to compare_max entries together; past that, exact targets
+  go to the lane-bucketed table and the intervals alone stay in the
+  compare. U must be a multiple of 128. Interval hits are checked against
+  their base58 prefixes on the host; on the card the chunk's candidate
+  keys first go through one K6 batch (curve/pladder.scalar_mult_points).
 - **Walker path** (``_search_walker``; the JAX package's XLA fallback,
   ``_brute_chunk_impl`` and its ``search``), past bucket_max targets, for
   a U that is not a positive multiple of 128 (the JAX engine's "shapes
   untiled"), or for any set with compare_max = bucket_max = 0 (the JAX
-  pallas="off"): W
+  pallas="off"; intervals have no walker path): W
   walkers each own a slice of the range; a device step moves every walker
   by a window of 2U+1 keys around its center (curve/walk.py: one batched
   inversion), hashes every point (hash/phash.py kernels, or the raw x in
@@ -58,7 +62,8 @@ import numpy as np
 import torch
 
 from ..core.log import get_logger
-from ..curve import pbrute, pwalk, tables, walk
+from ..core.checkpoint import Checkpoint, fingerprint
+from ..curve import pbrute, pladder, pwalk, tables, walk
 from ..curve.points import PointBatch, point_batch_from_ints
 from ..field import fe
 from ..filter import bitmap as bmp
@@ -70,6 +75,7 @@ from .common import Deadline, FoundKey, SearchStats, summary_to_host
 
 # lambda^e factors for GLV endomorphism key reconstruction (keyhunt.cpp:2800-2851)
 _LAM_POW = (1, ecref.LAMBDA, ecref.LAMBDA * ecref.LAMBDA % ecref.N)
+_UNSET = object()  # _verify's point argument when the caller has none
 
 
 @dataclass(frozen=True)
@@ -111,13 +117,19 @@ def _limbs(v: int, device) -> torch.Tensor:
 class BruteEngine:
     def __init__(self, targets: TargetSet, range_start: int, range_end: int,
                  mode: str = "rmd160", params: BruteParams = BruteParams(),
-                 device="cuda"):
+                 device="cuda", intervals=None, prefixes=None):
+        """intervals: [(lo20, hi20)] hash160 bounds (engine/vanity.py), which
+        compose with the exact targets in one scan (the reference's -v beside
+        address mode); prefixes: the base58 prefixes an interval hit's
+        address is checked against on the host."""
         if mode not in ("xpoint", "rmd160", "address", "address_u", "eth",
                         "rmd160_both"):
             raise ValueError(f"bad mode {mode}")
         if not (1 <= range_start < range_end <= ecref.N):
             raise ValueError("bad range")
-        if not len(targets.raw):
+        self.intervals = list(intervals or [])
+        self.prefixes = list(prefixes or [])
+        if not len(targets.raw) and not self.intervals:
             raise ValueError("no targets")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
@@ -127,7 +139,7 @@ class BruteEngine:
         p = params
         if p.stride < 1:
             raise ValueError("stride must be >= 1")
-        n_exact = len(targets.raw)
+        n_exact, n_iv = len(targets.raw), len(self.intervals)
         self.mode = "rmd160" if mode == "address" else mode
         self.targets = targets
         # first occurrence wins on duplicate targets
@@ -142,11 +154,20 @@ class BruteEngine:
             mult *= 3
         self.stats.multiplier = mult
         self._parities = {"rmd160": 2, "rmd160_both": 3}.get(self.mode, 1)
+        smem_ok = n_exact + n_iv <= p.compare_max
+        # large exact sets: the lane-bucketed table; the intervals stay in
+        # the compare, so they alone must fit its budget
+        self._bucketed = not smem_ok and n_iv <= p.compare_max and n_exact <= p.bucket_max
         untiled = p.block_u % pbrute.LANES != 0 or p.block_u < pbrute.LANES
-        self._walker = n_exact > p.bucket_max or untiled
+        self._walker = untiled or not (smem_ok or self._bucketed)
         if self._walker:
+            if n_iv:
+                raise ValueError(
+                    "interval membership (vanity prefixes) needs the fused path: at most "
+                    f"{p.compare_max} intervals, {p.bucket_max} exact targets and a "
+                    f"block_u that is a multiple of {pbrute.LANES}")
             get_logger().warn(
-                f"brute fused-kernel path disabled (target set {n_exact} > "
+                f"brute fused-kernel path disabled (target set {n_exact}+{n_iv} > "
                 f"{p.compare_max} (bucketed cap {p.bucket_max}) or shapes untiled): "
                 "the walker path runs instead")
             self._init_walker()
@@ -164,21 +185,36 @@ class BruteEngine:
         self.adv_y = _limbs(adv[1], self.device)
         self.adv_tab = pwalk.adv_multiples(adv, p.steps_per_chunk, self.device)
 
-        # exact targets: point intervals, or the bucketed table past compare_max
-        self._bucketed = n_exact > p.compare_max
+        # membership = 64-bit big-endian intervals: exact targets as point
+        # intervals (or the bucketed table past compare_max), vanity
+        # prefixes as real ranges
         vals = [self._cmp64(r) for r in self.targets.raw]
-        if self._bucketed:
+        lo64 = [] if self._bucketed else list(vals)
+        hi64 = list(lo64)
+        for lo20, hi20 in self.intervals:
+            lo64.append(int.from_bytes(lo20[:8], "big"))
+            hi64.append(int.from_bytes(hi20[:8], "big"))
+        if not lo64:
             # one impossible interval (lo > hi) keeps the kernel uniform
-            tgt = pbrute.pack_intervals([1], [0])
+            lo64, hi64 = [1], [0]
+        if self._bucketed:
             btab = pbrute.pack_buckets(vals)
             self._btab = torch.from_numpy(btab.view(np.int32)).to(self.device)
             self._n_bucket_rows = self._btab.shape[0]
         else:
-            tgt = pbrute.pack_intervals(vals, vals)
             self._btab = torch.zeros((8, pbrute.LANES), dtype=torch.int32,
                                      device=self.device)
             self._n_bucket_rows = 0
-        self._tgt = torch.from_numpy(tgt.view(np.int32)).to(self.device)
+        self._tgt = torch.from_numpy(pbrute.pack_intervals(lo64, hi64).view(np.int32)).to(
+            self.device)
+        # interval hits are true hits about as often as the intervals cover
+        # hash160 space (~1.9 a chunk for a 5-character prefix at U = 16384,
+        # K = 256), too many for a host scalar mult each: on the card their
+        # keys go through one K6 batch a chunk, on a stream of its own
+        self._k6 = None
+        if self.intervals and self.device.type == "cuda":
+            self._k6 = pladder.gtable_tensors(self.device)
+            self._k6_stream = torch.cuda.Stream(self.device, priority=-1)
 
         # lattice-shift edge: base(0) = a - stride would be the point at
         # infinity when a == stride; shift by one stride, host-verify key a
@@ -245,20 +281,74 @@ class BruteEngine:
         return self._fast_a + j * self.stride
 
     def search(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
-               progress_every: int = 0,
+               progress_every: int = 0, checkpoint=None,
                max_seconds: Optional[float] = None) -> List[FoundKey]:
         """Scan up to max_steps device steps (per walker on the walker path);
-        max_seconds stops dispatch at the first chunk boundary past it."""
+        max_seconds stops dispatch at the first chunk boundary past it.
+        checkpoint: a core.checkpoint.CheckpointManager; the run resumes
+        past its saved position and saves the exactly decoded one."""
         fn = self._search_walker if self._walker else self._search_fused
-        return fn(max_steps, stop_on_first, progress_every, max_seconds)
+        return fn(max_steps, stop_on_first, progress_every, checkpoint, max_seconds)
+
+    # ------------------------------------------------------------------
+    # checkpoints (the JAX engine's units: device steps decoded in order,
+    # chunks decoded with -R)
+    # ------------------------------------------------------------------
+
+    def _ckpt_load(self, checkpoint):
+        """Load or create this run's position checkpoint -> (ck, units)."""
+        p = self.p
+        params_fp = fingerprint(self.mode, p.block_u, p.steps_per_chunk, self.stride, p.endo,
+                                p.walkers, p.random_mode, p.seed, not self._walker)
+        targets_fp = fingerprint(sorted(self.targets.raw), sorted(self.intervals),
+                                 sorted(self.prefixes))
+        policy = "random" if p.random_mode else "sequential"
+        ck = checkpoint.load()
+        if ck is not None:
+            checkpoint.matches(ck, mode=f"brute:{self.mode}", range_start=self.a,
+                               range_end=self.b, policy=policy, seed=p.seed,
+                               params_fp=params_fp, targets_fp=targets_fp)
+            self.stats.add(ck.keys_covered)
+            return ck, ck.chunks_done
+        return Checkpoint(mode=f"brute:{self.mode}", range_start=self.a, range_end=self.b,
+                          policy=policy, seed=p.seed, params_fp=params_fp,
+                          targets_fp=targets_fp), 0
+
+    @staticmethod
+    def _ckpt_save(mgr, ck, units, stats, found, new_found, force=False):
+        if mgr is None:
+            return
+        ck.chunks_done = units
+        ck.keys_covered = stats.keys_covered
+        if new_found:
+            ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
+        mgr.save(ck, force=force or bool(new_found))
+
+    def _reverify_saved(self, ck, existing: List[FoundKey]) -> List[FoundKey]:
+        """The keys an interrupted run saved, verified again: the resumed run
+        skips their chunks, and the caller writes found keys from the return
+        value only. Keys already in `existing` are skipped."""
+        have = {f.private_key for f in existing}
+        out: List[FoundKey] = []
+        for h in ck.found:
+            f = self._verify(int(h, 16))
+            if f is not None and f.private_key not in have:
+                have.add(f.private_key)
+                out.append(f)
+        return out
+
+    # ------------------------------------------------------------------
+    # fused path
+    # ------------------------------------------------------------------
 
     def _search_fused(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
-                      progress_every: int = 0,
+                      progress_every: int = 0, checkpoint=None,
                       max_seconds: Optional[float] = None) -> List[FoundKey]:
         """Scan up to max_steps device steps; up to pipeline_depth chunks are
         in flight, the walk state chains on the device and only summaries
         come back (pinned, non-blocking). max_seconds stops dispatch at the
-        first chunk boundary past the deadline."""
+        first chunk boundary past the deadline. Progress is saved for
+        decoded chunks only, never for the ones in flight."""
         p = self.p
         dl = Deadline(max_seconds)
         U, K = p.block_u, p.steps_per_chunk
@@ -285,13 +375,26 @@ class BruteEngine:
         group_left = 0  # chunks left on the current random base
         s_next = 0  # continuation step on the current base
         n_chunks = math.ceil(total / K) if total else 0
-        chunks_done = 0
+        ck, resumed = None, 0
+        if checkpoint is not None:
+            ck, resumed = self._ckpt_load(checkpoint)
+            for fk in self._reverify_saved(ck, found):
+                take(fk)
         pending: deque = deque()
         disp_step = 0  # next step to dispatch (sequential order)
         disp_chunks = 0  # chunks dispatched (random order)
+        if rng is not None:
+            # replay the consumed draws (one per base group; a resumed run
+            # starts a fresh group)
+            for _ in range(math.ceil(resumed / cpb)):
+                rng.integers(0, max(1, self._fast_total_steps - K + 1))
+            chunks_done = disp_chunks = min(resumed, n_chunks)
+        else:
+            disp_step = min(resumed, total)
+            chunks_done = disp_step // K
         px = py = None
-        if rng is None and total:
-            px, py = self._fast_base(0)
+        if rng is None and disp_step < total:
+            px, py = self._fast_base(disp_step)
 
         def can_dispatch() -> bool:
             if dl.expired():
@@ -329,10 +432,15 @@ class BruteEngine:
                 if ev is not None:
                     ev.synchronize()
                 k_eff, new_found = self._decode_fast(step0, host.numpy())
+            n_before = len(found)
             for fk in new_found:
                 take(fk)
             self.stats.add(max(0, min(k_eff, total - step0)) * U)
             chunks_done += 1
+            units = chunks_done if rng is not None else step0 + k_eff
+            self._ckpt_save(checkpoint, ck, units, self.stats, found, len(found) > n_before,
+                            force=not pending and not can_dispatch()
+                            or bool(found and stop_on_first))
             if found and stop_on_first:
                 return found
             if rng is None and k_eff < K:
@@ -360,6 +468,7 @@ class BruteEngine:
         found: List[FoundKey] = []
         if ncand > C:
             found += self._host_rescan_fast(step0, k_eff)
+        cands = []  # candidate scalars, one a hit bit, then degenerate lanes
         for c in np.nonzero(pos < K * U)[0]:
             s_local, u0 = divmod(int(pos[c]), U)
             j = (step0 + s_local) * U + u0
@@ -369,10 +478,7 @@ class BruteEngine:
             b, q = int(bits[c]), 0
             while b:
                 if b & 1:
-                    e = q // self._parities
-                    fk = self._verify(key * _LAM_POW[e] % ecref.N)
-                    if fk:
-                        found.append(fk)
+                    cands.append(key * _LAM_POW[q // self._parities] % ecref.N)
                 b >>= 1
                 q += 1
         for s_local in np.nonzero(n_deg > 0)[0]:
@@ -384,10 +490,24 @@ class BruteEngine:
                 continue
             j = (step0 + s_local) * U + int(first_deg[s_local])
             if j < self._fast_total_idx:
-                fk = self._verify(self._fast_key(j))
-                if fk:
-                    found.append(fk)
-        return k_eff, found
+                cands.append(self._fast_key(j))
+        return k_eff, found + self._verify_all(cands)
+
+    def _verify_all(self, cands: Sequence[int]) -> List[FoundKey]:
+        """_verify of each candidate. An engine with intervals on the card
+        first computes the candidates' points in one K6 batch, on a stream
+        of its own so that it does not queue behind the chunks in flight."""
+        pts = {}
+        if cands and self._k6 is not None:
+            uniq = sorted({k % ecref.N for k in cands})
+            with torch.cuda.stream(self._k6_stream):
+                pts = dict(zip(uniq, pladder.scalar_mult_points(uniq, *self._k6)))
+        out = []
+        for k in cands:
+            fk = self._verify(k, 0, pts.get(k % ecref.N, _UNSET))
+            if fk:
+                out.append(fk)
+        return out
 
     def _host_rescan_fast(self, step0: int, k: int) -> List[FoundKey]:
         """Exact host rescan of k device steps (python-int walk, per-key
@@ -418,7 +538,9 @@ class BruteEngine:
                         arts.append(hashref.pubkey_to_hash160((xv, y), compressed=False))
                     elif self.mode == "eth":
                         arts = [hashref.pubkey_to_eth_address((xv, y))]
-                    if any(a in rawset for a in arts):
+                    if any(a in rawset for a in arts) or any(
+                            lo20[:8] <= a[:8] <= hi20[:8]
+                            for a in arts for lo20, hi20 in self.intervals):
                         fk = self._verify(kk * _LAM_POW[e] % ecref.N)
                         if fk:
                             found.append(fk)
@@ -490,10 +612,11 @@ class BruteEngine:
         return cx, cy, out
 
     def _search_walker(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
-                       progress_every: int = 0,
+                       progress_every: int = 0, checkpoint=None,
                        max_seconds: Optional[float] = None) -> List[FoundKey]:
-        """The JAX walker search without checkpoints: one chunk of K steps
-        in flight, its summary read back and decoded before the next."""
+        """The JAX walker search: one chunk of K steps in flight, its summary
+        read back and decoded before the next; the checkpoint counts device
+        steps per walker."""
         p = self.p
         dl = Deadline(max_seconds)
         total = self.steps_per_walker if max_steps is None else min(self.steps_per_walker,
@@ -510,11 +633,24 @@ class BruteEngine:
         if rng is not None and p.seq_per_base:
             cpb = max(1, math.ceil(p.seq_per_base / (K * npts)))
         chunks_since_base = 0
-        bases = self._sequential_bases(0)
+        ck = None
+        if checkpoint is not None:
+            ck, resumed = self._ckpt_load(checkpoint)
+            found += self._reverify_saved(ck, found)
+            seen.update(f.private_key for f in found)
+            if rng is not None:
+                for _ in range(math.ceil((resumed // K) / cpb)):
+                    rng.integers(0, max(1, self.total_steps - K), size=W)
+            step = min(resumed, total)
+        bases = self._sequential_bases(step)
         ctr = self._centers_for_bases(bases)
         cx, cy = ctr.x, ctr.y
+        n_found_saved = 0
         while step < total:
             if dl.expired():
+                # stop at the chunk boundary and save the exactly covered
+                # position (a resumed run re-enters here)
+                self._ckpt_save(checkpoint, ck, step, self.stats, found, False, force=True)
                 break
             k = min(K, total - step)
             if rng is not None:
@@ -578,6 +714,9 @@ class BruteEngine:
             rebase = bool(adv_deg[:k].any())
             self.stats.add(k * W * npts)
             step += K
+            self._ckpt_save(checkpoint, ck, step, self.stats, found,
+                            len(found) > n_found_saved, force=step >= total)
+            n_found_saved = len(found)
             if rng is None or chunks_since_base % cpb != 0:
                 # the next chunk's bases (sequential scan, or a -n group
                 # continuing on the same random bases)
@@ -626,17 +765,29 @@ class BruteEngine:
                     (hashref.pubkey_to_hash160(pt, compressed=False), False)]
         return [(hashref.pubkey_to_eth_address(pt), True)]  # eth
 
-    def _verify(self, k: int, row: int = 0) -> Optional[FoundKey]:
-        """Exact host check of candidate scalar k and its negation. row (the
-        device's table row of a walker candidate) is not needed: the
+    def _verify(self, k: int, row: int = 0, pt=_UNSET) -> Optional[FoundKey]:
+        """Exact host check of candidate scalar k, then of its negation:
+        exact targets first, then (interval hits) the vanity prefixes, in
+        every mode but xpoint. One scalar mult serves both, since (N - k)*G
+        is the negation of k*G; pt: (k mod N)*G when the caller has it. row
+        (the device's table row of a walker candidate) is not needed: the
         artifact's exact bytes find the target."""
-        for cand in (k, ecref.N - (k % ecref.N)):
+        kk = k % ecref.N
+        if pt is _UNSET:
+            pt = ecref.scalar_mult(kk) if kk else None
+        if pt is None:
+            return None
+        for cand, cpt in ((k, pt), (ecref.N - kk, ecref.point_neg(pt))):
             if not (1 <= cand < ecref.N):
                 continue
-            pt = ecref.scalar_mult(cand)
-            for got, compressed in self._artifacts(pt):
+            for got, compressed in self._artifacts(cpt):
                 i = self._raw_index.get(got)
                 if i is not None:
-                    return FoundKey(private_key=cand, pubkey=pt, compressed=compressed,
+                    return FoundKey(private_key=cand, pubkey=cpt, compressed=compressed,
                                     target=self.targets.labels[i])
+                if self.prefixes and self.mode != "xpoint":
+                    addr = hashref.b58check_encode(b"\x00" + got)
+                    if any(addr.startswith(pref) for pref in self.prefixes):
+                        return FoundKey(private_key=cand, pubkey=cpt, compressed=compressed,
+                                        target=addr)
         return None

@@ -1,7 +1,8 @@
 """Baby-Step Giant-Step engine, host-resolve mode, on PyTorch + CUDA.
 
-Port of keyhuntm1cpu_tpu/engine/bsgs.py (host-resolve, sequential order).
-Index algebra is the JAX package's:
+Port of keyhuntm1cpu_tpu/engine/bsgs.py (host-resolve), with its five range
+orders and position checkpoints (``search_scheduled``). Index algebra is
+the JAX package's:
 
 - stride = 2m. Centers c_i = a + m + i*stride tile the range [a, b).
 - The device keeps only two probabilistic filters over the m baby keys
@@ -18,6 +19,12 @@ Index algebra is the JAX package's:
   overflowed or the walk state became invalid.
 
 Every giant step covers `stride` keys, so keys/s = steps/s * U * stride.
+
+Range orders (``chunk_order``: sequential, backward, both, random, dance)
+permute the chunks of K steps. A chunk that follows its predecessor in the
+range takes the walk state the card left; any other starts from a base the
+host computes exactly, ahead of dispatch, from a table of 2^i chunk
+strides (``_scheduled_bases``), for the next pipeline_depth chunks at once.
 """
 
 from __future__ import annotations
@@ -33,6 +40,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from ..core.checkpoint import Checkpoint, fingerprint
 from ..core.log import get_logger
 from ..curve import pwalk, tables
 from ..field import fe
@@ -98,6 +106,41 @@ class _ImmediateHit(Exception):
 
 def _limbs(v: int, device) -> torch.Tensor:
     return torch.from_numpy(fe.int_to_limbs(v).view(np.int32)).to(device)
+
+
+def _jac_madd(X1: int, Y1: int, Z1: int, x2: int, y2: int):
+    """Jacobian (X1, Y1, Z1) + affine (x2, y2) over F_p (madd-2007-bl; Z1
+    == 0 is the point at infinity). None where h == 0 (a doubling or a sum
+    at infinity), which the caller settles with ecref."""
+    P = ecref.P
+    if Z1 == 0:
+        return x2, y2, 1
+    z1z1 = Z1 * Z1 % P
+    h = (x2 * z1z1 - X1) % P
+    if h == 0:
+        return None
+    hh = h * h % P
+    i = 4 * hh % P
+    j = h * i % P
+    r = 2 * (y2 * Z1 * z1z1 - Y1) % P
+    v = X1 * i % P
+    X3 = (r * r - j - 2 * v) % P
+    return X3, (r * (v - X3) - 2 * Y1 * j) % P, ((Z1 + h) ** 2 - z1z1 - hh) % P
+
+
+def _batch_inv(vals: Sequence[int]) -> List[int]:
+    """Inverses mod p of non-zero vals with one exponentiation (Montgomery)."""
+    P = ecref.P
+    pre, acc = [], 1
+    for v in vals:
+        acc = acc * v % P
+        pre.append(acc)
+    inv = pow(acc, -1, P) if vals else 1
+    out = [0] * len(vals)
+    for n in range(len(vals) - 1, -1, -1):
+        out[n] = inv * pre[n - 1] % P if n else inv
+        inv = inv * vals[n] % P
+    return out
 
 
 def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
@@ -185,6 +228,7 @@ class BSGSEngine:
         self.C1, self.C2 = self._cascade_budgets(
             T * self.p.steps_per_chunk * U)
         self.adv_tab = pwalk.adv_multiples(big, self.p.steps_per_chunk, self.device)
+        self._rebase_tab = None  # _scheduled_bases' host table, built on first use
 
     # ------------------------------------------------------------------
     # streaming filter build
@@ -433,6 +477,217 @@ class BSGSEngine:
                             found += self._try_candidates_all([hit2.scalar])
             if progress_every and n_done % progress_every == 0:
                 print(f"[bsgs] step {step + K}/{end_step} {self.stats.human()}")
+        return self._dedupe_found(found)
+
+    # ------------------------------------------------------------------
+    # range orders and checkpoints
+    # ------------------------------------------------------------------
+
+    def chunk_order(self, policy: str = "sequential", seed: int = 0) -> List[int]:
+        """The chunk order of a range policy (the reference's five BSGS
+        sub-schedulers), a pure function of (policy, seed, n_chunks): a
+        resumed run derives the same order, so a checkpoint stores only how
+        many chunks of it are done. Python's random.Random(seed), exactly as
+        the JAX engine draws it."""
+        import random as _random
+
+        n_chunks = math.ceil(self.n_steps / self.p.steps_per_chunk)
+        order = list(range(n_chunks))
+        if policy == "sequential":
+            pass
+        elif policy == "backward":
+            order.reverse()
+        elif policy == "both":
+            front, back = 0, n_chunks - 1
+            order = []
+            rng = _random.Random(seed)
+            while front <= back:
+                if rng.random() < 0.5:
+                    order.append(front)
+                    front += 1
+                else:
+                    order.append(back)
+                    back -= 1
+        elif policy == "random":
+            rng = _random.Random(seed)
+            rng.shuffle(order)
+        elif policy == "dance":
+            # random alternation over front / back / middle
+            rng = _random.Random(seed)
+            remaining = set(order)
+            order = []
+            while remaining:
+                pool = sorted(remaining)
+                pick = rng.choice(("front", "back", "middle"))
+                if pick == "front":
+                    c = pool[0]
+                elif pick == "back":
+                    c = pool[-1]
+                else:
+                    c = pool[len(pool) // 2]
+                order.append(c)
+                remaining.remove(c)
+        else:
+            raise ValueError(f"unknown policy {policy}")
+        return order
+
+    def _scheduled_bases(self, chunks: Sequence[int]) -> Dict[int, object]:
+        """Walk bases of the given chunks, exactly _initial_base(c*K) each,
+        as {chunk: (px, py)} or {chunk: _ImmediateHit}. The offset -c_base*G
+        of chunk c is O0 + c*E (O0 = chunk 0's, E = -(K*U*stride)*G): a sum
+        over c's bits from a host table of 2^i*E in Jacobian coordinates,
+        then each target added and every point brought to affine with one
+        inversion for all. A sum that meets h == 0 (a doubling, or the
+        point at infinity) goes through _initial_base instead."""
+        p = self.p
+        K, P = p.steps_per_chunk, ecref.P
+        n_chunks = math.ceil(self.n_steps / K)
+        if self._rebase_tab is None:
+            e = ecref.point_neg(ecref.scalar_mult(K * p.block_u * self.stride))
+            tab = []
+            for _ in range(max(1, n_chunks.bit_length())):
+                tab.append(e)
+                e = ecref.point_double(e)
+            c0 = self.a + p.m - self.stride  # c_base(0)
+            self._rebase_tab = (ecref.scalar_mult((-c0) % ecref.N), tab)
+        o0, tab = self._rebase_tab
+        jac: Dict[int, list] = {}
+        out: Dict[int, object] = {}
+        for c in chunks:
+            acc = (o0[0], o0[1], 1) if o0 is not None else (0, 1, 0)
+            for i in range(c.bit_length()):
+                if acc is not None and c >> i & 1:
+                    acc = _jac_madd(*acc, *tab[i])
+            pts = None if acc is None else [_jac_madd(*acc, *q) for q in self.targets]
+            if pts is None or not all(pts):
+                try:
+                    out[c] = self._initial_base(c * K)
+                except _ImmediateHit as hit:
+                    out[c] = hit
+            else:
+                jac[c] = pts
+        zinv = iter(_batch_inv([pt[2] for pts in jac.values() for pt in pts]))
+        limbs = np.empty((len(jac), 2, len(self.targets), 8), dtype=np.uint32)
+        for n, pts in enumerate(jac.values()):
+            for t, (X, Y, _) in enumerate(pts):
+                zi = next(zinv)
+                zi2 = zi * zi % P
+                limbs[n, 0, t] = fe.int_to_limbs(X * zi2 % P)
+                limbs[n, 1, t] = fe.int_to_limbs(Y * zi2 * zi % P)
+        if jac:
+            # one copy from pinned memory that does not wait for the chunks
+            # in flight (a pageable one would drain the stream first)
+            host = torch.from_numpy(limbs.view(np.int32))
+            dev = (host.pin_memory().to(self.device, non_blocking=True)
+                   if self.device.type == "cuda" else host)
+            out.update((c, (dev[n, 0], dev[n, 1])) for n, c in enumerate(jac))
+        return out
+
+    def search_scheduled(self, policy: str = "sequential", seed: int = 0,
+                         max_chunks: Optional[int] = None, stop_on_first: bool = True,
+                         progress_every: int = 0, checkpoint=None,
+                         max_seconds: Optional[float] = None) -> List[FoundKey]:
+        """The giant-step scan over chunk_order(policy, seed), the JAX
+        engine's search_scheduled: up to pipeline_depth chunks in flight. A
+        chunk right after its predecessor in the range continues the walk
+        state on the card (all of them under "sequential"); any other starts
+        from a base the host computes ahead (_scheduled_bases). A base at a
+        target's key (_ImmediateHit) is recorded and its chunk rescanned on
+        the host. checkpoint: a core.checkpoint.CheckpointManager; it
+        counts the chunks of the order done, and a resumed run reports the
+        keys the saved one found."""
+        p = self.p
+        K, U = p.steps_per_chunk, p.block_u
+        dl = Deadline(max_seconds)
+        order = self.chunk_order(policy, seed)
+        resume_from = 0
+        ck = None
+        found: List[FoundKey] = []
+        if checkpoint is not None:
+            params_fp = fingerprint(p.m, p.block_u, p.steps_per_chunk)
+            targets_fp = fingerprint(sorted(self.targets))
+            ck = checkpoint.load()
+            if ck is not None:
+                checkpoint.matches(ck, mode="bsgs", range_start=self.a, range_end=self.b,
+                                   policy=policy, seed=seed, params_fp=params_fp,
+                                   targets_fp=targets_fp)
+                resume_from = ck.chunks_done
+                self.stats.add(ck.keys_covered)
+                found = self._try_candidates_all([int(h, 16) for h in ck.found])
+            else:
+                ck = Checkpoint(mode="bsgs", range_start=self.a, range_end=self.b,
+                                policy=policy, seed=seed, params_fp=params_fp,
+                                targets_fp=targets_fp, n_chunks=len(order))
+        if max_chunks is not None:
+            order = order[: resume_from + max_chunks]
+
+        pending: deque = deque()
+        disp_i = resume_from
+        chain = None  # (chunk, next_x, next_y): the last dispatched walk state
+        ahead: Dict[int, object] = {}
+
+        def dispatch_upto(limit: int) -> None:
+            nonlocal disp_i, chain
+            while disp_i < len(order) and len(pending) < limit and not dl.expired():
+                c = order[disp_i]
+                if chain is not None and chain[0] == c - 1:
+                    base = chain[1:]
+                else:
+                    if c not in ahead:
+                        ahead.update(self._scheduled_bases(
+                            [order[j] for j in range(disp_i, min(len(order),
+                                                                 disp_i + p.pipeline_depth))
+                             if j == disp_i or order[j] != order[j - 1] + 1]))
+                    base = ahead.pop(c)
+                if isinstance(base, _ImmediateHit):
+                    pending.append((disp_i, c * K, base.scalar))
+                    chain = None
+                else:
+                    nx, ny, outs = self._chunk_fn(*base)
+                    pending.append((disp_i, c * K, summary_to_host(outs)))
+                    chain = (c, nx, ny)
+                disp_i += 1
+
+        for i in range(resume_from, len(order)):
+            dispatch_upto(p.pipeline_depth)
+            if not pending:
+                # the deadline cut dispatch: save the exact position
+                if ck is not None:
+                    checkpoint.save(ck, force=True)
+                break
+            idx, step0, outs = pending.popleft()
+            assert idx == i, (idx, i)
+            k = min(K, self.n_steps - step0)
+            if isinstance(outs, int):
+                # the chunk at a target's key was never walked on the card:
+                # record the key and rescan the chunk on the host
+                new_found = self._try_candidates_all([outs])
+                for s_ in range(step0, step0 + k):
+                    new_found += self._host_rescan_step(s_)
+            else:
+                host, ev = outs
+                if ev is not None:
+                    ev.synchronize()
+                new_found, rebase, _ = self._consume_summary(step0, k, host.numpy())
+                if rebase:
+                    # an advance lane degenerated: a chunk chained on this
+                    # one walks invalid state; dispatch the rest again
+                    pending.clear()
+                    disp_i, chain = i + 1, None
+            self.stats.add(k * U * self.stride)
+            if new_found:
+                found = self._dedupe_found(found + new_found)
+            if ck is not None:
+                ck.chunks_done = i + 1
+                ck.keys_covered = self.stats.keys_covered
+                if new_found:
+                    # saved at once: a resumed run skips this chunk
+                    ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
+                checkpoint.save(ck, force=bool(new_found) or i + 1 == len(order))
+            if found and stop_on_first and new_found:
+                return found
+            if progress_every and i % progress_every == 0:
+                print(f"[bsgs:{policy}] chunk {i}/{len(order)} {self.stats.human()}")
         return self._dedupe_found(found)
 
     @staticmethod

@@ -1,5 +1,5 @@
-"""Shared engine machinery: found keys, exact verification, deadline, stats,
-summary copies.
+"""Shared engine machinery: found keys, exact verification, deadline and
+stop flag, stats, summary copies.
 
 Copy of the pure-Python parts of keyhuntm1cpu_tpu/engine/common.py, without
 its metrics registry (the port serves no metrics endpoint). Found keys are appended to
@@ -53,15 +53,63 @@ def write_found_key(found: FoundKey, path: str = "KEYFOUNDKEYFOUND.txt") -> None
 
 class Deadline:
     """Wall-clock bound for a search loop (None = unbounded; 0 expires
-    at once, so nothing dispatches)."""
+    at once, so nothing dispatches). Also honours the process-wide stop
+    flag of request_stop(): a stopped search ends at its next chunk
+    boundary and force-saves its checkpoint."""
 
     __slots__ = ("_t",)
+    _stop = False  # process-wide, set by request_stop()
 
     def __init__(self, max_seconds: Optional[float]):
         self._t = None if max_seconds is None else time.time() + max_seconds
 
     def expired(self) -> bool:
+        if Deadline._stop:
+            return True
         return self._t is not None and time.time() >= self._t
+
+
+def request_stop() -> None:
+    """Ask every running search loop to stop at its next chunk boundary."""
+    Deadline._stop = True
+
+
+def clear_stop() -> None:
+    Deadline._stop = False
+
+
+def stop_requested() -> bool:
+    """True once request_stop() fired (a search that returned early did so
+    with partial coverage)."""
+    return Deadline._stop
+
+
+def install_stop_handlers(log=None) -> None:
+    """The first SIGTERM or SIGINT asks every search loop to stop at its
+    next chunk boundary (checkpoints force-save, coverage stays exact); a
+    second signal of either kind reaches the previous handlers (an
+    immediate exit). Main thread only (the signal module's rule)."""
+    import signal
+    import threading
+
+    if threading.current_thread() is not threading.main_thread():
+        return
+    if log is None:
+        from ..core.log import get_logger
+
+        log = get_logger()
+    clear_stop()  # a stopped run earlier in this process must not leak
+
+    def handler(signum, frame):
+        request_stop()
+        log.warn(f"stop requested (signal {signum}): finishing current chunk, "
+                 "saving checkpoint; signal again to force quit")
+        for s, h in prev.items():
+            signal.signal(s, h)
+
+    prev = {}
+    for s in (signal.SIGTERM, signal.SIGINT):
+        prev[s] = signal.signal(s, handler)
 
 
 def verify_candidate_scalar(k: int, target_pubkey: Tuple[int, int]) -> Optional[int]:

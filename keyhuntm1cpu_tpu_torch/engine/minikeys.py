@@ -23,6 +23,8 @@ Up to pipeline_depth chunks are in flight; summaries come back through
 pinned non-blocking copies. Every flagged lane is re-verified on the host
 with the exact references (ref/hashref, ref/ecref); a budget overflow
 (more than V valid lanes or HM flagged ones) rescans the chunk on the host.
+A checkpoint (mode "minikeys") saves the prefix and the counter past the
+last decoded chunk; a resumed engine adopts both.
 """
 
 from __future__ import annotations
@@ -35,6 +37,7 @@ from typing import List, Optional
 import numpy as np
 import torch
 
+from ..core.checkpoint import Checkpoint, fingerprint
 from ..curve import pladder
 from ..filter import sorted_table as st
 from ..filter.bitmap import compact_positions
@@ -193,10 +196,9 @@ class MinikeyEngine:
                counter_end: Optional[int] = None) -> List[FoundKey]:
         """Scan from self.counter; counter_end bounds the scan to the counter
         range [self.counter, counter_end). A chunk that would cross a
-        58^5 boundary is clamped back (a tiny overlap, never a gap)."""
-        if checkpoint is not None:
-            raise ValueError("checkpoints are not in this port yet "
-                             "(ROADMAP.md section 1, item 1)")
+        58^5 boundary is clamped back (a tiny overlap, never a gap).
+        checkpoint: a core.checkpoint.CheckpointManager; a saved run's prefix
+        and counter replace this engine's."""
         p = self.p
         dl = Deadline(max_seconds)
         B, V, HM = p.batch, p.valid_max, p.hit_max
@@ -208,8 +210,32 @@ class MinikeyEngine:
                 known.add(fk.private_key)
                 found.append(fk)
 
+        ck = None
+        if checkpoint is not None:
+            # the position (prefix and counter) does not depend on the batch,
+            # so the fingerprint pins only what the scan means
+            params_fp = (fingerprint("minikeys-v2") if self.alphabet == _B58
+                         else fingerprint("minikeys-v2", self.alphabet))
+            targets_fp = fingerprint(sorted(self.targets.raw))
+            ck = checkpoint.load()
+            if ck is not None:
+                checkpoint.matches(ck, mode="minikeys", params_fp=params_fp,
+                                   targets_fp=targets_fp)
+                self.prefix = ck.extra["prefix"]
+                self.counter = int(ck.extra["counter"])
+                self.stats.add(ck.keys_covered)
+                # the saved finds: their span is skipped now
+                for h in ck.found:
+                    for fk in self._reverify_scalar(int(h, 16)):
+                        take(fk)
+            else:
+                ck = Checkpoint(mode="minikeys", range_start=0, range_end=0,
+                                policy="sequential", seed=0, params_fp=params_fp,
+                                targets_fp=targets_fp,
+                                extra={"prefix": self.prefix, "counter": self.counter})
         pending: deque = deque()
         dispatched = decoded = 0
+        n_saved = 0
         while decoded < max_chunks:
             while (dispatched < max_chunks and len(pending) < p.pipeline_depth
                    and not dl.expired()
@@ -222,11 +248,16 @@ class MinikeyEngine:
                     self.counter += B
                 prefix17 = self.prefix + _b58_digits(high, 5, self.alphabet)
                 w22, w23 = self._base_words(prefix17)
-                pending.append((prefix17, low, summary_to_host(self._chunk_fn(low, w22, w23))))
+                pending.append((prefix17, low, self.counter,
+                                summary_to_host(self._chunk_fn(low, w22, w23))))
                 dispatched += 1
             if not pending:
-                break  # deadline or counter_end with nothing in flight
-            prefix17, low, (host, ev) = pending.popleft()
+                # deadline or counter_end with nothing in flight: save the
+                # exact position (a resumed run re-enters here)
+                if ck is not None:
+                    checkpoint.save(ck, force=True)
+                break
+            prefix17, low, counter_after, (host, ev) = pending.popleft()
             if ev is not None:
                 ev.synchronize()
             arr = host.numpy()
@@ -240,6 +271,14 @@ class MinikeyEngine:
                     take(self._verify_minikey(self._minikey_str(prefix17, low, int(lane))))
             self.stats.add(B)
             decoded += 1
+            if ck is not None:
+                ck.chunks_done = decoded
+                ck.keys_covered = self.stats.keys_covered
+                ck.extra = {"prefix": self.prefix, "counter": counter_after}
+                if len(found) > n_saved:
+                    ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
+                checkpoint.save(ck, force=len(found) > n_saved or decoded >= max_chunks)
+                n_saved = len(found)
             if found and stop_on_first:
                 return found
             if progress_every and decoded % progress_every == 0:
@@ -255,6 +294,21 @@ class MinikeyEngine:
             if fk is not None:
                 found.append(fk)
         return found
+
+    def _reverify_scalar(self, k: int) -> List[FoundKey]:
+        """FoundKeys of a checkpoint's saved private key: the hash160 of
+        both forms of its public key against the targets (the minikey
+        itself cannot be recovered from the key)."""
+        if not 1 <= k < ecref.N:
+            return []
+        pt = ecref.scalar_mult(k)
+        out = []
+        for compressed in (False, True):
+            i = self._raw_index.get(hashref.pubkey_to_hash160(pt, compressed=compressed))
+            if i is not None:
+                out.append(FoundKey(private_key=k, pubkey=pt, compressed=compressed,
+                                    target=self.targets.labels[i]))
+        return out
 
     def _verify_minikey(self, mk: str) -> Optional[FoundKey]:
         if hashref.sha256((mk + "?").encode())[0] != 0:

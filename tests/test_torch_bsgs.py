@@ -194,3 +194,90 @@ def test_engine_overflow_rescan(tables, jax_filters, C1, C2):
     jeng = jbsgs.BSGSEngine(pubs, A, 0xA80000, _params(), host_table=tables[1])
     jfound = [f for s in range(jeng.n_steps) for f in jeng._host_rescan_step(s)]
     assert _keys(found) == _keys(jbsgs.BSGSEngine._dedupe_found(jfound)) == [0xA12345]
+
+
+# ---------------------------------------------------------------------------
+# range orders (chunk_order, search_scheduled) and checkpoints
+# ---------------------------------------------------------------------------
+
+B4 = 0xC00000  # 4 chunks of K*U*2m = 2^19 keys
+LATE = 0xBF1234  # in the last chunk (tests/test_host_resolve.py:126)
+POLICIES = ["sequential", "backward", "both", "random", "dance"]
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_chunk_order_matches_jax(policy):
+    """Element for element, for several seeds and chunk counts (a stub
+    engine holds the two attributes chunk_order reads)."""
+    from types import SimpleNamespace
+
+    for n_steps in (1, 4, 7, 64, 1000, 4096 * K):
+        for seed in (0, 1, 3, 12345):
+            stub = SimpleNamespace(n_steps=n_steps, p=SimpleNamespace(steps_per_chunk=K))
+            got = bsgs.BSGSEngine.chunk_order(stub, policy, seed)
+            assert got == jbsgs.BSGSEngine.chunk_order(stub, policy, seed)
+            assert sorted(got) == list(range(-(-n_steps // K)))
+    with pytest.raises(ValueError):
+        bsgs.BSGSEngine.chunk_order(stub, "sideways", 0)
+
+
+@pytest.mark.parametrize("policy", POLICIES)
+def test_search_scheduled_policies_recover_key(tables, jax_filters, policy):
+    """Every range order finds the planted key, as the JAX engine's does
+    (tests/test_bsgs.py:120); the keys covered count each chunk once."""
+    pub = ecref.scalar_mult(LATE)
+    eng = _port_engine([pub], tables, jax_filters, b=B4)
+    found = eng.search_scheduled(policy=policy, seed=3)
+    jeng = jbsgs.BSGSEngine([pub], A, B4, _params(), host_table=tables[1])
+    assert _keys(found) == _keys(jeng.search_scheduled(policy=policy, seed=3)) == [LATE]
+    n_before = eng.chunk_order(policy, 3).index((LATE - A) // (K * U * 2 * M)) + 1
+    assert eng.stats.keys_covered == n_before * K * U * 2 * M
+
+
+def test_scheduled_bases_equal_initial_bases(tables, jax_filters):
+    """The host table's bases equal _initial_base exactly, for two targets,
+    and a target at chunk 2's base center is an _ImmediateHit there."""
+    hit = _center(2 * K, 0)
+    pubs = [ecref.scalar_mult(0xA12345), ecref.scalar_mult(0xB00001)]
+    for targets in (pubs, pubs + [ecref.scalar_mult(hit)]):
+        eng = _port_engine(targets, tables, jax_filters, b=B4)
+        got = eng._scheduled_bases([3, 0, 2, 1])
+        for c in range(4):
+            try:
+                want = eng._initial_base(c * K)
+            except bsgs._ImmediateHit as e:
+                assert isinstance(got[c], bsgs._ImmediateHit) and got[c].scalar == e.scalar == hit
+            else:
+                assert torch.equal(got[c][0], want[0]) and torch.equal(got[c][1], want[1])
+    found = eng.search_scheduled(policy="random", seed=1, stop_on_first=False)
+    assert _keys(found) == sorted([hit, 0xA12345, 0xB00001])
+
+
+@pytest.mark.parametrize("policy", ["sequential", "random"])
+def test_search_scheduled_checkpoint_resume(tables, jax_filters, tmp_path, policy):
+    """Kill and resume (tests/test_bsgs.py:147, tests/test_host_resolve.py:
+    126): the first run does half the order and stops short of the key's
+    chunk; a fresh engine resumes from the file, finds the key once and
+    covers each chunk once. A run of another range raises."""
+    from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointError, CheckpointManager
+
+    pub = ecref.scalar_mult(LATE)
+    seed = next(s for s in range(100) if policy == "sequential" or
+                _port_engine([pub], tables, jax_filters, b=B4).chunk_order(policy, s).index(3) >= 2)
+    mgr = CheckpointManager(str(tmp_path / "ck.json"), every_s=0)
+    eng = _port_engine([pub], tables, jax_filters, b=B4)
+    assert eng.search_scheduled(policy, seed, max_chunks=2, checkpoint=mgr,
+                                stop_on_first=False) == []
+    ck = mgr.load()
+    assert (ck.chunks_done, ck.n_chunks, ck.mode, ck.policy) == (2, 4, "bsgs", policy)
+    assert ck.keys_covered == 2 * K * U * 2 * M
+    eng2 = _port_engine([pub], tables, jax_filters, b=B4)
+    found = eng2.search_scheduled(policy, seed, checkpoint=mgr, stop_on_first=False)
+    assert _keys(found) == [LATE] and mgr.load().found == [f"{LATE:x}"]
+    assert mgr.load().chunks_done == 4 and eng2.stats.keys_covered == 4 * K * U * 2 * M
+    # a resumed finished run reports the saved key again
+    eng3 = _port_engine([pub], tables, jax_filters, b=B4)
+    assert _keys(eng3.search_scheduled(policy, seed, checkpoint=mgr)) == [LATE]
+    other = _port_engine([pub], tables, jax_filters, b=0xF00000)
+    with pytest.raises(CheckpointError):
+        other.search_scheduled(policy, seed, checkpoint=mgr)

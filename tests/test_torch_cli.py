@@ -48,11 +48,13 @@ def test_cli_refusals(workdir, monkeypatch):
     base = ["-f", str(f), "-r", "a00000:b00000", "--device", "cpu", *ARGS]
     assert cli.main(["-m", "minikeys", *base]) == 2  # minikeys takes no -r
     assert cli.main(["-m", "bsgs", "-8", "x" * 58, *base]) == 2  # -8 is for minikeys
-    assert cli.main(["-m", "address", "-v", "1abc", *base]) == 2
+    assert cli.main(["-m", "vanity", "-v", "3abc", *base]) == 2  # P2PKH prefixes start with 1
+    assert cli.main(["-m", "vanity", "--device", "cpu", "-q"]) == 2  # no prefix
     assert cli.main(["-m", "bsgs", "--sharded", *base]) == 2
     assert cli.main(["-m", "bsgs", "-c", "eth", *base]) == 2  # -c eth needs -m address
     assert cli.main(["-m", "address", *base]) == 2  # a pubkey is no address
-    assert cli.main(["-m", "bsgs", "-B", "random", *base]) == 2
+    assert cli.main(["-m", "bsgs", "-B", "sideways", *base]) == 2  # no such range order
+    assert cli.main(["-m", "bsgs", "-S", *base]) == 2
     assert cli.main(["-m", "bsgs", "-b", "24", *base]) == 2  # -r and -b
     assert cli.main(["-m", "bsgs", "-f", str(f), "-q"]) == 2  # no range
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -121,3 +123,78 @@ def test_cli_cpu_minikeys_finds_key(workdir):
             "--device", "cpu", "-q"]
     assert cli.main(args) == 0
     assert f"Private key: {k:064x}" in (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
+
+
+def _found_keys(workdir):
+    out = (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
+    return sorted(int(ln.split()[-1], 16) for ln in out.splitlines()
+                  if ln.startswith("Private key:"))
+
+
+def test_cli_cpu_vanity_mode(workdir):
+    """-m vanity with -v and with a -f prefix file (no floors on the CPU)."""
+    addr = hashref.pubkey_to_address(ecref.scalar_mult(0x155))
+    assert cli.main(["-m", "vanity", "-v", addr[:6], *BRUTE_ARGS]) == 0
+    assert 0x155 in _found_keys(workdir)
+    (workdir / "KEYFOUNDKEYFOUND.txt").unlink()
+    f = workdir / "prefixes.txt"
+    f.write_text(f"\n{addr[:6]}\n")
+    assert cli.main(["-m", "vanity", "-f", str(f), *BRUTE_ARGS]) == 0
+    out = (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
+    assert f"Target: {addr}" in out
+
+
+def test_cli_cpu_vanity_beside_rmd160_targets(workdir):
+    """-v composed with -m rmd160: the exact target and the prefix's key."""
+    f = workdir / "t.rmd"
+    f.write_text(hashref.pubkey_to_hash160(ecref.scalar_mult(0x9)).hex() + "\n")
+    prefix = hashref.pubkey_to_address(ecref.scalar_mult(0x18F))[:6]
+    assert cli.main(["-m", "rmd160", "-f", str(f), "-v", prefix, *BRUTE_ARGS]) == 0
+    assert {0x9, 0x18F} <= set(_found_keys(workdir))
+
+
+def test_cli_bsgs_policy_and_checkpoint(workdir):
+    """-B backward --checkpoint twice (tests/test_cli.py:71): the first run
+    stops after 2 chunks short of the key, the second resumes and finds it."""
+    key = 0xA1B2C3
+    pt = ecref.scalar_mult(key)
+    f = workdir / "t.pub"
+    f.write_text(f"{2 + (pt[1] & 1):02x}{pt[0]:064x}\n")
+    ck = str(workdir / "ck.json")
+    args = ["-m", "bsgs", "-f", str(f), "-r", "a00000:b00000", "--device", "cpu",
+            "-B", "backward", "--checkpoint", ck, *ARGS]
+    assert cli.main(args + ["--max-chunks", "2"]) == 1  # backward starts at the top
+    from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointManager
+
+    saved = CheckpointManager(ck).load()
+    assert (saved.policy, saved.chunks_done) == ("backward", 2)
+    assert cli.main(args) == 0
+    assert _found_keys(workdir) == [key]
+    assert cli.main(args + ["-B", "random"]) == 2  # another order than the saved one
+
+
+@pytest.mark.parametrize("look,mode", [("compress", "rmd160"), ("uncompress", "address_u"),
+                                       ("both", "rmd160_both")])
+def test_cli_vanity_look_mapping(workdir, monkeypatch, look, mode):
+    """-m vanity maps -l to the fused mode (tests/test_cli.py:190); on the
+    card it raises U and K to the JAX CLI's floors."""
+    from keyhuntm1cpu_tpu_torch.engine import brute
+
+    captured = {}
+
+    class Stub:
+        def __init__(self, targets, a, b, mode=None, params=None, device=None, **kw):
+            captured.update(mode=mode, params=params, device=device, **kw)
+            self.p, self.stats = params, brute.SearchStats()
+
+        def search(self, **kw):
+            return []
+
+    monkeypatch.setattr(brute, "BruteEngine", Stub)
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: True)
+    for device, u, k in (("cpu", 128, 2), ("cuda", 4096, 32)):
+        assert cli.main(["-m", "vanity", "-v", "1Love", "-r", "1:100000", "-l", look,
+                         "-u", "128", "--chunk-steps", "2", "--device", device, "-q"]) == 1
+        assert captured["mode"] == mode and captured["device"] == device
+        assert (captured["params"].block_u, captured["params"].steps_per_chunk) == (u, k)
+        assert captured["prefixes"] == ["1Love"] and len(captured["intervals"]) > 0

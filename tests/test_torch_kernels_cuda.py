@@ -8,7 +8,8 @@ blocks, the compaction on the cases of tests/brute_compact_cases.py and at
 the main path's K = 256, U = 16384; K6 at V not a multiple of its
 inversion group, walk_prefix and walk_emit at several chain
 lengths), and the engines (the
-brute walker path included) on CUDA vs the engines on the CPU. K6's other
+brute walker path, vanity and the scheduled BSGS orders included) on CUDA
+vs the engines on the CPU. K6's other
 compile-time shapes are held to their plain version by
 scripts/torch_ladder_shapes.py.
 Needs an NVIDIA GPU and nvcc; skipped without a GPU. Run on the card with
@@ -660,3 +661,56 @@ def test_brute_walker_engine_cuda_matches_cpu(dev, mode):
     assert torch.equal(gs.cpu(), ws) and torch.equal(gx.cpu(), wx) and torch.equal(gy.cpu(), wy)
     found = sorted(f.private_key for f in got.search())
     assert found == sorted(f.private_key for f in want.search()) == keys
+
+
+def test_scalar_mult_points_on_a_side_stream_match_ecref(dev):
+    """The engines' batched host check: K6 on a stream of its own, edge
+    scalars (0, N, N - 1) among 41-bit and 256-bit keys."""
+    gx, gy = pladder.gtable_tensors(dev)
+    ks = [0, 1, ecref.N - 1, ecref.N, (1 << 40) + 12345, (1 << 255) + 7, 0xFF00FF]
+    with torch.cuda.stream(torch.cuda.Stream(dev, priority=-1)):
+        got = pladder.scalar_mult_points(ks, gx, gy)
+    assert got == [ecref.scalar_mult(k) if k % ecref.N else None for k in ks]
+
+
+def test_vanity_engine_cuda_matches_cpu(dev):
+    """Key 777's prefix beside keys 1..32 over [1, 4097): the interval hits
+    checked through the K6 batch on the card, by ecref on the CPU."""
+    from keyhuntm1cpu_tpu_torch.engine.vanity import vanity_intervals
+
+    prefix = hashref.pubkey_to_address(ecref.scalar_mult(777))[:5]
+    keys = list(range(1, 33))
+    ts = TargetSet(kind="hash160", raw=[_artifact("rmd160", ecref.scalar_mult(k)) for k in keys],
+                   labels=[str(k) for k in keys])
+    params = brute.BruteParams(block_u=256, steps_per_chunk=4, chunk_cand=64)
+    kw = dict(mode="rmd160", params=params, intervals=vanity_intervals(prefix),
+              prefixes=[prefix])
+    n0 = pladder.scalar_mult_tiles.launches
+    got = brute.BruteEngine(ts, 1, 4097, device=dev, **kw).search()
+    assert pladder.scalar_mult_tiles.launches > n0
+    want = brute.BruteEngine(ts, 1, 4097, device="cpu", **kw).search()
+    assert sorted((f.private_key, f.target) for f in got) == sorted(
+        (f.private_key, f.target) for f in want)
+    assert set(keys) | {777} <= {f.private_key for f in got}
+
+
+@pytest.mark.parametrize("policy", ["sequential", "backward", "both", "random", "dance"])
+def test_search_scheduled_cuda_matches_cpu(dev, tmp_path, policy):
+    """Every range order on the card finds what the CPU engine finds and
+    covers the same keys; the host-table bases equal _initial_base."""
+    ks = [0xA12345, 0xAFEDCB, 0xBF1234, 0x11F0000]
+    pubs = [ecref.scalar_mult(k) for k in ks]
+    params = bsgs.BSGSParams(m=1 << 12, block_u=64, steps_per_chunk=2, build_block=128,
+                             bits_log2=24, bloom2_bits=17, table_cache=str(tmp_path))
+    got = bsgs.BSGSEngine(pubs, 0xA00000, 0x1200000, params, device=dev)
+    want = bsgs.BSGSEngine(pubs, 0xA00000, 0x1200000, params, device="cpu",
+                           host_table=got.host_table)
+    assert len(got.chunk_order()) == 8
+    bases = got._scheduled_bases(list(range(8)))
+    for c in range(8):
+        wx, wy = want._initial_base(c * 2)
+        assert torch.equal(bases[c][0].cpu(), wx) and torch.equal(bases[c][1].cpu(), wy)
+    f_got = got.search_scheduled(policy, seed=5, stop_on_first=False)
+    f_want = want.search_scheduled(policy, seed=5, stop_on_first=False)
+    assert sorted(f.private_key for f in f_got) == sorted(f.private_key for f in f_want) == ks
+    assert got.stats.keys_covered == want.stats.keys_covered

@@ -190,7 +190,7 @@ def test_budget_overflow_rescans_on_the_host():
     assert [f.private_key for f in eng.search(max_chunks=1)] == [_key(s)]
 
 
-def test_params_tuning_and_conversion():
+def test_params_tuning_and_conversion(tmp_path):
     for b in (256, 4096, 1 << 22, 1 << 23):
         assert mk.valid_budget(b) == jmk.valid_budget(b)
     assert mk.tuned_params(device="cpu") == mk.MinikeyParams()
@@ -207,6 +207,13 @@ def test_params_tuning_and_conversion():
         mk.MinikeyEngine(ts, alphabet="a" * 58, device="cpu")
     with pytest.raises(ValueError):
         mk.MinikeyEngine(ts, prefix="Xshort", device="cpu")
-    with pytest.raises(ValueError):
-        mk.MinikeyEngine(ts, params=SMALL, device="cpu").search(checkpoint=object())
+    # a checkpoint of another run (here another mode) is refused
+    from keyhuntm1cpu_tpu_torch.core.checkpoint import (Checkpoint, CheckpointError,
+                                                         CheckpointManager)
+
+    mgr = CheckpointManager(str(tmp_path / "ck.json"), every_s=0)
+    mgr.save(Checkpoint(mode="bsgs", range_start=1, range_end=2, policy="sequential", seed=0,
+                        params_fp="", targets_fp=""))
+    with pytest.raises(CheckpointError):
+        mk.MinikeyEngine(ts, params=SMALL, device="cpu").search(checkpoint=mgr)
     assert pladder.gtable_tensors("cpu")[0].shape == (32, 256, 8)

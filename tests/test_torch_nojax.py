@@ -18,6 +18,8 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch._build",
     "keyhuntm1cpu_tpu_torch.core.log",
     "keyhuntm1cpu_tpu_torch.core.security",
+    "keyhuntm1cpu_tpu_torch.core.errors",
+    "keyhuntm1cpu_tpu_torch.core.checkpoint",
     "keyhuntm1cpu_tpu_torch.ref.ecref",
     "keyhuntm1cpu_tpu_torch.ref.hashref",
     "keyhuntm1cpu_tpu_torch.field.fe",
@@ -38,6 +40,7 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.engine.bsgs",
     "keyhuntm1cpu_tpu_torch.engine.brute",
     "keyhuntm1cpu_tpu_torch.engine.minikeys",
+    "keyhuntm1cpu_tpu_torch.engine.vanity",
     "keyhuntm1cpu_tpu_torch.utils.targets",
     "keyhuntm1cpu_tpu_torch.convert",
     "keyhuntm1cpu_tpu_torch.cli",
