@@ -21,7 +21,8 @@ any failure exits non-zero before the result line:
    build's shape (K = 128; R = 128, U = 4096), K2 with planted dx == 0
    lanes at block edges, K3 also
    against np.bitwise_or.at, with its degeneracy count (degenerate lanes
-   planted inside and past the kept prefix) and in its bitmap-only form,
+   planted inside and past the kept prefix) and in its bitmap-only and
+   bloom-only forms (the bloom alone also at 2^32 bits, a device table's),
    timed at the build step beside the card's random atomicOr ceiling
    (scripts/torch_filter_shapes.py), K4 in every mode, with the
    endomorphism and
@@ -54,7 +55,8 @@ any failure exits non-zero before the result line:
    each kernel's device time
    (device_ms: CUDA events around back-to-back runs queued behind a sleep
    kernel) beside its plain version's time.
-2. a small end-to-end: m = 2^20, three planted keys, all found exactly.
+2. a small end-to-end: m = 2^20, three planted keys, all found exactly,
+   in host and in device resolve.
 3. the main path at real state size (the bench.py protocol): host-resolve
    BSGS at m = 2^28 with the 2^35-bit bitmap and 2^35-bit bloom2 on the card,
    U = 16384, K = 256, build_block = 4096; the native host table built and
@@ -71,13 +73,30 @@ any failure exits non-zero before the result line:
    composition the fusion replaced; the level-1 stage timed beside that
    composition, the card's random-read ceiling at 2^34 and 2^35 bits
    (scripts/torch_probe_shapes.py) and words[idx] (the probe's entry in
-   the kernels line).
+   the kernels line). Then bsgs_t16 (bench_modes.bench_bsgs_multitarget)
+   on phase 3's host table and filters: 16 planted keys in one 8-step
+   window all recovered, then 5 s at K = 32, T = 16.
 3s. scheduled BSGS (search_scheduled) on phase 3's table and filters: a
    random order over 8 chunks stopped after 4 and resumed by a fresh engine
    from its checkpoint (puzzle 63's key in the order's second half, found
    once, every chunk covered once), then 5 s of -B random and 5 s of -B
    sequential over the puzzle-64 range: keys/s, the idle share, the host's
    enqueue and rebase a chunk (the host-table bases, beside _initial_base).
+3d. device-resolve BSGS at phase 3's shape (bench.py with
+   BENCH_RESOLVE=device): the baby table built on the card (the K1/K2 walk
+   of the filter build, one stable sort; checked sorted, j = 1..m and on
+   64 entries against ecref), the 2^35-bit bitmap and the 2^32-bit bloom2
+   from it by K3, timed apart; puzzle 63's key from a +-3 step window;
+   --seconds of throughput (keys/s, idle share, host enqueue and decode a
+   chunk); one chunk through the kernels held to the same chunk through
+   their plain versions, its device operations (torch.profiler) and its
+   card time split over K1, K2 and the cascade with the exact search and
+   the summary; device memory. Then bsgs_t16 on its table; then, after
+   phase 3b, one chunk at m = 2^29 and 2^30 each (table build, memory, the
+   survivors a chunk against C1 and C2: the bloom2 is capped at 2^32 bits).
+3b. bsgsd (server.py) on phase 3d's resident table, on localhost: puzzle
+   63's key, a miss (404), a zero deadline (408) and, one chunk a turn, a
+   one-chunk request queued behind a 64-chunk one answered first.
 4. the brute-force path (bench_modes.py's protocol) in rmd160, xpoint,
    eth, address_u, rmd160 -e and rmd160 with T = 4096 bucketed targets:
    keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
@@ -122,8 +141,9 @@ any failure exits non-zero before the result line:
    lookup and summary, and the rest (torch work left), set-up
    times, device memory and launch counts.
 5. the launch counts of the main paths (phase 3's filter build and
-   searches, the throughput windows of phases 3s, 4, 4v, 4b and 4c, each
-   counted from zero): every kernel launched, and each stage launched exactly the
+   searches, phase 3d's table and filter builds and searches, the
+   throughput windows of both bsgs_t16 runs and of phases 3s, 4, 4v, 4b
+   and 4c, each counted from zero): every kernel launched, and each stage launched exactly the
    kernels it should.
 
 The line before the last is {"kernels": [...]} with each kernel's bound
@@ -191,7 +211,10 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                         "atomic (a DRAM sector read and written back), "
                                         "beside ceiling_ms, the card's random atomicOr "
                                         "ceiling for the same 1,572,864 atomics "
-                                        "(scripts/torch_filter_shapes.py); no torch call "
+                                        "(scripts/torch_filter_shapes.py); also the "
+                                        "bitmap and the bloom2 of a device-resolve table "
+                                        "(filter/bitmap.py:162-188, :570-591), in its "
+                                        "bitmap-only and bloom-only forms; no torch call "
                                         "ORs into words (scatter_reduce has no OR)"},
                 "minikey_compact_keys": {"note": "replaces XLA glue, not a Pallas kernel: the "
                                                  "count, compaction and key derivation of "
@@ -239,6 +262,8 @@ WK_T = 1 << 22  # targets of the large-target cells: 64x bucket_max
 WK_BITS = 34  # their bitmap: default_bits_log2(2^22), the JAX package's cap
 WK_SECONDS = 5.0  # throughput window of each phase-4c mode
 SCHED_SECONDS = 5.0  # throughput window of each phase-3s range order
+T16_SECONDS = 5.0  # throughput window of bsgs_t16 (bench_modes.bench_bsgs_multitarget's)
+LARGE_M = (1 << 29, 1 << 30)  # phase 3d's one-chunk readings past the main m
 PROBE_BYTES = 32 + 8 + 1  # a random DRAM sector for the word, the key, the mask byte
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
@@ -726,6 +751,17 @@ def phase1_kernels(dev, results, clock):
     qhi = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
     qlo = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
     n_keep = n - 123457
+
+    def bloom_only(b2bits, both=None):
+        """K3's bloom-only form against its plain version and, where given,
+        the bloom of the two-filter form."""
+        w4, r4 = bmp.empty_filter(b2bits, dev), bmp.empty_filter(b2bits, dev)
+        bmp.insert_keys(None, 0, w4, b2bits, qhi, qlo, n_keep)
+        bmp.insert_keys_ref(None, 0, r4, b2bits, qhi, qlo, n_keep)
+        if not torch.equal(w4, r4) or (both is not None and not torch.equal(w4, both)):
+            fail(f"K3 bloom-only form b={b2bits} differs from its plain version or the bloom")
+        del w4, r4
+
     deg = np.zeros(n, bool)
     deg[[0, 31, 32, n_keep - 1, n_keep, n - 1]] = True
     deg[rng.choice(n, 500, replace=False)] = True
@@ -753,13 +789,15 @@ def phase1_kernels(dev, results, clock):
             if not np.array_equal(words.cpu().numpy().view(np.uint32), ref):
                 fail(f"K3 insert_keys b={bits} differs from np.bitwise_or.at")
             del ref
-        # the bitmap alone (a brute target set's form)
+        # the bitmap alone (a brute target set's form) and the bloom alone (a
+        # device table's bloom2)
         w3, r3 = bmp.empty_filter(bits, dev), bmp.empty_filter(bits, dev)
         bmp.insert_keys(w3, bits, None, 0, qhi, qlo, n_keep)
         bmp.insert_keys_ref(r3, bits, None, 0, qhi, qlo, n_keep)
         if not (torch.equal(w3, r3) and torch.equal(w3, w1)):
             fail(f"K3 bitmap-only form b={bits} differs from its plain version or the bitmap")
         del w3, r3
+        bloom_only(bits, w2)
         ms, _ = device_ms(lambda: bmp.insert_keys(w1, bits, w2, bits, qhi[:nb], qlo[:nb], nb,
                                                   *step_flags), 20)
         pms, _ = timed(lambda: bmp.insert_keys_ref(w1, bits, w2, bits, qhi[:nb], qlo[:nb], nb,
@@ -774,9 +812,10 @@ def phase1_kernels(dev, results, clock):
         del w1, w2
         torch.cuda.empty_cache()
     results["insert_keys"]["ceiling_ms"] = ceil_ms
+    bloom_only(32)  # a device table's bloom2 at m >= 2^28 (bitmap.bloom2_bits_log2)
     log(f"K3 insert_keys {n} keys ({n_keep} kept) at b={K3_BITS}: equal to plain and to "
         f"np.bitwise_or.at, {want_bad} planted degenerate flags counted, the bitmap-only "
-        f"form equal; at b={K3_BITS[-1]} {results['insert_keys']['ms']:.4f} ms per {nb} "
+        f"and bloom-only forms equal (bloom-only also at b=32); at b={K3_BITS[-1]} {results['insert_keys']['ms']:.4f} ms per {nb} "
         f"keys (plain {results['insert_keys']['plain_ms']:.1f} ms, bound "
         f"{results['insert_keys']['bound_ms']:.4f} ms by {results['insert_keys']['bound_by']}, "
         f"the card's random atomicOr ceiling for {3 * nb} atomics {ceil_ms:.4f} ms)")
@@ -1412,6 +1451,15 @@ def phase1_walker(dev, results, clock):
     torch.cuda.synchronize()
 
 
+def bsgs_params(m, resolve, **kw):
+    """The main path's BSGS shape (bench.py's): U, K, build_block, 2^35-bit
+    bitmap (and host-resolve bloom2)."""
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSParams
+
+    return BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=BUILD_BLOCK,
+                      bits_log2=MAIN_BITS, bloom2_bits=MAIN_BITS, resolve=resolve, **kw)
+
+
 def phase2_small(dev):
     from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine, BSGSParams
     from keyhuntm1cpu_tpu_torch.ref import ecref
@@ -1419,16 +1467,17 @@ def phase2_small(dev):
     span = K * U * 2 * SMALL_M  # keys per chunk
     a, b = 1 << 44, (1 << 44) + 4 * span
     keys = [a + 12345678901 % span, a + 2 * span + 987654321 % span, b - 5]
-    params = BSGSParams(m=SMALL_M, block_u=U, steps_per_chunk=K,
-                        build_block=BUILD_BLOCK, chunk_cand_max=1024)
-    t0 = time.time()
-    eng = BSGSEngine([ecref.scalar_mult(k) for k in keys], a, b, params, device=dev)
-    found = sorted(f.private_key for f in eng.search(stop_on_first=False))
-    if found != sorted(keys):
-        fail(f"phase 2: found {[hex(k) for k in found]}, planted {[hex(k) for k in keys]}")
-    log(f"phase 2: m=2^{SMALL_M.bit_length() - 1}, 3 planted keys found exactly in {time.time() - t0:.1f} s")
-
-
+    for resolve in ("host", "device"):
+        params = BSGSParams(m=SMALL_M, block_u=U, steps_per_chunk=K,
+                            build_block=BUILD_BLOCK, chunk_cand_max=1024, resolve=resolve)
+        t0 = time.time()
+        eng = BSGSEngine([ecref.scalar_mult(k) for k in keys], a, b, params, device=dev)
+        found = sorted(f.private_key for f in eng.search(stop_on_first=False))
+        if found != sorted(keys):
+            fail(f"phase 2 ({resolve} resolve): found {[hex(k) for k in found]}, planted "
+                 f"{[hex(k) for k in keys]}")
+        log(f"phase 2: {resolve} resolve, m=2^{SMALL_M.bit_length() - 1}, 3 planted keys "
+            f"found exactly in {time.time() - t0:.1f} s")
 
 
 def launch_counts():
@@ -1477,15 +1526,14 @@ def phase3_main(dev, m, seconds, results, clock):
     import torch
 
     from keyhuntm1cpu_tpu_torch.curve import pwalk, tables
-    from keyhuntm1cpu_tpu_torch.engine.bsgs import (BUILD_BLOCKS, BSGSEngine, BSGSParams,
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import (BUILD_BLOCKS, BSGSEngine,
                                                      chunk_impl_host, filter_build_step)
     from keyhuntm1cpu_tpu_torch.field import fe
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.filter import host_table as ht
     from keyhuntm1cpu_tpu_torch.ref import ecref
 
-    params = BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=BUILD_BLOCK,
-                        bits_log2=MAIN_BITS, bloom2_bits=MAIN_BITS)
+    params = bsgs_params(m, "host")
     t0 = time.time()
     htab = ht.ensure_host_table(m, progress=True)
     htab.prefault()
@@ -2198,11 +2246,10 @@ def phase3s_scheduled(dev, m, seconds, htab, bm, b2):
     import torch
 
     from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointManager
-    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine, BSGSParams
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine
     from keyhuntm1cpu_tpu_torch.ref import ecref
 
-    params = BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=BUILD_BLOCK,
-                        bits_log2=MAIN_BITS, bloom2_bits=MAIN_BITS)
+    params = bsgs_params(m, "host")
     span = K * U * 2 * m  # keys a chunk
     n_ck, pos = 8, 5
     a = PUZZLE63_KEY - pos * span - 12345
@@ -2267,6 +2314,339 @@ def phase3s_scheduled(dev, m, seconds, htab, bm, b2):
             f"{init_ms:.3f} ms a chunk); puzzle 64's key "
             f"{'found bit-exact' if found else 'not reached'}; launches {n}")
     return total
+
+
+def phase_t16(dev, m, label, seconds, **shared):
+    """bench_modes.bench_bsgs_multitarget on the phase's table and filters:
+    the gate (16 planted keys in one 8-step window, all recovered), then
+    `seconds` at K = 32, T = 16 over the puzzle-64 range (keys/s counts the
+    range covered, as bench_modes.py does); returns the window's launch
+    counts."""
+    import dataclasses
+
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    params = bsgs_params(m, shared.pop("resolve"))
+    gate = dataclasses.replace(params, steps_per_chunk=8)
+    a = 1 << 63
+    window = gate.steps_per_chunk * U * 2 * m
+    rng = np.random.default_rng(16)
+    planted = sorted(a + int(v) for v in rng.integers(0, min(window, 1 << 63), size=16))
+    t0 = time.time()
+    eng = BSGSEngine([ecref.scalar_mult(k) for k in planted], a, a + window, gate, device=dev,
+                     **shared)
+    got = sorted(f.private_key for f in eng.search(stop_on_first=False, max_steps=8))
+    if got != planted:
+        fail(f"{label}: bsgs_t16 gate missed {[hex(k) for k in planted if k not in got]}")
+    log(f"{label}: bsgs_t16 gate: 16 planted keys in one 8-step window recovered bit-exact "
+        f"({time.time() - t0:.2f} s)")
+
+    params = dataclasses.replace(params, steps_per_chunk=32)
+    pubs = [ecref.scalar_mult(0x1000 + 7 * i) for i in range(16)]
+    eng = BSGSEngine(pubs, *PUZZLE64_RANGE, params, device=dev, **shared)
+    marks, enqueue = marked(eng)
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    found = eng.search(max_seconds=seconds, stop_on_first=False)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    _, n = launch_counts()
+    chunks = eng.stats.keys_covered // (32 * U * eng.stride)
+    if found or chunks != len(marks) or n != zero_counts() | dict(
+            advance_chain=chunks, walk_blocks=chunks, probe=2 * chunks):
+        fail(f"{label}: bsgs_t16 window found {found}, launched {n} for {len(marks)} chunks "
+             f"dispatched, {chunks} counted")
+    busy = sum(e0.elapsed_time(e1) for e0, e1 in marks)
+    span = marks[0][0].elapsed_time(marks[-1][1])
+    log(f"{label}: bsgs_t16 T=16 K=32: {chunks} chunks in {dt:.2f} s -> "
+        f"{eng.stats.keys_covered / dt:.4e} range keys/s (C1={eng.C1}, C2={eng.C2}); idle "
+        f"share {1 - busy / span:.4f} (busy {busy / chunks:.3f} ms per chunk); host enqueue "
+        f"{1000 * sum(enqueue) / chunks:.3f} ms per chunk; launches {n}")
+    return n
+
+
+def device_chunk_plain(eng, px, py):
+    """One device-resolve chunk (bsgs.chunk_impl with the bloom2 stage)
+    through the plain versions of its kernels: K1, K2, the fused level-1
+    probe and the bloom2 probe, composed as filtered_lookup and
+    _pallas_chunk_impl compose them."""
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pwalk
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
+
+    Kc, T = eng.p.steps_per_chunk, len(eng.targets)
+    B, C1, C2 = T * Kc * U, eng.C1, eng.C2
+    bx, by, _, _, adeg = pwalk.advance_chain_ref(px.t().contiguous(), py.t().contiguous(),
+                                                 eng.adv_x, eng.adv_y, Kc, eng.adv_tab)
+    qlo, qhi, deg = pwalk.walk_blocks_ref(bx, by, eng.tab_x, eng.tab_y)
+    adv = adeg.reshape(-1)
+    deg[:, U - 1] |= adv
+    pos1, qh1, ql1, n1 = bmp.probe_compact_ref(eng.bitmap, qhi.reshape(-1), qlo.reshape(-1), C1)
+    mask2 = bmp.probe_bloom2_ref(eng.bloom2, qh1, ql1) & (pos1 < B)
+    pos2 = bmp.compact_positions(mask2, C2, C1)
+    safe2 = pos2.clamp(max=C1 - 1).long()
+    lr = st.lookup(eng.table, qh1[safe2], ql1[safe2])
+    valid = pos2 < C1
+    pos = torch.where(valid, pos1[safe2], B)
+    live = valid & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()]
+    f1, f2 = lr.found & live, lr.found2 & live
+    deg8 = deg.to(torch.uint8)
+    n = torch.where(n1 > C1, n1 + C2, mask2.sum(dtype=torch.int32))
+    return torch.cat([torch.where(f1 | f2, pos, B), torch.where(f1, lr.idx, 0),
+                      torch.where(f2, lr.idx2, 0), deg8.sum(dim=1, dtype=torch.int32),
+                      deg8.argmax(dim=1).to(torch.int32), adv.to(torch.int32), n.reshape(1)])
+
+
+def phase3d_device(dev, m, seconds, clock):
+    """Device-resolve BSGS at full width (bench.py with BENCH_RESOLVE=device);
+    returns (its launch counts from the table build to the end of the
+    throughput window, the table, its bitmap)."""
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pwalk
+    from keyhuntm1cpu_tpu_torch.engine import bsgs
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    params = bsgs_params(m, "device")
+    pub63 = ecref.scalar_mult(PUZZLE63_KEY)
+    reset_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    table = bsgs.build_baby_table(m, BUILD_BLOCK, dev)
+    torch.cuda.synchronize()
+    t_table = time.time() - t0
+    table_peak = torch.cuda.max_memory_allocated()
+    t0 = time.time()
+    bm = bmp.build_bitmap_device(table, MAIN_BITS)
+    b2 = bsgs._bloom2_for_table(table)
+    torch.cuda.synchronize()
+    t_filters = time.time() - t0
+    _, n_setup = launch_counts()
+    steps = max(0, -(-(m - 2 * BUILD_BLOCK) // (bsgs.BUILD_BLOCKS * BUILD_BLOCK)))
+    want = zero_counts() | dict(advance_chain=steps, walk_blocks=steps,
+                                insert_keys=2 * -(-m // bmp.TABLE_SLICE))
+    if n_setup != want:
+        fail(f"phase 3d: table and filters launched {n_setup}, expected {want}")
+    # the table: sorted, a permutation of j = 1..m, and 64 entries against ecref
+    rng = np.random.default_rng(63)
+    sample = torch.from_numpy(rng.integers(0, m, 64)).to(dev)
+    keys = (table.key[sample].cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)).tolist()
+    js = table.idx[sample].cpu().numpy().view(np.uint32).tolist()
+    bad = [j for j, k in zip(js, keys) if ecref.scalar_mult(j)[0] & ((1 << 64) - 1) != k]
+    if (bad or not bool((table.key[1:] >= table.key[:-1]).all())
+            or int(table.idx.sum(dtype=torch.int64)) != m * (m + 1) // 2):
+        fail(f"phase 3d: the table is not sorted, not j = 1..m, or differs from ecref at {bad}")
+    log(f"phase 3d: device-resolve table m=2^{m.bit_length() - 1} built on the card in "
+        f"{t_table:.2f} s ({steps} walk steps, one stable sort; peak "
+        f"{table_peak / 2**30:.2f} GiB); bitmap 2^{bm.bits_log2} and bloom2 "
+        f"2^{b2.bits_log2} bits from it in {t_filters:.2f} s; sorted, j = 1..m, 64 entries "
+        f"equal to ecref; launches {n_setup}")
+
+    eng = bsgs.BSGSEngine([pub63], *PUZZLE64_RANGE, params, device=dev, table=table, bitmap=bm)
+    if eng.bloom2 is not b2:
+        fail("phase 3d: the engine did not take the table's cached bloom2")
+    window = U * eng.stride
+    eng63 = bsgs.BSGSEngine([pub63], PUZZLE63_KEY - 3 * window, PUZZLE63_KEY + 3 * window,
+                            params, device=dev, table=table, bitmap=bm)
+    t0 = time.time()
+    found = [f.private_key for f in eng63.search()]
+    if found != [PUZZLE63_KEY]:
+        fail(f"phase 3d: puzzle-63 recovery failed: {[hex(k) for k in found]}")
+    _, n63 = launch_counts()
+    d63 = delta(n63, n_setup)
+    if (d63["advance_chain"] < 1 or d63 != zero_counts() | dict(
+            advance_chain=d63["advance_chain"], walk_blocks=d63["advance_chain"],
+            probe=2 * d63["advance_chain"])):
+        fail(f"phase 3d: puzzle-63 search launched {d63}")
+    log(f"phase 3d: puzzle-63 key 0x{PUZZLE63_KEY:x} recovered bit-exact in "
+        f"{time.time() - t0:.2f} s (C1={eng63.C1}, C2={eng63.C2}); launches {d63}")
+
+    eng64 = bsgs.BSGSEngine([ecref.scalar_mult(PUZZLE64_KEY)], *PUZZLE64_RANGE, params,
+                            device=dev, table=table, bitmap=bm)
+    marks, enqueue = marked(eng64)
+    dec = host_timed(eng64, "_consume_summary")
+    torch.cuda.synchronize()
+    t0 = time.time()
+    found = eng64.search(max_seconds=seconds, stop_on_first=False)
+    torch.cuda.synchronize()
+    elapsed = time.time() - t0
+    if any(f.private_key != PUZZLE64_KEY for f in found):
+        fail(f"phase 3d: throughput search found a wrong key: {[hex(f.private_key) for f in found]}")
+    _, n_main = launch_counts()
+    d64 = delta(n_main, n63)
+    chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
+    if chunks != len(marks) or d64 != zero_counts() | dict(
+            advance_chain=chunks, walk_blocks=chunks, probe=2 * chunks):
+        fail(f"phase 3d: throughput search launched {d64} for {len(marks)} chunks dispatched, "
+             f"{chunks} counted")
+    busy = sum(a.elapsed_time(b) for a, b in marks)
+    span = marks[0][0].elapsed_time(marks[-1][1])
+    log(f"phase 3d: throughput {chunks} chunks in {elapsed:.2f} s -> "
+        f"{eng64.stats.keys_covered / elapsed:.4e} keys/s; puzzle 64's key "
+        f"{'found bit-exact' if found else 'not reached'}; device idle share "
+        f"{1 - busy / span:.4f} (busy {busy / chunks:.3f} ms per chunk); host enqueue "
+        f"{1000 * sum(enqueue) / chunks:.3f} ms, decode {1000 * dec[0] / dec[1]:.3f} ms per "
+        f"chunk; launches {d64}")
+
+    # one chunk: through the kernels against the plain versions, its device
+    # operations (torch.profiler) and its card time split
+    reps = 10
+    px, py = eng64._initial_base(0)
+    got = bsgs.chunk_impl(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y, bm, table,
+                          b2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2, adv_tab=eng64.adv_tab)[2]
+    t0 = time.time()
+    want = device_chunk_plain(eng64, px, py)
+    plain_s = time.time() - t0
+    err = max_abs_err([got], [want])
+    if err or got.shape != (3 * eng64.C2 + 3 * K + 1,):
+        fail(f"phase 3d: the chunk through the kernels differs from its plain versions "
+             f"(max_abs_err {err})")
+    chunk = lambda: bsgs.chunk_impl(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
+                                    bm, table, b2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2,
+                                    adv_tab=eng64.adv_tab)
+    ops = device_launches(chunk)
+    tot_ms, _ = device_ms(chunk, reps)
+    pxt, pyt = px.t().contiguous(), py.t().contiguous()
+    k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
+        pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab), reps)
+    k2_ms, (qlo, qhi, _) = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x,
+                                                              eng64.tab_y), reps)
+    n1 = int(bmp.probe_compact(bm, qhi.reshape(-1), qlo.reshape(-1), eng64.C1).n)
+    log(f"phase 3d: a chunk through the kernels equal to its plain versions (max_abs_err 0; "
+        f"plain {plain_s:.1f} s); {ops or 'not measured: the profiler saw no'} device "
+        f"operations (torch.profiler); {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 "
+        f"{k2_ms:.3f} + cascade, exact search and summary {tot_ms - k1_ms - k2_ms:.3f} "
+        f"({n1} level-1 survivors of {K * U}, C1={eng64.C1}; {int(got[-1])} after bloom2, "
+        f"C2={eng64.C2})")
+    log(f"phase 3d: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
+        f"(table {(table.key.numel() * 12) / 2**30:.2f} GiB, bitmap "
+        f"{bm.words.numel() * 4 / 2**30:.2f}, bloom2 {b2.words.numel() * 4 / 2**30:.2f}), "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak; card {card_line()}")
+    return n_main, table, bm
+
+
+def phase3d_large(dev, ms):
+    """One device-resolve chunk at each larger m: the table build, the
+    filters, device memory and the cascade's survivors against its budgets
+    (C1, and C2 after the bloom2, capped at 2^32 bits)."""
+    import gc
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.curve import pwalk
+    from keyhuntm1cpu_tpu_torch.engine import bsgs
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    for m in ms:
+        bsgs._BLOOM2_CACHE.clear()
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.time()
+        table = bsgs.build_baby_table(m, BUILD_BLOCK, dev)
+        torch.cuda.synchronize()
+        t_table = time.time() - t0
+        t0 = time.time()
+        bm = bmp.build_bitmap_device(table, MAIN_BITS)
+        eng = bsgs.BSGSEngine([ecref.scalar_mult(PUZZLE64_KEY)], *PUZZLE64_RANGE,
+                              bsgs_params(m, "device"), device=dev, table=table, bitmap=bm)
+        torch.cuda.synchronize()
+        t_filters = time.time() - t0
+        px, py = eng._initial_base(0)
+        t0 = time.time()
+        _, _, out = eng._chunk_fn(px, py)
+        n_out = int(out[-1])
+        chunk_s = time.time() - t0
+        # the chunk's level-1 and level-2 survivors, apart
+        res = pwalk.chunk_multi(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, K=K, U=U,
+                                T=1, adv_tab=eng.adv_tab)
+        pc = bmp.probe_compact(bm, res.qhi.reshape(-1), res.qlo.reshape(-1), eng.C1)
+        n2 = int(bmp.probe_bloom2(eng.bloom2, pc.qhi, pc.qlo)[: min(int(pc.n), eng.C1)].sum())
+        log(f"phase 3d: m=2^{m.bit_length() - 1}: table built in {t_table:.2f} s, bitmap "
+            f"2^{bm.bits_log2} and bloom2 2^{eng.bloom2.bits_log2} bits "
+            f"(load {2 * m / 2**eng.bloom2.bits_log2:.3f}) in {t_filters:.2f} s; one chunk "
+            f"({chunk_s * 1000:.1f} ms with its copy): {int(pc.n)} level-1 survivors "
+            f"(C1={eng.C1}), {n2} after bloom2 (C2={eng.C2}), n_candidates {n_out} -> "
+            f"{'overflow: the host rescans the chunk' if n_out > eng.C2 else 'no overflow'}; "
+            f"device memory peak {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+        del table, bm, eng, out, res, pc
+    bsgs._BLOOM2_CACHE.clear()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def phase3b_server(dev, m, table):
+    """bsgsd on phase 3d's resident table: a BSGSService and a BSGSDServer
+    on localhost answer a planted key, a miss, a 408 at a zero deadline and,
+    at slice_chunks = 1, a small request queued behind a large one, which
+    comes back first; every answer right."""
+    import socket
+    import threading
+
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+    from keyhuntm1cpu_tpu_torch.server import BSGSDServer, BSGSService
+
+    t0 = time.time()
+    service = BSGSService(bsgs_params(m, "device"), table=table, device=dev)
+    t_boot = time.time() - t0
+    srv = BSGSDServer(("127.0.0.1", 0), service)
+    thread = threading.Thread(target=srv.serve_forever, daemon=True)
+    thread.start()
+
+    def ask(line):
+        t = time.perf_counter()
+        with socket.create_connection(srv.server_address, timeout=300) as s:
+            s.sendall(line.encode() + b"\n")
+            s.shutdown(socket.SHUT_WR)
+            resp = b"".join(iter(lambda: s.recv(4096), b"")).decode()
+        return resp, time.perf_counter() - t
+
+    pub = lambda k: ecref.serialize_pubkey(ecref.scalar_mult(k)).hex()
+    try:
+        window = U * 2 * m
+        rng63 = f"{PUZZLE63_KEY - 3 * window:x}:{PUZZLE63_KEY + 3 * window:x}"
+        hit, hit_s = ask(f"{pub(PUZZLE63_KEY)} {rng63}")
+        miss, miss_s = ask(f"{pub(PUZZLE64_KEY)} {rng63}")
+        service.max_seconds = 0.0
+        late, _ = ask(f"{pub(PUZZLE63_KEY)} {rng63}")
+        service.max_seconds, service.slice_chunks = None, 1
+        span = K * U * 2 * m  # keys a chunk
+        a = 1 << 63
+        big_key, small_key = a + 63 * span + 12345, a + 5 * span + 777
+        done = {}
+
+        def run(name, line):
+            done[name] = ask(line) + (time.perf_counter(),)
+
+        t_big = threading.Thread(target=run, args=("big", f"{pub(big_key)} {a:x}:{a + 64 * span:x}"))
+        t_big.start()
+        time.sleep(0.2)  # the large request takes the lock first
+        run("small", f"{pub(small_key)} {a + 5 * span:x}:{a + 6 * span:x}")
+        t_big.join()
+    finally:
+        srv.shutdown()
+        srv.server_close()
+    (small, small_s, small_t), (big, big_s, big_t) = done["small"], done["big"]
+    if (hit != f"{PUZZLE63_KEY:064x}" or miss != "404 Not Found" or late != "408 Request Timeout"
+            or small != f"{small_key:064x}" or big != f"{big_key:064x}" or not small_t < big_t):
+        fail(f"phase 3b: answers {hit!r} {miss!r} {late!r}, interleaved {small!r} "
+             f"{big!r} (small done first: {small_t < big_t})")
+    log(f"phase 3b: bsgsd on the resident table (service up in {t_boot:.2f} s, one warm "
+        f"chunk): puzzle 63's key answered in {1000 * hit_s:.1f} ms, a miss over the same "
+        f"6 steps 404 in {1000 * miss_s:.1f} ms, max_seconds=0 408; slice_chunks=1: a 1-chunk "
+        f"request behind a 64-chunk one answered in {1000 * small_s:.1f} ms, before it "
+        f"({1000 * big_s:.1f} ms); all answers right")
 
 
 def phase4r_resume(dev):
@@ -2363,9 +2743,9 @@ def walker_resume(ts, a, b, params, dev, planted):
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=1 << 28,
-                    help="baby-table size of phase 3 (default 2^28; 2^30 fits)")
+                    help="baby-table size of phases 3 and 3d (default 2^28)")
     ap.add_argument("--seconds", type=float, default=10.0,
-                    help="throughput window of phase 3")
+                    help="throughput window of phases 3 and 3d")
     args = ap.parse_args()
     try:
         import torch
@@ -2402,16 +2782,25 @@ def main():
     phase1_walker(dev, results, clock)
     phase2_small(dev)
     bsgs, htab, bm, b2 = phase3_main(dev, args.m, args.seconds, results, clock)
+    t16_host = phase_t16(dev, args.m, "phase 3", T16_SECONDS, resolve="host", host_table=htab,
+                         bitmap=bm, bloom2=b2)
     scheduled = phase3s_scheduled(dev, args.m, SCHED_SECONDS, htab, bm, b2)
     del htab, bm, b2
     torch.cuda.empty_cache()
+    device, table, dbm = phase3d_device(dev, args.m, args.seconds, clock)
+    t16_device = phase_t16(dev, args.m, "phase 3d", T16_SECONDS, resolve="device", table=table,
+                           bitmap=dbm)
+    phase3b_server(dev, args.m, table)
+    del table, dbm
+    phase3d_large(dev, [m for m in LARGE_M if m > args.m])
     brute = phase4_brute(dev, BRUTE_SECONDS, clock)
     vanity = phase4v_vanity(dev, BRUTE_SECONDS)
     minikeys = phase4b_minikeys(dev, MK_SECONDS)
     phase4r_resume(dev)
     walker = phase4c_walker(dev, WK_SECONDS)
-    paths = dict(bsgs=bsgs, scheduled=scheduled, brute=brute, vanity=vanity,
-                 minikeys=minikeys, walker=walker)
+    paths = dict(bsgs=bsgs, t16_host=t16_host, scheduled=scheduled, device=device,
+                 t16_device=t16_device, brute=brute, vanity=vanity, minikeys=minikeys,
+                 walker=walker)
     launches = {name: sum(n[name] for n in paths.values()) for name in bsgs}
     if not all(launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")

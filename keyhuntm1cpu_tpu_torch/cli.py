@@ -1,8 +1,10 @@
-"""Command-line interface of the port: BSGS (host-resolve), the brute-force
-modes, vanity prefixes and minikeys.
+"""Command-line interface of the port: BSGS (device- and host-resolve), the
+brute-force modes, vanity prefixes and minikeys.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
+        [--resolve device|host] [--cascade2 auto|on|off] \
+        [-S [--table-file F] [-6]] \
         [-B sequential|backward|both|random|dance [--seed S]] \
         [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
     python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint|eth -f targets \
@@ -19,7 +21,11 @@ its next chunk boundary and saves the checkpoint; a second one exits at
 once.
 
 BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
-pubkeys; brute targets are addresses or hash160 hex (address, rmd160),
+pubkeys. BSGS resolves on the card by default: the baby table is built
+there (or, with -S, loaded from --table-file, default
+keyhunt_tpu_baby_<m>.npz, and saved there after a build; files of either
+package load); --resolve host keeps only the two filters on the card and
+the exact table on the host (its own disk cache; -S is ignored there); brute targets are addresses or hash160 hex (address, rmd160),
 ETH addresses (-m eth, or -m address -c eth) or x coordinates / pubkeys
 (xpoint). Brute target sets of up to 65,536 entries run the fused path (one
 chain per chunk) when -u is a multiple of 128; larger sets, or any other
@@ -61,8 +67,8 @@ def parse_range(s: str):
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="keyhunt-torch",
-        description="secp256k1 key search on PyTorch + CUDA: BSGS "
-                    "(host-resolve), the brute-force modes, vanity and minikeys")
+        description="secp256k1 key search on PyTorch + CUDA: BSGS, the "
+                    "brute-force modes, vanity and minikeys")
     p.add_argument("-m", "--mode", required=True,
                    help="bsgs, address, rmd160, xpoint, eth, vanity or minikeys")
     p.add_argument("-f", "--file", default=None,
@@ -117,8 +123,20 @@ def build_parser() -> argparse.ArgumentParser:
                    help="search-position checkpoint file (resume if it exists)")
     p.add_argument("--checkpoint-every", type=float, default=60.0,
                    help="seconds between checkpoint writes")
+    p.add_argument("--resolve", default="device", choices=["device", "host"],
+                   help="bsgs: exact resolution on the card (the sorted baby table) "
+                        "or on the host (the card keeps the two filters only)")
+    p.add_argument("--cascade2", default="auto", choices=["auto", "on", "off"],
+                   help="bsgs device resolve: the level-2 bloom between the bitmap "
+                        "and the exact search (auto: when the bitmap's survivors "
+                        "outgrow the search width)")
     p.add_argument("-S", "--save-table", action="store_true",
-                   help="table and target caches: not in this port yet")
+                   help="bsgs device resolve: load the baby table from --table-file, "
+                        "or build it and save it there")
+    p.add_argument("--table-file", default=None,
+                   help="baby table file (default keyhunt_tpu_baby_<m>.npz)")
+    p.add_argument("-6", "--skip-checksum", action="store_true", dest="skip_checksum",
+                   help="skip the table file's checksum")
     p.add_argument("--sharded", nargs="?", const="range", default=None,
                    help="multi-device search: not in this port yet")
     p.add_argument("-8", "--alphabet", default=None,
@@ -135,13 +153,35 @@ def read_pubkeys(path: str):
         return [ecref.parse_pubkey(ln.split()[0]) for ln in f if ln.strip()]
 
 
-def _bsgs_engine(args):
+def _bsgs_engine(args, log):
     from .engine.bsgs import BSGSEngine, BSGSParams, resolve_m
 
     m = resolve_m(args.m_babies, args.n_value, args.k_factor)
-    params = BSGSParams(m=m, block_u=args.block_u, steps_per_chunk=args.chunk_steps)
+    params = BSGSParams(m=m, block_u=args.block_u, steps_per_chunk=args.chunk_steps,
+                        cascade2=args.cascade2, resolve=args.resolve)
     a, b = args.range
-    return BSGSEngine(read_pubkeys(args.file), a, b, params, device=args.device)
+    pubkeys = read_pubkeys(args.file)
+    table, path = None, args.table_file or f"keyhunt_tpu_baby_{m}.npz"
+    if args.save_table and args.resolve == "host":
+        log.warn("--resolve host caches its table on disk itself; -S/--table-file ignored")
+    elif args.save_table:
+        try:
+            table = BSGSEngine.load_table(path, verify_checksum=not args.skip_checksum,
+                                          device=args.device)
+        except FileNotFoundError:
+            pass
+        except ValueError as e:
+            log.warn(f"{path}: {e}; building the table anew")
+        if table is not None and table.key.shape != (m,):
+            log.warn(f"{path} holds {table.key.shape[0]} keys, not m={m}; building anew")
+            table = None
+        if table is not None:
+            log.plus(f"loaded baby table from {path}")
+    eng = BSGSEngine(pubkeys, a, b, params, device=args.device, table=table)
+    if args.save_table and args.resolve == "device" and table is None:
+        eng.save_table(path)
+        log.plus(f"saved baby table to {path}")
+    return eng
 
 
 def _brute_engine(args, log):
@@ -227,10 +267,13 @@ def main(argv=None) -> int:
     if not minikeys and (args.alphabet is not None or args.minikey_prefix is not None):
         log.error("-8 and -C only apply to -m minikeys")
         return 2
-    for flag, on in (("-S", args.save_table), ("--sharded", args.sharded)):
-        if on:
-            log.error(f"{flag}: not in this port yet")
-            return 2
+    if args.sharded:
+        log.error("--sharded: not in this port yet")
+        return 2
+    if args.save_table and args.mode != "bsgs":
+        log.error("-S outside -m bsgs (the .dat target cache): not in this port yet "
+                  "(ROADMAP.md, module item 4)")
+        return 2
     if args.policy not in POLICIES:
         log.error(f"-B {args.policy}: the range orders are {', '.join(POLICIES)}")
         return 2
@@ -274,7 +317,7 @@ def main(argv=None) -> int:
                                stop_on_first=not args.all, progress_every=progress,
                                checkpoint=ckmgr, max_seconds=args.max_seconds)
         elif args.mode == "bsgs":
-            eng = _bsgs_engine(args)
+            eng = _bsgs_engine(args, log)
             found = eng.search_scheduled(policy=args.policy, seed=args.seed,
                                          max_chunks=args.max_chunks,
                                          stop_on_first=not args.all,

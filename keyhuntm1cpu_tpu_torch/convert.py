@@ -13,6 +13,7 @@ from .engine.brute import BruteParams
 from .engine.bsgs import BSGSParams
 from .engine.minikeys import MinikeyParams
 from .filter.bitmap import DeviceBitmap, DeviceBloom2
+from .filter.sorted_table import SortedXTable, table_from_planes
 from .utils.targets import TargetSet
 
 
@@ -31,15 +32,22 @@ def filters_from_jax(words1: np.ndarray, bits: int, words2: np.ndarray,
             DeviceBloom2(_words(words2, b2bits, device), b2bits))
 
 
+def table_from_jax(hi: np.ndarray, lo: np.ndarray, idx: np.ndarray, device) -> SortedXTable:
+    """A JAX SortedXTable's planes (numpy uint32: np.asarray(table.hi), ...)
+    -> the port's SortedXTable on `device`."""
+    return table_from_planes(hi, lo, idx, device)
+
+
 def params_from_jax(p) -> BSGSParams:
-    """A keyhuntm1cpu_tpu BSGSParams (host-resolve) -> the port's BSGSParams."""
-    if getattr(p, "resolve", "host") != "host":
-        raise ValueError("the port implements resolve='host' only")
+    """A keyhuntm1cpu_tpu BSGSParams -> the port's BSGSParams. The TPU knobs
+    (pallas, pallas_sb, chain_len, probe_mode, table_comm) have no
+    counterpart, nor has cand_max, the per-step budget of the JAX XLA
+    chunk: the port's chunk is the JAX kernel path's, budgeted per chunk."""
     return BSGSParams(
         m=p.m, block_u=p.block_u, steps_per_chunk=p.steps_per_chunk,
         build_block=p.build_block, chunk_cand_max=p.chunk_cand_max,
-        bits_log2=p.bits_log2, pipeline_depth=p.pipeline_depth,
-        bloom2_bits=p.bloom2_bits, table_cache=p.table_cache,
+        bits_log2=p.bits_log2, cascade2=p.cascade2, pipeline_depth=p.pipeline_depth,
+        resolve=p.resolve, bloom2_bits=p.bloom2_bits, table_cache=p.table_cache,
     )
 
 

@@ -1,5 +1,6 @@
-"""Page-locked, wiped-on-close staging buffer for private-key material
-(copy of SecureBuffer from keyhuntm1cpu_tpu/core/security.py).
+"""A per-client token bucket and a page-locked, wiped-on-close staging
+buffer for private-key material (copies of RateLimiter and SecureBuffer
+from keyhuntm1cpu_tpu/core/security.py).
 
 The pages are anonymous mmap, locked out of swap with mlock(2) where
 RLIMIT_MEMLOCK allows (``locked`` records the outcome), kept out of core
@@ -11,6 +12,41 @@ from __future__ import annotations
 
 import ctypes
 import mmap
+import threading
+import time
+from typing import Dict, Tuple
+
+
+class RateLimiter:
+    """Token-bucket limiter keyed by client id (e.g. source IP).
+
+    allow(key) consumes one token; buckets refill at `rate` tokens/s up
+    to `burst`. Thread-safe; stale buckets are pruned so a scanner cannot
+    grow memory unboundedly.
+    """
+
+    def __init__(self, rate: float = 5.0, burst: int = 10, max_clients: int = 4096):
+        self.rate = float(rate)
+        self.burst = float(burst)
+        self.max_clients = max_clients
+        self._lock = threading.Lock()
+        self._buckets: Dict[str, Tuple[float, float]] = {}  # key -> (tokens, t)
+
+    def allow(self, key: str) -> bool:
+        now = time.monotonic()
+        with self._lock:
+            tokens, t = self._buckets.get(key, (self.burst, now))
+            tokens = min(self.burst, tokens + (now - t) * self.rate)
+            ok = tokens >= 1.0
+            if ok:
+                tokens -= 1.0
+            self._buckets[key] = (tokens, now)
+            if len(self._buckets) > self.max_clients:
+                # drop the stalest half
+                items = sorted(self._buckets.items(), key=lambda kv: kv[1][1])
+                for k, _ in items[: len(items) // 2]:
+                    del self._buckets[k]
+            return ok
 
 
 class SecureBuffer:

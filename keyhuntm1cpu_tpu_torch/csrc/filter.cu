@@ -1,5 +1,5 @@
-// K3 kh_insert_keys: OR keys into the BSGS bitmap and level-2 bloom, or
-// into a brute target bitmap alone.
+// K3 kh_insert_keys: OR keys into the BSGS bitmap and level-2 bloom, into
+// a brute target bitmap alone, or into a level-2 bloom alone.
 //
 // Replaces the XLA composition in keyhuntm1cpu_tpu/engine/bsgs.py
 // _filters_stream_impl (bitmap_bit_planes + bloom2_bit_planes +
@@ -15,7 +15,11 @@
 // Forms, one kernel: the first n_keep keys are inserted (the streaming
 // build's last step keeps a prefix, so a count replaces a mask); words2 may
 // be null (the bitmap alone: a brute target set, 8 bytes a target
-// uploaded instead of the whole bitmap); with a `bad` counter the kernel
+// uploaded instead of the whole bitmap, or a device-resolve table's
+// bitmap), or words1 (the bloom alone: a device-resolve table's level-2
+// bloom, filter/bitmap.py build_bloom2_device, which the JAX package
+// builds by a sort and a scatter-add, _build_bloom2_words); with a `bad`
+// counter the kernel
 // also counts the walk's degenerate lanes among the kept keys and the
 // advance flags (one ballot a warp, one atomicAdd a warp that saw one), so
 // the build step's check needs no torch ops.
@@ -68,7 +72,7 @@ __device__ __forceinline__ void set_bit(uint32_t* words, uint32_t h, uint32_t ex
 // bloom2 bits.
 __device__ __forceinline__ void insert_key(uint32_t* __restrict__ w1, uint32_t* __restrict__ w2,
                                            uint32_t hi, uint32_t lo, int bits, int b2bits) {
-  set_bit(w1, lo, hi, bits);  // direct-address bitmap: the key's low bits
+  if (w1 != nullptr) set_bit(w1, lo, hi, bits);  // direct-address bitmap: the key's low bits
   if (w2 == nullptr) return;
   const uint32_t h1 = fmix32(lo ^ (hi * 0x9E3779B1u) ^ 0x2545F491u);
   const uint32_t h2 = fmix32(hi ^ (lo * 0x85EBCA77u) ^ 0x633D9ABDu);
@@ -111,11 +115,12 @@ insert_keys_kernel(uint32_t* __restrict__ w1, uint32_t* __restrict__ w2,
 
 }  // namespace
 
-// words2, deg, adeg and bad may be null (deg, adeg and bad together).
+// Either words1 or words2 may be null, and deg, adeg and bad (together).
 extern "C" int kh_insert_keys(void* words1, void* words2, const void* qhi, const void* qlo,
                               long long n_keep, const void* deg, const void* adeg, int n_adeg,
                               void* bad, int bits, int b2bits, void* stream) {
-  if (n_keep < 0 || n_adeg < 0 || bits < 5 || bits > 35 ||
+  if (n_keep < 0 || n_adeg < 0 || (words1 == nullptr && words2 == nullptr) ||
+      (words1 != nullptr && (bits < 5 || bits > 35)) ||
       (words2 != nullptr && (b2bits < 5 || b2bits > 35)) ||
       (bad != nullptr && (deg == nullptr || (n_adeg > 0 && adeg == nullptr))))
     return (int)cudaErrorInvalidValue;

@@ -25,6 +25,7 @@ column ``t*K + s``; qlo/qhi/deg are ``(T*K, U)``; adv_degenerate is
 
 from __future__ import annotations
 
+import math
 from typing import NamedTuple, Tuple
 
 import numpy as np
@@ -163,14 +164,16 @@ advance_chain.launches = 0
 
 def walk_blocks_ref(bases_x, bases_y, tab_x, tab_y):
     """Plain torch version of K2 (see walk_blocks). One batched inversion
-    over all rows (rows chained as Montgomery groups)."""
+    over all rows (rows chained as Montgomery groups; past 256 rows, as
+    many targets give, a group holds several rows, so the serial chain
+    stays at most 256 products long)."""
     R = bases_x.shape[1]
     bx, by = fe.u32(bases_x)[:, :, None], fe.u32(bases_y)[:, :, None]
     tx, ty = fe.u32(tab_x)[:, None, :], fe.u32(tab_y)[:, None, :]
     dx = fe.sub(tx, bx)  # (8, R, U)
     deg = fe.is_zero(dx)
     dx = fe.select(deg, fe.one_like(dx), dx)
-    inv_dx = fe.montgomery_inv_groups(dx, n_groups=R)
+    inv_dx = fe.montgomery_inv_groups(dx, n_groups=math.gcd(R, 256))
     lam = fe.mul(fe.sub(ty, by), inv_dx)
     x3 = fe.sub(fe.sub(fe.sqr(lam), bx), tx)
     return fe.i32(x3[0]), fe.i32(x3[1]), deg

@@ -1,24 +1,37 @@
-"""Baby-Step Giant-Step engine, host-resolve mode, on PyTorch + CUDA.
+"""Baby-Step Giant-Step engine on PyTorch + CUDA, in both resolve modes.
 
-Port of keyhuntm1cpu_tpu/engine/bsgs.py (host-resolve), with its five range
-orders and position checkpoints (``search_scheduled``). Index algebra is
-the JAX package's:
+Port of keyhuntm1cpu_tpu/engine/bsgs.py, with its five range orders and
+position checkpoints (``search_scheduled``). Index algebra is the JAX
+package's:
 
 - stride = 2m. Centers c_i = a + m + i*stride tile the range [a, b).
-- The device keeps only two probabilistic filters over the m baby keys
-  trunc64(x(j*G)), j = 1..m: a direct-address bitmap and a k=2 hashed
-  bloom ("bloom2"). The exact table (key -> j) lives on the host
-  (filter/host_table.py, built by the native library).
+- The baby keys are trunc64(x(j*G)), j = 1..m. Where the exact table
+  lives is ``BSGSParams.resolve``:
+  - "device" (the default, as in the JAX package): the sorted table
+    (key -> j, filter/sorted_table.py) is built on the card by the same
+    K1/K2 walk as the filter build and one stable device sort
+    (``build_baby_table``), or loaded from a table file (``load_table``);
+    a direct-address bitmap over it (K3) and, when the expected level-1
+    survivors call for it (``cascade2``), a k=2 hashed bloom ("bloom2",
+    shared by every engine over the same table, ``_bloom2_for_table``);
+  - "host": the card keeps only the bitmap and the bloom2, streamed from
+    the walk by K3 without m-sized planes; the exact table lives on the
+    host (filter/host_table.py, built by the native library).
 - Giant walk: P(t, i) = Q_t - c_i*G. One chunk walks K steps of U centers
   for all T targets (curve/pwalk.py: advance chain K1 + walk blocks K2),
   runs the cascade (filter/bitmap.py) and returns ONE int32 summary of
-  3*C2 + 3*T*K + 1 words: survivor positions, their 64-bit keys, the
-  per-row degenerate summary and the (poisoned) survivor count.
-- The host resolves survivors with np.searchsorted, verifies k = c +- j
-  exactly with ref/ecref, and rescans a step exactly when the cascade
-  overflowed or the walk state became invalid.
+  3*C2 + 3*T*K + 1 words: survivor positions, then (device) their baby
+  indices j at the table's lower bound and its successor, or (host) their
+  64-bit keys, the per-row degenerate summary and the (poisoned) survivor
+  count.
+- The host takes j from the summary (device) or resolves the survivors'
+  keys with np.searchsorted (host), verifies k = c +- j exactly with
+  ref/ecref, and rescans a step exactly when the cascade overflowed or
+  the walk state became invalid.
 
 Every giant step covers `stride` keys, so keys/s = steps/s * U * stride.
+Targets ride K1's lanes, any number of them: a chunk holds T*K*U query
+words, so K shrinks past CHUNK_WORD_CAP / (T*U).
 
 Range orders (``chunk_order``: sequential, backward, both, random, dance)
 permute the chunks of K steps. A chunk that follows its predecessor in the
@@ -30,10 +43,12 @@ strides (``_scheduled_bases``), for the next pipeline_depth chunks at once.
 from __future__ import annotations
 
 import dataclasses
+import hashlib
 import math
 import os
+import threading
 import time
-from collections import deque
+from collections import OrderedDict, deque
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -46,6 +61,7 @@ from ..curve import pwalk, tables
 from ..field import fe
 from ..filter import bitmap as bmp
 from ..filter import host_table as ht
+from ..filter import sorted_table as st
 from ..ref import ecref
 from .common import (Deadline, FoundKey, SearchStats, summary_to_host,
                      verify_candidate_scalar)
@@ -71,17 +87,46 @@ def resolve_m(m_babies: "int | None" = None, n_value: "int | None" = None,
 
 @dataclass(frozen=True)
 class BSGSParams:
-    """The host-resolve subset of keyhuntm1cpu_tpu's BSGSParams."""
+    """keyhuntm1cpu_tpu's BSGSParams without its TPU knobs (pallas,
+    pallas_sb, chain_len, probe_mode, table_comm, cand_max)."""
 
     m: int = 1 << 20  # baby steps
     block_u: int = 1024  # giant centers per device step (U)
     steps_per_chunk: int = 16  # K: device steps per chunk
-    build_block: int = 4096  # baby keys per walk row in the filter build
+    build_block: int = 4096  # baby keys per walk row in the table and filter builds
     chunk_cand_max: int = 1024  # floor of the cascade budgets C1, C2
     bits_log2: Optional[int] = None  # bitmap size (None: see _filter_sizes)
+    cascade2: str = "auto"  # device resolve: the bloom2 stage "auto" (expected
+    # level-1 survivors a chunk > 1024), "on" or "off"
     pipeline_depth: int = 8  # chunks in flight ahead of host decode
-    bloom2_bits: Optional[int] = None  # bloom2 size (None: see _filter_sizes)
+    resolve: str = "device"  # "device": the sorted table on the card;
+    # "host": the card holds the two filters, the host the exact table
+    bloom2_bits: Optional[int] = None  # host-resolve bloom2 size (None: see _filter_sizes)
     table_cache: Optional[str] = None  # host-table cache dir override
+
+
+_BLOOM2_CACHE: "OrderedDict[int, tuple]" = OrderedDict()
+_BLOOM2_LOCK = threading.Lock()
+
+
+def _bloom2_for_table(table: st.SortedXTable) -> bmp.DeviceBloom2:
+    """The bloom2 of a device table, built once (bsgs._bloom2_for_table):
+    an LRU of two keyed by the identity of the table's key tensor, which
+    it holds, so the id is not reused while the entry lives. Locked: the
+    server's handler threads build engines over one resident table
+    concurrently."""
+    k = id(table.key)
+    with _BLOOM2_LOCK:
+        ent = _BLOOM2_CACHE.get(k)
+        if ent is not None and ent[0] is table.key:
+            _BLOOM2_CACHE.move_to_end(k)  # LRU: the resident table stays
+            return ent[1]
+    b2 = bmp.build_bloom2_device(table)
+    with _BLOOM2_LOCK:
+        _BLOOM2_CACHE[k] = (table.key, b2)
+        while len(_BLOOM2_CACHE) > 2:
+            _BLOOM2_CACHE.popitem(last=False)
+    return b2
 
 
 def filter_build_step(px, py, tx, ty, ax, ay, adv_tab, K: int, ub: int, words1,
@@ -143,12 +188,9 @@ def _batch_inv(vals: Sequence[int]) -> List[int]:
     return out
 
 
-def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
-                    *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None):
-    """One host-resolve chunk (bsgs._pallas_chunk_impl_host): walk, cascade,
-    packed summary. Returns (next_x, next_y, summary (3*C2+3*T*K+1,) int32).
-    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None.
-    No host sync: the summary stays on the device until the caller copies it."""
+def _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U: int, K: int, T: int, adv_tab):
+    """K1 + K2 of a chunk: (walk result, its (T*K, U) degenerate flags with
+    each row's advance flag on lane U - 1, the (T*K,) advance flags)."""
     res = pwalk.chunk_multi(px, py, tab_x, tab_y, adv_x, adv_y, K=K, U=U, T=T,
                             adv_tab=adv_tab)
     adv_flat = res.adv_degenerate.reshape(-1)  # (T*K,)
@@ -156,30 +198,147 @@ def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
     # adv degenerate == walk lane U degenerate (ADV = U*S = tab[U-1]); fresh
     # tensor from the walk, updated in place
     deg[:, U - 1] |= adv_flat
-    fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1),
-                                C2, bm2=bloom2, stage1_max=C1)
-    B = T * K * U
-    live = ~deg.reshape(-1)[fs.pos.clamp(max=B - 1).long()]
-    cand_pos = torch.where((fs.pos < B) & live, fs.pos, B)
+    return res, deg, adv_flat
+
+
+def _live(deg, pos, B: int):
+    """Survivors (positions, B = none) not on a degenerate lane (garbage x)."""
+    return ~deg.reshape(-1)[pos.clamp(max=B - 1).long()]
+
+
+def _pack(words, deg, adv_flat, n):
+    """The chunk summary: the three C-long survivor words, then per row the
+    degenerate-lane count, the first degenerate lane and the advance flag,
+    then the (poisoned) survivor count."""
     deg8 = deg.to(torch.uint8)
     degsum = torch.stack([deg8.sum(dim=1, dtype=torch.int32),
                           deg8.argmax(dim=1).to(torch.int32),
                           adv_flat.to(torch.int32)])
-    out = torch.cat([cand_pos, fs.qhi, fs.qlo, degsum.reshape(-1),
-                     fs.n_candidates.reshape(1)])
-    return res.next_x, res.next_y, out
+    return torch.cat([*words, degsum.reshape(-1), n.reshape(1)])
+
+
+def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
+                    *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None):
+    """One host-resolve chunk (bsgs._pallas_chunk_impl_host): walk, cascade,
+    packed summary. Returns (next_x, next_y, summary (3*C2+3*T*K+1,) int32):
+    survivor positions (B = T*K*U where none), their key words qhi, qlo.
+    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None.
+    No host sync: the summary stays on the device until the caller copies it."""
+    res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab)
+    fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1),
+                                C2, bm2=bloom2, stage1_max=C1)
+    B = T * K * U
+    cand_pos = torch.where((fs.pos < B) & _live(deg, fs.pos, B), fs.pos, B)
+    return res.next_x, res.next_y, _pack([cand_pos, fs.qhi, fs.qlo], deg, adv_flat,
+                                         fs.n_candidates)
+
+
+def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
+               *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None):
+    """One device-resolve chunk (bsgs._pallas_chunk_impl): walk, cascade
+    (with the bloom2 stage unless bloom2 is None), the exact search of the
+    C2 survivors in the sorted baby table, packed summary. Returns (next_x,
+    next_y, summary (3*C2+3*T*K+1,) int32): survivor positions (B = T*K*U
+    where no live match), the baby index j at the table's lower bound and
+    at its successor (0 where that entry does not match), then as
+    chunk_impl_host. No host sync."""
+    res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab)
+    fl = bmp.filtered_lookup(bitmap, table, res.qhi.reshape(-1), res.qlo.reshape(-1),
+                             C2, bm2=bloom2, stage1_max=C1)
+    B = T * K * U
+    live, r = _live(deg, fl.pos, B), fl.result
+    cand_pos = torch.where((r.found | r.found2) & live, fl.pos, B)
+    cand_j = torch.where(r.found & live, r.idx, 0)
+    cand_j2 = torch.where(r.found2 & live, r.idx2, 0)
+    return res.next_x, res.next_y, _pack([cand_pos, cand_j, cand_j2], deg, adv_flat,
+                                         fl.n_candidates)
+
+
+def _baby_walk(m: int, ub: int, dev, step_fn) -> None:
+    """Baby keys j = 2*ub + 1..m on `dev`: K1/K2 walk BUILD_BLOCKS blocks of
+    ub keys a step from base (2*ub)*G with ADV = ub*G. step_fn(px, py,
+    walk, start, n_keep, bad) runs one step over keys start + 1..start +
+    n_keep (the first n_keep of its lanes; walk is (tab_x, tab_y, adv_x,
+    adv_y, adv_tab, K, ub) for pwalk.chunk_multi), adds the kept lanes'
+    degenerate flags and the advance flags to `bad` (a () int64 tensor) and
+    returns the next base. Base (2*ub)*G is degeneracy-free (a lane would
+    need t*ub == +-u, u <= ub); `bad` is checked once per slice of
+    KEYHUNT_STREAM_SLICE steps. Key indices are python ints / int64, so any
+    m works."""
+    rest = m - 2 * ub
+    if rest <= 0:
+        return
+    btab_x, btab_y = tables.step_table(ecref.G, ub)
+    adv = ecref.scalar_mult(ub)
+    K = min(BUILD_BLOCKS, -(-rest // ub))
+    walk = (pwalk.table_to_limb_major(btab_x, dev), pwalk.table_to_limb_major(btab_y, dev),
+            _limbs(adv[0], dev), _limbs(adv[1], dev), pwalk.adv_multiples(adv, K, dev), K, ub)
+    base = ecref.scalar_mult(2 * ub)
+    px, py = _limbs(base[0], dev)[None], _limbs(base[1], dev)[None]
+    KU = K * ub
+    n_iter = -(-rest // KU)
+    slice_iters = max(1, int(os.environ.get("KEYHUNT_STREAM_SLICE", 256)))
+    bad = torch.zeros((), dtype=torch.int64, device=dev)
+    t0 = time.time()
+    for it in range(n_iter):
+        # key j = 2*ub + it*KU + lane + 1 <= m: the step keeps a prefix
+        px, py = step_fn(px, py, walk, 2 * ub + it * KU, min(KU, rest - it * KU), bad)
+        if (it + 1) % slice_iters == 0 or it + 1 == n_iter:
+            if int(bad) != 0:
+                raise RuntimeError("degenerate walk lane in the baby walk "
+                                   "(impossible for base >= 2*ub*G)")
+            if n_iter > slice_iters:
+                print(f"[build] baby walk {it + 1}/{n_iter} steps "
+                      f"({time.time() - t0:.1f}s)", flush=True)
+
+
+def _seed_keys(n: int, dev):
+    """(hi, lo) int32 tensors on `dev` of keys j = 1..n (the native exact walk)."""
+    seed = ht.native_keys_range(1, n)
+    return (torch.from_numpy((seed >> np.uint64(32)).astype(np.uint32).view(np.int32)).to(dev),
+            torch.from_numpy(seed.astype(np.uint32).view(np.int32)).to(dev))
+
+
+def build_baby_table(m: int, build_block: int, dev) -> st.SortedXTable:
+    """The device-resolve baby table (bsgs.build_baby_table): trunc64(x(j*G))
+    with payload j, j = 1..m, on `dev`. Keys 1..2*build_block from the
+    native walk, the rest by the K1/K2 walk of the filter build
+    (_baby_walk), each step's keys written in j order into one m-long key
+    tensor; then one stable sort (ties, truncation collisions, keep j
+    ascending, as the JAX package's stable sort does)."""
+    key = torch.empty((m,), dtype=torch.int64, device=dev)
+    n_seed = min(2 * build_block, m)
+    st.write_keys(key, 0, *_seed_keys(n_seed, dev))
+
+    def step(px, py, walk, start, n_keep, bad):
+        tx, ty, ax, ay, adv_tab, K, ub = walk
+        res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1, adv_tab=adv_tab)
+        st.write_keys(key, start, res.qhi.reshape(-1)[:n_keep], res.qlo.reshape(-1)[:n_keep])
+        bad += res.degenerate.reshape(-1)[:n_keep].sum() + res.adv_degenerate.sum()
+        return res.next_x, res.next_y
+
+    _baby_walk(m, build_block, dev, step)
+    return st.sort_keys(key)
 
 
 class BSGSEngine:
-    """Single-device BSGS search in host-resolve mode."""
+    """Single-device BSGS search, device- or host-resolve (params.resolve)."""
 
     def __init__(self, pubkeys: Sequence[Tuple[int, int]], range_start: int,
                  range_end: int, params: BSGSParams = BSGSParams(),
                  device="cuda", host_table: "ht.HostTable | None" = None,
                  bitmap: "bmp.DeviceBitmap | None" = None,
-                 bloom2: "bmp.DeviceBloom2 | None" = None):
+                 bloom2: "bmp.DeviceBloom2 | None" = None,
+                 table: "st.SortedXTable | None" = None):
+        """table (device resolve) or host_table, bitmap and bloom2 (host
+        resolve) are built when not given; a device-resolve engine takes
+        its bloom2 from _bloom2_for_table."""
         if not (1 <= range_start < range_end <= ecref.N):
             raise ValueError("bad range")
+        if params.resolve not in ("device", "host"):
+            raise ValueError("resolve must be 'device' or 'host'")
+        if params.cascade2 not in ("auto", "on", "off"):
+            raise ValueError("cascade2 must be 'auto', 'on' or 'off'")
         self.device = torch.device(device)
         if self.device.type == "cuda" and not torch.cuda.is_available():
             raise RuntimeError("device 'cuda' requested but no CUDA device is available")
@@ -204,17 +363,29 @@ class BSGSEngine:
         self.adv_x = _limbs(big[0], self.device)
         self.adv_y = _limbs(big[1], self.device)
 
-        if host_table is None:
-            host_table = ht.ensure_host_table(
-                m, params.table_cache or ht.DEFAULT_CACHE_DIR)
-        if host_table.m != m:
-            raise ValueError(f"host table m={host_table.m} != params.m={m}")
-        self.host_table = host_table
-        if bitmap is not None and bloom2 is not None:
-            self.bitmap, self.bloom2 = bitmap, bloom2
+        self.table = self.host_table = None
+        if params.resolve == "device":
+            if table is None:
+                table = build_baby_table(m, params.build_block, self.device)
+            if table.key.shape != (m,) or table.key.device.type != self.device.type:
+                raise ValueError(f"table of {tuple(table.key.shape)} keys on "
+                                 f"{table.key.device} does not match m={m} on {self.device}")
+            self.table = table
+            # shareable by every engine over the same table
+            self.bitmap = (bitmap if bitmap is not None
+                           else bmp.build_bitmap_device(table, params.bits_log2))
         else:
-            self.bitmap, self.bloom2 = self._build_filters_streaming(
-                *self._filter_sizes())
+            if host_table is None:
+                host_table = ht.ensure_host_table(
+                    m, params.table_cache or ht.DEFAULT_CACHE_DIR)
+            if host_table.m != m:
+                raise ValueError(f"host table m={host_table.m} != params.m={m}")
+            self.host_table = host_table
+            if bitmap is not None and bloom2 is not None:
+                self.bitmap, self.bloom2 = bitmap, bloom2
+            else:
+                self.bitmap, self.bloom2 = self._build_filters_streaming(
+                    *self._filter_sizes())
 
         T, K = len(self.targets), params.steps_per_chunk
         if T * K * U > CHUNK_WORD_CAP:
@@ -225,19 +396,25 @@ class BSGSEngine:
                     f"shrinking steps_per_chunk {K} -> {k_new} to bound "
                     "device memory")
                 self.p = dataclasses.replace(self.p, steps_per_chunk=k_new)
-        self.C1, self.C2 = self._cascade_budgets(
-            T * self.p.steps_per_chunk * U)
+        n_queries = T * self.p.steps_per_chunk * U
+        if self.table is None:
+            self.C1, self.C2 = self._cascade_budgets(n_queries)
+        else:
+            self.C1, self.C2, use2 = self._device_budgets(n_queries)
+            self.bloom2 = _bloom2_for_table(self.table) if use2 else None
         self.adv_tab = pwalk.adv_multiples(big, self.p.steps_per_chunk, self.device)
         self._rebase_tab = None  # _scheduled_bases' host table, built on first use
+        self._host_keys = None  # _rescan_table's host copy, made on first use
 
     # ------------------------------------------------------------------
-    # streaming filter build
+    # the baby table (device resolve) and filters (host resolve)
     # ------------------------------------------------------------------
 
     def _filter_sizes(self) -> Tuple[int, int]:
-        """(bitmap bits, bloom2 bits). Defaults follow the JAX engine on the
-        matching backend: its accelerator path pins both at 2^35 bits (4 GiB
-        each, load 1/8 even at m = 2^31); its CPU path sizes them from m."""
+        """(bitmap bits, bloom2 bits) of host resolve. Defaults follow the JAX
+        engine on the matching backend: its accelerator path pins both at
+        2^35 bits (4 GiB each, load 1/8 even at m = 2^31); its CPU path
+        sizes them from m."""
         p = self.p
         if self.device.type == "cuda":
             bits, b2 = 35, 35
@@ -247,55 +424,50 @@ class BSGSEngine:
                 p.bloom2_bits if p.bloom2_bits is not None else b2)
 
     def _build_filters_streaming(self, bits_log2: int, b2bits: int):
-        """Bitmap + bloom2 over j = 1..m, built on the device with no m-sized
-        key planes: keys 1..2*Ub come from the native exact walk; blocks
-        t >= 2 are walked by K1/K2 from base (2*Ub)*G with ADV = Ub*G and
-        ORed into both filters by K3, BUILD_BLOCKS blocks per step. Base
-        (2*Ub)*G is degeneracy-free (a lane would need t*Ub == +-u, u <= Ub);
-        that is checked once per slice of KEYHUNT_STREAM_SLICE steps. Key
-        indices are python ints / int64, so any m the table supports works."""
-        p, dev = self.p, self.device
-        m, ub = p.m, p.build_block
+        """Host resolve: bitmap + bloom2 over j = 1..m, built on the device
+        with no m-sized key planes: keys 1..2*Ub (Ub = build_block) from the
+        native exact walk, the rest walked by _baby_walk and ORed into both
+        filters by K3 in the same step (filter_build_step)."""
+        dev = self.device
         words1 = bmp.empty_filter(bits_log2, dev)
         words2 = bmp.empty_filter(b2bits, dev)
-
+        m, ub = self.p.m, self.p.build_block
         n_seed = min(2 * ub, m)
-        seed = ht.native_keys_range(1, n_seed)
-        shi = torch.from_numpy((seed >> np.uint64(32)).astype(np.uint32).view(np.int32))
-        slo = torch.from_numpy(seed.astype(np.uint32).view(np.int32))
-        bmp.insert_keys(words1, bits_log2, words2, b2bits, shi.to(dev), slo.to(dev), n_seed)
-
-        rest = m - 2 * ub
-        if rest > 0:
-            btab_x, btab_y = tables.step_table(ecref.G, ub)
-            tx = pwalk.table_to_limb_major(btab_x, dev)
-            ty = pwalk.table_to_limb_major(btab_y, dev)
-            adv = ecref.scalar_mult(ub)
-            ax, ay = _limbs(adv[0], dev), _limbs(adv[1], dev)
-            base = ecref.scalar_mult(2 * ub)
-            px, py = _limbs(base[0], dev)[None], _limbs(base[1], dev)[None]
-            K = min(BUILD_BLOCKS, -(-rest // ub))
-            adv_tab = pwalk.adv_multiples(adv, K, dev)
-            KU = K * ub
-            n_iter = -(-rest // KU)
-            slice_iters = max(1, int(os.environ.get("KEYHUNT_STREAM_SLICE", 256)))
-            bad = torch.zeros((), dtype=torch.int64, device=dev)
-            t0 = time.time()
-            for it in range(n_iter):
-                # key j = 2*Ub + it*KU + lane + 1 <= m: the step keeps a prefix
-                px, py = filter_build_step(px, py, tx, ty, ax, ay, adv_tab, K, ub, words1,
-                                           bits_log2, words2, b2bits,
-                                           min(KU, rest - it * KU), bad)
-                if (it + 1) % slice_iters == 0 or it + 1 == n_iter:
-                    if int(bad) != 0:
-                        raise RuntimeError(
-                            "degenerate walk lane in the streaming filter "
-                            "build (impossible for base >= 2*Ub*G)")
-                    if n_iter > slice_iters:
-                        print(f"[build] filter stream {it + 1}/{n_iter} steps "
-                              f"({time.time() - t0:.1f}s)", flush=True)
+        bmp.insert_keys(words1, bits_log2, words2, b2bits, *_seed_keys(n_seed, dev), n_seed)
+        _baby_walk(m, ub, dev, lambda px, py, walk, start, n_keep, bad: filter_build_step(
+            px, py, *walk, words1, bits_log2, words2, b2bits, n_keep, bad))
         return (bmp.DeviceBitmap(words1, bits_log2),
                 bmp.DeviceBloom2(words2, b2bits))
+
+    # ------------------------------------------------------------------
+    # table files (reference -S; the JAX package's npz format)
+    # ------------------------------------------------------------------
+
+    def save_table(self, path: str) -> None:
+        """Write the device table as the JAX package's table file: npz with
+        version, m and the uint32 planes hi, lo, idx (sorted), and the
+        sha256 of hi + lo + idx."""
+        if self.table is None:
+            raise ValueError("host-resolve engines have no device table; the host "
+                             "table is cached on disk by filter/host_table.py")
+        hi, lo, idx = st.table_planes(self.table)
+        digest = hashlib.sha256(hi.tobytes() + lo.tobytes() + idx.tobytes()).digest()
+        np.savez(path, version=np.int64(1), m=np.int64(self.p.m), hi=hi, lo=lo, idx=idx,
+                 checksum=np.frombuffer(digest, dtype=np.uint8))
+
+    @staticmethod
+    def load_table(path: str, verify_checksum: bool = True, device="cuda") -> st.SortedXTable:
+        """A table file of either package on `device`; ValueError on a bad
+        version or checksum (verify_checksum=False skips the checksum)."""
+        with np.load(path) as z:
+            if int(z["version"]) != 1:
+                raise ValueError("unsupported table version")
+            hi, lo, idx = z["hi"], z["lo"], z["idx"]
+            if verify_checksum:
+                digest = hashlib.sha256(hi.tobytes() + lo.tobytes() + idx.tobytes()).digest()
+                if digest != z["checksum"].tobytes():
+                    raise ValueError("baby table checksum mismatch")
+            return st.table_from_planes(hi, lo, idx, device)
 
     # ------------------------------------------------------------------
     # giant-step search
@@ -317,6 +489,24 @@ class BSGSEngine:
         C2 = max(p.chunk_cand_max, budget(int(expected * fp2) + 1))
         return C1, C2
 
+    def _device_budgets(self, n_queries: int) -> Tuple[int, int, bool]:
+        """(C1, C2, use2) of device resolve, the JAX engine's budgets
+        exactly: C1 from the expected level-1 survivors (B*m/2^bits; mean +
+        8*sqrt(mean) + 512 past 4096, else 4*mean), floored at
+        chunk_cand_max; the bloom2 stage when cascade2 is "on", or "auto"
+        and more than 1024 survivors are expected, then C2 from
+        max(64, expected/32), else C2 = C1."""
+        p = self.p
+        expected = n_queries * p.m // (1 << self.bitmap.bits_log2)
+        need = (expected + 8 * int(expected ** 0.5) + 512 if expected >= 4096
+                else 4 * expected)
+        C1 = max(p.chunk_cand_max, ((need + 511) // 512) * 512)
+        if not (p.cascade2 == "on" or (p.cascade2 == "auto" and expected > 1024)):
+            return C1, C1, False
+        exp2 = max(64, expected // 32)  # bloom2 fp <= 1/64, and slack
+        return C1, max(p.chunk_cand_max,
+                       ((exp2 + 8 * int(exp2 ** 0.5) + 511) // 512) * 512), True
+
     def _initial_base(self, step0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """P_base(s=step0) per target (host-exact), as (T, 8) limb tensors."""
         c_base = self.a + self.p.m + (step0 * self.p.block_u - 1) * self.stride
@@ -331,13 +521,17 @@ class BSGSEngine:
 
     def _chunk_fn(self, px, py):
         p = self.p
-        return chunk_impl_host(
-            px, py, self.tab_x, self.tab_y, self.adv_x, self.adv_y,
-            self.bitmap, self.bloom2, U=p.block_u, K=p.steps_per_chunk,
-            T=len(self.targets), C1=self.C1, C2=self.C2, adv_tab=self.adv_tab)
+        shape = dict(U=p.block_u, K=p.steps_per_chunk, T=len(self.targets), C1=self.C1,
+                     C2=self.C2, adv_tab=self.adv_tab)
+        consts = (px, py, self.tab_x, self.tab_y, self.adv_x, self.adv_y, self.bitmap)
+        if self.table is None:
+            return chunk_impl_host(*consts, self.bloom2, **shape)
+        return chunk_impl(*consts, self.table, self.bloom2, **shape)
 
     def _consume_summary(self, step0: int, k: int, arr: np.ndarray):
-        """Decode one chunk's summary -> (found, rebase, interesting)."""
+        """Decode one chunk's summary -> (found, rebase, interesting): the
+        JAX engine's "chunk" (device resolve: baby indices) and
+        "chunk_host" (host resolve: keys for the host table) forms."""
         p = self.p
         C2 = self.C2
         K = p.steps_per_chunk
@@ -345,8 +539,6 @@ class BSGSEngine:
         T = len(self.targets)
         B = T * K * U
         cand_pos = arr[:C2]
-        qhi = arr[C2 : 2 * C2].view(np.uint32)
-        qlo = arr[2 * C2 : 3 * C2].view(np.uint32)
         degsum = arr[3 * C2 : 3 * C2 + 3 * T * K].reshape(3, T, K)
         ncand = int(arr[3 * C2 + 3 * T * K])
         found: List[FoundKey] = []
@@ -361,18 +553,24 @@ class BSGSEngine:
         for s_ in range(adv_first + 1, k):
             interesting = True
             found += self._host_rescan_step(step0 + s_)
-        valid = cand_pos < B
-        if valid.any():
-            rows, js = self.host_table.resolve(qhi[valid], qlo[valid])
-            vpos = cand_pos[valid]
-            for r, j in zip(rows.tolist(), js.tolist()):
-                blk, u0 = divmod(int(vpos[r]), U)
-                t, s_ = divmod(blk, K)
-                if s_ >= k:
-                    continue
-                interesting = True
-                found += self._try_candidates(
-                    self._candidates_for_hit(step0 + s_, u0 + 1, int(j)), t)
+        valid = np.nonzero(cand_pos < B)[0]
+        if self.table is not None:  # j at the lower bound and its successor (0: none)
+            js = arr[C2 : 3 * C2].view(np.uint32).reshape(2, C2)[:, valid]
+            hits = [(int(cand_pos[c]), int(j)) for c, j1, j2 in zip(valid, *js)
+                    for j in (j1, j2) if j]
+        elif len(valid):
+            rows, js = self.host_table.resolve(arr[C2 : 2 * C2].view(np.uint32)[valid],
+                                               arr[2 * C2 : 3 * C2].view(np.uint32)[valid])
+            hits = [(int(cand_pos[valid[r]]), int(j)) for r, j in zip(rows.tolist(), js.tolist())]
+        else:
+            hits = []
+        for pos, j in hits:
+            blk, u0 = divmod(pos, U)
+            t, s_ = divmod(blk, K)
+            if s_ >= k:
+                continue
+            interesting = True
+            found += self._try_candidates(self._candidates_for_hit(step0 + s_, u0 + 1, j), t)
         for t, s_ in zip(*np.nonzero(degsum[0, :, :k] > 0)):
             interesting = True
             u = int(degsum[1, t, s_]) + 1
@@ -697,11 +895,23 @@ class BSGSEngine:
             seen[(f.private_key, f.target)] = f
         return list(seen.values())
 
+    def _rescan_table(self):
+        """(sorted u64 keys, payload, j offset) for the exact host rescan,
+        from the table this engine holds: the host table (payload j - 1),
+        or a host copy of the device table (payload j), made on first use."""
+        if self._host_keys is None:
+            if self.host_table is not None:
+                self._host_keys = (self.host_table.keys, self.host_table.idx, 1)
+            else:
+                keys = self.table.key.cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)
+                self._host_keys = (keys, self.table.idx.cpu().numpy().view(np.uint32), 0)
+        return self._host_keys
+
     def _host_rescan_step(self, step: int) -> List[FoundKey]:
         """Exact host scan of one device step (the cascade-overflow and
         invalid-walk fallback): python-int walk of U points per target,
         then one vectorised searchsorted."""
-        keys, payload = self.host_table.keys, self.host_table.idx
+        keys, payload, j_off = self._rescan_table()
         found: List[FoundKey] = []
         U = self.p.block_u
         neg_stride = ecref.point_neg(ecref.scalar_mult(self.stride))
@@ -724,7 +934,7 @@ class BSGSEngine:
             for u in np.nonzero(right > left)[0]:
                 cu = c0 + int(u) * self.stride
                 for p_ in range(int(left[u]), int(right[u])):
-                    j = int(payload[p_]) + 1
+                    j = int(payload[p_]) + j_off
                     found += self._try_candidates([cu - j, cu + j], t)
         return found
 

@@ -1,21 +1,24 @@
 """Device bitmap + level-2 bloom cascade, the filter-insert kernel (K3) and
 the probe kernel.
 
-Port of keyhuntm1cpu_tpu/filter/bitmap.py without the device-resolve
-two-stage lookup:
+Port of keyhuntm1cpu_tpu/filter/bitmap.py:
 
 - level 1: a 2^b-bit direct-address bitmap over the low bits of each
   64-bit key (one gather per query), built by K3 on the card for a brute
-  target set (``build_bitmap``, on the host for CPU tensors) or streamed
-  on the card for BSGS (``insert_keys``);
+  target set (``build_bitmap``, on the host for CPU tensors), streamed on
+  the card for host-resolve BSGS (``insert_keys``), or built from a
+  device-resolve baby table (``build_bitmap_device``);
 - level 2: a k=2 hashed bloom (fmix32 mixes of the key), probed only on
-  level-1 survivors;
+  level-1 survivors; a device-resolve table's (``build_bloom2_device``,
+  K3's bloom-only form) is capped at 2^32 bits as the JAX package's is;
 - compaction keeps the first `size` survivor positions in ascending order
   (``compact_positions``: a prefix sum and one searchsorted — no host sync);
-- ``filtered_lookup``: probe, compaction, then the exact sorted-table
-  search of the survivors (the JAX package's form; the large-target brute
-  path's step runs the probe and then sorted_table.lookup_summary, the
-  search fused with the step's summary).
+- ``filtered_lookup``: probe, compaction (and the bloom2 stage), then the
+  exact sorted-table search of the survivors (the device-resolve BSGS
+  chunk); ``filtered_survivors``: the same cascade without the search
+  (host-resolve). The large-target brute path's step runs the probe and
+  then sorted_table.lookup_summary, the search fused with the step's
+  summary.
 
 ``probe`` and ``probe_bloom2`` run the probe kernel (csrc/probe.cu: the
 word gather of ``dma_gather`` fused with the bit test) for CUDA tensors
@@ -29,8 +32,8 @@ int32 tensors holding u32 bits. Index math is done in int64 with masks
 (torch on the CPU has no u32 arithmetic); 32-bit products are split into
 16-bit halves so no int64 product overflows.
 
-``insert_keys`` ORs the first n_keep keys into both filters, or into a
-bitmap alone, IN PLACE, and may count the walk's degenerate lanes in the
+``insert_keys`` ORs the first n_keep keys into both filters, or into one
+of them alone, IN PLACE, and may count the walk's degenerate lanes in the
 same launch: the CUDA kernel K3 (csrc/filter.cu) for CUDA tensors, the
 plain torch version for CPU ones. ``build_bitmap`` builds a brute target
 bitmap with it on the card.
@@ -48,9 +51,10 @@ import torch
 
 from .. import _build
 from ..field.fe import M16, M32, i32, u32
-from .sorted_table import LookupResult, SortedXTable, lookup
+from .sorted_table import LookupResult, SortedXTable, key_words, lookup
 
 MAX_BITS_LOG2 = 35  # 2^30 words (4 GiB): the largest filter either package builds
+TABLE_SLICE = 1 << 26  # table keys a K3 launch takes in the filters built from a table
 
 
 class DeviceBitmap(NamedTuple):
@@ -66,6 +70,12 @@ class DeviceBloom2(NamedTuple):
 def default_bits_log2(m: int) -> int:
     """fp = m/2^b = 2^-12, capped at 2^34 bits (bitmap.default_bits_log2)."""
     return min(34, max(16, int(np.ceil(np.log2(max(m, 2)))) + 12))
+
+
+def bloom2_bits_log2(m: int) -> int:
+    """Load 2m/2^b = 1/8, capped at 2^32 bits: a device-resolve table's
+    bloom2 (bitmap.bloom2_bits_log2)."""
+    return min(32, max(16, int(np.ceil(np.log2(max(m, 2)))) + 4))
 
 
 def bloom2_bits_log2_host(m: int) -> int:
@@ -196,27 +206,29 @@ def insert_keys_ref(words1, bits_log2, words2, b2bits, qhi, qlo, n_keep, degener
                     adv_degenerate=None, bad=None) -> None:
     """Plain torch version of K3 (see insert_keys)."""
     hi, lo = u32(qhi[:n_keep]), u32(qlo[:n_keep])
-    _or_into(words1, *bitmap_bit_planes(hi, lo, bits_log2))
+    if words1 is not None:
+        _or_into(words1, *bitmap_bit_planes(hi, lo, bits_log2))
     if words2 is not None:
         _or_into(words2, *bloom2_bit_planes(hi, lo, b2bits))
     if bad is not None:
         bad += degenerate[:n_keep].sum() + adv_degenerate.sum()
 
 
-def insert_keys(words1: torch.Tensor, bits_log2: int, words2: Optional[torch.Tensor],
-                b2bits: int, qhi: torch.Tensor, qlo: torch.Tensor, n_keep: int,
-                degenerate: Optional[torch.Tensor] = None,
+def insert_keys(words1: Optional[torch.Tensor], bits_log2: int,
+                words2: Optional[torch.Tensor], b2bits: int, qhi: torch.Tensor,
+                qlo: torch.Tensor, n_keep: int, degenerate: Optional[torch.Tensor] = None,
                 adv_degenerate: Optional[torch.Tensor] = None,
                 bad: Optional[torch.Tensor] = None) -> None:
-    """OR the bitmap bit of each of the first n_keep keys into words1 and,
-    unless words2 is None, both its bloom2 bits into words2, IN PLACE.
-    qhi/qlo: (n,) int32, 0 <= n_keep <= n. With `bad` (a () int64 tensor):
-    bad += the set flags of degenerate[:n_keep] ((n,) bool) and of
-    adv_degenerate ((k,) bool), in the same launch."""
+    """OR the bitmap bit of each of the first n_keep keys into words1 and
+    both its bloom2 bits into words2, IN PLACE; either filter may be None
+    (not both). qhi/qlo: (n,) int32, 0 <= n_keep <= n. With `bad` (a ()
+    int64 tensor): bad += the set flags of degenerate[:n_keep] ((n,) bool)
+    and of adv_degenerate ((k,) bool), in the same launch."""
     n = qhi.shape[0] if qhi.dim() == 1 else -1
-    filters = [("words1", words1, bits_log2)]
-    if words2 is not None:
-        filters.append(("words2", words2, b2bits))
+    filters = [(name, w, b) for name, w, b in (("words1", words1, bits_log2),
+                                               ("words2", words2, b2bits)) if w is not None]
+    if not filters:
+        raise ValueError("insert_keys needs words1 or words2")
     for name, w, b in filters:
         if not 5 <= b <= MAX_BITS_LOG2:
             raise ValueError(f"{name}: bits out of range (5..{MAX_BITS_LOG2}): {b}")
@@ -245,13 +257,44 @@ def insert_keys(words1: torch.Tensor, bits_log2: int, words2: Optional[torch.Ten
     if n_keep == 0 and n_adeg == 0:
         return
     ptr = lambda t: None if t is None else t.data_ptr()
-    _build.launch("kh_insert_keys", words1.data_ptr(), ptr(words2), qhi.data_ptr(),
+    _build.launch("kh_insert_keys", ptr(words1), ptr(words2), qhi.data_ptr(),
                   qlo.data_ptr(), n_keep, ptr(degenerate), ptr(adv_degenerate), n_adeg,
                   ptr(bad), bits_log2, b2bits, _build.stream(qhi))
     insert_keys.launches += 1
 
 
 insert_keys.launches = 0
+
+
+def _from_table(table: SortedXTable, words1, bits_log2: int, words2, b2bits: int) -> None:
+    """K3 over the table's keys, TABLE_SLICE keys a launch (the slice's
+    key words are the only transient)."""
+    m = table.key.shape[0]
+    for s in range(0, m, TABLE_SLICE):
+        hi, lo = key_words(table.key[s: s + TABLE_SLICE])
+        insert_keys(words1, bits_log2, words2, b2bits, hi, lo, hi.shape[0])
+
+
+def build_bitmap_device(table: SortedXTable, bits_log2: Optional[int] = None) -> DeviceBitmap:
+    """The bitmap over a baby table's keys, built where the table lives
+    (bitmap.build_bitmap_device): K3's bitmap-only form, one launch a
+    TABLE_SLICE keys. bits_log2 defaults to default_bits_log2(m)."""
+    if bits_log2 is None:
+        bits_log2 = default_bits_log2(table.key.shape[0])
+    words = empty_filter(bits_log2, table.key.device)
+    _from_table(table, words, bits_log2, None, 0)
+    return DeviceBitmap(words, bits_log2)
+
+
+def build_bloom2_device(table: SortedXTable, bits_log2: Optional[int] = None) -> DeviceBloom2:
+    """The k=2 bloom over a baby table's keys, built where the table lives
+    (bitmap.build_bloom2_device): K3's bloom-only form, one launch a
+    TABLE_SLICE keys. bits_log2 defaults to bloom2_bits_log2(m)."""
+    if bits_log2 is None:
+        bits_log2 = bloom2_bits_log2(table.key.shape[0])
+    words = empty_filter(bits_log2, table.key.device)
+    _from_table(table, None, 0, words, bits_log2)
+    return DeviceBloom2(words, bits_log2)
 
 
 # ---------------------------------------------------------------------------
@@ -387,16 +430,35 @@ class FilteredLookup(NamedTuple):
 
 
 def filtered_lookup(bm: DeviceBitmap, table: SortedXTable, qhi: torch.Tensor,
-                    qlo: torch.Tensor, cand_max: int) -> FilteredLookup:
+                    qlo: torch.Tensor, cand_max: int, bm2: Optional[DeviceBloom2] = None,
+                    stage1_max: Optional[int] = None) -> FilteredLookup:
     """Bitmap probe -> compact survivors -> exact search of the cand_max
-    compacted keys (bitmap.filtered_lookup without its bm2 stage).
-    Survivors past cand_max are dropped: callers check n_candidates >
-    cand_max and rescan exactly. No host sync."""
-    pc = probe_compact(bm, qhi, qlo, cand_max)
-    lr = lookup(table, pc.qhi, pc.qlo)
-    valid = pc.pos < qhi.shape[0]
-    return FilteredLookup(pc.pos, LookupResult(lr.found & valid, lr.idx,
-                                               lr.found2 & valid, lr.idx2), pc.n)
+    compacted keys (bitmap.filtered_lookup). Survivors past cand_max are
+    dropped: callers check n_candidates > cand_max and rescan exactly.
+    With bm2 the cascade has two stages: the bitmap's survivors compacted
+    to stage1_max (default 4 * cand_max), the bloom2 probe of those, its
+    survivors compacted to cand_max and searched; positions are in the
+    original (B,) query space (B where none), and a stage-1 overflow is
+    poisoned to n + cand_max so the one check covers both stages. No host
+    sync."""
+    b = qhi.shape[0]
+    if bm2 is None:
+        pc = probe_compact(bm, qhi, qlo, cand_max)
+        lr = lookup(table, pc.qhi, pc.qlo)
+        valid = pc.pos < b
+        return FilteredLookup(pc.pos, LookupResult(lr.found & valid, lr.idx,
+                                                   lr.found2 & valid, lr.idx2), pc.n)
+    C1 = stage1_max if stage1_max is not None else 4 * cand_max
+    pos1, qh1, ql1, n = probe_compact(bm, qhi, qlo, C1)
+    mask2 = probe_bloom2(bm2, qh1, ql1) & (pos1 < b)
+    n2 = mask2.sum(dtype=torch.int32)
+    pos2 = compact_positions(mask2, cand_max, C1)
+    safe2 = pos2.clamp(max=C1 - 1).long()
+    lr = lookup(table, qh1[safe2], ql1[safe2])
+    valid = pos2 < C1
+    return FilteredLookup(torch.where(valid, pos1[safe2], b),
+                          LookupResult(lr.found & valid, lr.idx, lr.found2 & valid, lr.idx2),
+                          torch.where(n > C1, n + cand_max, n2))
 
 
 class FilteredSurvivors(NamedTuple):

@@ -1,8 +1,9 @@
 """Sorted 64-bit-truncated key table with a batched lower-bound search.
 
-Port of the part of keyhuntm1cpu_tpu/filter/sorted_table.py the minikeys
-and brute paths need (``SortedXTable``, ``build_sorted_table``, ``lookup``,
-``trunc64_from_limbs``). Keys are
+Port of keyhuntm1cpu_tpu/filter/sorted_table.py (``SortedXTable``,
+``build_sorted_table``, ``build_sorted_table_device``, ``lookup``,
+``trunc64_from_limbs``): the minikeys and brute paths' target tables and
+the device-resolve BSGS baby table. Keys are
 64-bit truncations (hi, lo) of a hash160 or an x coordinate with a payload
 index. The JAX package keeps two u32 planes and runs a lock-step binary
 search; here the packed key (hi << 32 | lo) is stored with bit 63 flipped,
@@ -58,6 +59,65 @@ def build_sorted_table(hi: np.ndarray, lo: np.ndarray, idx: np.ndarray,
     payload = np.asarray(idx, np.uint32)[order].view(np.int32)
     return SortedXTable(torch.from_numpy(flipped).to(device),
                         torch.from_numpy(payload).to(device))
+
+
+def sort_keys(key: torch.Tensor, idx: Optional[torch.Tensor] = None) -> SortedXTable:
+    """A table from flipped int64 keys in payload order, on their device:
+    one stable sort (ties keep their order, as the JAX package's stable
+    lax.sort keeps them) and the payload gathered by its permutation. idx:
+    (m,) int32; None means the payload j = position + 1 (a baby table in j
+    order)."""
+    if not key.numel():
+        raise ValueError("empty key table")
+    skey, order = torch.sort(key, stable=True)
+    del key
+    payload = (order + 1).to(torch.int32) if idx is None else idx[order]
+    return SortedXTable(skey, payload)
+
+
+def build_sorted_table_device(hi: torch.Tensor, lo: torch.Tensor,
+                              idx: torch.Tensor) -> SortedXTable:
+    """Device: sort (hi, lo, idx) (int32 tensors holding u32 bits) by the
+    packed 64-bit key where they live, stably (sorted_table.
+    build_sorted_table_device): no host round trip."""
+    return sort_keys(query_keys(hi, lo), idx)
+
+
+def write_keys(key: torch.Tensor, start: int, hi: torch.Tensor, lo: torch.Tensor) -> None:
+    """key[start:start + n] = the flipped int64 keys of n (hi, lo) int32
+    words, in place (two strided copies into the key's halves)."""
+    w = key.view(torch.int32).view(-1, 2)  # little-endian: lo, then hi with bit 31 flipped
+    w[start: start + hi.shape[0], 0] = lo
+    w[start: start + hi.shape[0], 1] = hi ^ -(1 << 31)
+
+
+def key_words(key: torch.Tensor):
+    """(hi, lo) int32 words of flipped int64 keys (contiguous copies)."""
+    w = key.view(torch.int32).view(-1, 2)
+    return (w[:, 1] ^ -(1 << 31)).contiguous(), w[:, 0].contiguous()
+
+
+def table_planes(table: SortedXTable):
+    """(hi, lo, idx) uint32 numpy arrays of a table, in its sorted order:
+    the JAX package's planes (table files, the host rescan)."""
+    key = table.key.cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)
+    return ((key >> np.uint64(32)).astype(np.uint32), key.astype(np.uint32),
+            table.idx.cpu().numpy().view(np.uint32).copy())
+
+
+def table_from_planes(hi: np.ndarray, lo: np.ndarray, idx: np.ndarray,
+                      device="cpu") -> SortedXTable:
+    """A table from planes that are sorted already (a JAX table or a table
+    file) on `device`, without a sort; raises ValueError if they are not
+    sorted by the packed key."""
+    key = (np.asarray(hi, np.uint64) << np.uint64(32)) | np.asarray(lo, np.uint64)
+    if not len(key) or len(idx) != len(key):
+        raise ValueError("a table needs equal, non-empty hi, lo and idx planes")
+    if np.any(key[1:] < key[:-1]):
+        raise ValueError("table planes are not sorted by their 64-bit key")
+    flipped = (key ^ np.uint64(1 << 63)).view(np.int64)
+    payload = np.array(idx, dtype=np.uint32).view(np.int32)  # a writable copy
+    return SortedXTable(torch.from_numpy(flipped).to(device), torch.from_numpy(payload).to(device))
 
 
 def query_keys(qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:

@@ -83,7 +83,8 @@ def test_streaming_build_matches_jax_host_filters(tables, jax_filters, monkeypat
     if blocks is not None:  # several walk steps, a masked tail, 2-step slices
         monkeypatch.setattr(bsgs, "BUILD_BLOCKS", blocks)
         monkeypatch.setenv("KEYHUNT_STREAM_SLICE", slice_)
-    params = bsgs.BSGSParams(m=M, block_u=U, steps_per_chunk=K, build_block=build_block)
+    params = bsgs.BSGSParams(m=M, block_u=U, steps_per_chunk=K, build_block=build_block,
+                             resolve="host")
     eng = bsgs.BSGSEngine([ecref.G], A, B, params, device="cpu",
                           host_table=tables[0])
     bm, b2 = jax_filters

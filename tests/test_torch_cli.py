@@ -30,14 +30,14 @@ def test_cli_cpu_finds_keys(workdir):
     f.write_text(f"{2 + (pts[0][1] & 1):02x}{pts[0][0]:064x}\n"
                  f"04{pts[1][0]:064x}{pts[1][1]:064x} label\n\n")
     rc = cli.main(["-m", "bsgs", "-f", str(f), "-r", "a00000:b00000",
-                   "--device", "cpu", "--all", *ARGS])
+                   "--device", "cpu", "--resolve", "host", "--all", *ARGS])
     assert rc == 0
     out = (workdir / "KEYFOUNDKEYFOUND.txt").read_text()
     assert all(f"Private key: {k:064x}" in out for k in keys)
     # no key in the range -> rc 1 and no found-key file
     (workdir / "KEYFOUNDKEYFOUND.txt").unlink()
     assert cli.main(["-m", "bsgs", "-f", str(f), "-r", "100000:180000",
-                     "--device", "cpu", *ARGS]) == 1
+                     "--device", "cpu", "--resolve", "host", *ARGS]) == 1
     assert not (workdir / "KEYFOUNDKEYFOUND.txt").exists()
 
 
@@ -54,7 +54,7 @@ def test_cli_refusals(workdir, monkeypatch):
     assert cli.main(["-m", "bsgs", "-c", "eth", *base]) == 2  # -c eth needs -m address
     assert cli.main(["-m", "address", *base]) == 2  # a pubkey is no address
     assert cli.main(["-m", "bsgs", "-B", "sideways", *base]) == 2  # no such range order
-    assert cli.main(["-m", "bsgs", "-S", *base]) == 2
+    assert cli.main(["-m", "rmd160", "-S", *base]) == 2  # -S outside -m bsgs
     assert cli.main(["-m", "bsgs", "-b", "24", *base]) == 2  # -r and -b
     assert cli.main(["-m", "bsgs", "-f", str(f), "-q"]) == 2  # no range
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -162,7 +162,7 @@ def test_cli_bsgs_policy_and_checkpoint(workdir):
     f.write_text(f"{2 + (pt[1] & 1):02x}{pt[0]:064x}\n")
     ck = str(workdir / "ck.json")
     args = ["-m", "bsgs", "-f", str(f), "-r", "a00000:b00000", "--device", "cpu",
-            "-B", "backward", "--checkpoint", ck, *ARGS]
+            "--resolve", "host", "-B", "backward", "--checkpoint", ck, *ARGS]
     assert cli.main(args + ["--max-chunks", "2"]) == 1  # backward starts at the top
     from keyhuntm1cpu_tpu_torch.core.checkpoint import CheckpointManager
 
@@ -198,3 +198,55 @@ def test_cli_vanity_look_mapping(workdir, monkeypatch, look, mode):
         assert captured["mode"] == mode and captured["device"] == device
         assert (captured["params"].block_u, captured["params"].steps_per_chunk) == (u, k)
         assert captured["prefixes"] == ["1Love"] and len(captured["intervals"]) > 0
+
+
+def _pub_file(path, key):
+    pt = ecref.scalar_mult(key)
+    path.write_text(f"{2 + (pt[1] & 1):02x}{pt[0]:064x}\n")
+    return str(path)
+
+
+def test_cli_bsgs_device_resolve_by_default(workdir):
+    """-m bsgs without --resolve resolves on the device (the JAX CLI's
+    default): the key is found and no host table is built."""
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    assert cli.main(["-m", "bsgs", "-f", f, "-r", "a00000:a40000", "--device", "cpu",
+                     *ARGS]) == 0
+    assert _found_keys(workdir) == [0xA1B2C3]
+    assert not (workdir / "tc").exists()  # the host table's cache dir
+
+
+def test_cli_bsgs_save_table_roundtrip(workdir, capsys, monkeypatch):
+    """-S builds the table and writes keyhunt_tpu_baby_<m>.npz; a second run
+    loads it (the log says so) and finds the key; a file of another m is
+    rebuilt, not used."""
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])  # an earlier -q lingers
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    args = ["-m", "bsgs", "-f", f, "-r", "a00000:a40000", "--device", "cpu", "-S",
+            "--m-babies", "512", "-u", "64", "--chunk-steps", "4"]
+    assert cli.main(args) == 0
+    assert (workdir / "keyhunt_tpu_baby_512.npz").exists()
+    assert "saved baby table to keyhunt_tpu_baby_512.npz" in capsys.readouterr().err
+    assert cli.main(args + ["-6"]) == 0
+    assert "loaded baby table from keyhunt_tpu_baby_512.npz" in capsys.readouterr().err
+    assert set(_found_keys(workdir)) == {0xA1B2C3}
+    assert cli.main(args[:-6] + ["--m-babies", "1024", "-u", "64", "--chunk-steps", "4",
+                                 "--table-file", "keyhunt_tpu_baby_512.npz"]) == 0
+    assert "not m=1024; building anew" in capsys.readouterr().err
+
+
+def test_cli_bsgs_resolve_host_ignores_save_table(workdir, capsys, monkeypatch):
+    """--resolve host -S warns and ignores -S (the JAX CLI's rule); -S
+    beside a brute mode is refused."""
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    assert cli.main(["-m", "bsgs", "-f", f, "-r", "a00000:a40000", "--device", "cpu",
+                     "--resolve", "host", "-S", *ARGS]) == 0
+    assert "-S/--table-file ignored" in capsys.readouterr().err
+    assert not list(workdir.glob("*.npz"))
+    h = workdir / "h160.txt"
+    h.write_text(hashref.pubkey_to_hash160(ecref.scalar_mult(0x7)).hex() + "\n")
+    assert cli.main(["-m", "rmd160", "-f", str(h), *BRUTE_ARGS]) == 0
+    assert cli.main(["-m", "rmd160", "-f", str(h), "-S", *BRUTE_ARGS]) == 2
+    assert "-S outside -m bsgs" in capsys.readouterr().err

@@ -194,7 +194,7 @@ def test_engine_cuda_matches_cpu(dev, tmp_path):
     pubs = [ecref.scalar_mult(k) for k in ks]
     params = bsgs.BSGSParams(m=1 << 12, block_u=256, steps_per_chunk=8,
                              build_block=128, bits_log2=24, bloom2_bits=17,
-                             table_cache=str(tmp_path))
+                             resolve="host", table_cache=str(tmp_path))
     got = bsgs.BSGSEngine(pubs, 0xA00000, 0xB00000, params, device=dev)
     want = bsgs.BSGSEngine(pubs, 0xA00000, 0xB00000, params, device="cpu",
                            host_table=got.host_table)
@@ -202,6 +202,75 @@ def test_engine_cuda_matches_cpu(dev, tmp_path):
     assert torch.equal(got.bloom2.words.cpu(), want.bloom2.words)
     found = sorted(f.private_key for f in got.search(stop_on_first=False))
     assert found == sorted(ks)
+
+
+@pytest.mark.parametrize("b2bits", [16, 32, 33])
+def test_insert_keys_kernel_bloom2_only_matches_plain(dev, b2bits):
+    """K3's bloom-only form (a device table's bloom2, 2^32 bits at m = 2^28)
+    against its plain version and the bloom of the two-filter form."""
+    rng = np.random.default_rng(b2bits)
+    n = 1 << 20
+    qhi = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
+    qlo = torch.from_numpy(rng.integers(-2**31, 2**31, n).astype(np.int32)).to(dev)
+    w2, r2, both = (bmp.empty_filter(b2bits, dev) for _ in range(3))
+    n0 = bmp.insert_keys.launches
+    bmp.insert_keys(None, 0, w2, b2bits, qhi, qlo, n - 5)
+    assert bmp.insert_keys.launches == n0 + 1
+    bmp.insert_keys_ref(None, 0, r2, b2bits, qhi, qlo, n - 5)
+    bmp.insert_keys(bmp.empty_filter(20, dev), 20, both, b2bits, qhi, qlo, n - 5)
+    torch.cuda.synchronize()
+    assert torch.equal(w2, r2) and torch.equal(w2, both)
+
+
+def test_baby_table_cuda_matches_cpu(dev):
+    """The device-resolve table built on the card (native seed, K1/K2 walk
+    in 4 steps with a kept prefix, one stable sort) equals the CPU build at
+    m = 2^16, and so do the bitmap and bloom2 K3 builds from it."""
+    params = bsgs.BSGSParams(m=1 << 16, block_u=256, steps_per_chunk=8, build_block=128)
+    got = bsgs.BSGSEngine([ecref.G], 1, 2, params, device=dev)
+    want = bsgs.BSGSEngine([ecref.G], 1, 2, params, device="cpu")
+    torch.cuda.synchronize()
+    assert torch.equal(got.table.key.cpu(), want.table.key)
+    assert torch.equal(got.table.idx.cpu(), want.table.idx)
+    assert torch.equal(got.bitmap.words.cpu(), want.bitmap.words)
+    b2, b2_cpu = bmp.build_bloom2_device(got.table), bmp.build_bloom2_device(want.table)
+    assert torch.equal(b2.words.cpu(), b2_cpu.words)
+
+
+@pytest.mark.parametrize("ones", [False, True], ids=["bloom2", "all_pass_overflow"])
+def test_device_chunk_cuda_matches_cpu(dev, ones):
+    """One device-resolve chunk (K1, K2, the fused probe, the bloom2 stage,
+    the exact search, the summary) on the card equals the same chunk on the
+    CPU at m = 2^12, U = 4096, K = 8, T = 3 (a dx == 0 lane and a P == -ADV
+    advance planted), and the engines find the same keys."""
+    U, K, m, a = 4096, 8, 1 << 12, 0xA00000
+
+    def center(step, u):
+        return a + m + (step * U + u - 1) * 2 * m
+
+    ks = [a + 12345, center(1, 5), center(K - 1, U)]
+    pubs = [ecref.scalar_mult(k) for k in ks]
+    params = bsgs.BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=128,
+                             bits_log2=20, cascade2="on")
+    got = bsgs.BSGSEngine(pubs, a, a + 4 * K * U * 2 * m, params, device=dev)
+    want = bsgs.BSGSEngine(pubs, a, a + 4 * K * U * 2 * m, params, device="cpu")
+    filters = [got.bitmap, got.bloom2, want.bitmap, want.bloom2]
+    C1, C2 = got.C1, got.C2
+    if ones:
+        filters = [f._replace(words=torch.full_like(f.words, -1)) for f in filters]
+        C1, C2 = 1024, 256
+    outs = []
+    for eng, (bm, b2) in ((got, filters[:2]), (want, filters[2:])):
+        px, py = eng._initial_base(0)
+        outs.append(bsgs.chunk_impl(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, bm,
+                                    eng.table, b2, U=U, K=K, T=3, C1=C1, C2=C2,
+                                    adv_tab=eng.adv_tab))
+    torch.cuda.synchronize()
+    for g, w in zip(*outs):
+        assert torch.equal(g.cpu(), w)
+    if not ones:
+        f_got = sorted(f.private_key for f in got.search(stop_on_first=False))
+        assert f_got == sorted(f.private_key for f in want.search(stop_on_first=False)) == ks
 
 
 def _artifact(mode, pt):
@@ -701,7 +770,8 @@ def test_search_scheduled_cuda_matches_cpu(dev, tmp_path, policy):
     ks = [0xA12345, 0xAFEDCB, 0xBF1234, 0x11F0000]
     pubs = [ecref.scalar_mult(k) for k in ks]
     params = bsgs.BSGSParams(m=1 << 12, block_u=64, steps_per_chunk=2, build_block=128,
-                             bits_log2=24, bloom2_bits=17, table_cache=str(tmp_path))
+                             bits_log2=24, bloom2_bits=17, resolve="host",
+                             table_cache=str(tmp_path))
     got = bsgs.BSGSEngine(pubs, 0xA00000, 0x1200000, params, device=dev)
     want = bsgs.BSGSEngine(pubs, 0xA00000, 0x1200000, params, device="cpu",
                            host_table=got.host_table)

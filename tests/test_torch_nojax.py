@@ -44,6 +44,7 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.utils.targets",
     "keyhuntm1cpu_tpu_torch.convert",
     "keyhuntm1cpu_tpu_torch.cli",
+    "keyhuntm1cpu_tpu_torch.server",
     "chip_smoke",
 ]
 BLOCKED = ("jax", "keyhuntm1cpu_tpu")
