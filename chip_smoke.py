@@ -97,6 +97,17 @@ any failure exits non-zero before the result line:
 3b. bsgsd (server.py) on phase 3d's resident table, on localhost: puzzle
    63's key, a miss (404), a zero deadline (408) and, one chunk a turn, a
    one-chunk request queued behind a 64-chunk one answered first.
+3f. the fleet on the card: a coordinator (dist/coordinator.py) in this
+   process over puzzle 63's whole range [2^62, 2^63) in 16 units of 128
+   chunks at phase 3d's shape, one ghost lease backdated and reclaimed, the
+   port's worker CLI (python -m keyhuntm1cpu_tpu_torch.dist.worker) as a
+   subprocess building its own resident table, stopped by SIGTERM
+   partway through its fifth unit (reported failed, requeued), and a
+   second worker process finishing the range: all 16 units completed,
+   puzzle 63's key found once, no unit covered twice but the requeued one;
+   the fleet's keys/s beside phase 3d's, each unit's overhead (RPCs,
+   engine, _initial_base) beside its chunks, each worker's table build and
+   launch counts.
 4. the brute-force path (bench_modes.py's protocol) in rmd160, xpoint,
    eth, address_u, rmd160 -e and rmd160 with T = 4096 bucketed targets:
    keys 1..32 recovered bit-exact over [1, 4097) at U = 256, K = 4
@@ -126,6 +137,11 @@ any failure exits non-zero before the result line:
    and 3: 2 chunks, then a fresh engine from the checkpoint for 2 more),
    minikeys at B = 2^23 (one chunk, then the prefix and counter adopted
    and 2 more), and, in phase 4c, the walker path (one chunk, then one).
+4f. fleet brute and fleet minikeys in this process: dist.worker's
+   brute_search_fn in rmd160 at phase 4's shape (T = 32) over 4 units of 2
+   chunks with keys planted in units 1 and 3, and minikeys_search_fn at
+   B = 2^23 over 4 counter units of one chunk with the first valid minikey
+   of unit 2 planted; every planted key found once, launches counted.
 4c. the large-target brute path (the walker path, taken past bucket_max
    targets): keys 1..32 recovered bit-exact over [1, 4097) at W = 2,
    U = 256, K = 4 in rmd160, xpoint, eth, address_u, rmd160_both and
@@ -140,11 +156,25 @@ any failure exits non-zero before the result line:
    over walk_prefix, pinv, walk_emit, hash, probe with its compaction,
    lookup and summary, and the rest (torch work left), set-up
    times, device memory and launch counts.
+5c. the CLI on the card, as subprocesses: -m bsgs --config (m = 2^28, U,
+   K from the file) --metrics-port --notify-cmd over puzzle 63's +-3-step
+   window (/metrics.json polled during the run up to the engine's count,
+   /metrics parsed as Prometheus text, /healthz ok, the notify script given
+   the key); -m rmd160 -S over phase 4's range at T = 32 writing
+   data_<8hex>.dat and a second run reading it back; -z 4 at m = 2^24
+   (the bitmap at scaled_bits_log2(2^24, 4) bits).
+5l. the legacy export at keyhunt's default size m = 2^22: x32 by K6 on the
+   card (utils/legacy.baby_x_bytes), the three .blm levels and the .tbl
+   timed apart, verify_against_ecref(probes=64), 256 random rows against
+   ecref and the first 2^12 against the host walk, the file sizes; the
+   native bulk parse of a 2^18-line address file beside the python parse
+   of its first 2^14 lines.
 5. the launch counts of the main paths (phase 3's filter build and
    searches, phase 3d's table and filter builds and searches, the
    throughput windows of both bsgs_t16 runs and of phases 3s, 4, 4v, 4b
-   and 4c, each counted from zero): every kernel launched, and each stage launched exactly the
-   kernels it should.
+   and 4c, the fleet phases 3f (the workers' own counts) and 4f and the
+   x32 of phase 5l, each counted from zero): every kernel launched, and
+   each stage launched exactly the kernels it should.
 
 The line before the last is {"kernels": [...]} with each kernel's bound
 (the larger of its 32-bit integer operations over the card's INT32 issue
@@ -265,6 +295,12 @@ SCHED_SECONDS = 5.0  # throughput window of each phase-3s range order
 T16_SECONDS = 5.0  # throughput window of bsgs_t16 (bench_modes.bench_bsgs_multitarget's)
 LARGE_M = (1 << 29, 1 << 30)  # phase 3d's one-chunk readings past the main m
 PROBE_BYTES = 32 + 8 + 1  # a random DRAM sector for the word, the key, the mask byte
+FLEET_RANGE = (1 << 62, 1 << 63)  # phase 3f: puzzle 63's whole range
+FLEET_UNITS = 16  # phase 3f: units of that range, each aligned to one chunk
+FLEET_STOP_AFTER = 4  # phase 3f: units the first worker completes before its SIGTERM
+X32_M = 1 << 22  # phase 5l: keyhunt's default -n 0x100000000000 with -k 1 (resolve_m)
+PARSE_LINES, PARSE_PY_LINES = 1 << 18, 1 << 14  # phase 5l: the address file, its python sample
+Z_M = 1 << 24  # phase 5c: the baby-table size of the -z 4 run
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
 # 9.0) issues 64 32-bit integer add, multiply(-add), shift, compare or
@@ -1483,25 +1519,9 @@ def phase2_small(dev):
 def launch_counts():
     """(kernel -> its wrappers, kernel -> launches): each wrapper counts the
     launches of its kernel; the probe kernel has two wrappers."""
-    from keyhuntm1cpu_tpu_torch.curve import pbrute, pladder, pwalk, walk
-    from keyhuntm1cpu_tpu_torch.field import pinv
-    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
-    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
-    from keyhuntm1cpu_tpu_torch.hash import phash, pminikey
+    from keyhuntm1cpu_tpu_torch import _build
 
-    wrappers = {"advance_chain": (pwalk.advance_chain,), "walk_blocks": (pwalk.walk_blocks,),
-                "insert_keys": (bmp.insert_keys,),
-                "brute_walk_blocks": (pbrute.brute_walk_blocks,),
-                "compact_hits": (pbrute.compact_hits,),
-                "minikey_valid": (pminikey.minikey_valid,),
-                "minikey_compact_keys": (pminikey.compact_keys,),
-                "scalar_mult": (pladder.scalar_mult_tiles,),
-                "hash160_x2": (phash.hash160_x2_from_batch,),
-                "hash160_u": (phash.hash160_u_from_batch,),
-                "inv_batch": (pinv.inv_batch,), "keccak_eth": (phash.keccak_eth_from_batch,),
-                "probe": (bmp.probe, bmp.probe_bloom2),
-                "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,),
-                "lookup_summary": (st.lookup_summary,)}
+    wrappers = _build.kernel_wrappers()
     return wrappers, {name: sum(w.launches for w in ws) for name, ws in wrappers.items()}
 
 
@@ -2532,7 +2552,7 @@ def phase3d_device(dev, m, seconds, clock):
         f"(table {(table.key.numel() * 12) / 2**30:.2f} GiB, bitmap "
         f"{bm.words.numel() * 4 / 2**30:.2f}, bloom2 {b2.words.numel() * 4 / 2**30:.2f}), "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak; card {card_line()}")
-    return n_main, table, bm
+    return n_main, table, bm, eng64.stats.keys_covered / elapsed
 
 
 def phase3d_large(dev, ms):
@@ -2740,6 +2760,480 @@ def walker_resume(ts, a, b, params, dev, planted):
         f"({time.time() - t0:.1f} s)")
 
 
+def subprocess_env(here):
+    """The environment of a port subprocess: this checkout on its path."""
+    return dict(os.environ, PYTHONPATH=here + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def pub_file(path, key):
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    with open(path, "w") as f:
+        f.write(ecref.serialize_pubkey(ecref.scalar_mult(key)).hex() + "\n")
+    return path
+
+
+def free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def stop_process(proc):
+    """Terminate a subprocess that is still running (no process outlives the smoke)."""
+    if proc.poll() is None:
+        proc.kill()
+        proc.wait(timeout=60)
+
+
+class FleetLog:
+    """A coordinator's leases and reports with their host times (phase 3f)."""
+
+    def __init__(self):
+        self.events = []  # (time, op, worker, unit_id, status)
+
+    def coordinator(self, *a, **kw):
+        from keyhuntm1cpu_tpu_torch.dist.coordinator import WorkCoordinator
+
+        events = self.events
+
+        class Logged(WorkCoordinator):
+            def request_work(self, worker_id):
+                r = super().request_work(worker_id)
+                if r["unit"] is not None:
+                    events.append((time.time(), "lease", worker_id, r["unit"]["unit_id"], None))
+                return r
+
+            def report(self, worker_id, unit_id, status, found=None):
+                events.append((time.time(), "report", worker_id, unit_id, status))
+                return super().report(worker_id, unit_id, status, found)
+
+        return Logged(*a, **kw)
+
+
+def phase3f_fleet(dev, m, rate3d, here):
+    """The coordinator and the port's worker CLI on the card: puzzle 63's
+    whole range [2^62, 2^63) in FLEET_UNITS units aligned to one chunk, a
+    ghost lease backdated and reclaimed, the first worker stopped by
+    SIGTERM partway through a unit (reported failed, requeued), a second
+    worker finishing the range. Returns the workers' launch counts."""
+    import signal
+    import tempfile
+
+    from keyhuntm1cpu_tpu_torch.dist.coordinator import CoordinatorServer
+
+    chunk = K * U * 2 * m
+    a, b = FLEET_RANGE
+    key_unit = (PUZZLE63_KEY - a) * FLEET_UNITS // (b - a)
+    fl = FleetLog()
+    coord = fl.coordinator(a, b, FLEET_UNITS, align=chunk, lease_s=600.0, stop_on_first=False)
+    if coord.n_units != FLEET_UNITS or (b - a) // FLEET_UNITS % chunk:
+        fail(f"phase 3f: {coord.n_units} units of the range, not {FLEET_UNITS} chunk-aligned")
+    ghost = coord.request_work("ghost")
+    with coord._lock:  # the ghost's lease expires: its unit is reclaimed
+        uid = int(ghost["unit"]["unit_id"])
+        unit, lease = coord._assigned[uid]
+        coord._assigned[uid] = (unit, type(lease)("ghost", 0.0))
+    srv = CoordinatorServer(("127.0.0.1", 0), coord)
+    srv.start_background()
+    procs, outs = [], []
+    with tempfile.TemporaryDirectory() as tmp:
+        pub = pub_file(os.path.join(tmp, "p63.pub"), PUZZLE63_KEY)
+        cmd = [sys.executable, "-m", "keyhuntm1cpu_tpu_torch.dist.worker",
+               "-c", f"127.0.0.1:{srv.server_address[1]}", "-f", pub, "--m-babies", str(m),
+               "-u", str(U), "--chunk-steps", str(K)]
+
+        def start(i):
+            out = open(os.path.join(tmp, f"w{i}.log"), "w+")
+            outs.append(out)
+            procs.append(subprocess.Popen(cmd, cwd=tmp, env=subprocess_env(here), stdout=out,
+                                          stderr=subprocess.STDOUT))
+
+        try:
+            t0 = time.time()
+            start(0)
+            w0, stop_unit = None, None
+            while stop_unit is None:
+                if procs[0].poll() is not None or time.time() - t0 > 600:
+                    fail(f"phase 3f: the first worker ended (rc {procs[0].poll()}) before "
+                         f"{FLEET_STOP_AFTER} units")
+                ev = list(fl.events)
+                w0 = next((e[2] for e in ev if e[2] != "ghost"), None)
+                done = sum(e[1] == "report" and e[2] == w0 for e in ev)
+                leases = [e for e in ev if e[1] == "lease" and e[2] == w0]
+                if done >= FLEET_STOP_AFTER and len(leases) > done and leases[-1][3] != key_unit:
+                    stop_unit = leases[-1][3]
+                    time.sleep(0.05)  # into the unit's chunks
+                    procs[0].send_signal(signal.SIGTERM)
+                time.sleep(0.005)
+            start(1)  # boots while the first one stops
+            for p in procs:
+                p.wait(timeout=600)
+        finally:
+            for p in procs:
+                stop_process(p)
+            srv.shutdown()
+            srv.server_close()
+        texts = []
+        for out in outs:
+            out.seek(0)
+            texts.append(out.read())
+            out.close()
+    rcs = [p.returncode for p in procs]
+    units, launches, builds = [], zero_counts(), []
+    for i, text in enumerate(texts):
+        for ln in text.splitlines():
+            if ln.startswith("[unit] "):
+                units.append(dict(json.loads(ln[7:]), worker=i))
+            elif ln.startswith("[launches] "):
+                launches = {k: launches[k] + v for k, v in json.loads(ln[11:]).items()}
+            elif "resident device-resolve structures" in ln:
+                builds.append(float(ln.split(" built in ")[1].split()[0]))
+    ev = fl.events
+    st = coord.status()
+    found = [f["private_key"] for f in coord.found_keys()]
+    real = [e for e in ev if e[2] != "ghost"]
+    fails = [e for e in real if e[1] == "report" and e[4] == "failed"]
+    completions = sorted(e[3] for e in real if e[1] == "report" and e[4] in ("done", "found"))
+    leased = {u: sum(e[1] == "lease" and e[3] == u for e in real) for u in range(FLEET_UNITS)}
+    want_leases = {u: 1 + (u == stop_unit) for u in range(FLEET_UNITS)}
+    if (rcs != [0, 0] or st["completed"] != FLEET_UNITS or found != [f"{PUZZLE63_KEY:x}"]
+            or [(e[2], e[3]) for e in fails] != [(w0, stop_unit)]
+            or completions != list(range(FLEET_UNITS)) or leased != want_leases
+            or len(builds) != 2):
+        fail(f"phase 3f: worker rcs {rcs}, {st['completed']} units completed, found {found}, "
+             f"failed reports {fails} (stop sent in unit {stop_unit}), completions "
+             f"{completions}, leases {leased}, builds {builds}; logs:\n"
+             + "\n".join(t[-3000:] for t in texts))
+    first = min(e[0] for e in real if e[1] == "lease")
+    last = max(e[0] for e in real if e[1] == "report")
+    full = [u for u in units if u["status"] in ("done", "found") and not u["first"]]
+    ms = lambda u, *keys: 1000 * sum(u[k] for k in keys)  # noqa: E731
+    mean = lambda *keys: sum(ms(u, *keys) for u in full) / len(full)  # noqa: E731
+    over, body = mean("rpc_s", "engine_s", "base_s"), mean("search_s") - mean("base_s")
+    per_unit = (b - a) // FLEET_UNITS
+    log(f"phase 3f: fleet over puzzle 63's range [2^62, 2^63): {FLEET_UNITS} units of "
+        f"{per_unit // chunk} chunks, 2 worker processes (-u {U} --chunk-steps {K} "
+        f"--m-babies {m}); the ghost's unit {uid} reclaimed, SIGTERM in unit {stop_unit} "
+        f"(reported failed, requeued, finished by the second worker), key 0x{PUZZLE63_KEY:x} "
+        f"found once in unit {key_unit}; every other unit covered once")
+    log(f"phase 3f: fleet {(b - a) / (last - first):.4e} keys/s over {last - first:.2f} s from "
+        f"the first lease to the last report (phase 3d's search in this run: {rate3d:.4e}); "
+        f"{1000 * per_unit / body:.4e} keys/s over the units' chunks alone")
+    log(f"phase 3f: per unit ({len(full)} full units after each worker's first): overhead "
+        f"{over:.1f} ms (RPCs {mean('rpc_s'):.1f}, engine {mean('engine_s'):.1f}, "
+        f"_initial_base {mean('base_s'):.1f}) beside chunks {body:.1f} ms "
+        f"({100 * over / (over + body):.1f} % overhead); units (worker, id, overhead ms, "
+        f"chunks ms): " + ", ".join(
+            f"({u['worker']}, {u['unit_id']}, {ms(u, 'rpc_s', 'engine_s', 'base_s'):.1f}, "
+            f"{ms(u, 'search_s') - ms(u, 'base_s'):.1f})" for u in units))
+    log(f"phase 3f: each worker's resident table, bitmap and bloom2 built in "
+        f"{', '.join(f'{t:.2f}' for t in builds)} s (with its first engine); worker launches "
+        f"{ {k: v for k, v in launches.items() if v} }")
+    return launches
+
+
+def phase4f_fleet(dev):
+    """Fleet brute and fleet minikeys in this process: brute_search_fn in
+    rmd160 at phase 4's shape over 4 units of 2 chunks (keys planted in
+    units 1 and 3), minikeys_search_fn at B = 2^23 over 4 counter units of
+    one chunk (the first valid minikey of unit 2 planted). Returns the
+    launch counts of both runs, counted from zero."""
+    import hashlib
+    import threading
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.dist import CoordinatorServer, DistributedWorker, WorkCoordinator
+    from keyhuntm1cpu_tpu_torch.dist.worker import brute_search_fn, minikeys_search_fn
+    from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteParams
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    def run(fn, a, b, n_units, align):
+        coord = WorkCoordinator(a, b, n_units, align=align, lease_s=600.0, stop_on_first=False)
+        srv = CoordinatorServer(("127.0.0.1", 0), coord)
+        srv.start_background()
+        try:
+            w = DistributedWorker("127.0.0.1", srv.server_address[1], fn, poll_s=0.1)
+            t = threading.Thread(target=w.run)
+            t0 = time.time()
+            t.start()
+            t.join(timeout=600)
+            if t.is_alive():
+                fail("phase 4f: the worker did not finish in 600 s")
+            torch.cuda.synchronize()
+            return coord, w, time.time() - t0
+        finally:
+            srv.shutdown()
+            srv.server_close()
+
+    counts = {}
+    a = BRUTE_RANGE[0]
+    unit = 2 * K * U
+    planted = [a + unit + unit // 3, a + 4 * unit - 7]
+    keys = list(range(1, 31)) + planted
+    ts = TargetSet(kind="hash160", labels=[str(k) for k in keys],
+                   raw=[brute_artifact("rmd160", ecref.scalar_mult(k)) for k in keys])
+    fn = brute_search_fn(ts, mode="rmd160", params=BruteParams(block_u=U, steps_per_chunk=K),
+                         device=dev)
+    reset_counts()
+    coord, w, dt = run(fn, a, a + 4 * unit, 4, unit)
+    _, n = launch_counts()
+    found = sorted(int(f["private_key"], 16) for f in coord.found_keys())
+    units = {f["unit_id"] for f in coord.found_keys()}
+    want = zero_counts() | dict(advance_chain=8, brute_walk_blocks=8, compact_hits=8)
+    if (found != planted or units != {1, 3} or coord.status()["completed"] != 4 or n != want
+            or [t["keys"] for t in fn.timings] != [unit] * 4):
+        fail(f"phase 4f: brute found {[hex(k) for k in found]} in units {units}, planted "
+             f"{[hex(k) for k in planted]}; launches {n}, expected {want}")
+    counts["brute"] = n
+    log(f"phase 4f: fleet brute rmd160 T=32 (U={U}, K={K}): 4 units of 2 chunks in {dt:.2f} s, "
+        f"the keys planted in units 1 and 3 found once each; per unit: engine "
+        f"{1000 * sum(t['engine_s'] for t in fn.timings) / 4:.1f} ms, search "
+        f"{1000 * sum(t['search_s'] for t in fn.timings) / 4:.1f} ms; launches {n}")
+
+    B = MK_BATCH
+    for c in range(2 * B, 3 * B):  # the first valid minikey of unit 2
+        s_ = MK_PREFIX + mk._b58_digits(c // mk.LOW_SPAN, 5) + mk._b58_digits(c % mk.LOW_SPAN, 5)
+        if hashlib.sha256((s_ + "?").encode()).digest()[0] == 0:
+            break
+    else:
+        fail("phase 4f: no valid minikey in unit 2")
+    key = int.from_bytes(hashlib.sha256(s_.encode()).digest(), "big")
+    target = TargetSet(kind="hash160", labels=["planted"], raw=[
+        hashref.pubkey_to_hash160(ecref.scalar_mult(key), compressed=False)])
+    fn = minikeys_search_fn(target, MK_PREFIX, params=mk.tuned_params(batch=B), device=dev)
+    reset_counts()
+    coord, w, dt = run(fn, 0, 4 * B, 4, B)
+    _, n = launch_counts()
+    got = [(f["private_key"], f["unit_id"]) for f in coord.found_keys()]
+    want = zero_counts() | dict(minikey_valid=4, minikey_compact_keys=4, scalar_mult=4,
+                                hash160_x2=4, hash160_u=4)
+    if got != [(f"{key:x}", 2)] or coord.status()["completed"] != 4 or n != want:
+        fail(f"phase 4f: minikeys found {got}, planted {s_} (counter {c}) in unit 2; launches "
+             f"{n}, expected {want}")
+    counts["minikeys"] = n
+    log(f"phase 4f: fleet minikeys B={B}: 4 counter units of one chunk in {dt:.2f} s, the first "
+        f"valid minikey of unit 2 ({s_}, counter {c}) found once; per unit: engine "
+        f"{1000 * sum(t['engine_s'] for t in fn.timings) / 4:.1f} ms, search "
+        f"{1000 * sum(t['search_s'] for t in fn.timings) / 4:.1f} ms; launches {n}")
+    return counts
+
+
+def cli_run(here, cwd, args, timeout=600):
+    """The port's CLI in a subprocess: (rc, stdout + stderr)."""
+    res = subprocess.run([sys.executable, "-m", "keyhuntm1cpu_tpu_torch.cli", *args], cwd=cwd,
+                         env=subprocess_env(here), capture_output=True, text=True,
+                         timeout=timeout)
+    return res.returncode, res.stdout + res.stderr
+
+
+def phase5c_cli(dev, m, here):
+    """The CLI on the card, as subprocesses: -m bsgs from a --config file
+    with --metrics-port (polled during the run) and --notify-cmd; -m rmd160
+    -S writing the reference .dat and a second run reading it; -z 4."""
+    import tempfile
+    import threading
+    import urllib.request
+
+    from keyhuntm1cpu_tpu_torch.filter.bitmap import default_bits_log2, scaled_bits_log2
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    with tempfile.TemporaryDirectory() as tmp:
+        pub = pub_file(os.path.join(tmp, "p63.pub"), PUZZLE63_KEY)
+        w = U * 2 * m
+        rng63 = f"{PUZZLE63_KEY - 3 * w:x}:{PUZZLE63_KEY + 3 * w:x}"
+        with open(os.path.join(tmp, "cfg.json"), "w") as f:
+            json.dump({"m_babies": m, "block_u": U, "steps_per_chunk": K}, f)
+        with open(os.path.join(tmp, "notify.py"), "w") as f:
+            f.write("import sys\nopen(sys.argv[1], 'a').write(' '.join(sys.argv[2:]) + '\\n')\n")
+        port = free_port()
+        polls, extra = [], {}
+        done = threading.Event()
+
+        def poll():
+            base = f"http://127.0.0.1:{port}"
+            while not done.is_set():
+                try:
+                    with urllib.request.urlopen(base + "/metrics.json", timeout=5) as r:
+                        snap = json.loads(r.read())
+                    polls.append(snap["counters"].get("keys_covered", 0.0))
+                    if "prom" not in extra:
+                        with urllib.request.urlopen(base + "/metrics", timeout=5) as r:
+                            extra["prom"] = r.read().decode()
+                        with urllib.request.urlopen(base + "/healthz", timeout=5) as r:
+                            extra["healthz"] = r.read().decode()
+                        extra["info"] = snap["info"]
+                except OSError:
+                    pass
+                time.sleep(0.01)
+
+        poller = threading.Thread(target=poll, daemon=True)
+        poller.start()
+        t0 = time.time()
+        rc, out = cli_run(here, tmp, [
+            "--config", "cfg.json", "-m", "bsgs", "-f", pub, "-r", rng63, "--metrics-port",
+            str(port), "--notify-cmd", f"{sys.executable} notify.py notified.txt"])
+        t_bsgs = time.time() - t0
+        done.set()
+        poller.join(timeout=30)
+        keys = int(out.split("keys/s (")[1].split(" keys)")[0]) if "keys/s (" in out else -1
+        prom = {}
+        for ln in extra.get("prom", "").splitlines():
+            if ln and not ln.startswith("#"):
+                name, val = ln.rsplit(" ", 1)
+                prom[name] = float(val)
+        notified = (open(os.path.join(tmp, "notified.txt")).read()
+                    if os.path.exists(os.path.join(tmp, "notified.txt")) else "")
+        if (rc != 0 or f"FOUND {PUZZLE63_KEY:064x}" not in out or keys <= 0
+                or not polls or polls[0] != 0 or polls[-1] != keys
+                or any(y < x for x, y in zip(polls, polls[1:]))
+                or "keyhunt_uptime_seconds" not in prom
+                or prom.get("keyhunt_keys_covered", 0.0) not in set(polls)
+                or extra.get("healthz") != "ok" or extra.get("info") != {"mode": "bsgs"}
+                or not notified.startswith(f"{PUZZLE63_KEY:064x} ")
+                or f"bsgs: m={m}, device resolve" not in out):
+            fail(f"phase 5c: bsgs --config --metrics-port --notify-cmd: rc {rc}, engine keys "
+                 f"{keys}, polls {sorted(set(polls))}, /metrics {prom}, /healthz "
+                 f"{extra.get('healthz')!r}, info {extra.get('info')}, notified {notified!r}; "
+                 f"output:\n{out[-3000:]}")
+        log(f"phase 5c: CLI -m bsgs --config (m=2^{m.bit_length() - 1}, U={U}, K={K}) "
+            f"--metrics-port --notify-cmd over puzzle 63's +-3-step window: rc 0 in "
+            f"{t_bsgs:.1f} s; /metrics.json polled {len(polls)} times, keys_covered "
+            f"{' -> '.join(str(int(v)) for v in sorted(set(polls)))} (the engine's {keys}); "
+            f"/metrics parsed ({len(prom)} samples), /healthz ok; the notify script got the key")
+
+        # -S in rmd160 mode: the reference .dat, then a run that reads it
+        a = BRUTE_RANGE[0]
+        tkeys = list(range(1, 32)) + [a + 5]
+        with open(os.path.join(tmp, "t32.txt"), "w") as f:
+            f.write("".join(brute_artifact("rmd160", ecref.scalar_mult(k)).hex() + "\n"
+                            for k in tkeys))
+        args = ["-m", "rmd160", "-f", "t32.txt", "-S", "-r", f"{a:x}:{BRUTE_RANGE[1]:x}",
+                "-u", str(U), "--chunk-steps", str(K), "--max-chunks", "2"]
+        runs = []
+        for _ in range(2):
+            t0 = time.time()
+            rc, out = cli_run(here, tmp, args)
+            runs.append((rc, out, time.time() - t0))
+        dats = [n for n in os.listdir(tmp) if n.startswith("data_") and n.endswith(".dat")]
+        (rc1, out1, t1), (rc2, out2, t2) = runs
+        want = f"FOUND {a + 5:064x}"
+        if (rc1 != 0 or rc2 != 0 or len(dats) != 1 or f"wrote ./{dats[0]}" not in out1
+                or "read 32 targets from the reference cache" not in out2 or "wrote" in out2
+                or want not in out1 or want not in out2):
+            fail(f"phase 5c: rmd160 -S: rcs {rc1} {rc2}, .dat files {dats}; outputs:\n"
+                 f"{out1[-2000:]}\n{out2[-2000:]}")
+        log(f"phase 5c: CLI -m rmd160 -S (T=32, U={U}, K={K}): wrote {dats[0]} "
+            f"({os.path.getsize(os.path.join(tmp, dats[0]))} bytes) in {t1:.1f} s; a second run "
+            f"read its 32 targets back and found the same key 0x{a + 5:x} in {t2:.1f} s")
+
+        mz = Z_M
+        wz = U * 2 * mz
+        bits = scaled_bits_log2(mz, 4)
+        t0 = time.time()
+        rc, out = cli_run(here, tmp, [
+            "-m", "bsgs", "-f", pub, "-r", f"{PUZZLE63_KEY - 3 * wz:x}:{PUZZLE63_KEY + 3 * wz:x}",
+            "--m-babies", str(mz), "-u", str(U), "--chunk-steps", str(K), "-z", "4"])
+        if rc != 0 or f"bitmap 2^{bits} bits" not in out or f"FOUND {PUZZLE63_KEY:064x}" not in out:
+            fail(f"phase 5c: -z 4 at m={mz}: rc {rc}; output:\n{out[-3000:]}")
+        log(f"phase 5c: CLI -m bsgs -z 4 at m=2^{mz.bit_length() - 1}: bitmap 2^{bits} bits "
+            f"(scaled_bits_log2(m, 4); default 2^{default_bits_log2(mz)}), key found, "
+            f"rc 0 in {time.time() - t0:.1f} s")
+
+
+def phase5l_legacy(dev, m):
+    """The legacy export at the reference's default size: x32 from K6 on the
+    card, the three .blm levels and the .tbl timed apart, checked against
+    ecref and the host walk; then the native bulk parse of a 2^18-line
+    address file beside the python parse. Returns the launch counts of the
+    export's x32, counted from zero."""
+    import tempfile
+
+    import numpy as np
+
+    from keyhuntm1cpu_tpu_torch import native
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import resolve_m
+    from keyhuntm1cpu_tpu_torch.ref import ecref, hashref
+    from keyhuntm1cpu_tpu_torch.utils import legacy
+    from keyhuntm1cpu_tpu_torch.utils.targets import _parse_line_address
+
+    if resolve_m(None, 0x100000000000, 1) != X32_M:
+        fail("phase 5l: resolve_m of the reference default is not X32_M")
+    reset_counts()
+    t0 = time.time()
+    x32 = legacy.baby_x_bytes(m, dev)
+    t_x32 = time.time() - t0
+    _, n = launch_counts()
+    batches = -(-m // legacy.X32_BATCH)
+    if n != zero_counts() | dict(scalar_mult=batches):
+        fail(f"phase 5l: the x32 launched {n}, expected {batches} K6 calls")
+    rng = np.random.default_rng(22)
+    rows = rng.integers(0, m, 256)
+    bad = [int(j) + 1 for j in rows
+           if x32[j].tobytes() != ecref.scalar_mult(int(j) + 1)[0].to_bytes(32, "big")]
+    walk = legacy.baby_x_bytes(1 << 12, "cpu")
+    if bad or not np.array_equal(x32[: 1 << 12], walk):
+        fail(f"phase 5l: x32 differs from ecref at j = {bad[:8]} or from the host walk")
+    # export_reference_files from this x32, each file's time read off the
+    # completion of its write (the levels and the table are built in order)
+    marks = [("start", time.time())]
+
+    def marking(fn):
+        def wrapped(path, *a):
+            fn(path, *a)
+            marks.append((os.path.basename(path), time.time()))
+        return wrapped
+
+    saved = legacy.write_blm, legacy.write_tbl
+    legacy.write_blm, legacy.write_tbl = (marking(f) for f in saved)
+    try:
+        with tempfile.TemporaryDirectory() as tmp:
+            marks[0] = ("start", time.time())
+            paths = legacy.export_reference_files(tmp, m, x32=x32)
+            sizes = {os.path.basename(p_): os.path.getsize(p_) for p_ in paths}
+            t0 = time.time()
+            ok = legacy.verify_against_ecref(tmp, m, probes=64)
+            t_verify = time.time() - t0
+    finally:
+        legacy.write_blm, legacy.write_tbl = saved
+    times = {nm: t - t_prev for (_, t_prev), (nm, t) in zip(marks, marks[1:])}
+    same = list(times) == list(sizes)
+    if not ok or not same:
+        fail(f"phase 5l: verify_against_ecref {ok}, files written {list(times)} {list(sizes)}")
+    log(f"phase 5l: legacy export at m=2^{m.bit_length() - 1} (keyhunt's default -n "
+        f"0x100000000000, -k 1: 2^22): x32 by "
+        f"K6 on the card in {t_x32:.3f} s ({batches} batches of {legacy.X32_BATCH}, one copy); "
+        f"256 random rows equal to ecref, the first 2^12 to the host walk; "
+        + ", ".join(f"{nm} {times[nm]:.2f} s ({sizes[nm]} bytes)" for nm in times)
+        + f"; verify_against_ecref(probes=64) true in {t_verify:.2f} s; launches {n}")
+
+    # the native bulk parse of an address file beside the python parse
+    seeds = rng.integers(0, 256, (PARSE_LINES, 20), dtype=np.uint8)
+    t0 = time.time()
+    lines = [hashref.b58check_encode(b"\x00" + row.tobytes()) for row in seeds]
+    t_gen = time.time() - t0
+    text = ("\n".join(lines) + "\n").encode()
+    t0 = time.time()
+    got = native.parse_addresses(text, PARSE_LINES)
+    t_native = time.time() - t0
+    t0 = time.time()
+    py = [_parse_line_address(ln) for ln in lines[:PARSE_PY_LINES]]
+    t_py = time.time() - t0
+    if (got.shape != (PARSE_LINES, 20) or not np.array_equal(got, seeds)
+            or b"".join(py) != got[:PARSE_PY_LINES].tobytes()):
+        fail("phase 5l: the native address parse differs from the python parse")
+    log(f"phase 5l: native bulk parse of {PARSE_LINES} base58 addresses in {t_native:.3f} s "
+        f"({PARSE_LINES / t_native:.4e} lines/s) beside the python parse of the first "
+        f"{PARSE_PY_LINES} in {t_py:.3f} s ({PARSE_PY_LINES / t_py:.4e} lines/s); equal "
+        f"hash160s (file made in {t_gen:.1f} s)")
+    return n
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=1 << 28,
@@ -2787,20 +3281,25 @@ def main():
     scheduled = phase3s_scheduled(dev, args.m, SCHED_SECONDS, htab, bm, b2)
     del htab, bm, b2
     torch.cuda.empty_cache()
-    device, table, dbm = phase3d_device(dev, args.m, args.seconds, clock)
+    device, table, dbm, rate3d = phase3d_device(dev, args.m, args.seconds, clock)
     t16_device = phase_t16(dev, args.m, "phase 3d", T16_SECONDS, resolve="device", table=table,
                            bitmap=dbm)
     phase3b_server(dev, args.m, table)
+    fleet = phase3f_fleet(dev, args.m, rate3d, here)
     del table, dbm
     phase3d_large(dev, [m for m in LARGE_M if m > args.m])
     brute = phase4_brute(dev, BRUTE_SECONDS, clock)
     vanity = phase4v_vanity(dev, BRUTE_SECONDS)
     minikeys = phase4b_minikeys(dev, MK_SECONDS)
     phase4r_resume(dev)
+    fleet4 = phase4f_fleet(dev)
     walker = phase4c_walker(dev, WK_SECONDS)
+    phase5c_cli(dev, args.m, here)
+    legacy = phase5l_legacy(dev, X32_M)
     paths = dict(bsgs=bsgs, t16_host=t16_host, scheduled=scheduled, device=device,
                  t16_device=t16_device, brute=brute, vanity=vanity, minikeys=minikeys,
-                 walker=walker)
+                 walker=walker, fleet_workers=fleet, fleet_brute=fleet4["brute"],
+                 fleet_minikeys=fleet4["minikeys"], legacy_x32=legacy)
     launches = {name: sum(n[name] for n in paths.values()) for name in bsgs}
     if not all(launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")

@@ -1,10 +1,11 @@
 """keyhuntm1cpu_tpu_torch — the PyTorch + CUDA port of keyhuntm1cpu_tpu.
 
 The JAX package ``keyhuntm1cpu_tpu`` is the reference; this package
-re-implements its BSGS host-resolve path (with its five range orders), the
-brute-force modes (fused and large-target walker paths), vanity prefixes,
-minikeys and resumable checkpoints for an NVIDIA Hopper GPU
-(sm_90a). Module and public function names follow the JAX package so
+re-implements its BSGS paths (host and device resolve, the five range
+orders, bsgsd), the brute-force modes (fused and large-target walker
+paths), vanity prefixes, minikeys, resumable checkpoints, the CLI, the
+coordinator/worker fleet and the reference file interop for an NVIDIA
+Hopper GPU (sm_90a). Module and public function names follow the JAX package so
 each counterpart is easy to find:
 
 - ``field.fe``, ``field.pinv``: plain torch mod-p limb arithmetic (CPU
@@ -19,10 +20,14 @@ each counterpart is easy to find:
 - ``engine``          : the BSGS, brute-force and minikeys engines, vanity
                         intervals, the stop flag.
 - ``convert``         : carries filters and params over from the JAX package.
-- ``cli``             : ``python -m keyhuntm1cpu_tpu_torch.cli -m bsgs ...``.
+- ``cli``, ``server`` : ``python -m keyhuntm1cpu_tpu_torch.cli -m bsgs ...``;
+                        bsgsd.
+- ``dist``            : the coordinator and workers running these engines.
+- ``utils``, ``native``: target files and their caches, the reference's
+                        .blm / .tbl / .dat files, the native host library.
 - ``ref``, ``core``   : copies of the JAX package's exact curve arithmetic,
                         address encoding, logger, key staging buffer,
-                        errors and checkpoint files.
+                        errors, checkpoint files, config and metrics.
 
 The package imports neither jax nor the JAX package. Importing it compiles nothing: ``_build`` builds the CUDA
 kernels (nvcc) and the native host library (g++) on first use. Every

@@ -10,9 +10,10 @@ file (or ``$KEYHUNT_TORCH_BUILD``) and loaded with ctypes:
   compilers' output (``-Xptxas -v``: registers, spills) is kept beside the
   library as ``libkh_kernels_<hash>.log`` (``kernels_build_log()``).
 - ``libkeyhunt_host_<hash>.so``: g++ over ``native/keyhunt_host.cpp`` (the
-  JAX package's native host library: baby-table builder). It is built here
-  because ``*.so`` is not committed, and without ``-march=native`` so the
-  library runs on any x86-64 host.
+  JAX package's native host library: the baby-table builder, and the
+  hashes, bulk address parse and exact scalar mults that ``native.py``
+  binds). It is built here because ``*.so`` is not committed, and without
+  ``-march=native`` so the library runs on any x86-64 host.
 
 ``<hash>`` is a digest of the sources and flags, so an edited source
 rebuilds. Builds hold a file lock (parallel test workers) and land by
@@ -176,7 +177,48 @@ def host_lib() -> ctypes.CDLL:
     lib.kh_baby_keys_range.argtypes = [ctypes.c_uint64, ctypes.c_uint64,
                                        ctypes.POINTER(ctypes.c_uint64)]
     lib.kh_baby_keys_range.restype = ctypes.c_int
+    u8p, u64 = ctypes.POINTER(ctypes.c_uint8), ctypes.c_uint64
+    sigs = {  # name: (argtypes, restype)
+        "kh_sha256": ([u8p, u64, u8p], None),
+        "kh_hash160": ([u8p, u64, u8p], None),
+        "kh_parse_addresses": ([ctypes.c_char_p, u64, u8p, u64], u64),
+        "kh_scalar_mult": ([u8p, u8p, u8p], ctypes.c_int),
+        "kh_verify_h160": ([u8p, u64, ctypes.c_int, u8p, u8p], None),
+    }
+    for fn, (argtypes, restype) in sigs.items():
+        getattr(lib, fn).argtypes = argtypes
+        getattr(lib, fn).restype = restype
     return lib
+
+
+def kernel_wrappers() -> dict:
+    """Kernel name -> the wrappers that launch it. Each wrapper counts its
+    own launches in its ``launches`` attribute (on CUDA tensors only); the
+    probe kernel has two wrappers."""
+    from .curve import pbrute, pladder, pwalk, walk
+    from .field import pinv
+    from .filter import bitmap as bmp
+    from .filter import sorted_table as st
+    from .hash import phash, pminikey
+
+    return {"advance_chain": (pwalk.advance_chain,), "walk_blocks": (pwalk.walk_blocks,),
+            "insert_keys": (bmp.insert_keys,),
+            "brute_walk_blocks": (pbrute.brute_walk_blocks,),
+            "compact_hits": (pbrute.compact_hits,),
+            "minikey_valid": (pminikey.minikey_valid,),
+            "minikey_compact_keys": (pminikey.compact_keys,),
+            "scalar_mult": (pladder.scalar_mult_tiles,),
+            "hash160_x2": (phash.hash160_x2_from_batch,),
+            "hash160_u": (phash.hash160_u_from_batch,),
+            "inv_batch": (pinv.inv_batch,), "keccak_eth": (phash.keccak_eth_from_batch,),
+            "probe": (bmp.probe, bmp.probe_bloom2),
+            "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,),
+            "lookup_summary": (st.lookup_summary,)}
+
+
+def launch_counts() -> dict:
+    """Kernel name -> its launches in this process so far."""
+    return {name: sum(w.launches for w in ws) for name, ws in kernel_wrappers().items()}
 
 
 def on_cuda(*tensors) -> bool:

@@ -1,35 +1,47 @@
-"""Command-line interface of the port: BSGS (device- and host-resolve), the
-brute-force modes, vanity prefixes and minikeys.
+"""Command-line interface of the port: BSGS (device- and host-resolve),
+the brute-force modes, vanity prefixes and minikeys; every flag of
+keyhuntm1cpu_tpu/cli.py but the TPU-only --probe-mode and --table-comm
+and the multi-device --sharded, which are refused with their reason.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
-        -r A:B | -b BITS [--m-babies N | -k K -n N] [-u U] [--chunk-steps K] \
-        [--resolve device|host] [--cascade2 auto|on|off] \
+        -r A:B | -b BITS [--m-babies N | -k K -n N] [-z MULT] [-u U] [--chunk-steps K] \
+        [--resolve device|host [--host-table-cache DIR]] [--cascade2 auto|on|off] \
         [-S [--table-file F] [-6]] \
         [-B sequential|backward|both|random|dance [--seed S]] \
         [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
     python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint|eth -f targets \
-        -r A:B | -b BITS [-c eth] [-l compress|uncompress|both] [-e] [-I S] \
-        [-R [--seed S] [-n N]] [-t W] [-u U] [--chunk-steps K] [-v PREFIX] [--all] ...
+        -r A:B | -b BITS [-c eth] [-l compress|uncompress|both | --uncompressed] [-e] \
+        [-I S] [-R [--seed S] [-n N]] [-t W] [-u U] [--chunk-steps K] [-v PREFIX] [-S] ...
     python -m keyhuntm1cpu_tpu_torch.cli -m vanity -v PREFIX [-v ...] | -f prefixes \
         [-r A:B | -b BITS] [-l compress|uncompress|both] [-e] [-u U] [--chunk-steps K]
     python -m keyhuntm1cpu_tpu_torch.cli -m minikeys -f addresses \
         [-C PREFIX] [-8 ALPHABET] [-u B] [--max-chunks N] [--max-seconds S] [--all]
 
-Every mode takes --checkpoint FILE (resume if it exists) and
---checkpoint-every SECONDS. The first SIGTERM or SIGINT stops the search at
-its next chunk boundary and saves the checkpoint; a second one exits at
-once.
+Every mode takes --config FILE (JSON, core/config.py: the file and
+KEYHUNT_* variables give defaults, flags set on the command line win),
+--checkpoint FILE (resume if it exists), --checkpoint-every SECONDS,
+--metrics-port P (/metrics.json, /metrics, /healthz and / on 127.0.0.1),
+--notify-cmd CMD (run once a found key with its hex and target appended),
+-s N (progress every N chunks; 0 none), -d (debug lines), -M (no
+rewritten lines) and -E (accepted and ignored, as by the reference). The
+first SIGTERM or SIGINT stops the search at its next chunk boundary and
+saves the checkpoint; a second one exits at once.
 
 BSGS target lines are compressed (66 hex) or uncompressed (130 hex)
 pubkeys. BSGS resolves on the card by default: the baby table is built
 there (or, with -S, loaded from --table-file, default
 keyhunt_tpu_baby_<m>.npz, and saved there after a build; files of either
 package load); --resolve host keeps only the two filters on the card and
-the exact table on the host (its own disk cache; -S is ignored there); brute targets are addresses or hash160 hex (address, rmd160),
+the exact table on the host (its own disk cache, --host-table-cache; -S is
+ignored there). -z MULT enlarges the BSGS bitmap by ceil(log2 MULT) bits.
+Brute targets are addresses or hash160 hex (address, rmd160),
 ETH addresses (-m eth, or -m address -c eth) or x coordinates / pubkeys
-(xpoint). Brute target sets of up to 65,536 entries run the fused path (one
-chain per chunk) when -u is a multiple of 128; larger sets, or any other
--u, run the walker path (-t walkers, each moving 2U+1 keys per step).
+(xpoint); they parse through the npz cache data_<sha8>_<kind>.npz beside
+the file, or from a reference data_<8hex>.dat in the cwd, which -S writes
+in address and rmd160 modes. Brute target sets of up to 65,536 entries
+run the fused path (one chain per chunk) when -u is a multiple of 128;
+larger sets, or any other -u, run the walker path (-t walkers, each
+moving 2U+1 keys per step).
 Vanity prefixes (-m vanity, or -v beside -m address|rmd160) run the fused
 path only; -m vanity scans [1, 2^63) unless -r or -b is given, and on the
 card with -u at least 4096 and --chunk-steps at least 32.
@@ -44,6 +56,7 @@ Found keys are appended to KEYFOUNDKEYFOUND.txt. Exit code: 0 found,
 from __future__ import annotations
 
 import argparse
+import os
 import sys
 
 from .core.log import get_logger
@@ -53,6 +66,19 @@ BRUTE_MODES = ("address", "rmd160", "xpoint", "eth")
 MODES = ("bsgs",) + BRUTE_MODES + ("vanity", "minikeys")
 POLICIES = ("sequential", "backward", "both", "random", "dance")
 LOOK_MODES = {"compress": "rmd160", "uncompress": "address_u", "both": "rmd160_both"}
+# flags of the JAX CLI that this port refuses, and why
+TPU_ONLY = ("probe_mode", "table_comm")
+# (attribute, Config field) pairs a --config file may default: the JAX CLI's
+CONFIG_FIELDS = (
+    ("m_babies", "m_babies"), ("block_u", "block_u"),
+    ("chunk_steps", "steps_per_chunk"), ("walkers", "walkers"),
+    ("stride", "stride"), ("policy", "bsgs_policy"),
+    ("seed", "seed"), ("checkpoint", "checkpoint_file"),
+    ("metrics_port", "metrics_port"), ("quiet", "quiet"),
+    ("k_factor", "k_factor"), ("n_value", "n_value"),
+    ("filter_mult", "filter_mult"), ("crypto", "crypto"),
+    ("alphabet", "minikey_alphabet"), ("cascade2", "cascade2"),
+)
 
 
 def parse_range(s: str):
@@ -69,6 +95,9 @@ def build_parser() -> argparse.ArgumentParser:
         prog="keyhunt-torch",
         description="secp256k1 key search on PyTorch + CUDA: BSGS, the "
                     "brute-force modes, vanity and minikeys")
+    p.add_argument("--config", default=None,
+                   help="JSON config file (core/config.py): the file and KEYHUNT_* "
+                        "variables give defaults, flags set here win")
     p.add_argument("-m", "--mode", required=True,
                    help="bsgs, address, rmd160, xpoint, eth, vanity or minikeys")
     p.add_argument("-f", "--file", default=None,
@@ -86,21 +115,11 @@ def build_parser() -> argparse.ArgumentParser:
                         "brute with -R: sequential keys per random base")
     p.add_argument("-c", "--crypto", default="btc", choices=["btc", "eth"],
                    help="eth: -m address targets ETH addresses (keccak)")
-    p.add_argument("-l", "--look", default=None,
-                   choices=["compress", "uncompress", "both"],
-                   help="pubkey form(s) hashed by -m address/rmd160")
-    p.add_argument("-e", "--endo", action="store_true",
-                   help="brute: also check the GLV endomorphism keys "
-                        "lambda*k and lambda^2*k (rmd160, xpoint)")
-    p.add_argument("-I", "--stride", type=int, default=1,
-                   help="brute: scan a, a+stride, a+2*stride, ...")
-    p.add_argument("-R", "--random", action="store_true", dest="random_mode",
-                   help="brute: random chunk order")
-    p.add_argument("--seed", type=int, default=0, help="seed of -R and -B")
-    p.add_argument("-w", "-t", "--walkers", "--threads", type=int, default=8,
-                   help="brute: walkers of the walker path, taken by target sets "
-                        "past 65,536 entries (reference -t threads); the fused "
-                        "path runs one chain per chunk")
+    p.add_argument("-8", "--alphabet", default=None,
+                   help="minikeys: custom 58-character base58 alphabet")
+    p.add_argument("-z", "--filter-mult", type=int, default=1,
+                   help="bsgs: bitmap size multiplier >= 1 (ceil(log2) more bits, at "
+                        "most 2^35); brute modes compare exactly and ignore it")
     p.add_argument("-u", "--block-u", type=int, default=4096,
                    help="keys (brute) or giant centers (bsgs) per device step "
                         "(brute: a multiple of 128 for the fused path, any other "
@@ -109,43 +128,100 @@ def build_parser() -> argparse.ArgumentParser:
                    help="device steps per chunk")
     p.add_argument("-B", "--policy", default="sequential",
                    help="bsgs range order: " + ", ".join(POLICIES))
-    p.add_argument("--all", action="store_true",
-                   help="keep searching after the first found key")
-    p.add_argument("-q", "--quiet", action="store_true")
-    p.add_argument("--max-seconds", type=float, default=None,
-                   help="stop at the next chunk boundary past this many seconds")
-    p.add_argument("--max-chunks", type=int, default=None,
-                   help="stop after N device chunks")
-    p.add_argument("-v", "--vanity", action="append", default=[],
-                   help="vanity prefix (repeatable): -m vanity, or beside "
-                        "-m address|rmd160")
-    p.add_argument("--checkpoint", default=None,
-                   help="search-position checkpoint file (resume if it exists)")
-    p.add_argument("--checkpoint-every", type=float, default=60.0,
-                   help="seconds between checkpoint writes")
-    p.add_argument("--resolve", default="device", choices=["device", "host"],
-                   help="bsgs: exact resolution on the card (the sorted baby table) "
-                        "or on the host (the card keeps the two filters only)")
+    p.add_argument("--seed", type=int, default=0, help="seed of -R and -B")
+    p.add_argument("-w", "-t", "--walkers", "--threads", type=int, default=8,
+                   help="brute: walkers of the walker path, taken by target sets "
+                        "past 65,536 entries (reference -t threads); the fused "
+                        "path runs one chain per chunk")
+    p.add_argument("-I", "--stride", type=int, default=1,
+                   help="brute: scan a, a+stride, a+2*stride, ...")
+    p.add_argument("-E", dest="_e_compat", default=None,
+                   help="accepted for reference-argv compatibility and ignored")
+    p.add_argument("-R", "--random", action="store_true", dest="random_mode",
+                   help="brute: random chunk order")
+    p.add_argument("-e", "--endo", action="store_true",
+                   help="brute: also check the GLV endomorphism keys "
+                        "lambda*k and lambda^2*k (rmd160, xpoint)")
+    p.add_argument("-S", "--save-table", action="store_true",
+                   help="bsgs device resolve: load the baby table from --table-file, "
+                        "or build it and save it there; address and rmd160: write "
+                        "the reference target cache data_<8hex>.dat in the cwd")
+    p.add_argument("--table-file", default=None,
+                   help="baby table file (default keyhunt_tpu_baby_<m>.npz)")
+    p.add_argument("--probe-mode", default=None,
+                   help="TPU-only (the bitmap-gather strategy): refused here")
     p.add_argument("--cascade2", default="auto", choices=["auto", "on", "off"],
                    help="bsgs device resolve: the level-2 bloom between the bitmap "
                         "and the exact search (auto: when the bitmap's survivors "
                         "outgrow the search width)")
-    p.add_argument("-S", "--save-table", action="store_true",
-                   help="bsgs device resolve: load the baby table from --table-file, "
-                        "or build it and save it there")
-    p.add_argument("--table-file", default=None,
-                   help="baby table file (default keyhunt_tpu_baby_<m>.npz)")
+    p.add_argument("--resolve", default="device", choices=["device", "host"],
+                   help="bsgs: exact resolution on the card (the sorted baby table) "
+                        "or on the host (the card keeps the two filters only)")
+    p.add_argument("--host-table-cache", default=None,
+                   help="bsgs --resolve host: the host table's cache dir (default "
+                        ".table_cache/)")
     p.add_argument("-6", "--skip-checksum", action="store_true", dest="skip_checksum",
                    help="skip the table file's checksum")
+    p.add_argument("--checkpoint", default=None,
+                   help="search-position checkpoint file (resume if it exists)")
+    p.add_argument("--checkpoint-every", type=float, default=60.0,
+                   help="seconds between checkpoint writes")
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help="serve /metrics.json, /metrics, /healthz and / on this port "
+                        "(0: a free one)")
     p.add_argument("--sharded", nargs="?", const="range", default=None,
                    help="multi-device search: not in this port yet")
-    p.add_argument("-8", "--alphabet", default=None,
-                   help="minikeys: custom 58-character base58 alphabet")
+    p.add_argument("--table-comm", default=None,
+                   help="TPU-only (the sharded table's membership schedule): refused here")
+    p.add_argument("-s", "--stats-every", type=float, default=5.0,
+                   help="progress line every N chunks; 0 omits it")
+    p.add_argument("-q", "--quiet", action="store_true")
+    p.add_argument("-d", "--debug", action="store_true", help="debug-level logging")
+    p.add_argument("-M", "--matrix", action="store_true",
+                   help="matrix mode: never rewrite a line")
+    p.add_argument("--all", action="store_true",
+                   help="keep searching after the first found key")
+    p.add_argument("-l", "--look", default=None,
+                   choices=["compress", "uncompress", "both"],
+                   help="pubkey form(s) hashed by -m address/rmd160")
+    p.add_argument("--uncompressed", action="store_true",
+                   help="alias for -l uncompress")
+    p.add_argument("-v", "--vanity", action="append", default=[],
+                   help="vanity prefix (repeatable): -m vanity, or beside "
+                        "-m address|rmd160")
     p.add_argument("-C", "--minikey-prefix", default=None,
                    help="minikeys: scan prefix, 'S' + 11 characters (default random)")
+    p.add_argument("--max-chunks", type=int, default=None,
+                   help="stop after N device chunks")
+    p.add_argument("--max-seconds", type=float, default=None,
+                   help="stop at the next chunk boundary past this many seconds")
+    p.add_argument("--notify-cmd", default=None,
+                   help="command run once a found key, with the key hex and the "
+                        "target appended as arguments")
     p.add_argument("--device", default="cuda", choices=["cuda", "cpu"],
                    help="torch device (default cuda; no GPU is an error)")
     return p
+
+
+def apply_config(args, log) -> None:
+    """--config: the file and KEYHUNT_* env give defaults; a flag set on
+    the command line (a value other than the parser's default) wins. The
+    TPU-only fields are warned about and ignored."""
+    from .core.config import Config, load_config
+
+    cfg = load_config(args.config)
+    defaults = build_parser().parse_args(
+        ["-m", args.mode, *(["-f", args.file] if args.file else [])])
+    for attr, key in CONFIG_FIELDS:
+        if getattr(args, attr) == getattr(defaults, attr):
+            v = getattr(cfg, key)
+            if v is not None:
+                setattr(args, attr, v)
+    base = Config()
+    for key in ("probe_mode", "table_comm", "sharded", "n_devices"):
+        if getattr(cfg, key) != getattr(base, key):
+            log.warn(f"config {key}={getattr(cfg, key)!r} is TPU-only or multi-device; "
+                     "ignored by this port")
 
 
 def read_pubkeys(path: str):
@@ -155,10 +231,13 @@ def read_pubkeys(path: str):
 
 def _bsgs_engine(args, log):
     from .engine.bsgs import BSGSEngine, BSGSParams, resolve_m
+    from .filter.bitmap import scaled_bits_log2
 
     m = resolve_m(args.m_babies, args.n_value, args.k_factor)
     params = BSGSParams(m=m, block_u=args.block_u, steps_per_chunk=args.chunk_steps,
-                        cascade2=args.cascade2, resolve=args.resolve)
+                        bits_log2=scaled_bits_log2(m, args.filter_mult),
+                        cascade2=args.cascade2, resolve=args.resolve,
+                        table_cache=args.host_table_cache)
     a, b = args.range
     pubkeys = read_pubkeys(args.file)
     table, path = None, args.table_file or f"keyhunt_tpu_baby_{m}.npz"
@@ -181,19 +260,29 @@ def _bsgs_engine(args, log):
     if args.save_table and args.resolve == "device" and table is None:
         eng.save_table(path)
         log.plus(f"saved baby table to {path}")
+    log.plus(f"bsgs: m={m}, {args.resolve} resolve, bitmap 2^{eng.bitmap.bits_log2} bits")
     return eng
 
 
 def _brute_engine(args, log):
     from .engine.brute import BruteEngine, BruteParams
-    from .utils.targets import parse_target_file
+    from .utils.targets import parse_target_file_cached
 
     mode = args.mode
     if args.crypto == "eth":
         mode = "eth"
     elif mode in ("address", "rmd160"):
-        mode = LOOK_MODES[args.look or "compress"]
+        mode = LOOK_MODES[_look(args)]
     kind = "eth" if mode == "eth" else args.mode
+    targets = parse_target_file_cached(args.file, kind)
+    if args.save_table and targets.kind == "hash160":
+        # reference -S in address mode: write the data_<8-hex>.dat a
+        # reference build loads, unless one exists
+        from .utils.legacy import dat_cache_path
+        from .utils.targets import write_reference_dat
+
+        if not os.path.exists(dat_cache_path(args.file)):
+            log.plus(f"wrote {write_reference_dat(args.file, targets)}")
     seq_per_base = None
     if args.n_value is not None:
         # reference -n outside bsgs: with -R, N sequential keys per random
@@ -211,9 +300,12 @@ def _brute_engine(args, log):
         # inside the vanity intervals
         intervals = _intervals(args.vanity)
     a, b = args.range
-    return BruteEngine(parse_target_file(args.file, kind), a, b, mode=mode,
-                       params=params, device=args.device, intervals=intervals,
-                       prefixes=list(args.vanity) if intervals else [])
+    return BruteEngine(targets, a, b, mode=mode, params=params, device=args.device,
+                       intervals=intervals, prefixes=list(args.vanity) if intervals else [])
+
+
+def _look(args) -> str:
+    return args.look or ("uncompress" if args.uncompressed else "compress")
 
 
 def _intervals(prefixes):
@@ -240,7 +332,7 @@ def _vanity_engine(args):
                          endo=args.endo)
     a, b = args.range or (1, 1 << 63)
     return BruteEngine(TargetSet(kind="hash160", raw=[], labels=[]), a, b,
-                       mode=LOOK_MODES[args.look or "compress"], params=params,
+                       mode=LOOK_MODES[_look(args)], params=params,
                        device=args.device, intervals=_intervals(prefixes), prefixes=prefixes)
 
 
@@ -255,63 +347,108 @@ def _minikey_engine(args):
                          alphabet=args.alphabet, device=args.device)
 
 
+def _notify(cmd: str, f, log) -> None:
+    """Run the --notify-cmd for one found key; a failure is a warning
+    (the key is already in KEYFOUNDKEYFOUND.txt)."""
+    import subprocess
+
+    try:
+        subprocess.run([*cmd.split(), f"{f.private_key:064x}", f.target], timeout=30,
+                       check=False)
+    except Exception as e:  # a notification failure never loses the key
+        log.warn(f"notify command failed: {e}")
+
+
+def _refusal(args):
+    """The reason this run is refused before anything starts, or None."""
+    minikeys, vanity = args.mode == "minikeys", args.mode == "vanity"
+    if args.mode not in MODES:
+        return f"-m {args.mode}: this port implements -m {', '.join(MODES)} only"
+    for attr in TPU_ONLY:
+        if getattr(args, attr) is not None:
+            return (f"--{attr.replace('_', '-')} is TPU-only (the JAX package's Pallas "
+                    "kernels); the CUDA kernels have one form")
+    if args.sharded:
+        return "--sharded: not in this port yet (the multi-device slice)"
+    if not minikeys and (args.alphabet is not None or args.minikey_prefix is not None):
+        return "-8 and -C only apply to -m minikeys"
+    if args.policy not in POLICIES:
+        return f"-B {args.policy}: the range orders are {', '.join(POLICIES)}"
+    if args.crypto == "eth" and args.mode != "address":
+        return "-c eth is only valid with -m address"
+    if minikeys and (args.range is not None or args.bits is not None):
+        return "-m minikeys scans minikey counters and takes no -r or -b"
+    if args.bits is not None:
+        if args.range is not None:
+            return "-r and -b are mutually exclusive"
+        if not 1 <= args.bits <= 256:
+            return "-b bits must be in 1..256"
+    if args.range is None and args.bits is None and not (minikeys or vanity):
+        return "-r start:end or -b bits is required"
+    if args.file is None and not vanity:
+        return "-f target file is required for this mode"
+    if args.filter_mult < 1:
+        return "-z must be >= 1"
+    return None
+
+
 def main(argv=None) -> int:
     args = build_parser().parse_args(argv)
     log = get_logger()
+    from .core.errors import KeyhuntError
+
+    try:
+        if args.config:
+            apply_config(args, log)
+        return _run(args, log)
+    except (ValueError, OSError, KeyhuntError) as e:
+        log.error(str(e))
+        return 2
+
+
+def _run(args, log) -> int:
     if args.quiet:
         log.set_level("warn")
-    if args.mode not in MODES:
-        log.error(f"-m {args.mode}: this port implements -m {', '.join(MODES)} only")
-        return 2
-    minikeys, vanity = args.mode == "minikeys", args.mode == "vanity"
-    if not minikeys and (args.alphabet is not None or args.minikey_prefix is not None):
-        log.error("-8 and -C only apply to -m minikeys")
-        return 2
-    if args.sharded:
-        log.error("--sharded: not in this port yet")
-        return 2
-    if args.save_table and args.mode != "bsgs":
-        log.error("-S outside -m bsgs (the .dat target cache): not in this port yet "
-                  "(ROADMAP.md, module item 4)")
-        return 2
-    if args.policy not in POLICIES:
-        log.error(f"-B {args.policy}: the range orders are {', '.join(POLICIES)}")
-        return 2
-    if args.crypto == "eth" and args.mode != "address":
-        log.error("-c eth is only valid with -m address")
-        return 2
-    if minikeys and (args.range is not None or args.bits is not None):
-        log.error("-m minikeys scans minikey counters and takes no -r or -b")
+    elif args.debug:
+        log.set_level("debug")
+    log.matrix = args.matrix
+    reason = _refusal(args)
+    if reason:
+        log.error(reason)
         return 2
     if args.bits is not None:
-        if args.range is not None:
-            log.error("-r and -b are mutually exclusive")
-            return 2
-        if not 1 <= args.bits <= 256:
-            log.error("-b bits must be in 1..256")
-            return 2
         args.range = (max(1, 1 << (args.bits - 1)), 1 << args.bits)
-    if args.range is None and not (minikeys or vanity):
-        log.error("-r start:end or -b bits is required")
-        return 2
-    if args.file is None and not vanity:
-        log.error("-f target file is required for this mode")
-        return 2
+    if args.k_factor < 1:
+        args.k_factor = 1  # the reference clamps KFACTOR <= 0 to 1
+    if args.filter_mult > 1 and args.mode != "bsgs":
+        log.plus("-z noted: brute-mode membership is an exact compare (no "
+                 "false-positive filter to enlarge)")
+    if args.save_table and args.mode not in ("bsgs", "address", "rmd160"):
+        log.warn("-S applies to -m bsgs (the baby table) and -m address|rmd160 "
+                 "(the reference .dat); ignored")
+    log.debug(f"arguments: {vars(args)}")
     import torch
 
     if args.device == "cuda" and not torch.cuda.is_available():
         log.error("--device cuda: no CUDA device is available")
         return 2
     from .core.checkpoint import CheckpointManager
-    from .core.errors import KeyhuntError
     from .engine.common import install_stop_handlers, write_found_key
 
     install_stop_handlers(log)
     ckmgr = (CheckpointManager(args.checkpoint, every_s=args.checkpoint_every)
              if args.checkpoint else None)
-    progress = 0 if args.quiet else 16
+    # reference -s 0 omits the stats output entirely
+    progress = 0 if (args.quiet or args.stats_every == 0) else max(1, int(args.stats_every))
+    metrics_srv = None
+    if args.metrics_port is not None:
+        from .core.metrics import MetricsServer, get_metrics
+
+        get_metrics().set_info("mode", args.mode)
+        metrics_srv = MetricsServer(args.metrics_port).start()
+        log.plus(f"metrics on http://127.0.0.1:{metrics_srv.port}/")
     try:
-        if minikeys:
+        if args.mode == "minikeys":
             eng = _minikey_engine(args)
             found = eng.search(max_chunks=args.max_chunks or (1 << 30),
                                stop_on_first=not args.all, progress_every=progress,
@@ -324,22 +461,24 @@ def main(argv=None) -> int:
                                          progress_every=progress, checkpoint=ckmgr,
                                          max_seconds=args.max_seconds)
         else:
-            eng = _vanity_engine(args) if vanity else _brute_engine(args, log)
+            eng = _vanity_engine(args) if args.mode == "vanity" else _brute_engine(args, log)
             # --max-chunks counts chunks; the brute engine counts device steps
             max_steps = (None if args.max_chunks is None
                          else args.max_chunks * eng.p.steps_per_chunk)
             found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
                                progress_every=progress, checkpoint=ckmgr,
                                max_seconds=args.max_seconds)
-    except (ValueError, OSError, KeyhuntError) as e:
-        log.error(str(e))
-        return 2
-    log.plus(f"{eng.stats.human()} ({eng.stats.keys_covered:.3e} keys)")
-    for f in found:
-        write_found_key(f)
-        log.result(f"FOUND {f.private_key:064x} -> {f.target}")
-    if not found:
-        log.plus("no key found in range")
+        log.plus(f"{eng.stats.human()} ({eng.stats.keys_covered} keys)")
+        for f in found:
+            write_found_key(f)
+            log.result(f"FOUND {f.private_key:064x} -> {f.target}")
+            if args.notify_cmd:
+                _notify(args.notify_cmd, f, log)
+        if not found:
+            log.plus("no key found in range")
+    finally:
+        if metrics_srv is not None:
+            metrics_srv.stop()
     return 0 if found else 1
 
 

@@ -10,6 +10,12 @@ class KeyhuntError(Exception):
     category = "general"
 
 
+class ConfigError(KeyhuntError):
+    """Bad flag / config-file / parameter combination."""
+
+    category = "config"
+
+
 class ValidationError(KeyhuntError):
     """Bad user input: malformed address / hex / range / path."""
 

@@ -1,10 +1,11 @@
 """Shared engine machinery: found keys, exact verification, deadline and
 stop flag, stats, summary copies.
 
-Copy of the pure-Python parts of keyhuntm1cpu_tpu/engine/common.py, without
-its metrics registry (the port serves no metrics endpoint). Found keys are appended to
-KEYFOUNDKEYFOUND.txt, and every device candidate is re-verified with the
-exact python-int reference before it is reported.
+Copy of the pure-Python parts of keyhuntm1cpu_tpu/engine/common.py.
+SearchStats.add feeds the process-wide metrics registry (core/metrics.py,
+served by --metrics-port) under the JAX package's names. Found keys are
+appended to KEYFOUNDKEYFOUND.txt, and every device candidate is re-verified
+with the exact python-int reference before it is reported.
 """
 
 from __future__ import annotations
@@ -16,6 +17,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from ..core.metrics import get_metrics
 from ..core.security import SecureBuffer
 from ..ref import ecref, hashref
 
@@ -152,7 +154,12 @@ class SearchStats:
     started_at: float = field(default_factory=time.time)
 
     def add(self, keys: int) -> None:
+        """Count keys covered (a chunk's) and feed the metrics registry:
+        one counter and one gauge under its lock."""
         self.keys_covered += keys
+        m = get_metrics()
+        m.inc("keys_covered", keys * self.multiplier)
+        m.set_gauge("keys_per_sec_engine", self.keys_per_sec)
 
     @property
     def elapsed(self) -> float:

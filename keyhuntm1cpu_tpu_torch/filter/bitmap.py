@@ -43,6 +43,7 @@ boolean-mask indexing.
 
 from __future__ import annotations
 
+import math
 from functools import lru_cache
 from typing import NamedTuple, Optional
 
@@ -70,6 +71,15 @@ class DeviceBloom2(NamedTuple):
 def default_bits_log2(m: int) -> int:
     """fp = m/2^b = 2^-12, capped at 2^34 bits (bitmap.default_bits_log2)."""
     return min(34, max(16, int(np.ceil(np.log2(max(m, 2)))) + 12))
+
+
+def scaled_bits_log2(m: int, mult: int) -> Optional[int]:
+    """Bitmap size for the filter-size multiplier -z (bitmap.scaled_bits_log2):
+    ceil(log2(mult)) more bits than default_bits_log2(m), at most
+    MAX_BITS_LOG2; None for mult <= 1 (the engine's default)."""
+    if mult <= 1:
+        return None
+    return min(MAX_BITS_LOG2, default_bits_log2(m) + math.ceil(math.log2(mult)))
 
 
 def bloom2_bits_log2(m: int) -> int:

@@ -3,6 +3,7 @@ parsing through the BSGS, brute-force and minikeys engines to
 KEYFOUNDKEYFOUND.txt, and the refusals. Found keys are compared exactly."""
 
 import hashlib
+import os
 
 import pytest
 
@@ -54,7 +55,7 @@ def test_cli_refusals(workdir, monkeypatch):
     assert cli.main(["-m", "bsgs", "-c", "eth", *base]) == 2  # -c eth needs -m address
     assert cli.main(["-m", "address", *base]) == 2  # a pubkey is no address
     assert cli.main(["-m", "bsgs", "-B", "sideways", *base]) == 2  # no such range order
-    assert cli.main(["-m", "rmd160", "-S", *base]) == 2  # -S outside -m bsgs
+    assert cli.main(["-m", "bsgs", "--probe-mode", "elem", *base]) == 2  # TPU-only
     assert cli.main(["-m", "bsgs", "-b", "24", *base]) == 2  # -r and -b
     assert cli.main(["-m", "bsgs", "-f", str(f), "-q"]) == 2  # no range
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
@@ -239,7 +240,7 @@ def test_cli_bsgs_save_table_roundtrip(workdir, capsys, monkeypatch):
 
 def test_cli_bsgs_resolve_host_ignores_save_table(workdir, capsys, monkeypatch):
     """--resolve host -S warns and ignores -S (the JAX CLI's rule); -S
-    beside a brute mode is refused."""
+    beside -m rmd160 writes the reference data_<8hex>.dat instead."""
     f = _pub_file(workdir / "t.pub", 0xA1B2C3)
     assert cli.main(["-m", "bsgs", "-f", f, "-r", "a00000:a40000", "--device", "cpu",
                      "--resolve", "host", "-S", *ARGS]) == 0
@@ -248,5 +249,212 @@ def test_cli_bsgs_resolve_host_ignores_save_table(workdir, capsys, monkeypatch):
     h = workdir / "h160.txt"
     h.write_text(hashref.pubkey_to_hash160(ecref.scalar_mult(0x7)).hex() + "\n")
     assert cli.main(["-m", "rmd160", "-f", str(h), *BRUTE_ARGS]) == 0
-    assert cli.main(["-m", "rmd160", "-f", str(h), "-S", *BRUTE_ARGS]) == 2
-    assert "-S outside -m bsgs" in capsys.readouterr().err
+    assert not list(workdir.glob("data_*.dat"))
+    assert cli.main(["-m", "rmd160", "-f", str(h), "-S", *BRUTE_ARGS]) == 0
+    assert len(list(workdir.glob("data_*.dat"))) == 1
+
+
+# --- the rest of the JAX CLI's flags ------------------------------------------
+
+REFUSED = {"--probe-mode": "TPU-only", "--table-comm": "TPU-only", "--sharded": "--sharded"}
+VALUES = {"range": "1:2", "mode": "bsgs", "policy": "random", "n_value": "0x100",
+          "alphabet": "x" * 58, "vanity": "1A", "minikey_prefix": "Sabcdefghijk",
+          "notify_cmd": "true", "checkpoint_every": "1.5", "max_seconds": "2.5",
+          "stats_every": "0"}
+
+
+def test_cli_takes_every_jax_option(workdir, capsys, monkeypatch):
+    """Every option string of the JAX CLI's parser parses in the port's to
+    the same destination, except the three refused with their reason."""
+    from keyhuntm1cpu_tpu import cli as jcli
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    seen = set()
+    for act in jcli.build_parser()._actions:
+        if not act.option_strings or act.dest == "help":
+            continue
+        for opt in act.option_strings:
+            seen.add(opt)
+            if act.nargs == 0 or act.nargs == "?":
+                val = []
+            elif act.choices:
+                val = [list(act.choices)[-1]]
+            else:
+                val = [VALUES.get(act.dest, "2")]
+            base = [] if act.dest == "mode" else ["-m", "bsgs"]
+            ns = cli.build_parser().parse_args([*base, opt, *val])
+            assert hasattr(ns, act.dest), opt
+            if opt in REFUSED:
+                rc = cli.main(["-m", "bsgs", "-f", f, "-r", "a00000:a40000",
+                               "--device", "cpu", opt, *val])
+                assert rc == 2 and REFUSED[opt] in capsys.readouterr().err, opt
+    assert set(REFUSED) <= seen and len(seen) > 60
+
+
+def _stub_bsgs(monkeypatch):
+    """Replace the BSGS engine with a stub that records its params."""
+    from keyhuntm1cpu_tpu_torch.engine import bsgs, common
+
+    captured = {}
+
+    class Stub:
+        def __init__(self, pubs, a, b, params, device=None, table=None):
+            captured.update(params=params, device=device)
+            self.stats, self.bitmap = common.SearchStats(), type("B", (), {"bits_log2": 0})
+            self.table = None
+
+        def search_scheduled(self, **kw):
+            captured.update(kw)
+            return []
+
+    monkeypatch.setattr(bsgs, "BSGSEngine", Stub)
+    return captured
+
+
+def test_cli_config_file_defaults_and_precedence(workdir, monkeypatch, capsys):
+    """--config supplies defaults; explicit flags win; KEYHUNT_* env beats
+    the file; a config without m_babies keeps -n/-k sizing; TPU-only
+    fields are warned about; a missing file is rc 2 (tests/test_cli.py)."""
+    import json
+
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    cfg = workdir / "cfg.json"
+    cfg.write_text(json.dumps({"m_babies": 512, "block_u": 64, "steps_per_chunk": 4,
+                               "quiet": True}))
+    rng = ["-r", "a00000:a40000", "--device", "cpu"]
+    assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, *rng]) == 0
+    assert _found_keys(workdir) == [0xA1B2C3]
+    cap = _stub_bsgs(monkeypatch)
+    cfg.write_text(json.dumps({"m_babies": 1024, "block_u": 16, "steps_per_chunk": 4,
+                               "bsgs_policy": "dance", "seed": 7, "probe_mode": "sorted",
+                               "table_comm": "ring"}))
+    assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, *rng, "-u", "32"]) == 1
+    p = cap["params"]
+    assert (p.m, p.block_u, p.steps_per_chunk) == (1024, 32, 4)
+    assert (cap["policy"], cap["seed"]) == ("dance", 7)
+    err = capsys.readouterr().err
+    assert "probe_mode='sorted' is TPU-only" in err and "table_comm='ring'" in err
+    monkeypatch.setenv("KEYHUNT_BLOCK_U", "48")
+    assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, *rng]) == 1
+    assert cap["params"].block_u == 48
+    monkeypatch.delenv("KEYHUNT_BLOCK_U")
+    cfg.write_text(json.dumps({"block_u": 16, "steps_per_chunk": 4}))
+    assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, "-r", "1:100000",
+                     "-n", "0x10000", "-k", "2", "--device", "cpu", "-q"]) == 1
+    assert cap["params"].m == 256 * 2
+    assert cli.main(["--config", str(workdir / "none.json"), "-m", "bsgs", "-f", f,
+                     *rng]) == 2
+    cfg.write_text(json.dumps({"mode": "bsgs", "stride": 3}))  # refused by validate
+    assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, *rng]) == 2
+
+
+def test_cli_filter_mult_and_host_table_cache(workdir, capsys, monkeypatch):
+    """-z 4 enlarges the BSGS bitmap to scaled_bits_log2(m, 4) bits;
+    --host-table-cache DIR puts the host table there and not in the
+    default cache dir."""
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+    from keyhuntm1cpu_tpu_torch.filter.bitmap import default_bits_log2, scaled_bits_log2
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    args = ["-m", "bsgs", "-f", f, "-r", "a00000:a40000", "--device", "cpu",
+            "--m-babies", "512", "-u", "64", "--chunk-steps", "4"]
+    assert cli.main(args + ["-z", "4"]) == 0
+    bits = scaled_bits_log2(512, 4)
+    assert bits == default_bits_log2(512) + 2
+    assert f"bitmap 2^{bits} bits" in capsys.readouterr().err
+    assert cli.main(args + ["--resolve", "host", "--host-table-cache",
+                            str(workdir / "htc")]) == 0
+    assert list((workdir / "htc").iterdir()) and not (workdir / "tc").exists()
+    assert f"bitmap 2^{bits - 2} bits" in capsys.readouterr().err  # host resolve, CPU
+    assert cli.main(args + ["-z", "0"]) == 2
+
+
+def test_cli_save_dat_in_rmd160_mode_and_read_back(workdir, capsys, monkeypatch):
+    """-S in rmd160 mode writes the reference data_<8hex>.dat in the cwd; a
+    second run reads its targets from it and finds the same keys."""
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+    from keyhuntm1cpu_tpu_torch.utils.legacy import dat_cache_path, read_dat
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    keys = [0x7, 0x155]
+    h = workdir / "h160.txt"
+    h.write_text("".join(hashref.pubkey_to_hash160(ecref.scalar_mult(k)).hex() + "\n"
+                         for k in keys))
+    args = ["-m", "rmd160", "-f", str(h), "-S", "-r", "1:401", "-u", "128",
+            "--chunk-steps", "4", "--device", "cpu", "--all"]
+    assert cli.main(args) == 0
+    dat = dat_cache_path(str(h))
+    assert f"wrote {dat}" in capsys.readouterr().err
+    _, values = read_dat(dat)
+    assert sorted(v.tobytes() for v in values) == sorted(
+        hashref.pubkey_to_hash160(ecref.scalar_mult(k)) for k in keys)
+    first = _found_keys(workdir)
+    (workdir / "KEYFOUNDKEYFOUND.txt").unlink()
+    assert cli.main(args) == 0
+    err = capsys.readouterr().err
+    assert f"read 2 targets from the reference cache {os.path.abspath(dat)}" in err
+    assert "wrote" not in err
+    assert _found_keys(workdir) == first == keys
+
+
+def test_cli_notify_stats_debug_matrix_and_compat_flags(workdir, capsys, monkeypatch):
+    """--notify-cmd gets each found key (a failing command loses nothing);
+    -s 0 prints no progress, -s 1 does; -d prints debug lines; -M sets
+    matrix mode; -E is accepted and ignored; --uncompressed is -l
+    uncompress."""
+    import sys
+
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+
+    log = get_logger()
+    monkeypatch.setattr(log, "level", LEVELS["plus"])
+    monkeypatch.setattr(log, "matrix", False)
+    script = workdir / "notify.py"
+    script.write_text("import sys\nopen(sys.argv[1], 'a').write(' '.join(sys.argv[2:]) + '\\n')\n")
+    h = workdir / "h.txt"
+    target = hashref.pubkey_to_hash160(ecref.scalar_mult(0x155), False).hex()
+    h.write_text(target + "\n")
+    base = ["-m", "rmd160", "-f", str(h), "-r", "1:401", "-u", "128", "--chunk-steps", "2",
+            "--device", "cpu", "--uncompressed"]
+    notify = f"{sys.executable} {script} {workdir / 'n.txt'}"
+    assert cli.main(base + ["--notify-cmd", notify, "-s", "0", "-E", "x"]) == 0
+    assert (workdir / "n.txt").read_text() == f"{0x155:064x} {target}\n"
+    out, err = capsys.readouterr()
+    assert "[brute]" not in out and "[D]" not in err
+    assert cli.main(base + ["--notify-cmd", str(workdir / "missing-cmd"), "-s", "1",
+                            "-d", "-M"]) == 0
+    out, err = capsys.readouterr()
+    assert "[brute] chunk 1/" in out and "[D] arguments:" in err
+    assert "notify command failed" in err and log.matrix
+    assert _found_keys(workdir) == [0x155, 0x155]
+
+
+def test_cli_metrics_port_serves_and_stops(workdir, capsys, monkeypatch):
+    """--metrics-port 0 serves the registry during the run (the mode info
+    set, keys_covered fed by the engine) and stops with the run."""
+    import socket
+
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+    from keyhuntm1cpu_tpu_torch.core.metrics import get_metrics
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    h = workdir / "h.txt"
+    h.write_text(hashref.pubkey_to_hash160(ecref.scalar_mult(0x9)).hex() + "\n")
+    before = get_metrics().snapshot()["counters"].get("keys_covered", 0.0)
+    assert cli.main(["-m", "rmd160", "-f", str(h), "-r", "1:401", "-u", "128",
+                     "--chunk-steps", "2", "--device", "cpu", "--all",
+                     "--metrics-port", "0"]) == 0
+    err = capsys.readouterr().err
+    port = int(err.split("metrics on http://127.0.0.1:")[1].split("/")[0])
+    snap = get_metrics().snapshot()
+    keys = float(err.split("keys/s (")[1].split(" keys)")[0])  # the engine's count
+    assert keys >= 400 and snap["counters"]["keys_covered"] - before == 2 * keys  # parities
+    assert snap["info"]["mode"] == "rmd160"
+    with pytest.raises(OSError):
+        socket.create_connection(("127.0.0.1", port), timeout=2).close()

@@ -1,7 +1,7 @@
 """CUDA kernels K1-K8 (K3 in each form), the minikey compaction and key
 derivation, pinv, the Keccak ETH
 hash, the probe, the two walker walk kernels, the walker step's lookup
-and summary and the fused brute chunk's compaction and summary
+and summary, the fused brute chunk's compaction and summary
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
 at small odd sizes (partial blocks; K4 at ragged row groups and column
 blocks, the compaction on the cases of tests/brute_compact_cases.py and at
@@ -9,7 +9,8 @@ the main path's K = 256, U = 16384; K6 at V not a multiple of its
 inversion group, walk_prefix and walk_emit at several chain
 lengths), and the engines (the
 brute walker path, vanity and the scheduled BSGS orders included) on CUDA
-vs the engines on the CPU. K6's other
+vs the engines on the CPU, and the legacy export's X(j*G) by K6
+(utils/legacy.baby_x_bytes) vs the host walk. K6's other
 compile-time shapes are held to their plain version by
 scripts/torch_ladder_shapes.py.
 Needs an NVIDIA GPU and nvcc; skipped without a GPU. Run on the card with
@@ -784,3 +785,18 @@ def test_search_scheduled_cuda_matches_cpu(dev, tmp_path, policy):
     f_want = want.search_scheduled(policy, seed=5, stop_on_first=False)
     assert sorted(f.private_key for f in f_got) == sorted(f.private_key for f in f_want) == ks
     assert got.stats.keys_covered == want.stats.keys_covered
+
+
+def test_baby_x_bytes_by_k6_equal_the_host_walk(dev):
+    """utils/legacy.baby_x_bytes on the card (K6 in batches of
+    X32_BATCH, rows assembled on the card) equals the host walk at m = 2^12,
+    and at a batch width that leaves a partial last batch."""
+    from keyhuntm1cpu_tpu_torch.utils import legacy
+
+    m = 1 << 12
+    before = pladder.scalar_mult_tiles.launches
+    got = legacy.baby_x_bytes(m, dev)
+    assert pladder.scalar_mult_tiles.launches == before + 1
+    want = legacy.baby_x_bytes(m, "cpu")
+    assert np.array_equal(got, want)
+    assert np.array_equal(legacy.x32_by_ladder(m, dev, batch=1000), want)

@@ -20,6 +20,8 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.core.security",
     "keyhuntm1cpu_tpu_torch.core.errors",
     "keyhuntm1cpu_tpu_torch.core.checkpoint",
+    "keyhuntm1cpu_tpu_torch.core.config",
+    "keyhuntm1cpu_tpu_torch.core.metrics",
     "keyhuntm1cpu_tpu_torch.ref.ecref",
     "keyhuntm1cpu_tpu_torch.ref.hashref",
     "keyhuntm1cpu_tpu_torch.field.fe",
@@ -42,6 +44,13 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.engine.minikeys",
     "keyhuntm1cpu_tpu_torch.engine.vanity",
     "keyhuntm1cpu_tpu_torch.utils.targets",
+    "keyhuntm1cpu_tpu_torch.utils.xxhash",
+    "keyhuntm1cpu_tpu_torch.utils.legacy",
+    "keyhuntm1cpu_tpu_torch.filter.bloom",
+    "keyhuntm1cpu_tpu_torch.native",
+    "keyhuntm1cpu_tpu_torch.dist",
+    "keyhuntm1cpu_tpu_torch.dist.coordinator",
+    "keyhuntm1cpu_tpu_torch.dist.worker",
     "keyhuntm1cpu_tpu_torch.convert",
     "keyhuntm1cpu_tpu_torch.cli",
     "keyhuntm1cpu_tpu_torch.server",

@@ -61,15 +61,36 @@ def test_ripemd160_and_base58check_match():
         assert thash.b58check_encode(payload) == jhash.b58check_encode(payload)
 
 
-def test_logger_levels_match(capsys):
-    tl, jl = tlog.Logger(), jlog.Logger()
-    for lg in (tl, jl):
+def test_logger_levels_match(capsys, tmp_path):
+    """The port's logger prints what the JAX logger prints at every level
+    (-q, default, -d), its status lines become plain lines under matrix
+    mode and in a file sink, and result lines always print."""
+    assert tlog.LEVELS == jlog.LEVELS and tlog._PREFIX == jlog._PREFIX
+    outs = []
+    for mod in (tlog, jlog):
+        lg = mod.Logger()
         lg.set_level("warn")
         lg.plus("hidden")
         lg.warn("shown")
         lg.result("always")
-    err = capsys.readouterr().err.splitlines()
-    assert err == ["[W] shown", "[+] always"] * 2
+        lg.set_level("debug")
+        lg.debug("d")
+        lg.info("i")
+        lg.matrix = True
+        lg.status("tick")
+        lg.set_level("plus")
+        lg.debug("hidden")
+        lg.info("hidden")
+        lg.add_file_sink(str(tmp_path / f"{mod.__name__}.log"))
+        lg.status("tock")
+        lg.error("e")
+        for f in lg.__dict__.get("_files", lg.__dict__.get("_sinks"))[-1:]:
+            f.close()
+        outs.append(capsys.readouterr().err.splitlines())
+    assert outs[0] == outs[1] == ["[W] shown", "[+] always", "[D] d", "[I] i", "[+] tick",
+                                  "[+] tock", "[E] e"]
+    assert ((tmp_path / f"{tlog.__name__}.log").read_text()
+            == (tmp_path / f"{jlog.__name__}.log").read_text() == "[+] tock\n[E] e\n")
 
 
 def test_secure_buffer_stages_and_wipes():
