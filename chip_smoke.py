@@ -169,12 +169,35 @@ any failure exits non-zero before the result line:
    ecref and the first 2^12 against the host walk, the file sizes; the
    native bulk parse of a 2^18-line address file beside the python parse
    of its first 2^14 lines.
+6. the multi-device engines (parallel/), on the visible cards repeated up
+   to 4 shards (distinct cards where several are visible), each shard's
+   device printed:
+6a. range-sharded BSGS at phase 3d's width on its resident table, bitmap
+   and bloom2 (no second build): the first sharded chunk's 4 summaries
+   word for word the single-device chunk at each slice's base; puzzle
+   63's key from a window in the last shard's slice; 5 s on puzzle 64's
+   range: keys/s beside phase 3d's, the idle share, the host's enqueue a
+   sharded chunk, peak memory.
+6b. table-sharded BSGS at m = 2^28 over 4 shards sliced from that table,
+   all_gather and ring: the shard build (bitmaps and bloom2s by K3) timed,
+   its memory; the probers' live hits of the first chunk equal to the
+   single-device chunks' for each source slice (all_gather), the ring's
+   first chunk equal to all_gather's as a set; puzzle 63's key; 5 s each.
+6c. range-sharded brute rmd160 at phase 4's shape (T = 32) over 4 shards:
+   32 planted keys, 8 a shard; 5 s of effective keys/s beside phase 4's.
+6d, 6e. at m = 2^24, five subprocesses together: two multihost processes
+   (dist/multihost.py, gloo rendezvous; one with --sharded) reporting the
+   key once to a coordinator here; the CLI with --sharded range and with
+   --sharded table --table-comm ring, each finding puzzle 63's key, and
+   --resolve host --sharded, which exits 2.
 5. the launch counts of the main paths (phase 3's filter build and
    searches, phase 3d's table and filter builds and searches, the
-   throughput windows of both bsgs_t16 runs and of phases 3s, 4, 4v, 4b
-   and 4c, the fleet phases 3f (the workers' own counts) and 4f and the
-   x32 of phase 5l, each counted from zero): every kernel launched, and
-   each stage launched exactly the kernels it should.
+   throughput windows of both bsgs_t16 runs and of phases 3s, 4, 4v, 4b,
+   4c, 6a, 6b (both schedules) and 6c, the fleet phases 3f (the workers'
+   own counts) and 4f and the x32 of phase 5l, each counted from zero):
+   every kernel launched, and each stage launched exactly the kernels it
+   should (6a, 6b: K1, K2 and two probes a shard chunk, the ring's probes
+   D times; 6c: K1, K4 and the compaction a shard chunk).
 
 The line before the last is {"kernels": [...]} with each kernel's bound
 (the larger of its 32-bit integer operations over the card's INT32 issue
@@ -301,6 +324,9 @@ FLEET_STOP_AFTER = 4  # phase 3f: units the first worker completes before its SI
 X32_M = 1 << 22  # phase 5l: keyhunt's default -n 0x100000000000 with -k 1 (resolve_m)
 PARSE_LINES, PARSE_PY_LINES = 1 << 18, 1 << 14  # phase 5l: the address file, its python sample
 Z_M = 1 << 24  # phase 5c: the baby-table size of the -z 4 run
+SHARDS = 4  # phases 6a-6c, 6e: shards, on the visible cards repeated up to this many
+SHARD_SECONDS = 5.0  # throughput window of each phase-6 cell
+MH_M = 1 << 24  # phases 6d, 6e: the baby-table size of the subprocesses
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
 # 9.0) issues 64 32-bit integer add, multiply(-add), shift, compare or
@@ -1743,9 +1769,10 @@ def phase3_main(dev, m, seconds, results, clock):
     return n_main, htab, eng.bitmap, eng.bloom2
 
 
-def phase4_brute(dev, seconds, clock):
+def phase4_brute(dev, seconds, clock, rates):
     """The brute-force path per mode; returns the throughput windows' launch
-    counts, each window counted from zero."""
+    counts, each window counted from zero; each mode's effective keys/s
+    goes into `rates`."""
     import hashlib
 
     import torch
@@ -1803,6 +1830,7 @@ def phase4_brute(dev, seconds, clock):
                  f"{chunks} counted")
         total = n if total is None else {k: total[k] + n[k] for k in n}
         eff = (eng.stats.keys_covered - k0) * eng.stats.multiplier / dt
+        rates[name] = eff
         busy = sum(a.elapsed_time(b) for a, b in marks)
         span = marks[0][0].elapsed_time(marks[-1][1])
         enq_ms = 1000 * sum(enqueue) / len(marks)
@@ -3234,6 +3262,320 @@ def phase5l_legacy(dev, m):
     return n
 
 
+def shard_devices():
+    """Phases 6a-6c's devices: every visible card, repeated up to SHARDS."""
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.parallel import default_devices
+
+    return default_devices("cuda", max(SHARDS, torch.cuda.device_count()))
+
+
+def shard_window(eng, seconds, name):
+    """`seconds` of a sharded engine's search_sharded from zeroed launch
+    counts: (counts, sharded chunks, wall s, idle share, enqueue ms a
+    sharded chunk, decode ms a decoded chunk, card ms a sharded chunk by
+    device_ms, before the window)."""
+    import torch
+
+    b0 = eng._bases_at(0)
+    card_ms, _ = device_ms(lambda: eng._sharded_chunk(b0), 3)
+    marks, enqueue = marked(eng, "_sharded_chunk")
+    dec = host_timed(eng, "_decode_sharded")
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.time()
+    eng.search_sharded(max_seconds=seconds, stop_on_first=False)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    _, n = launch_counts()
+    if not marks:
+        fail(f"{name}: no sharded chunk in the window")
+    busy = sum(a.elapsed_time(b) for a, b in marks)
+    span = marks[0][0].elapsed_time(marks[-1][1])
+    return (n, len(marks), dt, 1 - busy / span, 1000 * sum(enqueue) / len(marks),
+            1000 * dec[0] / max(1, dec[1]), card_ms)
+
+
+def phase6a_range(m, table, bm, rate3d, seconds, devs):
+    """Range-sharded BSGS (parallel/mesh.py ShardedBSGSEngine) at phase
+    3d's width on its resident table, bitmap and bloom2; returns the
+    throughput window's launch counts."""
+    import numpy as np
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.engine import bsgs
+    from keyhuntm1cpu_tpu_torch.parallel import ShardedBSGSEngine
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    params = bsgs_params(m, "device")
+    D, w = len(devs), U * 2 * m
+    # two chunks a shard; puzzle 63's key in the last shard's first chunk
+    a = PUZZLE63_KEY - ((D - 1) * 2 * K + K // 2) * w - 12345
+    pub63 = [ecref.scalar_mult(PUZZLE63_KEY)]
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eng = ShardedBSGSEngine(pub63, a, a + D * 2 * K * w, params, table=table, bitmap=bm,
+                            devices=devs)
+    if not eng.slices[-1].start <= PUZZLE63_KEY < eng.slices[-1].end:
+        fail(f"phase 6a: puzzle 63's key is not in the last shard's slice {eng.slices[-1]}")
+    single = bsgs.BSGSEngine(pub63, a, a + D * 2 * K * w, params, device=devs[0], table=table,
+                             bitmap=bm)
+    _, (host, ev) = eng._sharded_chunk(eng._bases_at(0))
+    ev.synchronize()
+    rows = host.numpy()[:-1].reshape(D, -1)
+    for d, sl in enumerate(eng.slices):
+        want = single._chunk_fn(*single._initial_base(sl.step0))[2].cpu().numpy()
+        if not np.array_equal(rows[d], want):
+            fail(f"phase 6a: shard {d}'s summary of the first sharded chunk differs from the "
+                 f"single-device chunk at its slice's base (max_abs_err "
+                 f"{int(np.abs(rows[d].astype(np.int64) - want).max())})")
+    t0 = time.time()
+    found = [f.private_key for f in eng.search_sharded()]
+    if found != [PUZZLE63_KEY]:
+        fail(f"phase 6a: puzzle-63 recovery over {D} shards failed: {[hex(k) for k in found]}")
+    log(f"phase 6a: range-sharded BSGS over {D} shards on {[str(d) for d in devs]} (m=2^"
+        f"{m.bit_length() - 1}, U={U}, K={K}, T=1, phase 3d's table, bitmap and bloom2; "
+        f"C1={eng.C1}, C2={eng.C2}): the first sharded chunk's {D} summaries word for word "
+        f"the single-device chunk at each slice's base; puzzle 63's key (in the last "
+        f"shard's slice) found bit-exact in {time.time() - t0:.2f} s")
+
+    eng64 = ShardedBSGSEngine([ecref.scalar_mult(PUZZLE64_KEY)], *PUZZLE64_RANGE, params,
+                              table=table, bitmap=bm, devices=devs)
+    n, chunks, dt, idle, enq, dec, card = shard_window(eng64, seconds, "phase 6a")
+    if (eng64.stats.keys_covered != chunks * D * K * U * eng64.stride
+            or n != zero_counts() | dict(advance_chain=D * chunks, walk_blocks=D * chunks,
+                                         probe=2 * D * chunks)):
+        fail(f"phase 6a: the window launched {n} for {chunks} sharded chunks of {D} shards, "
+             f"{eng64.stats.keys_covered} keys counted")
+    log(f"phase 6a: throughput {chunks} sharded chunks ({D * chunks} shard chunks) in "
+        f"{dt:.2f} s -> {eng64.stats.keys_covered / dt:.4e} keys/s (phase 3d's single-device "
+        f"search in this run {rate3d:.4e}); device idle share {idle:.4f}; host enqueue "
+        f"{enq:.3f} ms a sharded chunk ({enq / D:.3f} a shard chunk) against {card:.3f} ms "
+        f"on the card; decode {dec:.3f} ms a decoded one; peak memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; "
+        f"launches {n}; card {card_line()}")
+    return n
+
+
+def phase6b_table(m, table, bm, seconds, devs):
+    """Table-sharded BSGS (ShardedTableBSGSEngine) at m = 2^28 over the
+    devices, all_gather and ring, sliced from phase 3d's table; returns
+    each throughput window's launch counts."""
+    import dataclasses
+    import gc
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.engine import bsgs
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.parallel import ShardedTableBSGSEngine
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    D, w = len(devs), U * 2 * m
+    a = PUZZLE63_KEY - ((D - 1) * 2 * K + K // 2) * w - 12345  # as phase 6a
+    b = a + D * 2 * K * w
+    pub63 = [ecref.scalar_mult(PUZZLE63_KEY)]
+    B = K * U
+    sets, counts = {}, {}
+    for comm in ("all_gather", "ring"):
+        params = dataclasses.replace(bsgs_params(m, "device"), table_comm=comm)
+        gc.collect()  # the timing wrappers tie engines in reference cycles
+        torch.cuda.synchronize()
+        torch.cuda.empty_cache()
+        base_mem = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.time()
+        eng = ShardedTableBSGSEngine(pub63, a, b, params, table=table, devices=devs)
+        torch.cuda.synchronize()
+        t_build = time.time() - t0
+        _, n_build = launch_counts()
+        per = -(-eng.rows // bmp.TABLE_SLICE)
+        if n_build != zero_counts() | dict(insert_keys=D * per * (1 + eng._use_bloom2)):
+            fail(f"phase 6b ({comm}): the shard build launched {n_build}")
+        _, (host, ev) = eng._sharded_chunk(eng._bases_at(0))
+        ev.synchronize()
+        rows = host.numpy()[:-1].reshape(D, -1)
+        C2 = eng.C2
+        sets[comm] = {(d, int(p), int(j), int(j2)) for d, row in enumerate(rows)
+                      for p, j, j2 in zip(*row[:3 * C2].reshape(3, C2)) if p < D * B}
+        if comm == "all_gather":
+            single = bsgs.BSGSEngine(pub63, a, b, bsgs_params(m, "device"), device=devs[0],
+                                     table=table, bitmap=bm)
+            want = set()
+            for d, sl in enumerate(eng.slices):
+                out = single._chunk_fn(*single._initial_base(sl.step0))[2].cpu().numpy()
+                c2 = single.C2
+                want |= {(d * B + int(p), int(j)) for p, *js in zip(*out[:3 * c2].reshape(3, c2))
+                         for j in js if p < B and j}
+            got = {(p, j) for _, p, *js in sets[comm] for j in js if j}
+            if got != want or not got:
+                fail(f"phase 6b: the probers' live hits {sorted(got)} differ from the "
+                     f"single-device chunks' {sorted(want)}")
+            del single
+        elif sets["ring"] != sets["all_gather"]:
+            fail(f"phase 6b: the ring's first chunk {sorted(sets['ring'])} differs from "
+                 f"all_gather's {sorted(sets['all_gather'])}")
+        t0 = time.time()
+        found = [f.private_key for f in eng.search_sharded()]
+        if found != [PUZZLE63_KEY]:
+            fail(f"phase 6b ({comm}): puzzle-63 recovery failed: {[hex(k) for k in found]}")
+        t_gate = time.time() - t0
+        mem = (f"{(torch.cuda.memory_allocated() - base_mem) / 2**30:.2f} GiB of shard "
+               f"structures ({D} bitmaps of 2^{eng.shard_bits} bits"
+               + (f", {D} bloom2s of 2^{eng.shard_b2_bits}" if eng._use_bloom2 else "")
+               + ("; the shards are views of the table)"
+                  if all(d == table.key.device for d in devs) else
+                  "; the shards are copies on their cards)"))
+        del eng
+        gc.collect()
+        torch.cuda.empty_cache()
+        torch.cuda.reset_peak_memory_stats()
+        eng64 = ShardedTableBSGSEngine([ecref.scalar_mult(PUZZLE64_KEY)], *PUZZLE64_RANGE,
+                                       params, table=table, devices=devs)
+        n, chunks, dt, idle, enq, dec, card = shard_window(eng64, seconds,
+                                                           f"phase 6b ({comm})")
+        probes = 2 * D * (D if comm == "ring" else 1) * chunks
+        if (eng64.stats.keys_covered != chunks * D * K * U * eng64.stride
+                or n != zero_counts() | dict(advance_chain=D * chunks, walk_blocks=D * chunks,
+                                             probe=probes)):
+            fail(f"phase 6b ({comm}): the window launched {n} for {chunks} sharded chunks, "
+                 f"{eng64.stats.keys_covered} keys counted")
+        counts[comm] = n
+        log(f"phase 6b: table-sharded BSGS, {comm}, over {D} shards on "
+            f"{[str(d) for d in devs]} ({eng64.rows} rows each; C1={eng64.C1}, "
+            f"C2={eng64.C2}): shards built in {t_build:.3f} s (slices, K3 bitmaps and "
+            f"blooms), {mem}; "
+            + ("the probers' live hits equal the single-device chunks' for each source slice; "
+               if comm == "all_gather" else "the first chunk equals all_gather's as a set; ")
+            + f"puzzle 63's key found bit-exact in {t_gate:.2f} s; throughput {chunks} sharded "
+            f"chunks in {dt:.2f} s -> {eng64.stats.keys_covered / dt:.4e} keys/s; idle share "
+            f"{idle:.4f}; host enqueue {enq:.3f} ms a sharded chunk against {card:.3f} ms on "
+            f"the card, decode {dec:.3f} ms; peak "
+            f"memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB (phase 3d's table, "
+            f"bitmap and bloom2 resident); launches {n}")
+        del eng64
+        gc.collect()
+        torch.cuda.empty_cache()
+    return counts["all_gather"], counts["ring"]
+
+
+def phase6c_brute(seconds, devs, rate4):
+    """Range-sharded brute force (parallel/brute_mesh.py) in rmd160 at phase
+    4's shape; returns the throughput window's launch counts."""
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.engine.brute import BruteParams
+    from keyhuntm1cpu_tpu_torch.parallel import ShardedBruteEngine
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+    from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet
+
+    D = len(devs)
+    a = BRUTE_RANGE[0]
+    span = D * 2 * K * U  # two chunks a shard
+    keys = [a + i * (span // 32) + i + 1 for i in range(32)]  # 8 in each shard's slice
+    ts = TargetSet(kind="hash160", raw=[brute_artifact("rmd160", ecref.scalar_mult(k))
+                                        for k in keys], labels=[hex(k) for k in keys])
+    params = BruteParams(block_u=U, steps_per_chunk=K)
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.time()
+    eng = ShardedBruteEngine(ts, a, a + span, mode="rmd160", params=params, devices=devs)
+    got = sorted(f.private_key for f in eng.search_sharded())
+    if got != keys:
+        fail(f"phase 6c: found {len(got)} of the 32 planted keys: {[hex(k) for k in got]}")
+    t_gate = time.time() - t0
+    eng = ShardedBruteEngine(ts, *BRUTE_RANGE, mode="rmd160", params=params, devices=devs)
+    n, chunks, dt, idle, enq, dec, card = shard_window(eng, seconds, "phase 6c")
+    if (eng.stats.keys_covered != chunks * D * K * U
+            or n != zero_counts() | dict.fromkeys(("advance_chain", "brute_walk_blocks",
+                                                   "compact_hits"), D * chunks)):
+        fail(f"phase 6c: the window launched {n} for {chunks} sharded chunks, "
+             f"{eng.stats.keys_covered} keys counted")
+    log(f"phase 6c: range-sharded brute rmd160 over {D} shards on {[str(d) for d in devs]} "
+        f"(U={U}, K={K}, T=32): the 32 planted keys (8 a shard) found bit-exact in "
+        f"{t_gate:.2f} s; throughput {chunks} sharded chunks in {dt:.2f} s -> "
+        f"{eng.stats.keys_covered * eng.stats.multiplier / dt:.4e} effective keys/s (phase 4's "
+        f"single-device rmd160 in this run {rate4:.4e}); idle share {idle:.4f}; host enqueue "
+        f"{enq:.3f} ms a sharded chunk against {card:.3f} ms on the card; peak memory "
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; launches {n}")
+    return n
+
+
+def phase6de_processes(here):
+    """Multihost (6d) and the CLI's --sharded (6e) at m = 2^24, as
+    subprocesses started together: two multihost processes joined by a gloo
+    rendezvous, each on its slice (the key's owner with its table sharded),
+    reporting to a coordinator in this process; the CLI with --sharded range
+    and with --sharded table --table-comm ring over 4 shards, each finding
+    puzzle 63's key, and --resolve host --sharded, which exits 2."""
+    import tempfile
+
+    from keyhuntm1cpu_tpu_torch.dist.coordinator import CoordinatorServer, WorkCoordinator
+
+    w = U * 2 * MH_M
+    coord = WorkCoordinator(1, 2, n_units=1)  # the multihost processes' report sink
+    srv = CoordinatorServer(("127.0.0.1", 0), coord)
+    srv.start_background()
+    procs, logs = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        pub = pub_file(os.path.join(tmp, "p63.pub"), PUZZLE63_KEY)
+        # multihost: 2 slices of 2 chunks, the key in process 1's
+        a = PUZZLE63_KEY - (2 * K + K // 2) * w - 777
+        mh = ["-m", "keyhuntm1cpu_tpu_torch.dist.multihost", "--coordinator",
+              f"127.0.0.1:{free_port()}", "--num-processes", "2", "--report",
+              f"127.0.0.1:{srv.server_address[1]}", "-f", pub, "-r",
+              f"{a:x}:{a + 4 * K * w:x}", "--m-babies", str(MH_M), "-u", str(U),
+              "--chunk-steps", str(K)]
+        # the CLI: 4 shards of one chunk, the key in shard 2
+        c = PUZZLE63_KEY - (2 * K + K // 2) * w - 999
+        cli = ["-m", "keyhuntm1cpu_tpu_torch.cli", "-m", "bsgs", "-f", pub, "-r",
+               f"{c:x}:{c + 4 * K * w:x}", "--m-babies", str(MH_M), "-u", str(U),
+               "--chunk-steps", str(K), "--n-devices", str(SHARDS)]
+        runs = {"mh0": mh + ["--process-id", "0"],
+                "mh1": mh + ["--process-id", "1", "--sharded"],
+                "range": cli + ["--sharded", "range"],
+                "ring": cli + ["--sharded", "table", "--table-comm", "ring"],
+                "host": cli + ["--sharded", "--resolve", "host"]}
+        t0 = time.time()
+        try:
+            for name, args in runs.items():
+                os.makedirs(os.path.join(tmp, name))
+                logs[name] = open(os.path.join(tmp, name, "log"), "w+")
+                procs[name] = subprocess.Popen(
+                    [sys.executable, *args],
+                    cwd=os.path.join(tmp, name), env=subprocess_env(here), stdout=logs[name],
+                    stderr=subprocess.STDOUT)
+            for p in procs.values():
+                p.wait(timeout=600)
+        finally:
+            for p in procs.values():
+                stop_process(p)
+            srv.shutdown()
+            srv.server_close()
+        wall = time.time() - t0
+        texts = {}
+        for name, f in logs.items():
+            f.seek(0)
+            texts[name] = f.read()
+            f.close()
+    rcs = {name: p.returncode for name, p in procs.items()}
+    found = [f["private_key"] for f in coord.found_keys()]
+    hit = f"{PUZZLE63_KEY:064x}"
+    if (rcs != dict(mh0=1, mh1=0, range=0, ring=0, host=2) or found != [f"{PUZZLE63_KEY:x}"]
+            or f"FOUND {hit} (process 1)" not in texts["mh1"]
+            or any(f"FOUND {hit}" not in texts[n] for n in ("range", "ring"))
+            or "--resolve host applies to the single-device engine" not in texts["host"]):
+        fail(f"phase 6d/6e: exit codes {rcs}, coordinator's keys {found}; logs:\n"
+             + "\n".join(f"[{n}] {t[-2000:]}" for n, t in texts.items()))
+    log(f"phase 6d: multihost, 2 processes on the card joined by a gloo rendezvous at "
+        f"m=2^{MH_M.bit_length() - 1} (U={U}, K={K}), each on its slice of 2 chunks; process 1 "
+        f"(--sharded: its table over its card) found puzzle 63's key, reported once to the "
+        f"coordinator; process 0 none (exit 1)")
+    log(f"phase 6e: CLI at m=2^{MH_M.bit_length() - 1} over {SHARDS} shards: --sharded range "
+        f"and --sharded table --table-comm ring each found puzzle 63's key; --resolve host "
+        f"--sharded exited 2; the five processes together in {wall:.1f} s")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=1 << 28,
@@ -3286,20 +3628,29 @@ def main():
                            bitmap=dbm)
     phase3b_server(dev, args.m, table)
     fleet = phase3f_fleet(dev, args.m, rate3d, here)
+    devs = shard_devices()
+    sharded = phase6a_range(args.m, table, dbm, rate3d, SHARD_SECONDS, devs)
+    table_ag, table_ring = phase6b_table(args.m, table, dbm, SHARD_SECONDS, devs)
     del table, dbm
+    torch.cuda.empty_cache()
     phase3d_large(dev, [m for m in LARGE_M if m > args.m])
-    brute = phase4_brute(dev, BRUTE_SECONDS, clock)
+    rates4 = {}
+    brute = phase4_brute(dev, BRUTE_SECONDS, clock, rates4)
+    sharded_brute = phase6c_brute(SHARD_SECONDS, devs, rates4["rmd160"])
     vanity = phase4v_vanity(dev, BRUTE_SECONDS)
     minikeys = phase4b_minikeys(dev, MK_SECONDS)
     phase4r_resume(dev)
     fleet4 = phase4f_fleet(dev)
     walker = phase4c_walker(dev, WK_SECONDS)
     phase5c_cli(dev, args.m, here)
+    phase6de_processes(here)
     legacy = phase5l_legacy(dev, X32_M)
     paths = dict(bsgs=bsgs, t16_host=t16_host, scheduled=scheduled, device=device,
                  t16_device=t16_device, brute=brute, vanity=vanity, minikeys=minikeys,
                  walker=walker, fleet_workers=fleet, fleet_brute=fleet4["brute"],
-                 fleet_minikeys=fleet4["minikeys"], legacy_x32=legacy)
+                 fleet_minikeys=fleet4["minikeys"], legacy_x32=legacy, sharded_range=sharded,
+                 sharded_table_all_gather=table_ag, sharded_table_ring=table_ring,
+                 sharded_brute=sharded_brute)
     launches = {name: sum(n[name] for n in paths.values()) for name in bsgs}
     if not all(launches.values()):
         fail(f"a kernel of the main paths never launched: {launches}")

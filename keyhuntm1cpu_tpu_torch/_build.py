@@ -233,15 +233,32 @@ def on_cuda(*tensors) -> bool:
     return kind == "cuda"
 
 
+class Stream(int):
+    """A raw CUDA stream handle (what the entry points take) that carries
+    the index of the device it belongs to."""
+
+    device: int
+
+
 def launch(fn: str, *args) -> None:
-    """Call a kernel entry point; raise if the launch reported an error."""
-    rc = getattr(kernels(), fn)(*args)
+    """Call a kernel entry point; raise if the launch reported an error.
+    The device of the Stream among args is current during the call: an
+    entry point launches on the current device, and the stream and
+    pointers it is given belong to the tensors' device, which need not be
+    the one the caller has current."""
+    import torch
+
+    dev = next(a.device for a in args if isinstance(a, Stream))
+    with torch.cuda.device(dev):
+        rc = getattr(kernels(), fn)(*args)
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed (cudaError {rc})")
 
 
-def stream(t) -> int:
+def stream(t) -> Stream:
     """Raw handle of the current CUDA stream on tensor t's device."""
     import torch
 
-    return torch.cuda.current_stream(t.device).cuda_stream
+    s = Stream(torch.cuda.current_stream(t.device).cuda_stream)
+    s.device = t.device.index  # a CUDA tensor's device always has one
+    return s

@@ -1,13 +1,14 @@
 """Command-line interface of the port: BSGS (device- and host-resolve),
-the brute-force modes, vanity prefixes and minikeys; every flag of
-keyhuntm1cpu_tpu/cli.py but the TPU-only --probe-mode and --table-comm
-and the multi-device --sharded, which are refused with their reason.
+the brute-force modes, vanity prefixes and minikeys, on one device or
+sharded over several; every flag of keyhuntm1cpu_tpu/cli.py but the
+TPU-only --probe-mode, which is refused with its reason.
 
     python -m keyhuntm1cpu_tpu_torch.cli -m bsgs -f targets.pub \
         -r A:B | -b BITS [--m-babies N | -k K -n N] [-z MULT] [-u U] [--chunk-steps K] \
         [--resolve device|host [--host-table-cache DIR]] [--cascade2 auto|on|off] \
         [-S [--table-file F] [-6]] \
         [-B sequential|backward|both|random|dance [--seed S]] \
+        [--sharded [range|table] [--table-comm all_gather|ring] [--n-devices D]] \
         [--all] [-q] [--max-seconds S] [--max-chunks N] [--device cuda|cpu]
     python -m keyhuntm1cpu_tpu_torch.cli -m address|rmd160|xpoint|eth -f targets \
         -r A:B | -b BITS [-c eth] [-l compress|uncompress|both | --uncompressed] [-e] \
@@ -42,6 +43,13 @@ in address and rmd160 modes. Brute target sets of up to 65,536 entries
 run the fused path (one chain per chunk) when -u is a multiple of 128;
 larger sets, or any other -u, run the walker path (-t walkers, each
 moving 2U+1 keys per step).
+--sharded (device-resolve BSGS and the fused brute path) runs one shard
+a device over --n-devices devices, every visible card by default, round
+robin over the cards when more (one CPU shard with --device cpu unless
+--n-devices is given): "range" gives each shard a slice of the range,
+"table" (bsgs) gives each shard 1/D of the baby table and its filters, the
+shards' queries probed all at once (--table-comm all_gather) or one
+shard's a hop (ring). The sharded engines scan in order (no -B, no -R).
 Vanity prefixes (-m vanity, or -v beside -m address|rmd160) run the fused
 path only; -m vanity scans [1, 2^63) unless -r or -b is given, and on the
 card with -u at least 4096 and --chunk-steps at least 32.
@@ -67,7 +75,7 @@ MODES = ("bsgs",) + BRUTE_MODES + ("vanity", "minikeys")
 POLICIES = ("sequential", "backward", "both", "random", "dance")
 LOOK_MODES = {"compress": "rmd160", "uncompress": "address_u", "both": "rmd160_both"}
 # flags of the JAX CLI that this port refuses, and why
-TPU_ONLY = ("probe_mode", "table_comm")
+TPU_ONLY = ("probe_mode",)
 # (attribute, Config field) pairs a --config file may default: the JAX CLI's
 CONFIG_FIELDS = (
     ("m_babies", "m_babies"), ("block_u", "block_u"),
@@ -78,6 +86,7 @@ CONFIG_FIELDS = (
     ("k_factor", "k_factor"), ("n_value", "n_value"),
     ("filter_mult", "filter_mult"), ("crypto", "crypto"),
     ("alphabet", "minikey_alphabet"), ("cascade2", "cascade2"),
+    ("table_comm", "table_comm"), ("n_devices", "n_devices"),
 )
 
 
@@ -170,9 +179,16 @@ def build_parser() -> argparse.ArgumentParser:
                    help="serve /metrics.json, /metrics, /healthz and / on this port "
                         "(0: a free one)")
     p.add_argument("--sharded", nargs="?", const="range", default=None,
-                   help="multi-device search: not in this port yet")
-    p.add_argument("--table-comm", default=None,
-                   help="TPU-only (the sharded table's membership schedule): refused here")
+                   choices=["range", "table"],
+                   help="multi-device search: 'range' (default) gives each device a "
+                        "slice of the range; 'table' (bsgs) shards the baby table 1/D "
+                        "per device, so m scales past one card's memory")
+    p.add_argument("--table-comm", default="all_gather", choices=["all_gather", "ring"],
+                   help="--sharded table membership schedule: every device probes all "
+                        "devices' queries at once, or one device's block a hop for D hops")
+    p.add_argument("--n-devices", type=int, default=None,
+                   help="--sharded: the number of shards, round robin over the visible "
+                        "cards (default every visible card; 1 with --device cpu)")
     p.add_argument("-s", "--stats-every", type=float, default=5.0,
                    help="progress line every N chunks; 0 omits it")
     p.add_argument("-q", "--quiet", action="store_true")
@@ -205,8 +221,9 @@ def build_parser() -> argparse.ArgumentParser:
 
 def apply_config(args, log) -> None:
     """--config: the file and KEYHUNT_* env give defaults; a flag set on
-    the command line (a value other than the parser's default) wins. The
-    TPU-only fields are warned about and ignored."""
+    the command line (a value other than the parser's default) wins; the
+    file's sharded = true means --sharded range. The TPU-only probe_mode
+    is warned about and ignored."""
     from .core.config import Config, load_config
 
     cfg = load_config(args.config)
@@ -217,16 +234,22 @@ def apply_config(args, log) -> None:
             v = getattr(cfg, key)
             if v is not None:
                 setattr(args, attr, v)
-    base = Config()
-    for key in ("probe_mode", "table_comm", "sharded", "n_devices"):
-        if getattr(cfg, key) != getattr(base, key):
-            log.warn(f"config {key}={getattr(cfg, key)!r} is TPU-only or multi-device; "
-                     "ignored by this port")
+    if cfg.sharded and args.sharded is None:
+        args.sharded = "range"
+    if cfg.probe_mode != Config().probe_mode:
+        log.warn(f"config probe_mode={cfg.probe_mode!r} is TPU-only; ignored by this port")
 
 
 def read_pubkeys(path: str):
     with open(path) as f:
         return [ecref.parse_pubkey(ln.split()[0]) for ln in f if ln.strip()]
+
+
+def _devices(args):
+    """The shards' devices of a --sharded run."""
+    from .parallel.mesh import default_devices
+
+    return default_devices(args.device, args.n_devices)
 
 
 def _bsgs_engine(args, log):
@@ -237,16 +260,17 @@ def _bsgs_engine(args, log):
     params = BSGSParams(m=m, block_u=args.block_u, steps_per_chunk=args.chunk_steps,
                         bits_log2=scaled_bits_log2(m, args.filter_mult),
                         cascade2=args.cascade2, resolve=args.resolve,
-                        table_cache=args.host_table_cache)
+                        table_cache=args.host_table_cache, table_comm=args.table_comm)
     a, b = args.range
     pubkeys = read_pubkeys(args.file)
+    devs = _devices(args) if args.sharded else None
     table, path = None, args.table_file or f"keyhunt_tpu_baby_{m}.npz"
     if args.save_table and args.resolve == "host":
         log.warn("--resolve host caches its table on disk itself; -S/--table-file ignored")
     elif args.save_table:
         try:
             table = BSGSEngine.load_table(path, verify_checksum=not args.skip_checksum,
-                                          device=args.device)
+                                          device=devs[0] if devs else args.device)
         except FileNotFoundError:
             pass
         except ValueError as e:
@@ -256,16 +280,27 @@ def _bsgs_engine(args, log):
             table = None
         if table is not None:
             log.plus(f"loaded baby table from {path}")
-    eng = BSGSEngine(pubkeys, a, b, params, device=args.device, table=table)
+    if args.sharded:
+        from .parallel import ShardedBSGSEngine, ShardedTableBSGSEngine
+
+        cls = ShardedTableBSGSEngine if args.sharded == "table" else ShardedBSGSEngine
+        eng = cls(pubkeys, a, b, params, table=table, devices=devs)
+    else:
+        eng = BSGSEngine(pubkeys, a, b, params, device=args.device, table=table)
     if args.save_table and args.resolve == "device" and table is None:
         eng.save_table(path)
         log.plus(f"saved baby table to {path}")
-    log.plus(f"bsgs: m={m}, {args.resolve} resolve, bitmap 2^{eng.bitmap.bits_log2} bits")
+    if args.sharded == "table":
+        log.plus(f"bsgs: m={m}, table sharded over {eng.n_shards} devices ({eng.rows} rows "
+                 f"each, {args.table_comm}), bitmaps 2^{eng.shard_bits} bits")
+    else:
+        log.plus(f"bsgs: m={m}, {args.resolve} resolve, bitmap 2^{eng.bitmap.bits_log2} bits"
+                 + (f", range sharded over {eng.n_shards} devices" if args.sharded else ""))
     return eng
 
 
 def _brute_engine(args, log):
-    from .engine.brute import BruteEngine, BruteParams
+    from .engine.brute import BruteParams
     from .utils.targets import parse_target_file_cached
 
     mode = args.mode
@@ -300,8 +335,21 @@ def _brute_engine(args, log):
         # inside the vanity intervals
         intervals = _intervals(args.vanity)
     a, b = args.range
+    return _brute_or_sharded(args, targets, a, b, mode, params, intervals,
+                             list(args.vanity) if intervals else [])
+
+
+def _brute_or_sharded(args, targets, a, b, mode, params, intervals, prefixes):
+    from .engine.brute import BruteEngine
+
+    if args.sharded:
+        from .parallel import ShardedBruteEngine
+
+        return ShardedBruteEngine(targets, a, b, mode=mode, params=params,
+                                  devices=_devices(args), intervals=intervals,
+                                  prefixes=prefixes)
     return BruteEngine(targets, a, b, mode=mode, params=params, device=args.device,
-                       intervals=intervals, prefixes=list(args.vanity) if intervals else [])
+                       intervals=intervals, prefixes=prefixes)
 
 
 def _look(args) -> str:
@@ -317,7 +365,7 @@ def _intervals(prefixes):
 def _vanity_engine(args):
     """-m vanity: the fused brute path with an interval-only target set,
     at least U = 4096 and K = 32 on the card (the JAX CLI's floors)."""
-    from .engine.brute import BruteEngine, BruteParams
+    from .engine.brute import BruteParams
     from .utils.targets import TargetSet
 
     prefixes = list(args.vanity)
@@ -331,9 +379,8 @@ def _vanity_engine(args):
                          steps_per_chunk=max(32, args.chunk_steps) if card else args.chunk_steps,
                          endo=args.endo)
     a, b = args.range or (1, 1 << 63)
-    return BruteEngine(TargetSet(kind="hash160", raw=[], labels=[]), a, b,
-                       mode=LOOK_MODES[_look(args)], params=params,
-                       device=args.device, intervals=_intervals(prefixes), prefixes=prefixes)
+    return _brute_or_sharded(args, TargetSet(kind="hash160", raw=[], labels=[]), a, b,
+                             LOOK_MODES[_look(args)], params, _intervals(prefixes), prefixes)
 
 
 def _minikey_engine(args):
@@ -368,8 +415,16 @@ def _refusal(args):
         if getattr(args, attr) is not None:
             return (f"--{attr.replace('_', '-')} is TPU-only (the JAX package's Pallas "
                     "kernels); the CUDA kernels have one form")
-    if args.sharded:
-        return "--sharded: not in this port yet (the multi-device slice)"
+    if args.sharded and minikeys:
+        return "--sharded applies to bsgs and the brute modes, not to -m minikeys"
+    if args.sharded == "table" and args.mode != "bsgs":
+        return ("--sharded table applies to bsgs only (brute modes have no baby table); "
+                "use --sharded")
+    if args.sharded and args.mode == "bsgs" and args.resolve == "host":
+        return ("--resolve host applies to the single-device engine (sharded engines "
+                "keep per-device tables)")
+    if args.n_devices is not None and args.n_devices < 1:
+        return "--n-devices must be >= 1"
     if not minikeys and (args.alphabet is not None or args.minikey_prefix is not None):
         return "-8 and -C only apply to -m minikeys"
     if args.policy not in POLICIES:
@@ -423,6 +478,11 @@ def _run(args, log) -> int:
     if args.filter_mult > 1 and args.mode != "bsgs":
         log.plus("-z noted: brute-mode membership is an exact compare (no "
                  "false-positive filter to enlarge)")
+    if args.table_comm != "all_gather" and args.sharded != "table":
+        log.warn("--table-comm applies only to --sharded table (the schedule of the "
+                 "table shards' membership traffic); this run does not use it")
+    if args.sharded and args.mode == "bsgs" and args.policy != "sequential":
+        log.warn(f"the sharded engines scan their slices in order; -B {args.policy} ignored")
     if args.save_table and args.mode not in ("bsgs", "address", "rmd160"):
         log.warn("-S applies to -m bsgs (the baby table) and -m address|rmd160 "
                  "(the reference .dat); ignored")
@@ -453,7 +513,7 @@ def _run(args, log) -> int:
             found = eng.search(max_chunks=args.max_chunks or (1 << 30),
                                stop_on_first=not args.all, progress_every=progress,
                                checkpoint=ckmgr, max_seconds=args.max_seconds)
-        elif args.mode == "bsgs":
+        elif args.mode == "bsgs" and not args.sharded:
             eng = _bsgs_engine(args, log)
             found = eng.search_scheduled(policy=args.policy, seed=args.seed,
                                          max_chunks=args.max_chunks,
@@ -461,13 +521,18 @@ def _run(args, log) -> int:
                                          progress_every=progress, checkpoint=ckmgr,
                                          max_seconds=args.max_seconds)
         else:
-            eng = _vanity_engine(args) if args.mode == "vanity" else _brute_engine(args, log)
-            # --max-chunks counts chunks; the brute engine counts device steps
+            if args.mode == "bsgs":
+                eng = _bsgs_engine(args, log)
+            else:
+                eng = _vanity_engine(args) if args.mode == "vanity" else _brute_engine(args, log)
+            # --max-chunks counts chunks; the brute and sharded engines count
+            # device steps
             max_steps = (None if args.max_chunks is None
                          else args.max_chunks * eng.p.steps_per_chunk)
-            found = eng.search(max_steps=max_steps, stop_on_first=not args.all,
-                               progress_every=progress, checkpoint=ckmgr,
-                               max_seconds=args.max_seconds)
+            search = eng.search_sharded if args.sharded else eng.search
+            found = search(max_steps=max_steps, stop_on_first=not args.all,
+                           progress_every=progress, checkpoint=ckmgr,
+                           max_seconds=args.max_seconds)
         log.plus(f"{eng.stats.human()} ({eng.stats.keys_covered} keys)")
         for f in found:
             write_found_key(f)

@@ -53,6 +53,7 @@ Modes (the reference's -m and -l):
 
 from __future__ import annotations
 
+import copy
 import math
 from collections import deque
 from dataclasses import dataclass
@@ -216,16 +217,36 @@ class BruteEngine:
             self._k6 = pladder.gtable_tensors(self.device)
             self._k6_stream = torch.cuda.Stream(self.device, priority=-1)
 
-        # lattice-shift edge: base(0) = a - stride would be the point at
-        # infinity when a == stride; shift by one stride, host-verify key a
+        self._set_fused_range()
+        self._chunk_fn = self._fused_chunk
+
+    def _set_fused_range(self) -> None:
+        """The fused path's index range over [a, b). Lattice-shift edge:
+        base(0) = a - stride would be the point at infinity when a ==
+        stride; shift by one stride, host-verify key a."""
         self._fast_a = self.a
         self._fast_prefix: List[int] = []
         if (self.a - self.stride) % ecref.N == 0:
             self._fast_prefix.append(self.a)
             self._fast_a = self.a + self.stride
         self._fast_total_idx = max(0, math.ceil((self.b - self._fast_a) / self.stride))
-        self._fast_total_steps = math.ceil(self._fast_total_idx / p.block_u)
-        self._chunk_fn = self._fused_chunk
+        self._fast_total_steps = math.ceil(self._fast_total_idx / self.p.block_u)
+
+    def for_range(self, range_start: int, range_end: int) -> "BruteEngine":
+        """A fused-path engine over [range_start, range_end) that shares
+        this one's device structures (step tables, target words, bucket
+        table, K6 tables): a shallow copy with its own range and stats."""
+        if self._walker:
+            raise ValueError("for_range needs the fused path")
+        if not (1 <= range_start < range_end <= ecref.N):
+            raise ValueError("bad range")
+        eng = copy.copy(self)
+        eng.a, eng.b = range_start, range_end
+        eng.stats = SearchStats()
+        eng.stats.multiplier = self.stats.multiplier
+        eng._set_fused_range()
+        eng._chunk_fn = eng._fused_chunk
+        return eng
 
     def _init_walker(self) -> None:
         """The walker path's state (the JAX engine's __init__ past

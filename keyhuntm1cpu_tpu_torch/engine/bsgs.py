@@ -88,7 +88,7 @@ def resolve_m(m_babies: "int | None" = None, n_value: "int | None" = None,
 @dataclass(frozen=True)
 class BSGSParams:
     """keyhuntm1cpu_tpu's BSGSParams without its TPU knobs (pallas,
-    pallas_sb, chain_len, probe_mode, table_comm, cand_max)."""
+    pallas_sb, chain_len, probe_mode, cand_max)."""
 
     m: int = 1 << 20  # baby steps
     block_u: int = 1024  # giant centers per device step (U)
@@ -103,6 +103,9 @@ class BSGSParams:
     # "host": the card holds the two filters, the host the exact table
     bloom2_bits: Optional[int] = None  # host-resolve bloom2 size (None: see _filter_sizes)
     table_cache: Optional[str] = None  # host-table cache dir override
+    table_comm: str = "all_gather"  # ShardedTableBSGSEngine's schedule: every
+    # prober probes all D shards' queries at once ("all_gather"), or one
+    # shard's block a hop for D hops ("ring")
 
 
 _BLOOM2_CACHE: "OrderedDict[int, tuple]" = OrderedDict()
@@ -254,6 +257,35 @@ def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
                                          fl.n_candidates)
 
 
+def device_budgets(n_queries: int, m: int, bits_log2: int,
+                   p: BSGSParams) -> Tuple[int, int, bool]:
+    """(C1, C2, use2) of device resolve for n_queries against m keys in a
+    2^bits_log2-bit bitmap, the JAX engine's budgets exactly: C1 from the
+    expected level-1 survivors (n_queries*m/2^bits; mean + 8*sqrt(mean) +
+    512 past 4096, else 4*mean), floored at p.chunk_cand_max; the bloom2
+    stage when p.cascade2 is "on", or "auto" and more than 1024 survivors
+    are expected, then C2 from max(64, expected/32), else C2 = C1."""
+    expected = n_queries * m // (1 << bits_log2)
+    need = (expected + 8 * int(expected ** 0.5) + 512 if expected >= 4096
+            else 4 * expected)
+    C1 = max(p.chunk_cand_max, ((need + 511) // 512) * 512)
+    if not (p.cascade2 == "on" or (p.cascade2 == "auto" and expected > 1024)):
+        return C1, C1, False
+    exp2 = max(64, expected // 32)  # bloom2 fp <= 1/64, and slack
+    return C1, max(p.chunk_cand_max,
+                   ((exp2 + 8 * int(exp2 ** 0.5) + 511) // 512) * 512), True
+
+
+def write_table(path: str, table: st.SortedXTable) -> None:
+    """Write a baby table as the JAX package's table file: npz with
+    version, m and the uint32 planes hi, lo, idx (sorted), and the sha256
+    of hi + lo + idx."""
+    hi, lo, idx = st.table_planes(table)
+    digest = hashlib.sha256(hi.tobytes() + lo.tobytes() + idx.tobytes()).digest()
+    np.savez(path, version=np.int64(1), m=np.int64(len(hi)), hi=hi, lo=lo, idx=idx,
+             checksum=np.frombuffer(digest, dtype=np.uint8))
+
+
 def _baby_walk(m: int, ub: int, dev, step_fn) -> None:
     """Baby keys j = 2*ub + 1..m on `dev`: K1/K2 walk BUILD_BLOCKS blocks of
     ub keys a step from base (2*ub)*G with ADV = ub*G. step_fn(px, py,
@@ -396,12 +428,7 @@ class BSGSEngine:
                     f"shrinking steps_per_chunk {K} -> {k_new} to bound "
                     "device memory")
                 self.p = dataclasses.replace(self.p, steps_per_chunk=k_new)
-        n_queries = T * self.p.steps_per_chunk * U
-        if self.table is None:
-            self.C1, self.C2 = self._cascade_budgets(n_queries)
-        else:
-            self.C1, self.C2, use2 = self._device_budgets(n_queries)
-            self.bloom2 = _bloom2_for_table(self.table) if use2 else None
+        self._size_cascade(T * self.p.steps_per_chunk * U)
         self.adv_tab = pwalk.adv_multiples(big, self.p.steps_per_chunk, self.device)
         self._rebase_tab = None  # _scheduled_bases' host table, built on first use
         self._host_keys = None  # _rescan_table's host copy, made on first use
@@ -444,16 +471,12 @@ class BSGSEngine:
     # ------------------------------------------------------------------
 
     def save_table(self, path: str) -> None:
-        """Write the device table as the JAX package's table file: npz with
-        version, m and the uint32 planes hi, lo, idx (sorted), and the
-        sha256 of hi + lo + idx."""
+        """Write the device table as the JAX package's table file
+        (write_table)."""
         if self.table is None:
             raise ValueError("host-resolve engines have no device table; the host "
                              "table is cached on disk by filter/host_table.py")
-        hi, lo, idx = st.table_planes(self.table)
-        digest = hashlib.sha256(hi.tobytes() + lo.tobytes() + idx.tobytes()).digest()
-        np.savez(path, version=np.int64(1), m=np.int64(self.p.m), hi=hi, lo=lo, idx=idx,
-                 checksum=np.frombuffer(digest, dtype=np.uint8))
+        write_table(path, self.table)
 
     @staticmethod
     def load_table(path: str, verify_checksum: bool = True, device="cuda") -> st.SortedXTable:
@@ -473,6 +496,15 @@ class BSGSEngine:
     # giant-step search
     # ------------------------------------------------------------------
 
+    def _size_cascade(self, n_queries: int) -> None:
+        """The chunk's cascade budgets C1, C2 and (device resolve) its bloom2."""
+        if self.table is None:
+            self.C1, self.C2 = self._cascade_budgets(n_queries)
+        else:
+            self.C1, self.C2, use2 = device_budgets(n_queries, self.p.m,
+                                                    self.bitmap.bits_log2, self.p)
+            self.bloom2 = _bloom2_for_table(self.table) if use2 else None
+
     def _cascade_budgets(self, n_queries: int) -> Tuple[int, int]:
         """(C1, C2): mean + 8*sqrt(mean) + 512 rounded up to 512, floored at
         chunk_cand_max, for expected stage-1 (B*m/2^bits) and stage-2
@@ -488,24 +520,6 @@ class BSGSEngine:
         fp2 = bmp.bloom2_fp(p.m, self.bloom2.bits_log2)
         C2 = max(p.chunk_cand_max, budget(int(expected * fp2) + 1))
         return C1, C2
-
-    def _device_budgets(self, n_queries: int) -> Tuple[int, int, bool]:
-        """(C1, C2, use2) of device resolve, the JAX engine's budgets
-        exactly: C1 from the expected level-1 survivors (B*m/2^bits; mean +
-        8*sqrt(mean) + 512 past 4096, else 4*mean), floored at
-        chunk_cand_max; the bloom2 stage when cascade2 is "on", or "auto"
-        and more than 1024 survivors are expected, then C2 from
-        max(64, expected/32), else C2 = C1."""
-        p = self.p
-        expected = n_queries * p.m // (1 << self.bitmap.bits_log2)
-        need = (expected + 8 * int(expected ** 0.5) + 512 if expected >= 4096
-                else 4 * expected)
-        C1 = max(p.chunk_cand_max, ((need + 511) // 512) * 512)
-        if not (p.cascade2 == "on" or (p.cascade2 == "auto" and expected > 1024)):
-            return C1, C1, False
-        exp2 = max(64, expected // 32)  # bloom2 fp <= 1/64, and slack
-        return C1, max(p.chunk_cand_max,
-                       ((exp2 + 8 * int(exp2 ** 0.5) + 511) // 512) * 512), True
 
     def _initial_base(self, step0: int = 0) -> Tuple[torch.Tensor, torch.Tensor]:
         """P_base(s=step0) per target (host-exact), as (T, 8) limb tensors."""

@@ -138,7 +138,7 @@ def summary_to_host(outs: torch.Tensor):
     host = torch.empty(outs.shape, dtype=outs.dtype, pin_memory=True)
     host.copy_(outs, non_blocking=True)
     ev = torch.cuda.Event()
-    ev.record()
+    ev.record(torch.cuda.current_stream(outs.device))  # the copy's stream
     return host, ev
 
 

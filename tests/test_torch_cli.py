@@ -51,7 +51,7 @@ def test_cli_refusals(workdir, monkeypatch):
     assert cli.main(["-m", "bsgs", "-8", "x" * 58, *base]) == 2  # -8 is for minikeys
     assert cli.main(["-m", "vanity", "-v", "3abc", *base]) == 2  # P2PKH prefixes start with 1
     assert cli.main(["-m", "vanity", "--device", "cpu", "-q"]) == 2  # no prefix
-    assert cli.main(["-m", "bsgs", "--sharded", *base]) == 2
+    assert cli.main(["-m", "bsgs", "--sharded", "--resolve", "host", *base]) == 2
     assert cli.main(["-m", "bsgs", "-c", "eth", *base]) == 2  # -c eth needs -m address
     assert cli.main(["-m", "address", *base]) == 2  # a pubkey is no address
     assert cli.main(["-m", "bsgs", "-B", "sideways", *base]) == 2  # no such range order
@@ -256,7 +256,7 @@ def test_cli_bsgs_resolve_host_ignores_save_table(workdir, capsys, monkeypatch):
 
 # --- the rest of the JAX CLI's flags ------------------------------------------
 
-REFUSED = {"--probe-mode": "TPU-only", "--table-comm": "TPU-only", "--sharded": "--sharded"}
+REFUSED = {"--probe-mode": "TPU-only"}
 VALUES = {"range": "1:2", "mode": "bsgs", "policy": "random", "n_value": "0x100",
           "alphabet": "x" * 58, "vanity": "1A", "minikey_prefix": "Sabcdefghijk",
           "notify_cmd": "true", "checkpoint_every": "1.5", "max_seconds": "2.5",
@@ -265,7 +265,7 @@ VALUES = {"range": "1:2", "mode": "bsgs", "policy": "random", "n_value": "0x100"
 
 def test_cli_takes_every_jax_option(workdir, capsys, monkeypatch):
     """Every option string of the JAX CLI's parser parses in the port's to
-    the same destination, except the three refused with their reason."""
+    the same destination; the one refused says why."""
     from keyhuntm1cpu_tpu import cli as jcli
     from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
 
@@ -338,7 +338,8 @@ def test_cli_config_file_defaults_and_precedence(workdir, monkeypatch, capsys):
     assert (p.m, p.block_u, p.steps_per_chunk) == (1024, 32, 4)
     assert (cap["policy"], cap["seed"]) == ("dance", 7)
     err = capsys.readouterr().err
-    assert "probe_mode='sorted' is TPU-only" in err and "table_comm='ring'" in err
+    assert "probe_mode='sorted' is TPU-only" in err and "table_comm" not in err
+    assert p.table_comm == "ring"  # the sharded table's schedule, read from the file
     monkeypatch.setenv("KEYHUNT_BLOCK_U", "48")
     assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, *rng]) == 1
     assert cap["params"].block_u == 48
@@ -458,3 +459,95 @@ def test_cli_metrics_port_serves_and_stops(workdir, capsys, monkeypatch):
     assert snap["info"]["mode"] == "rmd160"
     with pytest.raises(OSError):
         socket.create_connection(("127.0.0.1", port), timeout=2).close()
+
+
+# --- --sharded (parallel/): the JAX CLI's multi-device flags -------------------
+
+
+@pytest.mark.parametrize("flags", [
+    ["--sharded"],
+    ["--sharded", "range", "--n-devices", "3"],
+    ["--sharded", "table", "--n-devices", "2"],
+    ["--sharded", "table", "--n-devices", "3", "--table-comm", "ring", "--cascade2", "on"],
+])
+def test_cli_cpu_sharded_bsgs_finds_key(workdir, flags):
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    assert cli.main(["-m", "bsgs", "-f", f, "-r", "a00000:b00000", "--device", "cpu",
+                     *flags, *ARGS]) == 0
+    assert _found_keys(workdir) == [0xA1B2C3]
+
+
+def test_cli_cpu_sharded_table_saves_and_loads(workdir, capsys, monkeypatch):
+    """-S writes the table of a table-sharded run from its shards; a second
+    run loads it (the file equals the single-device engine's)."""
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine, build_baby_table
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    args = ["-m", "bsgs", "-f", f, "-r", "a00000:b00000", "--device", "cpu", "-S",
+            "--sharded", "table", "--n-devices", "2", *ARGS[:-1]]
+    assert cli.main(args) == 0 and "saved baby table" in capsys.readouterr().err
+    table = BSGSEngine.load_table("keyhunt_tpu_baby_512.npz", device="cpu")
+    want = build_baby_table(512, 4096, "cpu")
+    assert torch.equal(table.key, want.key) and torch.equal(table.idx, want.idx)
+    assert cli.main(args) == 0 and "loaded baby table" in capsys.readouterr().err
+
+
+def test_cli_cpu_sharded_brute_finds_keys(workdir):
+    keys = [0x7, 0x155, 0x1FF]
+    f = workdir / "addr.txt"
+    f.write_text("".join(hashref.pubkey_to_address(ecref.scalar_mult(k)) + "\n"
+                         for k in keys))
+    assert cli.main(["-m", "address", "-f", str(f), "--sharded", "--n-devices", "2",
+                     *BRUTE_ARGS]) == 0
+    assert _found_keys(workdir) == keys
+
+
+def test_cli_sharded_errors_and_warnings(workdir, capsys, monkeypatch):
+    """The JAX CLI's: host resolve with --sharded and --sharded table in a
+    brute mode exit 2; --table-comm without --sharded table warns."""
+    from keyhuntm1cpu_tpu_torch.core.log import LEVELS, get_logger
+
+    monkeypatch.setattr(get_logger(), "level", LEVELS["plus"])
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    base = ["-f", f, "-r", "a00000:a40000", "--device", "cpu", *ARGS[:-1]]
+    assert cli.main(["-m", "bsgs", "--sharded", "--resolve", "host", *base]) == 2
+    assert "--resolve host applies to the single-device engine" in capsys.readouterr().err
+    assert cli.main(["-m", "rmd160", "--sharded", "table", *base]) == 2
+    assert "--sharded table applies to bsgs only" in capsys.readouterr().err
+    assert cli.main(["-m", "minikeys", "--sharded", "-f", f, "--device", "cpu"]) == 2
+    assert cli.main(["-m", "bsgs", "--sharded", "--n-devices", "0", *base]) == 2
+    addr = workdir / "addr.txt"
+    addr.write_text(hashref.pubkey_to_address(ecref.scalar_mult(0x7)) + "\n")
+    brute = ["-m", "address", "-f", str(addr), *BRUTE_ARGS]
+    assert cli.main([*brute, "--sharded", "-R"]) == 2  # the shards scan in order
+    assert "random mode (-R) is not available" in capsys.readouterr().err
+    assert cli.main(["-m", "bsgs", "--table-comm", "ring", *base]) == 0
+    assert "--table-comm applies only to --sharded table" in capsys.readouterr().err
+    assert cli.main(["-m", "bsgs", "--sharded", "-B", "random", *base]) == 0
+    assert "-B random ignored" in capsys.readouterr().err
+
+
+def test_cli_config_sharded(workdir, monkeypatch):
+    """A config file's sharded = true runs --sharded range, n_devices its
+    shard count."""
+    import json
+
+    from keyhuntm1cpu_tpu_torch import parallel
+
+    seen = []
+    real = parallel.ShardedBSGSEngine
+
+    class Spy(real):
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            seen.append(self.n_shards)
+
+    monkeypatch.setattr(parallel, "ShardedBSGSEngine", Spy)
+    f = _pub_file(workdir / "t.pub", 0xA1B2C3)
+    cfg = workdir / "cfg.json"
+    cfg.write_text(json.dumps({"sharded": True, "n_devices": 2}))
+    assert cli.main(["--config", str(cfg), "-m", "bsgs", "-f", f, "-r", "a00000:a40000",
+                     "--device", "cpu", *ARGS]) == 0
+    assert seen == [2] and _found_keys(workdir) == [0xA1B2C3]

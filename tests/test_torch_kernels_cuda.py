@@ -800,3 +800,65 @@ def test_baby_x_bytes_by_k6_equal_the_host_walk(dev):
     want = legacy.baby_x_bytes(m, "cpu")
     assert np.array_equal(got, want)
     assert np.array_equal(legacy.x32_by_ladder(m, dev, batch=1000), want)
+
+
+def test_kernels_launch_on_the_tensors_device(dev):
+    """K1 and the fused probe on cuda:1 while cuda:0 is current: the
+    launch makes the tensors' device current (their stream and pointers
+    belong to it), and the results equal the plain versions."""
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two CUDA devices")
+    d1 = torch.device("cuda", 1)
+    advk, K = 1000, 64
+    adv = ecref.scalar_mult(advk)
+    px, py = _pts([ecref.scalar_mult(777 * i + 5) for i in range(16)])
+    args = (px, py, _limbs(adv[0]), _limbs(adv[1]))
+    g = torch.Generator().manual_seed(1)
+    words = torch.randint(-2**31, 2**31, (1 << 19,), dtype=torch.int32, generator=g)
+    qhi, qlo = (torch.randint(-2**31, 2**31, (100003,), dtype=torch.int32, generator=g)
+                for _ in range(2))
+    bm = bmp.DeviceBitmap(words, 24)
+    with torch.cuda.device(0):
+        got = pwalk.advance_chain(*(a.to(d1) for a in args), K)
+        bm1 = bmp.DeviceBitmap(words.to(d1), 24)
+        pc = bmp.probe_compact(bm1, qhi.to(d1), qlo.to(d1), 4096)
+        assert torch.cuda.current_device() == 0
+    torch.cuda.synchronize(d1)
+    for a, b in zip(got, pwalk.advance_chain_ref(*args, K)):
+        assert a.device == d1 and torch.equal(a.cpu(), b)
+    for a, b in zip(pc, bmp.probe_compact_ref(bm, qhi, qlo, 4096)):
+        assert a.device == d1 and torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("engine", ["range", "table-all_gather", "table-ring", "brute"])
+def test_sharded_engines_cuda_match_cpu(dev, engine):
+    """The sharded engines over 4 shards (distinct cards where there are
+    several, else cuda:0 four times) find what they find on 4 CPU shards."""
+    import dataclasses
+
+    from keyhuntm1cpu_tpu_torch.parallel import (ShardedBruteEngine, ShardedBSGSEngine,
+                                                 ShardedTableBSGSEngine, default_devices)
+
+    cards = default_devices("cuda", 4)
+    cpus = [torch.device("cpu")] * 4
+    found = {}
+    if engine == "brute":
+        keys = [0x90000 + 100, 0x90000 + 8192 + 5, 0x90000 + 3 * 4096 + 4000]
+        ts = TargetSet(kind="hash160", raw=[hashref.pubkey_to_hash160(ecref.scalar_mult(k))
+                                            for k in keys], labels=[hex(k) for k in keys])
+        bp = brute.BruteParams(block_u=256, steps_per_chunk=4, chunk_cand=64)
+        for name, devs in (("cuda", cards), ("cpu", cpus)):
+            eng = ShardedBruteEngine(ts, 0x90000, 0x90000 + (1 << 14), params=bp, devices=devs)
+            found[name] = sorted(f.private_key for f in eng.search_sharded())
+    else:
+        p = bsgs.BSGSParams(m=512, block_u=16, steps_per_chunk=8, build_block=128,
+                            table_comm=engine.split("-")[-1])
+        a = 0x500000
+        keys = [a + 123, a + 2**18 + 777, a + 2**19 - 5]
+        pubs = [ecref.scalar_mult(k) for k in keys]
+        cls = ShardedBSGSEngine if engine == "range" else ShardedTableBSGSEngine
+        for name, devs in (("cuda", cards), ("cpu", cpus)):
+            table = bsgs.build_baby_table(p.m, p.build_block, devs[0])
+            eng = cls(pubs, a, a + 2**19, dataclasses.replace(p), table=table, devices=devs)
+            found[name] = sorted(f.private_key for f in eng.search_sharded(stop_on_first=False))
+    assert found["cuda"] == found["cpu"] == sorted(keys)

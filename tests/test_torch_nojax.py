@@ -51,6 +51,12 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.dist",
     "keyhuntm1cpu_tpu_torch.dist.coordinator",
     "keyhuntm1cpu_tpu_torch.dist.worker",
+    "keyhuntm1cpu_tpu_torch.dist.multihost",
+    "keyhuntm1cpu_tpu_torch.parallel",
+    "keyhuntm1cpu_tpu_torch.parallel.partition",
+    "keyhuntm1cpu_tpu_torch.parallel.mesh",
+    "keyhuntm1cpu_tpu_torch.parallel.brute_mesh",
+    "keyhuntm1cpu_tpu_torch.dryrun",
     "keyhuntm1cpu_tpu_torch.convert",
     "keyhuntm1cpu_tpu_torch.cli",
     "keyhuntm1cpu_tpu_torch.server",
