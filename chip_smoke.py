@@ -190,6 +190,11 @@ any failure exits non-zero before the result line:
    key once to a coordinator here; the CLI with --sharded range and with
    --sharded table --table-comm ring, each finding puzzle 63's key, and
    --resolve host --sharded, which exits 2.
+7. the port's bench entry (python -m keyhuntm1cpu_tpu_torch.bench) in a
+   subprocess at m = 2^22, host resolve, 2 s of headline and 1 s a mode
+   section: rc 0, puzzle 63's gate and every section's gate ok in its last
+   line, every section named, its device the card, and its own launch
+   counts showing every kernel of its path; the line is printed.
 5. the launch counts of the main paths (phase 3's filter build and
    searches, phase 3d's table and filter builds and searches, the
    throughput windows of both bsgs_t16 runs and of phases 3s, 4, 4v, 4b,
@@ -327,6 +332,13 @@ Z_M = 1 << 24  # phase 5c: the baby-table size of the -z 4 run
 SHARDS = 4  # phases 6a-6c, 6e: shards, on the visible cards repeated up to this many
 SHARD_SECONDS = 5.0  # throughput window of each phase-6 cell
 MH_M = 1 << 24  # phases 6d, 6e: the baby-table size of the subprocesses
+BENCH_ENV = {"BENCH_M": str(1 << 22), "BENCH_SECONDS": "2", "BENCH_MODE_SECONDS": "1",
+             "BENCH_RESOLVE": "host"}  # phase 7
+BENCH_SECTIONS = ("bsgs_t16", "rmd160", "xpoint", "eth", "address_u", "minikeys", "vanity",
+                  "rmd160_endo", "rmd160_T4096")
+BENCH_KERNELS = ("advance_chain", "walk_blocks", "insert_keys", "probe", "brute_walk_blocks",
+                 "compact_hits", "minikey_valid", "minikey_compact_keys", "scalar_mult",
+                 "hash160_x2", "hash160_u")  # the kernels of the bench's path
 
 # Bounds. The kernels do 32-bit integer work; an H100 (compute capability
 # 9.0) issues 64 32-bit integer add, multiply(-add), shift, compare or
@@ -3576,6 +3588,42 @@ def phase6de_processes(here):
         f"--sharded exited 2; the five processes together in {wall:.1f} s")
 
 
+def phase7_bench(here):
+    """The port's bench entry in a subprocess at BENCH_ENV: rc 0, its last
+    stdout line a complete, gated result on this card."""
+    import torch
+
+    env = subprocess_env(here) | BENCH_ENV
+    t0 = time.time()
+    res = subprocess.run([sys.executable, "-m", "keyhuntm1cpu_tpu_torch.bench"], cwd=here,
+                         env=env, capture_output=True, text=True, timeout=300)
+    lines = res.stdout.strip().splitlines()
+    try:
+        line = json.loads(lines[-1])
+    except (IndexError, ValueError):
+        line = None
+    if res.returncode != 0 or line is None:
+        fail(f"phase 7: the bench exited {res.returncode}; stdout tail {lines[-2:]}; stderr "
+             f"tail {res.stderr[-3000:]}")
+    modes = line["modes"]
+    bad = [name for name in BENCH_SECTIONS
+           if not str(modes.get(name, {}).get("gate", "")).startswith("ok")
+           or not modes[name]["keys_per_sec"] > 0]
+    name = smi("name")
+    idle = line["device_idle_share"]
+    unlaunched = [k for k in BENCH_KERNELS if not line["launches"][k]]
+    if (line["gate"] != "ok" or bad or set(modes) != set(BENCH_SECTIONS)
+            or not line["value"] > 0
+            or line["device"]["name"] not in (name, torch.cuda.get_device_name(0))
+            or not (isinstance(idle, float) and 0 <= idle < 1)
+            or line["m"] != int(BENCH_ENV["BENCH_M"]) or line["resolve"] != "host"
+            or unlaunched):
+        fail(f"phase 7: bench line {line}: sections failed or missing {bad}, kernels not "
+             f"launched {unlaunched}, card {name!r}")
+    log(f"phase 7: the bench ({' '.join(f'{k}={v}' for k, v in BENCH_ENV.items())}) exited 0 "
+        f"in {time.time() - t0:.1f} s; every gate ok; its line: {json.dumps(line)}")
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--m", type=int, default=1 << 28,
@@ -3645,6 +3693,8 @@ def main():
     phase5c_cli(dev, args.m, here)
     phase6de_processes(here)
     legacy = phase5l_legacy(dev, X32_M)
+    torch.cuda.empty_cache()
+    phase7_bench(here)
     paths = dict(bsgs=bsgs, t16_host=t16_host, scheduled=scheduled, device=device,
                  t16_device=t16_device, brute=brute, vanity=vanity, minikeys=minikeys,
                  walker=walker, fleet_workers=fleet, fleet_brute=fleet4["brute"],

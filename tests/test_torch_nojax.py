@@ -60,6 +60,8 @@ MODULES = [
     "keyhuntm1cpu_tpu_torch.convert",
     "keyhuntm1cpu_tpu_torch.cli",
     "keyhuntm1cpu_tpu_torch.server",
+    "keyhuntm1cpu_tpu_torch.bench_modes",
+    "keyhuntm1cpu_tpu_torch.bench",
     "chip_smoke",
 ]
 BLOCKED = ("jax", "keyhuntm1cpu_tpu")
