@@ -52,6 +52,13 @@ any failure exits non-zero before the result line:
    summary (C = 256 survivors over 2^22 table keys, hits planted on
    degenerate lanes and a duplicated key; beside sorted_table.lookup, the
    torch.searchsorted composition, and its latency floor at C = 1, W = 1);
+   the BSGS chunk's bloom2 stage (kh_bloom2_compact: C1 = 34,816 stage-1
+   survivors of 4,194,304 queries into C2 = 1,536 against host resolve's
+   2^35-bit and a device table's 2^32-bit bloom2, at their densities and
+   at a stage-2 overflow) and summary (kh_bsgs_summary in both resolve
+   modes and the ring's two forms: C2 survivors over 256 rows of
+   U = 16,384 and a 2^28-key table, flags and hits planted), each beside
+   the torch composition it replaced;
    each kernel's device time
    (device_ms: CUDA events around back-to-back runs queued behind a sleep
    kernel) beside its plain version's time.
@@ -67,7 +74,11 @@ any failure exits non-zero before the result line:
    idle share over that window (CUDA events around each chunk), then the
    chunk time split over K1, K2, cascade and host decode (on the card:
    device_ms), one streaming-build step's device operations
-   (torch.profiler) and card time; the cascade of one chunk's
+   (torch.profiler) and card time; one chunk through the kernels held
+   to the same chunk through the plain versions (chunk_composition) and
+   beside the torch route (the earlier chunk: torch ops after the level-1 probe): each one's
+   device operations (torch.profiler), enqueue and card ms a chunk, and
+   5 s of keys/s of the engine on the torch route; the cascade of one chunk's
    T*K*U queries through the fused probe (probe_compact) and the bloom2
    probe held to the same cascade through their plain versions and to the
    composition the fusion replaced; the level-1 stage timed beside that
@@ -89,7 +100,7 @@ any failure exits non-zero before the result line:
    from it by K3, timed apart; puzzle 63's key from a +-3 step window;
    --seconds of throughput (keys/s, idle share, host enqueue and decode a
    chunk); one chunk through the kernels held to the same chunk through
-   their plain versions, its device operations (torch.profiler) and its
+   their plain versions and beside the torch route, as in phase 3, and its
    card time split over K1, K2 and the cascade with the exact search and
    the summary; device memory. Then bsgs_t16 on its table; then, after
    phase 3b, one chunk at m = 2^29 and 2^30 each (table build, memory, the
@@ -201,8 +212,10 @@ any failure exits non-zero before the result line:
    4c, 6a, 6b (both schedules) and 6c, the fleet phases 3f (the workers'
    own counts) and 4f and the x32 of phase 5l, each counted from zero):
    every kernel launched, and each stage launched exactly the kernels it
-   should (6a, 6b: K1, K2 and two probes a shard chunk, the ring's probes
-   D times; 6c: K1, K4 and the compaction a shard chunk).
+   should (3, 3d, 3s, bsgs_t16: K1, K2, the level-1 probe, the bloom2
+   stage and the summary of the resolve mode a chunk; 6a, 6b the same a
+   shard chunk, the ring's probes, bloom2 stages and summaries D times and
+   one more summary a prober; 6c: K1, K4 and the compaction a shard chunk).
 
 The line before the last is {"kernels": [...]} with each kernel's bound
 (the larger of its 32-bit integer operations over the card's INT32 issue
@@ -258,6 +271,12 @@ KERNEL_SOURCES = {
                   "keyhuntm1cpu_tpu/curve/walk.py:144"),
     "lookup_summary": ("keyhuntm1cpu_tpu_torch/csrc/lookup.cu",
                        "keyhuntm1cpu_tpu/engine/brute.py:1064"),
+    "bloom2_compact": ("keyhuntm1cpu_tpu_torch/csrc/probe.cu",
+                       "keyhuntm1cpu_tpu/filter/bitmap.py:721"),
+    "chunk_summary": ("keyhuntm1cpu_tpu_torch/csrc/lookup.cu",
+                      "keyhuntm1cpu_tpu/engine/bsgs.py:1662"),
+    "chunk_summary_host": ("keyhuntm1cpu_tpu_torch/csrc/lookup.cu",
+                           "keyhuntm1cpu_tpu/engine/bsgs.py:1711"),
 }
 # what a kernel's entry in the kernels line says beyond its numbers
 KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel: the bit "
@@ -308,7 +327,40 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                            "latency_floor_ms, the kernel at C = 1, W = 1 (one "
                                            "binary search); library_ms: sorted_table.lookup "
                                            "(torch.searchsorted and the gathers) of the same "
-                                           "C = 256 keys over 2^22"}}
+                                           "C = 256 keys over 2^22"},
+                "bloom2_compact": {"note": "replaces XLA glue, not a Pallas kernel: the "
+                                           "bloom2 stage of filtered_lookup and "
+                                           "filtered_survivors (filter/bitmap.py:721-786, "
+                                           ":788-824 after the level-1 compaction: the "
+                                           "bloom2 probe, the pos1 < B mask, the count, "
+                                           "jnp.nonzero, the clamps and gathers, the "
+                                           "poison), kh_bloom2_compact in csrc/probe.cu; "
+                                           "ms at the main path's C1 = 34,816 stage-1 "
+                                           "survivors (32,768 live) into C2 = 1,536 "
+                                           "against host resolve's 2^35-bit bloom2 "
+                                           "(density 1/64), with the scratch's memset; "
+                                           "replaced_ms: the torch composition it "
+                                           "replaced (the bloom2 probe kernel, then torch "
+                                           "ops) on the card; no torch call computes it"},
+                "chunk_summary": {"note": "replaces XLA glue, not a Pallas kernel: "
+                                          "_pallas_chunk_impl after its cascade "
+                                          "(engine/bsgs.py:1662-1708: the lane U - 1 "
+                                          "fix-up, the live mask, the exact search of "
+                                          "filter/sorted_table.py:68, the candidate words, "
+                                          "the row summary, the packing), kh_bsgs_summary "
+                                          "with a table; ms at C2 = 1,536 survivors (512 "
+                                          "of them real) over 256 rows of U = 16,384 and a "
+                                          "2^28-key table; replaced_ms: its torch "
+                                          "composition (sorted_table.lookup and the "
+                                          "packing ops) on the card; no torch call "
+                                          "computes it"},
+                "chunk_summary_host": {"note": "replaces XLA glue, not a Pallas kernel: "
+                                               "_pallas_chunk_impl_host after its cascade "
+                                               "(engine/bsgs.py:1711-1752), kh_bsgs_summary "
+                                               "without a table (the keys pass through); "
+                                               "the same shape as chunk_summary; "
+                                               "replaced_ms: its torch composition on the "
+                                               "card; no torch call computes it"}}
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_modes.py:154-191
@@ -331,12 +383,15 @@ PARSE_LINES, PARSE_PY_LINES = 1 << 18, 1 << 14  # phase 5l: the address file, it
 Z_M = 1 << 24  # phase 5c: the baby-table size of the -z 4 run
 SHARDS = 4  # phases 6a-6c, 6e: shards, on the visible cards repeated up to this many
 SHARD_SECONDS = 5.0  # throughput window of each phase-6 cell
+PREV_SECONDS = 5.0  # phases 3, 3d: the window on the torch route (torch ops after the probe)
+CASCADE_C, CASCADE_M = (34816, 1536), 1 << 28  # phase 1: the cascade's C1, C2 and table at m = 2^28
 MH_M = 1 << 24  # phases 6d, 6e: the baby-table size of the subprocesses
 BENCH_ENV = {"BENCH_M": str(1 << 22), "BENCH_SECONDS": "2", "BENCH_MODE_SECONDS": "1",
              "BENCH_RESOLVE": "host"}  # phase 7
 BENCH_SECTIONS = ("bsgs_t16", "rmd160", "xpoint", "eth", "address_u", "minikeys", "vanity",
                   "rmd160_endo", "rmd160_T4096")
-BENCH_KERNELS = ("advance_chain", "walk_blocks", "insert_keys", "probe", "brute_walk_blocks",
+BENCH_KERNELS = ("advance_chain", "walk_blocks", "insert_keys", "probe", "bloom2_compact",
+                 "chunk_summary_host", "brute_walk_blocks",
                  "compact_hits", "minikey_valid", "minikey_compact_keys", "scalar_mult",
                  "hash160_x2", "hash160_u")  # the kernels of the bench's path
 
@@ -520,6 +575,26 @@ def device_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def enqueue_ms(fn, reps):
+    """Mean host milliseconds to enqueue fn() (its launches, not the card's
+    work): the runs are queued behind a sleep kernel, as in device_ms."""
+    import torch
+
+    fn()
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    fn()
+    host_s = time.perf_counter() - t
+    torch.cuda.synchronize()
+    torch.cuda._sleep(int(2e9 * max(0.05, 2 * reps * host_s)))
+    t = time.perf_counter()
+    for _ in range(reps):
+        fn()
+    ms = 1000 * (time.perf_counter() - t) / reps
+    torch.cuda.synchronize()
+    return ms
 
 
 def device_launches(fn):
@@ -1525,6 +1600,160 @@ def phase1_walker(dev, results, clock):
     torch.cuda.synchronize()
 
 
+def phase1_bsgs(dev, results, clock):
+    """The BSGS chunk's cascade after the level-1 probe at the main path's
+    shape: the bloom2 stage (kh_bloom2_compact) on C1 = 34,816 stage-1
+    survivors of 4,194,304 queries into C2 = 1,536 against host resolve's
+    2^35-bit bloom2 and a device table's 2^32-bit one, and the summary
+    (kh_bsgs_summary) of C2 survivors over 256 rows of U = 16,384 and a
+    2^28-key table, in both resolve modes; each against its plain version
+    at data the main path gives it (a filter's density, the survivors a
+    chunk has) and at denser data (a stage-2 overflow; flags on many rows,
+    advance-only lanes, hits on degenerate lanes), timed beside the torch
+    composition it replaced."""
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.engine import bsgs
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+    from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
+
+    g = torch.Generator(device=dev).manual_seed(16)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    B, (C1, C2), R = K * U, CASCADE_C, K  # T = 1
+
+    def bloom(bits, ands):
+        """2^bits bloom2 bits, each set with probability 2^-ands."""
+        w = rnd(1 << (bits - 5))
+        for _ in range(ands - 1):
+            w &= rnd(1 << (bits - 5))
+        return bmp.DeviceBloom2(w, bits)
+
+    def stage1(n1):
+        pos = torch.full((C1,), B, dtype=torch.int32, device=dev)
+        k = min(n1, C1)
+        pos[:k] = torch.sort(torch.randperm(B, device=dev, generator=g)[:k]).values.int()
+        qh, ql = rnd(C1), rnd(C1)
+        qh[k:], ql[k:] = qh[-1].item(), ql[-1].item()
+        return bmp.ProbeCompact(pos, qh, ql, torch.tensor(n1, dtype=torch.int32, device=dev))
+
+    def replaced_stage(b2, s1):
+        """The bloom2 stage before its kernel: the bloom2 probe kernel, then torch ops."""
+        pos1, qh1, ql1, n1 = s1
+        mask2 = bmp.probe_bloom2(b2, qh1, ql1) & (pos1 < B)
+        pos2 = bmp.compact_positions(mask2, C2, C1)
+        safe2 = pos2.clamp(max=C1 - 1).long()
+        return (torch.where(pos2 < C1, pos1[safe2], B), qh1[safe2], ql1[safe2],
+                torch.where(n1 > C1, n1 + C2, mask2.sum(dtype=torch.int32)))
+
+    # the bloom2 stage: m = 2^28 fills 2m of 2^35 bits (host) and of 2^32 (device)
+    n1 = B * (1 << 28) >> MAIN_BITS  # the level-1 survivors of a chunk at m = 2^28
+    for bits, ands, n in ((MAIN_BITS, 6, n1), (32, 3, n1), (MAIN_BITS, 2, C1), (32, 2, n1 // 2)):
+        b2, s1 = bloom(bits, ands), stage1(n)
+        got = bmp.bloom2_compact(b2, s1, B, C2)
+        want = bmp.bloom2_compact_ref(b2, s1, B, C2)
+        e = max_abs_err(got, want) + max_abs_err(got, replaced_stage(b2, s1))
+        if e:
+            fail(f"bloom2_compact differs from its plain version at 2^{bits} bits, density "
+                 f"2^-{ands}, n1 {n} (max_abs_err {e})")
+        if bits == MAIN_BITS and ands == 6:
+            ms, _ = device_ms(lambda: bmp.bloom2_compact(b2, s1, B, C2), 50)
+            pms, _ = timed(lambda: bmp.bloom2_compact_ref(b2, s1, B, C2), 3)
+            rms, _ = device_ms(lambda: replaced_stage(b2, s1), 50)
+            n2 = int(got.n)
+            live1 = min(n, C1)
+            bms, by_ = bound_ms(40 * live1, 12 * C1 + 64 * live1 + 12 * C2 + 8, clock)
+            results["bloom2_compact"] = dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
+                                             bound_by=by_, replaced_ms=rms)
+            log(f"bloom2_compact C1={C1} ({live1} live) -> C2={C2} against 2^{bits} bits (density "
+                f"1/64): equal to plain and to the torch composition, {n2} survivors; {ms:.4f} "
+                f"ms (plain {pms:.3f} ms, the composition it replaced {rms:.4f} ms on the "
+                f"card, bound {bms:.5f} ms by {by_})")
+        else:
+            log(f"bloom2_compact at 2^{bits} bits, density 2^-{ands}, n1 {n}: equal to plain "
+                f"({int(got.n)} survivors{', past C2' if int(got.n) > C2 else ''})")
+        del b2, s1, got, want
+        torch.cuda.empty_cache()
+
+    # the summary: a 2^28-key table, survivors with planted hits
+    m = CASCADE_M
+    key = torch.sort((rnd(m).to(torch.int64) << 32) | (rnd(m).to(torch.int64) & 0xFFFFFFFF)).values
+    key[-1] = key[-2]  # a duplicated truncated key: found2
+    table = st.SortedXTable(key, torch.arange(1, m + 1, dtype=torch.int32, device=dev))
+    levels = m.bit_length()
+
+    def inputs(n, dense):
+        """n survivors (every other one a table key, every 7th the duplicated
+        one), the (R, U) flags and the advance flags."""
+        pos = torch.full((C2,), B, dtype=torch.int32, device=dev)
+        pos[:n] = torch.sort(torch.randperm(B, device=dev, generator=g)[:n]).values.int()
+        pick = key[torch.randint(0, m - 1, (C2,), device=dev, generator=g)]
+        pick[1::7] = key[-1]
+        hit = torch.arange(C2, device=dev) % 2 == 1
+        hh, hl = st.key_words(pick)
+        qh, ql = torch.where(hit, hh, rnd(C2)), torch.where(hit, hl, rnd(C2))
+        deg = torch.zeros((R, U), dtype=torch.bool, device=dev)
+        adv = torch.zeros((R,), dtype=torch.bool, device=dev)
+        rows = torch.arange(0, R, 4 if dense else 64, device=dev)
+        deg[rows, (37 * rows) % (U - 1)] = True
+        adv[rows[1::2]] = True
+        if dense:  # survivors on flagged lanes and on lane U - 1 of advance rows
+            deg |= torch.rand((R, U), device=dev, generator=g) < 0.001
+            lanes = torch.nonzero(deg.reshape(-1))[:, 0][: n // 8].int()
+            pos[: len(lanes)] = lanes
+            pos[len(lanes): 2 * len(lanes)] = (rows[1::2] * U + U - 1).int().repeat(
+                len(lanes))[: len(lanes)]
+            pos[:n] = torch.sort(pos[:n]).values
+        return (pos, qh.contiguous(), ql.contiguous(),
+                torch.tensor(n, dtype=torch.int32, device=dev), deg, adv)
+
+    for name, tab in (("chunk_summary", table), ("chunk_summary_host", None)):
+        fn = ((lambda *a: bsgs.chunk_summary(table, *a)) if tab is not None
+              else bsgs.chunk_summary_host)
+        for n, dense in ((C2 // 3, False), (C2 - 100, True), (0, True)):
+            pos, qh, ql, cnt, deg, adv = inputs(n, dense)
+            args = (pos, qh, ql, cnt, deg, adv, (deg, adv))
+            got = fn(*args)
+            want = bsgs.chunk_summary_ref(tab, *args)
+            e = max_abs_err([got], [want])
+            w = want.cpu().numpy()
+            live = int((w[:C2] < B).sum())
+            if e or (tab is not None and n and not live):
+                fail(f"{name} differs from its plain version (n {n}, dense {dense}, "
+                     f"max_abs_err {e}) or found no planted hit ({live} live)")
+            if not dense:
+                ms, _ = device_ms(lambda: fn(*args), 50)
+                pms, _ = timed(lambda: bsgs.chunk_summary_ref(tab, *args), 3)
+                rms, _ = device_ms(lambda: bsgs.chunk_summary_ref(tab, *args), 50)
+                searched = int(((pos < B) & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()])
+                               .sum()) if tab is not None else 0
+                out_b = 4 * (3 * C2 + 3 * R + 1)
+                bms, by_ = bound_ms(searched * levels * 8 + R * U // 4,
+                                    R * U + R + 12 * C2 + 4 + searched * 8 * (levels + 2)
+                                    + out_b, clock)
+                results[name] = dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
+                                     bound_by=by_, replaced_ms=rms)
+                log(f"{name} C2={C2} ({n} survivors, {searched} searched over "
+                    f"2^{m.bit_length() - 1} keys, {live} live) R={R} U={U}: equal to plain; {ms:.4f} ms (plain "
+                    f"{pms:.3f} ms, the composition it replaced {rms:.4f} ms on the card, "
+                    f"bound {bms:.5f} ms by {by_})")
+            else:
+                log(f"{name} n={n}{' with dense flags' if dense else ''}: equal to plain "
+                    f"({live} live)")
+        # the ring's two forms: candidates without rows, rows without candidates
+        pos, qh, ql, cnt, deg, adv = inputs(C2 - 100, True)
+        none = pos[:0]
+        for args in ((pos, qh, ql, cnt, deg, adv, None), (none, none, none, cnt, deg, adv,
+                                                           (deg, adv))):
+            e = max_abs_err([fn(*args)], [bsgs.chunk_summary_ref(tab, *args)])
+            if e:
+                fail(f"{name}'s ring forms differ from the plain version (max_abs_err {e})")
+        log(f"{name}: the ring's forms (no rows; no candidates) equal to plain")
+    del table, key
+    torch.cuda.empty_cache()
+    torch.cuda.synchronize()
+
+
 def bsgs_params(m, resolve, **kw):
     """The main path's BSGS shape (bench.py's): U, K, build_block, 2^35-bit
     bitmap (and host-resolve bloom2)."""
@@ -1578,6 +1807,17 @@ def delta(after, before):
     return {name: after[name] - before[name] for name in after}
 
 
+def chunk_launches(eng, n, d=1):
+    """The launches of n chunks of a BSGS engine, d of them a chunk (the
+    range-sharded engine's shards): K1, K2, the level-1 probe, the bloom2
+    stage (where the engine has a bloom2) and the summary of its resolve
+    mode."""
+    summary = "chunk_summary_host" if eng.table is None else "chunk_summary"
+    return zero_counts() | {"advance_chain": d * n, "walk_blocks": d * n, "probe": d * n,
+                            "bloom2_compact": d * n if eng.bloom2 is not None else 0,
+                            summary: d * n}
+
+
 def phase3_main(dev, m, seconds, results, clock):
     """The main path; returns its launch counts, counted from zero."""
     import numpy as np
@@ -1628,12 +1868,9 @@ def phase3_main(dev, m, seconds, results, clock):
         fail(f"puzzle-63 recovery failed: {[hex(k) for k in found]}")
     _, n63 = launch_counts()
     d63 = delta(n63, n_build)
-    cascade = ("advance_chain", "walk_blocks", "probe")
-    if (d63["advance_chain"] < 1 or d63["walk_blocks"] != d63["advance_chain"]
-            or d63["probe"] != 2 * d63["advance_chain"]
-            or any(v for name, v in d63.items() if name not in cascade)):
-        fail(f"puzzle-63 search launched {d63}, expected K1 == K2 == probe / 2 >= 1 "
-             "and nothing else")
+    if d63["advance_chain"] < 1 or d63 != chunk_launches(eng63, d63["advance_chain"]):
+        fail(f"puzzle-63 search launched {d63}, expected K1 == K2 == probe == bloom2_compact "
+             "== chunk_summary_host >= 1 and nothing else")
     log(f"phase 3: puzzle-63 key 0x{PUZZLE63_KEY:x} recovered bit-exact in "
         f"{time.time() - t0:.2f} s; launches {d63}")
 
@@ -1652,9 +1889,7 @@ def phase3_main(dev, m, seconds, results, clock):
     _, n_main = launch_counts()
     d64 = delta(n_main, n63)
     chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
-    if (d64 != zero_counts() | dict(advance_chain=len(marks), walk_blocks=len(marks),
-                                    probe=2 * len(marks))
-            or chunks != len(marks)):
+    if d64 != chunk_launches(eng64, len(marks)) or chunks != len(marks):
         fail(f"throughput search launched {d64} for {len(marks)} chunks dispatched, "
              f"{chunks} counted")
     keys_per_sec = eng64.stats.keys_covered / elapsed
@@ -1752,6 +1987,14 @@ def phase3_main(dev, m, seconds, results, clock):
     log(f"phase 3: chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} "
         f"+ cascade and summary {tot_ms - k1_ms - k2_ms:.3f}; host decode "
         f"{dec_ms:.3f} ms ({n_surv} survivors, C1={eng64.C1}, C2={eng64.C2})")
+    chunk = lambda: chunk_impl_host(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
+                                    eng64.bitmap, eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1,
+                                    C2=eng64.C2, adv_tab=eng64.adv_tab)
+    fig = chunk_before_after(eng64, px, py, chunk, "phase 3", PREV_SECONDS, lambda: BSGSEngine(
+        [ecref.scalar_mult(PUZZLE64_KEY)], 1 << 63, 1 << 64, params, device=dev,
+        host_table=htab, bitmap=eng.bitmap, bloom2=eng.bloom2))
+    log(f"phase 3: keys/s before {fig['before']['keys_per_s']:.4e} (the torch route) and after "
+        f"{keys_per_sec:.4e} (this phase's window)")
     # one streaming-build step (the first: its keys are in the filters
     # already, so the ORs change nothing), its device operations and time
     btab_x, btab_y = tables.step_table(ecref.G, BUILD_BLOCK)
@@ -2357,8 +2600,7 @@ def phase3s_scheduled(dev, m, seconds, htab, bm, b2):
         dt = time.time() - t0
         _, n = launch_counts()
         chunks = eng.stats.keys_covered // span
-        if (n != zero_counts() | dict(advance_chain=len(marks), walk_blocks=len(marks),
-                                      probe=2 * len(marks)) or chunks != len(marks)):
+        if n != chunk_launches(eng, len(marks)) or chunks != len(marks):
             fail(f"-B {policy} launched {n} for {len(marks)} chunks dispatched, {chunks} "
                  "counted")
         if any(f.private_key != PUZZLE64_KEY for f in found):
@@ -2417,8 +2659,7 @@ def phase_t16(dev, m, label, seconds, **shared):
     dt = time.time() - t0
     _, n = launch_counts()
     chunks = eng.stats.keys_covered // (32 * U * eng.stride)
-    if found or chunks != len(marks) or n != zero_counts() | dict(
-            advance_chain=chunks, walk_blocks=chunks, probe=2 * chunks):
+    if found or chunks != len(marks) or n != chunk_launches(eng, chunks):
         fail(f"{label}: bsgs_t16 window found {found}, launched {n} for {len(marks)} chunks "
              f"dispatched, {chunks} counted")
     busy = sum(e0.elapsed_time(e1) for e0, e1 in marks)
@@ -2430,38 +2671,113 @@ def phase_t16(dev, m, label, seconds, **shared):
     return n
 
 
-def device_chunk_plain(eng, px, py):
-    """One device-resolve chunk (bsgs.chunk_impl with the bloom2 stage)
-    through the plain versions of its kernels: K1, K2, the fused level-1
-    probe and the bloom2 probe, composed as filtered_lookup and
-    _pallas_chunk_impl compose them."""
+def chunk_composition(eng, px, py, plain=False):
+    """One chunk of `eng` (either resolve mode) composed as chunk_impl and
+    chunk_impl_host composed it before the cascade's kernels, which is how
+    filtered_lookup / filtered_survivors and _pallas_chunk_impl(_host)
+    compose it: K1, K2, the fused level-1 probe, then torch ops: the lane
+    U - 1 fix-up, the bloom2 probe (kh_probe's bloom2 form), its mask,
+    count and compact_positions, the clamps and gathers, the exact search
+    (sorted_table.lookup), the live mask and the packing. plain: K1, K2 and
+    the probes through their plain versions (the reference the chunk's
+    kernels are held to). Returns (next_x, next_y, summary); next_x and
+    next_y are None when plain."""
     import torch
 
     from keyhuntm1cpu_tpu_torch.curve import pwalk
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import _chunk_walk
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
 
     Kc, T = eng.p.steps_per_chunk, len(eng.targets)
     B, C1, C2 = T * Kc * U, eng.C1, eng.C2
-    bx, by, _, _, adeg = pwalk.advance_chain_ref(px.t().contiguous(), py.t().contiguous(),
-                                                 eng.adv_x, eng.adv_y, Kc, eng.adv_tab)
-    qlo, qhi, deg = pwalk.walk_blocks_ref(bx, by, eng.tab_x, eng.tab_y)
-    adv = adeg.reshape(-1)
+    if plain:
+        bx, by, _, _, adeg = pwalk.advance_chain_ref(px.t().contiguous(), py.t().contiguous(),
+                                                     eng.adv_x, eng.adv_y, Kc, eng.adv_tab)
+        qlo, qhi, deg = pwalk.walk_blocks_ref(bx, by, eng.tab_x, eng.tab_y)
+        adv, nxt = adeg.reshape(-1), (None, None)
+        level1, probe2 = bmp.probe_compact_ref, bmp.probe_bloom2_ref
+    else:
+        res, deg, adv = _chunk_walk(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, U, Kc,
+                                    T, eng.adv_tab)
+        qhi, qlo, nxt = res.qhi, res.qlo, (res.next_x, res.next_y)
+        level1, probe2 = bmp.probe_compact, bmp.probe_bloom2
     deg[:, U - 1] |= adv
-    pos1, qh1, ql1, n1 = bmp.probe_compact_ref(eng.bitmap, qhi.reshape(-1), qlo.reshape(-1), C1)
-    mask2 = bmp.probe_bloom2_ref(eng.bloom2, qh1, ql1) & (pos1 < B)
-    pos2 = bmp.compact_positions(mask2, C2, C1)
-    safe2 = pos2.clamp(max=C1 - 1).long()
-    lr = st.lookup(eng.table, qh1[safe2], ql1[safe2])
-    valid = pos2 < C1
-    pos = torch.where(valid, pos1[safe2], B)
-    live = valid & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()]
-    f1, f2 = lr.found & live, lr.found2 & live
+    pos1, qh1, ql1, n1 = level1(eng.bitmap, qhi.reshape(-1), qlo.reshape(-1), C1)
+    if eng.bloom2 is None:
+        pos, qh, ql, n = pos1, qh1, ql1, n1
+    else:
+        mask2 = probe2(eng.bloom2, qh1, ql1) & (pos1 < B)
+        pos2 = bmp.compact_positions(mask2, C2, C1)
+        safe2 = pos2.clamp(max=C1 - 1).long()
+        pos = torch.where(pos2 < C1, pos1[safe2], B)
+        qh, ql = qh1[safe2], ql1[safe2]
+        n = torch.where(n1 > C1, n1 + C2, mask2.sum(dtype=torch.int32))
+    live = (pos < B) & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()]
+    if eng.table is None:
+        words = [torch.where(live, pos, B), qh, ql]
+    else:
+        lr = st.lookup(eng.table, qh, ql)
+        f1, f2 = lr.found & live, lr.found2 & live
+        words = [torch.where(f1 | f2, pos, B), torch.where(f1, lr.idx, 0),
+                 torch.where(f2, lr.idx2, 0)]
     deg8 = deg.to(torch.uint8)
-    n = torch.where(n1 > C1, n1 + C2, mask2.sum(dtype=torch.int32))
-    return torch.cat([torch.where(f1 | f2, pos, B), torch.where(f1, lr.idx, 0),
-                      torch.where(f2, lr.idx2, 0), deg8.sum(dim=1, dtype=torch.int32),
-                      deg8.argmax(dim=1).to(torch.int32), adv.to(torch.int32), n.reshape(1)])
+    return nxt + (torch.cat(words + [deg8.sum(dim=1, dtype=torch.int32),
+                                     deg8.argmax(dim=1).to(torch.int32),
+                                     adv.to(torch.int32), n.reshape(1)]),)
+
+
+def chunk_before_after(eng, px, py, chunk, label, seconds, make_engine):
+    """One chunk through the kernels (`chunk`) held to chunk_composition's
+    plain versions, then beside the torch route (chunk_composition through
+    K1, K2 and the probes): each one's device operations a chunk
+    (torch.profiler), enqueue and card ms a chunk, and keys/s over
+    `seconds` of the engine make_engine() gives with its chunk function
+    replaced by the torch route (the kernels' own window is the phase's).
+    Returns the before figures."""
+    import torch
+
+    got = chunk()[2]
+    t0 = time.time()
+    want = chunk_composition(eng, px, py, plain=True)[2]
+    plain_s = time.time() - t0
+    err = max_abs_err([got], [want])
+    if err or got.shape != want.shape:
+        fail(f"{label}: the chunk through the kernels differs from its plain versions "
+             f"(max_abs_err {err})")
+    prev = lambda: chunk_composition(eng, px, py)
+    if max_abs_err([prev()[2]], [got]):
+        fail(f"{label}: the torch route differs from the chunk through the kernels")
+    reps = 10
+    fig = {}
+    for name, fn in (("before", prev), ("after", chunk)):
+        fig[name] = dict(ops=device_launches(fn), enqueue_ms=enqueue_ms(fn, reps),
+                         card_ms=device_ms(fn, reps)[0])
+    eng_prev = make_engine()
+    eng_prev._chunk_fn = lambda px, py: chunk_composition(eng_prev, px, py)
+    marks, enqueue = marked(eng_prev)
+    torch.cuda.synchronize()
+    t0 = time.time()
+    found = eng_prev.search(max_seconds=seconds, stop_on_first=False)
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    if any(f.private_key != PUZZLE64_KEY for f in found):
+        fail(f"{label}: the torch route found a wrong key: {[hex(f.private_key) for f in found]}")
+    busy = sum(a.elapsed_time(b) for a, b in marks)
+    span = marks[0][0].elapsed_time(marks[-1][1])
+    fig["before"] |= dict(keys_per_s=eng_prev.stats.keys_covered / dt, idle=1 - busy / span,
+                          window_enqueue_ms=1000 * sum(enqueue) / len(marks))
+    log(f"{label}: a chunk through the kernels equal to its plain versions (max_abs_err 0; "
+        f"plain {plain_s:.1f} s) and to the torch route; a chunk before (the torch route: torch "
+        f"ops after the level-1 probe) and after (the bloom2 stage and summary kernels): "
+        + "; ".join(f"{k} {v['ops'] or 'not measured: the profiler saw no'} device operations "
+                    f"(torch.profiler), enqueue {v['enqueue_ms']:.4f} ms, card "
+                    f"{v['card_ms']:.4f} ms" for k, v in fig.items())
+        + f"; before, {seconds:.0f} s of the engine on the torch route: "
+        f"{fig['before']['keys_per_s']:.4e} keys/s, idle share {fig['before']['idle']:.4f}, "
+        f"enqueue {fig['before']['window_enqueue_ms']:.3f} ms a chunk ({len(marks)} chunks); "
+        f"card {card_line()}")
+    return fig
 
 
 def phase3d_device(dev, m, seconds, clock):
@@ -2524,9 +2840,7 @@ def phase3d_device(dev, m, seconds, clock):
         fail(f"phase 3d: puzzle-63 recovery failed: {[hex(k) for k in found]}")
     _, n63 = launch_counts()
     d63 = delta(n63, n_setup)
-    if (d63["advance_chain"] < 1 or d63 != zero_counts() | dict(
-            advance_chain=d63["advance_chain"], walk_blocks=d63["advance_chain"],
-            probe=2 * d63["advance_chain"])):
+    if d63["advance_chain"] < 1 or d63 != chunk_launches(eng63, d63["advance_chain"]):
         fail(f"phase 3d: puzzle-63 search launched {d63}")
     log(f"phase 3d: puzzle-63 key 0x{PUZZLE63_KEY:x} recovered bit-exact in "
         f"{time.time() - t0:.2f} s (C1={eng63.C1}, C2={eng63.C2}); launches {d63}")
@@ -2545,8 +2859,7 @@ def phase3d_device(dev, m, seconds, clock):
     _, n_main = launch_counts()
     d64 = delta(n_main, n63)
     chunks = eng64.stats.keys_covered // (K * U * eng64.stride)
-    if chunks != len(marks) or d64 != zero_counts() | dict(
-            advance_chain=chunks, walk_blocks=chunks, probe=2 * chunks):
+    if chunks != len(marks) or d64 != chunk_launches(eng64, chunks):
         fail(f"phase 3d: throughput search launched {d64} for {len(marks)} chunks dispatched, "
              f"{chunks} counted")
     busy = sum(a.elapsed_time(b) for a, b in marks)
@@ -2558,36 +2871,32 @@ def phase3d_device(dev, m, seconds, clock):
         f"{1000 * sum(enqueue) / chunks:.3f} ms, decode {1000 * dec[0] / dec[1]:.3f} ms per "
         f"chunk; launches {d64}")
 
-    # one chunk: through the kernels against the plain versions, its device
-    # operations (torch.profiler) and its card time split
+    # one chunk: through the kernels against the plain versions, beside PR
+    # 15's route (device operations, enqueue, card time, keys/s), and its
+    # card time split
     reps = 10
     px, py = eng64._initial_base(0)
-    got = bsgs.chunk_impl(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y, bm, table,
-                          b2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2, adv_tab=eng64.adv_tab)[2]
-    t0 = time.time()
-    want = device_chunk_plain(eng64, px, py)
-    plain_s = time.time() - t0
-    err = max_abs_err([got], [want])
-    if err or got.shape != (3 * eng64.C2 + 3 * K + 1,):
-        fail(f"phase 3d: the chunk through the kernels differs from its plain versions "
-             f"(max_abs_err {err})")
     chunk = lambda: bsgs.chunk_impl(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
                                     bm, table, b2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2,
                                     adv_tab=eng64.adv_tab)
-    ops = device_launches(chunk)
-    tot_ms, _ = device_ms(chunk, reps)
+    got = chunk()[2]
+    if got.shape != (3 * eng64.C2 + 3 * K + 1,):
+        fail(f"phase 3d: a chunk summary of {tuple(got.shape)} words")
+    fig = chunk_before_after(eng64, px, py, chunk, "phase 3d", PREV_SECONDS, lambda: bsgs.BSGSEngine(
+        [ecref.scalar_mult(PUZZLE64_KEY)], *PUZZLE64_RANGE, params, device=dev, table=table,
+        bitmap=bm))
+    tot_ms = fig["after"]["card_ms"]
     pxt, pyt = px.t().contiguous(), py.t().contiguous()
     k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
         pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab), reps)
     k2_ms, (qlo, qhi, _) = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x,
                                                               eng64.tab_y), reps)
     n1 = int(bmp.probe_compact(bm, qhi.reshape(-1), qlo.reshape(-1), eng64.C1).n)
-    log(f"phase 3d: a chunk through the kernels equal to its plain versions (max_abs_err 0; "
-        f"plain {plain_s:.1f} s); {ops or 'not measured: the profiler saw no'} device "
-        f"operations (torch.profiler); {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 "
-        f"{k2_ms:.3f} + cascade, exact search and summary {tot_ms - k1_ms - k2_ms:.3f} "
-        f"({n1} level-1 survivors of {K * U}, C1={eng64.C1}; {int(got[-1])} after bloom2, "
-        f"C2={eng64.C2})")
+    log(f"phase 3d: a chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} + "
+        f"cascade, exact search and summary {tot_ms - k1_ms - k2_ms:.3f} ({n1} level-1 "
+        f"survivors of {K * U}, C1={eng64.C1}; {int(got[-1])} after bloom2, C2={eng64.C2}); "
+        f"keys/s before {fig['before']['keys_per_s']:.4e} (the torch route) and after "
+        f"{eng64.stats.keys_covered / elapsed:.4e} (this phase's window)")
     log(f"phase 3d: device memory {torch.cuda.memory_allocated() / 2**30:.2f} GiB allocated "
         f"(table {(table.key.numel() * 12) / 2**30:.2f} GiB, bitmap "
         f"{bm.words.numel() * 4 / 2**30:.2f}, bloom2 {b2.words.numel() * 4 / 2**30:.2f}), "
@@ -3356,8 +3665,7 @@ def phase6a_range(m, table, bm, rate3d, seconds, devs):
                               table=table, bitmap=bm, devices=devs)
     n, chunks, dt, idle, enq, dec, card = shard_window(eng64, seconds, "phase 6a")
     if (eng64.stats.keys_covered != chunks * D * K * U * eng64.stride
-            or n != zero_counts() | dict(advance_chain=D * chunks, walk_blocks=D * chunks,
-                                         probe=2 * D * chunks)):
+            or n != chunk_launches(eng64, chunks, D)):
         fail(f"phase 6a: the window launched {n} for {chunks} sharded chunks of {D} shards, "
              f"{eng64.stats.keys_covered} keys counted")
     log(f"phase 6a: throughput {chunks} sharded chunks ({D * chunks} shard chunks) in "
@@ -3447,10 +3755,14 @@ def phase6b_table(m, table, bm, seconds, devs):
                                        params, table=table, devices=devs)
         n, chunks, dt, idle, enq, dec, card = shard_window(eng64, seconds,
                                                            f"phase 6b ({comm})")
-        probes = 2 * D * (D if comm == "ring" else 1) * chunks
-        if (eng64.stats.keys_covered != chunks * D * K * U * eng64.stride
-                or n != zero_counts() | dict(advance_chain=D * chunks, walk_blocks=D * chunks,
-                                             probe=probes)):
+        # a prober probes once a hop (D hops in the ring, one in all_gather),
+        # the ring's summary kernel once a hop and once for its rows
+        hops = D if comm == "ring" else 1
+        want = zero_counts() | dict(advance_chain=D * chunks, walk_blocks=D * chunks,
+                                    probe=D * hops * chunks,
+                                    bloom2_compact=D * hops * chunks * eng64._use_bloom2,
+                                    chunk_summary=D * (hops + (comm == "ring")) * chunks)
+        if eng64.stats.keys_covered != chunks * D * K * U * eng64.stride or n != want:
             fail(f"phase 6b ({comm}): the window launched {n} for {chunks} sharded chunks, "
                  f"{eng64.stats.keys_covered} keys counted")
         counts[comm] = n
@@ -3664,6 +3976,7 @@ def main():
     phase1_brute(dev, results, clock)
     phase1_minikeys(dev, results, clock)
     phase1_walker(dev, results, clock)
+    phase1_bsgs(dev, results, clock)
     phase2_small(dev)
     bsgs, htab, bm, b2 = phase3_main(dev, args.m, args.seconds, results, clock)
     t16_host = phase_t16(dev, args.m, "phase 3", T16_SECONDS, resolve="host", host_table=htab,

@@ -145,12 +145,16 @@ def kernels() -> ctypes.CDLL:
         # words qhi qlo pos ohi olo n_out scratch | n bits C stream
         "kh_probe_compact": [vp] * 8 + [i64, i, i, vp],
         "kh_probe_tile": [],
+        # words qhi qlo pos_in n_in pos ohi olo n_out scratch | n bits C fill stream
+        "kh_bloom2_compact": [vp] * 10 + [i64, i, i, i, vp],
         # cx cy tx ty ax ay pre totals | W U L C stream
         "kh_walk_prefix": [vp] * 8 + [i, i, i, i64, vp],
         # cx cy tx ty ax ay pre inv_totals x y deg nx ny adeg | W U L C n_endo stream
         "kh_walk_emit": [vp] * 14 + [i, i, i, i64, i, vp],
         # pos qhi qlo count key idx deg adeg out | m C W U total stream
         "kh_lookup_summary": [vp] * 9 + [i64, i, i, i, i, vp],
+        # pos qhi qlo count key idx cdeg cadv rdeg radv out | m B C R U stream
+        "kh_bsgs_summary": [vp] * 11 + [i64, i64, i, i, i, vp],
     }
     for fn, argtypes in sigs.items():
         getattr(lib, fn).argtypes = argtypes
@@ -194,8 +198,10 @@ def host_lib() -> ctypes.CDLL:
 def kernel_wrappers() -> dict:
     """Kernel name -> the wrappers that launch it. Each wrapper counts its
     own launches in its ``launches`` attribute (on CUDA tensors only); the
-    probe kernel has two wrappers."""
+    probe kernel has two wrappers, and the BSGS summary kernel one a
+    resolve mode."""
     from .curve import pbrute, pladder, pwalk, walk
+    from .engine import bsgs
     from .field import pinv
     from .filter import bitmap as bmp
     from .filter import sorted_table as st
@@ -213,7 +219,10 @@ def kernel_wrappers() -> dict:
             "inv_batch": (pinv.inv_batch,), "keccak_eth": (phash.keccak_eth_from_batch,),
             "probe": (bmp.probe, bmp.probe_bloom2),
             "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,),
-            "lookup_summary": (st.lookup_summary,)}
+            "lookup_summary": (st.lookup_summary,),
+            "bloom2_compact": (bmp.bloom2_compact,),
+            "chunk_summary": (bsgs.chunk_summary,),
+            "chunk_summary_host": (bsgs.chunk_summary_host,)}
 
 
 def launch_counts() -> dict:

@@ -1,9 +1,15 @@
 // Filter probe for Hopper (sm_90a):
-//   kh_probe          replaces keyhuntm1cpu_tpu/filter/bitmap.py _dma_gather_kernel / dma_gather
-//                     (words[idx]) fused with the bit test of probe / probe_bloom2
-//   kh_probe_compact  the same probe (level-1 form) fused with the ordered
-//                     compaction of its survivors (compact_positions and the
-//                     key gathers of filtered_survivors / filtered_lookup)
+//   kh_probe           replaces keyhuntm1cpu_tpu/filter/bitmap.py _dma_gather_kernel / dma_gather
+//                      (words[idx]) fused with the bit test of probe / probe_bloom2
+//   kh_probe_compact   the same probe (level-1 form) fused with the ordered
+//                      compaction of its survivors (compact_positions and the
+//                      key gathers of filtered_survivors / filtered_lookup)
+//   kh_bloom2_compact  the cascade's bloom2 stage: the bloom2 probe of the C1
+//                      stage-1 survivors fused with their ordered compaction
+//                      to C2 (keyhuntm1cpu_tpu/filter/bitmap.py filtered_lookup
+//                      :721 and filtered_survivors :788 after the level-1
+//                      compaction: the probe, the pos1 < B mask, the count,
+//                      jnp.nonzero, the clamps and gathers, the poison)
 // Wrappers and plain torch versions: keyhuntm1cpu_tpu_torch/filter/bitmap.py.
 //
 // For each 64-bit key (qhi, qlo) the probe reads the filter word(s) the key
@@ -13,7 +19,12 @@
 // bits). Index math is bitmap.py's, bit for bit. kh_probe writes one mask
 // byte a key. kh_probe_compact writes the first C survivor positions in
 // ascending order with their keys, padded with (n, the last key), and the
-// true survivor count.
+// true survivor count. kh_bloom2_compact takes the C1 stage-1 survivors
+// (positions, keys, count; an entry is live where its position is below
+// the query count B), and writes the first C2 bloom2 survivors' positions
+// and keys in ascending order, padded with (B, stage-1 entry C1 - 1's key),
+// and their count, poisoned to n1 + C2 where the stage-1 count n1 passed
+// C1 (one overflow check then covers both stages).
 //
 // Bound on the H100: memory. Each probe reads one random word of a filter
 // far larger than the 50 MB L2 (2^34 and 2^35 bits: 2 and 4 GiB), and DRAM
@@ -38,7 +49,11 @@
 // status words: a count, or the inclusive prefix that ends the walk). Each
 // survivor's rank is then exact, so the output is in ascending order, as
 // the JAX package's sort-based compaction has it; atomic appends would not
-// be. The keys go out from the registers that probed them.
+// be. The keys go out from the registers that probed them. The bloom2
+// stage is the same kernel over the C1 = 34,816 stage-1 survivors (34
+// tiles at the main path's shape), their positions loaded beside the keys:
+// it replaced a mask, a C1-long cumsum, a searchsorted, the clamps, five
+// gathers and the poison's two where()s, about a dozen launches.
 // Word offsets are 64-bit (a 2^35-bit filter has 2^30 words). The entry
 // points launch on the given stream, do not synchronise, and return
 // cudaGetLastError().
@@ -197,30 +212,75 @@ __device__ uint32_t look_back(const unsigned long long* status, long long tile, 
   }
 }
 
-// scratch: [0] the ticket counter, [1 + t] tile t's status (0: not yet,
-// kCount | count, kPrefix | inclusive prefix); zeroed before the launch.
+// The compaction's operands. Level 1 (kh_probe_compact): the n query keys
+// against the bitmap, a survivor written at its own index, padding = n.
+// The bloom2 stage (kh_bloom2_compact): the n = C1 stage-1 survivors against
+// the bloom2, entry i live where pos_in[i] < fill and written at pos_in[i],
+// padding = fill; its count poisoned where the stage-1 count *n_in passed n.
+struct CompactArgs {
+  const uint32_t* words;
+  const uint32_t* qhi;
+  const uint32_t* qlo;
+  const int32_t* pos_in;  // the bloom2 stage only
+  const int32_t* n_in;    // the bloom2 stage only
+  int32_t* pos;
+  uint32_t* ohi;
+  uint32_t* olo;
+  int32_t* n_out;
+  unsigned long long* scratch;  // [0] the ticket counter, [1 + t] tile t's
+  // status (0: not yet, kCount | count, kPrefix | inclusive prefix); zeroed
+  // before the launch
+  long long n;
+  int bits, C, fill;
+};
+
+// The kProbeQ stage-1 positions from i0 (the first cnt of them), as
+// load_keys loads the keys.
 template <bool VEC>
-__global__ void __launch_bounds__(kProbeThreads)
-probe_compact_kernel(const uint32_t* __restrict__ words, const uint32_t* __restrict__ qhi,
-                     const uint32_t* __restrict__ qlo, int32_t* __restrict__ pos,
-                     uint32_t* __restrict__ ohi, uint32_t* __restrict__ olo,
-                     int32_t* __restrict__ n_out, unsigned long long* __restrict__ scratch,
-                     long long n, int bits, int C) {
+__device__ __forceinline__ void load_positions(const int32_t* __restrict__ p, long long i0,
+                                               int cnt, int32_t (&at)[kProbeQ]) {
+  if (VEC && kProbeQ % 4 == 0 && cnt == kProbeQ) {
+#pragma unroll
+    for (int j = 0; j < kProbeQ; j += 4) {
+      const int4 v = __ldg(reinterpret_cast<const int4*>(p + i0 + j));
+      at[j] = v.x; at[j + 1] = v.y; at[j + 2] = v.z; at[j + 3] = v.w;
+    }
+  } else {
+#pragma unroll
+    for (int j = 0; j < kProbeQ; j++) at[j] = j < cnt ? __ldg(p + i0 + j) : 0;
+  }
+}
+
+template <bool VEC, bool STAGE2>
+__global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const CompactArgs a) {
   __shared__ long long s_tile;
   __shared__ uint32_t s_warp[kWarps];
   __shared__ uint32_t s_prefix;
-  unsigned long long* status = scratch + 1;
+  unsigned long long* status = a.scratch + 1;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
-  const long long n_tiles = (n + kTile - 1) / kTile;
+  const long long n = a.n, n_tiles = (n + kTile - 1) / kTile;
   for (;;) {
-    if (t == 0) s_tile = (long long)atomicAdd(scratch, 1ull);
+    if (t == 0) s_tile = (long long)atomicAdd(a.scratch, 1ull);
     __syncthreads();
     const long long tile = s_tile;
     if (tile >= n_tiles) return;
     const long long i0 = tile * kTile + (long long)t * kProbeQ;
     uint32_t hi[kProbeQ], lo[kProbeQ];
-    const int cnt = load_keys<VEC>(qhi, qlo, i0, n, hi, lo);
-    const uint32_t hit = probe_keys<false, kProbeQ, true>(words, hi, lo, cnt, bits);
+    int32_t at[kProbeQ];  // where each survivor's position word comes from
+    const int cnt = load_keys<VEC>(a.qhi, a.qlo, i0, n, hi, lo);
+    uint32_t hit;
+    if constexpr (STAGE2) {
+      load_positions<VEC>(a.pos_in, i0, cnt, at);
+      hit = probe_keys<true, kProbeQ, true>(a.words, hi, lo, cnt, a.bits);
+#pragma unroll
+      for (int j = 0; j < kProbeQ; j++) {
+        if (j >= cnt || at[j] >= a.fill) hit &= ~(1u << j);  // stage-1 padding
+      }
+    } else {
+      hit = probe_keys<false, kProbeQ, true>(a.words, hi, lo, cnt, a.bits);
+#pragma unroll
+      for (int j = 0; j < kProbeQ; j++) at[j] = (int32_t)(i0 + j);
+    }
     // the block's exclusive scan of the threads' survivor counts
     const uint32_t c = __popc(hit);
     uint32_t incl = c;
@@ -255,22 +315,29 @@ probe_compact_kernel(const uint32_t* __restrict__ words, const uint32_t* __restr
 #pragma unroll
     for (int j = 0; j < kProbeQ; j++) {
       if ((hit >> j) & 1u) {
-        if (rank < (uint32_t)C) {
-          pos[rank] = (int32_t)(i0 + j);
-          ohi[rank] = hi[j];
-          olo[rank] = lo[j];
+        if (rank < (uint32_t)a.C) {
+          a.pos[rank] = at[j];
+          a.ohi[rank] = hi[j];
+          a.olo[rank] = lo[j];
         }
         rank++;
       }
     }
     if (tile == n_tiles - 1) {  // every count is in: the total, and the padding
       const uint32_t total = prefix + agg;
-      if (t == 0) *n_out = (int32_t)total;
-      const uint32_t fill_hi = __ldg(qhi + n - 1), fill_lo = __ldg(qlo + n - 1);
-      for (long long k = (long long)min(total, (uint32_t)C) + t; k < C; k += kProbeThreads) {
-        pos[k] = (int32_t)n;
-        ohi[k] = fill_hi;
-        olo[k] = fill_lo;
+      if (t == 0) {
+        int32_t out = (int32_t)total;
+        if constexpr (STAGE2) {  // a stage-1 overflow trips the caller's check too
+          const int32_t n1 = *a.n_in;
+          if (n1 > n) out = (int32_t)((uint32_t)n1 + (uint32_t)a.C);
+        }
+        *a.n_out = out;
+      }
+      const uint32_t fill_hi = __ldg(a.qhi + n - 1), fill_lo = __ldg(a.qlo + n - 1);
+      for (long long k = (long long)min(total, (uint32_t)a.C) + t; k < a.C; k += kProbeThreads) {
+        a.pos[k] = a.fill;
+        a.ohi[k] = fill_hi;
+        a.olo[k] = fill_lo;
       }
     }
     __syncthreads();  // s_tile, s_warp and s_prefix are reused
@@ -279,25 +346,32 @@ probe_compact_kernel(const uint32_t* __restrict__ words, const uint32_t* __restr
 
 // A persistent grid: as many blocks as the card holds at once (counted
 // once), each taking tiles until the tickets run out.
-template <bool VEC>
-void launch_compact(const void* words, const void* qhi, const void* qlo, void* pos, void* ohi,
-                    void* olo, void* n_out, void* scratch, long long n, int bits, int C,
-                    cudaStream_t s) {
+template <bool VEC, bool STAGE2>
+void launch_compact(const CompactArgs& a, cudaStream_t s) {
   static int resident = 0;
   if (resident == 0) {
     int dev = 0, sms = 0, per_sm = 0;
     cudaGetDevice(&dev);
     cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_compact_kernel<VEC>,
+    cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, probe_compact_kernel<VEC, STAGE2>,
                                                   kProbeThreads, 0);
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  probe_compact_kernel<VEC><<<(unsigned)(n_tiles < resident ? n_tiles : resident),
-                              kProbeThreads, 0, s>>>(
-      (const uint32_t*)words, (const uint32_t*)qhi, (const uint32_t*)qlo, (int32_t*)pos,
-      (uint32_t*)ohi, (uint32_t*)olo, (int32_t*)n_out, (unsigned long long*)scratch, n, bits,
-      C);
+  const long long n_tiles = (a.n + kTile - 1) / kTile;
+  probe_compact_kernel<VEC, STAGE2>
+      <<<(unsigned)(n_tiles < resident ? n_tiles : resident), kProbeThreads, 0, s>>>(a);
+}
+
+// Zero the scratch, then launch the form the pointers' alignment allows.
+template <bool STAGE2>
+int compact(const CompactArgs& a, cudaStream_t s) {
+  const long long n_tiles = (a.n + kTile - 1) / kTile;
+  const cudaError_t rc = cudaMemsetAsync(a.scratch, 0, (size_t)(1 + n_tiles) * 8, s);
+  if (rc != cudaSuccess) return (int)rc;
+  const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.qhi) | reinterpret_cast<uintptr_t>(a.qlo) |
+                         reinterpret_cast<uintptr_t>(a.pos_in);
+  (ptrs & 15u) == 0 ? launch_compact<true, STAGE2>(a, s) : launch_compact<false, STAGE2>(a, s);
+  return (int)cudaGetLastError();
 }
 
 }  // namespace
@@ -327,13 +401,23 @@ extern "C" int kh_probe_compact(const void* words, const void* qhi, const void* 
                                 int bits, int C, void* stream) {
   if (n < 1 || n > 0x7FFFFFFFLL || C < 0 || bits < 5 || bits > 35)
     return (int)cudaErrorInvalidValue;
-  cudaStream_t s = (cudaStream_t)stream;
-  const long long n_tiles = (n + kTile - 1) / kTile;
-  const cudaError_t rc = cudaMemsetAsync(scratch, 0, (size_t)(1 + n_tiles) * 8, s);
-  if (rc != cudaSuccess) return (int)rc;
-  const bool vec =
-      ((reinterpret_cast<uintptr_t>(qhi) | reinterpret_cast<uintptr_t>(qlo)) & 15u) == 0;
-  vec ? launch_compact<true>(words, qhi, qlo, pos, ohi, olo, n_out, scratch, n, bits, C, s)
-      : launch_compact<false>(words, qhi, qlo, pos, ohi, olo, n_out, scratch, n, bits, C, s);
-  return (int)cudaGetLastError();
+  const CompactArgs a{(const uint32_t*)words, (const uint32_t*)qhi, (const uint32_t*)qlo,
+                      nullptr, nullptr, (int32_t*)pos, (uint32_t*)ohi, (uint32_t*)olo,
+                      (int32_t*)n_out, (unsigned long long*)scratch, n, bits, C, (int)n};
+  return compact<false>(a, (cudaStream_t)stream);
+}
+
+// The bloom2 stage over n = C1 stage-1 survivors (pos_in, qhi, qlo, and
+// their count n_in), each live where its position is below fill = B.
+extern "C" int kh_bloom2_compact(const void* words, const void* qhi, const void* qlo,
+                                 const void* pos_in, const void* n_in, void* pos, void* ohi,
+                                 void* olo, void* n_out, void* scratch, long long n, int bits,
+                                 int C, int fill, void* stream) {
+  if (n < 1 || n > 0x7FFFFFFFLL || C < 0 || fill < 1 || bits < 5 || bits > 35)
+    return (int)cudaErrorInvalidValue;
+  const CompactArgs a{(const uint32_t*)words, (const uint32_t*)qhi, (const uint32_t*)qlo,
+                      (const int32_t*)pos_in, (const int32_t*)n_in, (int32_t*)pos,
+                      (uint32_t*)ohi, (uint32_t*)olo, (int32_t*)n_out,
+                      (unsigned long long*)scratch, n, bits, C, fill};
+  return compact<true>(a, (cudaStream_t)stream);
 }

@@ -55,6 +55,7 @@ from typing import Dict, List, Optional, Sequence, Tuple
 import numpy as np
 import torch
 
+from .. import _build
 from ..core.checkpoint import Checkpoint, fingerprint
 from ..core.log import get_logger
 from ..curve import pwalk, tables
@@ -192,32 +193,110 @@ def _batch_inv(vals: Sequence[int]) -> List[int]:
 
 
 def _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U: int, K: int, T: int, adv_tab):
-    """K1 + K2 of a chunk: (walk result, its (T*K, U) degenerate flags with
-    each row's advance flag on lane U - 1, the (T*K,) advance flags)."""
+    """K1 + K2 of a chunk: (walk result, its (T*K, U) degenerate flags, the
+    (T*K,) advance flags). An advance flag marks lane U - 1 of its row too
+    (ADV = U*S = tab[U-1]): the summary kernel folds it in."""
     res = pwalk.chunk_multi(px, py, tab_x, tab_y, adv_x, adv_y, K=K, U=U, T=T,
                             adv_tab=adv_tab)
-    adv_flat = res.adv_degenerate.reshape(-1)  # (T*K,)
-    deg = res.degenerate
-    # adv degenerate == walk lane U degenerate (ADV = U*S = tab[U-1]); fresh
-    # tensor from the walk, updated in place
-    deg[:, U - 1] |= adv_flat
-    return res, deg, adv_flat
+    return res, res.degenerate, res.adv_degenerate.reshape(-1)
 
 
-def _live(deg, pos, B: int):
-    """Survivors (positions, B = none) not on a degenerate lane (garbage x)."""
-    return ~deg.reshape(-1)[pos.clamp(max=B - 1).long()]
+def chunk_summary_ref(table, pos, qhi, qlo, n, deg, adv, rows) -> torch.Tensor:
+    """Plain torch version of the summary kernel (see chunk_summary; table
+    None: chunk_summary_host): the lane U - 1 fix-up, the live mask, the
+    candidate words, the per-row words and the count, as
+    bsgs._pallas_chunk_impl(_host) pack them."""
+    B, U = deg.numel(), deg.shape[1]
+    safe = pos.clamp(max=B - 1).long()
+    dead = deg.reshape(-1)[safe] | ((safe % U == U - 1) & adv[safe // U])
+    live = (pos < B) & ~dead
+    if table is None:
+        words = [torch.where(live, pos, B), qhi, qlo]
+    else:
+        r = st.lookup(table, qhi, qlo)
+        words = [torch.where((r.found | r.found2) & live, pos, B),
+                 torch.where(r.found & live, r.idx, 0), torch.where(r.found2 & live, r.idx2, 0)]
+    if rows is not None:
+        rdeg, radv = rows
+        rdeg = rdeg.clone()
+        rdeg[:, U - 1] |= radv
+        deg8 = rdeg.to(torch.uint8)
+        words += [deg8.sum(dim=1, dtype=torch.int32), deg8.argmax(dim=1).to(torch.int32),
+                  radv.to(torch.int32)]
+    return torch.cat([w.to(torch.int32) for w in words] + [n.reshape(1)])
 
 
-def _pack(words, deg, adv_flat, n):
-    """The chunk summary: the three C-long survivor words, then per row the
-    degenerate-lane count, the first degenerate lane and the advance flag,
-    then the (poisoned) survivor count."""
-    deg8 = deg.to(torch.uint8)
-    degsum = torch.stack([deg8.sum(dim=1, dtype=torch.int32),
-                          deg8.argmax(dim=1).to(torch.int32),
-                          adv_flat.to(torch.int32)])
-    return torch.cat([*words, degsum.reshape(-1), n.reshape(1)])
+def _chunk_summary(table, pos, qhi, qlo, n, deg, adv, rows, out, counter) -> torch.Tensor:
+    C = pos.shape[0] if pos.dim() == 1 else -1
+    Rc, U = deg.shape if deg.dim() == 2 else (-1, -1)
+    checks = [("pos", pos, torch.int32, (C,)), ("qhi", qhi, torch.int32, (C,)),
+              ("qlo", qlo, torch.int32, (C,)), ("n", n, torch.int32, ()),
+              ("deg", deg, torch.bool, (Rc, U)), ("adv", adv, torch.bool, (Rc,))]
+    R = 0
+    if rows is not None:
+        R = rows[0].shape[0] if rows[0].dim() == 2 else -1
+        checks += [("row deg", rows[0], torch.bool, (R, U)), ("row adv", rows[1], torch.bool, (R,))]
+    m = 0
+    if table is not None:
+        m = table.key.shape[0]
+        checks += [("table key", table.key, torch.int64, (m,)),
+                   ("table idx", table.idx, torch.int32, (m,))]
+    for name, t, dtype, shape in checks:
+        st._check(name, t, dtype, shape)
+    B = Rc * U
+    if min(Rc, U) < 1 or B >= 1 << 31 or (table is not None and m < 1):
+        raise ValueError(f"chunk summary needs Rc, U >= 1, Rc*U < 2^31 and a non-empty table "
+                         f"(Rc={Rc}, U={U}, m={m})")
+    width = 3 * C + 3 * R + 1
+    if out is not None:
+        st._check("out", out, torch.int32, (width,))
+    tensors = [t for _, t, _, _ in checks] + ([] if out is None else [out])
+    if not _build.on_cuda(*tensors):
+        got = chunk_summary_ref(table, pos, qhi, qlo, n, deg, adv, rows)
+        return got if out is None else out.copy_(got)
+    if out is None:
+        out = torch.empty((width,), dtype=torch.int32, device=pos.device)
+    ptr = lambda t: None if t is None else t.data_ptr()
+    key, idx = (None, None) if table is None else table
+    rdeg, radv = (None, None) if rows is None else rows
+    _build.launch("kh_bsgs_summary", *(ptr(t) for t in (pos, qhi, qlo, n, key, idx, deg, adv,
+                                                         rdeg, radv, out)),
+                  m, B, C, R, U, _build.stream(pos))
+    counter.launches += 1
+    return out
+
+
+def chunk_summary(table: st.SortedXTable, pos: torch.Tensor, qhi: torch.Tensor,
+                  qlo: torch.Tensor, n: torch.Tensor, deg: torch.Tensor, adv: torch.Tensor,
+                  rows=None, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The device-resolve chunk summary (bsgs._pallas_chunk_impl after its
+    cascade) from the cascade's C survivors: pos (C,) int32 positions in
+    the B = Rc*U queries (B = padding), their key words qhi, qlo (C,) int32
+    and their count n () int32. deg (Rc, U) bool: the queries' degenerate
+    flags; adv (Rc,) bool: a row's advance flag, which marks its lane
+    U - 1 too. rows: (deg (R, U), adv (R,)) of the summary rows, or
+    None for none. Returns (3C + 3R + 1,) int32, written into `out` when
+    given: the live survivors' positions (B elsewhere), the table payload j
+    at their key's lower bound and at its successor (0 where that entry
+    does not match or the lane is not live), per row its set flags, the
+    first of them (0 when none) and its advance flag (lane U - 1 or'ed with
+    it), then n. One launch of csrc/lookup.cu kh_bsgs_summary on the card,
+    counted in chunk_summary.launches."""
+    return _chunk_summary(table, pos, qhi, qlo, n, deg, adv, rows, out, chunk_summary)
+
+
+def chunk_summary_host(pos: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                       n: torch.Tensor, deg: torch.Tensor, adv: torch.Tensor, rows=None,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The host-resolve chunk summary (bsgs._pallas_chunk_impl_host after
+    its cascade): as chunk_summary without a table, the survivors' key
+    words qhi, qlo in place of the payloads (unchanged, padding included).
+    The same kernel, counted in chunk_summary_host.launches."""
+    return _chunk_summary(None, pos, qhi, qlo, n, deg, adv, rows, out, chunk_summary_host)
+
+
+chunk_summary.launches = 0
+chunk_summary_host.launches = 0
 
 
 def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
@@ -225,15 +304,13 @@ def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
     """One host-resolve chunk (bsgs._pallas_chunk_impl_host): walk, cascade,
     packed summary. Returns (next_x, next_y, summary (3*C2+3*T*K+1,) int32):
     survivor positions (B = T*K*U where none), their key words qhi, qlo.
-    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None.
+    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None. On the
+    card: K1, K2, the level-1 probe, the bloom2 stage and the summary.
     No host sync: the summary stays on the device until the caller copies it."""
     res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab)
     fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1),
                                 C2, bm2=bloom2, stage1_max=C1)
-    B = T * K * U
-    cand_pos = torch.where((fs.pos < B) & _live(deg, fs.pos, B), fs.pos, B)
-    return res.next_x, res.next_y, _pack([cand_pos, fs.qhi, fs.qlo], deg, adv_flat,
-                                         fs.n_candidates)
+    return res.next_x, res.next_y, chunk_summary_host(*fs, deg, adv_flat, (deg, adv_flat))
 
 
 def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
@@ -244,17 +321,12 @@ def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
     next_y, summary (3*C2+3*T*K+1,) int32): survivor positions (B = T*K*U
     where no live match), the baby index j at the table's lower bound and
     at its successor (0 where that entry does not match), then as
-    chunk_impl_host. No host sync."""
+    chunk_impl_host. On the card: K1, K2, the level-1 probe, the bloom2
+    stage and the summary with the search. No host sync."""
     res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab)
-    fl = bmp.filtered_lookup(bitmap, table, res.qhi.reshape(-1), res.qlo.reshape(-1),
-                             C2, bm2=bloom2, stage1_max=C1)
-    B = T * K * U
-    live, r = _live(deg, fl.pos, B), fl.result
-    cand_pos = torch.where((r.found | r.found2) & live, fl.pos, B)
-    cand_j = torch.where(r.found & live, r.idx, 0)
-    cand_j2 = torch.where(r.found2 & live, r.idx2, 0)
-    return res.next_x, res.next_y, _pack([cand_pos, cand_j, cand_j2], deg, adv_flat,
-                                         fl.n_candidates)
+    fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1),
+                                C2, bm2=bloom2, stage1_max=C1)
+    return res.next_x, res.next_y, chunk_summary(table, *fs, deg, adv_flat, (deg, adv_flat))
 
 
 def device_budgets(n_queries: int, m: int, bits_log2: int,

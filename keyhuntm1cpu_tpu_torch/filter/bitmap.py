@@ -13,19 +13,23 @@ Port of keyhuntm1cpu_tpu/filter/bitmap.py:
   K3's bloom-only form) is capped at 2^32 bits as the JAX package's is;
 - compaction keeps the first `size` survivor positions in ascending order
   (``compact_positions``: a prefix sum and one searchsorted — no host sync);
-- ``filtered_lookup``: probe, compaction (and the bloom2 stage), then the
-  exact sorted-table search of the survivors (the device-resolve BSGS
-  chunk); ``filtered_survivors``: the same cascade without the search
-  (host-resolve). The large-target brute path's step runs the probe and
-  then sorted_table.lookup_summary, the search fused with the step's
-  summary.
+- ``filtered_survivors``: probe and compaction (and the bloom2 stage): the
+  cascade of the BSGS chunk in both resolve modes, whose exact search
+  (device resolve) runs in the chunk's summary kernel;
+  ``filtered_lookup``: the same cascade, then the exact sorted-table
+  search of the survivors. The large-target brute path's step runs the
+  probe and then sorted_table.lookup_summary, the search fused with the
+  step's summary.
 
 ``probe`` and ``probe_bloom2`` run the probe kernel (csrc/probe.cu: the
 word gather of ``dma_gather`` fused with the bit test) for CUDA tensors
 and their plain torch versions for CPU ones. ``probe_compact`` is the
 level-1 probe fused with the ordered compaction of its survivors (one
 launch in place of the mask, its prefix sum, the searchsorted and the key
-gathers); the cascade's level-1 stage and ``filtered_lookup`` run it.
+gathers); the cascade's level-1 stage runs it. ``bloom2_compact`` is the
+bloom2 stage in the same form (csrc/probe.cu kh_bloom2_compact): the
+bloom2 probe of the stage-1 survivors and their ordered compaction, with
+the stage-1 overflow's poison, in one launch.
 
 Keys are (qhi, qlo) int32 tensors holding u32 bits; filter words are
 int32 tensors holding u32 bits. Index math is done in int64 with masks
@@ -433,6 +437,58 @@ def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
     return torch.where(pos < B, pos, fill)
 
 
+def bloom2_compact_ref(b2: DeviceBloom2, stage1: ProbeCompact, total: int,
+                      size: int) -> ProbeCompact:
+    """Plain torch version of the bloom2 stage (see bloom2_compact): the
+    probe, the pos1 < total mask, its count, compact_positions, the clamps
+    and gathers, and the poison."""
+    pos1, qh1, ql1, n1 = stage1
+    C1 = pos1.shape[0]
+    mask2 = probe_bloom2_ref(b2, qh1, ql1) & (pos1 < total)
+    pos2 = compact_positions(mask2, size, C1)
+    safe2 = pos2.clamp(max=C1 - 1).long()
+    return ProbeCompact(torch.where(pos2 < C1, pos1[safe2], total), qh1[safe2], ql1[safe2],
+                        torch.where(n1 > C1, n1 + size, mask2.sum(dtype=torch.int32)))
+
+
+def bloom2_compact(b2: DeviceBloom2, stage1: ProbeCompact, total: int,
+                   size: int) -> ProbeCompact:
+    """The cascade's bloom2 stage: the bloom2 probe of the C1 stage-1
+    survivors (a probe_compact of total queries: an entry is live where its
+    position is below total) fused with the ordered compaction of its own
+    survivors. Returns the first `size` of them in ascending order: their
+    positions in the (total,) query space, padded with total, their keys
+    (stage-1 entry C1 - 1's at the padding) and their count, poisoned to
+    n1 + size where the stage-1 count n1 passed C1 (bitmap.filtered_lookup's
+    stage 2). One launch of csrc/probe.cu kh_bloom2_compact, counted in
+    bloom2_compact.launches; C1 >= 1."""
+    pos1, qh1, ql1, n1 = stage1
+    C1 = _check_probe(b2, qh1, ql1)
+    for name, t, shape in (("stage-1 positions", pos1, (C1,)), ("stage-1 count", n1, ())):
+        if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: need contiguous int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if C1 < 1 or size < 0 or not 1 <= total < 1 << 31:
+        raise ValueError(f"bloom2_compact needs C1 >= 1, size >= 0 and 1 <= total < 2^31 "
+                         f"(C1={C1}, size={size}, total={total})")
+    if not _build.on_cuda(b2.words, pos1, qh1, ql1, n1):
+        return bloom2_compact_ref(b2, stage1, total, size)
+    dev = qh1.device
+    pos = torch.empty((size,), dtype=torch.int32, device=dev)
+    ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    scratch = torch.empty((1 + -(-C1 // _probe_tile()),), dtype=torch.int64, device=dev)
+    _build.launch("kh_bloom2_compact", b2.words.data_ptr(), qh1.data_ptr(), ql1.data_ptr(),
+                  pos1.data_ptr(), n1.data_ptr(), pos.data_ptr(), ohi.data_ptr(),
+                  olo.data_ptr(), count.data_ptr(), scratch.data_ptr(), C1, b2.bits_log2, size,
+                  total, _build.stream(qh1))
+    bloom2_compact.launches += 1
+    return ProbeCompact(pos, ohi, olo, count)
+
+
+bloom2_compact.launches = 0
+
+
 class FilteredLookup(NamedTuple):
     pos: torch.Tensor  # (C,) int32 flat query positions of survivors (B = none)
     result: LookupResult  # exact lookup over the C compacted survivors
@@ -443,32 +499,18 @@ def filtered_lookup(bm: DeviceBitmap, table: SortedXTable, qhi: torch.Tensor,
                     qlo: torch.Tensor, cand_max: int, bm2: Optional[DeviceBloom2] = None,
                     stage1_max: Optional[int] = None) -> FilteredLookup:
     """Bitmap probe -> compact survivors -> exact search of the cand_max
-    compacted keys (bitmap.filtered_lookup). Survivors past cand_max are
-    dropped: callers check n_candidates > cand_max and rescan exactly.
-    With bm2 the cascade has two stages: the bitmap's survivors compacted
-    to stage1_max (default 4 * cand_max), the bloom2 probe of those, its
-    survivors compacted to cand_max and searched; positions are in the
-    original (B,) query space (B where none), and a stage-1 overflow is
-    poisoned to n + cand_max so the one check covers both stages. No host
-    sync."""
-    b = qhi.shape[0]
-    if bm2 is None:
-        pc = probe_compact(bm, qhi, qlo, cand_max)
-        lr = lookup(table, pc.qhi, pc.qlo)
-        valid = pc.pos < b
-        return FilteredLookup(pc.pos, LookupResult(lr.found & valid, lr.idx,
-                                                   lr.found2 & valid, lr.idx2), pc.n)
-    C1 = stage1_max if stage1_max is not None else 4 * cand_max
-    pos1, qh1, ql1, n = probe_compact(bm, qhi, qlo, C1)
-    mask2 = probe_bloom2(bm2, qh1, ql1) & (pos1 < b)
-    n2 = mask2.sum(dtype=torch.int32)
-    pos2 = compact_positions(mask2, cand_max, C1)
-    safe2 = pos2.clamp(max=C1 - 1).long()
-    lr = lookup(table, qh1[safe2], ql1[safe2])
-    valid = pos2 < C1
-    return FilteredLookup(torch.where(valid, pos1[safe2], b),
-                          LookupResult(lr.found & valid, lr.idx, lr.found2 & valid, lr.idx2),
-                          torch.where(n > C1, n + cand_max, n2))
+    compacted keys (bitmap.filtered_lookup): filtered_survivors, then
+    sorted_table.lookup of its keys. Survivors past cand_max are dropped:
+    callers check n_candidates > cand_max and rescan exactly. With bm2 the
+    cascade has two stages (see filtered_survivors); positions are in the
+    original (B,) query space (B where none). No host sync. The BSGS chunk
+    does not come here: its search runs in the summary kernel
+    (engine/bsgs.py chunk_summary)."""
+    fs = filtered_survivors(bm, qhi, qlo, cand_max, bm2, stage1_max)
+    lr = lookup(table, fs.qhi, fs.qlo)
+    valid = fs.pos < qhi.shape[0]
+    return FilteredLookup(fs.pos, LookupResult(lr.found & valid, lr.idx, lr.found2 & valid,
+                                               lr.idx2), fs.n_candidates)
 
 
 class FilteredSurvivors(NamedTuple):
@@ -482,18 +524,14 @@ def filtered_survivors(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
                        cand_max: int, bm2: Optional[DeviceBloom2] = None,
                        stage1_max: Optional[int] = None) -> FilteredSurvivors:
     """Bitmap probe -> compact -> (bloom2 probe -> compact), no exact search
-    (bitmap.filtered_survivors). Callers check n_candidates > cand_max and
-    fall back to an exact host rescan; a stage-1 overflow is poisoned to
-    n + cand_max so the one check covers both stages."""
+    (bitmap.filtered_survivors): probe_compact, then with bm2 its survivors
+    compacted to stage1_max (default 4 * cand_max) and bloom2_compact of
+    those to cand_max. Two launches on the card. Callers check
+    n_candidates > cand_max and fall back to an exact rescan; a stage-1
+    overflow is poisoned to n + cand_max so the one check covers both
+    stages."""
     if bm2 is None:
         return FilteredSurvivors(*probe_compact(bm, qhi, qlo, cand_max))
-    b = qhi.shape[0]
     C1 = stage1_max if stage1_max is not None else 4 * cand_max
-    pos1, qh1, ql1, n = probe_compact(bm, qhi, qlo, C1)
-    mask2 = probe_bloom2(bm2, qh1, ql1) & (pos1 < b)
-    n2 = mask2.sum(dtype=torch.int32)
-    pos2 = compact_positions(mask2, cand_max, C1)
-    safe2 = pos2.clamp(max=C1 - 1).long()
-    pos = torch.where(pos2 < C1, pos1[safe2], b)
-    n_out = torch.where(n > C1, n + cand_max, n2)
-    return FilteredSurvivors(pos, qh1[safe2], ql1[safe2], n_out)
+    return FilteredSurvivors(*bloom2_compact(bm2, probe_compact(bm, qhi, qlo, C1),
+                                             qhi.shape[0], cand_max))

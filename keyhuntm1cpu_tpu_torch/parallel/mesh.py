@@ -42,8 +42,8 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import Checkpoint, fingerprint
-from ..engine.bsgs import (BSGSEngine, BSGSParams, _chunk_walk, _ImmediateHit, _live, _pack,
-                           chunk_impl, device_budgets, write_table)
+from ..engine.bsgs import (BSGSEngine, BSGSParams, _chunk_walk, _ImmediateHit, chunk_impl,
+                           chunk_summary, device_budgets, write_table)
 from ..engine.common import Deadline, FoundKey, summary_to_host
 from ..filter import bitmap as bmp
 from ..filter import sorted_table as st
@@ -437,43 +437,42 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
         """Write the table (from its shards) as the JAX package's table file."""
         write_table(path, self._host_table())
 
-    def _probe(self, e: int, qhi, qlo, deg, B: int, C1: int):
-        """Prober e's filtered lookup of flat queries (B = their count) and
-        its live candidates: (positions (B where none), j, j2, count)."""
-        fl = bmp.filtered_lookup(self.shard_bitmaps[e], self.shards[e], qhi, qlo, self.C2,
-                                 bm2=self.shard_blooms[e], stage1_max=C1)
-        live, r = _live(deg, fl.pos, B), fl.result
-        return (torch.where((r.found | r.found2) & live, fl.pos, B),
-                torch.where(r.found & live, r.idx, 0),
-                torch.where(r.found2 & live, r.idx2, 0), fl.n_candidates)
+    def _probe(self, e: int, qhi, qlo, deg, adv, C1: int, rows=None):
+        """Prober e's cascade over flat queries (their (n, U) degenerate and
+        (n,) advance flags beside them) and the summary of its live
+        candidates (engine/bsgs.py chunk_summary): positions (B = n*U where
+        none), j, j2, then with rows = (deg, adv) of the prober's own walk
+        its row words, then the count. On the card: the level-1 probe, the
+        bloom2 stage and the summary kernel."""
+        fs = bmp.filtered_survivors(self.shard_bitmaps[e], qhi, qlo, self.C2,
+                                    bm2=self.shard_blooms[e], stage1_max=C1)
+        return chunk_summary(self.shards[e], *fs, deg, adv, rows)
 
     def _sharded_chunk(self, bases):
         p = self.p
         T, K, U, D = len(self.targets), p.steps_per_chunk, p.block_u, self.n_shards
         B = T * K * U
-        nxt, blocks, degs = [], [], []
+        nxt, blocks = [], []
         for (px, py), d in zip(bases, self.devices):
             w = self._walk[d]
             res, deg, adv_flat = _chunk_walk(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y,
                                              U, K, T, w.adv_tab)
             nxt.append((res.next_x, res.next_y))
-            blocks.append((res.qhi.reshape(-1), res.qlo.reshape(-1), deg.reshape(-1)))
-            degs.append((deg, adv_flat))
+            blocks.append((res.qhi.reshape(-1), res.qlo.reshape(-1), deg, adv_flat))
         probe = self._ring if p.table_comm == "ring" else self._all_gather
-        outs = [_pack(list(cands[:3]), *degs[e], cands[3])
-                for e, cands in enumerate(probe(blocks, B))]
-        return nxt, self._to_host(outs, D * B)
+        return nxt, self._to_host(probe(blocks, B), D * B)
 
     def _all_gather(self, blocks, B: int):
         """Every prober probes the D sources' queries, concatenated in
-        source order on its device (once a distinct device)."""
+        source order on its device (once a distinct device); one summary
+        launch a prober writes its candidates and its own walk's rows."""
         gathered = {}
         out = []
         for e, d in enumerate(self.devices):
             if d not in gathered:
                 gathered[d] = [torch.cat([blk[i].to(d, non_blocking=True) for blk in blocks])
-                               for i in range(3)]
-            out.append(self._probe(e, *gathered[d], self.n_shards * B, self.C1))
+                               for i in range(4)]
+            out.append(self._probe(e, *gathered[d], self.C1, rows=blocks[e][2:]))
         return out
 
     def _fetch(self, blocks, r: int):
@@ -498,7 +497,8 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
         """D hops; in hop r prober e probes the block that originated at
         shard (e - r) mod D, while the next hop's copies run on the side
         streams. Each prober's (D, C2) hits are compacted at the end; its
-        count is the larger of its hops' counts and its hits."""
+        count is the larger of its hops' counts and its hits; a summary
+        launch without candidates writes its own walk's rows and the count."""
         D, C2 = self.n_shards, self.C2
         C1 = self.C1
         acc = [[] for _ in range(D)]
@@ -511,9 +511,11 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
                     main.wait_event(ev)
                     for t in blk:
                         t.record_stream(main)
-                gpos, j, j2, n = self._probe(e, *blk, B, C1)
+                hop = self._probe(e, *blk, C1)
+                gpos, j, j2 = hop[:3 * C2].view(3, C2)
                 origin = (e - r) % D
-                acc[e].append((torch.where(gpos < B, origin * B + gpos, D * B), j, j2, n))
+                acc[e].append((torch.where(gpos < B, origin * B + gpos, D * B), j, j2,
+                               hop[3 * C2]))
         out = []
         for e in range(D):
             gpos, j, j2, n = (torch.stack(x) for x in zip(*acc[e]))
@@ -522,9 +524,17 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
             sel = bmp.compact_positions(hit, C2, D * C2)
             ok = sel < D * C2
             safe = sel.clamp(max=D * C2 - 1).long()
-            out.append((torch.where(ok, flat[safe], D * B), torch.where(ok, j.reshape(-1)[safe], 0),
-                        torch.where(ok, j2.reshape(-1)[safe], 0),
-                        torch.maximum(n.max(), hit.sum(dtype=torch.int32))))
+            deg, adv = blocks[e][2:]
+            row = torch.empty((3 * C2 + 3 * deg.shape[0] + 1,), dtype=torch.int32,
+                              device=deg.device)
+            torch.stack([torch.where(ok, flat[safe], D * B),
+                         torch.where(ok, j.reshape(-1)[safe], 0),
+                         torch.where(ok, j2.reshape(-1)[safe], 0)], out=row[:3 * C2].view(3, C2))
+            none = torch.empty((0,), dtype=torch.int32, device=deg.device)
+            chunk_summary(self.shards[e], none, none, none,
+                          torch.maximum(n.max(), hit.sum(dtype=torch.int32)), deg, adv,
+                          (deg, adv), row[3 * C2:])
+            out.append(row)
         return out
 
     def _decode_sharded(self, arr: np.ndarray, step: int, k: int):

@@ -1,0 +1,220 @@
+"""The BSGS chunk's cascade after the level-1 probe in the port
+(keyhuntm1cpu_tpu_torch/filter/bitmap.py bloom2_compact, the bloom2 stage;
+engine/bsgs.py chunk_summary and chunk_summary_host, the summary with the
+exact search) vs the JAX package, on the CPU, each at its own input
+contract, through its plain version and through its routed wrapper (which
+runs the plain version for CPU tensors):
+
+- the bloom2 stage on the level-1 output of the JAX composition (JAX
+  probe and compact_positions, gathers, count) equals the JAX
+  filtered_survivors with the same C1, C2: stage-1 padding (the padding's
+  key words are the fill key's, as host resolve ships them), a full stage
+  1 (they are stage-1 entry C1 - 1's) and no survivors at all;
+- the summary of survivors of tests/bsgs_cascade_cases.py (deg without the
+  lane U - 1 fix-up, and the advance flags) equals the packing of
+  bsgs._pallas_chunk_impl (JAX sorted_table.lookup and the packing ops,
+  restated in jnp) and of _pallas_chunk_impl_host, at T = 3, K = 4: rows
+  of different first degenerate lanes, lanes that only the advance flag
+  makes degenerate, and no survivors;
+- the sharded prober (parallel/mesh.py ShardedTableBSGSEngine._probe) on
+  2 CPU shards: each prober's all_gather summary equals the JAX
+  filtered_lookup of the gathered queries against its shard packed with
+  its own walk's rows; the ring's row words and candidates agree with it.
+
+Integer arithmetic: the tolerance is exact equality."""
+
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax  # noqa: E402
+import jax.numpy as jnp  # noqa: E402
+
+from keyhuntm1cpu_tpu.filter import bitmap as jb  # noqa: E402
+from keyhuntm1cpu_tpu.filter import sorted_table as jst  # noqa: E402
+from keyhuntm1cpu_tpu.ref import ecref  # noqa: E402
+from keyhuntm1cpu_tpu_torch.engine import bsgs  # noqa: E402
+from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSParams, _chunk_walk  # noqa: E402
+from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
+from keyhuntm1cpu_tpu_torch.filter import sorted_table as st  # noqa: E402
+from keyhuntm1cpu_tpu_torch.parallel import ShardedTableBSGSEngine  # noqa: E402
+from bsgs_cascade_cases import flags, survivors, table_keys  # noqa: E402
+
+torch.set_num_threads(1)
+T, K, U = 3, 4, 64
+R, B = T * K, T * K * U
+
+
+def _t(a):
+    """numpy u32 / int32 / bool -> a torch tensor of the port's dtype."""
+    a = np.array(a)  # a writable copy
+    return torch.from_numpy(a.view(np.int32) if a.dtype == np.uint32 else a)
+
+
+def _random_words(rng, bits, density):
+    """2^(bits-5) filter words, each bit set with probability 1 - 2^-density
+    (density 0: all zero)."""
+    n = 1 << (bits - 5)
+    if density == 0:
+        return np.zeros(n, np.uint32)
+    w = np.zeros(n, np.uint32)
+    for _ in range(density):
+        w |= rng.integers(0, 1 << 32, n, dtype=np.uint64).astype(np.uint32)
+    return w
+
+
+@pytest.mark.parametrize("case", ["half", "full", "none"])
+def test_bloom2_stage_matches_jax(case):
+    """bloom2_compact(_ref) on the JAX level-1 output equals the JAX
+    filtered_survivors' bloom2 stage word for word, its padding's key
+    words included."""
+    rng = np.random.default_rng(16)
+    nq, bits, b2bits = 4096, 12, 14
+    qhi, qlo = (rng.integers(0, 1 << 32, nq, dtype=np.uint64).astype(np.uint32)
+                for _ in range(2))
+    jbm = jb.DeviceBitmap(jnp.asarray(_random_words(rng, bits, 0 if case == "none" else 1)),
+                          bits)
+    jb2 = jb.DeviceBloom2(jnp.asarray(_random_words(rng, b2bits, 2)), b2bits)
+    mask = jb.probe(jbm, jnp.asarray(qhi), jnp.asarray(qlo))
+    n1 = int(mask.sum())
+    C1 = {"half": 2 * n1, "full": n1, "none": 64}[case]
+    C2 = C1  # room for every survivor: the stage-2 output ends in padding
+    pos1 = jb.compact_positions(mask, C1, nq)
+    safe1 = np.minimum(np.asarray(pos1), nq - 1)
+    stage1 = bmp.ProbeCompact(_t(np.asarray(pos1)), _t(qhi[safe1]), _t(qlo[safe1]),
+                              torch.tensor(n1, dtype=torch.int32))
+    want = jb.filtered_survivors(jbm, jnp.asarray(qhi), jnp.asarray(qlo), C2, bm2=jb2,
+                                 stage1_max=C1)
+    b2 = bmp.DeviceBloom2(_t(np.asarray(jb2.words)), b2bits)
+    n2 = int(want.n_candidates)
+    assert n2 < C2 and (n2 > 0) == (case != "none")
+    pad_key = (qhi[safe1[-1]], qlo[safe1[-1]])  # stage-1 entry C1 - 1
+    assert (pad_key == (qhi[-1], qlo[-1])) == (case != "full")  # else a real survivor's
+    for fn in (bmp.bloom2_compact_ref, bmp.bloom2_compact):
+        got = fn(b2, stage1, nq, C2)
+        assert np.array_equal(got.pos.numpy(), np.asarray(want.pos))
+        assert np.array_equal(got.qhi.numpy().view(np.uint32), np.asarray(want.qhi))
+        assert np.array_equal(got.qlo.numpy().view(np.uint32), np.asarray(want.qlo))
+        assert int(got.n) == n2
+        assert (got.qhi.numpy()[n2:].view(np.uint32) == pad_key[0]).all()
+
+
+def _jax_summary(jtable, pos, qhi, qlo, n, deg, adv, rows=None):
+    """bsgs._pallas_chunk_impl's packing (jtable None: _pallas_chunk_impl_host's)
+    of survivors (pos, qhi, qlo, n) over queries with flags deg (Rc, U),
+    adv (Rc,); rows: the summary rows' (deg, adv), default the same."""
+    Bq = deg.size
+    rdeg, radv = rows if rows is not None else (deg, adv)
+    fix = lambda d, a: jnp.asarray(d).at[:, U - 1].set(jnp.asarray(d)[:, U - 1] | jnp.asarray(a))
+    deg, rdeg = fix(deg, adv), fix(rdeg, radv)
+    pos = jnp.asarray(pos)
+    live = ~deg.reshape(-1)[jnp.minimum(pos, Bq - 1)]
+    if jtable is None:
+        words = [jnp.where((pos < Bq) & live, pos, Bq).astype(jnp.int32),
+                 jax.lax.bitcast_convert_type(jnp.asarray(qhi), jnp.int32),
+                 jax.lax.bitcast_convert_type(jnp.asarray(qlo), jnp.int32)]
+    else:  # filtered_lookup's search of the survivors, then the packing
+        r = jst.lookup(jtable, jnp.asarray(qhi), jnp.asarray(qlo))
+        valid = pos < Bq
+        found, found2 = r.found & valid, r.found2 & valid
+        words = [jnp.where((found | found2) & live, pos, Bq).astype(jnp.int32),
+                 jnp.where(found & live, r.idx, 0).astype(jnp.int32),
+                 jnp.where(found2 & live, r.idx2, 0).astype(jnp.int32)]
+    degsum = jnp.stack([rdeg.sum(axis=1).astype(jnp.int32),
+                        jnp.argmax(rdeg, axis=1).astype(jnp.int32),
+                        jnp.asarray(radv).astype(jnp.int32)])
+    return np.asarray(jnp.concatenate(words + [degsum.reshape(-1),
+                                               jnp.asarray([n], dtype=jnp.int32)]))
+
+
+@pytest.fixture(scope="module")
+def small_table():
+    """(port table, JAX table, (k,) uint64 hit keys, the last one duplicated)."""
+    keys, idx = table_keys(1000)
+    hi, lo = (keys >> np.uint64(32)).astype(np.uint32), keys.astype(np.uint32)
+    hits = np.concatenate([keys[:-2:5], keys[-1:]])
+    return st.build_sorted_table(hi, lo, idx), jst.build_sorted_table(hi, lo, idx), hits
+
+
+@pytest.mark.parametrize("resolve", ["device", "host"])
+@pytest.mark.parametrize("case", ["mixed", "adv_only", "none"])
+def test_summary_matches_jax(small_table, resolve, case):
+    """chunk_summary(_host) and chunk_summary_ref against the JAX packing,
+    T*K = 12 rows of U = 64 lanes, C = 64 survivors."""
+    table, jtable, hits = small_table
+    deg, adv = flags(case, R, U)
+    deg0 = deg.copy()
+    pos, qhi, qlo, n = survivors(case, 64, deg, adv, hits)
+    want = _jax_summary(jtable if resolve == "device" else None, pos, qhi, qlo, n, deg, adv)
+    tdeg, tadv = _t(deg), _t(adv)
+    args = (_t(pos), _t(qhi), _t(qlo), torch.tensor(n, dtype=torch.int32), tdeg, tadv,
+            (tdeg, tadv))
+    tab = table if resolve == "device" else None
+    routed = (bsgs.chunk_summary(table, *args) if resolve == "device"
+              else bsgs.chunk_summary_host(*args))
+    for got in (bsgs.chunk_summary_ref(tab, *args), routed):
+        assert got.dtype == torch.int32 and got.shape == (3 * 64 + 3 * R + 1,)
+        assert np.array_equal(got.numpy(), want)
+    assert np.array_equal(deg, deg0)  # the caller's flags are not fixed up in place
+    C = 64
+    degsum = want[3 * C: 3 * C + 3 * R].reshape(3, R)
+    if case == "mixed":  # rows 1, 5, 9 start at lanes 37, 59 and 18; rows 2, 6, 10 at U - 1
+        assert degsum[1, 1::4].tolist() == [37, 59, 18]
+        assert degsum[1, 2::4].tolist() == [U - 1] * 3 and degsum[0, 3::4].tolist() == [1] * 3
+    if case == "adv_only":  # only the advance flags: lane U - 1 of every third row
+        assert degsum[0].tolist() == degsum[2].tolist() == [1, 0, 0] * 4
+        dropped = [c for c in range(C) if pos[c] % U == U - 1 and adv[pos[c] // U]]
+        assert dropped and all(want[c] == B for c in dropped)
+    if resolve == "device" and case != "none":
+        live_hits = want[:C] < B
+        assert live_hits.any() and (want[2 * C: 3 * C] > 0).any()  # found2 too
+    if case == "none":
+        assert (want[:C] == B).all() and want[-1] == 0
+
+
+@pytest.mark.parametrize("comm", ["all_gather", "ring"])
+def test_sharded_probe_matches_jax(comm):
+    """2 CPU shards of a baby table, a key in the first sharded chunk, through ShardedTableBSGSEngine._sharded_chunk: each
+    prober's summary equals the JAX filtered_lookup of the D sources'
+    gathered queries against its table shard, bitmap and bloom2, packed with
+    its own walk's rows (all_gather word for word; the ring: the same row
+    words and live candidates as a set)."""
+    D, m, u, k = 2, 2048, 16, 8
+    params = BSGSParams(m=m, block_u=u, steps_per_chunk=k, build_block=256, cascade2="on",
+                        table_comm=comm)
+    a = 0x500000
+    eng = ShardedTableBSGSEngine([ecref.scalar_mult(a + 999)], a, a + D * k * u * 2 * m,
+                                 params, devices=[torch.device("cpu")] * D)
+    bases = eng._bases_at(0)
+    walks = [_chunk_walk(px, py, eng._walk[d].tab_x, eng._walk[d].tab_y, eng._walk[d].adv_x,
+                         eng._walk[d].adv_y, u, k, 1, eng._walk[d].adv_tab)
+             for (px, py), d in zip(bases, eng.devices)]
+    Bs = k * u
+    _, (host, _) = eng._sharded_chunk(bases)
+    rows = host.numpy()[:-1].reshape(D, -1)
+    gq = [np.concatenate([getattr(w[0], f).reshape(-1).numpy().view(np.uint32)
+                          for w in walks]) for f in ("qhi", "qlo")]
+    gdeg = np.concatenate([w[1].numpy() for w in walks])
+    gadv = np.concatenate([w[2].numpy() for w in walks])
+    C2 = eng.C2
+    n_live = 0
+    for e in range(D):
+        hi, lo, idx = st.table_planes(eng.shards[e])
+        jt = jst.SortedXTable(jnp.asarray(hi), jnp.asarray(lo), jnp.asarray(idx))
+        jbm = jb.DeviceBitmap(jnp.asarray(eng.shard_bitmaps[e].words.numpy().view(np.uint32)),
+                              eng.shard_bits)
+        jb2 = jb.DeviceBloom2(jnp.asarray(eng.shard_blooms[e].words.numpy().view(np.uint32)),
+                              eng.shard_b2_bits)
+        fs = jb.filtered_survivors(jbm, jnp.asarray(gq[0]), jnp.asarray(gq[1]), C2, bm2=jb2,
+                                   stage1_max=eng.C1)
+        want = _jax_summary(jt, fs.pos, fs.qhi, fs.qlo, int(fs.n_candidates), gdeg, gadv,
+                            rows=(walks[e][1].numpy(), walks[e][2].numpy()))
+        n_live += int((want[:C2] < D * Bs).sum())
+        if comm == "all_gather":
+            assert np.array_equal(rows[e], want)
+        else:
+            assert np.array_equal(rows[e][3 * C2:-1], want[3 * C2:-1])
+            live = lambda r: {tuple(c) for c in r[:3 * C2].reshape(3, C2).T if c[0] < D * Bs}
+            assert live(rows[e]) == live(want)
+    assert n_live and eng._use_bloom2 and gdeg.shape == (D * k, u)

@@ -1,6 +1,9 @@
 """CUDA kernels K1-K8 (K3 in each form), the minikey compaction and key
 derivation, pinv, the Keccak ETH
-hash, the probe, the two walker walk kernels, the walker step's lookup
+hash, the probe, the BSGS chunk's bloom2 stage and summary (at the main
+path's C1 = 34,816, C2 = 1,536, 256 rows of U = 16,384, a 2^28-key table
+and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py),
+the two walker walk kernels, the walker step's lookup
 and summary, the fused brute chunk's compaction and summary
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
 at small odd sizes (partial blocks; K4 at ragged row groups and column
@@ -31,6 +34,7 @@ from keyhuntm1cpu_tpu_torch.filter import sorted_table as st  # noqa: E402
 from keyhuntm1cpu_tpu_torch.hash import phash, pminikey  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
+import bsgs_cascade_cases  # noqa: E402
 import walker_lookup_cases  # noqa: E402
 from brute_compact_cases import CASES, make_case  # noqa: E402
 
@@ -598,6 +602,102 @@ def test_probe_compact_kernel_matches_plain(dev, B, regime):
     for a, b in zip(got, want):
         assert torch.equal(a, b)
     assert int(got.n) == n
+
+
+@pytest.mark.parametrize("shape", ["host", "device", "ragged"])
+@pytest.mark.parametrize("case", bsgs_cascade_cases.STAGE_CASES)
+def test_bloom2_compact_kernel_matches_plain(dev, case, shape):
+    """kh_bloom2_compact against bloom2_compact_ref: the main path's C1 =
+    34,816 stage-1 survivors of B = 4,194,304 queries compacted to C2 =
+    1,536 against a 2^35-bit (host resolve's) and a 2^32-bit (a device
+    table's) bloom2 of density 1/4 (about 1/16 pass: padding at half a
+    stage 1, a C2 overflow at a full one); C1 = 1,000 from unaligned views
+    (the scalar loads); one launch a call."""
+    C1, C2, B, bits = {"host": (34816, 1536, 4194304, 35), "device": (34816, 1536, 4194304, 32),
+                       "ragged": (1000, 100, 5000, 20)}[shape]
+    g = torch.Generator(device=dev).manual_seed(C1 + bits)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    b2 = bmp.DeviceBloom2(rnd(1 << (bits - 5)) & rnd(1 << (bits - 5)), bits)
+    pos1, qh1, ql1, n1 = bsgs_cascade_cases.stage1(case, C1, B)
+    off = 1 if shape == "ragged" else 0
+    on_dev = lambda a: torch.from_numpy(np.concatenate([a[:off], a]).view(np.int32)).to(dev)[off:]
+    stage1 = bmp.ProbeCompact(on_dev(pos1), on_dev(qh1), on_dev(ql1),
+                              torch.tensor(n1, dtype=torch.int32, device=dev))
+    launches = bmp.bloom2_compact.launches
+    got = bmp.bloom2_compact(b2, stage1, B, C2)
+    torch.cuda.synchronize()
+    assert bmp.bloom2_compact.launches == launches + 1
+    want = bmp.bloom2_compact_ref(b2, stage1, B, C2)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    n2 = int(want.n)
+    assert (n2 == 0) == (case == "none")
+    if shape != "ragged":  # ~1,088 survivors of half a stage 1, ~2,176 of a full one
+        assert (n2 > C2) == (case in ("full", "over"))
+
+
+@pytest.fixture(scope="module")
+def main_table(dev):
+    """A 2^28-key sorted table on the card (its last key twice: found2) and
+    4,097 of its keys as uint64 (the duplicated one last)."""
+    m = 1 << 28
+    g = torch.Generator(device=dev).manual_seed(28)
+    half = lambda: torch.randint(-2**31, 2**31, (m,), dtype=torch.int32, device=dev,
+                                 generator=g).to(torch.int64)
+    key = torch.sort((half() << 32) | (half() & 0xFFFFFFFF)).values
+    key[-1] = key[-2]
+    pick = torch.cat([torch.randint(0, m - 2, (4096,), device=dev, generator=g),
+                      torch.tensor([m - 1], device=dev)])
+    hits = key[pick].cpu().numpy().view(np.uint64) ^ np.uint64(1 << 63)
+    table = st.SortedXTable(key, torch.arange(1, m + 1, dtype=torch.int32, device=dev))
+    yield table, hits
+    del table, key
+    torch.cuda.empty_cache()
+
+
+@pytest.mark.parametrize("form", ["device", "host", "no_rows", "no_candidates", "small"])
+@pytest.mark.parametrize("case", bsgs_cascade_cases.SUMMARY_CASES)
+def test_chunk_summary_kernel_matches_plain(dev, main_table, case, form):
+    """kh_bsgs_summary against chunk_summary_ref at the main path's C2 =
+    1,536 survivors over T*K = 256 rows of U = 16,384 lanes and a 2^28-key
+    table, in device and host resolve; the ring's two forms (no rows; no
+    candidates, written into the tail of a row); and at U = 1,000 (rows not
+    16-byte aligned) with a 1-key table; one launch a call."""
+    R, U, C = (12, 1000, 300) if form == "small" else (256, 16384, 1536)
+    table, hits = main_table
+    if form == "small":
+        table = st.SortedXTable(table.key[-1:].clone(), table.idx[-1:].clone())
+        hits = hits[-1:]
+    deg, adv = bsgs_cascade_cases.flags(case, R, U)
+    pos, qhi, qlo, n = bsgs_cascade_cases.survivors(case, C, deg, adv, hits)
+    t = lambda a: torch.from_numpy(np.asarray(a).view(np.int32) if np.asarray(a).dtype
+                                   == np.uint32 else np.asarray(a)).to(dev)
+    tdeg, tadv = t(deg), t(adv)
+    cand = (t(pos), t(qhi), t(qlo), torch.tensor(n, dtype=torch.int32, device=dev))
+    rows, tab = (tdeg, tadv), table
+    if form == "host":
+        tab = None
+    elif form == "no_rows":
+        rows = None
+    elif form == "no_candidates":
+        cand = tuple(x[:0] for x in cand[:3]) + cand[3:]
+    fn = bsgs.chunk_summary_host if tab is None else (lambda *a, **k: bsgs.chunk_summary(
+        table, *a, **k))
+    counter = bsgs.chunk_summary_host if tab is None else bsgs.chunk_summary
+    launches = counter.launches
+    got = fn(*cand, tdeg, tadv, rows)
+    width = got.shape[0]
+    out = torch.full((width + 5,), -7, dtype=torch.int32, device=dev)
+    fn(*cand, tdeg, tadv, rows, out=out[5:])
+    torch.cuda.synchronize()
+    assert counter.launches == launches + 2
+    want = bsgs.chunk_summary_ref(tab, *cand, tdeg, tadv, rows)
+    assert torch.equal(got, want) and torch.equal(out[5:], want) and (out[:5] == -7).all()
+    assert torch.equal(tdeg.cpu(), torch.from_numpy(deg))
+    if form == "device" and case == "mixed":
+        w = want.cpu().numpy()
+        assert (w[:C] < R * U).any() and (w[2 * C: 3 * C] > 0).any()
 
 
 @pytest.mark.parametrize("W,U,L", [(7, 1000, 32), (3, 64, 7)])
