@@ -55,10 +55,15 @@ any failure exits non-zero before the result line:
    the BSGS chunk's bloom2 stage (kh_bloom2_compact: C1 = 34,816 stage-1
    survivors of 4,194,304 queries into C2 = 1,536 against host resolve's
    2^35-bit and a device table's 2^32-bit bloom2, at their densities and
-   at a stage-2 overflow) and summary (kh_bsgs_summary in both resolve
-   modes and the ring's two forms: C2 survivors over 256 rows of
-   U = 16,384 and a 2^28-key table, flags and hits planted), each beside
-   the torch composition it replaced;
+   at a stage-2 overflow; also at m = 2^30's C1 = 134,656, and after a
+   zero fill of its scratch, one more device operation as PR 16's memset
+   was) and summary
+   (kh_bsgs_summary in both resolve modes and the ring's two forms: C2
+   survivors over 256 rows of U = 16,384 and a 2^28-key table, flags and
+   hits planted; also with a cold L2 and at m = 2^30's survivors), each
+   beside the torch composition it replaced; the compact kernels'
+   scratch reused by 1,000 launches on two streams with no memset
+   (C1 between tile boundaries), each equal to its plain version;
    each kernel's device time
    (device_ms: CUDA events around back-to-back runs queued behind a sleep
    kernel) beside its plain version's time.
@@ -73,7 +78,10 @@ any failure exits non-zero before the result line:
    key, or the range's end), in keys/s = chunks*K*U*2m/s, with the device's
    idle share over that window (CUDA events around each chunk), then the
    chunk time split over K1, K2, cascade and host decode (on the card:
-   device_ms), one streaming-build step's device operations
+   device_ms) and over K1, K2, the probe, the bloom2 stage and the
+   summary (chunk_split; also one chunk at m = 2^30 on filters streamed
+   on the card, held to its plain versions, phase3_m30), one
+   streaming-build step's device operations
    (torch.profiler) and card time; one chunk through the kernels held
    to the same chunk through the plain versions (chunk_composition) and
    beside the torch route (the earlier chunk: torch ops after the level-1 probe): each one's
@@ -309,7 +317,8 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                         "times the two together"},
                 "probe": {"note": "ms, plain_ms and bound_ms: the fused level-1 form "
                                   "(kh_probe_compact: probe, ordered compaction to C1 and "
-                                  "the survivors' keys) at the BSGS chunk's 4,194,304 "
+                                  "the survivors' keys; no memset, the scratch is left "
+                                  "zero) at the BSGS chunk's 4,194,304 "
                                   "queries against 2^35 bits; library_ms: words[idx], "
                                   "the gather alone; launches count the fused, mask and "
                                   "bloom2 forms"},
@@ -338,7 +347,12 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                            "ms at the main path's C1 = 34,816 stage-1 "
                                            "survivors (32,768 live) into C2 = 1,536 "
                                            "against host resolve's 2^35-bit bloom2 "
-                                           "(density 1/64), with the scratch's memset; "
+                                           "(density 1/64), no memset (the scratch is left "
+                                           "zero); with_fill_ms: the same after a zero fill "
+                                           "of the scratch, one more device operation as "
+                                           "PR 16's memset was; ms_m30, "
+                                           "bound_ms_m30, replaced_ms_m30: m = 2^30's C1 = "
+                                           "134,656 (131,072 live, density 1/16); "
                                            "replaced_ms: the torch composition it "
                                            "replaced (the bloom2 probe kernel, then torch "
                                            "ops) on the card; no torch call computes it"},
@@ -350,7 +364,10 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                           "the row summary, the packing), kh_bsgs_summary "
                                           "with a table; ms at C2 = 1,536 survivors (512 "
                                           "of them real) over 256 rows of U = 16,384 and a "
-                                          "2^28-key table; replaced_ms: its torch "
+                                          "2^28-key table; cold_ms: the same after a 64 MB "
+                                          "fill (the L2 as a chunk's probe leaves it); "
+                                          "ms_m30: C2 = 1,536 with m = 2^30's 482 "
+                                          "expected survivors; replaced_ms: its torch "
                                           "composition (sorted_table.lookup and the "
                                           "packing ops) on the card; no torch call "
                                           "computes it"},
@@ -358,9 +375,10 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                                "_pallas_chunk_impl_host after its cascade "
                                                "(engine/bsgs.py:1711-1752), kh_bsgs_summary "
                                                "without a table (the keys pass through); "
-                                               "the same shape as chunk_summary; "
-                                               "replaced_ms: its torch composition on the "
-                                               "card; no torch call computes it"}}
+                                               "the same shapes and readings as "
+                                               "chunk_summary; replaced_ms: its torch "
+                                               "composition on the card; no torch call "
+                                               "computes it"}}
 BRUTE_RANGE = (1 << 40, (1 << 40) + (1 << 50))  # bench_modes.py's brute range
 BRUTE_SECONDS = 5.0  # throughput window of each phase-4 mode (bench_modes.py's)
 MK_BATCH, MK_PREFIX, MK_COUNTER = 1 << 23, "Sbenchmark1x", 1 << 31  # bench_modes.py:154-191
@@ -385,6 +403,10 @@ SHARDS = 4  # phases 6a-6c, 6e: shards, on the visible cards repeated up to this
 SHARD_SECONDS = 5.0  # throughput window of each phase-6 cell
 PREV_SECONDS = 5.0  # phases 3, 3d: the window on the torch route (torch ops after the probe)
 CASCADE_C, CASCADE_M = (34816, 1536), 1 << 28  # phase 1: the cascade's C1, C2 and table at m = 2^28
+# m = 2^30's host-resolve budgets (BSGSEngine._cascade_budgets, K*U queries
+# into 2^35 + 2^35 bits): C1 from 131,072 expected level-1 survivors, C2
+# from their 482 expected after the bloom2 (fp 0.0037)
+CASCADE_30 = (134656, 1536)
 MH_M = 1 << 24  # phases 6d, 6e: the baby-table size of the subprocesses
 BENCH_ENV = {"BENCH_M": str(1 << 22), "BENCH_SECONDS": "2", "BENCH_MODE_SECONDS": "1",
              "BENCH_RESOLVE": "host"}  # phase 7
@@ -597,9 +619,10 @@ def enqueue_ms(fn, reps):
     return ms
 
 
-def device_launches(fn):
-    """Kernels, copies and fills that fn() put on the card, counted from
-    torch.profiler's CUDA activity (0 when the profiler saw none)."""
+def device_ops(fn):
+    """(kernels, copies and fills that fn() put on the card, the memsets
+    among them), counted from torch.profiler's CUDA activity ((0, 0) when
+    the profiler saw none)."""
     import torch
     from torch.profiler import ProfilerActivity, profile
 
@@ -607,7 +630,13 @@ def device_launches(fn):
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         fn()
         torch.cuda.synchronize()
-    return sum(e.device_type == torch.autograd.DeviceType.CUDA for e in prof.events())
+    evs = [e for e in prof.events() if e.device_type == torch.autograd.DeviceType.CUDA]
+    return len(evs), sum("memset" in e.name.lower() for e in evs)
+
+
+def device_launches(fn):
+    """Kernels, copies and fills that fn() put on the card (device_ops)."""
+    return device_ops(fn)[0]
 
 
 def ptxas_summary(log):
@@ -1610,9 +1639,18 @@ def phase1_bsgs(dev, results, clock):
     at data the main path gives it (a filter's density, the survivors a
     chunk has) and at denser data (a stage-2 overflow; flags on many rows,
     advance-only lanes, hits on degenerate lanes), timed beside the torch
-    composition it replaced."""
+    composition it replaced, and again at m = 2^30's shape (C1 = 134,656,
+    131,072 live, at the 2^35-bit bloom2's density 1/16; C2 = 1,536 with the 482
+    survivors its budget expects); the bloom2 stage also with a zero fill
+    of its scratch before each launch, one more device operation as PR
+    16's memset was (device operations and ms), and the summary also with a cold L2 (a 64 MB fill
+    between runs, as a chunk's probe leaves it). Then the scratch-reuse
+    gate: 1,000 launches of the compact kernels on two streams, each on
+    its stream's scratch pair, C1 between tile boundaries, each equal to
+    its plain version, each stream's next scratch zero after."""
     import torch
 
+    from keyhuntm1cpu_tpu_torch import _build
     from keyhuntm1cpu_tpu_torch.engine import bsgs
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
     from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
@@ -1621,6 +1659,7 @@ def phase1_bsgs(dev, results, clock):
     rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
                                   generator=g)
     B, (C1, C2), R = K * U, CASCADE_C, K  # T = 1
+    flush = torch.empty((1 << 24,), dtype=torch.int32, device=dev)  # 64 MB, past the L2
 
     def bloom(bits, ands):
         """2^bits bloom2 bits, each set with probability 2^-ands."""
@@ -1629,22 +1668,33 @@ def phase1_bsgs(dev, results, clock):
             w &= rnd(1 << (bits - 5))
         return bmp.DeviceBloom2(w, bits)
 
-    def stage1(n1):
-        pos = torch.full((C1,), B, dtype=torch.int32, device=dev)
-        k = min(n1, C1)
+    def stage1(n1, c1=C1):
+        pos = torch.full((c1,), B, dtype=torch.int32, device=dev)
+        k = min(n1, c1)
         pos[:k] = torch.sort(torch.randperm(B, device=dev, generator=g)[:k]).values.int()
-        qh, ql = rnd(C1), rnd(C1)
+        qh, ql = rnd(c1), rnd(c1)
         qh[k:], ql[k:] = qh[-1].item(), ql[-1].item()
         return bmp.ProbeCompact(pos, qh, ql, torch.tensor(n1, dtype=torch.int32, device=dev))
 
-    def replaced_stage(b2, s1):
+    def replaced_stage(b2, s1, c2=C2):
         """The bloom2 stage before its kernel: the bloom2 probe kernel, then torch ops."""
         pos1, qh1, ql1, n1 = s1
+        c1 = pos1.shape[0]
         mask2 = bmp.probe_bloom2(b2, qh1, ql1) & (pos1 < B)
-        pos2 = bmp.compact_positions(mask2, C2, C1)
-        safe2 = pos2.clamp(max=C1 - 1).long()
-        return (torch.where(pos2 < C1, pos1[safe2], B), qh1[safe2], ql1[safe2],
-                torch.where(n1 > C1, n1 + C2, mask2.sum(dtype=torch.int32)))
+        pos2 = bmp.compact_positions(mask2, c2, c1)
+        safe2 = pos2.clamp(max=c1 - 1).long()
+        return (torch.where(pos2 < c1, pos1[safe2], B), qh1[safe2], ql1[safe2],
+                torch.where(n1 > c1, n1 + c2, mask2.sum(dtype=torch.int32)))
+
+    def time_stage(b2, s1, c2):
+        """(ms, plain ms, replaced ms, bound ms, bound_by, survivors) of the bloom2 stage."""
+        c1 = s1.pos.shape[0]
+        ms, got = device_ms(lambda: bmp.bloom2_compact(b2, s1, B, c2), 50)
+        pms, _ = timed(lambda: bmp.bloom2_compact_ref(b2, s1, B, c2), 3)
+        rms, _ = device_ms(lambda: replaced_stage(b2, s1, c2), 50)
+        live1 = min(int(s1.n), c1)
+        bms, by_ = bound_ms(40 * live1, 12 * c1 + 64 * live1 + 12 * c2 + 8, clock)
+        return ms, pms, rms, bms, by_, int(got.n)
 
     # the bloom2 stage: m = 2^28 fills 2m of 2^35 bits (host) and of 2^32 (device)
     n1 = B * (1 << 28) >> MAIN_BITS  # the level-1 survivors of a chunk at m = 2^28
@@ -1657,23 +1707,48 @@ def phase1_bsgs(dev, results, clock):
             fail(f"bloom2_compact differs from its plain version at 2^{bits} bits, density "
                  f"2^-{ands}, n1 {n} (max_abs_err {e})")
         if bits == MAIN_BITS and ands == 6:
-            ms, _ = device_ms(lambda: bmp.bloom2_compact(b2, s1, B, C2), 50)
-            pms, _ = timed(lambda: bmp.bloom2_compact_ref(b2, s1, B, C2), 3)
-            rms, _ = device_ms(lambda: replaced_stage(b2, s1), 50)
-            n2 = int(got.n)
-            live1 = min(n, C1)
-            bms, by_ = bound_ms(40 * live1, 12 * C1 + 64 * live1 + 12 * C2 + 8, clock)
+            ms, pms, rms, bms, by_, n2 = time_stage(b2, s1, C2)
+            # as PR 16 launched it: the scratch zeroed first, then the kernel
+            st_ = _build.stream(s1.qhi)
+            sc = bmp._SCRATCH[(st_.device, int(st_))]
+            with_fill = lambda: (sc.buf[sc.turn].zero_(), bmp.bloom2_compact(b2, s1, B, C2))[1]
+            fms, _ = device_ms(with_fill, 50)
+            ops, memsets = device_ops(lambda: bmp.bloom2_compact(b2, s1, B, C2))
+            ops0, memsets0 = device_ops(with_fill)
             results["bloom2_compact"] = dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
-                                             bound_by=by_, replaced_ms=rms)
-            log(f"bloom2_compact C1={C1} ({live1} live) -> C2={C2} against 2^{bits} bits (density "
-                f"1/64): equal to plain and to the torch composition, {n2} survivors; {ms:.4f} "
-                f"ms (plain {pms:.3f} ms, the composition it replaced {rms:.4f} ms on the "
-                f"card, bound {bms:.5f} ms by {by_})")
+                                             bound_by=by_, replaced_ms=rms, with_fill_ms=fms)
+            log(f"bloom2_compact C1={C1} ({min(n, C1)} live, {-(-C1 // bmp._probe_tile(True))} "
+                f"tiles) -> C2={C2} against 2^{bits} bits (density 1/64): equal to plain and to "
+                f"the torch composition, {n2} survivors; {ms:.4f} ms (plain {pms:.3f} ms, the "
+                f"composition it replaced {rms:.4f} ms on the card, bound {bms:.5f} ms by "
+                f"{by_}); with a zero fill of its scratch first, as PR 16's memset, "
+                f"{fms:.4f} ms; device operations {ops} ({memsets} memsets) a stage, {ops0} "
+                f"({memsets0} memsets) with the fill")
         else:
             log(f"bloom2_compact at 2^{bits} bits, density 2^-{ands}, n1 {n}: equal to plain "
                 f"({int(got.n)} survivors{', past C2' if int(got.n) > C2 else ''})")
         del b2, s1, got, want
         torch.cuda.empty_cache()
+
+    # m = 2^30 (host resolve, the bench's headline): C1 = 134,656 stage-1
+    # entries, B * 2^30 / 2^35 = 131,072 of them live, bloom2 load 2m/2^35
+    c1_30, c2_30 = CASCADE_30
+    n1_30 = B * (1 << 30) >> MAIN_BITS
+    b2, s1 = bloom(MAIN_BITS, 4), stage1(n1_30, c1_30)
+    got = bmp.bloom2_compact(b2, s1, B, c2_30)
+    e = max_abs_err(got, bmp.bloom2_compact_ref(b2, s1, B, c2_30)) + max_abs_err(
+        got, replaced_stage(b2, s1, c2_30))
+    if e:
+        fail(f"bloom2_compact differs from its plain version at m = 2^30's shape (max_abs_err {e})")
+    ms, pms, rms, bms, by_, n2 = time_stage(b2, s1, c2_30)
+    results["bloom2_compact"] |= dict(ms_m30=ms, replaced_ms_m30=rms, bound_ms_m30=bms)
+    log(f"bloom2_compact at m = 2^30's shape: C1={c1_30} ({n1_30} live, "
+        f"{-(-c1_30 // bmp._probe_tile(True))} tiles) -> C2={c2_30} against 2^{MAIN_BITS} bits "
+        f"(density 1/16): equal to plain and to the torch composition, {n2} survivors; "
+        f"{ms:.4f} ms (plain {pms:.3f} ms, the composition it replaced {rms:.4f} ms, bound "
+        f"{bms:.5f} ms by {by_})")
+    del b2, s1, got
+    torch.cuda.empty_cache()
 
     # the summary: a 2^28-key table, survivors with planted hits
     m = CASCADE_M
@@ -1707,10 +1782,16 @@ def phase1_bsgs(dev, results, clock):
         return (pos, qh.contiguous(), ql.contiguous(),
                 torch.tensor(n, dtype=torch.int32, device=dev), deg, adv)
 
+    def cold_ms(fn):
+        """fn()'s card time after a 64 MB fill: the fill and fn, less the fill alone."""
+        both, _ = device_ms(lambda: (flush.zero_(), fn())[1], 50)
+        alone, _ = device_ms(flush.zero_, 50)
+        return both - alone
+
     for name, tab in (("chunk_summary", table), ("chunk_summary_host", None)):
         fn = ((lambda *a: bsgs.chunk_summary(table, *a)) if tab is not None
               else bsgs.chunk_summary_host)
-        for n, dense in ((C2 // 3, False), (C2 - 100, True), (0, True)):
+        for n, dense in ((C2 // 3, False), (C2 - 100, True), (0, True), (482, False)):
             pos, qh, ql, cnt, deg, adv = inputs(n, dense)
             args = (pos, qh, ql, cnt, deg, adv, (deg, adv))
             got = fn(*args)
@@ -1721,25 +1802,31 @@ def phase1_bsgs(dev, results, clock):
             if e or (tab is not None and n and not live):
                 fail(f"{name} differs from its plain version (n {n}, dense {dense}, "
                      f"max_abs_err {e}) or found no planted hit ({live} live)")
-            if not dense:
-                ms, _ = device_ms(lambda: fn(*args), 50)
-                pms, _ = timed(lambda: bsgs.chunk_summary_ref(tab, *args), 3)
-                rms, _ = device_ms(lambda: bsgs.chunk_summary_ref(tab, *args), 50)
-                searched = int(((pos < B) & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()])
-                               .sum()) if tab is not None else 0
-                out_b = 4 * (3 * C2 + 3 * R + 1)
-                bms, by_ = bound_ms(searched * levels * 8 + R * U // 4,
-                                    R * U + R + 12 * C2 + 4 + searched * 8 * (levels + 2)
-                                    + out_b, clock)
-                results[name] = dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
-                                     bound_by=by_, replaced_ms=rms)
-                log(f"{name} C2={C2} ({n} survivors, {searched} searched over "
-                    f"2^{m.bit_length() - 1} keys, {live} live) R={R} U={U}: equal to plain; {ms:.4f} ms (plain "
-                    f"{pms:.3f} ms, the composition it replaced {rms:.4f} ms on the card, "
-                    f"bound {bms:.5f} ms by {by_})")
-            else:
-                log(f"{name} n={n}{' with dense flags' if dense else ''}: equal to plain "
-                    f"({live} live)")
+            if dense:
+                log(f"{name} n={n} with dense flags: equal to plain ({live} live)")
+                continue
+            ms, _ = device_ms(lambda: fn(*args), 50)
+            cms = cold_ms(lambda: fn(*args))
+            rms, _ = device_ms(lambda: bsgs.chunk_summary_ref(tab, *args), 50)
+            searched = int(((pos < B) & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()])
+                           .sum()) if tab is not None else 0
+            out_b = 4 * (3 * C2 + 3 * R + 1)
+            bms, by_ = bound_ms(searched * levels * 8 + R * U // 4,
+                                R * U + R + 12 * C2 + 4 + searched * 8 * (levels + 2)
+                                + out_b, clock)
+            if n == 482:  # m = 2^30's C2 and expected survivors
+                results[name] |= dict(ms_m30=ms, cold_ms_m30=cms, bound_ms_m30=bms)
+                log(f"{name} at m = 2^30's shape (C2={C2}, {n} survivors, {searched} "
+                    f"searched): equal to plain; {ms:.4f} ms, cold L2 {cms:.4f} ms (the "
+                    f"composition it replaced {rms:.4f} ms, bound {bms:.5f} ms by {by_})")
+                continue
+            pms, _ = timed(lambda: bsgs.chunk_summary_ref(tab, *args), 3)
+            results[name] = dict(max_abs_err=0, ms=ms, plain_ms=pms, bound_ms=bms,
+                                 bound_by=by_, replaced_ms=rms, cold_ms=cms)
+            log(f"{name} C2={C2} ({n} survivors, {searched} searched over "
+                f"2^{m.bit_length() - 1} keys, {live} live) R={R} U={U}: equal to plain; "
+                f"{ms:.4f} ms, cold L2 {cms:.4f} ms (plain {pms:.3f} ms, the composition it "
+                f"replaced {rms:.4f} ms on the card, bound {bms:.5f} ms by {by_})")
         # the ring's two forms: candidates without rows, rows without candidates
         pos, qh, ql, cnt, deg, adv = inputs(C2 - 100, True)
         none = pos[:0]
@@ -1749,9 +1836,72 @@ def phase1_bsgs(dev, results, clock):
             if e:
                 fail(f"{name}'s ring forms differ from the plain version (max_abs_err {e})")
         log(f"{name}: the ring's forms (no rows; no candidates) equal to plain")
-    del table, key
+    del table, key, flush
     torch.cuda.empty_cache()
+    scratch_reuse_gate(dev)
     torch.cuda.synchronize()
+
+
+def scratch_reuse_gate(dev):
+    """1,000 launches of the compact kernels back to back, taking turns on
+    two streams, each on its own stream's scratch pair with no memset: the
+    bloom2 stage at C1 between tile boundaries (one below, at and one above
+    135 tiles, the main path's 136 and m = 2^30's 526; 255 and 257) against
+    the 2^35-bit bloom2, and every fifth launch the level-1 form at the
+    main path's 4,194,304 queries and one more (a 2^35-bit bitmap of m =
+    2^28's density, into C1 = 34,816); each result equal to its
+    plain version's (computed first), every stream's next scratch zero
+    after."""
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+
+    g = torch.Generator(device=dev).manual_seed(17)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    B = K * U
+    tile = bmp._probe_tile(True)
+    b2 = bmp.DeviceBloom2(rnd(1 << (MAIN_BITS - 5)) & rnd(1 << (MAIN_BITS - 5)), MAIN_BITS)
+    words = rnd(1 << (MAIN_BITS - 5))
+    for _ in range(6):
+        words &= rnd(1 << (MAIN_BITS - 5))
+    bm = bmp.DeviceBitmap(words, MAIN_BITS)  # density 1/128, m = 2^28's: ~32,768 pass
+    stages, level1 = [], []
+    for c1 in (135 * tile - 1, 135 * tile, 135 * tile + 1, CASCADE_C[0], CASCADE_30[0],
+               tile - 1, tile + 1):
+        pos = torch.sort(torch.randperm(B, device=dev, generator=g)[:c1]).values.int()
+        s1 = bmp.ProbeCompact(pos, rnd(c1), rnd(c1),
+                              torch.tensor(c1, dtype=torch.int32, device=dev))
+        stages.append((s1, bmp.bloom2_compact_ref(b2, s1, B, c1 // 3)))
+    for n in (B, B + 1):
+        q = (rnd(n), rnd(n))
+        level1.append((q, bmp.probe_compact_ref(bm, *q, CASCADE_C[0])))
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize()
+    runs = []
+    t0 = time.time()
+    for i in range(1000):
+        with torch.cuda.stream(streams[i % 2]):
+            if i % 5 == 4:
+                q, want = level1[i % len(level1)]
+                runs.append((bmp.probe_compact(bm, *q, want.pos.shape[0]), want))
+            else:
+                s1, want = stages[i % len(stages)]
+                runs.append((bmp.bloom2_compact(b2, s1, B, want.pos.shape[0]), want))
+    torch.cuda.synchronize()
+    dt = time.time() - t0
+    bad = sum(1 for got, want in runs if max_abs_err(got, want))
+    dirty = [k for k, sc in bmp._SCRATCH.items() if int(sc.buf[sc.turn].abs().sum())]
+    if bad or dirty:
+        fail(f"scratch reuse: {bad} of 1,000 launches differ from the plain version; "
+             f"scratches left non-zero: {dirty}")
+    log(f"scratch reuse: 1,000 compact launches on two streams (800 bloom2 stages at C1 "
+        f"{', '.join(str(s.pos.shape[0]) for s, _ in stages)}, 200 level-1 at B {B} and "
+        f"{B + 1}) each equal to its plain version, the next scratch of each of "
+        f"{len(bmp._SCRATCH)} streams zero after, "
+        f"{dt:.2f} s")
+    del runs, stages, level1, b2, bm, words
+    torch.cuda.empty_cache()
 
 
 def bsgs_params(m, resolve, **kw):
@@ -1987,6 +2137,7 @@ def phase3_main(dev, m, seconds, results, clock):
     log(f"phase 3: chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} "
         f"+ cascade and summary {tot_ms - k1_ms - k2_ms:.3f}; host decode "
         f"{dec_ms:.3f} ms ({n_surv} survivors, C1={eng64.C1}, C2={eng64.C2})")
+    chunk_split(eng64, px, py, "phase 3")
     chunk = lambda: chunk_impl_host(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
                                     eng64.bitmap, eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1,
                                     C2=eng64.C2, adv_tab=eng64.adv_tab)
@@ -2022,6 +2173,44 @@ def phase3_main(dev, m, seconds, results, clock):
         f"allocated, {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB peak; "
         f"card {card_line()}")
     return n_main, htab, eng.bitmap, eng.bloom2
+
+
+def phase3_m30(dev):
+    """One host-resolve chunk at m = 2^30, the bench's headline shape
+    (U = 16384, K = 256, 2^35 + 2^35-bit filters built on the card by the
+    streaming build, as the bench builds them; no host table: a chunk reads
+    only the two filters), held to its plain versions (chunk_composition)
+    and split on the card by chunk_split; the engine's budgets are
+    CASCADE_30."""
+    import gc
+    import types
+
+    import torch
+
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine
+    from keyhuntm1cpu_tpu_torch.ref import ecref
+
+    m = 1 << 30
+    t0 = time.time()
+    eng = BSGSEngine([ecref.scalar_mult(PUZZLE64_KEY)], *PUZZLE64_RANGE,
+                     bsgs_params(m, "host"), device=dev, host_table=types.SimpleNamespace(m=m))
+    torch.cuda.synchronize()
+    t_build = time.time() - t0
+    if (eng.C1, eng.C2) != CASCADE_30:
+        fail(f"phase 3: m = 2^30's budgets are {(eng.C1, eng.C2)}, not {CASCADE_30}")
+    px, py = eng._initial_base(0)
+    got = eng._chunk_fn(px, py)[2]
+    err = max_abs_err([got], [chunk_composition(eng, px, py, plain=True)[2]])
+    if err:
+        fail(f"phase 3: the m = 2^30 chunk differs from its plain versions (max_abs_err {err})")
+    log(f"phase 3: m=2^30 host resolve: filters (2^{eng.bitmap.bits_log2} + "
+        f"2^{eng.bloom2.bits_log2} bits) streamed on the card in {t_build:.2f} s; a chunk "
+        f"equal to its plain versions (max_abs_err 0)")
+    ms = chunk_split(eng, px, py, "phase 3 m=2^30")
+    del eng, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return ms
 
 
 def phase4_brute(dev, seconds, clock, rates):
@@ -2671,6 +2860,44 @@ def phase_t16(dev, m, label, seconds, **shared):
     return n
 
 
+def chunk_split(eng, px, py, label):
+    """One chunk of `eng` (either resolve mode) on the card by device_ms,
+    whole and stage by stage on this chunk's own data: K1, K2, the level-1
+    probe (kh_probe_compact), the bloom2 stage (kh_bloom2_compact, where the
+    engine has a bloom2) and the summary (kh_bsgs_summary); logged with the
+    survivors against C1 and C2. Returns {stage: ms}."""
+    from keyhuntm1cpu_tpu_torch.curve import pwalk
+    from keyhuntm1cpu_tpu_torch.engine import bsgs
+    from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
+
+    reps, Kc = 10, eng.p.steps_per_chunk
+    B = len(eng.targets) * Kc * U
+    ms = {"chunk": device_ms(lambda: eng._chunk_fn(px, py), reps)[0]}
+    pxt, pyt = px.t().contiguous(), py.t().contiguous()
+    ms["K1"], (bx, by, _, _, adeg) = device_ms(lambda: pwalk.advance_chain(
+        pxt, pyt, eng.adv_x, eng.adv_y, Kc, eng.adv_tab), reps)
+    ms["K2"], (qlo, qhi, deg) = device_ms(lambda: pwalk.walk_blocks(bx, by, eng.tab_x,
+                                                                    eng.tab_y), reps)
+    qhi, qlo, adv = qhi.reshape(-1), qlo.reshape(-1), adeg.reshape(-1)
+    ms["probe"], s1 = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, eng.C1), reps)
+    fs, n2 = s1, None
+    if eng.bloom2 is not None:
+        ms["bloom2 stage"], fs = device_ms(lambda: bmp.bloom2_compact(eng.bloom2, s1, B,
+                                                                      eng.C2), reps)
+        n2 = int(fs.n)
+    if eng.table is None:
+        summary = lambda: bsgs.chunk_summary_host(*fs, deg, adv, (deg, adv))
+    else:
+        summary = lambda: bsgs.chunk_summary(eng.table, *fs, deg, adv, (deg, adv))
+    ms["summary"], _ = device_ms(summary, reps)
+    rest = ms["chunk"] - sum(v for k, v in ms.items() if k != "chunk")
+    log(f"{label}: a chunk {ms['chunk']:.4f} ms on the card = "
+        + " + ".join(f"{k} {v:.4f}" for k, v in ms.items() if k != "chunk")
+        + f" (+ {rest:.4f} between them); {int(s1.n)} level-1 survivors of {B} (C1={eng.C1})"
+        + (f", {n2} after the bloom2 (C2={eng.C2})" if n2 is not None else ""))
+    return ms
+
+
 def chunk_composition(eng, px, py, plain=False):
     """One chunk of `eng` (either resolve mode) composed as chunk_impl and
     chunk_impl_host composed it before the cascade's kernels, which is how
@@ -2751,7 +2978,8 @@ def chunk_before_after(eng, px, py, chunk, label, seconds, make_engine):
     reps = 10
     fig = {}
     for name, fn in (("before", prev), ("after", chunk)):
-        fig[name] = dict(ops=device_launches(fn), enqueue_ms=enqueue_ms(fn, reps),
+        ops, memsets = device_ops(fn)
+        fig[name] = dict(ops=ops, memsets=memsets, enqueue_ms=enqueue_ms(fn, reps),
                          card_ms=device_ms(fn, reps)[0])
     eng_prev = make_engine()
     eng_prev._chunk_fn = lambda px, py: chunk_composition(eng_prev, px, py)
@@ -2771,8 +2999,8 @@ def chunk_before_after(eng, px, py, chunk, label, seconds, make_engine):
         f"plain {plain_s:.1f} s) and to the torch route; a chunk before (the torch route: torch "
         f"ops after the level-1 probe) and after (the bloom2 stage and summary kernels): "
         + "; ".join(f"{k} {v['ops'] or 'not measured: the profiler saw no'} device operations "
-                    f"(torch.profiler), enqueue {v['enqueue_ms']:.4f} ms, card "
-                    f"{v['card_ms']:.4f} ms" for k, v in fig.items())
+                    f"({v['memsets']} memsets; torch.profiler), enqueue {v['enqueue_ms']:.4f} "
+                    f"ms, card {v['card_ms']:.4f} ms" for k, v in fig.items())
         + f"; before, {seconds:.0f} s of the engine on the torch route: "
         f"{fig['before']['keys_per_s']:.4e} keys/s, idle share {fig['before']['idle']:.4f}, "
         f"enqueue {fig['before']['window_enqueue_ms']:.3f} ms a chunk ({len(marks)} chunks); "
@@ -2892,6 +3120,7 @@ def phase3d_device(dev, m, seconds, clock):
     k2_ms, (qlo, qhi, _) = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x,
                                                               eng64.tab_y), reps)
     n1 = int(bmp.probe_compact(bm, qhi.reshape(-1), qlo.reshape(-1), eng64.C1).n)
+    chunk_split(eng64, px, py, "phase 3d")
     log(f"phase 3d: a chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} + "
         f"cascade, exact search and summary {tot_ms - k1_ms - k2_ms:.3f} ({n1} level-1 "
         f"survivors of {K * U}, C1={eng64.C1}; {int(got[-1])} after bloom2, C2={eng64.C2}); "
@@ -3979,6 +4208,7 @@ def main():
     phase1_bsgs(dev, results, clock)
     phase2_small(dev)
     bsgs, htab, bm, b2 = phase3_main(dev, args.m, args.seconds, results, clock)
+    phase3_m30(dev)
     t16_host = phase_t16(dev, args.m, "phase 3", T16_SECONDS, resolve="host", host_table=htab,
                          bitmap=bm, bloom2=b2)
     scheduled = phase3s_scheduled(dev, args.m, SCHED_SECONDS, htab, bm, b2)

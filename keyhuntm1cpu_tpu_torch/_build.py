@@ -142,11 +142,12 @@ def kernels() -> ctypes.CDLL:
         "kh_keccak_eth": [vp] * 4 + [i, vp],
         # words qhi qlo mask | n bits bloom2 stream
         "kh_probe": [vp] * 4 + [i64, i, i, vp],
-        # words qhi qlo pos ohi olo n_out scratch | n bits C stream
-        "kh_probe_compact": [vp] * 8 + [i64, i, i, vp],
-        "kh_probe_tile": [],
-        # words qhi qlo pos_in n_in pos ohi olo n_out scratch | n bits C fill stream
-        "kh_bloom2_compact": [vp] * 10 + [i64, i, i, i, vp],
+        # words qhi qlo pos ohi olo n_out scratch next | next_words n bits C stream
+        "kh_probe_compact": [vp] * 9 + [i64, i64, i, i, vp],
+        "kh_probe_tile": [i],
+        # words qhi qlo pos_in n_in pos ohi olo n_out scratch next | next_words n bits C
+        # fill stream
+        "kh_bloom2_compact": [vp] * 11 + [i64, i64, i, i, i, vp],
         # cx cy tx ty ax ay pre totals | W U L C stream
         "kh_walk_prefix": [vp] * 8 + [i, i, i, i64, vp],
         # cx cy tx ty ax ay pre inv_totals x y deg nx ny adeg | W U L C n_endo stream

@@ -51,8 +51,7 @@
 //   [3C, 3C+R)    the set flags of row r, lane U - 1 or'ed with radv[r]
 //   [3C+R, 3C+2R) the first of them (0 when none: argmax)
 //   [3C+2R, 3C+3R) radv, then the (poisoned) survivor count
-// Blocks of two roles in one launch: the first ceil(C / kThreads) a thread
-// a survivor, the rest a warp a row.
+// Blocks of two roles in one launch, the candidates' first.
 //
 // kh_lookup_summary runs one block a step: thread c searches candidate c (a
 // binary search of ceil(log2(m+1)) dependent 8-byte reads; the top levels,
@@ -61,11 +60,25 @@
 // else a byte a lane). Bound on the H100: the latency of one search (~23
 // dependent reads at m = 2^22), not bytes (~2 KB of keys read per
 // candidate) nor operations; a cached upper tree of the table would cut
-// the dependent DRAM reads. kh_bsgs_summary's rows are 4 MB of flags at
-// the main path's R = 256, U = 16,384 (bytes: ~1.3 us at 3.35 TB/s), its
-// C2 = 1,536 searches 29 dependent reads each over 2^28 keys: latency
-// again, so padding and dead survivors skip the search, and the two
-// roles run side by side.
+// the dependent DRAM reads.
+// kh_bsgs_summary's bound is bytes: 4 MB of row flags at the main path's
+// R = 256, U = 16,384 (~1.3 us at 3.35 TB/s). It reads each row with one
+// round trip: a group of kThreads threads a row (fewer, down to a warp,
+// for short rows, several rows a block), each thread with its
+// kRowLoads 16-byte loads issued before any is tested, then a block
+// reduction of the count and the first set lane; the lane U - 1 fix-up's
+// two bytes are loaded beside them. So all 4 MB are in flight at once on
+// 256 blocks over the card's 132 SMs (a warp a row on 32 blocks kept 16 KB
+// in flight an SM and took ~8 round trips). The C2 = 1,536 survivors
+// (512 real at m = 2^28) are searched in the 2^28-key table a warp each,
+// 32-ary: 32 keys read at once a level and a ballot, 6 dependent reads at
+// m = 2^28 and 2^30 where the binary search takes 29. Wider levels
+// (kSearchP = 2, 4 keys a lane: 5 and 4 reads) were slower, warm and cold
+// (scripts/torch_cascade_shapes.py times them). The searches' blocks come
+// first in the grid, so their chains start first; padding and dead
+// survivors skip the search, and the keys and payloads at lb and lb + 1
+// are read together, one more round trip. Host resolve searches nothing:
+// a thread a survivor.
 // The entry points launch on the given stream, do not synchronise, and
 // return cudaGetLastError().
 #include <cuda_runtime.h>
@@ -197,52 +210,195 @@ struct BsgsArgs {
   const uint8_t* radv;  // (R,)
   long long m, B;
   int C, R, U;
+  int tpr;   // threads a summary row: 32, 64, 128 or kThreads
+  bool vec;  // the rows are 16-byte aligned: 16 bytes a load
 };
 
-__device__ __forceinline__ void bsgs_candidate(const BsgsArgs& a, int c,
-                                               int32_t* __restrict__ out) {
-  const int p = a.pos[c];
+constexpr unsigned kFull = 0xFFFFFFFFu;
+constexpr int kWarps = kThreads / 32;
+constexpr int kRowLoads = 4;  // 16-byte loads a thread has in flight on a row
+constexpr int kSearchP = 1;   // keys a lane reads a level of the warp search (32-ary)
+
+// The lower bound of q in key[0, m), by a warp (every lane passes the same
+// q and gets the same answer): each level reads D - 1 = 32 * kSearchP keys
+// at once (kSearchP a lane, issued together), splitting the range D ways,
+// and ballots count the keys below q (a prefix of the pivots: pivot i is
+// lane i / kSearchP's i % kSearchP-th); the last level reads the <= D - 1
+// keys left. Every lane computes the pivots' indices, so no shuffle moves
+// them.
+__device__ __forceinline__ long long warp_lower_bound(const long long* __restrict__ key,
+                                                      long long m, long long q, int lane) {
+  constexpr int P = kSearchP, D = 32 * P + 1;
+  long long lo = 0, hi = m;  // key[lo - 1] < q <= key[hi], where they exist
+  while (hi - lo >= D) {
+    const long long n = hi - lo;  // pivot i at lo + n * (i + 1) / D, distinct, in [lo, hi)
+    bool less[P];
+#pragma unroll
+    for (int j = 0; j < P; j++) less[j] = __ldg(key + lo + n * (P * lane + j + 1) / D) < q;
+    int k = 0;
+#pragma unroll
+    for (int j = 0; j < P; j++) k += __popc(__ballot_sync(kFull, less[j]));
+    const long long base = lo;
+    if (k > 0) lo = base + n * k / D + 1;
+    if (k < D - 1) hi = base + n * (k + 1) / D;
+  }
+  bool less[P];
+#pragma unroll
+  for (int j = 0; j < P; j++) {
+    const long long i = lo + P * lane + j;
+    less[j] = i < hi && __ldg(key + i) < q;
+  }
+  int k = 0;
+#pragma unroll
+  for (int j = 0; j < P; j++) k += __popc(__ballot_sync(kFull, less[j]));
+  return lo + k;
+}
+
+// Whether survivor c is live: a real position whose lane is not degenerate
+// (its flag, or on lane U - 1 its row's advance flag).
+__device__ __forceinline__ bool bsgs_live(const BsgsArgs& a, int p) {
   const long long q = min((long long)p, a.B - 1);
   const bool dead = a.cdeg[q] || (q % a.U == a.U - 1 && a.cadv[q / a.U]);
-  const bool live = p < a.B && !dead;
-  const int32_t none = (int32_t)a.B;
-  if (a.key == nullptr) {  // host resolve: the keys go to the host
-    out[c] = live ? p : none;
-    out[a.C + c] = (int32_t)a.qhi[c];
-    out[2 * a.C + c] = (int32_t)a.qlo[c];
-    return;
+  return p < a.B && !dead;
+}
+
+// Host resolve, a thread a survivor: the keys go to the host.
+__device__ __forceinline__ void host_candidate(const BsgsArgs& a, int c,
+                                               int32_t* __restrict__ out) {
+  const int p = a.pos[c];
+  out[c] = bsgs_live(a, p) ? p : (int32_t)a.B;
+  out[a.C + c] = (int32_t)a.qhi[c];
+  out[2 * a.C + c] = (int32_t)a.qlo[c];
+}
+
+// Device resolve, a warp a survivor: the 32-ary search, then the keys and
+// payloads at lb and lb + 1 read at once (lanes 0-3).
+__device__ __forceinline__ void table_candidate(const BsgsArgs& a, int c, int lane,
+                                                int32_t* __restrict__ out) {
+  const int p = a.pos[c];
+  int32_t w[3] = {(int32_t)a.B, 0, 0};  // every word's "none"
+  if (bsgs_live(a, p)) {  // the same on every lane
+    const long long q = (long long)(((unsigned long long)a.qhi[c] << 32 | a.qlo[c]) ^ (1ull << 63));
+    const long long lb = warp_lower_bound(a.key, a.m, q, lane);
+    const long long at = lb + (lane & 1);
+    long long v = 0;
+    if (lane < 4 && at < a.m) v = lane < 2 ? __ldg(a.key + at) : (long long)__ldg(a.idx + at);
+    const bool found = lb < a.m && __shfl_sync(kFull, v, 0) == q;
+    const bool found2 = lb + 1 < a.m && __shfl_sync(kFull, v, 1) == q;
+    const int32_t j = (int32_t)__shfl_sync(kFull, v, 2), j2 = (int32_t)__shfl_sync(kFull, v, 3);
+    w[0] = found || found2 ? p : (int32_t)a.B;
+    w[1] = found ? j : 0;
+    w[2] = found2 ? j2 : 0;
   }
-  Match r{0, false, false};
-  if (live) r = match(a.key, a.m, a.qhi[c], a.qlo[c]);  // else every word is its "none"
-  out[c] = r.found || r.found2 ? p : none;
-  out[a.C + c] = r.found ? a.idx[r.lb] : 0;
-  out[2 * a.C + c] = r.found2 ? a.idx[r.lb + 1] : 0;
+  if (lane == 0) {
+    out[c] = w[0];
+    out[a.C + c] = w[1];
+    out[2 * a.C + c] = w[2];
+  }
+}
+
+// The set count and first set lane of a group's row, this thread's part:
+// kRowLoads loads issued before any is tested (16 bytes each when vec,
+// else a byte each).
+__device__ __forceinline__ void row_part(const uint8_t* __restrict__ row, int U, bool vec,
+                                         int tpr, int g, int& n, int& first) {
+  if (vec) {
+    const uint4* v = reinterpret_cast<const uint4*>(row);
+    const int nv = U / 16;
+    for (int k0 = g; k0 < nv; k0 += kRowLoads * tpr) {
+      uint4 x[kRowLoads];
+#pragma unroll
+      for (int j = 0; j < kRowLoads; j++) {
+        const int k = k0 + j * tpr;
+        x[j] = k < nv ? __ldg(v + k) : make_uint4(0, 0, 0, 0);
+      }
+#pragma unroll
+      for (int j = 0; j < kRowLoads; j++) {
+        const uint32_t words[4] = {x[j].x, x[j].y, x[j].z, x[j].w};
+#pragma unroll
+        for (int i = 0; i < 4; i++) {
+          const uint32_t nz = __vcmpne4(words[i], 0u);  // 0xFF per non-zero byte
+          n += __popc(nz) >> 3;
+          if (nz) first = min(first, 16 * (k0 + j * tpr) + 4 * i + ((__ffs(nz) - 1) >> 3));
+        }
+      }
+    }
+  } else {
+    for (int k0 = g; k0 < U; k0 += kRowLoads * tpr) {
+      uint8_t x[kRowLoads];
+#pragma unroll
+      for (int j = 0; j < kRowLoads; j++) {
+        const int k = k0 + j * tpr;
+        x[j] = k < U ? __ldg(row + k) : 0;
+      }
+#pragma unroll
+      for (int j = 0; j < kRowLoads; j++) {
+        if (x[j]) {
+          n++;
+          first = min(first, k0 + j * tpr);
+        }
+      }
+    }
+  }
+}
+
+// Rows of block b of the row role: kThreads / tpr of them, a group of tpr
+// threads each; the group's count and first set lane by warp reductions,
+// then (tpr > 32) over the group's warps in shared memory.
+__device__ __forceinline__ void bsgs_rows(const BsgsArgs& a, int b, int32_t* __restrict__ out) {
+  __shared__ int s_n[kWarps], s_first[kWarps];
+  const int grp = threadIdx.x / a.tpr, g = threadIdx.x % a.tpr;
+  const int r = b * (kThreads / a.tpr) + grp;
+  int n = 0, first = a.U;
+  bool adv = false, last = false;
+  if (r < a.R) {
+    const uint8_t* row = a.rdeg + (long long)r * a.U;
+    if (g == 0) {  // the fix-up's bytes, read beside the row
+      adv = __ldg(a.radv + r) != 0;
+      last = __ldg(row + a.U - 1) != 0;
+    }
+    row_part(row, a.U, a.vec, a.tpr, g, n, first);
+  }
+  n = __reduce_add_sync(kFull, n);
+  first = __reduce_min_sync(kFull, first);
+  if (a.tpr > 32) {  // block-uniform
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      s_n[warp] = n;
+      s_first[warp] = first;
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int w = warp + 1; w < warp + a.tpr / 32; w++) {
+        n += s_n[w];
+        first = min(first, s_first[w]);
+      }
+    }
+  }
+  if (g == 0 && r < a.R) {
+    if (adv && !last) {  // the advance flag marks lane U - 1 too
+      n++;
+      first = min(first, a.U - 1);
+    }
+    int32_t* w = out + 3 * a.C;
+    w[r] = n;
+    w[a.R + r] = first < a.U ? first : 0;
+    w[2 * a.R + r] = adv;
+  }
 }
 
 __global__ void __launch_bounds__(kThreads) bsgs_summary_kernel(BsgsArgs a, int cand_blocks,
                                                                 int32_t* __restrict__ out) {
   if ((int)blockIdx.x < cand_blocks) {
-    const int c = blockIdx.x * kThreads + threadIdx.x;
-    if (c < a.C) bsgs_candidate(a, c, out);
-  } else {
-    const int lane = threadIdx.x & 31;
-    const int r = (blockIdx.x - cand_blocks) * (kThreads / 32) + (threadIdx.x >> 5);
-    if (r < a.R) {
-      const uint8_t* row = a.rdeg + (long long)r * a.U;
-      int n, first;
-      row_flags(row, a.U, rows_aligned(a.rdeg, a.U), lane, n, first);
-      if (lane == 0) {
-        const bool adv = a.radv[r] != 0;
-        if (adv && !row[a.U - 1]) {  // the advance flag marks lane U - 1 too
-          n++;
-          first = min(first, a.U - 1);
-        }
-        int32_t* w = out + 3 * a.C;
-        w[r] = n;
-        w[a.R + r] = first < a.U ? first : 0;
-        w[2 * a.R + r] = adv;
-      }
+    if (a.key == nullptr) {
+      const int c = blockIdx.x * kThreads + threadIdx.x;
+      if (c < a.C) host_candidate(a, c, out);
+    } else {
+      const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+      if (c < a.C) table_candidate(a, c, threadIdx.x & 31, out);
     }
+  } else {
+    bsgs_rows(a, blockIdx.x - cand_blocks, out);
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) out[3 * a.C + 3 * a.R] = *a.count;
 }
@@ -268,12 +424,18 @@ extern "C" int kh_bsgs_summary(const void* pos, const void* qhi, const void* qlo
                                int R, int U, void* stream) {
   if (C < 0 || R < 0 || U < 1 || B < 1 || B > 0x7FFFFFFFLL || B % U || (key && m < 1))
     return (int)cudaErrorInvalidValue;
+  const bool vec = U % 16 == 0 && ((uintptr_t)rdeg & 15) == 0;
+  const int units = vec ? U / 16 : U;  // loads a row
+  int tpr = 32;
+  while (tpr < kThreads && tpr * kRowLoads < units) tpr *= 2;
   const BsgsArgs a{(const int32_t*)pos, (const uint32_t*)qhi, (const uint32_t*)qlo,
                    (const int32_t*)count, (const long long*)key, (const int32_t*)idx,
                    (const uint8_t*)cdeg, (const uint8_t*)cadv, (const uint8_t*)rdeg,
-                   (const uint8_t*)radv, m, B, C, R, U};
-  const int cand_blocks = (C + kThreads - 1) / kThreads;
-  const int row_blocks = (R + kThreads / 32 - 1) / (kThreads / 32);
+                   (const uint8_t*)radv, m, B, C, R, U, tpr, vec};
+  const int per_block = key ? kWarps : kThreads;  // survivors a block
+  const int cand_blocks = (C + per_block - 1) / per_block;
+  const int rows = kThreads / tpr;  // rows a block
+  const int row_blocks = (R + rows - 1) / rows;
   const int blocks = cand_blocks + row_blocks > 0 ? cand_blocks + row_blocks : 1;
   bsgs_summary_kernel<<<blocks, kThreads, 0, (cudaStream_t)stream>>>(a, cand_blocks,
                                                                       (int32_t*)out);

@@ -42,18 +42,37 @@
 // The compaction: the level-1 stage of the BSGS cascade used to write a
 // 4 MB mask, then run a cumsum over all 4,194,304 queries, a searchsorted
 // of C1 = 34,816 ranks and three gathers. Here a block takes a tile of
-// kProbeThreads * kProbeQ keys by ticket (an atomic counter, so a tile
-// only ever waits on tiles that running blocks hold), counts its survivors
-// with a block scan, publishes that count, and finds the survivors before
-// it by a decoupled look-back (one warp reads the 32 preceding tiles'
-// status words: a count, or the inclusive prefix that ends the walk). Each
-// survivor's rank is then exact, so the output is in ascending order, as
-// the JAX package's sort-based compaction has it; atomic appends would not
-// be. The keys go out from the registers that probed them. The bloom2
-// stage is the same kernel over the C1 = 34,816 stage-1 survivors (34
-// tiles at the main path's shape), their positions loaded beside the keys:
-// it replaced a mask, a C1-long cumsum, a searchsorted, the clamps, five
-// gathers and the poison's two where()s, about a dozen launches.
+// kProbeThreads * Q keys, counts its survivors with a block scan,
+// publishes that count, and finds the survivors before it by a decoupled
+// look-back (one warp reads the preceding tiles' status words: a count,
+// or the inclusive prefix that ends the walk). Each survivor's rank is
+// then exact, so the output is in ascending order, as the JAX package's
+// sort-based compaction has it; atomic appends would not be. The keys go
+// out from the registers that probed them. The bloom2 stage is the same
+// kernel over the C1 stage-1 survivors, their positions loaded beside the
+// keys: it replaced a mask, a C1-long cumsum, a searchsorted, the clamps,
+// five gathers and the poison's two where()s, about a dozen launches. Its
+// bound is bytes (~0.8 us at C1 = 34,816: 65,536 random sectors and the
+// survivors); at m = 2^30's C1 = 134,656 its 262,144 random reads take
+// ~8.5 us at the card's random-read ceiling. What sets its pace at the
+// main path's shape is latency: the key loads, one random read, the
+// look-back and the stores, each a DRAM or L2 round trip, and the launch.
+// So its tile is small, Q = kStage2Q = 2 keys a thread (256 keys a tile,
+// four reads in flight a thread): C1 = 34,816 is 136 tiles on the card's
+// 132 SMs, where kProbeQ = 8 gave 34 tiles and left 98 SMs idle; and a
+// block takes one tile, by its index, with no ticket. A wider look-back
+// (kStage2Window = 4 status words a lane, 128 tiles a step) was slower:
+// a step waits for all its tiles to publish
+// (scripts/torch_cascade_shapes.py times both). The level-1 form keeps
+// kProbeQ = 8 and its persistent grid of ticketed tiles (4,096 tiles of
+// 1,024 keys at 4,194,304 queries).
+// No memset comes before a launch: the scratch (a ticket and a status
+// word a tile) is zero on entry because the launch before it zeroed it.
+// The wrapper keeps two scratches a stream and alternates them: each
+// launch uses one and, from all its blocks at the start, zeroes the other,
+// which the launch before it used and which the launch after it will use.
+// Launches on one stream never overlap, so this is safe, and no launch
+// waits on an exit counter or clears its own status words at the end.
 // Word offsets are 64-bit (a 2^35-bit filter has 2^30 words). The entry
 // points launch on the given stream, do not synchronise, and return
 // cudaGetLastError().
@@ -63,14 +82,19 @@
 
 namespace {
 
-// the fused form's keys per thread and threads per block (the mask form:
-// one key a thread, kMaskThreads a block); scripts/torch_probe_shapes.py
-// builds other values
+// the fused form's keys per thread (level 1; the bloom2 stage's
+// kStage2Q) and threads per block (the mask form: one key a thread,
+// kMaskThreads a block); scripts/torch_probe_shapes.py builds other values
 constexpr int kProbeQ = 8;
+constexpr int kStage2Q = 2;
+constexpr int kStage2Window = 1;  // status words a lane reads a step of the look-back
 constexpr int kProbeThreads = 128;
 constexpr int kMaskThreads = 256;
-constexpr int kTile = kProbeQ * kProbeThreads;  // keys a block takes at a time
 constexpr int kWarps = kProbeThreads / 32;
+// keys a block takes at a time
+__host__ __device__ constexpr int tile_keys(bool stage2) {
+  return (stage2 ? kStage2Q : kProbeQ) * kProbeThreads;
+}
 constexpr unsigned long long kCount = 1ull << 32;   // status: the tile's own count
 constexpr unsigned long long kPrefix = 2ull << 32;  // status: the inclusive prefix
 
@@ -108,31 +132,30 @@ __device__ __forceinline__ unsigned long long word_of(uint32_t h, uint32_t ext, 
   return (bits == 32 ? h : (h & ((1u << bits) - 1u))) >> 5;
 }
 
-// The kProbeQ keys from i0 (those below n): 16-byte loads when VEC (the
-// caller checked the alignment) and the chunk is whole. Returns how many.
-template <bool VEC>
-__device__ __forceinline__ int load_keys(const uint32_t* __restrict__ qhi,
-                                         const uint32_t* __restrict__ qlo, long long i0,
-                                         long long n, uint32_t (&hi)[kProbeQ],
-                                         uint32_t (&lo)[kProbeQ]) {
-  const long long left = n - i0;
-  const int cnt = left >= kProbeQ ? kProbeQ : (left > 0 ? (int)left : 0);
-  if (VEC && kProbeQ % 4 == 0 && cnt == kProbeQ) {
+// Q 32-bit words from p + i0, the first cnt of them (0 past those): 16- or
+// 8-byte loads when VEC (the caller checked the alignment) and all Q are
+// there.
+template <bool VEC, int Q>
+__device__ __forceinline__ void load_q(const uint32_t* __restrict__ p, long long i0, int cnt,
+                                       uint32_t (&v)[Q]) {
+  if constexpr (VEC && Q % 4 == 0) {
+    if (cnt == Q) {
 #pragma unroll
-    for (int j = 0; j < kProbeQ; j += 4) {
-      const uint4 h = __ldg(reinterpret_cast<const uint4*>(qhi + i0 + j));
-      const uint4 l = __ldg(reinterpret_cast<const uint4*>(qlo + i0 + j));
-      hi[j] = h.x; hi[j + 1] = h.y; hi[j + 2] = h.z; hi[j + 3] = h.w;
-      lo[j] = l.x; lo[j + 1] = l.y; lo[j + 2] = l.z; lo[j + 3] = l.w;
+      for (int j = 0; j < Q; j += 4) {
+        const uint4 x = __ldg(reinterpret_cast<const uint4*>(p + i0 + j));
+        v[j] = x.x; v[j + 1] = x.y; v[j + 2] = x.z; v[j + 3] = x.w;
+      }
+      return;
     }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kProbeQ; j++) {
-      hi[j] = j < cnt ? __ldg(qhi + i0 + j) : 0u;
-      lo[j] = j < cnt ? __ldg(qlo + i0 + j) : 0u;
+  } else if constexpr (VEC && Q == 2) {
+    if (cnt == Q) {
+      const uint2 x = __ldg(reinterpret_cast<const uint2*>(p + i0));
+      v[0] = x.x; v[1] = x.y;
+      return;
     }
   }
-  return cnt;
+#pragma unroll
+  for (int j = 0; j < Q; j++) v[j] = j < cnt ? __ldg(p + i0 + j) : 0u;
 }
 
 // Bit j of the result: key j (j < cnt) passes the filter. Every word read
@@ -191,20 +214,42 @@ __device__ __forceinline__ unsigned long long ld_status(const unsigned long long
 }
 
 // The survivors of the tiles before `tile` (warp 0, every lane): walks back
-// 32 tiles at a time, adding counts until a tile whose inclusive prefix is
-// published.
+// 32 * W tiles at a time (lane l reads the W status words from tile - 1 -
+// W * l on, all issued together), adding counts until a tile whose
+// inclusive prefix is published.
+template <int W>
 __device__ uint32_t look_back(const unsigned long long* status, long long tile, int lane) {
   uint32_t prefix = 0;
-  for (long long last = tile - 1;; last -= 32) {
-    const long long k = last - lane;
-    unsigned long long s = k >= 0 ? ld_status(status + k) : kPrefix;  // before tile 0: 0
-    while (__any_sync(0xFFFFFFFFu, (s >> 32) == 0)) {  // wait until all 32 are published
-      __nanosleep(32);
-      if ((s >> 32) == 0) s = ld_status(status + k);
+  for (long long last = tile - 1;; last -= 32 * W) {
+    unsigned long long s[W];
+#pragma unroll
+    for (int j = 0; j < W; j++) {  // before tile 0: a prefix of 0
+      const long long k = last - W * lane - j;
+      s[j] = k >= 0 ? ld_status(status + k) : kPrefix;
     }
-    const uint32_t done = __ballot_sync(0xFFFFFFFFu, (s & ~0xFFFFFFFFull) == kPrefix);
-    const int stop = done ? __ffs(done) - 1 : 31;  // the nearest tile with a prefix
-    uint32_t v = lane <= stop ? (uint32_t)s : 0u;
+    for (;;) {  // wait until all are published
+      bool wait = false;
+#pragma unroll
+      for (int j = 0; j < W; j++) wait |= (s[j] >> 32) == 0;
+      if (!__any_sync(0xFFFFFFFFu, wait)) break;
+      __nanosleep(32);
+#pragma unroll
+      for (int j = 0; j < W; j++) {
+        if ((s[j] >> 32) == 0) s[j] = ld_status(status + last - W * lane - j);
+      }
+    }
+    int near = W;  // this lane's nearest tile with a prefix (W: none)
+#pragma unroll
+    for (int j = W - 1; j >= 0; j--) {
+      if ((s[j] & ~0xFFFFFFFFull) == kPrefix) near = j;
+    }
+    const uint32_t done = __ballot_sync(0xFFFFFFFFu, near < W);
+    const int stop = done ? __ffs(done) - 1 : 31;  // the lane of the nearest prefix
+    uint32_t v = 0;
+#pragma unroll
+    for (int j = 0; j < W; j++) {
+      if (lane < stop || (lane == stop && j <= near)) v += (uint32_t)s[j];
+    }
 #pragma unroll
     for (int o = 16; o; o >>= 1) v += __shfl_xor_sync(0xFFFFFFFFu, v, o);
     prefix += v;
@@ -227,59 +272,65 @@ struct CompactArgs {
   uint32_t* ohi;
   uint32_t* olo;
   int32_t* n_out;
-  unsigned long long* scratch;  // [0] the ticket counter, [1 + t] tile t's
-  // status (0: not yet, kCount | count, kPrefix | inclusive prefix); zeroed
-  // before the launch
+  unsigned long long* scratch;  // zero: [0] the ticket counter (level 1),
+  // [1 + t] tile t's status (0: not yet, kCount | count, kPrefix |
+  // inclusive prefix)
+  unsigned long long* next;  // the next launch's scratch, zeroed here
+  long long next_words;
   long long n;
   int bits, C, fill;
 };
 
-// The kProbeQ stage-1 positions from i0 (the first cnt of them), as
-// load_keys loads the keys.
-template <bool VEC>
-__device__ __forceinline__ void load_positions(const int32_t* __restrict__ p, long long i0,
-                                               int cnt, int32_t (&at)[kProbeQ]) {
-  if (VEC && kProbeQ % 4 == 0 && cnt == kProbeQ) {
-#pragma unroll
-    for (int j = 0; j < kProbeQ; j += 4) {
-      const int4 v = __ldg(reinterpret_cast<const int4*>(p + i0 + j));
-      at[j] = v.x; at[j + 1] = v.y; at[j + 2] = v.z; at[j + 3] = v.w;
-    }
-  } else {
-#pragma unroll
-    for (int j = 0; j < kProbeQ; j++) at[j] = j < cnt ? __ldg(p + i0 + j) : 0;
-  }
-}
-
+// Level 1 takes tiles by ticket from a persistent grid (an atomic counter,
+// so a tile only ever waits on tiles that running blocks hold); the bloom2
+// stage has a block a tile, tile = blockIdx.x (blocks are dispatched in
+// index order, so the tiles a block waits on are running or done), which
+// spares it the ticket's two atomic round trips.
 template <bool VEC, bool STAGE2>
 __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const CompactArgs a) {
+  constexpr int Q = STAGE2 ? kStage2Q : kProbeQ;
+  constexpr int kTile = tile_keys(STAGE2);
   __shared__ long long s_tile;
   __shared__ uint32_t s_warp[kWarps];
   __shared__ uint32_t s_prefix;
   unsigned long long* status = a.scratch + 1;
   const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
   const long long n = a.n, n_tiles = (n + kTile - 1) / kTile;
-  for (;;) {
-    if (t == 0) s_tile = (long long)atomicAdd(a.scratch, 1ull);
-    __syncthreads();
-    const long long tile = s_tile;
-    if (tile >= n_tiles) return;
-    const long long i0 = tile * kTile + (long long)t * kProbeQ;
-    uint32_t hi[kProbeQ], lo[kProbeQ];
-    int32_t at[kProbeQ];  // where each survivor's position word comes from
-    const int cnt = load_keys<VEC>(a.qhi, a.qlo, i0, n, hi, lo);
+  // zero the next launch's scratch: the launch before this one (done, as
+  // launches on one stream do not overlap) used it
+  for (long long k = (long long)blockIdx.x * kProbeThreads + t; k < a.next_words;
+       k += (long long)gridDim.x * kProbeThreads) {
+    a.next[k] = 0;
+  }
+  for (int round = 0;; round++) {
+    long long tile;
+    if constexpr (STAGE2) {
+      if (round) break;
+      tile = blockIdx.x;
+    } else {
+      if (t == 0) s_tile = (long long)atomicAdd(a.scratch, 1ull);
+      __syncthreads();
+      tile = s_tile;
+      if (tile >= n_tiles) break;
+    }
+    const long long i0 = tile * kTile + (long long)t * Q;
+    const long long left = n - i0;
+    const int cnt = left >= Q ? Q : (left > 0 ? (int)left : 0);
+    uint32_t hi[Q], lo[Q], at[Q];  // at: where each survivor's position word comes from
+    load_q<VEC>(a.qhi, i0, cnt, hi);
+    load_q<VEC>(a.qlo, i0, cnt, lo);
     uint32_t hit;
     if constexpr (STAGE2) {
-      load_positions<VEC>(a.pos_in, i0, cnt, at);
-      hit = probe_keys<true, kProbeQ, true>(a.words, hi, lo, cnt, a.bits);
+      load_q<VEC>(reinterpret_cast<const uint32_t*>(a.pos_in), i0, cnt, at);
+      hit = probe_keys<true, Q, true>(a.words, hi, lo, cnt, a.bits);
 #pragma unroll
-      for (int j = 0; j < kProbeQ; j++) {
-        if (j >= cnt || at[j] >= a.fill) hit &= ~(1u << j);  // stage-1 padding
+      for (int j = 0; j < Q; j++) {
+        if (j >= cnt || (int32_t)at[j] >= a.fill) hit &= ~(1u << j);  // stage-1 padding
       }
     } else {
-      hit = probe_keys<false, kProbeQ, true>(a.words, hi, lo, cnt, a.bits);
+      hit = probe_keys<false, Q, true>(a.words, hi, lo, cnt, a.bits);
 #pragma unroll
-      for (int j = 0; j < kProbeQ; j++) at[j] = (int32_t)(i0 + j);
+      for (int j = 0; j < Q; j++) at[j] = (uint32_t)(i0 + j);
     }
     // the block's exclusive scan of the threads' survivor counts
     const uint32_t c = __popc(hit);
@@ -304,7 +355,7 @@ __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const Comp
         if (lane == 0) atomicExch(status, kPrefix | agg);
       } else {
         if (lane == 0) atomicExch(status + tile, kCount | agg);
-        prefix = look_back(status, tile, lane);
+        prefix = look_back<STAGE2 ? kStage2Window : 1>(status, tile, lane);
         if (lane == 0) atomicExch(status + tile, kPrefix | (prefix + agg));
       }
       if (lane == 0) s_prefix = prefix;
@@ -313,10 +364,10 @@ __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const Comp
     const uint32_t prefix = s_prefix;
     uint32_t rank = prefix + before + incl - c;
 #pragma unroll
-    for (int j = 0; j < kProbeQ; j++) {
+    for (int j = 0; j < Q; j++) {
       if ((hit >> j) & 1u) {
         if (rank < (uint32_t)a.C) {
-          a.pos[rank] = at[j];
+          a.pos[rank] = (int32_t)at[j];
           a.ohi[rank] = hi[j];
           a.olo[rank] = lo[j];
         }
@@ -344,8 +395,9 @@ __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const Comp
   }
 }
 
-// A persistent grid: as many blocks as the card holds at once (counted
-// once), each taking tiles until the tickets run out.
+// Level 1: a persistent grid, as many blocks as the card holds at once
+// (counted once), each taking tiles until the tickets run out. The bloom2
+// stage: a block a tile.
 template <bool VEC, bool STAGE2>
 void launch_compact(const CompactArgs& a, cudaStream_t s) {
   static int resident = 0;
@@ -357,17 +409,15 @@ void launch_compact(const CompactArgs& a, cudaStream_t s) {
                                                   kProbeThreads, 0);
     resident = sms * (per_sm > 0 ? per_sm : 1);
   }
-  const long long n_tiles = (a.n + kTile - 1) / kTile;
-  probe_compact_kernel<VEC, STAGE2>
-      <<<(unsigned)(n_tiles < resident ? n_tiles : resident), kProbeThreads, 0, s>>>(a);
+  const long long n_tiles = (a.n + tile_keys(STAGE2) - 1) / tile_keys(STAGE2);
+  const long long grid = STAGE2 || n_tiles < resident ? n_tiles : resident;
+  probe_compact_kernel<VEC, STAGE2><<<(unsigned)grid, kProbeThreads, 0, s>>>(a);
 }
 
-// Zero the scratch, then launch the form the pointers' alignment allows.
+// Launch the form the pointers' alignment allows (no memset: the scratch
+// is zero on entry).
 template <bool STAGE2>
 int compact(const CompactArgs& a, cudaStream_t s) {
-  const long long n_tiles = (a.n + kTile - 1) / kTile;
-  const cudaError_t rc = cudaMemsetAsync(a.scratch, 0, (size_t)(1 + n_tiles) * 8, s);
-  if (rc != cudaSuccess) return (int)rc;
   const uintptr_t ptrs = reinterpret_cast<uintptr_t>(a.qhi) | reinterpret_cast<uintptr_t>(a.qlo) |
                          reinterpret_cast<uintptr_t>(a.pos_in);
   (ptrs & 15u) == 0 ? launch_compact<true, STAGE2>(a, s) : launch_compact<false, STAGE2>(a, s);
@@ -393,31 +443,42 @@ extern "C" int kh_probe(const void* words, const void* qhi, const void* qlo, voi
   return (int)cudaGetLastError();
 }
 
-// Keys a tile holds: the compact form's scratch is 1 + ceil(n / tile) u64.
-extern "C" int kh_probe_tile() { return kTile; }
+// Keys a tile holds, in the level-1 form (stage2 = 0) or the bloom2
+// stage's: a compact form's scratch is 1 + ceil(n / tile) u64.
+extern "C" int kh_probe_tile(int stage2) { return tile_keys(stage2 != 0); }
 
+// scratch: zero on entry (this launch's tickets and status words); next:
+// next_words u64 that this launch zeroes, for the next launch on the
+// stream (the caller alternates two scratches: each launch uses one and
+// clears the other, which the launch before it used).
 extern "C" int kh_probe_compact(const void* words, const void* qhi, const void* qlo, void* pos,
-                                void* ohi, void* olo, void* n_out, void* scratch, long long n,
-                                int bits, int C, void* stream) {
-  if (n < 1 || n > 0x7FFFFFFFLL || C < 0 || bits < 5 || bits > 35)
+                                void* ohi, void* olo, void* n_out, void* scratch, void* next,
+                                long long next_words, long long n, int bits, int C,
+                                void* stream) {
+  if (n < 1 || n > 0x7FFFFFFFLL || C < 0 || bits < 5 || bits > 35 || next_words < 0)
     return (int)cudaErrorInvalidValue;
   const CompactArgs a{(const uint32_t*)words, (const uint32_t*)qhi, (const uint32_t*)qlo,
                       nullptr, nullptr, (int32_t*)pos, (uint32_t*)ohi, (uint32_t*)olo,
-                      (int32_t*)n_out, (unsigned long long*)scratch, n, bits, C, (int)n};
+                      (int32_t*)n_out, (unsigned long long*)scratch,
+                      (unsigned long long*)next, next_words, n, bits, C, (int)n};
   return compact<false>(a, (cudaStream_t)stream);
 }
 
 // The bloom2 stage over n = C1 stage-1 survivors (pos_in, qhi, qlo, and
-// their count n_in), each live where its position is below fill = B.
+// their count n_in), each live where its position is below fill = B;
+// scratch and next as kh_probe_compact's.
 extern "C" int kh_bloom2_compact(const void* words, const void* qhi, const void* qlo,
                                  const void* pos_in, const void* n_in, void* pos, void* ohi,
-                                 void* olo, void* n_out, void* scratch, long long n, int bits,
-                                 int C, int fill, void* stream) {
-  if (n < 1 || n > 0x7FFFFFFFLL || C < 0 || fill < 1 || bits < 5 || bits > 35)
+                                 void* olo, void* n_out, void* scratch, void* next,
+                                 long long next_words, long long n, int bits, int C, int fill,
+                                 void* stream) {
+  if (n < 1 || n > 0x7FFFFFFFLL || C < 0 || fill < 1 || bits < 5 || bits > 35 ||
+      next_words < 0)
     return (int)cudaErrorInvalidValue;
   const CompactArgs a{(const uint32_t*)words, (const uint32_t*)qhi, (const uint32_t*)qlo,
                       (const int32_t*)pos_in, (const int32_t*)n_in, (int32_t*)pos,
                       (uint32_t*)ohi, (uint32_t*)olo, (int32_t*)n_out,
-                      (unsigned long long*)scratch, n, bits, C, fill};
+                      (unsigned long long*)scratch, (unsigned long long*)next, next_words, n,
+                      bits, C, fill};
   return compact<true>(a, (cudaStream_t)stream);
 }

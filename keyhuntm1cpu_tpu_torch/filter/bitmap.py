@@ -48,8 +48,9 @@ boolean-mask indexing.
 from __future__ import annotations
 
 import math
+import threading
 from functools import lru_cache
-from typing import NamedTuple, Optional
+from typing import Dict, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -408,18 +409,54 @@ def probe_compact(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
     pos = torch.empty((size,), dtype=torch.int32, device=dev)
     ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty((1 + -(-n // _probe_tile()),), dtype=torch.int64, device=dev)
-    _build.launch("kh_probe_compact", bm.words.data_ptr(), qhi.data_ptr(), qlo.data_ptr(),
-                  pos.data_ptr(), ohi.data_ptr(), olo.data_ptr(), count.data_ptr(),
-                  scratch.data_ptr(), n, bm.bits_log2, size, _build.stream(qhi))
+    _launch_compact("kh_probe_compact", qhi, n, False,
+                    (bm.words.data_ptr(), qhi.data_ptr(), qlo.data_ptr(), pos.data_ptr(),
+                     ohi.data_ptr(), olo.data_ptr(), count.data_ptr()),
+                    (n, bm.bits_log2, size))
     probe.launches += 1
     return ProbeCompact(pos, ohi, olo, count)
 
 
-@lru_cache(maxsize=1)
-def _probe_tile() -> int:
-    """Keys per tile of kh_probe_compact (its scratch holds one word a tile)."""
-    return _build.kernels().kh_probe_tile()
+@lru_cache(maxsize=2)
+def _probe_tile(stage2: bool) -> int:
+    """Keys per tile of kh_probe_compact (stage2 False) or kh_bloom2_compact."""
+    return _build.kernels().kh_probe_tile(int(stage2))
+
+
+class _Scratch:
+    """The compact kernels' two scratches on one stream, (2, words) int64,
+    zeroed when allocated; `turn` is the one the next launch uses (the
+    launch zeroes the other, which the launch before it used)."""
+
+    def __init__(self, words: int, device):
+        self.buf = torch.zeros((2, words), dtype=torch.int64, device=device)
+        self.ptrs = (self.buf[0].data_ptr(), self.buf[1].data_ptr())
+        self.turn = 0
+
+
+_SCRATCH: Dict[Tuple[int, int], _Scratch] = {}
+_SCRATCH_LOCK = threading.Lock()
+
+
+def _launch_compact(fn: str, t: torch.Tensor, n: int, stage2: bool, head: tuple,
+                    tail: tuple) -> None:
+    """Launch compact kernel fn (kh_probe_compact, kh_bloom2_compact) over
+    n keys on the current stream of t's device: its arguments head, this
+    launch's scratch, the other one and its words, tail, the stream. One
+    _Scratch a (device, stream): launches on one stream never overlap, so
+    they take turns on its two scratches, and no memset comes before a
+    launch; another stream has its own. The launch and the turn are taken
+    under a lock, so threads that share a stream keep them in order."""
+    stream = _build.stream(t)
+    words = 1 + -(-n // _probe_tile(stage2))
+    key = (stream.device, int(stream))
+    with _SCRATCH_LOCK:
+        sc = _SCRATCH.get(key)
+        if sc is None or sc.buf.shape[1] < words:
+            sc = _SCRATCH[key] = _Scratch(words, t.device)
+        _build.launch(fn, *head, sc.ptrs[sc.turn], sc.ptrs[1 - sc.turn], sc.buf.shape[1],
+                      *tail, stream)
+        sc.turn ^= 1
 
 
 def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -477,11 +514,11 @@ def bloom2_compact(b2: DeviceBloom2, stage1: ProbeCompact, total: int,
     pos = torch.empty((size,), dtype=torch.int32, device=dev)
     ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    scratch = torch.empty((1 + -(-C1 // _probe_tile()),), dtype=torch.int64, device=dev)
-    _build.launch("kh_bloom2_compact", b2.words.data_ptr(), qh1.data_ptr(), ql1.data_ptr(),
-                  pos1.data_ptr(), n1.data_ptr(), pos.data_ptr(), ohi.data_ptr(),
-                  olo.data_ptr(), count.data_ptr(), scratch.data_ptr(), C1, b2.bits_log2, size,
-                  total, _build.stream(qh1))
+    _launch_compact("kh_bloom2_compact", qh1, C1, True,
+                    (b2.words.data_ptr(), qh1.data_ptr(), ql1.data_ptr(), pos1.data_ptr(),
+                     n1.data_ptr(), pos.data_ptr(), ohi.data_ptr(), olo.data_ptr(),
+                     count.data_ptr()),
+                    (C1, b2.bits_log2, size, total))
     bloom2_compact.launches += 1
     return ProbeCompact(pos, ohi, olo, count)
 

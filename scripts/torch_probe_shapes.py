@@ -244,20 +244,27 @@ def main():
                 cs.fail(f"{name}: mask form differs from the shipped kernel ({key})")
             row[f"mask {key}"] = ms
         if name != "parent":
-            lib.kh_probe_compact.argtypes = [vp] * 8 + [i64, i, i, vp]
-            tile = lib.kh_probe_tile()
+            lib.kh_probe_compact.argtypes = [vp] * 9 + [i64, i64, i, i, vp]
+            lib.kh_probe_tile.argtypes = [i]
+            tile = lib.kh_probe_tile(0)
             for key, (f, h, l, c) in {"bsgs": (bm, qhi, qlo, C1),
                                       "walker": (wk, whi, wlo, C_WALK)}.items():
                 outs = tuple(torch.empty(c, dtype=torch.int32, device=dev) for _ in range(3))
                 cnt = torch.empty((), dtype=torch.int32, device=dev)
-                scratch = torch.empty(1 + -(-h.shape[0] // tile), dtype=torch.int64, device=dev)
+                # two scratches, zeroed once: a launch uses one and zeroes the other
+                pair = torch.zeros((2, 1 + -(-h.shape[0] // tile)), dtype=torch.int64,
+                                   device=dev)
+                turn = [0]
 
-                def run(f=f, h=h, l=l, c=c, outs=outs, cnt=cnt, scratch=scratch):
+                def run(f=f, h=h, l=l, c=c, outs=outs, cnt=cnt, pair=pair, turn=turn):
+                    this, other = pair[turn[0]], pair[1 - turn[0]]
                     rc = lib.kh_probe_compact(f.words.data_ptr(), h.data_ptr(), l.data_ptr(),
                                               *[t.data_ptr() for t in outs], cnt.data_ptr(),
-                                              scratch.data_ptr(), h.shape[0], f.bits_log2, c, st)
+                                              this.data_ptr(), other.data_ptr(), other.numel(),
+                                              h.shape[0], f.bits_log2, c, st)
                     if rc:
                         cs.fail(f"{name}: kh_probe_compact launch failed (cudaError {rc})")
+                    turn[0] ^= 1
                     return outs + (cnt,)
 
                 for t in outs:

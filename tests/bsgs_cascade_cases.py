@@ -18,6 +18,11 @@ STAGE_CASES name its n1:
 - none: n1 = 0 (every entry padding: no survivors at all);
 - over: n1 = C1 + 17 (a stage-1 overflow: the count is poisoned).
 
+TILE_EDGES name the kernel's tiles (TILE2 = 256 entries a tile of the
+bloom2 stage, csrc/probe.cu kStage2Q * kProbeThreads) as (C1, n1): one
+entry below, at and one above a two-tile boundary with a full stage 1,
+and a single tile with stage-1 padding.
+
 The summary takes C survivors (``survivors``) in B = R*U queries, the
 (R, U) degenerate flags without the lane U - 1 fix-up and the (R,)
 advance flags (``flags``), and a sorted table holding some survivors' keys
@@ -31,12 +36,26 @@ advance flags (``flags``), and a sorted table holding some survivors' keys
   row), survivors on their lane U - 1;
 - none: no survivors (count 0, every entry padding);
 - over: C survivors and a count past C.
+
+SUMMARY_SHAPES are the row role's edges as (R, U, C) with the layout
+the kernel takes (csrc/lookup.cu: a group of 32 to 256 threads a row,
+four loads a thread, 16 bytes each when U % 16 == 0 and the rows are
+16-byte aligned): rows_ragged, 12 rows of U = 64 (a warp a row, 8 rows a
+block: R not a multiple of them); u_odd, U = 1,000 (a byte a load);
+u_one, U = 1 (every lane is lane U - 1); unaligned, 6 rows of U = 4,096
+(64 threads a row, 4 rows a block) that the card tests read from a view
+one byte past an aligned start (a byte a load).
 """
 
 import numpy as np
 
 STAGE_CASES = ["half", "full", "none", "over"]
 SUMMARY_CASES = ["mixed", "adv_only", "none", "over"]
+TILE2 = 256
+TILE_EDGES = {"below": (2 * TILE2 - 1, 2 * TILE2 - 1), "at": (2 * TILE2, 2 * TILE2),
+              "above": (2 * TILE2 + 1, 2 * TILE2 + 1), "single": (200, 150)}
+SUMMARY_SHAPES = {"rows_ragged": (12, 64, 64), "u_odd": (5, 1000, 64), "u_one": (40, 1, 16),
+                  "unaligned": (6, 4096, 64)}
 
 
 def u32(rng, n):
@@ -48,6 +67,16 @@ def stage1(case, C1, B, seed=0):
     over B queries (B >= C1)."""
     rng = np.random.default_rng(seed + STAGE_CASES.index(case))
     n1 = {"half": C1 // 2, "full": C1, "none": 0, "over": C1 + 17}[case]
+    return _stage1(rng, n1, C1, B)
+
+
+def edge_stage1(edge, B, seed=0):
+    """stage1 at TILE_EDGES[edge]'s C1 and n1."""
+    C1, n1 = TILE_EDGES[edge]
+    return _stage1(np.random.default_rng(seed + 50 + list(TILE_EDGES).index(edge)), n1, C1, B)
+
+
+def _stage1(rng, n1, C1, B):
     k = min(n1, C1)
     pos1 = np.full(C1, B, np.int32)
     pos1[:k] = np.sort(rng.choice(B, k, replace=False))
@@ -66,7 +95,7 @@ def flags(case, R, U, seed=0):
         return deg, adv
     for r in range(R):
         if r % 4 == 1:
-            first = 37 * r % (U - 1)
+            first = 37 * r % max(U - 1, 1)
             deg[r, first] = True
             deg[r, first:] |= rng.random(U - first) < 0.01
         elif r % 4 == 2:

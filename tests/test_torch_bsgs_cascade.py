@@ -15,7 +15,11 @@ runs the plain version for CPU tensors):
   bsgs._pallas_chunk_impl (JAX sorted_table.lookup and the packing ops,
   restated in jnp) and of _pallas_chunk_impl_host, at T = 3, K = 4: rows
   of different first degenerate lanes, lanes that only the advance flag
-  makes degenerate, and no survivors;
+  makes degenerate, and no survivors; and at the summary kernel's row
+  layouts (R not a multiple of the rows a block takes, U not a multiple
+  of 16, U = 1, the rows the card reads unaligned);
+- the bloom2 stage at its kernel's tile edges (C1 one below, at and one
+  above a tile boundary, a single tile);
 - the sharded prober (parallel/mesh.py ShardedTableBSGSEngine._probe) on
   2 CPU shards: each prober's all_gather summary equals the JAX
   filtered_lookup of the gathered queries against its shard packed with
@@ -39,7 +43,8 @@ from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSParams, _chunk_walk  # noqa: 
 from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import sorted_table as st  # noqa: E402
 from keyhuntm1cpu_tpu_torch.parallel import ShardedTableBSGSEngine  # noqa: E402
-from bsgs_cascade_cases import flags, survivors, table_keys  # noqa: E402
+from bsgs_cascade_cases import (SUMMARY_SHAPES, TILE_EDGES, flags, survivors,  # noqa: E402
+                                table_keys)
 
 torch.set_num_threads(1)
 T, K, U = 3, 4, 64
@@ -100,13 +105,44 @@ def test_bloom2_stage_matches_jax(case):
         assert (got.qhi.numpy()[n2:].view(np.uint32) == pad_key[0]).all()
 
 
+@pytest.mark.parametrize("edge", list(TILE_EDGES))
+def test_bloom2_stage_tile_edges_match_jax(edge):
+    """bloom2_compact(_ref) against the JAX filtered_survivors at C1 one
+    below, at and one above a two-tile boundary (n1 = C1: every query
+    passes an all-ones bitmap) and in a single tile with stage-1 padding."""
+    C1, n1 = TILE_EDGES[edge]
+    rng = np.random.default_rng(17 + C1)
+    bits, b2bits = 12, 14
+    qhi, qlo = (rng.integers(0, 1 << 32, n1, dtype=np.uint64).astype(np.uint32)
+                for _ in range(2))
+    jbm = jb.DeviceBitmap(jnp.asarray(np.full(1 << (bits - 5), 0xFFFFFFFF, np.uint32)), bits)
+    jb2 = jb.DeviceBloom2(jnp.asarray(_random_words(rng, b2bits, 2)), b2bits)
+    mask = jb.probe(jbm, jnp.asarray(qhi), jnp.asarray(qlo))
+    assert int(mask.sum()) == n1
+    pos1 = jb.compact_positions(mask, C1, n1)
+    safe1 = np.minimum(np.asarray(pos1), n1 - 1)
+    stage1 = bmp.ProbeCompact(_t(np.asarray(pos1)), _t(qhi[safe1]), _t(qlo[safe1]),
+                              torch.tensor(n1, dtype=torch.int32))
+    want = jb.filtered_survivors(jbm, jnp.asarray(qhi), jnp.asarray(qlo), C1, bm2=jb2,
+                                 stage1_max=C1)
+    b2 = bmp.DeviceBloom2(_t(np.asarray(jb2.words)), b2bits)
+    assert 0 < int(want.n_candidates) < n1
+    for fn in (bmp.bloom2_compact_ref, bmp.bloom2_compact):
+        got = fn(b2, stage1, n1, C1)
+        assert np.array_equal(got.pos.numpy(), np.asarray(want.pos))
+        assert np.array_equal(got.qhi.numpy().view(np.uint32), np.asarray(want.qhi))
+        assert np.array_equal(got.qlo.numpy().view(np.uint32), np.asarray(want.qlo))
+        assert int(got.n) == int(want.n_candidates)
+
+
 def _jax_summary(jtable, pos, qhi, qlo, n, deg, adv, rows=None):
     """bsgs._pallas_chunk_impl's packing (jtable None: _pallas_chunk_impl_host's)
     of survivors (pos, qhi, qlo, n) over queries with flags deg (Rc, U),
     adv (Rc,); rows: the summary rows' (deg, adv), default the same."""
-    Bq = deg.size
+    Bq, Uq = deg.size, deg.shape[1]
     rdeg, radv = rows if rows is not None else (deg, adv)
-    fix = lambda d, a: jnp.asarray(d).at[:, U - 1].set(jnp.asarray(d)[:, U - 1] | jnp.asarray(a))
+    fix = lambda d, a: jnp.asarray(d).at[:, Uq - 1].set(jnp.asarray(d)[:, Uq - 1]
+                                                         | jnp.asarray(a))
     deg, rdeg = fix(deg, adv), fix(rdeg, radv)
     pos = jnp.asarray(pos)
     live = ~deg.reshape(-1)[jnp.minimum(pos, Bq - 1)]
@@ -171,6 +207,31 @@ def test_summary_matches_jax(small_table, resolve, case):
         assert live_hits.any() and (want[2 * C: 3 * C] > 0).any()  # found2 too
     if case == "none":
         assert (want[:C] == B).all() and want[-1] == 0
+
+
+@pytest.mark.parametrize("resolve", ["device", "host"])
+@pytest.mark.parametrize("shape", list(SUMMARY_SHAPES))
+def test_summary_shapes_match_jax(small_table, resolve, shape):
+    """chunk_summary(_host) and chunk_summary_ref against the JAX packing
+    at the summary kernel's row layouts (tests/bsgs_cascade_cases.py
+    SUMMARY_SHAPES), the mixed flags and survivors."""
+    table, jtable, hits = small_table
+    Rs, Us, C = SUMMARY_SHAPES[shape]
+    deg, adv = flags("mixed", Rs, Us)
+    pos, qhi, qlo, n = survivors("mixed", C, deg, adv, hits)
+    want = _jax_summary(jtable if resolve == "device" else None, pos, qhi, qlo, n, deg, adv)
+    tdeg, tadv = _t(deg), _t(adv)
+    args = (_t(pos), _t(qhi), _t(qlo), torch.tensor(n, dtype=torch.int32), tdeg, tadv,
+            (tdeg, tadv))
+    tab = table if resolve == "device" else None
+    routed = (bsgs.chunk_summary(table, *args) if resolve == "device"
+              else bsgs.chunk_summary_host(*args))
+    for got in (bsgs.chunk_summary_ref(tab, *args), routed):
+        assert got.shape == (3 * C + 3 * Rs + 1,)
+        assert np.array_equal(got.numpy(), want)
+    live = want[:C] < Rs * Us
+    assert live.any() and (live.sum() < n)  # planted dead lanes dropped
+    assert want[3 * C: 3 * C + Rs].sum() > 0  # rows with set flags
 
 
 @pytest.mark.parametrize("comm", ["all_gather", "ring"])

@@ -2,7 +2,9 @@
 derivation, pinv, the Keccak ETH
 hash, the probe, the BSGS chunk's bloom2 stage and summary (at the main
 path's C1 = 34,816, C2 = 1,536, 256 rows of U = 16,384, a 2^28-key table
-and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py),
+and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py,
+and at its tile edges and row layouts; the compact kernels' shared
+scratch reused by 1,000 launches on two streams),
 the two walker walk kernels, the walker step's lookup
 and summary, the fused brute chunk's compaction and summary
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
@@ -635,6 +637,103 @@ def test_bloom2_compact_kernel_matches_plain(dev, case, shape):
     assert (n2 == 0) == (case == "none")
     if shape != "ragged":  # ~1,088 survivors of half a stage 1, ~2,176 of a full one
         assert (n2 > C2) == (case in ("full", "over"))
+
+
+@pytest.mark.parametrize("edge", list(bsgs_cascade_cases.TILE_EDGES))
+def test_bloom2_compact_kernel_tile_edges(dev, edge):
+    """kh_bloom2_compact against bloom2_compact_ref at C1 one below, at and
+    one above a tile boundary and in a single tile, into C2 = C1 and into
+    C2 = 64 (an overflow)."""
+    g = torch.Generator(device=dev).manual_seed(7)
+    bits = 20
+    b2 = bmp.DeviceBloom2(torch.randint(-2**31, 2**31, (1 << (bits - 5),), dtype=torch.int32,
+                                        device=dev, generator=g), bits)
+    B = 5000
+    pos1, qh1, ql1, n1 = bsgs_cascade_cases.edge_stage1(edge, B)
+    t = lambda a: torch.from_numpy(a.view(np.int32)).to(dev)
+    stage1 = bmp.ProbeCompact(t(pos1), t(qh1), t(ql1),
+                              torch.tensor(n1, dtype=torch.int32, device=dev))
+    for C2 in (pos1.shape[0], 64):
+        got = bmp.bloom2_compact(b2, stage1, B, C2)
+        want = bmp.bloom2_compact_ref(b2, stage1, B, C2)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+        assert 0 < int(want.n) < n1
+
+
+def _scratch_clean():
+    """Every stream's next scratch is zero (the last launch cleared it)."""
+    return all(int(sc.buf[sc.turn].abs().sum()) == 0 for sc in bmp._SCRATCH.values())
+
+
+def test_compact_scratch_reuse_two_streams(dev):
+    """1,000 launches back to back on the compact kernels' scratches,
+    taking turns on two streams (each stream's own pair, reused launch
+    after launch with no memset): the bloom2 stage at C1 between tile
+    boundaries (255 to 513 and 34,816) and, every fifth launch, the level-1
+    form at B around its tile (1,023 to 1,025); each result equal to the
+    plain version's, and every stream's next scratch zero at the end."""
+    g = torch.Generator(device=dev).manual_seed(9)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    b2 = bmp.DeviceBloom2(rnd(1 << 15), 20)
+    bm = bmp.DeviceBitmap(rnd(1 << 15) & rnd(1 << 15), 20)
+    B = 40000
+    stages, level1 = [], []
+    for C1 in (255, 256, 257, 511, 512, 513, 34816):
+        pos = torch.sort(torch.randperm(B, device=dev, generator=g)[:C1]).values.int()
+        s1 = bmp.ProbeCompact(pos, rnd(C1), rnd(C1),
+                              torch.tensor(C1, dtype=torch.int32, device=dev))
+        stages.append((s1, bmp.bloom2_compact_ref(b2, s1, B, C1 // 3)))
+    for n in (1023, 1024, 1025):
+        q = (rnd(n), rnd(n))
+        level1.append((q, bmp.probe_compact_ref(bm, *q, n // 4)))
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize()
+    launches = bmp.bloom2_compact.launches + bmp.probe.launches
+    runs = []
+    for i in range(1000):
+        with torch.cuda.stream(streams[i % 2]):
+            if i % 5 == 4:
+                q, want = level1[i % len(level1)]
+                runs.append((bmp.probe_compact(bm, *q, want.pos.shape[0]), want))
+            else:
+                s1, want = stages[i % len(stages)]
+                runs.append((bmp.bloom2_compact(b2, s1, B, want.pos.shape[0]), want))
+    torch.cuda.synchronize()
+    assert bmp.bloom2_compact.launches + bmp.probe.launches == launches + 1000
+    for got, want in runs:
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert _scratch_clean()
+
+
+@pytest.mark.parametrize("resolve", ["device", "host"])
+@pytest.mark.parametrize("shape", list(bsgs_cascade_cases.SUMMARY_SHAPES))
+def test_chunk_summary_kernel_shapes(dev, shape, resolve):
+    """kh_bsgs_summary against chunk_summary_ref at the row role's edges
+    (R not a multiple of the rows a block takes, U = 1,000, U = 1, rows
+    one byte past an aligned start) over a 1,000-key table."""
+    R, U, C = bsgs_cascade_cases.SUMMARY_SHAPES[shape]
+    keys, idx = bsgs_cascade_cases.table_keys(1000)
+    table = st.build_sorted_table((keys >> np.uint64(32)).astype(np.uint32),
+                                  keys.astype(np.uint32), idx, device=dev)
+    deg, adv = bsgs_cascade_cases.flags("mixed", R, U)
+    hits = np.concatenate([keys[:-2:5], keys[-1:]])  # the last one duplicated: found2
+    pos, qhi, qlo, n = bsgs_cascade_cases.survivors("mixed", C, deg, adv, hits)
+    t = lambda a: torch.from_numpy(np.asarray(a).view(np.int32) if np.asarray(a).dtype
+                                   == np.uint32 else np.asarray(a)).to(dev)
+    off = 1 if shape == "unaligned" else 0
+    buf = torch.zeros((R * U + off,), dtype=torch.bool, device=dev)
+    tdeg = buf[off:].view(R, U)
+    tdeg.copy_(t(deg))
+    tadv = t(adv)
+    cand = (t(pos), t(qhi), t(qlo), torch.tensor(n, dtype=torch.int32, device=dev))
+    tab = table if resolve == "device" else None
+    fn = bsgs.chunk_summary_host if tab is None else (lambda *a: bsgs.chunk_summary(table, *a))
+    got = fn(*cand, tdeg, tadv, (tdeg, tadv))
+    want = bsgs.chunk_summary_ref(tab, *cand, tdeg, tadv, (tdeg, tadv))
+    assert torch.equal(got, want)
 
 
 @pytest.fixture(scope="module")
