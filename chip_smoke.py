@@ -31,7 +31,8 @@ any failure exits non-zero before the result line:
    prefix beside 3 point targets; every interval hit checked on the host);
    the fused chunk's compaction and summary (kh_compact_hits) at
    C = 1024 on K4's rmd160 hit words and on planted ones (R + 1 flagged
-   rows, more than C words in R rows, a dense row and degenerate words);
+   rows, more than C words in R rows, a dense row and degenerate words),
+   three launches in a row on each, with its device operations;
    K5 over every lane of B = 2^23 in the canonical and a custom
    alphabet and against hashlib on a sample, the compaction and key
    derivation (on K5's mask and on planted ones: none valid, more valid
@@ -51,7 +52,9 @@ any failure exits non-zero before the result line:
    sizes, walk_prefix also at L = 7, 64 and 65, and the step's lookup and
    summary (C = 256 survivors over 2^22 table keys, hits planted on
    degenerate lanes and a duplicated key; beside sorted_table.lookup, the
-   torch.searchsorted composition, and its latency floor at C = 1, W = 1);
+   torch.searchsorted composition, and its latency floor at C = 1, W = 1,
+   warm and with a cold L2; then the cases of tests/walker_lookup_cases.py,
+   the 32-ary search's edges among them);
    the BSGS chunk's bloom2 stage (kh_bloom2_compact: C1 = 34,816 stage-1
    survivors of 4,194,304 queries into C2 = 1,536 against host resolve's
    2^35-bit and a device table's 2^32-bit bloom2, at their densities and
@@ -62,8 +65,9 @@ any failure exits non-zero before the result line:
    survivors over 256 rows of U = 16,384 and a 2^28-key table, flags and
    hits planted; also with a cold L2 and at m = 2^30's survivors), each
    beside the torch composition it replaced; the compact kernels'
-   scratch reused by 1,000 launches on two streams with no memset
-   (C1 between tile boundaries), each equal to its plain version;
+   scratch pairs reused by 1,200 launches on two streams with no memset
+   (C1 between tile boundaries; 200 of kh_compact_hits interleaved with
+   the probe's two forms on each stream), each equal to its plain version;
    each kernel's device time
    (device_ms: CUDA events around back-to-back runs queued behind a sleep
    kernel) beside its plain version's time.
@@ -133,9 +137,9 @@ any failure exits non-zero before the result line:
    (U = 1024 bucketed), then 5 s of throughput at U = 16384,
    K = 256, T = 32 over [2^40, 2^40 + 2^50): effective keys/s (keys times
    the mode's multiplier), the device idle share, the host's enqueue time
-   a chunk, the device operations of one chunk (torch.profiler), the chunk
-   time split over K1, K4 and the compaction, and K1 == K4 == compaction
-   == chunks dispatched.
+   a chunk, the device operations of one chunk and the memsets among them
+   (torch.profiler), the chunk time split over K1, K4 and the compaction,
+   and K1 == K4 == compaction == chunks dispatched.
 4v. vanity (bench_modes.bench_vanity's protocol): key 777's 5-character
    prefix over [1, 2049) at U = 256, K = 4, the found set equal to a host
    scan's; the prefix beside keys 1..32 over [1, 4097); then 5 s at
@@ -326,15 +330,18 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                          "compaction and summary of pallas_brute_chunk "
                                          "(curve/pbrute.py:300-344), at the fused chunk's "
                                          "K = 256, U = 16384, C = 1024 on K4's rmd160 hit "
-                                         "words; ms includes the ticket's memset; no torch "
-                                         "call computes it"},
+                                         "words; no memset (a scratch pair a stream, "
+                                         "each launch zeroing the other's ticket); no "
+                                         "torch call computes it"},
                 "lookup_summary": {"note": "replaces XLA glue, not a Pallas kernel: the "
                                            "summary ops of _brute_chunk_impl "
                                            "(engine/brute.py:1064-1093) and the lower-bound "
                                            "search of filter/sorted_table.py:68; bound_ms: "
                                            "the bytes of the searched keys, beside "
                                            "latency_floor_ms, the kernel at C = 1, W = 1 (one "
-                                           "binary search); library_ms: sorted_table.lookup "
+                                           "32-ary warp search); cold_ms, "
+                                           "latency_floor_cold_ms: the same after a 64 MB "
+                                           "fill; library_ms: sorted_table.lookup "
                                            "(torch.searchsorted and the gathers) of the same "
                                            "C = 256 keys over 2^22"},
                 "bloom2_compact": {"note": "replaces XLA glue, not a Pallas kernel: the "
@@ -597,6 +604,14 @@ def device_ms(fn, reps):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps, out
+
+
+def cold_ms(fn, flush):
+    """fn()'s card time with a cold L2: the time of a fill of flush (a 64 MB
+    tensor, past the 50 MB L2) and fn, less the fill's alone."""
+    both, _ = device_ms(lambda: (flush.zero_(), fn())[1], 50)
+    alone, _ = device_ms(flush.zero_, 50)
+    return both - alone
 
 
 def enqueue_ms(fn, reps):
@@ -1169,9 +1184,10 @@ def phase1_brute(dev, results, clock):
                                           for k, v in planted.items()}
     err = 0
     for name, h in cases.items():
-        got = pbrute.compact_hits(h, adeg, C)
         want = pbrute.compact_hits_ref(h, adeg, C)
-        err = max(err, max_abs_err([got], [want]))
+        # three launches in a row: each on the scratch the one before zeroed
+        got = [pbrute.compact_hits(h, adeg, C) for _ in range(3)]
+        err = max(err, max_abs_err(got, [want] * 3))
         if err:
             fail(f"kh_compact_hits on {name} differs from its plain version "
                  f"(max_abs_err {err})")
@@ -1182,12 +1198,15 @@ def phase1_brute(dev, results, clock):
             fail(f"compact_hits_ref on {name}: n = {n}")
     ms, _ = device_ms(lambda: pbrute.compact_hits(k4_hits, adeg, C), 20)
     pms, _ = timed(lambda: pbrute.compact_hits_ref(k4_hits, adeg, C), 5)
+    ops, memsets = device_ops(lambda: pbrute.compact_hits(k4_hits, adeg, C))
     bms, by_ = bound_ms(0, 4 * K * U + K + 4 * (2 * C + 3 * K + 1), clock)
     results["compact_hits"] = dict(ms=ms, plain_ms=pms, bound_ms=bms, bound_by=by_,
                                    max_abs_err=err)
     log(f"kh_compact_hits K={K} U={U} C={C} (R={R}): equal to compact_hits_ref on "
-        f"{', '.join(cases)}; {ms:.4f} ms on K4's hit words (plain {pms:.3f} ms, "
-        f"bound {bms:.4f} ms by {by_})")
+        f"{', '.join(cases)}, three launches in a row each; {ms:.4f} ms on K4's hit words "
+        f"(plain {pms:.3f} ms, bound {bms:.4f} ms by {by_}); "
+        f"{ops or 'not measured: the profiler saw no'} device operations a call "
+        f"({memsets} memsets)")
     torch.cuda.synchronize()
 
 
@@ -1594,19 +1613,45 @@ def phase1_walker(dev, results, clock):
         fail(f"lookup_summary differs from its plain version (max_abs_err {err}) or from the "
              f"planted hits ({n_hit} of {n_live})")
     lib_ms, _ = device_ms(lambda: st.lookup(table, lqhi, lqlo), 50)
-    floor_ms, _ = device_ms(lambda: st.lookup_summary(
-        table, lpos[:1], lqhi[:1], lqlo[:1], largs[4], deg[:1], adeg[:1], total), 50)
+    one = (table, lpos[:1], lqhi[:1], lqlo[:1], largs[4], deg[:1], adeg[:1], total)
+    floor_ms, _ = device_ms(lambda: st.lookup_summary(*one), 50)
+    flush = torch.empty((1 << 24,), dtype=torch.int32, device=dev)  # 64 MB, past the L2
+    cms = cold_ms(lambda: st.lookup_summary(*largs), flush)
+    floor_cms = cold_ms(lambda: st.lookup_summary(*one), flush)
     levels = WK_T.bit_length()  # ceil(log2(m + 1)) dependent reads a search
     bms, by_ = bound_ms(cmax * levels * 8 + W * U // 4,
                         cmax * (16 + 8 * (levels + 2)) + W * U + W + 4 * (2 * cmax + 3 * W + 2),
                         clock)
     results["lookup_summary"] = dict(max_abs_err=err, ms=ms, plain_ms=pms, bound_ms=bms,
-                                     bound_by=by_, library_ms=lib_ms, latency_floor_ms=floor_ms)
+                                     bound_by=by_, library_ms=lib_ms, latency_floor_ms=floor_ms,
+                                     cold_ms=cms, latency_floor_cold_ms=floor_cms)
     log(f"lookup_summary C={cmax} W={W} U={U} m={WK_T}: equal to plain, {n_hit} live hits (the "
-        f"degenerate lanes' dropped, walker 2's first degenerate lane 8); {ms:.4f} ms (plain "
-        f"{pms:.3f} ms, sorted_table.lookup {lib_ms:.4f} ms, bound {bms:.5f} ms by {by_}, "
-        f"latency floor (C = 1, W = 1) {floor_ms:.4f} ms)")
-    del table, largs, lpos, lqhi, lqlo
+        f"degenerate lanes' dropped, walker 2's first degenerate lane 8); {ms:.4f} ms, cold L2 "
+        f"{cms:.4f} ms (plain {pms:.3f} ms, sorted_table.lookup {lib_ms:.4f} ms, bound "
+        f"{bms:.5f} ms by {by_}, latency floor (C = 1, W = 1) {floor_ms:.4f} ms, cold L2 "
+        f"{floor_cms:.4f} ms)")
+    del table, largs, lpos, lqhi, lqlo, one, flush
+    # the cases of tests/walker_lookup_cases.py: found2, a key above the
+    # table, tables of 1, 32, 33, 34, 1,089 and 1,090 keys (the 32-ary
+    # search's edges), a duplicate across a pivot, the table's first and last
+    # keys, padding, degenerate hits, overflow, more walkers and survivors
+    # than a block holds
+    import walker_lookup_cases as wlc
+
+    i32 = lambda a: torch.from_numpy(np.asarray(a, np.uint32).view(np.int32).copy()).to(dev)
+    for case in wlc.CASES:
+        d = wlc.make_case(case)
+        ctab = st.build_sorted_table(d["hi"], d["lo"], d["idx"], dev)
+        cargs = (ctab, torch.from_numpy(d["pos"]).to(dev), i32(d["qhi"]), i32(d["qlo"]),
+                 torch.tensor(d["n"], dtype=torch.int32, device=dev),
+                 torch.from_numpy(d["deg"]).to(dev), torch.from_numpy(d["adeg"]).to(dev),
+                 d["total"])
+        e = max_abs_err([st.lookup_summary(*cargs)], [st.lookup_summary_ref(*cargs)])
+        if e:
+            fail(f"lookup_summary differs from its plain version on case {case} "
+                 f"(max_abs_err {e})")
+    log(f"lookup_summary: equal to plain on the {len(wlc.CASES)} cases of "
+        f"walker_lookup_cases ({', '.join(wlc.CASES)})")
     del words, bm, word_idx
     torch.cuda.empty_cache()
 
@@ -1645,7 +1690,7 @@ def phase1_bsgs(dev, results, clock):
     of its scratch before each launch, one more device operation as PR
     16's memset was (device operations and ms), and the summary also with a cold L2 (a 64 MB fill
     between runs, as a chunk's probe leaves it). Then the scratch-reuse
-    gate: 1,000 launches of the compact kernels on two streams, each on
+    gate: 1,200 launches of the compact kernels on two streams, each on
     its stream's scratch pair, C1 between tile boundaries, each equal to
     its plain version, each stream's next scratch zero after."""
     import torch
@@ -1710,8 +1755,8 @@ def phase1_bsgs(dev, results, clock):
             ms, pms, rms, bms, by_, n2 = time_stage(b2, s1, C2)
             # as PR 16 launched it: the scratch zeroed first, then the kernel
             st_ = _build.stream(s1.qhi)
-            sc = bmp._SCRATCH[(st_.device, int(st_))]
-            with_fill = lambda: (sc.buf[sc.turn].zero_(), bmp.bloom2_compact(b2, s1, B, C2))[1]
+            pair = bmp._COMPACT.pairs[(st_.device, int(st_))]
+            with_fill = lambda: (pair[0][pair[1]].zero_(), bmp.bloom2_compact(b2, s1, B, C2))[1]
             fms, _ = device_ms(with_fill, 50)
             ops, memsets = device_ops(lambda: bmp.bloom2_compact(b2, s1, B, C2))
             ops0, memsets0 = device_ops(with_fill)
@@ -1782,12 +1827,6 @@ def phase1_bsgs(dev, results, clock):
         return (pos, qh.contiguous(), ql.contiguous(),
                 torch.tensor(n, dtype=torch.int32, device=dev), deg, adv)
 
-    def cold_ms(fn):
-        """fn()'s card time after a 64 MB fill: the fill and fn, less the fill alone."""
-        both, _ = device_ms(lambda: (flush.zero_(), fn())[1], 50)
-        alone, _ = device_ms(flush.zero_, 50)
-        return both - alone
-
     for name, tab in (("chunk_summary", table), ("chunk_summary_host", None)):
         fn = ((lambda *a: bsgs.chunk_summary(table, *a)) if tab is not None
               else bsgs.chunk_summary_host)
@@ -1806,7 +1845,7 @@ def phase1_bsgs(dev, results, clock):
                 log(f"{name} n={n} with dense flags: equal to plain ({live} live)")
                 continue
             ms, _ = device_ms(lambda: fn(*args), 50)
-            cms = cold_ms(lambda: fn(*args))
+            cms = cold_ms(lambda: fn(*args), flush)
             rms, _ = device_ms(lambda: bsgs.chunk_summary_ref(tab, *args), 50)
             searched = int(((pos < B) & ~deg.reshape(-1)[pos.clamp(max=B - 1).long()])
                            .sum()) if tab is not None else 0
@@ -1843,17 +1882,22 @@ def phase1_bsgs(dev, results, clock):
 
 
 def scratch_reuse_gate(dev):
-    """1,000 launches of the compact kernels back to back, taking turns on
-    two streams, each on its own stream's scratch pair with no memset: the
-    bloom2 stage at C1 between tile boundaries (one below, at and one above
+    """1,200 launches of the compact kernels back to back, taking turns on
+    two streams, each on its own stream's scratch pairs with no memset:
+    1,000 on the bitmap pair, the bloom2 stage at C1 between tile boundaries (one below, at and one above
     135 tiles, the main path's 136 and m = 2^30's 526; 255 and 257) against
-    the 2^35-bit bloom2, and every fifth launch the level-1 form at the
+    the 2^35-bit bloom2, every fifth launch the level-1 form at the
     main path's 4,194,304 queries and one more (a 2^35-bit bitmap of m =
-    2^28's density, into C1 = 34,816); each result equal to its
-    plain version's (computed first), every stream's next scratch zero
-    after."""
+    2^28's density, into C1 = 34,816), and after every fifth of them the
+    fused brute chunk's compaction on its own pair (200 launches of
+    kh_compact_hits at K = 256, U = 16,384, C = 1,024: a few hits, R + 1
+    flagged rows, dense rows with degenerate words), so the probe's and the
+    compaction's launches interleave on each stream;
+    each result equal to its plain version's (computed first), every
+    stream's next scratch zero after (the compaction's: its ticket)."""
     import torch
 
+    from keyhuntm1cpu_tpu_torch.curve import pbrute
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
 
     g = torch.Generator(device=dev).manual_seed(17)
@@ -1866,7 +1910,7 @@ def scratch_reuse_gate(dev):
     for _ in range(6):
         words &= rnd(1 << (MAIN_BITS - 5))
     bm = bmp.DeviceBitmap(words, MAIN_BITS)  # density 1/128, m = 2^28's: ~32,768 pass
-    stages, level1 = [], []
+    stages, level1, compacts = [], [], []
     for c1 in (135 * tile - 1, 135 * tile, 135 * tile + 1, CASCADE_C[0], CASCADE_30[0],
                tile - 1, tile + 1):
         pos = torch.sort(torch.randperm(B, device=dev, generator=g)[:c1]).values.int()
@@ -1876,6 +1920,16 @@ def scratch_reuse_gate(dev):
     for n in (B, B + 1):
         q = (rnd(n), rnd(n))
         level1.append((q, bmp.probe_compact_ref(bm, *q, CASCADE_C[0])))
+    C = 1024
+    R = pbrute.row_budget(C)
+    adeg = torch.zeros(K, dtype=torch.bool, device=dev)
+    adeg[[0, K - 1]] = True
+    for n_rows, per_row in ((3, 1), (R + 1, 2), (R, 128)):
+        h = torch.zeros((B // pbrute.LANES, pbrute.LANES), dtype=torch.int32, device=dev)
+        rows = torch.randperm(B // pbrute.LANES, device=dev, generator=g)[:n_rows]
+        h[rows, :per_row] = rnd(n_rows * per_row).reshape(n_rows, per_row) & (1 << 31) - 1
+        h = h.reshape(K, U)
+        compacts.append((h, pbrute.compact_hits_ref(h, adeg, C)))
     streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
     torch.cuda.synchronize()
     runs = []
@@ -1888,19 +1942,25 @@ def scratch_reuse_gate(dev):
             else:
                 s1, want = stages[i % len(stages)]
                 runs.append((bmp.bloom2_compact(b2, s1, B, want.pos.shape[0]), want))
+            if i % 5 == 2:
+                h, want = compacts[i % len(compacts)]
+                runs.append(([pbrute.compact_hits(h, adeg, C)], [want]))
     torch.cuda.synchronize()
     dt = time.time() - t0
     bad = sum(1 for got, want in runs if max_abs_err(got, want))
-    dirty = [k for k, sc in bmp._SCRATCH.items() if int(sc.buf[sc.turn].abs().sum())]
+    dirty = [k for k, (buf, turn) in bmp._COMPACT.pairs.items() if int(buf[turn].abs().sum())]
+    dirty += [k for k, (buf, turn) in pbrute._COMPACT.pairs.items()
+              if int(buf[turn][0])]
     if bad or dirty:
-        fail(f"scratch reuse: {bad} of 1,000 launches differ from the plain version; "
+        fail(f"scratch reuse: {bad} of 1,200 launches differ from the plain version; "
              f"scratches left non-zero: {dirty}")
-    log(f"scratch reuse: 1,000 compact launches on two streams (800 bloom2 stages at C1 "
+    log(f"scratch reuse: 1,200 compact launches on two streams (800 bloom2 stages at C1 "
         f"{', '.join(str(s.pos.shape[0]) for s, _ in stages)}, 200 level-1 at B {B} and "
-        f"{B + 1}) each equal to its plain version, the next scratch of each of "
-        f"{len(bmp._SCRATCH)} streams zero after, "
+        f"{B + 1}, 200 kh_compact_hits at K={K} U={U} C={C} with 3, R + 1 and R dense "
+        f"flagged rows) each equal to its plain version, the next scratch of each of "
+        f"{len(bmp._COMPACT.pairs)} + {len(pbrute._COMPACT.pairs)} stream pairs zero after, "
         f"{dt:.2f} s")
-    del runs, stages, level1, b2, bm, words
+    del runs, stages, level1, compacts, b2, bm, words
     torch.cuda.empty_cache()
 
 
@@ -2287,7 +2347,7 @@ def phase4_brute(dev, seconds, clock, rates):
                 px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng._tgt, eng._btab,
                 K=K, U=U, C=params.chunk_cand, mode=mode, n_endo=eng._n_endo,
                 n_bucket_rows=eng._n_bucket_rows, adv_tab=eng.adv_tab)
-        n_dev = device_launches(chunk)
+        n_dev, n_memset = device_ops(chunk)
         c_ms, _ = device_ms(chunk, 5)
         k1_ms, (bx, by, _, _, adeg) = device_ms(lambda: pwalk.advance_chain(
             px[:, None], py[:, None], eng.adv_x, eng.adv_y, K, eng.adv_tab), 5)
@@ -2304,7 +2364,8 @@ def phase4_brute(dev, seconds, clock, rates):
             f"idle share {1 - busy / span:.4f}; host enqueue {enq_ms:.3f} ms a chunk; "
             f"chunk {c_ms:.3f} ms on the card in "
             f"{n_dev or 'not measured: the profiler saw no'} device operations (kernels, "
-            f"copies, fills; torch.profiler) = K1 {k1_ms:.3f} + K4 {k4_ms:.3f} (bound "
+            f"copies, fills; torch.profiler; {n_memset} memsets) = K1 {k1_ms:.3f} + K4 "
+            f"{k4_ms:.3f} (bound "
             f"{k4_bound:.3f}) + compaction {cp_ms:.4f} (the rest "
             f"{c_ms - k1_ms - k4_ms - cp_ms:.4f}); host decode "
             f"{1000 * dec[0] / chunks:.3f} ms a chunk with {len(cands) / chunks:.4f} "
@@ -4183,6 +4244,7 @@ def main():
         fail("run from a checkout of the repository (keyhuntm1cpu_tpu_torch/ missing)")
     sys.path.insert(0, here)
     sys.path.insert(0, os.path.join(here, "scripts"))
+    sys.path.insert(0, os.path.join(here, "tests"))  # the kernels' case helpers (numpy only)
     from keyhuntm1cpu_tpu_torch import _build
 
     card = card_line()

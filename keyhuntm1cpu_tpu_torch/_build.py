@@ -29,6 +29,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 from functools import lru_cache
 from typing import List
 
@@ -134,8 +135,8 @@ def kernels() -> ctypes.CDLL:
         "kh_insert_keys": [vp] * 4 + [i64, vp, vp, i, vp, i, i, vp],
         # bx by tx ty tgt btab hits | K U T TB mode n_endo stream
         "kh_brute_walk_blocks": [vp] * 7 + [i64, i, i, i, i, i, vp],
-        # hits adeg out scratch | K U C stream
-        "kh_compact_hits": [vp] * 4 + [i, i, i, vp],
+        # hits adeg out scratch next | K U C stream
+        "kh_compact_hits": [vp] * 5 + [i, i, i, vp],
         # a out | n stream
         "kh_inv_batch": [vp, vp, i64, vp],
         # x y lo hi | n stream
@@ -272,3 +273,41 @@ def stream(t) -> Stream:
     s = Stream(torch.cuda.current_stream(t.device).cuda_stream)
     s.device = t.device.index  # a CUDA tensor's device always has one
     return s
+
+
+class ScratchPairs:
+    """Scratch for kernels that keep a ticket (and status words) in device
+    memory and must find them zero on entry, with no memset before a
+    launch. One pair of zeroed buffers a (device, stream): launches on one
+    stream never overlap, so they take turns on its two buffers, and each
+    launch zeroes the other one, which the launch before it used; another
+    stream (a side stream, a thread's) has its own pair. whole: the kernels
+    zero all of the other buffer and take its size in 64-bit words after
+    the two pointers; else they zero only its first word (a ticket: the
+    rest is rewritten whole by every launch). Kernels that share a pool
+    must agree on what they zero."""
+
+    def __init__(self, whole: bool):
+        self.whole = whole
+        self.pairs = {}  # (device, stream) -> [(2, words) int64 buffer, turn]
+        self._lock = threading.Lock()
+
+    def launch(self, fn: str, t, words: int, head: tuple, tail: tuple) -> None:
+        """Launch kernel fn on the current stream of t's device with
+        arguments head, this launch's buffer, the other one (and its words
+        when whole), tail and the stream; this launch needs `words` 64-bit
+        words. The launch and the turn are taken under a lock, so threads
+        that share a stream keep them in order."""
+        import torch
+
+        s = stream(t)
+        key = (s.device, int(s))
+        with self._lock:
+            pair = self.pairs.get(key)
+            if pair is None or pair[0].shape[1] < words:
+                pair = self.pairs[key] = [torch.zeros((2, words), dtype=torch.int64,
+                                                      device=t.device), 0]
+            buf, turn = pair
+            other = (buf.shape[1],) if self.whole else ()
+            launch(fn, *head, buf[turn].data_ptr(), buf[1 - turn].data_ptr(), *other, *tail, s)
+            pair[1] = 1 - turn

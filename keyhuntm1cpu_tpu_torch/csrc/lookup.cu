@@ -51,34 +51,38 @@
 //   [3C, 3C+R)    the set flags of row r, lane U - 1 or'ed with radv[r]
 //   [3C+R, 3C+2R) the first of them (0 when none: argmax)
 //   [3C+2R, 3C+3R) radv, then the (poisoned) survivor count
-// Blocks of two roles in one launch, the candidates' first.
+// Both kernels run blocks of two roles in one launch, the candidates'
+// first, and share the survivor's search and the row reduction.
 //
-// kh_lookup_summary runs one block a step: thread c searches candidate c (a
-// binary search of ceil(log2(m+1)) dependent 8-byte reads; the top levels,
-// which every thread reads, hit in L1 and L2), then warp w reduces walker
-// w's U flags (16 bytes a lane a load when the rows are 16-byte aligned,
-// else a byte a lane). Bound on the H100: the latency of one search (~23
-// dependent reads at m = 2^22), not bytes (~2 KB of keys read per
-// candidate) nor operations; a cached upper tree of the table would cut
-// the dependent DRAM reads.
-// kh_bsgs_summary's bound is bytes: 4 MB of row flags at the main path's
-// R = 256, U = 16,384 (~1.3 us at 3.35 TB/s). It reads each row with one
-// round trip: a group of kThreads threads a row (fewer, down to a warp,
-// for short rows, several rows a block), each thread with its
-// kRowLoads 16-byte loads issued before any is tested, then a block
-// reduction of the count and the first set lane; the lane U - 1 fix-up's
-// two bytes are loaded beside them. So all 4 MB are in flight at once on
-// 256 blocks over the card's 132 SMs (a warp a row on 32 blocks kept 16 KB
-// in flight an SM and took ~8 round trips). The C2 = 1,536 survivors
-// (512 real at m = 2^28) are searched in the 2^28-key table a warp each,
-// 32-ary: 32 keys read at once a level and a ballot, 6 dependent reads at
-// m = 2^28 and 2^30 where the binary search takes 29. Wider levels
-// (kSearchP = 2, 4 keys a lane: 5 and 4 reads) were slower, warm and cold
-// (scripts/torch_cascade_shapes.py times them). The searches' blocks come
-// first in the grid, so their chains start first; padding and dead
-// survivors skip the search, and the keys and payloads at lb and lb + 1
-// are read together, one more round trip. Host resolve searches nothing:
-// a thread a survivor.
+// Both are bound by latency at the main paths' shapes, not by bytes or
+// operations (kh_lookup_summary: ~2 KB of keys a survivor and 32 KB of
+// flags; kh_bsgs_summary: 4 MB of row flags at R = 256, U = 16,384,
+// ~1.3 us at 3.35 TB/s), so each spreads its work over the card and
+// keeps the dependent reads few:
+// - A survivor is searched by a warp, 32-ary: each level reads 32 keys at
+//   once and a ballot counts those below the query, so a search takes
+//   ceil(log33(m)) + 1 dependent reads (5 at m = 2^22, 6 at 2^28 and 2^30)
+//   where the binary search took ceil(log2(m + 1)) (23, 29). Wider levels
+//   (kSearchP = 2, 4 keys a lane: 64- and 128-ary) were slower, warm and
+//   cold (scripts/torch_cascade_shapes.py and scripts/torch_walker_shapes.py
+//   time them, and the binary search). Padding and dead survivors skip the
+//   search; the keys and payloads at lb and lb + 1 are then read together,
+//   one more round trip.
+// - A row of flags is read with one round trip: a group of tpr threads a
+//   row (kThreads, fewer down to a warp for short rows, several rows a
+//   block), each thread with its kRowLoads 16-byte loads issued before any
+//   is tested, then a reduction of the count and the first set lane over
+//   the group. So kh_bsgs_summary has all 4 MB in flight at once on 256
+//   blocks over the card's 132 SMs (a warp a row on 32 blocks kept 16 KB
+//   in flight an SM and took ~8 round trips).
+// - The search blocks (a warp a survivor, kWarps a block) come first in the
+//   grid, so their chains start first; the row blocks follow. Host resolve
+//   searches nothing: a thread a survivor.
+// On an H100 (scripts/torch_walker_shapes.py), kh_lookup_summary at C = 256
+// over 2^22 keys, W = 8, U = 4,096 takes ~0.0046 ms (0.0070 with a cold
+// L2), one survivor and one row ~0.0044: a binary search in each lane on
+// the same grid took 0.0069, and the one-block design before (a thread a
+// survivor with the binary search, a warp a walker row, on one SM) 0.0089.
 // The entry points launch on the given stream, do not synchronise, and
 // return cudaGetLastError().
 #include <cuda_runtime.h>
@@ -88,136 +92,16 @@
 namespace {
 
 constexpr int kThreads = 256;
-
-struct LookupArgs {
-  const int32_t* pos;
-  const uint32_t* qhi;
-  const uint32_t* qlo;
-  const int32_t* count;
-  const long long* key;
-  const int32_t* idx;
-  const uint8_t* deg;
-  const uint8_t* adeg;
-  long long m;
-  int C, W, U, total;
-};
-
-// the first position of key[0, m) not less than q (signed int64 order)
-__device__ __forceinline__ long long lower_bound(const long long* __restrict__ key, long long m,
-                                                 long long q) {
-  long long lo = 0, hi = m;
-  while (lo < hi) {
-    const long long mid = (lo + hi) >> 1;
-    if (__ldg(key + mid) < q) {
-      lo = mid + 1;
-    } else {
-      hi = mid;
-    }
-  }
-  return lo;
-}
-
-// the survivor's key against the table: lb, found, found2
-struct Match {
-  long long lb;
-  bool found, found2;
-};
-
-__device__ __forceinline__ Match match(const long long* __restrict__ key, long long m,
-                                       uint32_t qhi, uint32_t qlo) {
-  const long long q = (long long)(((unsigned long long)qhi << 32 | qlo) ^ (1ull << 63));
-  const long long lb = lower_bound(key, m, q);
-  return {lb, lb < m && key[lb] == q, lb + 1 < m && key[lb + 1] == q};
-}
-
-__device__ __forceinline__ void candidate(const LookupArgs& a, int c, int32_t* __restrict__ out) {
-  const int p = a.pos[c];
-  const Match r = match(a.key, a.m, a.qhi[c], a.qlo[c]);
-  const long long npts = 2LL * a.U + 1;
-  const long long q = (long long)min(p, a.total - 1) % (a.W * npts);
-  const long long w = q / npts, lane = q % npts;
-  const bool degenerate = lane < 2LL * a.U && a.deg[w * a.U + (lane < a.U ? lane : lane - a.U)];
-  const bool hit = (r.found || r.found2) && p < a.total && !degenerate;
-  out[c] = hit ? p : a.total;
-  out[a.C + c] = hit ? a.idx[r.lb < a.m ? r.lb : a.m - 1] : 0;
-}
-
-// A row of U flag bytes: (set count, first set lane or U when none),
-// reduced over the warp; 16 bytes a lane a load when the rows are 16-byte
-// aligned (vec), else a byte a lane.
-__device__ __forceinline__ void row_flags(const uint8_t* __restrict__ row, int U, bool vec,
-                                          int lane, int& n_set, int& first_set) {
-  int n = 0, first = U;
-  if (vec) {
-    const uint4* v = reinterpret_cast<const uint4*>(row);
-#pragma unroll 4
-    for (int k = lane; k < U / 16; k += 32) {
-      const uint4 x = v[k];
-      const uint32_t words[4] = {x.x, x.y, x.z, x.w};
-#pragma unroll
-      for (int j = 0; j < 4; j++) {
-        const uint32_t nz = __vcmpne4(words[j], 0u);  // 0xFF per non-zero byte
-        n += __popc(nz) >> 3;
-        if (nz) first = min(first, 16 * k + 4 * j + ((__ffs(nz) - 1) >> 3));
-      }
-    }
-  } else {
-    for (int u = lane; u < U; u += 32) {
-      if (row[u]) {
-        n++;
-        first = min(first, u);
-      }
-    }
-  }
-  n_set = __reduce_add_sync(0xFFFFFFFFu, n);
-  first_set = __reduce_min_sync(0xFFFFFFFFu, first);
-}
-
-__device__ __forceinline__ bool rows_aligned(const uint8_t* deg, int U) {
-  return U % 16 == 0 && ((uintptr_t)deg & 15) == 0;
-}
-
-// walker w's words
-__device__ __forceinline__ void walker(const LookupArgs& a, int w, int lane,
-                                       int32_t* __restrict__ out) {
-  int n, first;
-  row_flags(a.deg + (long long)w * a.U, a.U, rows_aligned(a.deg, a.U), lane, n, first);
-  if (lane == 0) {
-    out[2 * a.C + w] = n;
-    out[2 * a.C + a.W + w] = first < a.U ? first : 0;
-    out[2 * a.C + 2 * a.W + w] = a.adeg[w] != 0;
-  }
-}
-
-__global__ void __launch_bounds__(kThreads)
-lookup_summary_kernel(LookupArgs a, int32_t* __restrict__ out) {
-  for (int c = threadIdx.x; c < a.C; c += kThreads) candidate(a, c, out);
-  const int lane = threadIdx.x & 31;
-  for (int w = threadIdx.x >> 5; w < a.W; w += kThreads / 32) walker(a, w, lane, out);
-  if (threadIdx.x == 0) out[2 * a.C + 3 * a.W] = *a.count;
-}
-
-struct BsgsArgs {
-  const int32_t* pos;
-  const uint32_t* qhi;
-  const uint32_t* qlo;
-  const int32_t* count;
-  const long long* key;  // null: host resolve
-  const int32_t* idx;
-  const uint8_t* cdeg;  // (Rc, U): the flags of the B = Rc*U queries
-  const uint8_t* cadv;  // (Rc,)
-  const uint8_t* rdeg;  // (R, U): the summary rows
-  const uint8_t* radv;  // (R,)
-  long long m, B;
-  int C, R, U;
-  int tpr;   // threads a summary row: 32, 64, 128 or kThreads
-  bool vec;  // the rows are 16-byte aligned: 16 bytes a load
-};
-
 constexpr unsigned kFull = 0xFFFFFFFFu;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRowLoads = 4;  // 16-byte loads a thread has in flight on a row
 constexpr int kSearchP = 1;   // keys a lane reads a level of the warp search (32-ary)
+
+// A survivor's (hi, lo) words as the table's key: bit 63 flipped, so the
+// signed order is the unsigned one.
+__device__ __forceinline__ long long query_key(uint32_t qhi, uint32_t qlo) {
+  return (long long)(((unsigned long long)qhi << 32 | qlo) ^ (1ull << 63));
+}
 
 // The lower bound of q in key[0, m), by a warp (every lane passes the same
 // q and gets the same answer): each level reads D - 1 = 32 * kSearchP keys
@@ -254,47 +138,24 @@ __device__ __forceinline__ long long warp_lower_bound(const long long* __restric
   return lo + k;
 }
 
-// Whether survivor c is live: a real position whose lane is not degenerate
-// (its flag, or on lane U - 1 its row's advance flag).
-__device__ __forceinline__ bool bsgs_live(const BsgsArgs& a, int p) {
-  const long long q = min((long long)p, a.B - 1);
-  const bool dead = a.cdeg[q] || (q % a.U == a.U - 1 && a.cadv[q / a.U]);
-  return p < a.B && !dead;
-}
+// A survivor's key q against the table, by a warp: found = key[lb] == q,
+// found2 = key[lb + 1] == q, and the payloads j = idx[lb], j2 = idx[lb + 1]
+// (0 past the table), lb the lower bound. The four words are read at once
+// (lanes 0-3) after the search.
+struct Match {
+  bool found, found2;
+  int32_t j, j2;
+};
 
-// Host resolve, a thread a survivor: the keys go to the host.
-__device__ __forceinline__ void host_candidate(const BsgsArgs& a, int c,
-                                               int32_t* __restrict__ out) {
-  const int p = a.pos[c];
-  out[c] = bsgs_live(a, p) ? p : (int32_t)a.B;
-  out[a.C + c] = (int32_t)a.qhi[c];
-  out[2 * a.C + c] = (int32_t)a.qlo[c];
-}
-
-// Device resolve, a warp a survivor: the 32-ary search, then the keys and
-// payloads at lb and lb + 1 read at once (lanes 0-3).
-__device__ __forceinline__ void table_candidate(const BsgsArgs& a, int c, int lane,
-                                                int32_t* __restrict__ out) {
-  const int p = a.pos[c];
-  int32_t w[3] = {(int32_t)a.B, 0, 0};  // every word's "none"
-  if (bsgs_live(a, p)) {  // the same on every lane
-    const long long q = (long long)(((unsigned long long)a.qhi[c] << 32 | a.qlo[c]) ^ (1ull << 63));
-    const long long lb = warp_lower_bound(a.key, a.m, q, lane);
-    const long long at = lb + (lane & 1);
-    long long v = 0;
-    if (lane < 4 && at < a.m) v = lane < 2 ? __ldg(a.key + at) : (long long)__ldg(a.idx + at);
-    const bool found = lb < a.m && __shfl_sync(kFull, v, 0) == q;
-    const bool found2 = lb + 1 < a.m && __shfl_sync(kFull, v, 1) == q;
-    const int32_t j = (int32_t)__shfl_sync(kFull, v, 2), j2 = (int32_t)__shfl_sync(kFull, v, 3);
-    w[0] = found || found2 ? p : (int32_t)a.B;
-    w[1] = found ? j : 0;
-    w[2] = found2 ? j2 : 0;
-  }
-  if (lane == 0) {
-    out[c] = w[0];
-    out[a.C + c] = w[1];
-    out[2 * a.C + c] = w[2];
-  }
+__device__ __forceinline__ Match warp_match(const long long* __restrict__ key,
+                                            const int32_t* __restrict__ idx, long long m,
+                                            long long q, int lane) {
+  const long long lb = warp_lower_bound(key, m, q, lane);
+  const long long at = lb + (lane & 1);
+  long long v = 0;
+  if (lane < 4 && at < m) v = lane < 2 ? __ldg(key + at) : (long long)__ldg(idx + at);
+  return {lb < m && __shfl_sync(kFull, v, 0) == q, lb + 1 < m && __shfl_sync(kFull, v, 1) == q,
+          (int32_t)__shfl_sync(kFull, v, 2), (int32_t)__shfl_sync(kFull, v, 3)};
 }
 
 // The set count and first set lane of a group's row, this thread's part:
@@ -342,13 +203,174 @@ __device__ __forceinline__ void row_part(const uint8_t* __restrict__ row, int U,
   }
 }
 
-// Rows of block b of the row role: kThreads / tpr of them, a group of tpr
-// threads each; the group's count and first set lane by warp reductions,
-// then (tpr > 32) over the group's warps in shared memory.
-__device__ __forceinline__ void bsgs_rows(const BsgsArgs& a, int b, int32_t* __restrict__ out) {
+// The group's count and first set lane from its threads' parts, complete
+// in the group's first thread (g == 0): warp reductions, then (tpr > 32)
+// over the group's warps in shared memory. Every thread of the block calls
+// it (tpr is the same for the whole launch).
+__device__ __forceinline__ void group_reduce(int tpr, int g, int& n, int& first) {
   __shared__ int s_n[kWarps], s_first[kWarps];
-  const int grp = threadIdx.x / a.tpr, g = threadIdx.x % a.tpr;
-  const int r = b * (kThreads / a.tpr) + grp;
+  n = __reduce_add_sync(kFull, n);
+  first = __reduce_min_sync(kFull, first);
+  if (tpr > 32) {
+    const int warp = threadIdx.x >> 5;
+    if ((threadIdx.x & 31) == 0) {
+      s_n[warp] = n;
+      s_first[warp] = first;
+    }
+    __syncthreads();
+    if (g == 0) {
+      for (int w = warp + 1; w < warp + tpr / 32; w++) {
+        n += s_n[w];
+        first = min(first, s_first[w]);
+      }
+    }
+  }
+}
+
+// Threads a row group: the fewest, from a warp up, that hold a row of
+// U flags in kRowLoads loads each (16 bytes a load when vec, else a byte).
+int row_threads(int U, bool vec) {
+  const int units = vec ? U / 16 : U;
+  int tpr = 32;
+  while (tpr < kThreads && tpr * kRowLoads < units) tpr *= 2;
+  return tpr;
+}
+
+bool rows_aligned(const void* rows, int U) { return U % 16 == 0 && ((uintptr_t)rows & 15) == 0; }
+
+struct LookupArgs {
+  const int32_t* pos;
+  const uint32_t* qhi;
+  const uint32_t* qlo;
+  const int32_t* count;
+  const long long* key;
+  const int32_t* idx;
+  const uint8_t* deg;
+  const uint8_t* adeg;
+  long long m;
+  int C, W, U, total;
+  int tpr;   // threads a walker row
+  bool vec;  // the rows are 16-byte aligned: 16 bytes a load
+};
+
+// Whether a walker survivor is live: a real position whose lane is not
+// degenerate. Lanes +u and -u of walker w share deg[w][u - 1], the center
+// has no flag; read at min(p, total - 1) mod W*npts, as the JAX code does.
+__device__ __forceinline__ bool lookup_live(const LookupArgs& a, int p) {
+  const long long npts = 2LL * a.U + 1;
+  const long long q = (long long)min(p, a.total - 1) % (a.W * npts);
+  const long long w = q / npts, lane = q % npts;
+  const bool degenerate = lane < 2LL * a.U && a.deg[w * a.U + (lane < a.U ? lane : lane - a.U)];
+  return p < a.total && !degenerate;
+}
+
+// Survivor c, a warp: the search where it is live, then its two words
+// (the position, the payload at lb; total and 0 where no live hit).
+__device__ __forceinline__ void lookup_candidate(const LookupArgs& a, int c, int lane,
+                                                 int32_t* __restrict__ out) {
+  const int p = a.pos[c];
+  int32_t w[2] = {a.total, 0};
+  if (lookup_live(a, p)) {  // the same on every lane
+    const Match r = warp_match(a.key, a.idx, a.m, query_key(a.qhi[c], a.qlo[c]), lane);
+    if (r.found || r.found2) {
+      w[0] = p;
+      w[1] = r.j;  // idx[min(lb, m - 1)]: a hit has lb < m
+    }
+  }
+  if (lane == 0) {
+    out[c] = w[0];
+    out[a.C + c] = w[1];
+  }
+}
+
+// Walkers of block b of the row role, a group of tpr threads each: the
+// count, the first set lane (0 when none) and the advance flag.
+__device__ __forceinline__ void lookup_rows(const LookupArgs& a, int b,
+                                            int32_t* __restrict__ out) {
+  const int g = threadIdx.x % a.tpr;
+  const int w = b * (kThreads / a.tpr) + threadIdx.x / a.tpr;
+  int n = 0, first = a.U;
+  bool adv = false;
+  if (w < a.W) {
+    if (g == 0) adv = __ldg(a.adeg + w) != 0;
+    row_part(a.deg + (long long)w * a.U, a.U, a.vec, a.tpr, g, n, first);
+  }
+  group_reduce(a.tpr, g, n, first);
+  if (g == 0 && w < a.W) {
+    int32_t* o = out + 2 * a.C;
+    o[w] = n;
+    o[a.W + w] = first < a.U ? first : 0;
+    o[2 * a.W + w] = adv;
+  }
+}
+
+__global__ void __launch_bounds__(kThreads) lookup_summary_kernel(LookupArgs a, int cand_blocks,
+                                                                  int32_t* __restrict__ out) {
+  if ((int)blockIdx.x < cand_blocks) {
+    const int c = blockIdx.x * kWarps + (threadIdx.x >> 5);
+    if (c < a.C) lookup_candidate(a, c, threadIdx.x & 31, out);
+  } else {
+    lookup_rows(a, blockIdx.x - cand_blocks, out);
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) out[2 * a.C + 3 * a.W] = *a.count;
+}
+
+struct BsgsArgs {
+  const int32_t* pos;
+  const uint32_t* qhi;
+  const uint32_t* qlo;
+  const int32_t* count;
+  const long long* key;  // null: host resolve
+  const int32_t* idx;
+  const uint8_t* cdeg;  // (Rc, U): the flags of the B = Rc*U queries
+  const uint8_t* cadv;  // (Rc,)
+  const uint8_t* rdeg;  // (R, U): the summary rows
+  const uint8_t* radv;  // (R,)
+  long long m, B;
+  int C, R, U;
+  int tpr;   // threads a summary row
+  bool vec;  // the rows are 16-byte aligned: 16 bytes a load
+};
+
+// Whether survivor c is live: a real position whose lane is not degenerate
+// (its flag, or on lane U - 1 its row's advance flag).
+__device__ __forceinline__ bool bsgs_live(const BsgsArgs& a, int p) {
+  const long long q = min((long long)p, a.B - 1);
+  const bool dead = a.cdeg[q] || (q % a.U == a.U - 1 && a.cadv[q / a.U]);
+  return p < a.B && !dead;
+}
+
+// Host resolve, a thread a survivor: the keys go to the host.
+__device__ __forceinline__ void host_candidate(const BsgsArgs& a, int c,
+                                               int32_t* __restrict__ out) {
+  const int p = a.pos[c];
+  out[c] = bsgs_live(a, p) ? p : (int32_t)a.B;
+  out[a.C + c] = (int32_t)a.qhi[c];
+  out[2 * a.C + c] = (int32_t)a.qlo[c];
+}
+
+// Device resolve, a warp a survivor.
+__device__ __forceinline__ void table_candidate(const BsgsArgs& a, int c, int lane,
+                                                int32_t* __restrict__ out) {
+  const int p = a.pos[c];
+  int32_t w[3] = {(int32_t)a.B, 0, 0};  // every word's "none"
+  if (bsgs_live(a, p)) {  // the same on every lane
+    const Match r = warp_match(a.key, a.idx, a.m, query_key(a.qhi[c], a.qlo[c]), lane);
+    w[0] = r.found || r.found2 ? p : (int32_t)a.B;
+    w[1] = r.found ? r.j : 0;
+    w[2] = r.found2 ? r.j2 : 0;
+  }
+  if (lane == 0) {
+    out[c] = w[0];
+    out[a.C + c] = w[1];
+    out[2 * a.C + c] = w[2];
+  }
+}
+
+// Rows of block b of the row role, a group of tpr threads each.
+__device__ __forceinline__ void bsgs_rows(const BsgsArgs& a, int b, int32_t* __restrict__ out) {
+  const int g = threadIdx.x % a.tpr;
+  const int r = b * (kThreads / a.tpr) + threadIdx.x / a.tpr;
   int n = 0, first = a.U;
   bool adv = false, last = false;
   if (r < a.R) {
@@ -359,22 +381,7 @@ __device__ __forceinline__ void bsgs_rows(const BsgsArgs& a, int b, int32_t* __r
     }
     row_part(row, a.U, a.vec, a.tpr, g, n, first);
   }
-  n = __reduce_add_sync(kFull, n);
-  first = __reduce_min_sync(kFull, first);
-  if (a.tpr > 32) {  // block-uniform
-    const int warp = threadIdx.x >> 5;
-    if ((threadIdx.x & 31) == 0) {
-      s_n[warp] = n;
-      s_first[warp] = first;
-    }
-    __syncthreads();
-    if (g == 0) {
-      for (int w = warp + 1; w < warp + a.tpr / 32; w++) {
-        n += s_n[w];
-        first = min(first, s_first[w]);
-      }
-    }
-  }
+  group_reduce(a.tpr, g, n, first);
   if (g == 0 && r < a.R) {
     if (adv && !last) {  // the advance flag marks lane U - 1 too
       n++;
@@ -410,10 +417,16 @@ extern "C" int kh_lookup_summary(const void* pos, const void* qhi, const void* q
                                  const void* deg, const void* adeg, void* out, long long m,
                                  int C, int W, int U, int total, void* stream) {
   if (m < 1 || C < 1 || W < 1 || U < 1 || total < 1) return (int)cudaErrorInvalidValue;
+  const bool vec = rows_aligned(deg, U);
+  const int tpr = row_threads(U, vec);
   const LookupArgs a{(const int32_t*)pos, (const uint32_t*)qhi, (const uint32_t*)qlo,
                      (const int32_t*)count, (const long long*)key, (const int32_t*)idx,
-                     (const uint8_t*)deg, (const uint8_t*)adeg, m, C, W, U, total};
-  lookup_summary_kernel<<<1, kThreads, 0, (cudaStream_t)stream>>>(a, (int32_t*)out);
+                     (const uint8_t*)deg, (const uint8_t*)adeg, m, C, W, U, total, tpr, vec};
+  const int cand_blocks = (C + kWarps - 1) / kWarps;
+  const int rows = kThreads / tpr;  // walkers a block
+  const int row_blocks = (W + rows - 1) / rows;
+  lookup_summary_kernel<<<cand_blocks + row_blocks, kThreads, 0, (cudaStream_t)stream>>>(
+      a, cand_blocks, (int32_t*)out);
   return (int)cudaGetLastError();
 }
 
@@ -424,10 +437,8 @@ extern "C" int kh_bsgs_summary(const void* pos, const void* qhi, const void* qlo
                                int R, int U, void* stream) {
   if (C < 0 || R < 0 || U < 1 || B < 1 || B > 0x7FFFFFFFLL || B % U || (key && m < 1))
     return (int)cudaErrorInvalidValue;
-  const bool vec = U % 16 == 0 && ((uintptr_t)rdeg & 15) == 0;
-  const int units = vec ? U / 16 : U;  // loads a row
-  int tpr = 32;
-  while (tpr < kThreads && tpr * kRowLoads < units) tpr *= 2;
+  const bool vec = rows_aligned(rdeg, U);
+  const int tpr = row_threads(U, vec);
   const BsgsArgs a{(const int32_t*)pos, (const uint32_t*)qhi, (const uint32_t*)qlo,
                    (const int32_t*)count, (const long long*)key, (const int32_t*)idx,
                    (const uint8_t*)cdeg, (const uint8_t*)cadv, (const uint8_t*)rdeg,

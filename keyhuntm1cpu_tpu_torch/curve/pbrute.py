@@ -244,8 +244,8 @@ def compact_hits(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor
     when none); the advance flags; n, their count in the picked rows. A
     row overflow (more flagged rows than R) reports n = C + 1, which sends
     the host to an exact rescan of the chunk. One launch of csrc/compact.cu
-    kh_compact_hits on the card (a memset of its ticket, then the kernel),
-    counted in ``compact_hits.launches``; its plain version
+    kh_compact_hits on the card and no memset (the stream's scratch pair,
+    _COMPACT), counted in ``compact_hits.launches``; its plain version
     ``compact_hits_ref`` for CPU tensors."""
     K, U = hits.shape if hits.dim() == 2 else (-1, -1)
     if (hits.dtype != torch.int32 or not hits.is_contiguous() or adeg.dtype != torch.bool
@@ -261,15 +261,17 @@ def compact_hits(hits: torch.Tensor, adeg: torch.Tensor, C: int) -> torch.Tensor
     if hits.data_ptr() % 16:
         raise ValueError("compact_hits: the hit words must be 16-byte aligned")
     out = torch.empty((2 * C + 3 * K + 1,), dtype=torch.int32, device=hits.device)
-    scratch = torch.empty((1 + K + K * -(-U // LANES // 32),), dtype=torch.int32,
-                          device=hits.device)
-    _build.launch("kh_compact_hits", hits.data_ptr(), adeg.data_ptr(), out.data_ptr(),
-                  scratch.data_ptr(), K, U, C, _build.stream(hits))
+    # the ticket (two u32 words), each step's flagged rows and row flags
+    words = 2 + K + K * -(-U // LANES // 32)
+    _COMPACT.launch("kh_compact_hits", hits, -(-words // 2),
+                    (hits.data_ptr(), adeg.data_ptr(), out.data_ptr()), (K, U, C))
     compact_hits.launches += 1
     return out
 
 
 compact_hits.launches = 0
+# a pair of scratches a stream; each launch zeroes the other's ticket alone
+_COMPACT = _build.ScratchPairs(whole=False)
 
 
 def brute_chunk(px, py, tab_x_lm, tab_y_lm, ax, ay, tgt, btab, *, K: int, U: int,

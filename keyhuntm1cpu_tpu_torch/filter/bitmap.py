@@ -48,9 +48,8 @@ boolean-mask indexing.
 from __future__ import annotations
 
 import math
-import threading
 from functools import lru_cache
-from typing import Dict, NamedTuple, Optional, Tuple
+from typing import NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -423,40 +422,17 @@ def _probe_tile(stage2: bool) -> int:
     return _build.kernels().kh_probe_tile(int(stage2))
 
 
-class _Scratch:
-    """The compact kernels' two scratches on one stream, (2, words) int64,
-    zeroed when allocated; `turn` is the one the next launch uses (the
-    launch zeroes the other, which the launch before it used)."""
-
-    def __init__(self, words: int, device):
-        self.buf = torch.zeros((2, words), dtype=torch.int64, device=device)
-        self.ptrs = (self.buf[0].data_ptr(), self.buf[1].data_ptr())
-        self.turn = 0
-
-
-_SCRATCH: Dict[Tuple[int, int], _Scratch] = {}
-_SCRATCH_LOCK = threading.Lock()
+# kh_probe_compact and kh_bloom2_compact share a pair a stream; each zeroes
+# all of the other buffer (its tickets and tile status words)
+_COMPACT = _build.ScratchPairs(whole=True)
 
 
 def _launch_compact(fn: str, t: torch.Tensor, n: int, stage2: bool, head: tuple,
                     tail: tuple) -> None:
     """Launch compact kernel fn (kh_probe_compact, kh_bloom2_compact) over
-    n keys on the current stream of t's device: its arguments head, this
-    launch's scratch, the other one and its words, tail, the stream. One
-    _Scratch a (device, stream): launches on one stream never overlap, so
-    they take turns on its two scratches, and no memset comes before a
-    launch; another stream has its own. The launch and the turn are taken
-    under a lock, so threads that share a stream keep them in order."""
-    stream = _build.stream(t)
-    words = 1 + -(-n // _probe_tile(stage2))
-    key = (stream.device, int(stream))
-    with _SCRATCH_LOCK:
-        sc = _SCRATCH.get(key)
-        if sc is None or sc.buf.shape[1] < words:
-            sc = _SCRATCH[key] = _Scratch(words, t.device)
-        _build.launch(fn, *head, sc.ptrs[sc.turn], sc.ptrs[1 - sc.turn], sc.buf.shape[1],
-                      *tail, stream)
-        sc.turn ^= 1
+    n keys on the current stream of t's device: its arguments head, the
+    stream's scratches (_COMPACT), tail, the stream."""
+    _COMPACT.launch(fn, t, 1 + -(-n // _probe_tile(stage2)), head, tail)
 
 
 def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:

@@ -41,7 +41,12 @@ SEARCH_P = (1, 2, 4)
 B, R, U = 1 << 22, 256, 16384  # the BSGS chunk's queries, rows and lanes (T = 1, K = 256)
 SHAPES = {"main": (34816, 1536, 1 << 28), "m30": (134656, 1536, 1 << 30)}  # C1, C2, m
 M_TABLE, N_SURV = 1 << 28, 512
-BINARY = "lower_bound(a.key, a.m, q)"  # each lane's own binary search
+# csrc/lookup.cu's search call, and a binary search in its place (each lane
+# searching alone, the same answer on every lane)
+SEARCH_CALL = r"warp_lower_bound\(key, m, q, lane\)"
+BINARY = ("[&] { long long lo = 0, hi = m; while (lo < hi) { const long long mid = "
+          "(lo + hi) >> 1; if (__ldg(key + mid) < q) lo = mid + 1; else hi = mid; } "
+          "return lo; }()")
 
 
 def main():
@@ -79,21 +84,24 @@ def main():
     jobs = [variant(f"stage2_Q{q}", src["probe.cu"], kStage2Q=q) for q in STAGE2_Q]
     jobs.append(variant(f"stage2_Q{shipped_q}_W4", src["probe.cu"], kStage2Window=4))
     jobs += [variant(f"summary_P{p}", src["lookup.cu"], kSearchP=p) for p in SEARCH_P]
-    text, n = re.subn(r"warp_lower_bound\(a\.key, a\.m, q, lane\)", BINARY, src["lookup.cu"])
+    text, n = re.subn(SEARCH_CALL, lambda _: BINARY, src["lookup.cu"])
     assert n == 1, "the summary's search call"
     jobs.append(("summary_binary", text, csrc))
     if args.parent:
         pdir = os.path.join(os.path.abspath(args.parent), "keyhuntm1cpu_tpu_torch", "csrc")
         for name in ("probe.cu", "lookup.cu"):
             jobs.append((f"parent_{name[:-3]}", open(os.path.join(pdir, name)).read(), pdir))
+    # a parent from before the scratch pairs takes one scratch and memsets it
+    one_scratch = any(name == "parent_probe" and "next_words" not in text
+                      for name, text, _ in jobs)
     libs = {k: v[0] for k, v in build(jobs, os.path.join(_build.build_dir(),
                                                          "cascade_shapes")).items()}
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     for name, lib in libs.items():
-        if name == "parent_probe":  # PR 16's: one scratch, a memset before each launch
+        if name == "parent_probe" and one_scratch:
             lib.kh_bloom2_compact.argtypes = [vp] * 10 + [i64, i, i, i, vp]
             lib.kh_bloom2_compact.restype = i
-        elif "stage2" in name:
+        elif "stage2" in name or name == "parent_probe":
             lib.kh_bloom2_compact.argtypes = [vp] * 11 + [i64, i64, i, i, i, vp]
             lib.kh_bloom2_compact.restype = i
         else:
@@ -103,11 +111,7 @@ def main():
     g = torch.Generator(device=dev).manual_seed(30)
     rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
                                   generator=g)
-    flush = torch.empty((1 << 24,), dtype=torch.int32, device=dev)
-
-    def cold(fn):
-        both, _ = cs.device_ms(lambda: (flush.zero_(), fn())[1], 50)
-        return both - cs.device_ms(flush.zero_, 50)[0]
+    flush = torch.empty((1 << 24,), dtype=torch.int32, device=dev)  # 64 MB, past the L2
 
     # 0. a launch alone: the mask probe of one key (one block of one thread)
     one = rnd(2)
@@ -126,7 +130,7 @@ def main():
 
         def run():
             this, other = pair[turn[0]], pair[1 - turn[0]]
-            scratch = ((this.data_ptr(),) if name == "parent_probe"
+            scratch = ((this.data_ptr(),) if name == "parent_probe" and one_scratch
                        else (this.data_ptr(), other.data_ptr(), other.numel()))
             rc = lib.kh_bloom2_compact(b2.words.data_ptr(), s1.qhi.data_ptr(), s1.qlo.data_ptr(),
                                        s1.pos.data_ptr(), s1.n.data_ptr(),
@@ -208,7 +212,7 @@ def main():
             ms, got = cs.device_ms(fn, 50)
             if cs.max_abs_err([got], [want]):
                 cs.fail(f"summary {name} differs from the plain version ({form})")
-            row.setdefault(name, []).append((ms, cold(fn)))
+            row.setdefault(name, []).append((ms, cs.cold_ms(fn, flush)))
         cs.log(f"summary, {form} resolve, C2={c2} ({N_SURV} survivors) over {R} rows of "
                f"U={U}" + (f" and 2^{M_TABLE.bit_length() - 1} keys" if tab is not None else "")
                + ": " + ", ".join(f"{k} " + "/".join(f"{a:.4f} (cold {b:.4f})" for a, b in vs)

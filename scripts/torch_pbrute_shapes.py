@@ -3,7 +3,7 @@
 with and without the block's shared inversion, the compaction kernel
 against the torch ops it replaced, and whole fused chunks.
 
-    python3 scripts/torch_pbrute_shapes.py [--parent DIR] [--chunk]
+    python3 scripts/torch_pbrute_shapes.py [--parent DIR] [--chunk] [--compaction]
 
 At the fused path's main shape (K = 256, U = 16384, T = 32 intervals;
 chip_smoke.py's phase 4):
@@ -20,7 +20,19 @@ chip_smoke.py's phase 4):
 2. The compaction and summary: pbrute.compact_hits (kh_compact_hits)
    against compact_hits_ref (the torch ops the chunk ran before) on K4's
    rmd160 hit words at C = 1024, held equal: card time and the host's time
-   to enqueue a call.
+   to enqueue a call. Then csrc/compact.cu in other forms, each built by
+   its own nvcc, launched through ctypes on a scratch pair of its own and
+   held to the shipped summary: SPLIT_SOURCE with 2 and 4 blocks a step
+   (each part with its own counts) at 512 threads a block, 2 and 4 at 256
+   and 128 threads (the shipped kernel: a block a step of 512), kBatch = 2
+   and 8 rows in flight a warp (4 shipped), kPrefetch = 1 flag word loaded
+   beside each step's count in the last block (4 shipped), and the
+   shipped form without its last block's compaction
+   (only the per-step words held equal: the tail's share); with --parent,
+   DIR's compact.cu (its own signature: one scratch, a memset of the
+   ticket before each launch), in turns (parent, shipped, the forms,
+   shipped, parent); on K4's rmd160 hit words (3 hits) and on a chunk
+   with no hit (the usual chunk over a few targets).
 3. The SASS instructions of one fe_mul and one fe_sqr of csrc/fe.cuh
    (torch_pwalk_shapes.sass_counts).
 4. With --chunk: the fused chunk (K1 + K4 + compaction) of this tree and,
@@ -152,10 +164,366 @@ def chunk_runs(trees, log):
     return out
 
 
+# kh_compact_hits with kSplit blocks a step, each with its own counts of
+# its rows (on 32-row boundaries), degenerate words and first, merged by
+# the last block: the compaction's multi-block forms
+SPLIT_SOURCE = r"""
+#include <cuda_runtime.h>
+
+#include <cstdint>
+
+namespace {
+
+constexpr int kThreads = 512;
+constexpr int kSplit = 1;  // blocks a step, each with its own counts
+constexpr int kWarps = kThreads / 32;
+constexpr int kLanes = 128;  // words of a hit row
+constexpr int kBatch = 4;    // rows a warp loads before it reduces them
+constexpr int kPrefetch = 4;  // flag words the last block loads beside a part's count
+constexpr uint32_t kQueryMask = (1u << 30) - 1;
+
+struct CompactArgs {
+  const uint32_t* hits;   // (K, U)
+  const uint8_t* adeg;    // (K,)
+  int32_t* out;           // (2C + 3K + 1,)
+  unsigned long long* ticket;  // zero on entry: blocks done << 32 | their flagged rows
+  unsigned long long* next;    // the next launch's ticket, zeroed here
+  uint32_t* part_rows;    // (K*kSplit) flagged rows of each part
+  uint32_t* part_deg;     // (K*kSplit) degenerate words of each part (kSplit > 1)
+  uint32_t* part_first;   // (K*kSplit) the first of them in the step, or U (kSplit > 1)
+  uint32_t* rowbits;      // (K, W) the flags of step k's rows, bit r % 32 of word r / 32
+  int K, U, C, R, W;
+};
+
+// The block's exclusive scan of one value a thread; *total gets the sum.
+// Every thread must call it.
+__device__ __forceinline__ uint32_t block_scan(uint32_t v, uint32_t* s_warp, uint32_t* total) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  uint32_t incl = v;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  uint32_t before = 0, agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; w++) {
+    const uint32_t x = s_warp[w];
+    before += w < warp ? x : 0u;
+    agg += x;
+  }
+  __syncthreads();  // s_warp is reused
+  *total = agg;
+  return before + incl - v;
+}
+
+// The flag words [*w0, *w1) of step k that part s covers: kSplit even
+// shares of the step's W words (empty when W < kSplit).
+__device__ __forceinline__ void part_words(int W, int s, int* w0, int* w1) {
+  *w0 = s * W / kSplit;
+  *w1 = (s + 1) * W / kSplit;
+}
+
+// Block b = k*kSplit + s: part s of step k's row flags, flagged-row count
+// and degenerate summary. Returns the flagged-row count (in thread 0).
+__device__ uint32_t part_summary(const CompactArgs& a, int b, uint32_t* s_bits,
+                                 uint32_t* s_red) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int k = b / kSplit, s = b % kSplit;
+  int w0, w1;
+  part_words(a.W, s, &w0, &w1);
+  const int r0 = 32 * w0, rows = min(32 * w1, a.U / kLanes) - r0;  // this part's rows
+  const uint4* step = reinterpret_cast<const uint4*>(a.hits + (long long)k * a.U);
+  for (int j = threadIdx.x; j < w1 - w0; j += kThreads) s_bits[j] = 0;
+  __syncthreads();
+  uint32_t n_deg = 0, n_flag = 0;
+  int first = a.U;
+  for (int i0 = warp; i0 < rows; i0 += kWarps * kBatch) {
+    uint4 w[kBatch];
+#pragma unroll
+    for (int j = 0; j < kBatch; j++) {
+      const int i = i0 + j * kWarps;
+      w[j] = i < rows ? __ldg(step + (long long)(r0 + i) * 32 + lane) : make_uint4(0, 0, 0, 0);
+    }
+#pragma unroll
+    for (int j = 0; j < kBatch; j++) {
+      const int i = i0 + j * kWarps;  // warp-uniform
+      if (i < rows) {
+        const bool flag = __any_sync(0xFFFFFFFFu, ((w[j].x | w[j].y | w[j].z | w[j].w) &
+                                                   kQueryMask) != 0);
+        if (lane == 0 && flag) atomicOr(s_bits + i / 32, 1u << (i % 32));
+        n_flag += flag;
+        const uint32_t d = ((w[j].x >> 30) & 1u) | ((w[j].y >> 29) & 2u) |
+                           ((w[j].z >> 28) & 4u) | ((w[j].w >> 27) & 8u);
+        n_deg += __popc(d);
+        if (d) first = min(first, (r0 + i) * kLanes + 4 * lane + __ffs(d) - 1);
+      }
+    }
+  }
+  n_deg = __reduce_add_sync(0xFFFFFFFFu, n_deg);
+  first = __reduce_min_sync(0xFFFFFFFFu, first);
+  if (lane == 0) {
+    s_red[warp] = n_deg;
+    s_red[kWarps + warp] = (uint32_t)first;
+    s_red[2 * kWarps + warp] = n_flag;  // the same in every lane
+  }
+  __syncthreads();
+  for (int j = threadIdx.x; j < w1 - w0; j += kThreads)
+    a.rowbits[(long long)k * a.W + w0 + j] = s_bits[j];
+  uint32_t nf = 0;
+  if (threadIdx.x == 0) {
+    uint32_t nd = 0;
+    int f = a.U;
+    for (int i = 0; i < kWarps; i++) {
+      nd += s_red[i];
+      f = min(f, (int)s_red[kWarps + i]);
+      nf += s_red[2 * kWarps + i];
+    }
+    a.part_rows[b] = nf;
+    if constexpr (kSplit == 1) {
+      a.out[2 * a.C + k] = (int32_t)nd;
+      a.out[2 * a.C + a.K + k] = f < a.U ? f : 0;
+    } else {
+      a.part_deg[b] = nd;
+      a.part_first[b] = (uint32_t)f;
+    }
+    if (s == 0) a.out[2 * a.C + 2 * a.K + k] = a.adeg[k] != 0;
+  }
+  return nf;
+}
+
+// The last block, n_rows flagged rows in all: the first R of them, then
+// the first C non-zero query words in them (and, kSplit > 1, each step's
+// degenerate words). The parts' counts and row flags come from other
+// blocks (through L2: __ldcg).
+__device__ void compact(const CompactArgs& a, uint32_t n_rows, int* s_rsel, uint32_t* s_warp) {
+  const int t = threadIdx.x;
+  const int rows = a.U / kLanes, parts = a.K * kSplit;
+  if constexpr (kSplit > 1) {
+    for (int k = t; k < a.K; k += kThreads) {
+      uint32_t nd = 0, f = (uint32_t)a.U;
+      for (int s = 0; s < kSplit; s++) {
+        nd += __ldcg(a.part_deg + k * kSplit + s);
+        f = min(f, __ldcg(a.part_first + k * kSplit + s));
+      }
+      a.out[2 * a.C + k] = (int32_t)nd;
+      a.out[2 * a.C + a.K + k] = f < (uint32_t)a.U ? (int32_t)f : 0;
+    }
+  }
+  uint32_t n = 0;
+  if (n_rows) {  // block-uniform
+    // 1. rank the parts' flagged rows; a part with rows to give expands
+    // its flag words
+    uint32_t base = 0;
+    for (int e0 = 0; e0 < parts; e0 += kThreads) {
+      const int e = e0 + t, k = e / kSplit;
+      int w0 = 0, w1 = 0;
+      if (e < parts) part_words(a.W, e % kSplit, &w0, &w1);
+      const uint32_t* bits = a.rowbits + (long long)k * a.W;
+      // the count and the first flag words, loaded together (one round trip)
+      const uint32_t c = e < parts ? __ldcg(a.part_rows + e) : 0u;
+      uint32_t pre[kPrefetch];
+#pragma unroll
+      for (int j = 0; j < kPrefetch; j++) pre[j] = w0 + j < w1 ? __ldcg(bits + w0 + j) : 0u;
+      uint32_t tot;
+      uint32_t rank = base + block_scan(c, s_warp, &tot);
+      if (c && rank < (uint32_t)a.R) {
+#pragma unroll
+        for (int j = 0; j < kPrefetch; j++) {
+          for (uint32_t b = pre[j]; b && rank < (uint32_t)a.R; b &= b - 1)
+            s_rsel[rank++] = k * rows + 32 * (w0 + j) + __ffs(b) - 1;
+        }
+        for (int j = w0 + kPrefetch; j < w1 && rank < (uint32_t)a.R; j++) {
+          for (uint32_t b = __ldcg(bits + j); b && rank < (uint32_t)a.R; b &= b - 1)
+            s_rsel[rank++] = k * rows + 32 * j + __ffs(b) - 1;
+        }
+      }
+      base += tot;
+    }
+    const int picked = (int)min(base, (uint32_t)a.R);  // base == n_rows
+    __syncthreads();
+    // 2. the non-zero query words of the picked rows, in order (the rows
+    // past the flagged ones are padding and hold none)
+    for (int i0 = 0; i0 < picked * kLanes; i0 += kThreads) {
+      const int i = i0 + t;
+      uint32_t q = 0;
+      int p = 0;
+      if (i < picked * kLanes) {
+        p = s_rsel[i / kLanes] * kLanes + i % kLanes;
+        q = __ldcg(a.hits + p) & kQueryMask;
+      }
+      uint32_t tot;
+      const uint32_t r = n + block_scan(q != 0, s_warp, &tot);
+      if (q && r < (uint32_t)a.C) {
+        a.out[r] = p;
+        a.out[a.C + r] = (int32_t)q;
+      }
+      n += tot;
+    }
+  }
+  for (int j = (int)min(n, (uint32_t)a.C) + t; j < a.C; j += kThreads) {
+    a.out[j] = a.K * a.U;
+    a.out[a.C + j] = 0;
+  }
+  if (t == 0) a.out[2 * a.C + 3 * a.K] = n_rows > (uint32_t)a.R ? a.C + 1 : (int32_t)n;
+}
+
+__global__ void __launch_bounds__(kThreads) compact_hits_kernel(CompactArgs a) {
+  // max(W, R) words: the part's row flags, then (the last block) the R
+  // picked rows
+  extern __shared__ uint32_t s_dyn[];
+  __shared__ uint32_t s_red[3 * kWarps];
+  __shared__ bool s_last;
+  __shared__ uint32_t s_rows;
+  if (blockIdx.x == 0 && threadIdx.x == 0) *a.next = 0;
+  const uint32_t nf = part_summary(a, blockIdx.x, s_dyn, s_red);
+  __threadfence();  // this block's flags and counts before its ticket
+  __syncthreads();
+  if (threadIdx.x == 0) {
+    const unsigned long long old = atomicAdd(a.ticket, 1ull << 32 | nf);
+    s_last = old >> 32 == gridDim.x - 1;
+    s_rows = (uint32_t)old + nf;  // every block's, in the last one
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  compact(a, s_rows, reinterpret_cast<int*>(s_dyn), s_red);
+}
+
+}  // namespace
+
+// scratch: 2 + 3*K*kSplit + K*W u32 (W = ceil(U / 4096)), its first two
+// (the ticket) zero on entry; next: the other scratch, whose ticket this
+// launch zeroes.
+extern "C" int kh_compact_hits(const void* hits, const void* adeg, void* out, void* scratch,
+                               void* next, int K, int U, int C, void* stream) {
+  if (K < 1 || U < kLanes || U % kLanes || C < 1 || (long long)K * U >= 0x7FFFFFFFLL ||
+      (long long)K * kSplit >= 0x7FFFFFFFLL)
+    return (int)cudaErrorInvalidValue;
+  const int R = C / 32 > 8 ? C / 32 : 8;
+  const int W = (U / kLanes + 31) / 32;
+  const size_t smem = (size_t)(R > W ? R : W) * sizeof(uint32_t);
+  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
+  uint32_t* w = (uint32_t*)scratch;
+  const long long parts = (long long)K * kSplit;
+  uint32_t* part_rows = w + 2;
+  uint32_t* extra = part_rows + parts;  // the degenerate parts (kSplit > 1)
+  uint32_t* rowbits = kSplit > 1 ? extra + 2 * parts : extra;
+  const CompactArgs a{(const uint32_t*)hits, (const uint8_t*)adeg, (int32_t*)out,
+                      (unsigned long long*)w, (unsigned long long*)next, part_rows, extra,
+                      extra + parts,
+                      rowbits, K, U, C, R, W};
+  compact_hits_kernel<<<(unsigned)parts, kThreads, smem, (cudaStream_t)stream>>>(a);
+  return (int)cudaGetLastError();
+}
+"""
+# the compaction's forms: (name, source, constants); "shipped" is
+# csrc/compact.cu, "split" SPLIT_SOURCE; "notail" drops the shipped
+# kernel's last-block compaction
+COMPACT_FORMS = [("split2_t512", "split", dict(kSplit=2, kThreads=512)),
+                 ("split4_t512", "split", dict(kSplit=4, kThreads=512)),
+                 ("split2_t256", "split", dict(kSplit=2, kThreads=256)),
+                 ("split4_t128", "split", dict(kSplit=4, kThreads=128)),
+                 ("batch2", "shipped", dict(kBatch=2)),
+                 ("batch8", "shipped", dict(kBatch=8)),
+                 ("prefetch1", "shipped", dict(kPrefetch=1)),
+                 ("notail", "shipped", {})]
+TAIL_CALL = "compact(a, s_rows, reinterpret_cast<int*>(s_dyn), s_red);"
+
+
+def compaction_forms(hits, adeg, parent, csrc, stream):
+    """{input: {form: [card ms, ...]}} of kh_compact_hits' forms on (hits,
+    adeg) and on no hit at C, in turns, each held to pbrute.compact_hits
+    (see the docstring)."""
+    import torch
+
+    import chip_smoke as cs
+    from keyhuntm1cpu_tpu_torch import _build
+    from keyhuntm1cpu_tpu_torch.curve import pbrute
+    from torch_pwalk_shapes import build
+
+    K, U = hits.shape
+    with open(os.path.join(csrc, "compact.cu")) as f:
+        src = f.read()
+    jobs = [("shipped", src, csrc)]
+    for name, base, consts in COMPACT_FORMS:
+        text = src if base == "shipped" else SPLIT_SOURCE
+        for k, v in consts.items():
+            text, n = re.subn(rf"constexpr int {k} = \d+;", f"constexpr int {k} = {v};", text)
+            assert n == 1, k
+        if name == "notail":
+            assert text.count(TAIL_CALL) == 1
+            text = text.replace(TAIL_CALL, "")
+        jobs.append((name, text, csrc))
+    if parent:
+        pdir = os.path.join(os.path.abspath(parent), "keyhuntm1cpu_tpu_torch", "csrc")
+        with open(os.path.join(pdir, "compact.cu")) as f:
+            jobs.append(("parent", f.read(), pdir))
+    libs = {k: v[0] for k, v in build(jobs, os.path.join(_build.build_dir(),
+                                                         "compact_forms")).items()}
+    vp, i = ctypes.c_void_p, ctypes.c_int
+    steps = slice(2 * C, 2 * C + 3 * K)  # the per-step words, all that notail writes
+    split = {name: consts.get("kSplit", 1) for name, _, consts in COMPACT_FORMS}
+
+    def form(name, hits):
+        lib = libs[name]
+        row = torch.empty_like(want)
+        ptrs = (hits.data_ptr(), adeg.data_ptr(), row.data_ptr())
+        if name == "parent":  # hits adeg out scratch | K U C stream, a memset inside
+            lib.kh_compact_hits.argtypes = [vp] * 4 + [i, i, i, vp]
+            scratch = torch.empty((1 + K + K * -(-U // 4096),), dtype=torch.int32,
+                                  device=hits.device)
+
+            def run():
+                rc = lib.kh_compact_hits(*ptrs, scratch.data_ptr(), K, U, C, stream)
+                if rc:
+                    raise RuntimeError(f"{name}: launch failed ({rc})")
+                return row
+            return run
+        lib.kh_compact_hits.argtypes = [vp] * 5 + [i, i, i, vp]
+        # the ticket, each part's counts (three with kSplit > 1), the row flags
+        parts = K * split.get(name, 1)
+        words = 2 + parts * (3 if parts > K else 1) + K * -(-U // 4096)
+        pair = torch.zeros((2, -(-words // 2)), dtype=torch.int64, device=hits.device)
+        turn = [0]
+
+        def run():
+            rc = lib.kh_compact_hits(*ptrs, pair[turn[0]].data_ptr(),
+                                     pair[1 - turn[0]].data_ptr(), K, U, C, stream)
+            if rc:
+                raise RuntimeError(f"{name}: launch failed ({rc})")
+            turn[0] ^= 1
+            return row
+        return run
+
+    names = ["shipped"] + [f[0] for f in COMPACT_FORMS] + ["shipped"]
+    if parent:
+        names = ["parent"] + names + ["parent"]
+    out = {}
+    for label, h in (("K4's hits", hits), ("no hit", torch.zeros_like(hits))):
+        want = pbrute.compact_hits(h, adeg, C)
+        res = out[label] = {}
+        for name in names:
+            ms, got = cs.device_ms(form(name, h), 50)
+            same = (torch.equal(got[steps], want[steps]) if name == "notail"
+                    else torch.equal(got, want))
+            res.setdefault(name, []).append(ms if same else None)
+            if not same:
+                cs.log(f"compaction form {name} differs from the shipped kernel: not timed")
+        cs.log(f"compaction forms K={K} U={U} C={C} on {label} (card ms, in turns): "
+               + ", ".join(f"{k} " + "/".join("differs" if v is None else f"{v:.4f}"
+                                             for v in vs) for k, vs in res.items()))
+    return out
+
+
 def main():
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--parent", help="an unpacked earlier tree to time beside this one")
     ap.add_argument("--chunk", action="store_true", help="also time whole fused chunks")
+    ap.add_argument("--compaction", action="store_true",
+                    help="the compaction alone (2): no K4 designs, no SASS counts")
     args = ap.parse_args()
 
     import numpy as np
@@ -185,8 +553,8 @@ def main():
     variants = ([(*shape, sh) for shape in SHAPES for sh in (True, False)]
                 + [(*shape, True) for shape in SHARED_SHAPES])
     jobs = [(f"G{g}_T{t}_B{b}_{'shared' if sh else 'own'}", variant_source(src, g, t, b, sh),
-             csrc) for g, t, b, sh in variants]
-    if args.parent:
+             csrc) for g, t, b, sh in variants if not args.compaction]
+    if args.parent and not args.compaction:
         pdir = os.path.join(os.path.abspath(args.parent), "keyhuntm1cpu_tpu_torch", "csrc")
         with open(os.path.join(pdir, "pbrute.cu")) as f:
             jobs.append(("parent", f.read(), pdir))
@@ -276,13 +644,15 @@ def main():
                        f"operations, {v['host_ms']:.4f} ms to enqueue"
                        for k, v in comp.items()) + " (equal summaries)")
     out["compaction"] = comp
+    out["compaction_forms"] = compaction_forms(hits, a0, args.parent, csrc, st)
 
     # 3. SASS of the field product and squaring
-    sass = sass_counts(csrc, os.path.join(_build.build_dir(), "pbrute_shapes"))
-    for fn, (n, ops) in sorted(sass.items()):
-        cs.log(f"SASS {fn}: {n} instructions ({n - sass['probe_copy'][0]} more than "
-               f"probe_copy), most used {ops}")
-    out["sass"] = sass
+    if not args.compaction:
+        sass = sass_counts(csrc, os.path.join(_build.build_dir(), "pbrute_shapes"))
+        for fn, (n, ops) in sorted(sass.items()):
+            cs.log(f"SASS {fn}: {n} instructions ({n - sass['probe_copy'][0]} more than "
+                   f"probe_copy), most used {ops}")
+        out["sass"] = sass
 
     # 4. whole chunks, each tree in its own process
     if args.chunk:

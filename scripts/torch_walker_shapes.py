@@ -27,7 +27,13 @@ chip_smoke.py's phase 4c):
    sorted_table.lookup alone, on chip_smoke.walker_lookup_inputs (256
    survivor slots over 2^22 keys), and the kernel at C = 1, W = 1 (one
    search: its latency floor); card time (chip_smoke.device_ms) and the
-   host's time to enqueue a call.
+   host's time to enqueue a call. Then the kernel's designs on the same
+   inputs, warm and after a 64 MB fill (cold L2), each launched through
+   ctypes and held to the shipped row: the shipped grid (a warp a
+   survivor, 32-ary search; groups of threads a walker row), the same
+   grid with a binary search in each lane (torch_cascade_shapes.BINARY)
+   and, with --parent, DIR's csrc/lookup.cu, in turns (parent, shipped,
+   binary, shipped, parent), at C = 256, W = 8 and at C = 1, W = 1.
 4. With --chunk: the walker chunk (K = 8 steps) of this tree and, with
    --parent, of DIR, each in a process of its own run from its tree, in
    the order parent, this, this, parent (this, this without --parent),
@@ -42,6 +48,7 @@ import argparse
 import ctypes
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -334,6 +341,7 @@ def main():
     from keyhuntm1cpu_tpu_torch.filter import sorted_table as st
     from keyhuntm1cpu_tpu_torch.hash import phash
     from keyhuntm1cpu_tpu_torch.ref import ecref
+    from torch_cascade_shapes import BINARY, SEARCH_CALL
     from torch_pwalk_shapes import build
 
     if not torch.cuda.is_available():
@@ -358,10 +366,16 @@ def main():
 
     csrc = os.path.join(HERE, "keyhuntm1cpu_tpu_torch", "csrc")
     jobs = [("variants", VARIANTS, csrc)]
+    with open(os.path.join(csrc, "lookup.cu")) as f:
+        text, n = re.subn(SEARCH_CALL, lambda _: BINARY, f.read())
+    assert n == 1, "lookup.cu's search call"
+    jobs.append(("lookup_binary", text, csrc))
     if args.parent:
         pdir = os.path.join(os.path.abspath(args.parent), "keyhuntm1cpu_tpu_torch", "csrc")
         with open(os.path.join(pdir, "walk.cu")) as f:
             jobs.append(("parent", f.read(), pdir))
+        with open(os.path.join(pdir, "lookup.cu")) as f:
+            jobs.append(("parent_lookup", f.read(), pdir))
     libs = build(jobs, os.path.join(_build.build_dir(), "walker_shapes"))
     vp, i, i64 = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
     var = libs["variants"][0]
@@ -369,6 +383,8 @@ def main():
     var.kh_walk_prefix_nostore.argtypes = [vp] * 7 + [i, i, i, i64, vp]
     var.kh_walk_emit_nopre.argtypes = [vp] * 13 + [i, i, i, i64, i, vp]
     for lib, _ in libs.values():
+        if hasattr(lib, "kh_lookup_summary"):
+            lib.kh_lookup_summary.argtypes = [vp] * 9 + [i64, i, i, i, i, vp]
         for fn in ("kh_walk_prefix", "kh_walk_prefix_thread", "kh_walk_prefix_direct",
                    "kh_walk_prefix_staged8"):
             if hasattr(lib, fn):
@@ -499,7 +515,42 @@ def main():
            + ", ".join(f"{k} {v['card_ms']:.4f} ms on the card, {v['host_ms']:.4f} ms to "
                        f"enqueue" for k, v in lookup.items()) + " (equal rows)")
     out["lookup"] = lookup
-    del table, largs, one
+
+    # the kernel's designs, raw launches in turns, warm and cold
+    flush = torch.empty((1 << 24,), dtype=torch.int32, device=dev)  # 64 MB, past the L2
+
+    def raw_lookup(lib, a):
+        tab, pos_, qh_, ql_, n_, dg_, ad_, tot = a
+        row = torch.empty((st.summary_width(pos_.shape[0], dg_.shape[0]),), dtype=torch.int32,
+                          device=dev)
+        ptrs = [t.data_ptr() for t in (pos_, qh_, ql_, n_, tab.key, tab.idx, dg_, ad_, row)]
+
+        def run():
+            call(lib, "kh_lookup_summary", *ptrs, tab.key.numel(), pos_.shape[0],
+                 dg_.shape[0], dg_.shape[1], tot)
+            return row
+        return run
+
+    designs = [("shipped", _build.kernels()), ("binary", libs["lookup_binary"][0])]
+    if args.parent:
+        par = ("parent", libs["parent_lookup"][0])
+        designs = [par, designs[0], designs[1], designs[0], par]
+    grid = {}
+    for shape, a in (("C=256 W=8", largs), ("C=1 W=1", one)):
+        want_a = st.lookup_summary_ref(*a)
+        row = {}
+        for name, lib in designs:
+            fn = raw_lookup(lib, a)
+            ms, got = cs.device_ms(fn, 50)
+            if not torch.equal(got, want_a):
+                cs.fail(f"lookup_summary ({name}, {shape}) differs from lookup_summary_ref")
+            row.setdefault(name, []).append((ms, cs.cold_ms(fn, flush)))
+        cs.log(f"lookup_summary designs at {shape}: "
+               + ", ".join(f"{k} " + "/".join(f"{w:.4f} (cold {c:.4f})" for w, c in v)
+                           for k, v in row.items()) + " ms (equal rows)")
+        grid[shape] = row
+    out["lookup_designs"] = grid
+    del table, largs, one, flush
 
     # 4. whole chunks, each tree in its own process
     if args.chunk:

@@ -4,7 +4,8 @@ hash, the probe, the BSGS chunk's bloom2 stage and summary (at the main
 path's C1 = 34,816, C2 = 1,536, 256 rows of U = 16,384, a 2^28-key table
 and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py,
 and at its tile edges and row layouts; the compact kernels' shared
-scratch reused by 1,000 launches on two streams),
+scratch reused by 1,000 launches on two streams; the brute compaction
+launched three times in a row and on two streams beside the probe),
 the two walker walk kernels, the walker step's lookup
 and summary, the fused brute chunk's compaction and summary
 (keyhuntm1cpu_tpu_torch/csrc) vs their plain torch versions on the card,
@@ -377,12 +378,53 @@ def test_compact_hits_kernel_matches_plain(dev, case, shape):
     th, ta = torch.from_numpy(hits.view(np.int32)), torch.from_numpy(adeg)
     want = pbrute.compact_hits_ref(th, ta, C)
     n0 = pbrute.compact_hits.launches
-    got = pbrute.compact_hits(th.to(dev), ta.to(dev), C)
+    gh, ga = th.to(dev), ta.to(dev)
+    # 1, 2 and 3 launches in a row: each finds its ticket zeroed by the one before
+    got = [pbrute.compact_hits(gh, ga, C) for _ in range(3)]
     torch.cuda.synchronize()
-    assert pbrute.compact_hits.launches == n0 + 1
-    assert torch.equal(got.cpu(), want)
-    again = pbrute.compact_hits(th.to(dev), ta.to(dev), C)  # the ticket starts at 0 again
-    assert torch.equal(again.cpu(), want)
+    assert pbrute.compact_hits.launches == n0 + 3
+    for g in got:
+        assert torch.equal(g.cpu(), want)
+    assert _scratch_clean()
+
+
+def test_compact_hits_two_streams_beside_probe_compact(dev):
+    """kh_compact_hits on every case of tests/brute_compact_cases.py (the
+    row overflow included) at K = 16, U = 256, C = 64, 300 launches taking
+    turns on two streams, each stream's launches interleaved with
+    kh_probe_compact's (the two kernels keep separate scratch pairs, each
+    a stream); every result equal to its plain version's, every next
+    scratch clean after."""
+    K, U, C = 16, 256, 64
+    cases = []
+    for i, case in enumerate(CASES):
+        hits, adeg = make_case(case, K, U, C, seed=i)
+        th, ta = torch.from_numpy(hits.view(np.int32)), torch.from_numpy(adeg)
+        cases.append((th.to(dev), ta.to(dev), pbrute.compact_hits_ref(th, ta, C)))
+    g = torch.Generator(device=dev).manual_seed(5)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    bm = bmp.DeviceBitmap(rnd(1 << 15) & rnd(1 << 15), 20)
+    q = (rnd(1025), rnd(1025))
+    want_p = bmp.probe_compact_ref(bm, *q, 256)
+    streams = (torch.cuda.Stream(dev), torch.cuda.Stream(dev))
+    torch.cuda.synchronize()
+    n0 = pbrute.compact_hits.launches
+    runs, probes = [], []
+    for i in range(300):
+        with torch.cuda.stream(streams[i % 2]):
+            h, a, want = cases[i % len(cases)]
+            runs.append((pbrute.compact_hits(h, a, C), want))
+            if i % 3 == 1:
+                probes.append(bmp.probe_compact(bm, *q, 256))
+    torch.cuda.synchronize()
+    assert pbrute.compact_hits.launches == n0 + 300
+    for got, want in runs:
+        assert torch.equal(got.cpu(), want)
+    for got in probes:
+        for a, b in zip(got, want_p):
+            assert torch.equal(a, b)
+    assert _scratch_clean()
 
 
 @pytest.mark.parametrize("mode", ["rmd160", "eth"])
@@ -662,8 +704,10 @@ def test_bloom2_compact_kernel_tile_edges(dev, edge):
 
 
 def _scratch_clean():
-    """Every stream's next scratch is zero (the last launch cleared it)."""
-    return all(int(sc.buf[sc.turn].abs().sum()) == 0 for sc in bmp._SCRATCH.values())
+    """Every stream's next scratch is clean (the last launch cleared it):
+    the probe's all zero, the brute compaction's ticket zero."""
+    return (all(int(buf[turn].abs().sum()) == 0 for buf, turn in bmp._COMPACT.pairs.values())
+            and all(int(buf[turn][0]) == 0 for buf, turn in pbrute._COMPACT.pairs.values()))
 
 
 def test_compact_scratch_reuse_two_streams(dev):

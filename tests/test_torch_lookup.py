@@ -6,7 +6,9 @@ in jnp, on the cases of tests/walker_lookup_cases.py: a duplicated
 truncated key (found2), a key above every table key, a table of one key,
 padding positions, hits on degenerate lanes, a walker without a
 degenerate lane, a survivor count past C, more walkers and survivors
-than the kernel's block has warps and threads. Integer arithmetic: the
+than a block has warps and threads, and the kernel's 32-ary warp
+search's edges: tables of 32, 33, 34, 1,089 and 1,090 keys, duplicated
+keys across a first-level pivot, the table's first and last keys. Integer arithmetic: the
 tolerance is exact equality."""
 
 import numpy as np
@@ -18,7 +20,8 @@ import jax.numpy as jnp  # noqa: E402
 
 from keyhuntm1cpu_tpu.filter import sorted_table as jst  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import sorted_table as tst  # noqa: E402
-from walker_lookup_cases import CASES, make_case  # noqa: E402
+from walker_lookup_cases import (CASES, ENDS_SURVIVORS, PIVOT_SURVIVORS,  # noqa: E402
+                                 SHAPES, make_case)
 
 torch.set_num_threads(1)
 
@@ -97,6 +100,15 @@ def test_lookup_summary_matches_jax(case):
         assert n_deg[1] == 0 and first_deg[1] == 0 and first_deg[2] == 5
     if case == "overflow":
         assert want[-1] > C and (d["pos"] < total).all()
+    if case in SHAPES and case.startswith(("m", "pivot")):  # the warp search's edges
+        assert len(d["hi"]) == SHAPES[case]["m"]
+    if case == "pivot_dup":
+        assert found2[list(PIVOT_SURVIVORS)].all() and hits[list(PIVOT_SURVIVORS)].all()
+    if case == "ends":
+        key = (d["hi"].astype(np.uint64) << np.uint64(32)) | d["lo"]
+        q = (d["qhi"].astype(np.uint64) << np.uint64(32)) | d["qlo"]
+        assert [q[j] for j in ENDS_SURVIVORS] == [key.min(), key.max()]
+        assert hits[list(ENDS_SURVIVORS)].all()
 
 
 @pytest.mark.parametrize("bad", ["pos_dtype", "qhi_len", "deg_dtype", "adeg_len", "out_width",
