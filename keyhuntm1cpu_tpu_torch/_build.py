@@ -31,7 +31,9 @@ import shutil
 import subprocess
 import threading
 from functools import lru_cache
-from typing import List
+from typing import List, Optional
+
+from .core import metrics
 
 PKG_DIR = os.path.dirname(os.path.abspath(__file__))
 REPO_DIR = os.path.dirname(PKG_DIR)
@@ -67,11 +69,11 @@ def _run_all(cmds: List[List[str]]) -> str:
 
 
 def _build(name: str, sources: List[str], deps: List[str], cmd: List[str],
-           flags: List[str], link: List[str]) -> str:
+           flags: List[str], link: List[str], counter: Optional[str] = None) -> str:
     """Build `sources` unless a library with the same digest exists;
     returns the library path. Each source is compiled to an object by its
     own process (cmd + flags -c), all at once, then cmd + link makes the
-    library."""
+    library; `counter` (a metrics counter) counts the builds."""
     out_dir = build_dir()
     os.makedirs(out_dir, exist_ok=True)
     digest = _digest(sources + deps, cmd[:1] + flags + link)
@@ -79,6 +81,8 @@ def _build(name: str, sources: List[str], deps: List[str], cmd: List[str],
     with open(os.path.join(out_dir, f"{name}.lock"), "w") as lock:
         fcntl.flock(lock, fcntl.LOCK_EX)
         if not os.path.exists(out):
+            if counter:
+                metrics.count(counter)
             tmp = out + f".tmp{os.getpid()}"
             objs = [f"{tmp}.{i}.o" for i in range(len(sources))]
             log = _run_all([cmd + flags + ["-c", "-o", o, src]
@@ -106,11 +110,13 @@ def _nvcc() -> str:
 
 @lru_cache(maxsize=1)
 def kernels() -> ctypes.CDLL:
-    """Build (if needed) and load the CUDA kernel library."""
+    """Build (if needed) and load the CUDA kernel library: the span
+    kernel_build, an nvcc build (counted in kernel_builds) or a cache load."""
     cu = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cu")))
     cuh = sorted(glob.glob(os.path.join(CSRC_DIR, "*.cuh")))
-    lib = ctypes.CDLL(_build("libkh_kernels", cu, cuh, [_nvcc()], NVCC_FLAGS,
-                             NVCC_ARCH + ["-shared"]))
+    with metrics.span("kernel_build"):
+        lib = ctypes.CDLL(_build("libkh_kernels", cu, cuh, [_nvcc()], NVCC_FLAGS,
+                                 NVCC_ARCH + ["-shared"], counter="kernel_builds"))
     vp, i = ctypes.c_void_p, ctypes.c_int
     i64, u32 = ctypes.c_longlong, ctypes.c_uint
     sigs = {
@@ -256,12 +262,21 @@ def launch(fn: str, *args) -> None:
     The device of the Stream among args is current during the call: an
     entry point launches on the current device, and the stream and
     pointers it is given belong to the tensors' device, which need not be
-    the one the caller has current."""
+    the one the caller has current. With the timeline on (core.metrics),
+    the call is an NVTX range named by the kernel."""
     import torch
 
     dev = next(a.device for a in args if isinstance(a, Stream))
-    with torch.cuda.device(dev):
-        rc = getattr(kernels(), fn)(*args)
+    tl = metrics.get_metrics().timeline
+    nvtx = tl.nvtx if tl is not None else None
+    if nvtx is not None:
+        nvtx.range_push(fn)
+    try:
+        with torch.cuda.device(dev):
+            rc = getattr(kernels(), fn)(*args)
+    finally:
+        if nvtx is not None:
+            nvtx.range_pop()
     if rc != 0:
         raise RuntimeError(f"{fn}: CUDA launch failed (cudaError {rc})")
 

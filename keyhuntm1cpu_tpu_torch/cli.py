@@ -21,7 +21,11 @@ TPU-only --probe-mode, which is refused with its reason.
 Every mode takes --config FILE (JSON, core/config.py: the file and
 KEYHUNT_* variables give defaults, flags set on the command line win),
 --checkpoint FILE (resume if it exists), --checkpoint-every SECONDS,
---metrics-port P (/metrics.json, /metrics, /healthz and / on 127.0.0.1),
+--metrics-port P (/metrics.json, /metrics, /healthz and / on 127.0.0.1:
+the counters, the spans' counts and seconds, and the record of the last
+search call), --trace-out FILE (a Chrome-trace timeline of the search
+loops' spans and each chunk's card interval, written at exit; the
+KEYHUNT_TRACE_OUT variable does the same for any entry point),
 --notify-cmd CMD (run once a found key with its hex and target appended),
 -s N (progress every N chunks; 0 none), -d (debug lines), -M (no
 rewritten lines) and -E (accepted and ignored, as by the reference). The
@@ -178,6 +182,9 @@ def build_parser() -> argparse.ArgumentParser:
     p.add_argument("--metrics-port", type=int, default=None,
                    help="serve /metrics.json, /metrics, /healthz and / on this port "
                         "(0: a free one)")
+    p.add_argument("--trace-out", default=None, metavar="FILE",
+                   help="write a Chrome-trace timeline of the search loops' spans and "
+                        "the card's chunk intervals to FILE at exit (as KEYHUNT_TRACE_OUT)")
     p.add_argument("--sharded", nargs="?", const="range", default=None,
                    choices=["range", "table"],
                    help="multi-device search: 'range' (default) gives each device a "
@@ -500,6 +507,9 @@ def _run(args, log) -> int:
              if args.checkpoint else None)
     # reference -s 0 omits the stats output entirely
     progress = 0 if (args.quiet or args.stats_every == 0) else max(1, int(args.stats_every))
+    from .core import metrics
+
+    metrics.trace_to(args.trace_out)
     metrics_srv = None
     if args.metrics_port is not None:
         from .core.metrics import MetricsServer, get_metrics

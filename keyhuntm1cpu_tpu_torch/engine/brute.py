@@ -64,6 +64,7 @@ import torch
 
 from ..core.log import get_logger
 from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.metrics import current_call, spanned
 from ..curve import pbrute, pladder, pwalk, tables, walk
 from ..curve.points import PointBatch, point_batch_from_ints
 from ..field import fe
@@ -72,7 +73,7 @@ from ..filter import sorted_table as st
 from ..hash import phash
 from ..ref import ecref, hashref
 from ..utils.targets import TargetSet
-from .common import Deadline, FoundKey, SearchStats, summary_to_host
+from .common import Deadline, FoundKey, SearchStats, search_loop, summary_to_host
 
 # lambda^e factors for GLV endomorphism key reconstruction (keyhunt.cpp:2800-2851)
 _LAM_POW = (1, ecref.LAMBDA, ecref.LAMBDA * ecref.LAMBDA % ecref.N)
@@ -116,6 +117,7 @@ def _limbs(v: int, device) -> torch.Tensor:
 
 
 class BruteEngine:
+    @spanned("engine_init")
     def __init__(self, targets: TargetSet, range_start: int, range_end: int,
                  mode: str = "rmd160", params: BruteParams = BruteParams(),
                  device="cuda", intervals=None, prefixes=None):
@@ -329,7 +331,7 @@ class BruteEngine:
             checkpoint.matches(ck, mode=f"brute:{self.mode}", range_start=self.a,
                                range_end=self.b, policy=policy, seed=p.seed,
                                params_fp=params_fp, targets_fp=targets_fp)
-            self.stats.add(ck.keys_covered)
+            self.stats.resume(ck.keys_covered)
             return ck, ck.chunks_done
         return Checkpoint(mode=f"brute:{self.mode}", range_start=self.a, range_end=self.b,
                           policy=policy, seed=p.seed, params_fp=params_fp,
@@ -362,6 +364,7 @@ class BruteEngine:
     # fused path
     # ------------------------------------------------------------------
 
+    @search_loop("_search_fused")
     def _search_fused(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                       progress_every: int = 0, checkpoint=None,
                       max_seconds: Optional[float] = None) -> List[FoundKey]:
@@ -370,6 +373,8 @@ class BruteEngine:
         come back (pinned, non-blocking). max_seconds stops dispatch at the
         first chunk boundary past the deadline. Progress is saved for
         decoded chunks only, never for the ones in flight."""
+        tr = current_call()
+        sp = tr.chunk_spans()
         p = self.p
         dl = Deadline(max_seconds)
         U, K = p.block_u, p.steps_per_chunk
@@ -439,20 +444,29 @@ class BruteEngine:
                 if px is None:
                     pending.append((s0, None))  # base at infinity: host rescan
                 else:
-                    px, py, out = self._chunk_fn(px, py)
-                    pending.append((s0, summary_to_host(out)))
+                    tr.chunk = s0
+                    with sp.dispatch:
+                        tr.device_start(self.device)
+                        px, py, out = self._chunk_fn(px, py)
+                    with sp.copy:
+                        pending.append((s0, summary_to_host(out)))
                 disp_step = s0 + K
                 disp_chunks += 1
             if not pending:
                 break  # the deadline passed between the checks
             step0, out = pending.popleft()
+            tr.chunk = step0
             if out is None:
                 new_found, k_eff = self._host_rescan_fast(step0, K), K
             else:
                 host, ev = out
-                if ev is not None:
-                    ev.synchronize()
-                k_eff, new_found = self._decode_fast(step0, host.numpy())
+                with sp.wait:
+                    if ev is not None:
+                        ev.synchronize()
+                tr.device_done(ev)
+                with sp.decode:
+                    k_eff, new_found = self._decode_fast(step0, host.numpy())
+                tr.count("chunks_decoded")
             n_before = len(found)
             for fk in new_found:
                 take(fk)
@@ -470,7 +484,9 @@ class BruteEngine:
                 pending.clear()
                 disp_step = step0 + k_eff
                 if disp_step < total:
-                    px, py = self._fast_base(disp_step)
+                    tr.count("rebases")
+                    with tr.span("rebase"):
+                        px, py = self._fast_base(disp_step)
             if progress_every and chunks_done % progress_every == 0:
                 print(f"[brute] chunk {chunks_done}/{n_chunks} {self.stats.human()}")
         return found
@@ -488,6 +504,7 @@ class BruteEngine:
         k_eff = int(np.argmax(adv)) + 1 if adv.any() else K
         found: List[FoundKey] = []
         if ncand > C:
+            current_call().count("cascade_overflows")
             found += self._host_rescan_fast(step0, k_eff)
         cands = []  # candidate scalars, one a hit bit, then degenerate lanes
         for c in np.nonzero(pos < K * U)[0]:
@@ -515,61 +532,70 @@ class BruteEngine:
         return k_eff, found + self._verify_all(cands)
 
     def _verify_all(self, cands: Sequence[int]) -> List[FoundKey]:
-        """_verify of each candidate. An engine with intervals on the card
-        first computes the candidates' points in one K6 batch, on a stream
-        of its own so that it does not queue behind the chunks in flight."""
-        pts = {}
-        if cands and self._k6 is not None:
-            uniq = sorted({k % ecref.N for k in cands})
-            with torch.cuda.stream(self._k6_stream):
-                pts = dict(zip(uniq, pladder.scalar_mult_points(uniq, *self._k6)))
-        out = []
-        for k in cands:
-            fk = self._verify(k, 0, pts.get(k % ecref.N, _UNSET))
-            if fk:
-                out.append(fk)
+        """_verify of each candidate (counted; false where it gives no key).
+        An engine with intervals on the card first computes the candidates'
+        points in one K6 batch, on a stream of its own so that it does not
+        queue behind the chunks in flight."""
+        tr = current_call()
+        with tr.span("verify"):
+            pts = {}
+            if cands and self._k6 is not None:
+                uniq = sorted({k % ecref.N for k in cands})
+                with torch.cuda.stream(self._k6_stream):
+                    pts = dict(zip(uniq, pladder.scalar_mult_points(uniq, *self._k6)))
+            out = []
+            for k in cands:
+                fk = self._verify(k, 0, pts.get(k % ecref.N, _UNSET))
+                if fk:
+                    out.append(fk)
+        if cands:
+            tr.count("candidates_verified", len(cands))
+            tr.count("false_candidates", len(cands) - len(out))
         return out
 
     def _host_rescan_fast(self, step0: int, k: int) -> List[FoundKey]:
         """Exact host rescan of k device steps (python-int walk, per-key
         artifact compare): candidate overflow or a base at infinity."""
-        U = self.p.block_u
-        j0 = step0 * U
-        j1 = min((step0 + k) * U, self._fast_total_idx)
-        rawset = set(self.targets.raw)
-        step_pt = ecref.scalar_mult(self.stride)
-        found: List[FoundKey] = []
-        pt = None
-        key = self._fast_key(j0)
-        for _ in range(j0, j1):
-            kk = key % ecref.N
-            if pt is None:
-                pt = ecref.scalar_mult(kk) if kk else None
-            if pt is not None:
-                x, y = pt
-                for e in range(self._n_endo):
-                    xv = x * pow(ecref.BETA, e, ecref.P) % ecref.P
-                    arts = []
-                    if self.mode == "xpoint":
-                        arts = [xv.to_bytes(32, "big")]
-                    elif self.mode in ("rmd160", "rmd160_both"):
-                        arts = [hashref.hash160(bytes([pfx]) + xv.to_bytes(32, "big"))
-                                for pfx in (2, 3)]
-                    if self.mode in ("address_u", "rmd160_both"):
-                        arts.append(hashref.pubkey_to_hash160((xv, y), compressed=False))
-                    elif self.mode == "eth":
-                        arts = [hashref.pubkey_to_eth_address((xv, y))]
-                    if any(a in rawset for a in arts) or any(
-                            lo20[:8] <= a[:8] <= hi20[:8]
-                            for a in arts for lo20, hi20 in self.intervals):
-                        fk = self._verify(kk * _LAM_POW[e] % ecref.N)
-                        if fk:
-                            found.append(fk)
-            key += self.stride
-            nxt = key % ecref.N
-            pt = (ecref.point_add(pt, step_pt) if pt is not None
-                  else (ecref.scalar_mult(nxt) if nxt else None))
-        return found
+        tr = current_call()
+        tr.count("host_rescans", k)
+        with tr.span("rescan"):
+            U = self.p.block_u
+            j0 = step0 * U
+            j1 = min((step0 + k) * U, self._fast_total_idx)
+            rawset = set(self.targets.raw)
+            step_pt = ecref.scalar_mult(self.stride)
+            found: List[FoundKey] = []
+            pt = None
+            key = self._fast_key(j0)
+            for _ in range(j0, j1):
+                kk = key % ecref.N
+                if pt is None:
+                    pt = ecref.scalar_mult(kk) if kk else None
+                if pt is not None:
+                    x, y = pt
+                    for e in range(self._n_endo):
+                        xv = x * pow(ecref.BETA, e, ecref.P) % ecref.P
+                        arts = []
+                        if self.mode == "xpoint":
+                            arts = [xv.to_bytes(32, "big")]
+                        elif self.mode in ("rmd160", "rmd160_both"):
+                            arts = [hashref.hash160(bytes([pfx]) + xv.to_bytes(32, "big"))
+                                    for pfx in (2, 3)]
+                        if self.mode in ("address_u", "rmd160_both"):
+                            arts.append(hashref.pubkey_to_hash160((xv, y), compressed=False))
+                        elif self.mode == "eth":
+                            arts = [hashref.pubkey_to_eth_address((xv, y))]
+                        if any(a in rawset for a in arts) or any(
+                                lo20[:8] <= a[:8] <= hi20[:8]
+                                for a in arts for lo20, hi20 in self.intervals):
+                            fk = self._verify(kk * _LAM_POW[e] % ecref.N)
+                            if fk:
+                                found.append(fk)
+                key += self.stride
+                nxt = key % ecref.N
+                pt = (ecref.point_add(pt, step_pt) if pt is not None
+                      else (ecref.scalar_mult(nxt) if nxt else None))
+            return found
 
     # ------------------------------------------------------------------
     # walker path (the JAX package's XLA fallback)
@@ -639,6 +665,7 @@ class BruteEngine:
         read back and decoded before the next; the checkpoint counts device
         steps per walker."""
         p = self.p
+        self.stats.begin()
         dl = Deadline(max_seconds)
         total = self.steps_per_walker if max_steps is None else min(self.steps_per_walker,
                                                                      max_steps)

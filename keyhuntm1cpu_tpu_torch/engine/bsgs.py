@@ -58,13 +58,14 @@ import torch
 from .. import _build
 from ..core.checkpoint import Checkpoint, fingerprint
 from ..core.log import get_logger
+from ..core.metrics import current_call, span, spanned
 from ..curve import pwalk, tables
 from ..field import fe
 from ..filter import bitmap as bmp
 from ..filter import host_table as ht
 from ..filter import sorted_table as st
 from ..ref import ecref
-from .common import (Deadline, FoundKey, SearchStats, summary_to_host,
+from .common import (Deadline, FoundKey, SearchStats, search_loop, summary_to_host,
                      verify_candidate_scalar)
 
 BUILD_BLOCKS = 128  # baby blocks of build_block keys per streaming-build step
@@ -125,7 +126,8 @@ def _bloom2_for_table(table: st.SortedXTable) -> bmp.DeviceBloom2:
         if ent is not None and ent[0] is table.key:
             _BLOOM2_CACHE.move_to_end(k)  # LRU: the resident table stays
             return ent[1]
-    b2 = bmp.build_bloom2_device(table)
+    with span("table_build"):
+        b2 = bmp.build_bloom2_device(table)
     with _BLOOM2_LOCK:
         _BLOOM2_CACHE[k] = (table.key, b2)
         while len(_BLOOM2_CACHE) > 2:
@@ -403,6 +405,7 @@ def _seed_keys(n: int, dev):
             torch.from_numpy(seed.astype(np.uint32).view(np.int32)).to(dev))
 
 
+@spanned("table_build")
 def build_baby_table(m: int, build_block: int, dev) -> st.SortedXTable:
     """The device-resolve baby table (bsgs.build_baby_table): trunc64(x(j*G))
     with payload j, j = 1..m, on `dev`. Keys 1..2*build_block from the
@@ -428,6 +431,7 @@ def build_baby_table(m: int, build_block: int, dev) -> st.SortedXTable:
 class BSGSEngine:
     """Single-device BSGS search, device- or host-resolve (params.resolve)."""
 
+    @spanned("engine_init")
     def __init__(self, pubkeys: Sequence[Tuple[int, int]], range_start: int,
                  range_end: int, params: BSGSParams = BSGSParams(),
                  device="cuda", host_table: "ht.HostTable | None" = None,
@@ -631,6 +635,7 @@ class BSGSEngine:
         interesting = False
         if ncand > C2:
             interesting = True
+            current_call().count("cascade_overflows")
             for s_ in range(k):  # cascade overflow: exact host rescan
                 found += self._host_rescan_step(step0 + s_)
         # steps after a mid-chunk advance degeneracy hold garbage walk state
@@ -676,6 +681,7 @@ class BSGSEngine:
         c_base = self._center(step, 0)  # = c_{sU} - stride
         return [c_base - u * self.stride, c_base + u * self.stride]
 
+    @search_loop("search")
     def search(self, max_steps: Optional[int] = None, start_step: int = 0,
                stop_on_first: bool = True, progress_every: int = 0,
                max_seconds: Optional[float] = None) -> List[FoundKey]:
@@ -685,6 +691,8 @@ class BSGSEngine:
         the device and only summaries come back. max_seconds stops dispatch
         at the first chunk boundary past the deadline; in-flight chunks are
         drained, so stats stay exact."""
+        tr = current_call()
+        sp = tr.chunk_spans()
         p = self.p
         dl = Deadline(max_seconds)
         remaining = self.n_steps - start_step
@@ -719,16 +727,25 @@ class BSGSEngine:
         while pending or disp < end_step:
             while (disp < end_step and len(pending) < p.pipeline_depth
                    and not dl.expired()):
-                px, py, outs = self._chunk_fn(px, py)
-                pending.append((disp, summary_to_host(outs)))
+                tr.chunk = disp
+                with sp.dispatch:
+                    tr.device_start(self.device)
+                    px, py, outs = self._chunk_fn(px, py)
+                with sp.copy:
+                    pending.append((disp, summary_to_host(outs)))
                 disp += K
             if not pending:
                 break  # deadline cut dispatch with nothing in flight
             step, (host, ev) = pending.popleft()
-            if ev is not None:
-                ev.synchronize()
+            tr.chunk = step
+            with sp.wait:
+                if ev is not None:
+                    ev.synchronize()
+            tr.device_done(ev)
             k = min(K, end_step - step)
-            new_found, rebase, _ = self._consume_summary(step, k, host.numpy())
+            with sp.decode:
+                new_found, rebase, _ = self._consume_summary(step, k, host.numpy())
+            tr.count("chunks_decoded")
             if new_found:
                 found = self._dedupe_found(found + new_found)
                 if stop_on_first:
@@ -741,8 +758,10 @@ class BSGSEngine:
                 # it is invalid — drop later chunks and restart exactly
                 pending.clear()
                 disp = step + K
+                tr.count("rebases")
                 try:
-                    px, py = self._initial_base(disp)
+                    with tr.span("rebase"):
+                        px, py = self._initial_base(disp)
                 except _ImmediateHit as hit:
                     found += self._try_candidates_all([hit.scalar])
                     if found and stop_on_first:
@@ -755,7 +774,8 @@ class BSGSEngine:
                             return self._dedupe_found(found)
                         disp += K
                         try:
-                            px, py = self._initial_base(disp)
+                            with tr.span("rebase"):
+                                px, py = self._initial_base(disp)
                             break
                         except _ImmediateHit as hit2:
                             found += self._try_candidates_all([hit2.scalar])
@@ -867,6 +887,7 @@ class BSGSEngine:
             out.update((c, (dev[n, 0], dev[n, 1])) for n, c in enumerate(jac))
         return out
 
+    @search_loop("search_scheduled")
     def search_scheduled(self, policy: str = "sequential", seed: int = 0,
                          max_chunks: Optional[int] = None, stop_on_first: bool = True,
                          progress_every: int = 0, checkpoint=None,
@@ -880,6 +901,8 @@ class BSGSEngine:
         the host. checkpoint: a core.checkpoint.CheckpointManager; it
         counts the chunks of the order done, and a resumed run reports the
         keys the saved one found."""
+        tr = current_call()
+        sp = tr.chunk_spans()
         p = self.p
         K, U = p.steps_per_chunk, p.block_u
         dl = Deadline(max_seconds)
@@ -896,7 +919,7 @@ class BSGSEngine:
                                    policy=policy, seed=seed, params_fp=params_fp,
                                    targets_fp=targets_fp)
                 resume_from = ck.chunks_done
-                self.stats.add(ck.keys_covered)
+                self.stats.resume(ck.keys_covered)
                 found = self._try_candidates_all([int(h, 16) for h in ck.found])
             else:
                 ck = Checkpoint(mode="bsgs", range_start=self.a, range_end=self.b,
@@ -927,8 +950,12 @@ class BSGSEngine:
                     pending.append((disp_i, c * K, base.scalar))
                     chain = None
                 else:
-                    nx, ny, outs = self._chunk_fn(*base)
-                    pending.append((disp_i, c * K, summary_to_host(outs)))
+                    tr.chunk = c * K
+                    with sp.dispatch:
+                        tr.device_start(self.device)
+                        nx, ny, outs = self._chunk_fn(*base)
+                    with sp.copy:
+                        pending.append((disp_i, c * K, summary_to_host(outs)))
                     chain = (c, nx, ny)
                 disp_i += 1
 
@@ -950,14 +977,21 @@ class BSGSEngine:
                     new_found += self._host_rescan_step(s_)
             else:
                 host, ev = outs
-                if ev is not None:
-                    ev.synchronize()
-                new_found, rebase, _ = self._consume_summary(step0, k, host.numpy())
+                tr.chunk = step0
+                with sp.wait:
+                    if ev is not None:
+                        ev.synchronize()
+                tr.device_done(ev)
+                with sp.decode:
+                    new_found, rebase, _ = self._consume_summary(step0, k, host.numpy())
+                tr.count("chunks_decoded")
                 if rebase:
                     # an advance lane degenerated: a chunk chained on this
-                    # one walks invalid state; dispatch the rest again
+                    # one walks invalid state; dispatch the rest again (the
+                    # next base comes from _scheduled_bases)
                     pending.clear()
                     disp_i, chain = i + 1, None
+                    tr.count("rebases")
             self.stats.add(k * U * self.stride)
             if new_found:
                 found = self._dedupe_found(found + new_found)
@@ -997,32 +1031,35 @@ class BSGSEngine:
         """Exact host scan of one device step (the cascade-overflow and
         invalid-walk fallback): python-int walk of U points per target,
         then one vectorised searchsorted."""
-        keys, payload, j_off = self._rescan_table()
-        found: List[FoundKey] = []
-        U = self.p.block_u
-        neg_stride = ecref.point_neg(ecref.scalar_mult(self.stride))
-        mask64 = (1 << 64) - 1
-        for t, q in enumerate(self.targets):
-            c0 = self._center(step, 1)
-            c = c0
-            pt = ecref.point_add(q, ecref.scalar_mult((-c) % ecref.N))
-            xs = np.zeros(U, dtype=np.uint64)
-            for u in range(U):
-                if pt is None:  # Q == c*G exactly
-                    found += self._try_candidates([c], t)
-                    pt = neg_stride
-                else:
-                    xs[u] = pt[0] & mask64
-                    pt = ecref.point_add(pt, neg_stride)
-                c += self.stride
-            left = np.searchsorted(keys, xs, side="left")
-            right = np.searchsorted(keys, xs, side="right")
-            for u in np.nonzero(right > left)[0]:
-                cu = c0 + int(u) * self.stride
-                for p_ in range(int(left[u]), int(right[u])):
-                    j = int(payload[p_]) + j_off
-                    found += self._try_candidates([cu - j, cu + j], t)
-        return found
+        tr = current_call()
+        tr.count("host_rescans")
+        with tr.span("rescan"):
+            keys, payload, j_off = self._rescan_table()
+            found: List[FoundKey] = []
+            U = self.p.block_u
+            neg_stride = ecref.point_neg(ecref.scalar_mult(self.stride))
+            mask64 = (1 << 64) - 1
+            for t, q in enumerate(self.targets):
+                c0 = self._center(step, 1)
+                c = c0
+                pt = ecref.point_add(q, ecref.scalar_mult((-c) % ecref.N))
+                xs = np.zeros(U, dtype=np.uint64)
+                for u in range(U):
+                    if pt is None:  # Q == c*G exactly
+                        found += self._try_candidates([c], t)
+                        pt = neg_stride
+                    else:
+                        xs[u] = pt[0] & mask64
+                        pt = ecref.point_add(pt, neg_stride)
+                    c += self.stride
+                left = np.searchsorted(keys, xs, side="left")
+                right = np.searchsorted(keys, xs, side="right")
+                for u in np.nonzero(right > left)[0]:
+                    cu = c0 + int(u) * self.stride
+                    for p_ in range(int(left[u]), int(right[u])):
+                        j = int(payload[p_]) + j_off
+                        found += self._try_candidates([cu - j, cu + j], t)
+            return found
 
     def _try_candidates_all(self, cands: Sequence[int]) -> List[FoundKey]:
         """Verify candidates against EVERY target (base-center collisions
@@ -1033,12 +1070,19 @@ class BSGSEngine:
         return out
 
     def _try_candidates(self, cands: Sequence[int], t: int = 0) -> List[FoundKey]:
-        """Exact verification; keys outside [a, b] are dropped (the last
-        block's centers tile past range_end)."""
+        """Exact verification of one candidate (a device match or lane: its
+        scalar, or the pair around its center) against target t; keys
+        outside [a, b] are dropped (the last block's centers tile past
+        range_end). Counted as one candidate, false when no key comes."""
+        tr = current_call()
         seen: Dict[int, FoundKey] = {}
-        for cand in cands:
-            k = verify_candidate_scalar(cand, self.targets[t])
-            if k is not None and self.a <= k <= self.b:
-                seen[k] = FoundKey(private_key=k, pubkey=self.targets[t],
-                                   target=f"{self.targets[t][0]:064x}")
+        with tr.span("verify"):
+            for cand in cands:
+                k = verify_candidate_scalar(cand, self.targets[t])
+                if k is not None and self.a <= k <= self.b:
+                    seen[k] = FoundKey(private_key=k, pubkey=self.targets[t],
+                                       target=f"{self.targets[t][0]:064x}")
+        tr.count("candidates_verified")
+        if not seen:
+            tr.count("false_candidates")
         return list(seen.values())

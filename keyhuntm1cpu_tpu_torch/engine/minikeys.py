@@ -200,6 +200,7 @@ class MinikeyEngine:
         checkpoint: a core.checkpoint.CheckpointManager; a saved run's prefix
         and counter replace this engine's."""
         p = self.p
+        self.stats.begin()
         dl = Deadline(max_seconds)
         B, V, HM = p.batch, p.valid_max, p.hit_max
         found: List[FoundKey] = []
@@ -223,7 +224,7 @@ class MinikeyEngine:
                                    targets_fp=targets_fp)
                 self.prefix = ck.extra["prefix"]
                 self.counter = int(ck.extra["counter"])
-                self.stats.add(ck.keys_covered)
+                self.stats.resume(ck.keys_covered)
                 # the saved finds: their span is skipped now
                 for h in ck.found:
                     for fk in self._reverify_scalar(int(h, 16)):

@@ -55,6 +55,7 @@ import numpy as np
 import torch
 
 from .. import _build
+from ..core.metrics import spanned
 from ..field.fe import M16, M32, i32, u32
 from .sorted_table import LookupResult, SortedXTable, key_words, lookup
 
@@ -289,6 +290,7 @@ def _from_table(table: SortedXTable, words1, bits_log2: int, words2, b2bits: int
         insert_keys(words1, bits_log2, words2, b2bits, hi, lo, hi.shape[0])
 
 
+@spanned("table_build")
 def build_bitmap_device(table: SortedXTable, bits_log2: Optional[int] = None) -> DeviceBitmap:
     """The bitmap over a baby table's keys, built where the table lives
     (bitmap.build_bitmap_device): K3's bitmap-only form, one launch a

@@ -128,7 +128,7 @@ class ShardedBruteEngine:
             checkpoint.matches(ck, mode=f"brute-sharded:{c0.mode}", range_start=a,
                                range_end=b, policy="sequential", seed=p.seed,
                                params_fp=params_fp, targets_fp=targets_fp)
-            self.stats.add(ck.keys_covered)
+            self.stats.resume(ck.keys_covered)
             return ck, ck.chunks_done
         return Checkpoint(mode=f"brute-sharded:{c0.mode}", range_start=a, range_end=b,
                           policy="sequential", seed=p.seed, params_fp=params_fp,
@@ -143,6 +143,7 @@ class ShardedBruteEngine:
         degenerated has the rest of its chunk rescanned on the host, and
         every child is rebased at the next chunk."""
         p = self.p
+        self.stats.begin()
         dl = Deadline(max_seconds)
         K, U, D = p.steps_per_chunk, p.block_u, self.n_shards
         total = self.local_steps if max_steps is None else min(self.local_steps, max_steps)

@@ -42,14 +42,18 @@ import numpy as np
 import torch
 
 from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.metrics import current_call, spanned
 from ..engine.bsgs import (BSGSEngine, BSGSParams, _chunk_walk, _ImmediateHit, chunk_impl,
                            chunk_summary, device_budgets, write_table)
-from ..engine.common import Deadline, FoundKey, summary_to_host
+from ..engine.common import Deadline, FoundKey, search_loop, summary_to_host
 from ..filter import bitmap as bmp
 from ..filter import sorted_table as st
 from .partition import RangePartitioner, RangeSlice
 
 _PAD_KEY = (1 << 63) - 1  # the flipped key of trunc64 = 2^64 - 1: sorts last
+# BSGSEngine's set-up without its own span: a sharded engine's one
+# engine_init span covers it and the shards' copies
+_bsgs_init = BSGSEngine.__init__.__wrapped__
 
 
 def resolve_devices(devices=None) -> List[torch.device]:
@@ -117,6 +121,7 @@ def _interest(outs: torch.Tensor, B: int, C: int, n_deg: slice) -> torch.Tensor:
 class ShardedBSGSEngine(BSGSEngine):
     """BSGS with the range sharded over a list of devices (device resolve)."""
 
+    @spanned("engine_init")
     def __init__(self, pubkeys: Sequence[Tuple[int, int]], range_start: int,
                  range_end: int, params: BSGSParams = BSGSParams(),
                  table: "st.SortedXTable | None" = None, devices=None,
@@ -127,8 +132,9 @@ class ShardedBSGSEngine(BSGSEngine):
             raise ValueError("the sharded engines resolve on the device: each device "
                              "holds its own table (resolve='host' is single-device)")
         devs = resolve_devices(devices)
-        super().__init__(pubkeys, range_start, range_end, params, device=devs[0], table=table,
-                         bitmap=bitmap)
+        _bsgs_init(self, pubkeys, range_start, range_end, params, device=devs[0], table=table,
+                   bitmap=bitmap)
+        # the shards' constants and filters on their cards
         self._set_shards(devs, range_start, range_end)
         b2 = self.bloom2
         self._filters = {d: _Filters(
@@ -161,18 +167,24 @@ class ShardedBSGSEngine(BSGSEngine):
     def _sharded_chunk(self, bases):
         """One chunk of every shard -> (next bases, (host tensor, event)):
         the D summaries and their summed interest, copied to the host in
-        one asynchronous copy from the first device."""
+        one asynchronous copy from the first device. Spans: a dispatch a
+        card (its index), the copy."""
         p = self.p
         T, K, U = len(self.targets), p.steps_per_chunk, p.block_u
+        tr = current_call()
         nxt, outs = [], []
-        for (px, py), d in zip(bases, self.devices):
+        for card, ((px, py), d) in enumerate(zip(bases, self.devices)):
             w, f = self._walk[d], self._filters[d]
-            nx, ny, out = chunk_impl(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y, f.bitmap,
-                                     f.table, f.bloom2, U=U, K=K, T=T, C1=self.C1,
-                                     C2=self.C2, adv_tab=w.adv_tab)
+            with tr.span("dispatch", card):
+                tr.device_start(d, card)
+                nx, ny, out = chunk_impl(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y, f.bitmap,
+                                         f.table, f.bloom2, U=U, K=K, T=T, C1=self.C1,
+                                         C2=self.C2, adv_tab=w.adv_tab)
+                tr.device_end(d, card)
             nxt.append((nx, ny))
             outs.append(out)
-        return nxt, self._to_host(outs, T * K * U)
+        with tr.span("copy"):
+            return nxt, self._to_host(outs, T * K * U)
 
     def _to_host(self, outs: List[torch.Tensor], B: int):
         C2, TK = self.C2, len(self.targets) * self.p.steps_per_chunk
@@ -201,6 +213,7 @@ class ShardedBSGSEngine(BSGSEngine):
                 found += self._host_rescan_step(sl.step0 + s_)
         return found
 
+    @search_loop("search_sharded")
     def search_sharded(self, max_steps: Optional[int] = None, stop_on_first: bool = True,
                        progress_every: int = 0, max_seconds: Optional[float] = None,
                        checkpoint=None) -> List[FoundKey]:
@@ -210,6 +223,8 @@ class ShardedBSGSEngine(BSGSEngine):
         interesting chunks are decoded. All shards advance in lock step,
         so a checkpoint (core.checkpoint.CheckpointManager) counts decoded
         chunks of K local steps; a resumed run rebases every shard there."""
+        tr = current_call()
+        sp = tr.chunk_spans()
         p = self.p
         dl = Deadline(max_seconds)
         K, D = p.steps_per_chunk, self.n_shards
@@ -231,7 +246,7 @@ class ShardedBSGSEngine(BSGSEngine):
                                    range_end=self.b, policy="sequential", seed=0,
                                    params_fp=params_fp, targets_fp=targets_fp)
                 resume_step = ck.chunks_done * K
-                self.stats.add(ck.keys_covered)
+                self.stats.resume(ck.keys_covered)
                 # the keys the interrupted run saved: resume skips their chunks
                 found += self._try_candidates_all([int(h, 16) for h in ck.found])
             else:
@@ -275,6 +290,7 @@ class ShardedBSGSEngine(BSGSEngine):
         n_done = 0
         while pending or disp < total:
             while disp < total and len(pending) < p.pipeline_depth and not dl.expired():
+                tr.chunk = disp  # _sharded_chunk's spans: a dispatch a card, the copy
                 bases, out = self._sharded_chunk(bases)
                 pending.append((disp, out))
                 disp += K
@@ -283,14 +299,19 @@ class ShardedBSGSEngine(BSGSEngine):
                 _save(force=True)
                 break
             step, (host, ev) = pending.popleft()
-            if ev is not None:
-                ev.synchronize()
+            tr.chunk = step
+            with sp.wait:
+                if ev is not None:
+                    ev.synchronize()
+            tr.device_done(ev)
+            tr.count("chunks_decoded")
             k = min(K, total - step)
             rebase = False
             new_found: List[FoundKey] = []
             arr = host.numpy()
             if int(arr[-1]) > 0:
-                new_found, rebase = self._decode_sharded(arr[:-1].reshape(D, -1), step, k)
+                with sp.decode:
+                    new_found, rebase = self._decode_sharded(arr[:-1].reshape(D, -1), step, k)
                 if new_found:
                     found = self._dedupe(found + new_found)
                     if stop_on_first:
@@ -311,8 +332,10 @@ class ShardedBSGSEngine(BSGSEngine):
                 # after it and rebase every shard exactly
                 pending.clear()
                 disp = step + K
+                tr.count("rebases")
                 try:
-                    bases = self._bases_at(disp)
+                    with tr.span("rebase"):
+                        bases = self._bases_at(disp)
                 except _ImmediateHit as hit:
                     found += self._try_candidates_all([hit.scalar])
                     if found and stop_on_first:
@@ -326,7 +349,8 @@ class ShardedBSGSEngine(BSGSEngine):
                             return found
                         disp += K
                         try:
-                            bases = self._bases_at(disp)
+                            with tr.span("rebase"):
+                                bases = self._bases_at(disp)
                             break
                         except _ImmediateHit as hit2:
                             found += self._try_candidates_all([hit2.scalar])
@@ -345,6 +369,7 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
     holds the whole table: the exact host rescan and -S read a host copy
     assembled from the shards."""
 
+    @spanned("engine_init")
     def __init__(self, pubkeys: Sequence[Tuple[int, int]], range_start: int,
                  range_end: int, params: BSGSParams = BSGSParams(),
                  table: "st.SortedXTable | None" = None, devices=None):
@@ -357,8 +382,8 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
         # no global bitmap: the parent gets a stand-in (_size_cascade builds
         # nothing from it)
         dummy = bmp.DeviceBitmap(torch.zeros(1, dtype=torch.int32, device=devs[0]), 5)
-        BSGSEngine.__init__(self, pubkeys, range_start, range_end, params, device=devs[0],
-                            table=table, bitmap=dummy)
+        _bsgs_init(self, pubkeys, range_start, range_end, params, device=devs[0],
+                   table=table, bitmap=dummy)
         self._set_shards(devs, range_start, range_end)
         self._shard_structures(self.table)
         self.table = None  # the shards hold it now
@@ -449,18 +474,25 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
         return chunk_summary(self.shards[e], *fs, deg, adv, rows)
 
     def _sharded_chunk(self, bases):
+        """Spans: a dispatch a card (its walk), one for the probers (no
+        card), the copy."""
         p = self.p
         T, K, U, D = len(self.targets), p.steps_per_chunk, p.block_u, self.n_shards
         B = T * K * U
+        tr = current_call()
         nxt, blocks = [], []
-        for (px, py), d in zip(bases, self.devices):
+        for card, ((px, py), d) in enumerate(zip(bases, self.devices)):
             w = self._walk[d]
-            res, deg, adv_flat = _chunk_walk(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y,
-                                             U, K, T, w.adv_tab)
+            with tr.span("dispatch", card):
+                res, deg, adv_flat = _chunk_walk(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y,
+                                                 U, K, T, w.adv_tab)
             nxt.append((res.next_x, res.next_y))
             blocks.append((res.qhi.reshape(-1), res.qlo.reshape(-1), deg, adv_flat))
         probe = self._ring if p.table_comm == "ring" else self._all_gather
-        return nxt, self._to_host(probe(blocks, B), D * B)
+        with tr.span("dispatch"):
+            summaries = probe(blocks, B)
+        with tr.span("copy"):
+            return nxt, self._to_host(summaries, D * B)
 
     def _all_gather(self, blocks, B: int):
         """Every prober probes the D sources' queries, concatenated in
@@ -553,6 +585,7 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
             degsum = row[3 * C2: 3 * C2 + 3 * T * K].reshape(3, T, K)
             if int(row[-1]) > C2:
                 # this prober's shard overflowed: every source's steps, exactly
+                current_call().count("cascade_overflows")
                 found += self._rescan_chunk(step, k)
             for c in np.nonzero(cand_pos < D * B)[0]:
                 d_src, rem = divmod(int(cand_pos[c]), B)

@@ -159,15 +159,40 @@ def test_metrics_http_endpoints():
 
 def test_search_stats_feed_the_registry():
     """SearchStats.add feeds keys * multiplier into keys_covered and sets
-    the engine rate gauge, under the JAX package's names."""
+    the engine rate gauge, under the JAX package's names; the rate counts
+    the keys since the search call began (begin())."""
     from keyhuntm1cpu_tpu_torch.engine.common import SearchStats
 
     reg = tmetrics.get_metrics()
     before = reg.snapshot()["counters"].get("keys_covered", 0.0)
     st = SearchStats(multiplier=3)
+    st.add(5)  # before the call: counted, but not in the call's rate
+    st.begin()
     st.add(1000)
     st.add(24)
     snap = reg.snapshot()
-    assert snap["counters"]["keys_covered"] - before == 3 * 1024
+    assert snap["counters"]["keys_covered"] - before == 3 * 1029
+    assert st.keys_covered - st.start_keys == 1024
     # the gauge is the rate at the last add; the rate read later is lower
     assert snap["gauges"]["keys_per_sec_engine"] >= st.keys_per_sec > 0
+
+
+def test_search_stats_rate_leaves_out_set_up():
+    """An engine made 100 s before its search: the rate counts from the
+    search's start, and a checkpoint's restored keys stay out of it."""
+    import time
+
+    from keyhuntm1cpu_tpu_torch.engine.common import SearchStats
+
+    st = SearchStats(multiplier=2, started_at=time.time() - 100.0)
+    st.begin()
+    st.resume(10**9)  # a saved run's keys
+    st.add(10**6)
+    time.sleep(0.05)
+    rate = st.keys_per_sec
+    elapsed = time.time() - st.started_at
+    assert st.started_at > time.time() - 10.0 and st.keys_covered == 10**9 + 10**6
+    # 2*10^6 keys over the call's fraction of a second, not 2*10^6 over 100 s
+    assert 2 * 10**6 / elapsed <= rate < 2 * 10**7 / elapsed
+    assert rate > 10 * (2 * 10**6 / 100.0)
+    assert st.human().endswith("keys/s")
