@@ -19,7 +19,10 @@ any failure exits non-zero before the result line:
    and 16 with P == j*ADV (doubling lanes: j = 1, K/2) and P == -j*ADV
    (infinity lanes: j = 3, K) planted, K1 and K2 also at the filter
    build's shape (K = 128; R = 128, U = 4096), K2 with planted dx == 0
-   lanes at block edges, K3 also
+   lanes at block edges, K2 with the level-1 probe (the BSGS chunk's
+   form: its walk held to K2 alone's, its survivor mask to the plain
+   version's and the mask's compaction, kh_mask_compact, to
+   kh_probe_compact's over the same keys, each timed), K3 also
    against np.bitwise_or.at, with its degeneracy count (degenerate lanes
    planted inside and past the kept prefix) and in its bitmap-only and
    bloom-only forms (the bloom alone also at 2^32 bits, a device table's),
@@ -285,6 +288,8 @@ KERNEL_SOURCES = {
                        "keyhuntm1cpu_tpu/engine/brute.py:1064"),
     "bloom2_compact": ("keyhuntm1cpu_tpu_torch/csrc/probe.cu",
                        "keyhuntm1cpu_tpu/filter/bitmap.py:721"),
+    "mask_compact": ("keyhuntm1cpu_tpu_torch/csrc/probe.cu",
+                     "keyhuntm1cpu_tpu/filter/bitmap.py:280"),
     "chunk_summary": ("keyhuntm1cpu_tpu_torch/csrc/lookup.cu",
                       "keyhuntm1cpu_tpu/engine/bsgs.py:1662"),
     "chunk_summary_host": ("keyhuntm1cpu_tpu_torch/csrc/lookup.cu",
@@ -326,6 +331,13 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                   "queries against 2^35 bits; library_ms: words[idx], "
                                   "the gather alone; launches count the fused, mask and "
                                   "bloom2 forms"},
+                "mask_compact": {"note": "the BSGS chunk's level-1 stage since its probe "
+                                         "runs in K2 (kh_walk_blocks with a bitmap): the "
+                                         "ordered compaction of K2's survivor mask to C1 = "
+                                         "34,816 with the survivors' keys, at 4,194,304 "
+                                         "queries against 2^35 bits; probe_compact_ms: "
+                                         "kh_probe_compact on the same keys, the probe and "
+                                         "compaction it replaced in the chunk"},
                 "compact_hits": {"note": "replaces XLA glue, not a Pallas kernel: the "
                                          "compaction and summary of pallas_brute_chunk "
                                          "(curve/pbrute.py:300-344), at the fused chunk's "
@@ -419,8 +431,8 @@ BENCH_ENV = {"BENCH_M": str(1 << 22), "BENCH_SECONDS": "2", "BENCH_MODE_SECONDS"
              "BENCH_RESOLVE": "host"}  # phase 7
 BENCH_SECTIONS = ("bsgs_t16", "rmd160", "xpoint", "eth", "address_u", "minikeys", "vanity",
                   "rmd160_endo", "rmd160_T4096")
-BENCH_KERNELS = ("advance_chain", "walk_blocks", "insert_keys", "probe", "bloom2_compact",
-                 "chunk_summary_host", "brute_walk_blocks",
+BENCH_KERNELS = ("advance_chain", "walk_blocks", "insert_keys", "mask_compact",
+                 "bloom2_compact", "chunk_summary_host", "brute_walk_blocks",
                  "compact_hits", "minikey_valid", "minikey_compact_keys", "scalar_mult",
                  "hash160_x2", "hash160_u")  # the kernels of the bench's path
 
@@ -902,6 +914,39 @@ def phase1_kernels(dev, results, clock):
     bms, by_ = bound_ms(walk_point_ops(K * U) * K * U, 64 * (K + U) + 9 * K * U, clock)
     results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms,
                                   bound_ms=bms, bound_by=by_)
+    # K2 with the level-1 probe (the BSGS chunk's form) against a 2^35-bit
+    # bitmap of m = 2^28's density: the walk's words bit for bit the walk
+    # alone's, the survivor mask its plain version's, and its compaction
+    # (kh_mask_compact) kh_probe_compact's over the same keys
+    g = torch.Generator(device=dev).manual_seed(35)
+    words = torch.randint(-2**31, 2**31, (1 << (MAIN_BITS - 5),), dtype=torch.int32,
+                          device=dev, generator=g)
+    for _ in range(6):
+        words &= torch.randint(-2**31, 2**31, words.shape, dtype=torch.int32, device=dev,
+                               generator=g)
+    bm = bmp.DeviceBitmap(words, MAIN_BITS)
+    fms, fused = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty, bm), 20)
+    qhi, qlo = fused[1].reshape(-1), fused[0].reshape(-1)
+    mask_want = bmp.survivor_mask_ref(bm, fused[1], fused[0])
+    cms, stage1 = device_ms(lambda: bmp.mask_compact(fused[3], qhi, qlo, CASCADE_C[0]), 20)
+    pcms, stage1_want = device_ms(lambda: bmp.probe_compact(bm, qhi, qlo, CASCADE_C[0]), 20)
+    f_err = max_abs_err(fused[:3], got) + max_abs_err([fused[3]], [mask_want])
+    f_err += max_abs_err(stage1, stage1_want)
+    if f_err:
+        fail(f"K2 with the probe differs from K2 alone, its mask from the plain version's or "
+             f"its compaction from kh_probe_compact's (max_abs_err {f_err})")
+    log(f"K2 with the level-1 probe R={K} U={U} 2^{MAIN_BITS} bits: walk equal to K2 alone, "
+        f"mask to plain, {int(stage1.n)} survivors compacted equal to kh_probe_compact's; "
+        f"{fms:.4f} ms against {ms:.4f} alone; kh_mask_compact {cms:.4f} ms against "
+        f"kh_probe_compact {pcms:.4f} ms")
+    n1 = int(stage1.n)
+    cpms, _ = timed(lambda: bmp.mask_compact_ref(mask_want, qhi, qlo, CASCADE_C[0]), 1)
+    cbms, cby = bound_ms(0, 4 * len(mask_want.reshape(-1)) + 8 * n1 + 12 * CASCADE_C[0] + 4,
+                         clock)
+    results["walk_blocks"] |= dict(fused_ms=fms)
+    results["mask_compact"] = dict(max_abs_err=f_err, ms=cms, plain_ms=cpms, bound_ms=cbms,
+                                   bound_by=cby, probe_compact_ms=pcms)
+    del words, bm, fused, qhi, qlo, mask_want, stage1, stage1_want
 
     # K1 and K2 at the streaming filter build's shape: K = BUILD_BLOCKS,
     # ADV = build_block*G from base 2*build_block*G; R = 128, U = 4096
@@ -1886,9 +1931,12 @@ def scratch_reuse_gate(dev):
     two streams, each on its own stream's scratch pairs with no memset:
     1,000 on the bitmap pair, the bloom2 stage at C1 between tile boundaries (one below, at and one above
     135 tiles, the main path's 136 and m = 2^30's 526; 255 and 257) against
-    the 2^35-bit bloom2, every fifth launch the level-1 form at the
-    main path's 4,194,304 queries and one more (a 2^35-bit bitmap of m =
-    2^28's density, into C1 = 34,816), and after every fifth of them the
+    the 2^35-bit bloom2, every fifth launch a level-1 form, in turns the
+    probe's at the main path's 4,194,304 queries and one more (a 2^35-bit
+    bitmap of m = 2^28's density, into C1 = 34,816) and the mask
+    compaction's (kh_mask_compact) of a mask of that density over 256 and
+    257 rows of U = 16,352 (511 tiles and a ragged 513th), and after every
+    fifth of them the
     fused brute chunk's compaction on its own pair (200 launches of
     kh_compact_hits at K = 256, U = 16,384, C = 1,024: a few hits, R + 1
     flagged rows, dense rows with degenerate words), so the probe's and the
@@ -1919,7 +1967,15 @@ def scratch_reuse_gate(dev):
         stages.append((s1, bmp.bloom2_compact_ref(b2, s1, B, c1 // 3)))
     for n in (B, B + 1):
         q = (rnd(n), rnd(n))
-        level1.append((q, bmp.probe_compact_ref(bm, *q, CASCADE_C[0])))
+        level1.append((bmp.probe_compact, (bm, *q),
+                       bmp.probe_compact_ref(bm, *q, CASCADE_C[0])))
+    for rows in (K, K + 1):
+        mask = rnd(rows * 511).reshape(rows, 511)
+        for _ in range(6):
+            mask &= rnd(rows * 511).reshape(rows, 511)
+        q = (rnd(rows * 16352), rnd(rows * 16352))
+        level1.append((bmp.mask_compact, (mask, *q),
+                       bmp.mask_compact_ref(mask, *q, CASCADE_C[0])))
     C = 1024
     R = pbrute.row_budget(C)
     adeg = torch.zeros(K, dtype=torch.bool, device=dev)
@@ -1937,8 +1993,8 @@ def scratch_reuse_gate(dev):
     for i in range(1000):
         with torch.cuda.stream(streams[i % 2]):
             if i % 5 == 4:
-                q, want = level1[i % len(level1)]
-                runs.append((bmp.probe_compact(bm, *q, want.pos.shape[0]), want))
+                fn, args, want = level1[(i // 5) % len(level1)]
+                runs.append((fn(*args, want.pos.shape[0]), want))
             else:
                 s1, want = stages[i % len(stages)]
                 runs.append((bmp.bloom2_compact(b2, s1, B, want.pos.shape[0]), want))
@@ -1955,8 +2011,9 @@ def scratch_reuse_gate(dev):
         fail(f"scratch reuse: {bad} of 1,200 launches differ from the plain version; "
              f"scratches left non-zero: {dirty}")
     log(f"scratch reuse: 1,200 compact launches on two streams (800 bloom2 stages at C1 "
-        f"{', '.join(str(s.pos.shape[0]) for s, _ in stages)}, 200 level-1 at B {B} and "
-        f"{B + 1}, 200 kh_compact_hits at K={K} U={U} C={C} with 3, R + 1 and R dense "
+        f"{', '.join(str(s.pos.shape[0]) for s, _ in stages)}, 200 level-1: kh_probe_compact "
+        f"at B {B} and {B + 1}, kh_mask_compact over {K} and {K + 1} rows of U 16352; "
+        f"200 kh_compact_hits at K={K} U={U} C={C} with 3, R + 1 and R dense "
         f"flagged rows) each equal to its plain version, the next scratch of each of "
         f"{len(bmp._COMPACT.pairs)} + {len(pbrute._COMPACT.pairs)} stream pairs zero after, "
         f"{dt:.2f} s")
@@ -2019,11 +2076,12 @@ def delta(after, before):
 
 def chunk_launches(eng, n, d=1):
     """The launches of n chunks of a BSGS engine, d of them a chunk (the
-    range-sharded engine's shards): K1, K2, the level-1 probe, the bloom2
-    stage (where the engine has a bloom2) and the summary of its resolve
-    mode."""
+    range-sharded engine's shards): K1, K2 with the level-1 probe, the
+    compaction of its mask, the bloom2 stage (where the engine has a
+    bloom2) and the summary of its resolve mode."""
     summary = "chunk_summary_host" if eng.table is None else "chunk_summary"
-    return zero_counts() | {"advance_chain": d * n, "walk_blocks": d * n, "probe": d * n,
+    return zero_counts() | {"advance_chain": d * n, "walk_blocks": d * n,
+                            "mask_compact": d * n,
                             "bloom2_compact": d * n if eng.bloom2 is not None else 0,
                             summary: d * n}
 
@@ -2923,10 +2981,12 @@ def phase_t16(dev, m, label, seconds, **shared):
 
 def chunk_split(eng, px, py, label):
     """One chunk of `eng` (either resolve mode) on the card by device_ms,
-    whole and stage by stage on this chunk's own data: K1, K2, the level-1
-    probe (kh_probe_compact), the bloom2 stage (kh_bloom2_compact, where the
-    engine has a bloom2) and the summary (kh_bsgs_summary); logged with the
-    survivors against C1 and C2. Returns {stage: ms}."""
+    whole and stage by stage on this chunk's own data: K1, K2 with the
+    level-1 probe, the compaction of its mask (kh_mask_compact), the bloom2
+    stage (kh_bloom2_compact, where the engine has a bloom2) and the summary
+    (kh_bsgs_summary); logged with the survivors against C1 and C2, and
+    beside K2 alone and kh_probe_compact, the pair the chunk ran before.
+    Returns {stage: ms}."""
     from keyhuntm1cpu_tpu_torch.curve import pwalk
     from keyhuntm1cpu_tpu_torch.engine import bsgs
     from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp
@@ -2937,10 +2997,11 @@ def chunk_split(eng, px, py, label):
     pxt, pyt = px.t().contiguous(), py.t().contiguous()
     ms["K1"], (bx, by, _, _, adeg) = device_ms(lambda: pwalk.advance_chain(
         pxt, pyt, eng.adv_x, eng.adv_y, Kc, eng.adv_tab), reps)
-    ms["K2"], (qlo, qhi, deg) = device_ms(lambda: pwalk.walk_blocks(bx, by, eng.tab_x,
-                                                                    eng.tab_y), reps)
+    ms["K2"], (qlo, qhi, deg, mask) = device_ms(lambda: pwalk.walk_blocks(
+        bx, by, eng.tab_x, eng.tab_y, eng.bitmap), reps)
     qhi, qlo, adv = qhi.reshape(-1), qlo.reshape(-1), adeg.reshape(-1)
-    ms["probe"], s1 = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, eng.C1), reps)
+    ms["mask compaction"], s1 = device_ms(lambda: bmp.mask_compact(mask, qhi, qlo, eng.C1),
+                                          reps)
     fs, n2 = s1, None
     if eng.bloom2 is not None:
         ms["bloom2 stage"], fs = device_ms(lambda: bmp.bloom2_compact(eng.bloom2, s1, B,
@@ -2952,11 +3013,14 @@ def chunk_split(eng, px, py, label):
         summary = lambda: bsgs.chunk_summary(eng.table, *fs, deg, adv, (deg, adv))
     ms["summary"], _ = device_ms(summary, reps)
     rest = ms["chunk"] - sum(v for k, v in ms.items() if k != "chunk")
+    alone, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng.tab_x, eng.tab_y), reps)
+    probe, _ = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, eng.C1), reps)
     log(f"{label}: a chunk {ms['chunk']:.4f} ms on the card = "
         + " + ".join(f"{k} {v:.4f}" for k, v in ms.items() if k != "chunk")
         + f" (+ {rest:.4f} between them); {int(s1.n)} level-1 survivors of {B} (C1={eng.C1})"
-        + (f", {n2} after the bloom2 (C2={eng.C2})" if n2 is not None else ""))
-    return ms
+        + (f", {n2} after the bloom2 (C2={eng.C2})" if n2 is not None else "")
+        + f"; K2 alone {alone:.4f} ms + kh_probe_compact {probe:.4f} ms before the fusion")
+    return ms | {"K2 alone": alone, "probe_compact": probe}
 
 
 def chunk_composition(eng, px, py, plain=False):

@@ -135,8 +135,8 @@ def kernels() -> ctypes.CDLL:
         "kh_hash160_u": [vp] * 4 + [i, vp],
         # px py tab_x tab_y | bx by nx ny adeg | T K stream
         "kh_advance_chain": [vp] * 9 + [i, i, vp],
-        # bx by tx ty | qlo qhi deg | R U stream
-        "kh_walk_blocks": [vp] * 7 + [i64, i, vp],
+        # bx by tx ty | qlo qhi deg | words mask | R U bits stream
+        "kh_walk_blocks": [vp] * 9 + [i64, i, i, vp],
         # words1 words2 qhi qlo | n_keep | deg adeg | n_adeg | bad | bits b2bits stream
         "kh_insert_keys": [vp] * 4 + [i64, vp, vp, i, vp, i, i, vp],
         # bx by tx ty tgt btab hits | K U T TB mode n_endo stream
@@ -152,6 +152,8 @@ def kernels() -> ctypes.CDLL:
         # words qhi qlo pos ohi olo n_out scratch next | next_words n bits C stream
         "kh_probe_compact": [vp] * 9 + [i64, i64, i, i, vp],
         "kh_probe_tile": [i],
+        # mask qhi qlo pos ohi olo n_out scratch next | next_words rows U C stream
+        "kh_mask_compact": [vp] * 9 + [i64, i64, i, i, vp],
         # words qhi qlo pos_in n_in pos ohi olo n_out scratch next | next_words n bits C
         # fill stream
         "kh_bloom2_compact": [vp] * 11 + [i64, i64, i, i, i, vp],
@@ -228,7 +230,7 @@ def kernel_wrappers() -> dict:
             "probe": (bmp.probe, bmp.probe_bloom2),
             "walk_prefix": (walk.walk_prefix,), "walk_emit": (walk.walk_emit,),
             "lookup_summary": (st.lookup_summary,),
-            "bloom2_compact": (bmp.bloom2_compact,),
+            "bloom2_compact": (bmp.bloom2_compact,), "mask_compact": (bmp.mask_compact,),
             "chunk_summary": (bsgs.chunk_summary,),
             "chunk_summary_host": (bsgs.chunk_summary_host,)}
 

@@ -4,6 +4,10 @@
 //   kh_probe_compact   the same probe (level-1 form) fused with the ordered
 //                      compaction of its survivors (compact_positions and the
 //                      key gathers of filtered_survivors / filtered_lookup)
+//   kh_mask_compact    the level-1 compaction of the BSGS chunk, whose probe
+//                      runs inside K2 (csrc/pwalk.cu): the ordered compaction
+//                      of K2's survivor mask, with the same output as
+//                      kh_probe_compact's over the same keys
 //   kh_bloom2_compact  the cascade's bloom2 stage: the bloom2 probe of the C1
 //                      stage-1 survivors fused with their ordered compaction
 //                      to C2 (keyhuntm1cpu_tpu/filter/bitmap.py filtered_lookup
@@ -73,6 +77,18 @@
 // which the launch before it used and which the launch after it will use.
 // Launches on one stream never overlap, so this is safe, and no launch
 // waits on an exit counter or clears its own status words at the end.
+// kh_mask_compact: K2 probes each key as it emits it and writes a
+// survivor mask of 32 positions a word, so the chunk's level-1 stage is
+// left with the compaction alone: a 512 KB mask read in order, the
+// look-back, and the gathers of ~32,768 survivors' keys from qhi / qlo,
+// bound by latency (a few DRAM or L2 round trips). Its tile is
+// kMaskCompactQ = 2 mask words a thread, 8,192 positions a block, a block
+// a tile by its index as the bloom2 stage's, one status word a lane a
+// step of the look-back: 512 tiles at 4,194,304 positions, 0.0066 ms on
+// an H100 (700 W) against 0.0074 at 1 word a thread, 0.0069 at 4, 0.0083
+// at 8, and 0.0089-0.0111 with 4 status words a lane
+// (scripts/torch_fused_probe_shapes.py times them); kh_probe_compact
+// took 0.150 ms for the probe and compaction of the same keys.
 // Word offsets are 64-bit (a 2^35-bit filter has 2^30 words). The entry
 // points launch on the given stream, do not synchronise, and return
 // cudaGetLastError().
@@ -80,7 +96,12 @@
 
 #include <cstdint>
 
+#include "probe.cuh"
+
 namespace {
+
+using kh::ld_word;
+using kh::word_of;
 
 // the fused form's keys per thread (level 1; the bloom2 stage's
 // kStage2Q) and threads per block (the mask form: one key a thread,
@@ -88,6 +109,8 @@ namespace {
 constexpr int kProbeQ = 8;
 constexpr int kStage2Q = 2;
 constexpr int kStage2Window = 1;  // status words a lane reads a step of the look-back
+constexpr int kMaskCompactQ = 2;  // kh_mask_compact's mask words a thread
+constexpr int kMaskCompactWindow = 1;  // and status words a lane a step
 constexpr int kProbeThreads = 128;
 constexpr int kMaskThreads = 256;
 constexpr int kWarps = kProbeThreads / 32;
@@ -95,6 +118,8 @@ constexpr int kWarps = kProbeThreads / 32;
 __host__ __device__ constexpr int tile_keys(bool stage2) {
   return (stage2 ? kStage2Q : kProbeQ) * kProbeThreads;
 }
+// kh_mask_compact's mask words a tile
+constexpr int kMaskCompactTile = kMaskCompactQ * kProbeThreads;
 constexpr unsigned long long kCount = 1ull << 32;   // status: the tile's own count
 constexpr unsigned long long kPrefix = 2ull << 32;  // status: the inclusive prefix
 
@@ -105,31 +130,6 @@ __device__ __forceinline__ uint32_t fmix32(uint32_t h) {
   h *= 0xC2B2AE35u;
   h ^= h >> 16;
   return h;
-}
-
-// One filter word through the read-only path; with NO_L1 not kept in L1
-// (the reads have no reuse: the fused form at 4,194,304 keys ran 2.6 %
-// faster so, but the mask form at 131,088 keys 40 % slower, so it keeps
-// __ldg; scripts/torch_probe_shapes.py times both).
-template <bool NO_L1>
-__device__ __forceinline__ uint32_t ld_word(const uint32_t* p) {
-  if constexpr (NO_L1) {
-    uint32_t v;
-    asm("ld.global.nc.L1::no_allocate.u32 %0, [%1];" : "=r"(v) : "l"(p));
-    return v;
-  } else {
-    return __ldg(p);
-  }
-}
-
-// Word and bit of bit (ext:h) mod 2^bits: word = low bits of ext:h >> 5,
-// bit = h & 31 (bitmap.py _low_bits_index).
-__device__ __forceinline__ unsigned long long word_of(uint32_t h, uint32_t ext, int bits) {
-  if (bits > 32) {
-    const uint32_t emask = (1u << (bits - 32)) - 1u;
-    return (unsigned long long)(h >> 5) | ((unsigned long long)(ext & emask) << 27);
-  }
-  return (bits == 32 ? h : (h & ((1u << bits) - 1u))) >> 5;
 }
 
 // Q 32-bit words from p + i0, the first cnt of them (0 past those): 16- or
@@ -257,6 +257,73 @@ __device__ uint32_t look_back(const unsigned long long* status, long long tile, 
   }
 }
 
+// Zero the next launch's scratch (from every block of the grid): the
+// launch before this one (done, as launches on one stream do not overlap)
+// used it.
+__device__ __forceinline__ void zero_next(unsigned long long* next, long long words) {
+  for (long long k = (long long)blockIdx.x * kProbeThreads + threadIdx.x; k < words;
+       k += (long long)gridDim.x * kProbeThreads) {
+    next[k] = 0;
+  }
+}
+
+// A tile's place in the ordered output, from its threads' survivor counts
+// c (every thread of the block calls it): the block's exclusive scan of the
+// counts, the tile's count published, the survivors of the tiles before
+// it by the look-back (warp 0, W status words a lane a step) and its
+// inclusive prefix published. Returns this thread's first rank; prefix
+// gets the survivors before the tile, agg the tile's own.
+template <int W>
+__device__ __forceinline__ uint32_t tile_rank(uint32_t c, unsigned long long* status,
+                                              long long tile, uint32_t (&s_warp)[kWarps],
+                                              uint32_t& s_prefix, uint32_t& prefix,
+                                              uint32_t& agg) {
+  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  uint32_t incl = c;
+#pragma unroll
+  for (int o = 1; o < 32; o <<= 1) {
+    const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
+    if (lane >= o) incl += y;
+  }
+  if (lane == 31) s_warp[warp] = incl;
+  __syncthreads();
+  uint32_t before = 0;
+  agg = 0;
+#pragma unroll
+  for (int w = 0; w < kWarps; w++) {
+    const uint32_t x = s_warp[w];
+    before += w < warp ? x : 0u;
+    agg += x;
+  }
+  if (warp == 0) {
+    uint32_t p = 0;
+    if (tile == 0) {
+      if (lane == 0) atomicExch(status, kPrefix | agg);
+    } else {
+      if (lane == 0) atomicExch(status + tile, kCount | agg);
+      p = look_back<W>(status, tile, lane);
+      if (lane == 0) atomicExch(status + tile, kPrefix | (p + agg));
+    }
+    if (lane == 0) s_prefix = p;
+  }
+  __syncthreads();
+  prefix = s_prefix;
+  return prefix + before + incl - c;
+}
+
+// The last tile's padding, once every count is in: entries min(total, C)
+// to C - 1 get (fill, the fill key).
+__device__ __forceinline__ void pad_tail(int32_t* pos, uint32_t* ohi, uint32_t* olo,
+                                         uint32_t total, int C, int32_t fill, uint32_t fill_hi,
+                                         uint32_t fill_lo) {
+  for (long long k = (long long)min(total, (uint32_t)C) + threadIdx.x; k < C;
+       k += kProbeThreads) {
+    pos[k] = fill;
+    ohi[k] = fill_hi;
+    olo[k] = fill_lo;
+  }
+}
+
 // The compaction's operands. Level 1 (kh_probe_compact): the n query keys
 // against the bitmap, a survivor written at its own index, padding = n.
 // The bloom2 stage (kh_bloom2_compact): the n = C1 stage-1 survivors against
@@ -293,15 +360,9 @@ __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const Comp
   __shared__ long long s_tile;
   __shared__ uint32_t s_warp[kWarps];
   __shared__ uint32_t s_prefix;
-  unsigned long long* status = a.scratch + 1;
-  const int t = threadIdx.x, lane = t & 31, warp = t >> 5;
+  const int t = threadIdx.x;
   const long long n = a.n, n_tiles = (n + kTile - 1) / kTile;
-  // zero the next launch's scratch: the launch before this one (done, as
-  // launches on one stream do not overlap) used it
-  for (long long k = (long long)blockIdx.x * kProbeThreads + t; k < a.next_words;
-       k += (long long)gridDim.x * kProbeThreads) {
-    a.next[k] = 0;
-  }
+  zero_next(a.next, a.next_words);
   for (int round = 0;; round++) {
     long long tile;
     if constexpr (STAGE2) {
@@ -332,37 +393,9 @@ __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const Comp
 #pragma unroll
       for (int j = 0; j < Q; j++) at[j] = (uint32_t)(i0 + j);
     }
-    // the block's exclusive scan of the threads' survivor counts
-    const uint32_t c = __popc(hit);
-    uint32_t incl = c;
-#pragma unroll
-    for (int o = 1; o < 32; o <<= 1) {
-      const uint32_t y = __shfl_up_sync(0xFFFFFFFFu, incl, o);
-      if (lane >= o) incl += y;
-    }
-    if (lane == 31) s_warp[warp] = incl;
-    __syncthreads();
-    uint32_t before = 0, agg = 0;
-#pragma unroll
-    for (int w = 0; w < kWarps; w++) {
-      const uint32_t x = s_warp[w];
-      before += w < warp ? x : 0u;
-      agg += x;
-    }
-    if (warp == 0) {
-      uint32_t prefix = 0;
-      if (tile == 0) {
-        if (lane == 0) atomicExch(status, kPrefix | agg);
-      } else {
-        if (lane == 0) atomicExch(status + tile, kCount | agg);
-        prefix = look_back<STAGE2 ? kStage2Window : 1>(status, tile, lane);
-        if (lane == 0) atomicExch(status + tile, kPrefix | (prefix + agg));
-      }
-      if (lane == 0) s_prefix = prefix;
-    }
-    __syncthreads();
-    const uint32_t prefix = s_prefix;
-    uint32_t rank = prefix + before + incl - c;
+    uint32_t prefix, agg;
+    uint32_t rank = tile_rank<STAGE2 ? kStage2Window : 1>(__popc(hit), a.scratch + 1, tile,
+                                                         s_warp, s_prefix, prefix, agg);
 #pragma unroll
     for (int j = 0; j < Q; j++) {
       if ((hit >> j) & 1u) {
@@ -384,14 +417,73 @@ __global__ void __launch_bounds__(kProbeThreads) probe_compact_kernel(const Comp
         }
         *a.n_out = out;
       }
-      const uint32_t fill_hi = __ldg(a.qhi + n - 1), fill_lo = __ldg(a.qlo + n - 1);
-      for (long long k = (long long)min(total, (uint32_t)a.C) + t; k < a.C; k += kProbeThreads) {
-        a.pos[k] = a.fill;
-        a.ohi[k] = fill_hi;
-        a.olo[k] = fill_lo;
-      }
+      pad_tail(a.pos, a.ohi, a.olo, total, a.C, a.fill, __ldg(a.qhi + n - 1),
+               __ldg(a.qlo + n - 1));
     }
     __syncthreads();  // s_tile, s_warp and s_prefix are reused
+  }
+}
+
+// The mask form's operands (kh_mask_compact): the (rows, W) survivor mask
+// of rows * U queries, W = ceil(U / 32) words a row (bit b of word w of
+// row r: position r * U + 32 w + b), their keys qhi / qlo, padding = rows *
+// U; scratch and next as CompactArgs' (the ticket word unused).
+struct MaskArgs {
+  const uint32_t* mask;
+  const uint32_t* qhi;
+  const uint32_t* qlo;
+  int32_t* pos;
+  uint32_t* ohi;
+  uint32_t* olo;
+  int32_t* n_out;
+  unsigned long long* scratch;
+  unsigned long long* next;
+  long long next_words;
+  uint32_t words;  // rows * W
+  int U, W, C;
+};
+
+// A block a tile of kMaskCompactQ mask words a thread, tile = blockIdx.x
+// (as the bloom2 stage's): the words' survivors counted, ranked by
+// tile_rank, and written in ascending position with their keys gathered
+// from qhi / qlo, the first C of them.
+template <bool VEC>
+__global__ void __launch_bounds__(kProbeThreads) mask_compact_kernel(const MaskArgs a) {
+  constexpr int Q = kMaskCompactQ;
+  __shared__ uint32_t s_warp[kWarps];
+  __shared__ uint32_t s_prefix;
+  zero_next(a.next, a.next_words);
+  const uint32_t n_tiles = (a.words + kMaskCompactTile - 1) / kMaskCompactTile;
+  const uint32_t tile = blockIdx.x, k0 = tile * kMaskCompactTile + threadIdx.x * Q;
+  const int cnt = k0 + Q <= a.words ? Q : (k0 < a.words ? (int)(a.words - k0) : 0);
+  uint32_t m[Q];
+  load_q<VEC>(a.mask, k0, cnt, m);
+  uint32_t c = 0;
+#pragma unroll
+  for (int j = 0; j < Q; j++) c += __popc(m[j]);
+  uint32_t prefix, agg;
+  uint32_t rank = tile_rank<kMaskCompactWindow>(c, a.scratch + 1, tile, s_warp, s_prefix,
+                                                prefix, agg);
+#pragma unroll
+  for (int j = 0; j < Q; j++) {
+    uint32_t bits = m[j];
+    if (!bits || rank >= (uint32_t)a.C) continue;
+    const uint32_t k = k0 + j, r = k / a.W;
+    const uint32_t p0 = r * (uint32_t)a.U + (k - r * a.W) * 32u;  // the word's first position
+    while (bits && rank < (uint32_t)a.C) {
+      const uint32_t p = p0 + __ffs(bits) - 1;
+      bits &= bits - 1;
+      a.pos[rank] = (int32_t)p;
+      a.ohi[rank] = __ldg(a.qhi + p);
+      a.olo[rank] = __ldg(a.qlo + p);
+      rank++;
+    }
+  }
+  if (tile == n_tiles - 1) {  // every count is in: the total, and the padding
+    const uint32_t total = prefix + agg, n = (a.words / a.W) * (uint32_t)a.U;
+    if (threadIdx.x == 0) *a.n_out = (int32_t)total;
+    pad_tail(a.pos, a.ohi, a.olo, total, a.C, (int32_t)n, __ldg(a.qhi + n - 1),
+             __ldg(a.qlo + n - 1));
   }
 }
 
@@ -424,6 +516,17 @@ int compact(const CompactArgs& a, cudaStream_t s) {
   return (int)cudaGetLastError();
 }
 
+// kh_mask_compact: a block a tile, with vector loads where the mask allows.
+int mask_compact(const MaskArgs& a, cudaStream_t s) {
+  const unsigned grid = (a.words + kMaskCompactTile - 1) / kMaskCompactTile;
+  if ((reinterpret_cast<uintptr_t>(a.mask) & 15u) == 0) {
+    mask_compact_kernel<true><<<grid, kProbeThreads, 0, s>>>(a);
+  } else {
+    mask_compact_kernel<false><<<grid, kProbeThreads, 0, s>>>(a);
+  }
+  return (int)cudaGetLastError();
+}
+
 }  // namespace
 
 extern "C" int kh_probe(const void* words, const void* qhi, const void* qlo, void* mask,
@@ -443,9 +546,12 @@ extern "C" int kh_probe(const void* words, const void* qhi, const void* qlo, voi
   return (int)cudaGetLastError();
 }
 
-// Keys a tile holds, in the level-1 form (stage2 = 0) or the bloom2
-// stage's: a compact form's scratch is 1 + ceil(n / tile) u64.
-extern "C" int kh_probe_tile(int stage2) { return tile_keys(stage2 != 0); }
+// Keys a tile holds, in the level-1 form (form 0) or the bloom2 stage's
+// (1), or kh_mask_compact's mask words a tile (2): a compact form's scratch
+// is 1 + ceil(n / tile) u64.
+extern "C" int kh_probe_tile(int form) {
+  return form == 2 ? kMaskCompactTile : tile_keys(form != 0);
+}
 
 // scratch: zero on entry (this launch's tickets and status words); next:
 // next_words u64 that this launch zeroes, for the next launch on the
@@ -462,6 +568,24 @@ extern "C" int kh_probe_compact(const void* words, const void* qhi, const void* 
                       (int32_t*)n_out, (unsigned long long*)scratch,
                       (unsigned long long*)next, next_words, n, bits, C, (int)n};
   return compact<false>(a, (cudaStream_t)stream);
+}
+
+// The level-1 stage of a chunk whose keys K2 probed (csrc/pwalk.cu): the
+// ordered compaction of mask, (rows, ceil(U / 32)) u32 survivor words of
+// the rows * U keys qhi / qlo; writes what kh_probe_compact writes over
+// those keys. scratch and next as kh_probe_compact's.
+extern "C" int kh_mask_compact(const void* mask, const void* qhi, const void* qlo, void* pos,
+                               void* ohi, void* olo, void* n_out, void* scratch, void* next,
+                               long long next_words, long long rows, int U, int C,
+                               void* stream) {
+  if (rows < 1 || U < 1 || rows * U > 0x7FFFFFFFLL || C < 0 || next_words < 0)
+    return (int)cudaErrorInvalidValue;
+  const int W = (U + 31) / 32;
+  const MaskArgs a{(const uint32_t*)mask, (const uint32_t*)qhi, (const uint32_t*)qlo,
+                   (int32_t*)pos, (uint32_t*)ohi, (uint32_t*)olo, (int32_t*)n_out,
+                   (unsigned long long*)scratch, (unsigned long long*)next, next_words,
+                   (uint32_t)(rows * W), U, W, C};
+  return mask_compact(a, (cudaStream_t)stream);
 }
 
 // The bloom2 stage over n = C1 stage-1 survivors (pos_in, qhi, qlo, and

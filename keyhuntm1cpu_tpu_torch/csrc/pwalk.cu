@@ -4,12 +4,14 @@
 // Wrappers and plain torch versions: keyhuntm1cpu_tpu_torch/curve/pwalk.py.
 // Layouts: field elements limb-major (8, n) u32; the ADV table (8, K) with
 // column j - 1 = j*ADV; bases (8, T*K) with column t*K + s; adeg (T, K)
-// bytes; qlo/qhi/deg (R, U) row-major. Each entry point launches on the
-// given stream, does not synchronise, and returns cudaGetLastError().
+// bytes; qlo/qhi/deg (R, U) row-major; K2's survivor mask (R, ceil(U/32))
+// u32. Each entry point launches on the given stream, does not
+// synchronise, and returns cudaGetLastError().
 #include <cuda_runtime.h>
 
 #include "batch_inv.cuh"
 #include "fe.cuh"
+#include "probe.cuh"
 
 using kh::block_batch_inv;
 using kh::Fe;
@@ -116,14 +118,35 @@ advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
 // PERF.md. The inversion is fe_inv_var: 0.493 ms, against 0.520 with
 // fe_inv_const (126 registers to fe_inv_var's 112) and 0.580 with the
 // chain.
+//
+// With a level-1 bitmap (PROBE), K2 also probes each key it emits, so the
+// BSGS chunk needs no probe kernel of its own. That probe is one random
+// 32-byte DRAM read a key (4,194,304 a chunk, 2^35 bits): alone it ran at
+// the card's random-read ceiling (0.150 ms, csrc/probe.cu), while the
+// walk's integer work left the DRAM idle. Here row j's word is read as
+// soon as its x3 is out and tested at the end of row j - 1, one iteration
+// of the backward loop later (thousands of instructions a warp), so its
+// latency hides under the walk's products. A warp is 32 consecutive
+// columns of one row, so the ballot of its bits is one word of the
+// (R, ceil(U/32)) survivor mask, position-aligned; ragged columns give 0
+// bits. The index math is the probe kernels' (csrc/probe.cuh). The
+// ordered compaction of the mask is kh_mask_compact (csrc/probe.cu).
+// Without a bitmap the kernel is the walk alone. On an H100 (700 W) at R
+// = 256, U = 16384 and 2^35 bits: 0.523 ms against 0.497 for the walk
+// alone and 0.150 for the probe kernel it replaces (117 registers, no
+// spill); testing each word in the iteration that read it took 0.525, and
+// with a minimum of 4 blocks an SM in the launch bounds (113 registers)
+// 0.530 (scripts/torch_fused_probe_shapes.py).
 constexpr int kWalkGroup = 64;
 constexpr int kWalkThreads = 128;
 
+template <bool PROBE>
 __global__ void __launch_bounds__(kWalkThreads)
 walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__ by,
                    const uint32_t* __restrict__ tx, const uint32_t* __restrict__ ty,
                    uint32_t* __restrict__ qlo, uint32_t* __restrict__ qhi,
-                   uint8_t* __restrict__ deg, long long R, int U) {
+                   uint8_t* __restrict__ deg, const uint32_t* __restrict__ words,
+                   uint32_t* __restrict__ mask, long long R, int U, int bits) {
   constexpr int G = kWalkGroup;
   __shared__ Fe tree[2 * kWalkThreads];
   const int i = threadIdx.x;
@@ -149,6 +172,12 @@ walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__
   tree[kWalkThreads + i] = acc;
   block_batch_inv<kh::fe_inv_var>(tree);
   Fe inv = tree[kWalkThreads + i];  // 1 / (this thread's chain total)
+  // PROBE: the lanes of this warp with a column (a prefix of it; all run
+  // the same rows), the mask's words a row, and the word read for row j + 1
+  // with the key's bit in it
+  const unsigned live = PROBE ? __ballot_sync(0xFFFFFFFFu, n > 0) : 0u;
+  const int W = (U + 31) >> 5;
+  uint32_t word = 0, bit = 0;
   for (int j = n - 1; j >= 0; j--) {
     const Fe bX = kh::fe_load_lm(bx, R, r0 + j);
     const Fe bY = kh::fe_load_lm(by, R, r0 + j);
@@ -163,6 +192,20 @@ walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__
     const Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(lam), bX), tX);
     qlo[(r0 + j) * U + u] = x3.v[0];  // only the 64-bit truncation leaves
     qhi[(r0 + j) * U + u] = x3.v[1];
+    if constexpr (PROBE) {
+      if (j < n - 1) {  // row j + 1's word, read one iteration ago
+        const unsigned hit = __ballot_sync(live, (word >> bit) & 1u);
+        if ((i & 31) == 0) mask[(r0 + j + 1) * W + (u >> 5)] = hit;
+      }
+      word = kh::ld_word<true>(words + kh::word_of(x3.v[0], x3.v[1], bits));
+      bit = x3.v[0] & 31u;
+    }
+  }
+  if constexpr (PROBE) {
+    if (n) {  // row 0's
+      const unsigned hit = __ballot_sync(live, (word >> bit) & 1u);
+      if ((i & 31) == 0) mask[r0 * W + (u >> 5)] = hit;
+    }
   }
 }
 
@@ -180,14 +223,27 @@ extern "C" int kh_advance_chain(const void* px, const void* py, const void* tab_
   return (int)cudaGetLastError();
 }
 
+// words: the level-1 bitmap (2^bits bits) to probe the keys against, its
+// survivor mask written to mask (R, ceil(U/32)) u32; null: the walk alone
+// (mask unused).
 extern "C" int kh_walk_blocks(const void* bx, const void* by, const void* tx,
                               const void* ty, void* qlo, void* qhi, void* deg,
-                              long long R, int U, void* stream) {
-  if (R < 1 || U < 1) return (int)cudaErrorInvalidValue;
+                              const void* words, void* mask, long long R, int U, int bits,
+                              void* stream) {
+  if (R < 1 || U < 1 || (words && (!mask || bits < 5 || bits > 35)))
+    return (int)cudaErrorInvalidValue;
   dim3 grid((unsigned)((R + kWalkGroup - 1) / kWalkGroup),
             (unsigned)((U + kWalkThreads - 1) / kWalkThreads));
-  walk_blocks_kernel<<<grid, kWalkThreads, 0, (cudaStream_t)stream>>>(
-      (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx,
-      (const uint32_t*)ty, (uint32_t*)qlo, (uint32_t*)qhi, (uint8_t*)deg, R, U);
+  cudaStream_t s = (cudaStream_t)stream;
+  if (words) {
+    walk_blocks_kernel<true><<<grid, kWalkThreads, 0, s>>>(
+        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx, (const uint32_t*)ty,
+        (uint32_t*)qlo, (uint32_t*)qhi, (uint8_t*)deg, (const uint32_t*)words,
+        (uint32_t*)mask, R, U, bits);
+  } else {
+    walk_blocks_kernel<false><<<grid, kWalkThreads, 0, s>>>(
+        (const uint32_t*)bx, (const uint32_t*)by, (const uint32_t*)tx, (const uint32_t*)ty,
+        (uint32_t*)qlo, (uint32_t*)qhi, (uint8_t*)deg, nullptr, nullptr, R, U, 0);
+  }
   return (int)cudaGetLastError();
 }

@@ -10,7 +10,11 @@ Port of keyhuntm1cpu_tpu/curve/pwalk.py. The chunk is split the same way:
   engine) sharing one batched inversion.
 - **K2 walk blocks** (``walk_blocks``): with the bases known, the
   T*K*U additions base_r + tab[u] are independent. Each emits the low 64
-  bits of x3 (qlo = limb 0, qhi = limb 1) and flags dx == 0 lanes.
+  bits of x3 (qlo = limb 0, qhi = limb 1) and flags dx == 0 lanes. Given
+  the level-1 bitmap, K2 also probes each key it emits and writes the
+  survivor mask (32 keys a word) that the BSGS chunk's level-1 stage
+  compacts (filter/bitmap.mask_compact), so the chunk needs no probe
+  kernel of its own.
 
 Every wrapper runs its plain torch version (``*_ref``) for a CPU tensor
 and launches its CUDA kernel (csrc/pwalk.cu) for a CUDA tensor; each
@@ -26,13 +30,14 @@ column ``t*K + s``; qlo/qhi/deg are ``(T*K, U)``; adv_degenerate is
 from __future__ import annotations
 
 import math
-from typing import NamedTuple, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
 
 from .. import _build
 from ..field import fe
+from ..filter import bitmap as bmp
 from ..ref import ecref
 
 def _check(name: str, t: torch.Tensor, shape) -> None:
@@ -162,11 +167,12 @@ advance_chain.launches = 0
 # ---------------------------------------------------------------------------
 
 
-def walk_blocks_ref(bases_x, bases_y, tab_x, tab_y):
+def walk_blocks_ref(bases_x, bases_y, tab_x, tab_y, bitmap=None):
     """Plain torch version of K2 (see walk_blocks). One batched inversion
     over all rows (rows chained as Montgomery groups; past 256 rows, as
     many targets give, a group holds several rows, so the serial chain
-    stays at most 256 products long)."""
+    stays at most 256 products long); with a bitmap, its probe of the keys
+    as the survivor mask (bitmap.survivor_mask_ref)."""
     R = bases_x.shape[1]
     bx, by = fe.u32(bases_x)[:, :, None], fe.u32(bases_y)[:, :, None]
     tx, ty = fe.u32(tab_x)[:, None, :], fe.u32(tab_y)[:, None, :]
@@ -176,13 +182,20 @@ def walk_blocks_ref(bases_x, bases_y, tab_x, tab_y):
     inv_dx = fe.montgomery_inv_groups(dx, n_groups=math.gcd(R, 256))
     lam = fe.mul(fe.sub(ty, by), inv_dx)
     x3 = fe.sub(fe.sub(fe.sqr(lam), bx), tx)
-    return fe.i32(x3[0]), fe.i32(x3[1]), deg
+    qlo, qhi = fe.i32(x3[0]), fe.i32(x3[1])
+    if bitmap is None:
+        return qlo, qhi, deg
+    return qlo, qhi, deg, bmp.survivor_mask_ref(bitmap, qhi, qlo)
 
 
-def walk_blocks(bases_x, bases_y, tab_x, tab_y):
+def walk_blocks(bases_x, bases_y, tab_x, tab_y, bitmap=None):
     """bases: (8, R) int32 affine walk bases; tab: (8, U) int32 offsets.
     Returns qlo, qhi (R, U) int32 — limbs 0 and 1 of x(base_r + tab_u) —
-    and deg (R, U) bool (dx == 0: the lane's x is invalid)."""
+    and deg (R, U) bool (dx == 0: the lane's x is invalid). Given a
+    bitmap (a DeviceBitmap, the level-1 filter), also the survivor mask of
+    its probe of every key, degenerate lanes' included, as
+    bitmap.survivor_mask_ref has it: (R, ceil(U/32)) int32, from the same
+    launch."""
     R = bases_x.shape[1] if bases_x.dim() == 2 else -1
     U = tab_x.shape[1] if tab_x.dim() == 2 else -1
     for name, t, shape in (("bases_x", bases_x, (8, R)), ("bases_y", bases_y, (8, R)),
@@ -190,16 +203,27 @@ def walk_blocks(bases_x, bases_y, tab_x, tab_y):
         _check(name, t, shape)
     if R < 1 or U < 1:
         raise ValueError(f"walk_blocks needs R >= 1 and U >= 1 (R={R}, U={U})")
-    if not _build.on_cuda(bases_x, bases_y, tab_x, tab_y):
-        return walk_blocks_ref(bases_x, bases_y, tab_x, tab_y)
+    words = ()
+    if bitmap is not None:
+        bmp.check_filter(bitmap)
+        words = (bitmap.words,)
+    if not _build.on_cuda(bases_x, bases_y, tab_x, tab_y, *words):
+        return walk_blocks_ref(bases_x, bases_y, tab_x, tab_y, bitmap)
     dev = bases_x.device
     qlo = torch.empty((R, U), dtype=torch.int32, device=dev)
     qhi = torch.empty_like(qlo)
     deg = torch.empty((R, U), dtype=torch.bool, device=dev)
     ptrs = [t.data_ptr() for t in (bases_x, bases_y, tab_x, tab_y, qlo, qhi, deg)]
-    _build.launch("kh_walk_blocks", *ptrs, R, U, _build.stream(bases_x))
+    if bitmap is None:
+        _build.launch("kh_walk_blocks", *ptrs, None, None, R, U, 0, _build.stream(bases_x))
+        out = qlo, qhi, deg
+    else:
+        mask = torch.empty((R, -(-U // 32)), dtype=torch.int32, device=dev)
+        _build.launch("kh_walk_blocks", *ptrs, bitmap.words.data_ptr(), mask.data_ptr(), R, U,
+                      bitmap.bits_log2, _build.stream(bases_x))
+        out = qlo, qhi, deg, mask
     walk_blocks.launches += 1
-    return qlo, qhi, deg
+    return out
 
 
 walk_blocks.launches = 0
@@ -217,22 +241,24 @@ class ChunkMultiResult(NamedTuple):
     qlo: torch.Tensor
     degenerate: torch.Tensor  # (T*K, U) bool
     adv_degenerate: torch.Tensor  # (T, K) bool
+    survivor_mask: Optional[torch.Tensor] = None  # (T*K, ceil(U/32)) int32, with a bitmap
 
 
 def chunk_multi(px_bm, py_bm, tab_x_lm, tab_y_lm, adv_x, adv_y,
-                K: int, U: int, T: int, adv_tab=None) -> ChunkMultiResult:
+                K: int, U: int, T: int, adv_tab=None, bitmap=None) -> ChunkMultiResult:
     """px_bm/py_bm: (T, 8) walk base per target; tab_*_lm: (8, U);
     adv_*: (8,) and adv_tab its table (see advance_chain). All T*K bases
-    come from one K1 launch; K2 walks all T*K rows in one launch."""
+    come from one K1 launch; K2 walks all T*K rows in one launch and,
+    given the level-1 bitmap, probes them (see walk_blocks)."""
     if tuple(px_bm.shape) != (T, 8) or tuple(tab_x_lm.shape) != (8, U):
         raise ValueError(f"chunk_multi: px {tuple(px_bm.shape)} / tab "
                          f"{tuple(tab_x_lm.shape)} do not match T={T}, U={U}")
     bx, by, nx, ny, adeg = advance_chain(
         px_bm.t().contiguous(), py_bm.t().contiguous(), adv_x, adv_y, K, adv_tab
     )
-    qlo, qhi, deg = walk_blocks(bx, by, tab_x_lm, tab_y_lm)
+    qlo, qhi, deg, *mask = walk_blocks(bx, by, tab_x_lm, tab_y_lm, bitmap)
     return ChunkMultiResult(nx.t().contiguous(), ny.t().contiguous(),
-                            qhi, qlo, deg, adeg)
+                            qhi, qlo, deg, adeg, *mask)
 
 
 pallas_chunk_multi = chunk_multi  # the JAX package's name for this function

@@ -18,8 +18,9 @@ package's:
     the walk by K3 without m-sized planes; the exact table lives on the
     host (filter/host_table.py, built by the native library).
 - Giant walk: P(t, i) = Q_t - c_i*G. One chunk walks K steps of U centers
-  for all T targets (curve/pwalk.py: advance chain K1 + walk blocks K2),
-  runs the cascade (filter/bitmap.py) and returns ONE int32 summary of
+  for all T targets (curve/pwalk.py: advance chain K1 + walk blocks K2,
+  which probes the level-1 bitmap as it emits the keys), runs the rest of
+  the cascade (filter/bitmap.py) and returns ONE int32 summary of
   3*C2 + 3*T*K + 1 words: survivor positions, then (device) their baby
   indices j at the table's lower bound and its successor, or (host) their
   64-bit keys, the per-row degenerate summary and the (poisoned) survivor
@@ -58,7 +59,7 @@ import torch
 from .. import _build
 from ..core.checkpoint import Checkpoint, fingerprint
 from ..core.log import get_logger
-from ..core.metrics import current_call, span, spanned
+from ..core.metrics import count, current_call, span, spanned
 from ..curve import pwalk, tables
 from ..field import fe
 from ..filter import bitmap as bmp
@@ -194,13 +195,29 @@ def _batch_inv(vals: Sequence[int]) -> List[int]:
     return out
 
 
-def _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U: int, K: int, T: int, adv_tab):
+def _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U: int, K: int, T: int, adv_tab,
+                bitmap=None):
     """K1 + K2 of a chunk: (walk result, its (T*K, U) degenerate flags, the
     (T*K,) advance flags). An advance flag marks lane U - 1 of its row too
-    (ADV = U*S = tab[U-1]): the summary kernel folds it in."""
+    (ADV = U*S = tab[U-1]): the summary kernel folds it in. Given the
+    level-1 bitmap, K2 probes the keys too (the result's survivor_mask)."""
     res = pwalk.chunk_multi(px, py, tab_x, tab_y, adv_x, adv_y, K=K, U=U, T=T,
-                            adv_tab=adv_tab)
+                            adv_tab=adv_tab, bitmap=bitmap)
     return res, res.degenerate, res.adv_degenerate.reshape(-1)
+
+
+def _chunk_cascade(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2, U, K, T, C1, C2,
+                   adv_tab):
+    """The walk and the cascade of a chunk: K1, K2 with the level-1 probe,
+    the compaction of its survivor mask, the bloom2 stage (without bloom2:
+    the mask compacted to C2). Counted in probe_fused_chunks. Returns
+    (walk result, survivors, degenerate flags, advance flags)."""
+    res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab,
+                                     bitmap)
+    fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1), C2,
+                                bm2=bloom2, stage1_max=C1, mask=res.survivor_mask)
+    count("probe_fused_chunks")
+    return res, fs, deg, adv_flat
 
 
 def chunk_summary_ref(table, pos, qhi, qlo, n, deg, adv, rows) -> torch.Tensor:
@@ -307,11 +324,11 @@ def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
     packed summary. Returns (next_x, next_y, summary (3*C2+3*T*K+1,) int32):
     survivor positions (B = T*K*U where none), their key words qhi, qlo.
     adv_tab: pwalk.adv_multiples(ADV, K), built per call when None. On the
-    card: K1, K2, the level-1 probe, the bloom2 stage and the summary.
-    No host sync: the summary stays on the device until the caller copies it."""
-    res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab)
-    fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1),
-                                C2, bm2=bloom2, stage1_max=C1)
+    card: K1, K2 with the level-1 probe, the compaction of its survivor
+    mask, the bloom2 stage and the summary. No host sync: the summary stays
+    on the device until the caller copies it."""
+    res, fs, deg, adv_flat = _chunk_cascade(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
+                                            U, K, T, C1, C2, adv_tab)
     return res.next_x, res.next_y, chunk_summary_host(*fs, deg, adv_flat, (deg, adv_flat))
 
 
@@ -323,11 +340,11 @@ def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
     next_y, summary (3*C2+3*T*K+1,) int32): survivor positions (B = T*K*U
     where no live match), the baby index j at the table's lower bound and
     at its successor (0 where that entry does not match), then as
-    chunk_impl_host. On the card: K1, K2, the level-1 probe, the bloom2
-    stage and the summary with the search. No host sync."""
-    res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab)
-    fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1),
-                                C2, bm2=bloom2, stage1_max=C1)
+    chunk_impl_host. On the card: K1, K2 with the level-1 probe, the
+    compaction of its survivor mask, the bloom2 stage and the summary with
+    the search. No host sync."""
+    res, fs, deg, adv_flat = _chunk_cascade(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
+                                            U, K, T, C1, C2, adv_tab)
     return res.next_x, res.next_y, chunk_summary(table, *fs, deg, adv_flat, (deg, adv_flat))
 
 

@@ -26,10 +26,15 @@ word gather of ``dma_gather`` fused with the bit test) for CUDA tensors
 and their plain torch versions for CPU ones. ``probe_compact`` is the
 level-1 probe fused with the ordered compaction of its survivors (one
 launch in place of the mask, its prefix sum, the searchsorted and the key
-gathers); the cascade's level-1 stage runs it. ``bloom2_compact`` is the
-bloom2 stage in the same form (csrc/probe.cu kh_bloom2_compact): the
-bloom2 probe of the stage-1 survivors and their ordered compaction, with
-the stage-1 overflow's poison, in one launch.
+gathers); the cascade's level-1 stage runs it where no kernel probed the
+keys before. ``bloom2_compact`` is the bloom2 stage in the same form
+(csrc/probe.cu kh_bloom2_compact): the bloom2 probe of the stage-1
+survivors and their ordered compaction, with the stage-1 overflow's
+poison, in one launch. In the BSGS chunk K2 probes the level-1 bitmap
+itself (curve/pwalk.walk_blocks with a bitmap: a survivor mask of 32 keys
+a word, ``survivor_mask_ref``), and ``mask_compact`` is the level-1 stage:
+the ordered compaction of the mask, with probe_compact's output over the
+same keys (csrc/probe.cu kh_mask_compact).
 
 Keys are (qhi, qlo) int32 tensors holding u32 bits; filter words are
 int32 tensors holding u32 bits. Index math is done in int64 with masks
@@ -340,12 +345,17 @@ def _check_probe(filt, qhi: torch.Tensor, qlo: torch.Tensor) -> int:
         if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != (n,):
             raise ValueError(f"{name}: need contiguous int32 ({n},) keys, got "
                              f"{t.dtype} {tuple(t.shape)}")
+    check_filter(filt)
+    return n
+
+
+def check_filter(filt) -> None:
+    """Raise on a filter (DeviceBitmap, DeviceBloom2) the kernels do not take."""
     w, bits = filt.words, filt.bits_log2
     if not 5 <= bits <= MAX_BITS_LOG2:
         raise ValueError(f"bits_log2 out of range (5..{MAX_BITS_LOG2}): {bits}")
     if w.dtype != torch.int32 or not w.is_contiguous() or tuple(w.shape) != (1 << (bits - 5),):
         raise ValueError(f"filter words: need contiguous int32 ({1 << (bits - 5)},)")
-    return n
 
 
 def _probe(filt, qhi: torch.Tensor, qlo: torch.Tensor, bloom2: bool, ref) -> torch.Tensor:
@@ -386,11 +396,17 @@ class ProbeCompact(NamedTuple):
 def probe_compact_ref(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
                       size: int) -> ProbeCompact:
     """Plain torch version of the fused probe (see probe_compact)."""
+    return _compact_ref(probe_ref(bm, qhi, qlo), qhi, qlo, size)
+
+
+def _compact_ref(hit: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                 size: int) -> ProbeCompact:
+    """The level-1 compaction of the (B,) survivor mask `hit` of keys qhi,
+    qlo: compact_positions, the gathers and the count."""
     b = qhi.shape[0]
-    mask = probe_ref(bm, qhi, qlo)
-    pos = compact_positions(mask, size, b)
+    pos = compact_positions(hit, size, b)
     safe = pos.clamp(max=b - 1).long()
-    return ProbeCompact(pos, qhi[safe], qlo[safe], mask.sum(dtype=torch.int32))
+    return ProbeCompact(pos, qhi[safe], qlo[safe], hit.sum(dtype=torch.int32))
 
 
 def probe_compact(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
@@ -410,7 +426,7 @@ def probe_compact(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
     pos = torch.empty((size,), dtype=torch.int32, device=dev)
     ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    _launch_compact("kh_probe_compact", qhi, n, False,
+    _launch_compact("kh_probe_compact", qhi, n, 0,
                     (bm.words.data_ptr(), qhi.data_ptr(), qlo.data_ptr(), pos.data_ptr(),
                      ohi.data_ptr(), olo.data_ptr(), count.data_ptr()),
                     (n, bm.bits_log2, size))
@@ -418,23 +434,84 @@ def probe_compact(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
     return ProbeCompact(pos, ohi, olo, count)
 
 
-@lru_cache(maxsize=2)
-def _probe_tile(stage2: bool) -> int:
-    """Keys per tile of kh_probe_compact (stage2 False) or kh_bloom2_compact."""
-    return _build.kernels().kh_probe_tile(int(stage2))
+def survivor_mask_ref(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor) -> torch.Tensor:
+    """The bitmap probe of (R, U) keys as K2's survivor mask: (R, ceil(U /
+    32)) int32 words, bit b of word w of row r set where key (r, 32w + b)
+    passes (ragged columns 0). Plain torch version of the probe inside K2
+    (curve/pwalk.walk_blocks with a bitmap)."""
+    R, U = qhi.shape
+    W = -(-U // 32)
+    hit = probe_ref(bm, qhi.reshape(-1), qlo.reshape(-1)).reshape(R, U).to(torch.int64)
+    hit = torch.cat([hit, hit.new_zeros((R, 32 * W - U))], 1).reshape(R, W, 32)
+    shifts = torch.arange(32, dtype=torch.int64, device=hit.device)
+    return i32((hit << shifts).sum(2))
 
 
-# kh_probe_compact and kh_bloom2_compact share a pair a stream; each zeroes
-# all of the other buffer (its tickets and tile status words)
+def mask_compact_ref(mask: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                     size: int) -> ProbeCompact:
+    """Plain torch version of mask_compact: the mask's bits in position
+    order, then probe_compact_ref's compaction."""
+    R, W = mask.shape
+    shifts = torch.arange(32, dtype=torch.int64, device=mask.device)
+    bits = ((u32(mask)[:, :, None] >> shifts) & 1).reshape(R, 32 * W)[:, : qhi.shape[0] // R]
+    return _compact_ref(bits.reshape(-1).bool(), qhi, qlo, size)
+
+
+def mask_compact(mask: torch.Tensor, qhi: torch.Tensor, qlo: torch.Tensor,
+                 size: int) -> ProbeCompact:
+    """The level-1 stage of a BSGS chunk whose keys K2 probed: mask (R,
+    ceil(U / 32)) int32, K2's survivor mask of the (R*U,) keys qhi, qlo.
+    Returns what probe_compact returns over the same keys against the
+    bitmap that K2 read: the first `size` survivor positions in ascending
+    order, padded with R*U, their keys (the last key at the padding) and
+    the survivor count. One launch of csrc/probe.cu kh_mask_compact,
+    counted in mask_compact.launches."""
+    n = qhi.shape[0] if qhi.dim() == 1 else -1
+    R, W = mask.shape if mask.dim() == 2 else (0, 0)
+    U = n // R if R > 0 else 0
+    for name, t, shape in (("qhi", qhi, (n,)), ("qlo", qlo, (n,)), ("mask", mask, (R, W))):
+        if t.dtype != torch.int32 or not t.is_contiguous() or tuple(t.shape) != shape:
+            raise ValueError(f"{name}: need contiguous int32 {shape}, got {t.dtype} "
+                             f"{tuple(t.shape)}")
+    if R < 1 or U < 1 or R * U != n or W != -(-U // 32) or n >= 1 << 31 or size < 0:
+        raise ValueError(f"mask_compact needs (R, ceil(U/32)) words of R*U < 2^31 keys and "
+                         f"size >= 0 (mask {tuple(mask.shape)}, {n} keys, size={size})")
+    if not _build.on_cuda(mask, qhi, qlo):
+        return mask_compact_ref(mask, qhi, qlo, size)
+    dev = qhi.device
+    pos = torch.empty((size,), dtype=torch.int32, device=dev)
+    ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
+    count = torch.empty((), dtype=torch.int32, device=dev)
+    _launch_compact("kh_mask_compact", qhi, R * W, 2,
+                    (mask.data_ptr(), qhi.data_ptr(), qlo.data_ptr(), pos.data_ptr(),
+                     ohi.data_ptr(), olo.data_ptr(), count.data_ptr()), (R, U, size))
+    mask_compact.launches += 1
+    return ProbeCompact(pos, ohi, olo, count)
+
+
+mask_compact.launches = 0
+
+
+@lru_cache(maxsize=3)
+def _probe_tile(form: int) -> int:
+    """Keys a tile of kh_probe_compact (form 0) or kh_bloom2_compact (1), or
+    mask words a tile of kh_mask_compact (2)."""
+    return _build.kernels().kh_probe_tile(form)
+
+
+# kh_probe_compact, kh_bloom2_compact and kh_mask_compact share a pair a
+# stream; each zeroes all of the other buffer (its tickets and tile status
+# words)
 _COMPACT = _build.ScratchPairs(whole=True)
 
 
-def _launch_compact(fn: str, t: torch.Tensor, n: int, stage2: bool, head: tuple,
+def _launch_compact(fn: str, t: torch.Tensor, n: int, form: int, head: tuple,
                     tail: tuple) -> None:
-    """Launch compact kernel fn (kh_probe_compact, kh_bloom2_compact) over
-    n keys on the current stream of t's device: its arguments head, the
-    stream's scratches (_COMPACT), tail, the stream."""
-    _COMPACT.launch(fn, t, 1 + -(-n // _probe_tile(stage2)), head, tail)
+    """Launch compact kernel fn (kh_probe_compact, kh_bloom2_compact,
+    kh_mask_compact: form 0, 1, 2) over n keys (mask words) on the current
+    stream of t's device: its arguments head, the stream's scratches
+    (_COMPACT), tail, the stream."""
+    _COMPACT.launch(fn, t, 1 + -(-n // _probe_tile(form)), head, tail)
 
 
 def compact_positions(mask: torch.Tensor, size: int, fill: int) -> torch.Tensor:
@@ -492,7 +569,7 @@ def bloom2_compact(b2: DeviceBloom2, stage1: ProbeCompact, total: int,
     pos = torch.empty((size,), dtype=torch.int32, device=dev)
     ohi, olo = torch.empty_like(pos), torch.empty_like(pos)
     count = torch.empty((), dtype=torch.int32, device=dev)
-    _launch_compact("kh_bloom2_compact", qh1, C1, True,
+    _launch_compact("kh_bloom2_compact", qh1, C1, 1,
                     (b2.words.data_ptr(), qh1.data_ptr(), ql1.data_ptr(), pos1.data_ptr(),
                      n1.data_ptr(), pos.data_ptr(), ohi.data_ptr(), olo.data_ptr(),
                      count.data_ptr()),
@@ -537,16 +614,24 @@ class FilteredSurvivors(NamedTuple):
 
 def filtered_survivors(bm: DeviceBitmap, qhi: torch.Tensor, qlo: torch.Tensor,
                        cand_max: int, bm2: Optional[DeviceBloom2] = None,
-                       stage1_max: Optional[int] = None) -> FilteredSurvivors:
+                       stage1_max: Optional[int] = None,
+                       mask: Optional[torch.Tensor] = None) -> FilteredSurvivors:
     """Bitmap probe -> compact -> (bloom2 probe -> compact), no exact search
     (bitmap.filtered_survivors): probe_compact, then with bm2 its survivors
     compacted to stage1_max (default 4 * cand_max) and bloom2_compact of
-    those to cand_max. Two launches on the card. Callers check
-    n_candidates > cand_max and fall back to an exact rescan; a stage-1
-    overflow is poisoned to n + cand_max so the one check covers both
-    stages."""
+    those to cand_max. With `mask`, the survivor mask of bm's probe of
+    these keys that K2 wrote (curve/pwalk.walk_blocks with a bitmap), the
+    level-1 stage is mask_compact of it, with the same output. Two
+    launches on the card. Callers check n_candidates > cand_max and fall
+    back to an exact rescan; a stage-1 overflow is poisoned to n +
+    cand_max so the one check covers both stages."""
+
+    def stage1(size: int) -> ProbeCompact:
+        if mask is None:
+            return probe_compact(bm, qhi, qlo, size)
+        return mask_compact(mask, qhi, qlo, size)
+
     if bm2 is None:
-        return FilteredSurvivors(*probe_compact(bm, qhi, qlo, cand_max))
+        return FilteredSurvivors(*stage1(cand_max))
     C1 = stage1_max if stage1_max is not None else 4 * cand_max
-    return FilteredSurvivors(*bloom2_compact(bm2, probe_compact(bm, qhi, qlo, C1),
-                                             qhi.shape[0], cand_max))
+    return FilteredSurvivors(*bloom2_compact(bm2, stage1(C1), qhi.shape[0], cand_max))

@@ -20,6 +20,14 @@ runs the plain version for CPU tensors):
   of 16, U = 1, the rows the card reads unaligned);
 - the bloom2 stage at its kernel's tile edges (C1 one below, at and one
   above a tile boundary, a single tile);
+- the chunk's level-1 stage in its fused form (K2's walk keys and the
+  survivor mask of its bitmap probe, pwalk.chunk_multi with a bitmap; the
+  mask's ordered compaction, bitmap.mask_compact) equals probe_compact_ref
+  over the same keys and the JAX probe and compact_positions, and the
+  cascade after it the unfused cascade and the JAX filtered_survivors:
+  ragged rows (T*K not a multiple of K2's 64) and columns (U not a
+  multiple of 32), T > 1, a C1 overflow with the bloom2 stage's poison,
+  and planted dx == 0 lanes;
 - the sharded prober (parallel/mesh.py ShardedTableBSGSEngine._probe) on
   2 CPU shards: each prober's all_gather summary equals the JAX
   filtered_lookup of the gathered queries against its shard packed with
@@ -38,8 +46,9 @@ import jax.numpy as jnp  # noqa: E402
 from keyhuntm1cpu_tpu.filter import bitmap as jb  # noqa: E402
 from keyhuntm1cpu_tpu.filter import sorted_table as jst  # noqa: E402
 from keyhuntm1cpu_tpu.ref import ecref  # noqa: E402
+from keyhuntm1cpu_tpu_torch.curve import pwalk, tables  # noqa: E402
 from keyhuntm1cpu_tpu_torch.engine import bsgs  # noqa: E402
-from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSParams, _chunk_walk  # noqa: E402
+from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSParams, _chunk_walk, _limbs  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import bitmap as bmp  # noqa: E402
 from keyhuntm1cpu_tpu_torch.filter import sorted_table as st  # noqa: E402
 from keyhuntm1cpu_tpu_torch.parallel import ShardedTableBSGSEngine  # noqa: E402
@@ -133,6 +142,99 @@ def test_bloom2_stage_tile_edges_match_jax(edge):
         assert np.array_equal(got.qhi.numpy().view(np.uint32), np.asarray(want.qhi))
         assert np.array_equal(got.qlo.numpy().view(np.uint32), np.asarray(want.qlo))
         assert int(got.n) == int(want.n_candidates)
+
+
+# (T, K, U, planted dx == 0 lanes (t, s, u, sign: base t*K + s at sign *
+# tab[u]; one a target), an all-ones level-1 bitmap (else ~1/4 of its bits
+# set), C1 from the survivors n1)
+FUSED_CASES = {"ragged": (1, 5, 40, (), False, lambda n1: n1 + 7),
+               "multi": (3, 4, 64, (), False, lambda n1: n1),
+               "overflow": (2, 3, 48, (), True, lambda n1: n1 // 2),
+               "degenerate": (3, 3, 40, ((0, 0, 5, 1), (1, 2, 39, -1), (2, 1, 0, 1)), False,
+                              lambda n1: 2 * n1)}
+
+
+def _fused_walk(T, K, U, plants, bm):
+    """pwalk.chunk_multi with the bitmap on the CPU: T targets k_t*G, K
+    steps of U columns, step S = 7G (tab[u] = (u + 1)*S), ADV = U*S; each
+    plant (t, s, u, sign) moves target t so that its base s is sign *
+    tab[u]."""
+    ks = [1000003 * (t + 1) for t in range(T)]
+    for t, step, u, sign in plants:
+        ks[t] = (sign * (u + 1) * 7 - step * U * 7) % ecref.N
+    pts = [ecref.scalar_mult(k) for k in ks]
+    px = torch.stack([_limbs(p[0], "cpu") for p in pts])
+    py = torch.stack([_limbs(p[1], "cpu") for p in pts])
+    tab_x, tab_y = tables.step_table(ecref.scalar_mult(7), U)
+    adv = ecref.scalar_mult(U * 7)
+    return pwalk.chunk_multi(px, py, pwalk.table_to_limb_major(tab_x, "cpu"),
+                             pwalk.table_to_limb_major(tab_y, "cpu"), _limbs(adv[0], "cpu"),
+                             _limbs(adv[1], "cpu"), K=K, U=U, T=T,
+                             adv_tab=pwalk.adv_multiples(adv, K, "cpu"), bitmap=bm)
+
+
+@pytest.mark.parametrize("case", list(FUSED_CASES))
+def test_fused_level1_stage_matches_probe_compact_and_jax(case):
+    """The level-1 stage with K2's probe: the survivor mask of
+    chunk_multi(bitmap=...) compacted by mask_compact(_ref) equals
+    probe_compact_ref of the same keys (positions, keys, padding, count)
+    and the JAX probe's compact_positions; the cascade through it, with
+    the bloom2 stage, equals the unfused cascade and the JAX
+    filtered_survivors word for word, the overflow's poison included."""
+    T, K, U, plants, ones, c1_of = FUSED_CASES[case]
+    rng = np.random.default_rng(22 + len(case))
+    bits, b2bits = 12, 14
+    words = np.full(1 << (bits - 5), 0xFFFFFFFF, np.uint32)
+    if not ones:  # ~1/4 of the keys pass
+        words = _random_words(rng, bits, 1) & _random_words(rng, bits, 1)
+    bm = bmp.DeviceBitmap(_t(words), bits)
+    res = _fused_walk(T, K, U, plants, bm)
+    R, B = T * K, T * K * U
+    qhi, qlo = res.qhi.reshape(-1), res.qlo.reshape(-1)
+    mask = res.survivor_mask
+    assert mask.shape == (R, -(-U // 32)) and mask.dtype == torch.int32
+    assert torch.equal(mask, bmp.survivor_mask_ref(bm, res.qhi, res.qlo))
+    for t, step, u, _ in plants:
+        assert bool(res.degenerate[t * K + step, u])
+    jq = [jnp.asarray(x.numpy().view(np.uint32)) for x in (qhi, qlo)]
+    jbm = jb.DeviceBitmap(jnp.asarray(words), bits)
+    jmask = jb.probe(jbm, *jq)
+    n1 = int(jmask.sum())
+    C1 = c1_of(n1)
+    want = bmp.probe_compact_ref(bm, qhi, qlo, C1)
+    assert np.array_equal(want.pos.numpy(), np.asarray(jb.compact_positions(jmask, C1, B)))
+    assert int(want.n) == n1 and (n1 > C1) == (case == "overflow")
+    for fn in (bmp.mask_compact_ref, bmp.mask_compact):
+        got = fn(mask, qhi, qlo, C1)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    b2 = _random_words(rng, b2bits, 2)
+    jb2 = jb.DeviceBloom2(jnp.asarray(b2), b2bits)
+    b2 = bmp.DeviceBloom2(_t(b2), b2bits)
+    C2 = C1
+    jwant = jb.filtered_survivors(jbm, *jq, C2, bm2=jb2, stage1_max=C1)
+    unfused = bmp.filtered_survivors(bm, qhi, qlo, C2, bm2=b2, stage1_max=C1)
+    got = bmp.filtered_survivors(bm, qhi, qlo, C2, bm2=b2, stage1_max=C1, mask=mask)
+    for a, b, name in zip(got, unfused, got._fields):
+        assert torch.equal(a, b)
+        w = np.asarray(getattr(jwant, name))
+        assert np.array_equal(a.numpy().view(np.uint32) if name in ("qhi", "qlo")
+                              else a.numpy(), w)
+    assert (int(got.n_candidates) == n1 + C2) == (case == "overflow")
+
+
+def test_mask_compact_checks_its_inputs():
+    """mask_compact raises on a mask whose shape is not (R, ceil(U/32)) for
+    R*U keys, on keys of another dtype or shape, and on a negative size."""
+    mask = torch.zeros((3, 2), dtype=torch.int32)
+    keys = torch.zeros(3 * 40, dtype=torch.int32)
+    assert int(bmp.mask_compact(mask, keys, keys, 4).n) == 0
+    for m, k, size in ((torch.zeros((3, 1), dtype=torch.int32), keys, 4),  # U = 40: 2 words
+                       (torch.zeros((4, 2), dtype=torch.int32), keys, 4),  # 120 keys in 4 rows
+                       (mask, keys.to(torch.int64), 4), (mask, keys[:-1], 4),
+                       (mask.reshape(-1), keys, 4), (mask, keys, -1)):
+        with pytest.raises(ValueError):
+            bmp.mask_compact(m, k, k, size)
 
 
 def _jax_summary(jtable, pos, qhi, qlo, n, deg, adv, rows=None):

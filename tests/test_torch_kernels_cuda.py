@@ -1,6 +1,10 @@
 """CUDA kernels K1-K8 (K3 in each form), the minikey compaction and key
 derivation, pinv, the Keccak ETH
-hash, the probe, the BSGS chunk's bloom2 stage and summary (at the main
+hash, the probe, K2 with the level-1 probe and the compaction of its
+survivor mask (against K2 alone and kh_probe_compact, word for word, at
+the BSGS cell's shape and a ragged one; a chunk of five launches against
+the unfused composition; the compaction at its tile edges), the BSGS
+chunk's bloom2 stage and summary (at the main
 path's C1 = 34,816, C2 = 1,536, 256 rows of U = 16,384, a 2^28-key table
 and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py,
 and at its tile edges and row layouts; the compact kernels' shared
@@ -135,6 +139,143 @@ def test_walk_blocks_kernel_matches_plain(dev, R, U):
     torch.cuda.synchronize()
     for g, w in zip(got, want):
         assert torch.equal(g.cpu(), w)
+
+
+def _k2_inputs(shape, dev):
+    """(bases x, y, table x, y, level-1 bitmap) on the card: the BSGS cell's
+    K2 (R = 256 bases from K1 at K = 256, U = 16,384 columns of S =
+    -(2^29)G, a 2^35-bit bitmap of m = 2^28's density, 2^-7) or a small
+    one (R = 70, U = 300: ragged row groups and columns, dx == 0 lanes at
+    block edges; 2^20 bits, ~1/4 of them set)."""
+    g = torch.Generator(device=dev).manual_seed(len(shape))
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    if shape == "cell":
+        R, U, bits, ands = 256, 16384, 35, 7
+        s_pt = ecref.point_neg(ecref.scalar_mult(1 << 29))
+        tab_x, tab_y = tables.step_table(s_pt, U)
+        adv = ecref.point_neg(ecref.scalar_mult(U << 29))
+        px, py = _pts([ecref.scalar_mult(0x7CCE5EFDACCF6808)])
+        bx, by, _, _, _ = pwalk.advance_chain(px.to(dev), py.to(dev), _limbs(adv[0]).to(dev),
+                                              _limbs(adv[1]).to(dev), R,
+                                              pwalk.adv_multiples(adv, R, dev))
+    else:
+        R, U, bits, ands = 70, 300, 20, 2
+        tab_x, tab_y = tables.step_table(ecref.scalar_mult(7), U)
+        rows = [ecref.scalar_mult(100 + 3 * r) for r in range(R)]
+        for n, (r, u) in enumerate([(0, 0), (31, 127), (32, 128), (63, 255), (64, 256),
+                                    (R - 1, U - 1)]):
+            pt = ecref.scalar_mult(7 * (u + 1))
+            rows[r] = pt if n % 2 else ecref.point_neg(pt)
+        bx, by = (t.to(dev) for t in _pts(rows))
+    words = rnd(1 << (bits - 5))
+    for _ in range(ands - 1):
+        words &= rnd(1 << (bits - 5))
+    return (bx, by, pwalk.table_to_limb_major(tab_x, dev), pwalk.table_to_limb_major(tab_y, dev),
+            bmp.DeviceBitmap(words, bits))
+
+
+@pytest.mark.parametrize("shape", ["cell", "small"])
+def test_walk_blocks_probe_matches_the_unfused_pair(dev, shape):
+    """K2 with the level-1 probe plus kh_mask_compact against K2 alone plus
+    kh_probe_compact, word for word, with C1 above, at and below the
+    survivors (the cell's C1 = 34,816 among them): one K2 launch each; the
+    fused launch's qlo, qhi, deg bit for bit K2 alone's, its mask the plain
+    version's (bitmap.survivor_mask_ref); at the small shape K2 alone and
+    the fused K2 also equal walk_blocks_ref's."""
+    bx, by, tx, ty, bm = _k2_inputs(shape, dev)
+    alone = pwalk.walk_blocks(bx, by, tx, ty)
+    n0 = pwalk.walk_blocks.launches
+    fused = pwalk.walk_blocks(bx, by, tx, ty, bm)
+    torch.cuda.synchronize()
+    assert pwalk.walk_blocks.launches == n0 + 1 and len(alone) == 3
+    for a, b in zip(fused[:3], alone):
+        assert torch.equal(a, b)
+    qhi, qlo = alone[1].reshape(-1), alone[0].reshape(-1)
+    assert torch.equal(fused[3], bmp.survivor_mask_ref(bm, alone[1], alone[0]))
+    if shape == "small":
+        want = pwalk.walk_blocks_ref(*(t.cpu() for t in (bx, by, tx, ty)),
+                                     bmp.DeviceBitmap(bm.words.cpu(), bm.bits_log2))
+        for a, b in zip(fused, want):
+            assert torch.equal(a.cpu(), b)
+        assert bool(alone[2].any())
+    n1 = int(bmp.probe_compact(bm, qhi, qlo, 0).n)
+    m0 = bmp.mask_compact.launches
+    for C in sorted({n1 + 100, n1, n1 // 2, 34816}):
+        got = bmp.mask_compact(fused[3], qhi, qlo, C)
+        want = bmp.probe_compact(bm, qhi, qlo, C)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert bmp.mask_compact.launches == m0 + len({n1 + 100, n1, n1 // 2, 34816})
+    assert n1 > 0
+
+
+@pytest.mark.parametrize("rows,U", [(255, 32), (256, 32), (257, 32), (1, 20), (170, 48),
+                                    (513, 16)])
+def test_mask_compact_kernel_tile_edges(dev, rows, U):
+    """kh_mask_compact against mask_compact_ref at mask words one below, at
+    and one above its 256-word tile (rows of one word), one ragged word,
+    170 rows of two words (48 columns) and 513 rows of a half word; ~1/4 of
+    the live bits set, the ragged ones clear (as K2 writes them); C past,
+    at and below the survivors, and 0."""
+    g = torch.Generator(device=dev).manual_seed(rows * U)
+    rnd = lambda k: torch.randint(-2**31, 2**31, (k,), dtype=torch.int32, device=dev,
+                                  generator=g)
+    W = -(-U // 32)
+    live = torch.tensor([(1 << min(32, U - 32 * w)) - 1 for w in range(W)],
+                        dtype=torch.int64, device=dev)
+    mask = fe.i32(fe.u32(rnd(rows * W) & rnd(rows * W)).reshape(rows, W) & live)
+    qhi, qlo = rnd(rows * U), rnd(rows * U)
+    n = int(bmp.mask_compact_ref(mask, qhi, qlo, 0).n)
+    for C in (n + 3, n, n // 2, 0):
+        got = bmp.mask_compact(mask, qhi, qlo, C)
+        want = bmp.mask_compact_ref(mask, qhi, qlo, C)
+        for a, b in zip(got, want):
+            assert torch.equal(a, b)
+    assert _scratch_clean()
+
+
+@pytest.mark.parametrize("resolve", ["device", "host"])
+def test_fused_chunk_matches_the_unfused_composition(dev, resolve):
+    """A chunk through chunk_impl(_host) (K1, K2 with the probe, the mask
+    compaction, the bloom2 stage, the summary: five launches, no
+    kh_probe_compact) equals the same chunk composed with K2 alone and
+    kh_probe_compact, word for word, at m = 2^12, U = 4096, K = 8, T = 3,
+    a key planted in the chunk."""
+    from keyhuntm1cpu_tpu_torch import _build
+
+    U, K, m, a = 4096, 8, 1 << 12, 0xA00000
+    ks = [a + 12345, a + m + (U + 4) * 2 * m, a + 7 * m + 5]
+    params = bsgs.BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=128,
+                             bits_log2=20, cascade2="on", resolve=resolve)
+    eng = bsgs.BSGSEngine([ecref.scalar_mult(k) for k in ks], a, a + 4 * K * U * 2 * m, params,
+                          device=dev)
+    px, py = eng._initial_base(0)
+    shape = dict(U=U, K=K, T=3, C1=eng.C1, C2=eng.C2, adv_tab=eng.adv_tab)
+    consts = (px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, eng.bitmap)
+    before = _build.launch_counts()
+    if resolve == "host":
+        got = bsgs.chunk_impl_host(*consts, eng.bloom2, **shape)
+    else:
+        got = bsgs.chunk_impl(*consts, eng.table, eng.bloom2, **shape)
+    torch.cuda.synchronize()
+    after = _build.launch_counts()
+    launched = {k: after[k] - before[k] for k in after if after[k] != before[k]}
+    summary = "chunk_summary_host" if resolve == "host" else "chunk_summary"
+    assert launched == dict.fromkeys(("advance_chain", "walk_blocks", "mask_compact",
+                                      "bloom2_compact", summary), 1)
+    res, deg, adv = bsgs._chunk_walk(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, U, K,
+                                     3, eng.adv_tab)
+    qhi, qlo = res.qhi.reshape(-1), res.qlo.reshape(-1)
+    fs = bmp.filtered_survivors(eng.bitmap, qhi, qlo, eng.C2, bm2=eng.bloom2,
+                                stage1_max=eng.C1)
+    if resolve == "host":
+        want = bsgs.chunk_summary_host(*fs, deg, adv, (deg, adv))
+    else:
+        want = bsgs.chunk_summary(eng.table, *fs, deg, adv, (deg, adv))
+    for g, w in zip(got, (res.next_x, res.next_y, want)):
+        assert torch.equal(g, w)
+    assert int((got[2][: eng.C2] < 3 * K * U).sum()) >= 1  # the planted key's match
 
 
 @pytest.mark.parametrize("bits,b2bits", [(24, 22), (35, 33)])

@@ -3,7 +3,8 @@ engine/common.py search_loop) on the CPU: the record each search loop's
 call leaves (BSGS search and search_scheduled, the fused brute search,
 the sharded search), its counts against the chunks decoded and its keys
 against SearchStats; the counters of false candidates, cascade overflows,
-host rescans and rebases on summaries made to show them; the timeline
+host rescans and rebases on summaries made to show them, and of the
+chunks whose K2 probed the level-1 bitmap; the timeline
 (off: nothing kept; on: a Chrome-trace JSON whose chunk spans nest under
 the call's root span and share the chunk's id), NVTX ranges around spans
 and kernel launches; the registry's snapshot and Prometheus text with
@@ -23,7 +24,8 @@ from keyhuntm1cpu_tpu_torch import _build  # noqa: E402
 from keyhuntm1cpu_tpu_torch.core import metrics  # noqa: E402
 from keyhuntm1cpu_tpu_torch.engine import bsgs  # noqa: E402
 from keyhuntm1cpu_tpu_torch.engine.brute import BruteEngine, BruteParams  # noqa: E402
-from keyhuntm1cpu_tpu_torch.parallel.mesh import ShardedBSGSEngine  # noqa: E402
+from keyhuntm1cpu_tpu_torch.parallel.mesh import (ShardedBSGSEngine,  # noqa: E402
+                                                  ShardedTableBSGSEngine)
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
 
@@ -104,6 +106,30 @@ def test_bsgs_search_leaves_one_record():
     assert rec["counters"].get("false_candidates", 0) == rec["counters"][
         "candidates_verified"] - 1
     assert "rebases" not in rec["counters"] and "cascade_overflows" not in rec["counters"]
+
+
+def test_probe_fused_chunks_counts_the_chunks_k2_probed():
+    """probe_fused_chunks: one a chunk of BSGSEngine.search (K2 probed the
+    level-1 bitmap, the chunk compacted its mask); none in the baby-table
+    build (a device-resolve engine's set-up walks without a bitmap) nor in
+    ShardedTableBSGSEngine's search, whose cards probe their own shards of
+    the exchanged queries."""
+    fused = lambda: REG.snapshot()["counters"].get("probe_fused_chunks", 0)
+    before = fused()
+    eng = _bsgs()  # device resolve: builds its baby table
+    assert fused() == before
+    found = eng.search(max_steps=12, stop_on_first=False)
+    assert [f.private_key for f in found] == [KEY]
+    rec = REG.last_call("search")
+    assert rec["counters"]["probe_fused_chunks"] == rec["chunks_decoded"] == 3
+    assert fused() == before + 3
+    sharded = ShardedTableBSGSEngine([ecref.scalar_mult(KEY)], A, B, BSGS_P,
+                                     devices=["cpu"] * 2)
+    found = sharded.search_sharded(max_steps=8, stop_on_first=False)
+    assert [f.private_key for f in found] == [KEY]
+    rec = REG.last_call("search_sharded")
+    assert rec["chunks_decoded"] == 2 and "probe_fused_chunks" not in rec["counters"]
+    assert fused() == before + 3
 
 
 def test_bsgs_search_scheduled_leaves_one_record():
