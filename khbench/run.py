@@ -71,6 +71,12 @@ class NoChip(Exception):
     pass
 
 
+def reader(metric: str) -> str:
+    """The module under khbench/metrics/ that reads a metric: its name up
+    to the first dot."""
+    return metric.split(".", 1)[0]
+
+
 def run_cell(bench: str, workload: str, seed: int, seconds: float, trace: bool,
              fault=None, device: str = "cuda") -> dict:
     """One run; the result object (with "checks" last). device "cpu" skips
@@ -94,7 +100,9 @@ def run_cell(bench: str, workload: str, seed: int, seconds: float, trace: bool,
         raise ValueError(f"{workload}: configuration is for {cfg.get('devices', 1)} chips, "
                          f"the cell asks for {cell.chips}")
     ctx = Ctx(cfg=cfg, inputs=generator.generate(cell.mix, cfg, seed), seed=seed,
-              seconds=seconds, trace=trace, devices=devices, fault=fault)
+              seconds=seconds, trace=trace, devices=devices, fault=fault,
+              card_clock=not trace and any(m["source"] == "device_trace"
+                                           for m in cell.end_to_end))
     runner = importlib.import_module(f"khbench.runners.{cfg['engine']}")
     ctx.mark("imports")
     try:
@@ -103,17 +111,22 @@ def run_cell(bench: str, workload: str, seed: int, seconds: float, trace: bool,
         for undo in reversed(ctx.undo):
             undo()
     t_proc = process_start()
-    setup_s = (ctx.marks["window"] - _T0[1]) + (_T0[0] - t_proc)
+    # the system's set-up: the card clock's start is the harness's own
+    clock_s = ctx.card.readings.get("card_clock_start_s", 0.0) if ctx.card is not None else 0.0
+    setup_s = (ctx.marks["window"] - _T0[1]) + (_T0[0] - t_proc) - clock_s
+    card_busy_s = ctx.card.busy_s() if ctx.card is not None else None
     r = dict(keys=out.keys, wall_s=out.wall_s, setup_s=setup_s, n_devices=len(devices),
-             **out.readings)
+             card_busy_s=card_busy_s, **out.readings)
     if trace and devices[0].type == "cuda":
         clock = smi("clocks.max.sm")
         r["clock_mhz"] = float(clock.split()[0]) if clock else None
     wanted = cell.per_layer if trace else cell.end_to_end
     metrics = {}
     for m in wanted:
-        v = importlib.import_module(f"khbench.metrics.{m['name']}").read(r)
-        if v is None and not trace:
+        # a metric split by cells ("name.part") shares the reader of its head
+        v = importlib.import_module(f"khbench.metrics.{reader(m['name'])}").read(r)
+        if v is None and not trace and (m["source"] != "device_trace"
+                                        or devices[0].type == "cuda"):
             raise RuntimeError(f"end-to-end metric {m['name']} read nothing")
         if v is not None:
             metrics[m["name"]] = {"value": float(v), "unit": m["unit"]}
@@ -140,6 +153,8 @@ def run_cell(bench: str, workload: str, seed: int, seconds: float, trace: bool,
         result["breakdown"] = {"device_ops": [[k, v / 1e3] for k, v in ops],
                                "idle_gaps": [[k, v] for k, v in gaps]}
     diag = {k: v for k, v in out.readings.items() if k not in ("trace", "shape")}
+    if ctx.card is not None and ctx.card.readings:
+        diag.update(ctx.card.readings, card_busy_s=card_busy_s, wall_s=out.wall_s)
     # set-up by stage: seconds from the process's start to the end of each
     diag["setup_marks_s"] = {k: v - _T0[1] + (_T0[0] - t_proc) for k, v in ctx.marks.items()}
     if tr:

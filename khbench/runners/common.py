@@ -10,6 +10,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 
+from ..card_clock import CardClock
 from ..trace import Recorder
 from ..generator import Inputs
 
@@ -28,8 +29,10 @@ class Ctx:
     trace: bool
     devices: List  # torch devices, one a chip
     fault: Optional[str] = None  # a broken timed path (khbench.faults), for controls
+    card_clock: bool = False  # time the card by the profiler around the window
     marks: Dict[str, float] = field(default_factory=dict)  # perf_counter marks
     undo: List = field(default_factory=list)  # what puts a fault's patches back
+    card: Optional[CardClock] = None  # the window's card clock, once it ran
 
     def mark(self, name: str) -> None:
         """Note the end of a set-up stage (host seconds since the run began
@@ -69,12 +72,16 @@ def memory_peak(devices) -> int:
 
 def window(ctx: Ctx, rec: Recorder, search) -> tuple:
     """The measured window: search() from its call until it returns
-    (its in-flight chunks drained). Returns (result, wall seconds)."""
+    (its in-flight chunks drained). Returns (result, wall seconds). With
+    ctx.card_clock the profiler runs around it (started in set-up)."""
     sync(ctx.devices)
+    ctx.card = CardClock(ctx.card_clock, ctx.devices)
+    ctx.card.start()
     rec.start()
     ctx.marks["window"] = rec.t0
     out = search()
     rec.stop()
+    ctx.card.stop()
     return out, rec.t1 - rec.t0
 
 

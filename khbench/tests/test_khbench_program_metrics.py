@@ -1,10 +1,12 @@
 """The readers of the program's own spans and counters
 (khbench/metrics/host_busy_ms_per_chunk.py, wait_ms_per_chunk.py,
-verify_ms_per_chunk.py, false_candidates_per_chunk.py): their arithmetic
-on a record, their guard (None without a record, for a record of another
-call, for a call that decoded no chunk, for a program that keeps no
-records), and traced tiny runs of the cells on the CPU, whose lines carry
-all four with host busy plus wait making up the window."""
+verify_ms_per_chunk.py, false_candidates_per_chunk.py, and the sharded
+loop's mesh_dispatch_ms_per_chunk.py, mesh_copy_ms_per_chunk.py): their
+arithmetic on a record, their guard (None without a record, for a record
+of another call, for a call that decoded no chunk, for a program that
+keeps no records; the mesh readers also on one card), and traced tiny
+runs of the cells on the CPU, whose lines carry them: host busy plus wait
+making up the window, and four dispatch spans a sharded chunk."""
 
 import importlib
 
@@ -15,10 +17,13 @@ from khbench.tests.tiny import make_bench
 
 READERS = ("host_busy_ms_per_chunk", "wait_ms_per_chunk", "verify_ms_per_chunk",
            "false_candidates_per_chunk")
+MESH_READERS = ("mesh_dispatch_ms_per_chunk", "mesh_copy_ms_per_chunk")
 RECORD = {"loop": "search", "start": 10.0, "end": 12.0, "chunks_decoded": 4, "keys": 4096,
           "spans": {"search": {"count": 1, "seconds": 2.0},
                     "wait": {"count": 4, "seconds": 0.4},
-                    "verify": {"count": 2, "seconds": 0.02}},
+                    "verify": {"count": 2, "seconds": 0.02},
+                    "dispatch": {"count": 16, "seconds": 0.8},
+                    "copy": {"count": 4, "seconds": 0.2}},
           "counters": {"chunks_decoded": 4, "candidates_verified": 6, "false_candidates": 5}}
 
 
@@ -58,10 +63,17 @@ def test_readers_arithmetic(registry):
     assert _reader("false_candidates_per_chunk")(r) == 0.0
 
 
-@pytest.mark.parametrize("name", READERS)
+def test_mesh_readers_arithmetic(registry):
+    registry(RECORD)
+    r = {"keys": 4096, "n_devices": 4}
+    assert _reader("mesh_dispatch_ms_per_chunk")(r) == pytest.approx(1e3 * 0.8 / 4)
+    assert _reader("mesh_copy_ms_per_chunk")(r) == pytest.approx(1e3 * 0.2 / 4)
+
+
+@pytest.mark.parametrize("name", READERS + MESH_READERS)
 @pytest.mark.parametrize("case", ["no_record", "other_call", "no_chunk", "old_program"])
 def test_readers_guard(registry, name, case):
-    r = {"keys": 4096}
+    r = {"keys": 4096, "n_devices": 4}
     if case == "no_record":
         registry(None)
     elif case == "other_call":  # the warm-up's call, not the window's
@@ -78,7 +90,8 @@ def test_traced_tiny_run_reads_all_four(tmp_path, cell):
     tiny = make_bench(str(tmp_path))
     res = run.run_cell(tiny, cell, 2222222229, 1.0, True, device="cpu")
     assert res["correct"], res["checks"]
-    m = {k: v["value"] for k, v in res["metrics"].items()}
+    # by reader: the BSGS cell reports them split by cells ("name.bsgs")
+    m = {run.reader(k): v["value"] for k, v in res["metrics"].items()}
     assert set(READERS) <= set(m)
     from keyhuntm1cpu_tpu_torch.core import metrics
 
@@ -89,3 +102,28 @@ def test_traced_tiny_run_reads_all_four(tmp_path, cell):
     assert (m["host_busy_ms_per_chunk"] + m["wait_ms_per_chunk"]) * n / 1e3 == pytest.approx(
         wall, rel=1e-9)
     assert m["verify_ms_per_chunk"] * n / 1e3 <= wall
+
+
+def test_traced_tiny_sharded_run_reads_the_mesh(tmp_path):
+    """A tiny four-device CPU run of search_sharded: the mesh readers are
+    the window's dispatch and copy seconds over its sharded chunks, with a
+    dispatch span a card a chunk; the same record reads None as one card's."""
+    tiny = make_bench(str(tmp_path))
+    res = run.run_cell(tiny, "bsgs135_range_x4", 2222222231, 1.0, True, device="cpu")
+    assert res["correct"], res["checks"]
+    m = {k: v["value"] for k, v in res["metrics"].items()}
+    from keyhuntm1cpu_tpu_torch.core import metrics
+
+    rec = metrics.get_metrics().last_call()
+    assert rec["loop"] == "search_sharded"
+    n = rec["chunks_decoded"]
+    assert n == res["attempted"] >= 1
+    assert rec["spans"]["dispatch"]["count"] == 4 * n
+    assert rec["spans"]["copy"]["count"] == n
+    assert m["mesh_dispatch_ms_per_chunk"] == pytest.approx(
+        1e3 * rec["spans"]["dispatch"]["seconds"] / n, rel=1e-12)
+    assert m["mesh_copy_ms_per_chunk"] == pytest.approx(
+        1e3 * rec["spans"]["copy"]["seconds"] / n, rel=1e-12)
+    for name in MESH_READERS:
+        assert _reader(name)({"keys": rec["keys"], "n_devices": 1}) is None
+        assert _reader(name)({"keys": rec["keys"] + 1, "n_devices": 4}) is None

@@ -9,7 +9,7 @@ import re
 
 import pytest
 
-from khbench import spec
+from khbench import run, spec
 from khbench.tests.tiny import REPO, WAITING, make_bench
 
 BENCH = os.path.join(REPO, "BENCHMARK.json")
@@ -111,5 +111,6 @@ def test_every_cell_loads_by_name(cell, tmp_path):
     assert c.per_layer
     importlib.import_module(f"khbench.runners.{c.config['engine']}")
     for m in c.end_to_end + c.per_layer:
-        assert callable(importlib.import_module(f"khbench.metrics.{m['name']}").read)
+        assert callable(importlib.import_module(f"khbench.metrics.{run.reader(m['name'])}").read)
     assert all(v >= 0 and math.isfinite(v) for v in c.limits.values())
+

@@ -19,8 +19,10 @@ TINY = {
                             pipeline_depth=2, compare_max=4),
 }
 SPANS = {"bsgs_seq_t1": 16, "rmd160_seq_t4": 8, "rmd160_seq_t65536": 8}
-# The four-card cell's files wait in khbench/ for its chip runs (PERF.md,
-# Open questions); the tiny copy lists it, so that its runner stays tested.
+# The four-card cell's files wait in khbench/ until its runs on four cards
+# spread narrowly enough for a bound (PERF.md, Open questions); the tiny copy
+# lists it, so that its runner and readers stay tested. Its bound here only
+# keeps to the rules.
 WAITING = {
     "configs": [{"name": "bsgs_puzzle135_x4", "source": "https://github.com/albertobsd/keyhunt",
                  "file": "khbench/configs/bsgs_puzzle135_x4.json", "reduced": [],
@@ -30,7 +32,10 @@ WAITING = {
     "end_to_end": [{"name": "mesh_keys_per_s", "unit": "keys/s", "better": "higher",
                     "bound": 0.2, "source": "host_clock", "workloads": ["bsgs135_range_x4"]}],
     "per_layer": [
-        {"name": "mesh_host_ms_per_chunk", "unit": "ms", "better": "lower",
+        {"name": "mesh_dispatch_ms_per_chunk", "unit": "ms", "better": "lower",
+         "source": "program_span", "layer": "mesh", "moves": "mesh_keys_per_s",
+         "workloads": ["bsgs135_range_x4"]},
+        {"name": "mesh_copy_ms_per_chunk", "unit": "ms", "better": "lower",
          "source": "program_span", "layer": "mesh", "moves": "mesh_keys_per_s",
          "workloads": ["bsgs135_range_x4"]},
         {"name": "mesh_idle_share", "unit": "%", "better": "lower", "source": "device_trace",
