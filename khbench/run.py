@@ -11,7 +11,8 @@ metrics (--trace 0: the cell's end-to-end metrics; --trace 1: its
 per-layer metrics, with busy and window seconds and a breakdown), the
 device, and last the numbers compared beside their limits, which also
 close standard error. No result, and a non-zero exit, without the cards
-the cell asks for or where jax or the JAX package was loaded.
+the cell asks for, for a layout refused in set-up (khbench/runners/), or
+where jax or the JAX package was loaded.
 
 --fault NAME breaks the timed path on purpose (khbench/faults.py): the
 control and the faults the checks must catch. The benchmark never sets it.
@@ -174,12 +175,22 @@ def main(argv=None) -> int:
     ap.add_argument("--trace", type=int, choices=(0, 1), default=0)
     ap.add_argument("--fault", default=None, help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
+    from khbench.runners.common import Refused
+
     try:
         result = run_cell(os.path.join(os.getcwd(), "BENCHMARK.json"), args.workload, args.seed, args.seconds,
                           bool(args.trace), args.fault)
     except NoChip as e:
         print(f"khbench: {e}", file=sys.stderr)
         return 2
+    except Refused as e:
+        import torch
+
+        peak = max((torch.cuda.max_memory_allocated(i) for i in range(torch.cuda.device_count())),
+                   default=0) if torch.cuda.is_available() else 0
+        print(f"khbench: refused in set-up, {time.time() - process_start():.1f} s after the "
+              f"process's start (card memory peak {peak} B): {e}", file=sys.stderr)
+        return 4
     bad = forbidden_modules()
     if bad:
         print(f"khbench: loaded {', '.join(bad)}; the benchmark runs the port alone",

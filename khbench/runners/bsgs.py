@@ -1,7 +1,8 @@
 """BSGS on one card: ``BSGSEngine.search`` in device resolve.
 
 Set-up builds the baby table, its bitmap and bloom2 on the card (the
-engine's own build functions), makes the engine over the seeded range and warms
+engine's own build functions), makes the engine over the seeded range, refuses
+a layout whose every chunk would overflow the filter cascade, and warms
 every shape with a short search. The window is one
 ``search(stop_on_first=False, max_seconds=...)``: every chunk's summary is
 decoded and every candidate checked on the host. Hooks set on the engine
@@ -130,6 +131,28 @@ def filter_bits(eng) -> tuple:
     return eng.bitmap.bits_log2, 0 if eng.bloom2 is None else eng.bloom2.bits_log2
 
 
+def refuse_overflowing_cascade(eng) -> None:
+    """Refuse a layout whose chunks would pass more cascade survivors, on
+    average, than the program's budget C2 holds: each such chunk falls
+    back to the program's exact host rescan (K steps of T*U point
+    additions in Python), so the warm-up alone would take tens of minutes.
+    The expectation is the reference's, over the sizes of the bitmap and
+    the bloom2 the engine built (per card's chunk on many cards); C2 is
+    the program's own (engine/bsgs.py device_budgets)."""
+    from keyhuntm1cpu_tpu_torch.engine.bsgs import device_budgets
+
+    p = eng.p
+    n = len(eng.targets) * p.steps_per_chunk * p.block_u
+    bits, b2 = filter_bits(eng)
+    C2 = device_budgets(n, p.m, bits, p)[1]
+    expected = filters.bsgs_survivors_per_chunk(n, p.m, bits, b2)
+    if expected > C2:
+        raise common.Refused(
+            f"every chunk would overflow its cascade: {expected:.1f} survivors expected a "
+            f"chunk against the budget C2 = {C2} ({n} queries, m = {p.m}, a 2^{bits}-bit "
+            f"bitmap, " + (f"a 2^{b2}-bit bloom2" if b2 else "no bloom2") + ")")
+
+
 def run(ctx: common.Ctx) -> common.Outcome:
     from keyhuntm1cpu_tpu_torch.engine.bsgs import BSGSEngine
 
@@ -138,6 +161,7 @@ def run(ctx: common.Ctx) -> common.Outcome:
     eng = BSGSEngine(inp.pubkeys, inp.a, inp.b, params(cfg), device=dev, table=table,
                      bitmap=bitmap)
     ctx.mark("engine")
+    refuse_overflowing_cascade(eng)
     K, U = eng.p.steps_per_chunk, eng.p.block_u
     T = len(inp.pubkeys)
     ctx.undo.append(faults.apply(ctx.fault, eng, "bsgs"))

@@ -32,6 +32,7 @@ def run(ctx: common.Ctx) -> common.Outcome:
     eng = mesh.ShardedBSGSEngine(inp.pubkeys, inp.a, inp.b, single.params(cfg), table=table,
                                  devices=devs, bitmap=bitmap)
     ctx.mark("engine")
+    single.refuse_overflowing_cascade(eng)
     K, U, D = eng.p.steps_per_chunk, eng.p.block_u, eng.n_shards
     T = len(inp.pubkeys)
     ctx.undo.append(faults.apply(ctx.fault, eng, "bsgs_sharded"))

@@ -20,6 +20,11 @@ TABLE_SAMPLES = 64  # baby-table rows the reference recomputes
 STATE_CHUNKS = 256  # sampled states come from the window's first chunks
 
 
+class Refused(Exception):
+    """A layout the run cannot measure, refused in set-up: run.py prints
+    why and no result, and exits non-zero."""
+
+
 @dataclass
 class Ctx:
     cfg: dict  # the configuration file

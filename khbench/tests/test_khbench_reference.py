@@ -14,7 +14,7 @@ from khbench.reference import bsgs as rbsgs
 from khbench.reference import brute as rbrute
 from khbench.reference import filters, hashes
 from khbench.reference import secp256k1 as ec
-from khbench.tests.tiny import make_bench
+from khbench.tests.tiny import cells, make_bench
 
 # 2*G and the hash160 of G's compressed key (the address 1BgGZ9tcN4rm9KBzDn7KprQz87SZ26SAMH)
 G2 = (0xC6047F9441ED7D6D3045406E95C07CD85C778E4B8CEF3CA7ABAC09B95C709EE5,
@@ -98,7 +98,8 @@ def test_brute_candidates():
     assert rbrute.candidate_errors(lay, [(chunk, pos, 3 - bit)], {v}, None) == 1
 
 
-CELLS = ["bsgs135_seq_t1", "rmd160_71_seq_t4", "rmd160_71_seq_t65536", "bsgs135_range_x4"]
+# every cell of BENCHMARK.json, then those whose files wait (tiny.WAITING)
+CELLS = [w["name"] for w in cells()]
 
 
 @pytest.fixture(scope="module")
@@ -141,7 +142,7 @@ def test_sound_run_is_correct(tiny, cell):
 
 
 FAULTS = [(c, f) for c in CELLS for f in ("state_unchanged", "altered_answer", "half_batch")]
-FAULTS += [("bsgs135_range_x4", "no_exchange")]
+FAULTS += [(w["name"], "no_exchange") for w in cells() if w["chips"] > 1]
 
 
 @pytest.mark.parametrize("cell,fault", FAULTS)

@@ -1,24 +1,35 @@
-"""A tiny copy of the benchmark for the CPU tests: the repository's
-BENCHMARK.json, mixes and limits, with configurations cut to a few CPU
-chunks (the port runs its kernels' plain versions on the CPU)."""
+"""A tiny copy of the benchmark for the CPU tests: a BENCHMARK.json, its
+mixes and limits, with configurations cut to a few CPU chunks (the port
+runs its kernels' plain versions on the CPU).
+
+The cut goes by a configuration's engine and a mix by the engines of the
+cells that use it, never by name, so a configuration, a mix or a cell
+added as data alone comes with its tiny copy."""
 
 from __future__ import annotations
 
 import json
 import os
+from typing import Dict, List
 
 REPO = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 DATA = os.path.join(REPO, "khbench")
 
-TINY = {
-    "bsgs_puzzle135": dict(m_babies=512, block_u=16, steps_per_chunk=4, bits_log2=16,
-                           range_log2=[40, 41], pipeline_depth=2),
-    "bsgs_puzzle135_x4": dict(m_babies=512, block_u=16, steps_per_chunk=4, bits_log2=16,
-                              range_log2=[40, 41], pipeline_depth=2),
-    "rmd160_puzzle71": dict(block_u=128, steps_per_chunk=2, range_log2=[40, 41],
-                            pipeline_depth=2, compare_max=4),
+# the scale keys of a configuration on the CPU, by its engine; every other
+# key of its file passes through
+_BSGS = dict(m_babies=512, block_u=16, steps_per_chunk=4, bits_log2=16, range_log2=[40, 41],
+             pipeline_depth=2)
+CUT = {
+    "bsgs": _BSGS,
+    "bsgs_sharded": _BSGS,
+    "brute": dict(block_u=128, steps_per_chunk=2, range_log2=[40, 41], pipeline_depth=2,
+                  compare_max=4),
 }
-SPANS = {"bsgs_seq_t1": 16, "rmd160_seq_t4": 8, "rmd160_seq_t65536": 8}
+# a mix's planted keys lie in the first chunk of a tiny cell, by engine:
+# 2^16 keys is a BSGS chunk under the cut above (K*U*2m), 2^8 a brute one
+# (K*U); a mix shared by engines takes the smallest
+SPAN = {"bsgs": 16, "bsgs_sharded": 16, "brute": 8}
+MAX_TARGETS = 64
 # The four-card cell's files wait in khbench/ until its runs on four cards
 # spread narrowly enough for a bound (PERF.md, Open questions); the tiny copy
 # lists it, so that its runner and readers stay tested. Its bound here only
@@ -41,33 +52,68 @@ WAITING = {
         {"name": "mesh_idle_share", "unit": "%", "better": "lower", "source": "device_trace",
          "layer": "device", "moves": "mesh_keys_per_s", "workloads": ["bsgs135_range_x4"]}],
 }
-TARGETS = {"rmd160_seq_t65536": 64}
 # a handful of chunks cannot resolve a rate: the tiny cells do not hold it
 RATE_LIMIT = 1e300
 
 
-def make_bench(root: str) -> str:
-    """Write the tiny benchmark under `root`; returns its BENCHMARK.json."""
-    bench = json.load(open(os.path.join(REPO, "BENCHMARK.json")))
+def _read(path: str) -> dict:
+    with open(path) as f:
+        return json.load(f)
+
+
+def _write(path: str, obj) -> None:
+    with open(path, "w") as f:
+        json.dump(obj, f)
+
+
+def with_waiting(bench: dict) -> dict:
+    """A BENCHMARK.json's entries with WAITING's that it does not hold."""
+    bench = dict(bench)
     for key, entries in WAITING.items():
         have = {e["name"] for e in bench[key]}
-        bench[key] += [e for e in entries if e["name"] not in have]
+        bench[key] = bench[key] + [e for e in entries if e["name"] not in have]
+    return bench
+
+
+def cells(src: str = REPO) -> List[dict]:
+    """Every cell the CPU tests run: src's BENCHMARK.json's, then WAITING's."""
+    return with_waiting(_read(os.path.join(src, "BENCHMARK.json")))["workloads"]
+
+
+def cell_engines(src: str = REPO) -> Dict[str, str]:
+    """cell -> the engine of its configuration, for every cell of cells()."""
+    bench = with_waiting(_read(os.path.join(src, "BENCHMARK.json")))
+    engine = {c["name"]: _read(os.path.join(src, c["file"]))["engine"] for c in bench["configs"]}
+    return {w["name"]: engine[w["config"]] for w in bench["workloads"]}
+
+
+def make_bench(root: str, src: str = REPO) -> str:
+    """Write the tiny copy of src's benchmark (its BENCHMARK.json and the
+    data under its khbench/) under `root`; returns its BENCHMARK.json."""
+    bench = with_waiting(_read(os.path.join(src, "BENCHMARK.json")))
+    data = os.path.join(src, "khbench")
     for sub in ("configs", "traffic", "workloads"):
         os.makedirs(os.path.join(root, "khbench", sub), exist_ok=True)
+    engine = {}
     for c in bench["configs"]:
-        cfg = json.load(open(os.path.join(REPO, c["file"])))
-        cfg.update(TINY[c["name"]])
-        json.dump(cfg, open(os.path.join(root, c["file"]), "w"))
-    for name, span in SPANS.items():
-        mix = json.load(open(os.path.join(DATA, "traffic", name + ".json")))
-        mix["plant_span_log2"] = span
-        mix["targets"] = TARGETS.get(name, mix["targets"])
-        json.dump(mix, open(os.path.join(root, "khbench", "traffic", name + ".json"), "w"))
+        cfg = _read(os.path.join(src, c["file"]))
+        engine[c["name"]] = cfg["engine"]
+        cfg.update(CUT[cfg["engine"]])
+        _write(os.path.join(root, c["file"]), cfg)
+    spans = {}
     for w in bench["workloads"]:
-        lim = json.load(open(os.path.join(DATA, "workloads", w["name"] + ".json")))
+        span = SPAN[engine[w["config"]]]
+        spans[w["traffic"]] = min(span, spans.get(w["traffic"], span))
+    for name, span in spans.items():
+        mix = _read(os.path.join(data, "traffic", name + ".json"))
+        mix["plant_span_log2"] = span
+        mix["targets"] = min(mix["targets"], MAX_TARGETS)
+        _write(os.path.join(root, "khbench", "traffic", name + ".json"), mix)
+    for w in bench["workloads"]:
+        lim = _read(os.path.join(data, "workloads", w["name"] + ".json"))
         if "survivor_rate_gap" in lim["limits"]:
             lim["limits"]["survivor_rate_gap"] = RATE_LIMIT
-        json.dump(lim, open(os.path.join(root, "khbench", "workloads", w["name"] + ".json"), "w"))
+        _write(os.path.join(root, "khbench", "workloads", w["name"] + ".json"), lim)
     path = os.path.join(root, "BENCHMARK.json")
-    json.dump(bench, open(path, "w"))
+    _write(path, bench)
     return path
