@@ -11,6 +11,7 @@
 
 #include "batch_inv.cuh"
 #include "fe.cuh"
+#include "fe_walk.cuh"
 #include "probe.cuh"
 
 using kh::block_batch_inv;
@@ -95,8 +96,14 @@ advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
 // K2: thread = one offset column u and kWalkGroup = G consecutive base rows;
 // block = kWalkThreads neighbouring columns.
 //
-// Bound on the H100: 32-bit integer multiply issue (~4 field products and a
-// squaring per point; each product is 64 IMAD.WIDE plus the fold). The TPU
+// Bound on the H100: the integer multiply pipe (~4 field products and a
+// squaring per point; a 32x32->64 product, IMAD.WIDE, takes two of its
+// slots, so a field product takes at least 128). The field arithmetic is
+// K2's own (csrc/fe_walk.cuh): PTX carry chains whose products leave
+// values in [0, 2^256), canonical only where K2 tests dx or emits x3;
+// 148 / 124 SASS a product / squaring against fe.cuh's 305 / 250, and
+// ~865 SASS a point for the products, squaring and subtractions against
+// ~1,745. The TPU
 // kernel batch-inverts each grid block's SB*U denominators with one
 // powering, its 128 lanes side by side; one inversion per thread over its
 // G points would cost ~1,350 instructions a point at G = 32, more than the
@@ -110,14 +117,17 @@ advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
 // never poisons the block. Neighbouring threads own neighbouring u: table
 // loads and qlo/qhi/deg stores coalesce; the G base rows are warp-uniform
 // broadcast loads. A block's inverting thread stalls the block for one
-// inversion, and resident blocks reach it together, so the shape is the
-// one whose grid at R = 256, U = 16384 fits one wave of resident blocks
-// (at most 128 registers: 4 blocks of 128 threads an SM): on an H100 (700
-// W), with the addition chain a^(p-2) as the inversion, 0.584 ms at G = 64,
-// 0.699 at G = 32, 0.928 at G = 16; the other pairs measured are in
-// PERF.md. The inversion is fe_inv_var: 0.493 ms, against 0.520 with
-// fe_inv_const (126 registers to fe_inv_var's 112) and 0.580 with the
-// chain.
+// inversion, and resident blocks reach it together, so the shape is one
+// whose grid at R = 256, U = 16384 fits one wave of resident blocks: G =
+// 64 rows and 256 threads (2 blocks an SM at most 128 registers), the
+// backward loop unrolled by two (126 registers with the probe, 108
+// without). On an H100 (700 W) with the probe: 0.3455 ms, against 0.3520
+// not unrolled, 0.3541 at 128 threads (0.3543 unrolled) and 0.5190 with
+// fe.cuh's arithmetic at 128 threads; the other shapes are in PERF.md
+// (scripts/torch_pwalk_shapes.py). With fe.cuh's arithmetic and the
+// addition chain a^(p-2) as the inversion: 0.584 ms at G = 64, 0.699 at G
+// = 32, 0.928 at G = 16. The inversion is fe_inv_var: 0.493 ms, against
+// 0.520 with fe_inv_const and 0.580 with the chain (fe.cuh's arithmetic).
 //
 // With a level-1 bitmap (PROBE), K2 also probes each key it emits, so the
 // BSGS chunk needs no probe kernel of its own. That probe is one random
@@ -132,13 +142,13 @@ advance_chain_kernel(const uint32_t* __restrict__ px, const uint32_t* __restrict
 // bits. The index math is the probe kernels' (csrc/probe.cuh). The
 // ordered compaction of the mask is kh_mask_compact (csrc/probe.cu).
 // Without a bitmap the kernel is the walk alone. On an H100 (700 W) at R
-// = 256, U = 16384 and 2^35 bits: 0.523 ms against 0.497 for the walk
-// alone and 0.150 for the probe kernel it replaces (117 registers, no
-// spill); testing each word in the iteration that read it took 0.525, and
-// with a minimum of 4 blocks an SM in the launch bounds (113 registers)
-// 0.530 (scripts/torch_fused_probe_shapes.py).
+// = 256, U = 16384 and 2^35 bits, with fe.cuh's arithmetic: 0.523 ms
+// against 0.497 for the walk alone and 0.150 for the probe kernel it
+// replaces; testing each word in the iteration that read it took 0.525,
+// and with a minimum of 4 blocks an SM in the launch bounds 0.530
+// (scripts/torch_fused_probe_shapes.py).
 constexpr int kWalkGroup = 64;
-constexpr int kWalkThreads = 128;
+constexpr int kWalkThreads = 256;
 
 template <bool PROBE>
 __global__ void __launch_bounds__(kWalkThreads)
@@ -162,14 +172,14 @@ walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__
   Fe pref[G];
   Fe acc = one;
   for (int j = 0; j < n; j++) {
-    Fe dx = kh::fe_sub(tX, kh::fe_load_lm(bx, R, r0 + j));
+    Fe dx = kh::fw_sub(tX, kh::fe_load_lm(bx, R, r0 + j));  // canonical: tX, bX are
     const bool z = kh::fe_is_zero(dx);
     deg[(r0 + j) * U + u] = z ? 1 : 0;
     if (z) dx = one;  // flagged lane: invert 1 instead of 0
-    acc = j ? kh::fe_mul(acc, dx) : dx;
+    acc = j ? kh::fw_mul(acc, dx) : dx;
     pref[j] = acc;
   }
-  tree[kWalkThreads + i] = acc;
+  tree[kWalkThreads + i] = acc;  // < 2^256, maybe not canonical: fe_mul takes it
   block_batch_inv<kh::fe_inv_var>(tree);
   Fe inv = tree[kWalkThreads + i];  // 1 / (this thread's chain total)
   // PROBE: the lanes of this warp with a column (a prefix of it; all run
@@ -178,27 +188,29 @@ walk_blocks_kernel(const uint32_t* __restrict__ bx, const uint32_t* __restrict__
   const unsigned live = PROBE ? __ballot_sync(0xFFFFFFFFu, n > 0) : 0u;
   const int W = (U + 31) >> 5;
   uint32_t word = 0, bit = 0;
+#pragma unroll 2
   for (int j = n - 1; j >= 0; j--) {
     const Fe bX = kh::fe_load_lm(bx, R, r0 + j);
     const Fe bY = kh::fe_load_lm(by, R, r0 + j);
     Fe inv_j = inv;
     if (j > 0) {
-      Fe dx = kh::fe_sub(tX, bX);
+      Fe dx = kh::fw_sub(tX, bX);
       if (kh::fe_is_zero(dx)) dx = one;
-      inv_j = kh::fe_mul(inv, pref[j - 1]);
-      inv = kh::fe_mul(inv, dx);
+      inv_j = kh::fw_mul(inv, pref[j - 1]);
+      inv = kh::fw_mul(inv, dx);
     }
-    const Fe lam = kh::fe_mul(kh::fe_sub(tY, bY), inv_j);
-    const Fe x3 = kh::fe_sub(kh::fe_sub(kh::fe_sqr(lam), bX), tX);
-    qlo[(r0 + j) * U + u] = x3.v[0];  // only the 64-bit truncation leaves
-    qhi[(r0 + j) * U + u] = x3.v[1];
+    const Fe lam = kh::fw_mul(kh::fw_sub(tY, bY), inv_j);
+    uint32_t x3lo, x3hi;  // only the 64-bit truncation of canonical x3 leaves
+    kh::fw_canon_lo(kh::fw_sub(kh::fw_sub(kh::fw_sqr(lam), bX), tX), x3lo, x3hi);
+    qlo[(r0 + j) * U + u] = x3lo;
+    qhi[(r0 + j) * U + u] = x3hi;
     if constexpr (PROBE) {
       if (j < n - 1) {  // row j + 1's word, read one iteration ago
         const unsigned hit = __ballot_sync(live, (word >> bit) & 1u);
         if ((i & 31) == 0) mask[(r0 + j + 1) * W + (u >> 5)] = hit;
       }
-      word = kh::ld_word<true>(words + kh::word_of(x3.v[0], x3.v[1], bits));
-      bit = x3.v[0] & 31u;
+      word = kh::ld_word<true>(words + kh::word_of(x3lo, x3hi, bits));
+      bit = x3lo & 31u;
     }
   }
   if constexpr (PROBE) {

@@ -3,7 +3,9 @@ derivation, pinv, the Keccak ETH
 hash, the probe, K2 with the level-1 probe and the compaction of its
 survivor mask (against K2 alone and kh_probe_compact, word for word, at
 the BSGS cell's shape and a ragged one; a chunk of five launches against
-the unfused composition; the compaction at its tile edges), the BSGS
+the unfused composition; the compaction at its tile edges; K2's own field
+arithmetic on adversarial columns: x3 below 2^32 + 977, dy = 0, lambda =
+p - 1, dx = p - 1, 1 and 0), the BSGS
 chunk's bloom2 stage and summary (at the main
 path's C1 = 34,816, C2 = 1,536, 256 rows of U = 16,384, a 2^28-key table
 and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py,
@@ -208,6 +210,84 @@ def test_walk_blocks_probe_matches_the_unfused_pair(dev, shape):
             assert torch.equal(a, b)
     assert bmp.mask_compact.launches == m0 + len({n1 + 100, n1, n1 // 2, 34816})
     assert n1 > 0
+
+
+def _curve_point(x):
+    """(x, y) on the curve for an x that has one, else None."""
+    y = pow(x**3 + 7, (ecref.P + 1) // 4, ecref.P)
+    return (x, y) if y * y % ecref.P == (x**3 + 7) % ecref.P else None
+
+
+def _plant_adversarial(tab, U):
+    """[(row base, column u, what)] for K2's field arithmetic: x3 below
+    2^32 + 977 (base = R - T_u, R of small x), dy = 0 (base (beta tX, tY)),
+    lambda = p - 1 (the third point of the line through T_u of slope -1),
+    dx = p - 1 and dx = 1 (bX = tX + 1, tX - 1 where a point has that x),
+    dx = 0 (T_u, -T_u) at the first and last column of a block and of the
+    table."""
+    p = ecref.P
+    col = lambda u: (fe.limbs_to_int(tab[0][u]), fe.limbs_to_int(tab[1][u]))
+    small = next(pt for pt in map(_curve_point, range(1, 200)) if pt)
+    beta = pow(3, (p - 1) // 3, p)
+    plants = [(ecref.point_add(small, ecref.point_neg(col(U // 3))), U // 3, "x3_small"),
+              ((beta * col(U // 5)[0] % p, col(U // 5)[1]), U // 5, "dy_0")]
+    lam = p - 1
+    for u in range(U):
+        tx, ty = col(u)
+        s = (lam * lam - tx) % p
+        q = (2 * lam * lam * tx - 2 * lam * ty - tx * s) % p
+        disc = (s * s - 4 * q) % p
+        r = pow(disc, (p + 1) // 4, p)
+        if r * r % p == disc:
+            x2 = (s + r) * pow(2, p - 2, p) % p
+            plants.append(((x2, (lam * (x2 - tx) + ty) % p), u, "lambda_p_1"))
+            break
+    for dxv, what in ((p - 1, "dx_p_1"), (1, "dx_1")):
+        for u in range(U - 1, -1, -1):
+            pt = _curve_point((col(u)[0] - dxv) % p)
+            if pt:
+                plants.append((pt, u, what))
+                break
+    for n, u in enumerate(sorted({0, min(127, U - 1), min(128, U - 1), U - 1})):
+        plants.append((col(u) if n % 2 else ecref.point_neg(col(u)), u, "dx_0"))
+    return plants
+
+
+@pytest.mark.parametrize("shape", ["cell", "ragged"])
+def test_walk_blocks_adversarial_columns(dev, shape):
+    """K2 (with the level-1 probe) word for word against walk_blocks_ref
+    (qlo, qhi, deg, the survivor mask) and against ecref at the columns
+    planted by _plant_adversarial, one plant a row: at the BSGS cell's R =
+    256, U = 16,384 and 2^35 bits, and at R = 70, U = 300 (ragged row groups
+    and columns) with 2^20 bits. The x3 planted below 2^32 + 977 is where a
+    value left unreduced would emit other low words."""
+    bx, by, tx, ty, bm = _k2_inputs("cell" if shape == "cell" else "small", dev)
+    R, U = bx.shape[1], tx.shape[1]
+    tab = (tx.t().contiguous().cpu().numpy().view(np.uint32),
+           ty.t().contiguous().cpu().numpy().view(np.uint32))
+    plants = _plant_adversarial(tab, U)
+    assert {w for _, _, w in plants} >= {"x3_small", "dy_0", "dx_p_1", "dx_1", "dx_0"}
+    rows = list(range(1, R, max(1, R // (len(plants) + 1))))[:len(plants)]
+    for r, (pt, _, _) in zip(rows, plants):
+        bx[:, r] = _limbs(pt[0]).to(dev)
+        by[:, r] = _limbs(pt[1]).to(dev)
+    got = pwalk.walk_blocks(bx, by, tx, ty, bm)
+    want = pwalk.walk_blocks_ref(bx, by, tx, ty, bm)  # plain torch on the card
+    torch.cuda.synchronize()
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    qlo, qhi, deg = (t.cpu() for t in got[:3])
+    for r, (pt, u, what) in zip(rows, plants):
+        t_u = (fe.limbs_to_int(tab[0][u]), fe.limbs_to_int(tab[1][u]))
+        if what == "dx_0":
+            assert bool(deg[r, u])
+            continue
+        x3 = ecref.point_add(pt, t_u)[0]
+        assert not bool(deg[r, u])
+        assert (int(qlo[r, u]) & 0xFFFFFFFF, int(qhi[r, u]) & 0xFFFFFFFF) == (
+            x3 & 0xFFFFFFFF, (x3 >> 32) & 0xFFFFFFFF), what
+        if what == "x3_small":
+            assert x3 < 2**32 + 977
 
 
 @pytest.mark.parametrize("rows,U", [(255, 32), (256, 32), (257, 32), (1, 20), (170, 48),
