@@ -24,8 +24,8 @@ span adds its count and seconds, on ``time.perf_counter``, to its name's
 totals; a search loop's counters (chunks_decoded, candidates_verified,
 false_candidates, cascade_overflows, host_rescans, rebases, and
 probe_fused_chunks: the BSGS chunks whose K2 probed the level-1 bitmap)
-add to the registry's counters. A search loop's call (engine/common.py
-``search_loop``) keeps its own totals, without a lock, and hands them to
+add to the registry's counters. A search loop's call (engine/pipeline.py
+``run``) keeps its own totals, without a lock, and hands them to
 the registry when it returns, with a record: start, end, chunks decoded,
 keys covered (times the multiplier), span totals and counter deltas
 (``last_call``). The snapshot adds ``spans`` and ``calls``, the
@@ -53,14 +53,13 @@ import json
 import os
 import threading
 import time
-from collections import deque, namedtuple
+from collections import deque
 from http.server import BaseHTTPRequestHandler, ThreadingHTTPServer
 from time import perf_counter
 from typing import Dict, List, Optional
 
 SPAN_RING = 1 << 17  # timeline entries kept: ~18 s of one-card BSGS (5 a 0.72 ms chunk)
 TRACE_ENV = "KEYHUNT_TRACE_OUT"
-ChunkSpans = namedtuple("ChunkSpans", "dispatch copy wait decode")
 
 
 class Metrics:
@@ -206,7 +205,7 @@ class _SetupSpan(_Span):
 
 
 class SearchCall:
-    """One call of a search loop (engine/common.py search_loop), a context
+    """One call of a search loop (engine/pipeline.py run), a context
     manager: `stats` is the engine's SearchStats, `devices` its devices
     (the timeline's reference events). Its span totals and counters are
     kept without a lock by the loop's thread (the snapshot copies them)
@@ -235,10 +234,6 @@ class SearchCall:
         if sp is None:
             sp = self._spans[key] = _Span(self, name, card)
         return sp
-
-    def chunk_spans(self) -> ChunkSpans:
-        """The spans every chunk of a loop opens, fetched once a call."""
-        return ChunkSpans(*(self.span(n) for n in ChunkSpans._fields))
 
     def totals(self) -> Dict[str, list]:
         """name -> [count, seconds], over cards."""

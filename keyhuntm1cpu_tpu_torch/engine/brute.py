@@ -55,7 +55,6 @@ from __future__ import annotations
 
 import copy
 import math
-from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional, Sequence, Tuple
 
@@ -63,7 +62,7 @@ import numpy as np
 import torch
 
 from ..core.log import get_logger
-from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.checkpoint import fingerprint
 from ..core.metrics import current_call, spanned
 from ..curve import pbrute, pladder, pwalk, tables, walk
 from ..curve.points import PointBatch, point_batch_from_ints
@@ -73,7 +72,8 @@ from ..filter import sorted_table as st
 from ..hash import phash
 from ..ref import ecref, hashref
 from ..utils.targets import TargetSet
-from .common import Deadline, FoundKey, SearchStats, search_loop, summary_to_host
+from . import pipeline
+from .common import FoundKey, SearchStats
 
 # lambda^e factors for GLV endomorphism key reconstruction (keyhunt.cpp:2800-2851)
 _LAM_POW = (1, ecref.LAMBDA, ecref.LAMBDA * ecref.LAMBDA % ecref.N)
@@ -313,183 +313,27 @@ class BruteEngine:
         fn = self._search_walker if self._walker else self._search_fused
         return fn(max_steps, stop_on_first, progress_every, checkpoint, max_seconds)
 
-    # ------------------------------------------------------------------
-    # checkpoints (the JAX engine's units: device steps decoded in order,
-    # chunks decoded with -R)
-    # ------------------------------------------------------------------
-
-    def _ckpt_load(self, checkpoint):
-        """Load or create this run's position checkpoint -> (ck, units)."""
-        p = self.p
-        params_fp = fingerprint(self.mode, p.block_u, p.steps_per_chunk, self.stride, p.endo,
-                                p.walkers, p.random_mode, p.seed, not self._walker)
-        targets_fp = fingerprint(sorted(self.targets.raw), sorted(self.intervals),
-                                 sorted(self.prefixes))
-        policy = "random" if p.random_mode else "sequential"
-        ck = checkpoint.load()
-        if ck is not None:
-            checkpoint.matches(ck, mode=f"brute:{self.mode}", range_start=self.a,
-                               range_end=self.b, policy=policy, seed=p.seed,
-                               params_fp=params_fp, targets_fp=targets_fp)
-            self.stats.resume(ck.keys_covered)
-            return ck, ck.chunks_done
-        return Checkpoint(mode=f"brute:{self.mode}", range_start=self.a, range_end=self.b,
-                          policy=policy, seed=p.seed, params_fp=params_fp,
-                          targets_fp=targets_fp), 0
-
-    @staticmethod
-    def _ckpt_save(mgr, ck, units, stats, found, new_found, force=False):
-        if mgr is None:
-            return
-        ck.chunks_done = units
-        ck.keys_covered = stats.keys_covered
-        if new_found:
-            ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
-        mgr.save(ck, force=force or bool(new_found))
-
-    def _reverify_saved(self, ck, existing: List[FoundKey]) -> List[FoundKey]:
-        """The keys an interrupted run saved, verified again: the resumed run
-        skips their chunks, and the caller writes found keys from the return
-        value only. Keys already in `existing` are skipped."""
-        have = {f.private_key for f in existing}
-        out: List[FoundKey] = []
-        for h in ck.found:
-            f = self._verify(int(h, 16))
-            if f is not None and f.private_key not in have:
-                have.add(f.private_key)
-                out.append(f)
-        return out
+    def _reverify_saved(self, ck) -> List[FoundKey]:
+        """The keys an interrupted run saved, verified again: the caller
+        writes found keys from the return value only."""
+        return [f for f in (self._verify(int(h, 16)) for h in ck.found) if f is not None]
 
     # ------------------------------------------------------------------
     # fused path
     # ------------------------------------------------------------------
 
-    @search_loop("_search_fused")
     def _search_fused(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                       progress_every: int = 0, checkpoint=None,
                       max_seconds: Optional[float] = None) -> List[FoundKey]:
-        """Scan up to max_steps device steps; up to pipeline_depth chunks are
-        in flight, the walk state chains on the device and only summaries
-        come back (pinned, non-blocking). max_seconds stops dispatch at the
-        first chunk boundary past the deadline. Progress is saved for
-        decoded chunks only, never for the ones in flight."""
-        tr = current_call()
-        sp = tr.chunk_spans()
-        p = self.p
-        dl = Deadline(max_seconds)
-        U, K = p.block_u, p.steps_per_chunk
+        """Scan up to max_steps device steps in engine/pipeline.py's loop:
+        up to pipeline_depth chunks in flight, the walk state chains on the
+        device and only summaries come back (pinned, non-blocking).
+        Progress is saved for decoded chunks only, never for the ones in
+        flight."""
         total = (self._fast_total_steps if max_steps is None
                  else min(self._fast_total_steps, max_steps))
-        found: List[FoundKey] = []
-        seen = set()
-
-        def take(fk: Optional[FoundKey]) -> None:
-            if fk and fk.private_key not in seen:
-                seen.add(fk.private_key)
-                found.append(fk)
-
-        for k0 in self._fast_prefix:
-            take(self._verify(k0))
-            if found and stop_on_first:
-                return found
-
-        rng = np.random.default_rng(p.seed) if p.random_mode else None
-        # chunks per random base (reference -n): a chunk covers K*U keys
-        cpb = 1
-        if rng is not None and p.seq_per_base:
-            cpb = max(1, math.ceil(p.seq_per_base / (K * U)))
-        group_left = 0  # chunks left on the current random base
-        s_next = 0  # continuation step on the current base
-        n_chunks = math.ceil(total / K) if total else 0
-        ck, resumed = None, 0
-        if checkpoint is not None:
-            ck, resumed = self._ckpt_load(checkpoint)
-            for fk in self._reverify_saved(ck, found):
-                take(fk)
-        pending: deque = deque()
-        disp_step = 0  # next step to dispatch (sequential order)
-        disp_chunks = 0  # chunks dispatched (random order)
-        if rng is not None:
-            # replay the consumed draws (one per base group; a resumed run
-            # starts a fresh group)
-            for _ in range(math.ceil(resumed / cpb)):
-                rng.integers(0, max(1, self._fast_total_steps - K + 1))
-            chunks_done = disp_chunks = min(resumed, n_chunks)
-        else:
-            disp_step = min(resumed, total)
-            chunks_done = disp_step // K
-        px = py = None
-        if rng is None and disp_step < total:
-            px, py = self._fast_base(disp_step)
-
-        def can_dispatch() -> bool:
-            if dl.expired():
-                return False
-            return disp_chunks < n_chunks if rng is not None else disp_step < total
-
-        while pending or can_dispatch():
-            while can_dispatch() and len(pending) < p.pipeline_depth:
-                if rng is not None:
-                    if (group_left <= 0 or px is None
-                            or s_next + K > self._fast_total_steps):
-                        s0 = int(rng.integers(0, max(1, self._fast_total_steps - K + 1)))
-                        px, py = self._fast_base(s0)
-                        group_left = cpb
-                    else:
-                        s0 = s_next  # -n: the chained state is K steps on
-                    group_left -= 1
-                    s_next = s0 + K
-                else:
-                    s0 = disp_step
-                if px is None:
-                    pending.append((s0, None))  # base at infinity: host rescan
-                else:
-                    tr.chunk = s0
-                    with sp.dispatch:
-                        tr.device_start(self.device)
-                        px, py, out = self._chunk_fn(px, py)
-                    with sp.copy:
-                        pending.append((s0, summary_to_host(out)))
-                disp_step = s0 + K
-                disp_chunks += 1
-            if not pending:
-                break  # the deadline passed between the checks
-            step0, out = pending.popleft()
-            tr.chunk = step0
-            if out is None:
-                new_found, k_eff = self._host_rescan_fast(step0, K), K
-            else:
-                host, ev = out
-                with sp.wait:
-                    if ev is not None:
-                        ev.synchronize()
-                tr.device_done(ev)
-                with sp.decode:
-                    k_eff, new_found = self._decode_fast(step0, host.numpy())
-                tr.count("chunks_decoded")
-            n_before = len(found)
-            for fk in new_found:
-                take(fk)
-            self.stats.add(max(0, min(k_eff, total - step0)) * U)
-            chunks_done += 1
-            units = chunks_done if rng is not None else step0 + k_eff
-            self._ckpt_save(checkpoint, ck, units, self.stats, found, len(found) > n_before,
-                            force=not pending and not can_dispatch()
-                            or bool(found and stop_on_first))
-            if found and stop_on_first:
-                return found
-            if rng is None and k_eff < K:
-                # advance-chain degeneracy: the chunks after this one walked
-                # garbage state; drop them and restart from the first bad step
-                pending.clear()
-                disp_step = step0 + k_eff
-                if disp_step < total:
-                    tr.count("rebases")
-                    with tr.span("rebase"):
-                        px, py = self._fast_base(disp_step)
-            if progress_every and chunks_done % progress_every == 0:
-                print(f"[brute] chunk {chunks_done}/{n_chunks} {self.stats.human()}")
-        return found
+        return pipeline.run("_search_fused", _FusedPlan(self, total, checkpoint), stop_on_first,
+                            max_seconds, progress_every)
 
     def _decode_fast(self, step0: int, arr: np.ndarray) -> Tuple[int, List[FoundKey]]:
         """Decode one packed chunk summary -> (valid steps, found keys)."""
@@ -661,120 +505,50 @@ class BruteEngine:
     def _search_walker(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                        progress_every: int = 0, checkpoint=None,
                        max_seconds: Optional[float] = None) -> List[FoundKey]:
-        """The JAX walker search: one chunk of K steps in flight, its summary
-        read back and decoded before the next; the checkpoint counts device
-        steps per walker."""
-        p = self.p
-        self.stats.begin()
-        dl = Deadline(max_seconds)
+        """The JAX walker search in engine/pipeline.py's loop: one chunk of K
+        steps in flight, its summary decoded (_decode_walker) before the
+        next; the checkpoint counts device steps per walker."""
         total = self.steps_per_walker if max_steps is None else min(self.steps_per_walker,
                                                                      max_steps)
-        W, U, C, K = p.walkers, p.block_u, p.cand_max, p.steps_per_chunk
+        return pipeline.run("_search_walker", _WalkerPlan(self, total, checkpoint), stop_on_first,
+                            max_seconds, progress_every)
+
+    def _decode_walker(self, bases: Sequence[int], k: int, arr: np.ndarray):
+        """(found, a walker's advance degenerated) of a walker chunk's (K,
+        2C + 3W + 1) summary from window starts `bases`: its first k steps'
+        candidates and degenerate lanes verified, an overflow rescanned."""
+        p = self.p
+        W, U, C = p.walkers, p.block_u, p.cand_max
         npts = self.window
+        cand_pos = arr[:, :C]
+        cand_row = arr[:, C : 2 * C].view(np.uint32)
+        n_deg = arr[:, 2 * C : 2 * C + W]
+        first_deg = arr[:, 2 * C + W : 2 * C + 2 * W]
+        adv_deg = arr[:, 2 * C + 2 * W : 2 * C + 3 * W]
+        ncand = arr[:, 2 * C + 3 * W]
+        total_q = self.n_qsets * W * npts
         found: List[FoundKey] = []
-        seen = set()
-        step = 0
-        rng = np.random.default_rng(p.seed) if p.random_mode else None
-        # chunks per random base (reference -n): each walker scans that many
-        # sequential keys from its random base before drawing again
-        cpb = 1
-        if rng is not None and p.seq_per_base:
-            cpb = max(1, math.ceil(p.seq_per_base / (K * npts)))
-        chunks_since_base = 0
-        ck = None
-        if checkpoint is not None:
-            ck, resumed = self._ckpt_load(checkpoint)
-            found += self._reverify_saved(ck, found)
-            seen.update(f.private_key for f in found)
-            if rng is not None:
-                for _ in range(math.ceil((resumed // K) / cpb)):
-                    rng.integers(0, max(1, self.total_steps - K), size=W)
-            step = min(resumed, total)
-        bases = self._sequential_bases(step)
-        ctr = self._centers_for_bases(bases)
-        cx, cy = ctr.x, ctr.y
-        n_found_saved = 0
-        while step < total:
-            if dl.expired():
-                # stop at the chunk boundary and save the exactly covered
-                # position (a resumed run re-enters here)
-                self._ckpt_save(checkpoint, ck, step, self.stats, found, False, force=True)
-                break
-            k = min(K, total - step)
-            if rng is not None:
-                # each walker re-bases to a uniform window-aligned position
-                # and scans K windows per chunk; with -n it keeps its chained
-                # walk for cpb chunks before drawing again
-                max_start = max(1, self.total_steps - K)
-                overrun = any(b // npts + K > self.total_steps for b in bases)
-                if chunks_since_base % cpb == 0 or overrun:
-                    starts = rng.integers(0, max_start, size=W)
-                    bases = [int(s0) * npts for s0 in starts]
-                    ctr = self._centers_for_bases(bases)
-                    cx, cy = ctr.x, ctr.y
-                    chunks_since_base = 0
-                chunks_since_base += 1
-            cx, cy, outs = self._chunk_fn(cx, cy)
-            host, ev = summary_to_host(outs)
-            if ev is not None:
-                ev.synchronize()
-            arr = host.numpy()  # (K, 2C + 3W + 1): one transfer
-            cand_pos = arr[:, :C]
-            cand_row = arr[:, C : 2 * C].view(np.uint32)
-            n_deg = arr[:, 2 * C : 2 * C + W]
-            first_deg = arr[:, 2 * C + W : 2 * C + 2 * W]
-            adv_deg = arr[:, 2 * C + 2 * W : 2 * C + 3 * W]
-            ncand = arr[:, 2 * C + 3 * W]
-            total_q = self.n_qsets * W * npts
-            for s in range(k):
-                if ncand[s] > C:
-                    found += self._host_rescan_step(bases, s)
-                for c in np.nonzero(cand_pos[s] < total_q)[0]:
-                    q, rem = divmod(int(cand_pos[s, c]), W * npts)
-                    w, lane = divmod(rem, npts)
-                    e = q // self._parities  # endomorphism power
-                    cand = self._key_for_lane(bases[w], s, lane)
-                    if e:
-                        cand = cand * _LAM_POW[e] % ecref.N
-                    fk = self._verify(cand, int(cand_row[s, c]))
-                    if fk and fk.private_key not in seen:
-                        seen.add(fk.private_key)
-                        found.append(fk)
-                        if stop_on_first:
-                            return found
-                for w in range(W):
-                    offs = []
-                    if n_deg[s, w] > 0:
-                        offs.append(int(first_deg[s, w]) + 1)
-                    if adv_deg[s, w]:
-                        offs.append(npts)
-                    for off in offs:
-                        # degenerate lane: x(center) == x(off*stride*G), so
-                        # the center scalar is +-off*stride mod n; also the
-                        # doubling lane 2c
-                        c0 = self._key_for_lane(bases[w], s, 2 * U)
-                        d = off * self.stride % ecref.N
-                        for cand in (d, ecref.N - d, (2 * c0) % ecref.N):
-                            fk = self._verify(cand, 0)
-                            if fk and fk.private_key not in seen:
-                                seen.add(fk.private_key)
-                                found.append(fk)
-            rebase = bool(adv_deg[:k].any())
-            self.stats.add(k * W * npts)
-            step += K
-            self._ckpt_save(checkpoint, ck, step, self.stats, found,
-                            len(found) > n_found_saved, force=step >= total)
-            n_found_saved = len(found)
-            if rng is None or chunks_since_base % cpb != 0:
-                # the next chunk's bases (sequential scan, or a -n group
-                # continuing on the same random bases)
-                bases = [b + K * npts for b in bases]
-                if rebase and step < total:
-                    ctr = self._centers_for_bases(bases)
-                    cx, cy = ctr.x, ctr.y
-            if progress_every and (step // K) % progress_every == 0:
-                print(f"[brute] step {step}/{total} {self.stats.human()}")
-        return found
+        for s in range(k):
+            if ncand[s] > C:
+                found += self._host_rescan_step(bases, s)
+            for c in np.nonzero(cand_pos[s] < total_q)[0]:
+                q, rem = divmod(int(cand_pos[s, c]), W * npts)
+                w, lane = divmod(rem, npts)
+                e = q // self._parities  # endomorphism power
+                cand = self._key_for_lane(bases[w], s, lane)
+                if e:
+                    cand = cand * _LAM_POW[e] % ecref.N
+                found.append(self._verify(cand, int(cand_row[s, c])))
+            for w in range(W):
+                # a degenerate lane: x(center) == x(off*stride*G), so the
+                # center scalar is +-off*stride mod n; also the doubling lane 2c
+                offs = ([int(first_deg[s, w]) + 1] if n_deg[s, w] > 0 else []) + (
+                    [npts] if adv_deg[s, w] else [])
+                c0 = self._key_for_lane(bases[w], s, 2 * U)
+                for off in offs:
+                    d = off * self.stride % ecref.N
+                    found += [self._verify(c, 0) for c in (d, ecref.N - d, 2 * c0 % ecref.N)]
+        return [f for f in found if f], bool(adv_deg[:k].any())
 
     def _host_rescan_step(self, bases: Sequence[int], s: int) -> List[FoundKey]:
         """Exact host rescan of one walker step (probe-survivor overflow):
@@ -839,3 +613,145 @@ class BruteEngine:
                         return FoundKey(private_key=cand, pubkey=cpt, compressed=compressed,
                                         target=addr)
         return None
+
+
+class _BrutePlan(pipeline.ChunkPlan):
+    """A brute search's chunks of K steps from its checkpoint's position
+    (``unit`` steps a unit), in order or (-R) from random bases kept for
+    cpb chunks (-n), the resumed run's draws replayed."""
+
+    label = "brute"
+    unit = 1
+
+    def __init__(self, eng: BruteEngine, total: int, mgr, chunk_keys: int):
+        p = eng.p
+        self.eng, self.total, self.K, self.device = eng, total, p.steps_per_chunk, eng.device
+        self.n_chunks = -(-total // self.K)
+        self.resumed = 0
+        if mgr is not None:
+            ck = pipeline.open_checkpoint(self, mgr, eng.stats, dict(
+                mode=f"brute:{eng.mode}", range_start=eng.a, range_end=eng.b,
+                policy="random" if p.random_mode else "sequential", seed=p.seed,
+                params_fp=fingerprint(eng.mode, p.block_u, self.K, eng.stride, p.endo, p.walkers,
+                                      p.random_mode, p.seed, not eng._walker),
+                targets_fp=fingerprint(sorted(eng.targets.raw), sorted(eng.intervals),
+                                       sorted(eng.prefixes))))
+            if ck is not None:  # its saved keys: the resumed run skips their chunks
+                self.found0 = self.found0 + eng._reverify_saved(ck)
+                self.resumed = ck.chunks_done
+        self.rng = np.random.default_rng(p.seed) if p.random_mode else None
+        self.cpb = max(1, math.ceil((p.seq_per_base or 0) / chunk_keys))
+        for _ in range(math.ceil(self.resumed // self.unit / self.cpb) if p.random_mode else 0):
+            self._draw()
+
+
+class _FusedPlan(_BrutePlan):
+    """The fused path's chunks of K*U keys (units with -R: chunks); exact
+    bases by _fast_base; an advance degeneracy restarts at the first
+    invalid step (in order only)."""
+
+    def __init__(self, eng: BruteEngine, total: int, mgr):
+        self.found0 = [f for f in map(eng._verify, eng._fast_prefix) if f]
+        super().__init__(eng, total, mgr, eng.p.steps_per_chunk * eng.p.block_u)
+        self.U, self.depth = eng.p.block_u, eng.p.pipeline_depth
+        self.k_eff, self.group_left = self.K, 0
+        self.step = 0 if self.rng is not None else min(self.resumed, total)
+        self.done = self.done0 = min(self.resumed, self.n_chunks)  # chunks drawn (-R)
+
+    def _draw(self) -> int:
+        return int(self.rng.integers(0, max(1, self.eng._fast_total_steps - self.K + 1)))
+
+    def next(self):
+        if self.rng is None:
+            if self.step >= self.total:
+                return None
+            s0 = self.step
+        else:
+            if self.done >= self.n_chunks:
+                return None
+            if (self.group_left <= 0 or self.chain is None
+                    or self.step + self.K > self.eng._fast_total_steps):
+                s0 = self._draw()
+                self.chain = (s0, self.exact(s0))
+                self.group_left = self.cpb
+            else:
+                s0 = self.step  # -n: the chained state is K steps on
+            self.group_left -= 1
+            self.done += 1
+        self.step = s0 + self.K
+        return s0, s0
+
+    def exact(self, s0: int):
+        px, py = self.eng._fast_base(s0)
+        return pipeline.BaseIsKey() if px is None else (px, py)
+
+    def dispatch(self, s0: int, base):
+        px, py, out = self.eng._chunk_fn(*base)
+        self.chain = (s0 + self.K, (px, py))
+        return out
+
+    def decode(self, s0: int, arr: np.ndarray):
+        self.k_eff, found = self.eng._decode_fast(s0, arr)
+        nxt = s0 + self.k_eff  # past an advance degeneracy the walk state is garbage
+        restart = nxt if self.rng is None and self.k_eff < self.K and nxt < self.total else None
+        return found, max(0, min(self.k_eff, self.total - s0)) * self.U, restart
+
+    def on_host(self, s0: int, scalar):
+        self.k_eff = self.K
+        return self.eng._host_rescan_fast(s0, self.K), max(0, min(self.K, self.total - s0)) * self.U
+
+    def mark(self, ck, s0: int, n_done: int) -> None:
+        ck.chunks_done = s0 + self.k_eff if self.rng is None else self.done0 + n_done
+
+
+class _WalkerPlan(_BrutePlan):
+    """The walker path's chunks, one in flight: a position is (step, the
+    walkers' window-start indices); units are steps a walker."""
+
+    def __init__(self, eng: BruteEngine, total: int, mgr):
+        self.unit = eng.p.steps_per_chunk
+        super().__init__(eng, total, mgr, eng.p.steps_per_chunk * eng.window)
+        self.step = min(self.resumed, total)
+        self.bases = eng._sequential_bases(self.step)
+        self.since_base = 0
+
+    def _draw(self):
+        return self.rng.integers(0, max(1, self.eng.total_steps - self.K), size=self.eng.p.walkers)
+
+    def next(self):
+        if self.step >= self.total:
+            return None
+        npts = self.eng.window
+        if self.rng is not None and (
+                self.since_base % self.cpb == 0
+                or any(b // npts + self.K > self.eng.total_steps for b in self.bases)):
+            # each walker re-bases to a uniform window-aligned position
+            self.bases = [int(s0) * npts for s0 in self._draw()]
+            self.chain, self.since_base = None, 0
+        self.since_base += 1
+        self.step += self.K
+        return self.step - self.K, (self.step - self.K, self.bases)
+
+    def exact(self, pos):
+        ctr = self.eng._centers_for_bases(pos[1])
+        return ctr.x, ctr.y
+
+    def dispatch(self, pos, centers):
+        cx, cy, out = self.eng._chunk_fn(*centers)
+        self.bases = [b + self.K * self.eng.window for b in pos[1]]
+        self.chain = (pos[0] + self.K, (cx, cy))
+        return out
+
+    def decode(self, pos, arr: np.ndarray):
+        step, bases = pos
+        eng, k, nxt = self.eng, min(self.K, self.total - step), step + self.K
+        found, rebase = eng._decode_walker(bases, k, arr)
+        chained = self.rng is None or self.since_base % self.cpb != 0  # the next chunk goes on
+        return found, k * eng.p.walkers * eng.window, (
+            nxt if rebase and chained and nxt < self.total else None)
+
+    def restart(self, step: int) -> None:
+        self.chain = (step, self.exact((step, self.bases)))
+
+    def mark(self, ck, pos, n_done: int) -> None:
+        ck.chunks_done = pos[0] + self.K

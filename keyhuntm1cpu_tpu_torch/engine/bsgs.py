@@ -35,10 +35,8 @@ Targets ride K1's lanes, any number of them: a chunk holds T*K*U query
 words, so K shrinks past CHUNK_WORD_CAP / (T*U).
 
 Range orders (``chunk_order``: sequential, backward, both, random, dance)
-permute the chunks of K steps. A chunk that follows its predecessor in the
-range takes the walk state the card left; any other starts from a base the
-host computes exactly, ahead of dispatch, from a table of 2^i chunk
-strides (``_scheduled_bases``), for the next pipeline_depth chunks at once.
+permute the chunks of K steps; every order runs engine/pipeline.py's loop
+by the one base rule of ``_BSGSPlan``.
 """
 
 from __future__ import annotations
@@ -49,7 +47,7 @@ import math
 import os
 import threading
 import time
-from collections import OrderedDict, deque
+from collections import OrderedDict
 from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
 
@@ -57,7 +55,7 @@ import numpy as np
 import torch
 
 from .. import _build
-from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.checkpoint import fingerprint
 from ..core.log import get_logger
 from ..core.metrics import count, current_call, span, spanned
 from ..curve import pwalk, tables
@@ -66,8 +64,8 @@ from ..filter import bitmap as bmp
 from ..filter import host_table as ht
 from ..filter import sorted_table as st
 from ..ref import ecref
-from .common import (Deadline, FoundKey, SearchStats, search_loop, summary_to_host,
-                     verify_candidate_scalar)
+from . import pipeline
+from .common import FoundKey, SearchStats, verify_candidate_scalar
 
 BUILD_BLOCKS = 128  # baby blocks of build_block keys per streaming-build step
 CHUNK_WORD_CAP = 1 << 27  # bound on T*K*U query words per chunk
@@ -151,9 +149,7 @@ def filter_build_step(px, py, tx, ty, ax, ay, adv_tab, K: int, ub: int, words1,
     return res.next_x, res.next_y
 
 
-class _ImmediateHit(Exception):
-    def __init__(self, scalar: int):
-        self.scalar = scalar
+_ImmediateHit = pipeline.BaseIsKey
 
 
 def _limbs(v: int, device) -> torch.Tensor:
@@ -662,7 +658,7 @@ class BSGSEngine:
             interesting = True
             found += self._host_rescan_step(step0 + s_)
         valid = np.nonzero(cand_pos < B)[0]
-        if self.table is not None:  # j at the lower bound and its successor (0: none)
+        if self.host_table is None:  # j at the lower bound and its successor (0: none)
             js = arr[C2 : 3 * C2].view(np.uint32).reshape(2, C2)[:, valid]
             hits = [(int(cand_pos[c]), int(j)) for c, j1, j2 in zip(valid, *js)
                     for j in (j1, j2) if j]
@@ -698,107 +694,20 @@ class BSGSEngine:
         c_base = self._center(step, 0)  # = c_{sU} - stride
         return [c_base - u * self.stride, c_base + u * self.stride]
 
-    @search_loop("search")
     def search(self, max_steps: Optional[int] = None, start_step: int = 0,
                stop_on_first: bool = True, progress_every: int = 0,
                max_seconds: Optional[float] = None) -> List[FoundKey]:
-        """Run the giant-step scan in order; returns verified found keys.
-
-        Up to pipeline_depth chunks are in flight: the walk state chains on
-        the device and only summaries come back. max_seconds stops dispatch
-        at the first chunk boundary past the deadline; in-flight chunks are
+        """Run the giant-step scan in order from start_step (any step);
+        returns verified found keys. Up to pipeline_depth chunks are in
+        flight (engine/pipeline.py): the walk state chains on the device
+        and only summaries come back. max_seconds stops dispatch at the
+        first chunk boundary past the deadline; in-flight chunks are
         drained, so stats stay exact."""
-        tr = current_call()
-        sp = tr.chunk_spans()
-        p = self.p
-        dl = Deadline(max_seconds)
+        K = self.p.steps_per_chunk
         remaining = self.n_steps - start_step
         total = remaining if max_steps is None else min(remaining, max_steps)
-        end_step = start_step + total
-        K = p.steps_per_chunk
-
-        found: List[FoundKey] = []
-        base = None
-        while base is None:
-            try:
-                base = self._initial_base(start_step)
-            except _ImmediateHit as hit:
-                # the base center itself is a target key: record it, rescan
-                # the chunk anchored there exactly, move to the next chunk
-                found += self._try_candidates_all([hit.scalar])
-                if found and stop_on_first:
-                    return self._dedupe_found(found)
-                for s_ in range(start_step, min(start_step + K, end_step)):
-                    found += self._host_rescan_step(s_)
-                self.stats.add(min(K, end_step - start_step) * p.block_u * self.stride)
-                if found and stop_on_first:
-                    return self._dedupe_found(found)
-                start_step += K
-                if start_step >= end_step:
-                    return self._dedupe_found(found)
-        px, py = base
-
-        pending: deque = deque()
-        disp = start_step
-        n_done = 0
-        while pending or disp < end_step:
-            while (disp < end_step and len(pending) < p.pipeline_depth
-                   and not dl.expired()):
-                tr.chunk = disp
-                with sp.dispatch:
-                    tr.device_start(self.device)
-                    px, py, outs = self._chunk_fn(px, py)
-                with sp.copy:
-                    pending.append((disp, summary_to_host(outs)))
-                disp += K
-            if not pending:
-                break  # deadline cut dispatch with nothing in flight
-            step, (host, ev) = pending.popleft()
-            tr.chunk = step
-            with sp.wait:
-                if ev is not None:
-                    ev.synchronize()
-            tr.device_done(ev)
-            k = min(K, end_step - step)
-            with sp.decode:
-                new_found, rebase, _ = self._consume_summary(step, k, host.numpy())
-            tr.count("chunks_decoded")
-            if new_found:
-                found = self._dedupe_found(found + new_found)
-                if stop_on_first:
-                    self.stats.add(k * p.block_u * self.stride)
-                    return found
-            self.stats.add(k * p.block_u * self.stride)
-            n_done += 1
-            if rebase and step + K < end_step:
-                # an advance lane degenerated mid-chunk: the walk state past
-                # it is invalid — drop later chunks and restart exactly
-                pending.clear()
-                disp = step + K
-                tr.count("rebases")
-                try:
-                    with tr.span("rebase"):
-                        px, py = self._initial_base(disp)
-                except _ImmediateHit as hit:
-                    found += self._try_candidates_all([hit.scalar])
-                    if found and stop_on_first:
-                        return self._dedupe_found(found)
-                    while disp < end_step:
-                        for s_ in range(disp, min(disp + K, end_step)):
-                            found += self._host_rescan_step(s_)
-                        self.stats.add(min(K, end_step - disp) * p.block_u * self.stride)
-                        if found and stop_on_first:
-                            return self._dedupe_found(found)
-                        disp += K
-                        try:
-                            with tr.span("rebase"):
-                                px, py = self._initial_base(disp)
-                            break
-                        except _ImmediateHit as hit2:
-                            found += self._try_candidates_all([hit2.scalar])
-            if progress_every and n_done % progress_every == 0:
-                print(f"[bsgs] step {step + K}/{end_step} {self.stats.human()}")
-        return self._dedupe_found(found)
+        plan = _BSGSPlan(self, lambda i: start_step + i * K, -(-total // K), start_step + total)
+        return pipeline.run("search", plan, stop_on_first, max_seconds, progress_every)
 
     # ------------------------------------------------------------------
     # range orders and checkpoints
@@ -881,10 +790,7 @@ class BSGSEngine:
                     acc = _jac_madd(*acc, *tab[i])
             pts = None if acc is None else [_jac_madd(*acc, *q) for q in self.targets]
             if pts is None or not all(pts):
-                try:
-                    out[c] = self._initial_base(c * K)
-                except _ImmediateHit as hit:
-                    out[c] = hit
+                out[c] = pipeline.base_or_hit(self._initial_base, c * K)
             else:
                 jac[c] = pts
         zinv = iter(_batch_inv([pt[2] for pts in jac.values() for pt in pts]))
@@ -904,133 +810,31 @@ class BSGSEngine:
             out.update((c, (dev[n, 0], dev[n, 1])) for n, c in enumerate(jac))
         return out
 
-    @search_loop("search_scheduled")
     def search_scheduled(self, policy: str = "sequential", seed: int = 0,
                          max_chunks: Optional[int] = None, stop_on_first: bool = True,
                          progress_every: int = 0, checkpoint=None,
                          max_seconds: Optional[float] = None) -> List[FoundKey]:
         """The giant-step scan over chunk_order(policy, seed), the JAX
-        engine's search_scheduled: up to pipeline_depth chunks in flight. A
-        chunk right after its predecessor in the range continues the walk
-        state on the card (all of them under "sequential"); any other starts
-        from a base the host computes ahead (_scheduled_bases). A base at a
-        target's key (_ImmediateHit) is recorded and its chunk rescanned on
-        the host. checkpoint: a core.checkpoint.CheckpointManager; it
-        counts the chunks of the order done, and a resumed run reports the
-        keys the saved one found."""
-        tr = current_call()
-        sp = tr.chunk_spans()
+        engine's search_scheduled, through search's loop and base rule.
+        checkpoint: a core.checkpoint.CheckpointManager; it counts the
+        chunks of the order done, and a resumed run reports the keys the
+        saved one found."""
         p = self.p
-        K, U = p.steps_per_chunk, p.block_u
-        dl = Deadline(max_seconds)
         order = self.chunk_order(policy, seed)
-        resume_from = 0
-        ck = None
-        found: List[FoundKey] = []
+        plan = _BSGSPlan(self, lambda i: order[i] * p.steps_per_chunk, len(order), self.n_steps)
         if checkpoint is not None:
-            params_fp = fingerprint(p.m, p.block_u, p.steps_per_chunk)
-            targets_fp = fingerprint(sorted(self.targets))
-            ck = checkpoint.load()
+            ck = pipeline.open_checkpoint(
+                plan, checkpoint, self.stats,
+                dict(mode="bsgs", range_start=self.a, range_end=self.b, policy=policy,
+                     seed=seed, params_fp=fingerprint(p.m, p.block_u, p.steps_per_chunk),
+                     targets_fp=fingerprint(sorted(self.targets))), n_chunks=len(order))
             if ck is not None:
-                checkpoint.matches(ck, mode="bsgs", range_start=self.a, range_end=self.b,
-                                   policy=policy, seed=seed, params_fp=params_fp,
-                                   targets_fp=targets_fp)
-                resume_from = ck.chunks_done
-                self.stats.resume(ck.keys_covered)
-                found = self._try_candidates_all([int(h, 16) for h in ck.found])
-            else:
-                ck = Checkpoint(mode="bsgs", range_start=self.a, range_end=self.b,
-                                policy=policy, seed=seed, params_fp=params_fp,
-                                targets_fp=targets_fp, n_chunks=len(order))
+                plan.i = ck.chunks_done
+                plan.found0 = self._try_candidates_all([int(h, 16) for h in ck.found])
         if max_chunks is not None:
-            order = order[: resume_from + max_chunks]
-
-        pending: deque = deque()
-        disp_i = resume_from
-        chain = None  # (chunk, next_x, next_y): the last dispatched walk state
-        ahead: Dict[int, object] = {}
-
-        def dispatch_upto(limit: int) -> None:
-            nonlocal disp_i, chain
-            while disp_i < len(order) and len(pending) < limit and not dl.expired():
-                c = order[disp_i]
-                if chain is not None and chain[0] == c - 1:
-                    base = chain[1:]
-                else:
-                    if c not in ahead:
-                        ahead.update(self._scheduled_bases(
-                            [order[j] for j in range(disp_i, min(len(order),
-                                                                 disp_i + p.pipeline_depth))
-                             if j == disp_i or order[j] != order[j - 1] + 1]))
-                    base = ahead.pop(c)
-                if isinstance(base, _ImmediateHit):
-                    pending.append((disp_i, c * K, base.scalar))
-                    chain = None
-                else:
-                    tr.chunk = c * K
-                    with sp.dispatch:
-                        tr.device_start(self.device)
-                        nx, ny, outs = self._chunk_fn(*base)
-                    with sp.copy:
-                        pending.append((disp_i, c * K, summary_to_host(outs)))
-                    chain = (c, nx, ny)
-                disp_i += 1
-
-        for i in range(resume_from, len(order)):
-            dispatch_upto(p.pipeline_depth)
-            if not pending:
-                # the deadline cut dispatch: save the exact position
-                if ck is not None:
-                    checkpoint.save(ck, force=True)
-                break
-            idx, step0, outs = pending.popleft()
-            assert idx == i, (idx, i)
-            k = min(K, self.n_steps - step0)
-            if isinstance(outs, int):
-                # the chunk at a target's key was never walked on the card:
-                # record the key and rescan the chunk on the host
-                new_found = self._try_candidates_all([outs])
-                for s_ in range(step0, step0 + k):
-                    new_found += self._host_rescan_step(s_)
-            else:
-                host, ev = outs
-                tr.chunk = step0
-                with sp.wait:
-                    if ev is not None:
-                        ev.synchronize()
-                tr.device_done(ev)
-                with sp.decode:
-                    new_found, rebase, _ = self._consume_summary(step0, k, host.numpy())
-                tr.count("chunks_decoded")
-                if rebase:
-                    # an advance lane degenerated: a chunk chained on this
-                    # one walks invalid state; dispatch the rest again (the
-                    # next base comes from _scheduled_bases)
-                    pending.clear()
-                    disp_i, chain = i + 1, None
-                    tr.count("rebases")
-            self.stats.add(k * U * self.stride)
-            if new_found:
-                found = self._dedupe_found(found + new_found)
-            if ck is not None:
-                ck.chunks_done = i + 1
-                ck.keys_covered = self.stats.keys_covered
-                if new_found:
-                    # saved at once: a resumed run skips this chunk
-                    ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
-                checkpoint.save(ck, force=bool(new_found) or i + 1 == len(order))
-            if found and stop_on_first and new_found:
-                return found
-            if progress_every and i % progress_every == 0:
-                print(f"[bsgs:{policy}] chunk {i}/{len(order)} {self.stats.human()}")
-        return self._dedupe_found(found)
-
-    @staticmethod
-    def _dedupe_found(found: List[FoundKey]) -> List[FoundKey]:
-        seen: Dict[Tuple[int, str], FoundKey] = {}
-        for f in found:
-            seen[(f.private_key, f.target)] = f
-        return list(seen.values())
+            plan.n = min(plan.n, plan.i + max_chunks)
+        plan.n_chunks = plan.n - plan.i
+        return pipeline.run("search_scheduled", plan, stop_on_first, max_seconds, progress_every)
 
     def _rescan_table(self):
         """(sorted u64 keys, payload, j offset) for the exact host rescan,
@@ -1103,3 +907,63 @@ class BSGSEngine:
         if not seen:
             tr.count("false_candidates")
         return list(seen.values())
+
+
+class _BSGSPlan(pipeline.ChunkPlan):
+    """A BSGS search's chunks: chunk i of n covers k = min(K, end - step)
+    steps from step_at(i), its position (i, step, k). Its exact base
+    (where it does not follow the last chunk dispatched) is _initial_base's,
+    or one _scheduled_bases batch's for a look-ahead that jumps; a rebase
+    restarts by _initial_base."""
+
+    label = "bsgs"
+
+    def __init__(self, eng: BSGSEngine, step_at, n: int, end: int):
+        self.eng, self.step_at, self.n, self.n_chunks, self.end = eng, step_at, n, n, end
+        self.i, self.device, self.depth = 0, eng.device, eng.p.pipeline_depth
+        self.K, self.step_keys = eng.p.steps_per_chunk, eng.p.block_u * eng.stride
+        self.ahead: Dict[int, object] = {}  # step -> exact base, batched ahead
+
+    @staticmethod
+    def found_key(f: FoundKey):
+        return f.private_key, f.target
+
+    def next(self):
+        i = self.i
+        if i >= self.n:
+            return None
+        self.i, step = i + 1, self.step_at(i)
+        return step, (i, step, min(self.K, self.end - step))
+
+    def exact(self, pos):
+        (i, step, _), eng, K = pos, self.eng, self.K
+        if step not in self.ahead:
+            need = [self.step_at(j) for j in range(i, min(self.n, i + self.depth))
+                    if j == i or self.step_at(j) != self.step_at(j - 1) + K]
+            if len(need) == 1:
+                return pipeline.base_or_hit(eng._initial_base, step)
+            self.ahead.update((c * K, b) for c, b in
+                              eng._scheduled_bases([s // K for s in need]).items())
+        return self.ahead.pop(step)
+
+    def dispatch(self, pos, base):
+        nx, ny, out = self.eng._chunk_fn(*base)
+        self.chain = (pos[1] + self.K, (nx, ny))
+        return out
+
+    def decode(self, pos, arr: np.ndarray):
+        i, step, k = pos
+        found, rebase, _ = self.eng._consume_summary(step, k, arr)  # rebase: an advance degenerated
+        return found, k * self.step_keys, i + 1 if rebase and i + 1 < self.n else None
+
+    def on_host(self, pos, scalar: int):
+        _, step, k = pos
+        rescan = [f for s_ in range(step, step + k) for f in self.eng._host_rescan_step(s_)]
+        return self.eng._try_candidates_all([scalar]) + rescan, k * self.step_keys
+
+    def restart(self, i: int) -> None:
+        self.i, step = i, self.step_at(i)
+        self.chain = (step, pipeline.base_or_hit(self.eng._initial_base, step))
+
+    def mark(self, ck, pos, n_done: int) -> None:
+        ck.chunks_done = pos[0] + 1

@@ -3,16 +3,14 @@ stop flag, stats, summary copies.
 
 Copy of the pure-Python parts of keyhuntm1cpu_tpu/engine/common.py.
 SearchStats.add feeds the process-wide metrics registry (core/metrics.py,
-served by --metrics-port) under the JAX package's names; search_loop
-gives each call of a search loop its spans and counters there, and starts
-SearchStats' rate at the call. Found keys are
+served by --metrics-port) under the JAX package's names; the search loop
+(engine/pipeline.py) starts SearchStats' rate at each call. Found keys are
 appended to KEYFOUNDKEYFOUND.txt, and every device candidate is re-verified
 with the exact python-int reference before it is reported.
 """
 
 from __future__ import annotations
 
-import functools
 import os
 import time
 from dataclasses import dataclass, field
@@ -20,7 +18,7 @@ from typing import Optional, Tuple
 
 import torch
 
-from ..core.metrics import SearchCall, get_metrics
+from ..core.metrics import get_metrics
 from ..core.security import SecureBuffer
 from ..ref import ecref, hashref
 
@@ -192,21 +190,3 @@ class SearchStats:
                 return f"{rate:.2f} {unit}keys/s"
             rate /= 1000
         return f"{rate:.2f} Ykeys/s"
-
-
-def search_loop(loop: str):
-    """Decorate an engine's search loop: each call runs inside a
-    core.metrics SearchCall named `loop` (the root span "search", the
-    call's record, SearchStats.begin), which the loop's body reaches by
-    core.metrics.current_call()."""
-
-    def wrap(fn):
-        @functools.wraps(fn)
-        def method(self, *args, **kw):
-            devices = getattr(self, "devices", None) or [self.device]
-            with SearchCall(get_metrics(), loop, self.stats, devices):
-                return fn(self, *args, **kw)
-
-        return method
-
-    return wrap

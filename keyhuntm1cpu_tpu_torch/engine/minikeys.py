@@ -19,10 +19,11 @@ the card. One chunk of B minikeys is:
    [n_valid, n_check, lanes (HM)]: the lanes to verify on the host (table
    hits and irregular ladder lanes), fill B.
 
-Up to pipeline_depth chunks are in flight; summaries come back through
-pinned non-blocking copies. Every flagged lane is re-verified on the host
-with the exact references (ref/hashref, ref/ecref); a budget overflow
-(more than V valid lanes or HM flagged ones) rescans the chunk on the host.
+Up to pipeline_depth chunks are in flight (engine/pipeline.py);
+summaries come back through pinned non-blocking copies. Every flagged
+lane is re-verified on the host with the exact references (ref/hashref,
+ref/ecref); a budget overflow (more than V valid lanes or HM flagged
+ones) rescans the chunk on the host.
 A checkpoint (mode "minikeys") saves the prefix and the counter past the
 last decoded chunk; a resumed engine adopts both.
 """
@@ -30,21 +31,21 @@ last decoded chunk; a resumed engine adopts both.
 from __future__ import annotations
 
 import secrets
-from collections import deque
 from dataclasses import dataclass
 from typing import List, Optional
 
 import numpy as np
 import torch
 
-from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.checkpoint import fingerprint
 from ..curve import pladder
 from ..filter import sorted_table as st
 from ..filter.bitmap import compact_positions
 from ..hash import phash, pminikey
 from ..ref import ecref, hashref
 from ..utils.targets import TargetSet
-from .common import Deadline, FoundKey, SearchStats, summary_to_host
+from . import pipeline
+from .common import FoundKey, SearchStats
 
 _B58 = "123456789ABCDEFGHJKLMNPQRSTUVWXYZabcdefghijkmnopqrstuvwxyz"
 SUFFIX_LEN = 10
@@ -194,112 +195,35 @@ class MinikeyEngine:
                progress_every: int = 0, checkpoint=None,
                max_seconds: Optional[float] = None,
                counter_end: Optional[int] = None) -> List[FoundKey]:
-        """Scan from self.counter; counter_end bounds the scan to the counter
-        range [self.counter, counter_end). A chunk that would cross a
-        58^5 boundary is clamped back (a tiny overlap, never a gap).
-        checkpoint: a core.checkpoint.CheckpointManager; a saved run's prefix
-        and counter replace this engine's."""
-        p = self.p
-        self.stats.begin()
-        dl = Deadline(max_seconds)
-        B, V, HM = p.batch, p.valid_max, p.hit_max
-        found: List[FoundKey] = []
-        known = set()
-
-        def take(fk: Optional[FoundKey]) -> None:
-            if fk is not None and fk.private_key not in known:
-                known.add(fk.private_key)
-                found.append(fk)
-
-        ck = None
+        """Scan from self.counter in engine/pipeline.py's loop; counter_end
+        bounds the scan to the counter range [self.counter, counter_end).
+        A chunk that would cross a 58^5 boundary is clamped back (a tiny
+        overlap, never a gap). checkpoint: a core.checkpoint.
+        CheckpointManager; a saved run's prefix and counter replace this
+        engine's."""
+        plan = _MinikeyPlan(self, max_chunks, counter_end)
         if checkpoint is not None:
             # the position (prefix and counter) does not depend on the batch,
             # so the fingerprint pins only what the scan means
             params_fp = (fingerprint("minikeys-v2") if self.alphabet == _B58
                          else fingerprint("minikeys-v2", self.alphabet))
-            targets_fp = fingerprint(sorted(self.targets.raw))
-            ck = checkpoint.load()
+            ck = pipeline.open_checkpoint(
+                plan, checkpoint, self.stats,
+                dict(mode="minikeys", params_fp=params_fp,
+                     targets_fp=fingerprint(sorted(self.targets.raw))),
+                range_start=0, range_end=0, policy="sequential", seed=0,
+                extra={"prefix": self.prefix, "counter": self.counter})
             if ck is not None:
-                checkpoint.matches(ck, mode="minikeys", params_fp=params_fp,
-                                   targets_fp=targets_fp)
                 self.prefix = ck.extra["prefix"]
                 self.counter = int(ck.extra["counter"])
-                self.stats.resume(ck.keys_covered)
                 # the saved finds: their span is skipped now
-                for h in ck.found:
-                    for fk in self._reverify_scalar(int(h, 16)):
-                        take(fk)
-            else:
-                ck = Checkpoint(mode="minikeys", range_start=0, range_end=0,
-                                policy="sequential", seed=0, params_fp=params_fp,
-                                targets_fp=targets_fp,
-                                extra={"prefix": self.prefix, "counter": self.counter})
-        pending: deque = deque()
-        dispatched = decoded = 0
-        n_saved = 0
-        while decoded < max_chunks:
-            while (dispatched < max_chunks and len(pending) < p.pipeline_depth
-                   and not dl.expired()
-                   and (counter_end is None or self.counter < counter_end)):
-                high, low = divmod(self.counter, LOW_SPAN)
-                if low + B > LOW_SPAN:
-                    low = LOW_SPAN - B
-                    self.counter = (high + 1) * LOW_SPAN
-                else:
-                    self.counter += B
-                prefix17 = self.prefix + _b58_digits(high, 5, self.alphabet)
-                w22, w23 = self._base_words(prefix17)
-                pending.append((prefix17, low, self.counter,
-                                summary_to_host(self._chunk_fn(low, w22, w23))))
-                dispatched += 1
-            if not pending:
-                # deadline or counter_end with nothing in flight: save the
-                # exact position (a resumed run re-enters here)
-                if ck is not None:
-                    checkpoint.save(ck, force=True)
-                break
-            prefix17, low, counter_after, (host, ev) = pending.popleft()
-            if ev is not None:
-                ev.synchronize()
-            arr = host.numpy()
-            n_valid, n_check = int(arr[0]), int(arr[1])
-            if n_valid > V or n_check > HM:
-                for fk in self._host_rescan_chunk(prefix17, low, B):
-                    take(fk)
-            else:
-                lanes = arr[2:]
-                for lane in lanes[lanes < B]:
-                    take(self._verify_minikey(self._minikey_str(prefix17, low, int(lane))))
-            self.stats.add(B)
-            decoded += 1
-            if ck is not None:
-                ck.chunks_done = decoded
-                ck.keys_covered = self.stats.keys_covered
-                ck.extra = {"prefix": self.prefix, "counter": counter_after}
-                if len(found) > n_saved:
-                    ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
-                checkpoint.save(ck, force=len(found) > n_saved or decoded >= max_chunks)
-                n_saved = len(found)
-            if found and stop_on_first:
-                return found
-            if progress_every and decoded % progress_every == 0:
-                print(f"[minikeys] {decoded * B} scanned, {n_valid}/{B} valid last chunk, "
-                      f"{self.stats.human()}")
-        return found
+                plan.found0 = [fk for h in ck.found for fk in self._reverify_scalar(int(h, 16))]
+        return pipeline.run("search", plan, stop_on_first, max_seconds, progress_every)
 
-    def _host_rescan_chunk(self, prefix17: str, low: int, B: int) -> List[FoundKey]:
-        """Exact host rescan of one chunk (a budget overflow)."""
-        found = []
-        for lane in range(B):
-            fk = self._verify_minikey(self._minikey_str(prefix17, low, lane))
-            if fk is not None:
-                found.append(fk)
-        return found
-
-    def _reverify_scalar(self, k: int) -> List[FoundKey]:
-        """FoundKeys of a checkpoint's saved private key: the hash160 of
-        both forms of its public key against the targets (the minikey
-        itself cannot be recovered from the key)."""
+    def _reverify_scalar(self, k: int, mk: str = "") -> List[FoundKey]:
+        """FoundKeys of private key k: the hash160 of both forms of its
+        public key against the targets (a checkpoint's saved key comes
+        without its minikey mk)."""
         if not 1 <= k < ecref.N:
             return []
         pt = ecref.scalar_mult(k)
@@ -308,19 +232,56 @@ class MinikeyEngine:
             i = self._raw_index.get(hashref.pubkey_to_hash160(pt, compressed=compressed))
             if i is not None:
                 out.append(FoundKey(private_key=k, pubkey=pt, compressed=compressed,
-                                    target=self.targets.labels[i]))
+                                    target=self.targets.labels[i] + (mk and f" (minikey {mk})")))
         return out
 
     def _verify_minikey(self, mk: str) -> Optional[FoundKey]:
         if hashref.sha256((mk + "?").encode())[0] != 0:
             return None
-        k = int.from_bytes(hashref.sha256(mk.encode()), "big")
-        if not 1 <= k < ecref.N:
+        found = self._reverify_scalar(int.from_bytes(hashref.sha256(mk.encode()), "big"), mk)
+        return found[0] if found else None
+
+
+class _MinikeyPlan(pipeline.ChunkPlan):
+    """Chunks of B minikeys from the engine's counter: a position is (its
+    17-character prefix, low counter, the counter after it)."""
+
+    label = "minikeys"
+
+    def __init__(self, eng: MinikeyEngine, max_chunks: int, counter_end: Optional[int]):
+        self.eng, self.max_chunks, self.counter_end, self.n = eng, max_chunks, counter_end, 0
+        self.device, self.depth = eng.device, eng.p.pipeline_depth
+
+    def next(self):
+        eng, B = self.eng, self.eng.p.batch
+        if self.n >= self.max_chunks or (self.counter_end is not None
+                                         and eng.counter >= self.counter_end):
             return None
-        pt = ecref.scalar_mult(k)
-        for compressed in (False, True):
-            i = self._raw_index.get(hashref.pubkey_to_hash160(pt, compressed=compressed))
-            if i is not None:
-                return FoundKey(private_key=k, pubkey=pt, compressed=compressed,
-                                target=f"{self.targets.labels[i]} (minikey {mk})")
-        return None
+        high, low = divmod(eng.counter, LOW_SPAN)
+        if low + B > LOW_SPAN:
+            low = LOW_SPAN - B
+            eng.counter = (high + 1) * LOW_SPAN
+        else:
+            eng.counter += B
+        self.n += 1
+        return self.n - 1, (eng.prefix + _b58_digits(high, 5, eng.alphabet), low, eng.counter)
+
+    def base(self, cid, pos):
+        return self.eng._base_words(pos[0])
+
+    def dispatch(self, pos, words):
+        return self.eng._chunk_fn(pos[1], *words)
+
+    def decode(self, pos, arr: np.ndarray):
+        """The flagged lanes verified; a budget overflow: every lane."""
+        eng, p = self.eng, self.eng.p
+        prefix17, low, _ = pos
+        lanes = arr[2:]
+        lanes = (range(p.batch) if int(arr[0]) > p.valid_max or int(arr[1]) > p.hit_max
+                 else lanes[lanes < p.batch])
+        found = [eng._verify_minikey(eng._minikey_str(prefix17, low, int(n))) for n in lanes]
+        return [f for f in found if f is not None], p.batch, None
+
+    def mark(self, ck, pos, n_done: int) -> None:
+        ck.chunks_done = n_done
+        ck.extra = {"prefix": self.eng.prefix, "counter": pos[2]}

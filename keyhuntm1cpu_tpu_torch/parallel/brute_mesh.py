@@ -15,17 +15,18 @@ decoded, each child's summary by its own decoder.
 
 from __future__ import annotations
 
-from collections import deque
 from typing import List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.checkpoint import fingerprint
+from ..core.metrics import current_call
+from ..engine import pipeline
 from ..engine.brute import BruteEngine, BruteParams
-from ..engine.common import Deadline, FoundKey, SearchStats, summary_to_host
+from ..engine.common import FoundKey, SearchStats
 from ..utils.targets import TargetSet
-from .mesh import resolve_devices
+from .mesh import gather_to_host, resolve_devices
 from .partition import RangePartitioner
 
 
@@ -68,34 +69,28 @@ class ShardedBruteEngine:
         self.local_steps = max(c._fast_total_steps for c in self.children)
 
     def _bases_at(self, step: int) -> List[Tuple[torch.Tensor, torch.Tensor]]:
-        """Each child's chunk base at local step `step`. A base at infinity
-        needs a slice boundary on a multiple of the group order: impossible
-        inside [1, n)."""
-        out = []
-        for c in self.children:
-            px, py = c._fast_base(step)
-            if px is None:  # pragma: no cover - see docstring
-                raise ValueError("chunk base at infinity (range touches n)")
-            out.append((px, py))
-        return out
+        """Each child's chunk base at local step `step` (never at infinity:
+        that needs a slice boundary on a multiple of the group order)."""
+        return [c._fast_base(step) for c in self.children]
 
     def _sharded_chunk(self, bases):
         """One fused chunk of every child -> (next bases, (host tensor,
-        event)): the D summaries and their summed interest."""
+        event)): the D summaries and their summed interest. Spans: a
+        dispatch a card (its index), the copy."""
         p = self.p
         K, U, C = p.steps_per_chunk, p.block_u, p.chunk_cand
+        tr = current_call()
         nxt, outs = [], []
-        for (px, py), c in zip(bases, self.children):
-            nx, ny, out = c._fused_chunk(px, py)
+        for card, ((px, py), c) in enumerate(zip(bases, self.children)):
+            with tr.span("dispatch", card):
+                tr.device_start(c.device, card)
+                nx, ny, out = c._fused_chunk(px, py)
+                tr.device_end(c.device, card)
             nxt.append((nx, ny))
             outs.append(out)
-        d0 = self.devices[0]
-        packed = torch.stack([o.to(d0, non_blocking=True) for o in outs])
-        interest = ((packed[:, :C] < K * U).sum(dtype=torch.int32)
-                    + packed[:, 2 * C: 2 * C + K].sum(dtype=torch.int32)
-                    + packed[:, 2 * C + 2 * K: 2 * C + 3 * K].sum(dtype=torch.int32)
-                    + (packed[:, 2 * C + 3 * K] > C).sum(dtype=torch.int32))
-        return nxt, summary_to_host(torch.cat([packed.reshape(-1), interest.reshape(1)]))
+        with tr.span("copy"):  # rows: degenerate lanes, advance flags
+            return nxt, gather_to_host(outs, K * U, C, slice(2 * C, 2 * C + K),
+                                       slice(2 * C + 2 * K, 2 * C + 3 * K))
 
     def _decode_sharded(self, arr: np.ndarray, step: int, k: int):
         """(found, rebase) from the (D, summary) array of one chunk, each
@@ -112,101 +107,41 @@ class ShardedBruteEngine:
                 rebase = True
         return found, rebase
 
-    def _ckpt_load(self, checkpoint):
-        """Load or create the position checkpoint -> (ck, local steps done):
-        local device steps decoded in dispatch order, an exact coverage
-        mark across every shard."""
-        p = self.p
-        c0 = self.children[0]
-        params_fp = fingerprint(c0.mode, p.block_u, p.steps_per_chunk, p.stride, p.endo,
-                                self.n_shards)
-        targets_fp = fingerprint(sorted(c0.targets.raw), sorted(c0.intervals),
-                                 sorted(c0.prefixes))
-        a, b = self.slices[0].start, self.slices[-1].end
-        ck = checkpoint.load()
-        if ck is not None:
-            checkpoint.matches(ck, mode=f"brute-sharded:{c0.mode}", range_start=a,
-                               range_end=b, policy="sequential", seed=p.seed,
-                               params_fp=params_fp, targets_fp=targets_fp)
-            self.stats.resume(ck.keys_covered)
-            return ck, ck.chunks_done
-        return Checkpoint(mode=f"brute-sharded:{c0.mode}", range_start=a, range_end=b,
-                          policy="sequential", seed=p.seed, params_fp=params_fp,
-                          targets_fp=targets_fp), 0
-
     def search_sharded(self, max_steps: Optional[int] = None, stop_on_first: bool = False,
                        progress_every: int = 0, max_seconds: Optional[float] = None,
                        checkpoint=None) -> List[FoundKey]:
-        """The pipelined sharded search (the JAX engine's): up to
-        pipeline_depth sharded chunks in flight; only chunks with a
-        non-zero interest are decoded. A child whose advance chain
-        degenerated has the rest of its chunk rescanned on the host, and
-        every child is rebased at the next chunk."""
-        p = self.p
-        self.stats.begin()
-        dl = Deadline(max_seconds)
-        K, U, D = p.steps_per_chunk, p.block_u, self.n_shards
-        total = self.local_steps if max_steps is None else min(self.local_steps, max_steps)
-        found: List[FoundKey] = []
-        seen = set()
-        ck, resumed = (None, 0) if checkpoint is None else self._ckpt_load(checkpoint)
+        """The pipelined sharded search (the JAX engine's) in
+        engine/pipeline.py's loop; only chunks of non-zero interest are
+        decoded. A checkpoint counts local device steps decoded in order,
+        an exact coverage mark across every shard."""
+        p, c0 = self.p, self.children[0]
+        plan = _BruteMeshPlan(self, self.local_steps if max_steps is None
+                              else min(self.local_steps, max_steps))
+        ck = None
+        if checkpoint is not None:
+            ck = pipeline.open_checkpoint(plan, checkpoint, self.stats, dict(
+                mode=f"brute-sharded:{c0.mode}", range_start=self.slices[0].start,
+                range_end=self.slices[-1].end, policy="sequential", seed=p.seed,
+                params_fp=fingerprint(c0.mode, p.block_u, p.steps_per_chunk, p.stride, p.endo,
+                                      self.n_shards),
+                targets_fp=fingerprint(sorted(c0.targets.raw), sorted(c0.intervals),
+                                       sorted(c0.prefixes))))
+        if ck is not None and ck.chunks_done:
+            # the keys the interrupted run saved: resume skips their chunks
+            plan.found0 = c0._reverify_saved(ck)
+            plan.step = min(ck.chunks_done, plan.total)
+        else:  # keys of the lattice-shift edge come before local step 0
+            plan.found0 = [f for c in self.children for f in map(c._verify, c._fast_prefix) if f]
+        return pipeline.run("search_sharded", plan, stop_on_first, max_seconds, progress_every)
 
-        def take(fks) -> bool:
-            new = False
-            for fk in fks:
-                if fk and fk.private_key not in seen:
-                    seen.add(fk.private_key)
-                    found.append(fk)
-                    new = True
-            return new
 
-        if resumed == 0:  # keys of the lattice-shift edge come before local step 0
-            for c in self.children:
-                for k0 in c._fast_prefix:
-                    take([c._verify(k0, 0)])
-            if found and stop_on_first:
-                return found
-        else:  # the keys the interrupted run saved: resume skips their chunks
-            take(self.children[0]._reverify_saved(ck, found))
+class _BruteMeshPlan(pipeline.ShardedPlan):
+    label = "brute-sharded"
 
-        disp = min(resumed, total)
-        bases = self._bases_at(disp) if disp < total else None
-        pending: deque = deque()
-        n_done = 0
-        last_units = disp
-        while pending or disp < total:
-            while disp < total and len(pending) < p.pipeline_depth and not dl.expired():
-                bases, out = self._sharded_chunk(bases)
-                pending.append((disp, out))
-                disp += K
-            if not pending:
-                break  # the deadline cut dispatch with nothing in flight
-            step, (host, ev) = pending.popleft()
-            if ev is not None:
-                ev.synchronize()
-            k = min(K, total - step)
-            rebase = new_any = False
-            arr = host.numpy()
-            if int(arr[-1]) > 0:
-                new_found, rebase = self._decode_sharded(arr[:-1].reshape(D, -1), step, k)
-                new_any = take(new_found)
-            self.stats.add(sum(max(0, min(k, c._fast_total_steps - step))
-                               for c in self.children) * U)
-            n_done += 1
-            done_all = not pending and disp >= total
-            BruteEngine._ckpt_save(checkpoint, ck, step + k, self.stats, found, new_any,
-                                   force=done_all or bool(found and stop_on_first))
-            if found and stop_on_first:
-                return found
-            last_units = step + k
-            if rebase and step + K < total:
-                pending.clear()
-                disp = step + K
-                bases = self._bases_at(disp)
-            if progress_every and n_done % progress_every == 0:
-                print(f"[brute-sharded] local step {step + K}/{total} {self.stats.human()}")
-        if ck is not None and n_done:
-            # a deadline or stop-flag cut: save the exactly covered position
-            BruteEngine._ckpt_save(checkpoint, ck, last_units, self.stats, found, False,
-                                   force=True)
-        return found
+    def keys(self, step: int) -> int:
+        k = min(self.K, self.total - step)
+        return sum(max(0, min(k, c._fast_total_steps - step))
+                   for c in self.eng.children) * self.eng.p.block_u
+
+    def mark(self, ck, step: int, n_done: int) -> None:
+        ck.chunks_done = step + min(self.K, self.total - step)

@@ -35,17 +35,17 @@ covered and the checkpoint positions are the same.
 from __future__ import annotations
 
 import math
-from collections import deque
-from typing import Dict, List, NamedTuple, Optional, Sequence, Tuple
+from typing import List, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
 
-from ..core.checkpoint import Checkpoint, fingerprint
+from ..core.checkpoint import fingerprint
 from ..core.metrics import current_call, spanned
-from ..engine.bsgs import (BSGSEngine, BSGSParams, _chunk_walk, _ImmediateHit, chunk_impl,
+from ..engine import pipeline
+from ..engine.bsgs import (BSGSEngine, BSGSParams, _BSGSPlan, _chunk_walk, chunk_impl,
                            chunk_summary, device_budgets, write_table)
-from ..engine.common import Deadline, FoundKey, search_loop, summary_to_host
+from ..engine.common import FoundKey, summary_to_host
 from ..filter import bitmap as bmp
 from ..filter import sorted_table as st
 from .partition import RangePartitioner, RangeSlice
@@ -110,12 +110,16 @@ class _Filters(NamedTuple):
     bloom2: Optional[bmp.DeviceBloom2]
 
 
-def _interest(outs: torch.Tensor, B: int, C: int, n_deg: slice) -> torch.Tensor:
-    """() int32 on outs' device: the (D, W) summaries' live survivors
-    (positions < B among the first C words), degenerate lanes (the n_deg
-    words) and overflows (last word > C), summed over the shards."""
-    return ((outs[:, :C] < B).sum(dtype=torch.int32) + outs[:, n_deg].sum(dtype=torch.int32)
-            + (outs[:, -1] > C).sum(dtype=torch.int32))
+def gather_to_host(outs: List[torch.Tensor], B: int, C: int, *rows: slice):
+    """The D summaries stacked on the first one's device, their interest
+    summed over the shards as one more word (live survivors: positions < B
+    among the first C words; the words of `rows`; overflows: a last word
+    > C), in one asynchronous host copy -> (host tensor, event)."""
+    packed = torch.stack([o.to(outs[0].device, non_blocking=True) for o in outs])
+    interest = ((packed[:, :C] < B).sum(dtype=torch.int32)
+                + (packed[:, -1] > C).sum(dtype=torch.int32)
+                + sum(packed[:, r].sum(dtype=torch.int32) for r in rows))
+    return summary_to_host(torch.cat([packed.reshape(-1), interest.reshape(1)]))
 
 
 class ShardedBSGSEngine(BSGSEngine):
@@ -158,11 +162,8 @@ class ShardedBSGSEngine(BSGSEngine):
     def _bases_at(self, step: int):
         """[(px, py)] of each shard at local step `step`, on its device;
         raises _ImmediateHit where a shard's base center is a key."""
-        out = []
-        for sl, d in zip(self.slices, self.devices):
-            px, py = self._initial_base(sl.step0 + step)
-            out.append((px.to(d), py.to(d)))
-        return out
+        return [tuple(t.to(d) for t in self._initial_base(sl.step0 + step))
+                for sl, d in zip(self.slices, self.devices)]
 
     def _sharded_chunk(self, bases):
         """One chunk of every shard -> (next bases, (host tensor, event)):
@@ -188,10 +189,7 @@ class ShardedBSGSEngine(BSGSEngine):
 
     def _to_host(self, outs: List[torch.Tensor], B: int):
         C2, TK = self.C2, len(self.targets) * self.p.steps_per_chunk
-        d0 = self.devices[0]
-        packed = torch.stack([o.to(d0, non_blocking=True) for o in outs])
-        interest = _interest(packed, B, C2, slice(3 * C2, 3 * C2 + TK))
-        return summary_to_host(torch.cat([packed.reshape(-1), interest.reshape(1)]))
+        return gather_to_host(outs, B, C2, slice(3 * C2, 3 * C2 + TK))  # rows: degenerate lanes
 
     def _decode_sharded(self, arr: np.ndarray, step: int, k: int):
         """(found, rebase) from the (D, summary) array of one chunk: each
@@ -205,160 +203,52 @@ class ShardedBSGSEngine(BSGSEngine):
             rebase |= adv
         return found, rebase
 
-    def _rescan_chunk(self, step: int, k: int) -> List[FoundKey]:
-        """Exact host scan of k local steps from `step` in every shard."""
-        found: List[FoundKey] = []
-        for sl in self.slices:
-            for s_ in range(step, step + k):
-                found += self._host_rescan_step(sl.step0 + s_)
-        return found
 
-    @search_loop("search_sharded")
     def search_sharded(self, max_steps: Optional[int] = None, stop_on_first: bool = True,
                        progress_every: int = 0, max_seconds: Optional[float] = None,
                        checkpoint=None) -> List[FoundKey]:
-        """The pipelined sharded search (the JAX engine's search_sharded):
-        up to pipeline_depth sharded chunks in flight, each with one
-        asynchronous host copy of its summaries and interest; only
-        interesting chunks are decoded. All shards advance in lock step,
-        so a checkpoint (core.checkpoint.CheckpointManager) counts decoded
-        chunks of K local steps; a resumed run rebases every shard there."""
-        tr = current_call()
-        sp = tr.chunk_spans()
+        """The pipelined sharded search (the JAX engine's search_sharded)
+        in engine/pipeline.py's loop; only chunks of non-zero interest are
+        decoded. The shards advance in lock step, so a checkpoint counts
+        decoded chunks of K local steps."""
         p = self.p
-        dl = Deadline(max_seconds)
-        K, D = p.steps_per_chunk, self.n_shards
-        total = self.local_steps if max_steps is None else min(self.local_steps, max_steps)
-        keys_chunk = self.n_shards * p.block_u * self.stride
-        found: List[FoundKey] = []
-
-        resume_step = 0
-        ck = None
+        K = p.steps_per_chunk
+        plan = _MeshPlan(self, self.local_steps if max_steps is None
+                         else min(self.local_steps, max_steps))
         if checkpoint is not None:
             # n_shards is part of the run's identity: the step -> key map
             # goes through the slices
-            params_fp = fingerprint(p.m, p.block_u, p.steps_per_chunk, self.n_shards,
-                                    type(self).__name__)
-            targets_fp = fingerprint(sorted(self.targets))
-            ck = checkpoint.load()
+            ck = pipeline.open_checkpoint(
+                plan, checkpoint, self.stats,
+                dict(mode="bsgs-sharded", range_start=self.a, range_end=self.b,
+                     policy="sequential", seed=0,
+                     params_fp=fingerprint(p.m, p.block_u, K, self.n_shards, type(self).__name__),
+                     targets_fp=fingerprint(sorted(self.targets))), n_chunks=plan.n_chunks)
             if ck is not None:
-                checkpoint.matches(ck, mode="bsgs-sharded", range_start=self.a,
-                                   range_end=self.b, policy="sequential", seed=0,
-                                   params_fp=params_fp, targets_fp=targets_fp)
-                resume_step = ck.chunks_done * K
-                self.stats.resume(ck.keys_covered)
+                plan.step = ck.chunks_done * K
                 # the keys the interrupted run saved: resume skips their chunks
-                found += self._try_candidates_all([int(h, 16) for h in ck.found])
-            else:
-                ck = Checkpoint(mode="bsgs-sharded", range_start=self.a, range_end=self.b,
-                                policy="sequential", seed=0, params_fp=params_fp,
-                                targets_fp=targets_fp, n_chunks=math.ceil(total / K))
-            if resume_step >= total:
-                return found
+                plan.found0 = self._try_candidates_all([int(h, 16) for h in ck.found])
+        return pipeline.run("search_sharded", plan, stop_on_first, max_seconds, progress_every)
 
-        def _save(force: bool = False) -> None:
-            if ck is None:
-                return
-            ck.keys_covered = self.stats.keys_covered
-            if found:
-                ck.found = sorted(set(ck.found) | {f"{f.private_key:x}" for f in found})
-            checkpoint.save(ck, force=force)
 
-        bases = None
-        while bases is None:
-            try:
-                bases = self._bases_at(resume_step)
-            except _ImmediateHit as hit:
-                # a shard's base center is a key: record it, rescan this
-                # chunk of every shard on the host, go on from the next one
-                found += self._try_candidates_all([hit.scalar])
-                if found and stop_on_first:
-                    return self._dedupe(found)
-                k0 = min(K, total - resume_step)
-                found = self._dedupe(found + self._rescan_chunk(resume_step, k0))
-                self.stats.add(k0 * keys_chunk)
-                if found and stop_on_first:
-                    return found
-                resume_step += K
-                if ck is not None:
-                    ck.chunks_done = resume_step // K
-                    _save(force=True)
-                if resume_step >= total:
-                    return found
-        pending: deque = deque()
-        disp = resume_step
-        n_done = 0
-        while pending or disp < total:
-            while disp < total and len(pending) < p.pipeline_depth and not dl.expired():
-                tr.chunk = disp  # _sharded_chunk's spans: a dispatch a card, the copy
-                bases, out = self._sharded_chunk(bases)
-                pending.append((disp, out))
-                disp += K
-            if not pending:
-                # the deadline cut dispatch with nothing in flight
-                _save(force=True)
-                break
-            step, (host, ev) = pending.popleft()
-            tr.chunk = step
-            with sp.wait:
-                if ev is not None:
-                    ev.synchronize()
-            tr.device_done(ev)
-            tr.count("chunks_decoded")
-            k = min(K, total - step)
-            rebase = False
-            new_found: List[FoundKey] = []
-            arr = host.numpy()
-            if int(arr[-1]) > 0:
-                with sp.decode:
-                    new_found, rebase = self._decode_sharded(arr[:-1].reshape(D, -1), step, k)
-                if new_found:
-                    found = self._dedupe(found + new_found)
-                    if stop_on_first:
-                        self.stats.add(k * keys_chunk)
-                        if ck is not None:
-                            ck.chunks_done = step // K + 1
-                            _save(force=True)
-                        return found
-            self.stats.add(k * keys_chunk)
-            n_done += 1
-            if ck is not None:
-                ck.chunks_done = step // K + 1
-                # keys found with stop_on_first off force a write: a crash
-                # after this chunk must not lose them (resume skips it)
-                _save(force=rebase or bool(new_found) or step + K >= total)
-            if rebase and step + K < total:
-                # a shard's advance degenerated: drop what was dispatched
-                # after it and rebase every shard exactly
-                pending.clear()
-                disp = step + K
-                tr.count("rebases")
-                try:
-                    with tr.span("rebase"):
-                        bases = self._bases_at(disp)
-                except _ImmediateHit as hit:
-                    found += self._try_candidates_all([hit.scalar])
-                    if found and stop_on_first:
-                        return self._dedupe(found)
-                    while disp < total:
-                        # the chunk anchored at the key was never walked
-                        k0 = min(K, total - disp)
-                        found = self._dedupe(found + self._rescan_chunk(disp, k0))
-                        self.stats.add(k0 * keys_chunk)
-                        if found and stop_on_first:
-                            return found
-                        disp += K
-                        try:
-                            with tr.span("rebase"):
-                                bases = self._bases_at(disp)
-                            break
-                        except _ImmediateHit as hit2:
-                            found += self._try_candidates_all([hit2.scalar])
-            if progress_every and n_done % progress_every == 0:
-                print(f"[bsgs-sharded] local step {step + K}/{total} {self.stats.human()}")
-        return self._dedupe(found)
+class _MeshPlan(pipeline.ShardedPlan):
+    label = "bsgs-sharded"
+    found_key = staticmethod(_BSGSPlan.found_key)
 
-    _dedupe = staticmethod(BSGSEngine._dedupe_found)
+    def keys(self, step: int) -> int:
+        eng = self.eng
+        return min(self.K, self.total - step) * eng.n_shards * eng.p.block_u * eng.stride
+
+    def on_host(self, step: int, scalar: int):
+        """A shard's base center is a key: the chunk of every shard,
+        rescanned on the host."""
+        eng, k = self.eng, min(self.K, self.total - step)
+        rescan = [f for sl in eng.slices for s_ in range(sl.step0 + step, sl.step0 + step + k)
+                  for f in eng._host_rescan_step(s_)]
+        return eng._try_candidates_all([scalar]) + rescan, self.keys(step)
+
+    def mark(self, ck, step: int, n_done: int) -> None:
+        ck.chunks_done = step // self.K + 1
 
 
 class ShardedTableBSGSEngine(ShardedBSGSEngine):
@@ -398,10 +288,7 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
                                   "table lives sharded across the devices): use "
                                   "search_sharded()")
 
-    def search_scheduled(self, *a, **kw):
-        raise NotImplementedError("ShardedTableBSGSEngine has no single-device search (the "
-                                  "table lives sharded across the devices): use "
-                                  "search_sharded()")
+    search_scheduled = search
 
     def _shard_structures(self, table: st.SortedXTable) -> None:
         """Cut the sorted table into D contiguous row shards (sorted order:
@@ -571,44 +458,21 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
 
     def _decode_sharded(self, arr: np.ndarray, step: int, k: int):
         """(found, rebase) from the (D prober, summary) array of one chunk.
-        Candidate positions are in the global source-major query space;
-        degenerate lanes are the prober's own walk's (prober = source)."""
-        p = self.p
-        T, K, U, D, C2 = len(self.targets), p.steps_per_chunk, p.block_u, self.n_shards, self.C2
-        B = T * K * U
-        found: List[FoundKey] = []
-        adv_first: Dict[int, int] = {}
-        for prober in range(D):
-            row = arr[prober]
-            cand_pos = row[:C2]
-            js = row[C2: 3 * C2].view(np.uint32).reshape(2, C2)
-            degsum = row[3 * C2: 3 * C2 + 3 * T * K].reshape(3, T, K)
-            if int(row[-1]) > C2:
-                # this prober's shard overflowed: every source's steps, exactly
-                current_call().count("cascade_overflows")
-                found += self._rescan_chunk(step, k)
-            for c in np.nonzero(cand_pos < D * B)[0]:
-                d_src, rem = divmod(int(cand_pos[c]), B)
-                blk, u0 = divmod(rem, U)
-                t, s_ = divmod(blk, K)
-                if s_ >= k:
-                    continue
-                g_step = self.slices[d_src].step0 + step + s_
-                cands = []
-                for j in (int(js[0, c]), int(js[1, c])):
-                    if j:
-                        cands += self._candidates_for_hit(g_step, u0 + 1, j)
-                found += self._try_candidates(cands, t)
-            for t, s_ in zip(*np.nonzero(degsum[0, :, :k] > 0)):
-                u = int(degsum[1, t, s_]) + 1
-                g_step = self.slices[prober].step0 + step + int(s_)
-                found += self._try_candidates(self._candidates_for_degenerate(g_step, u), int(t))
-            adv_any = degsum[2, :, :k].any(axis=0)
-            if adv_any.any():
-                adv_first[prober] = int(np.argmax(adv_any))
-        # steps after a prober's first advance degeneracy walked invalid
-        # state: rescan them exactly for its slice
-        for prober, s_first in adv_first.items():
-            for s_ in range(s_first + 1, k):
-                found += self._host_rescan_step(self.slices[prober].step0 + step + s_)
-        return found, bool(adv_first)
+        Candidate positions are in the global source-major query space, and
+        the degenerate rows are the prober's own walk's (prober = source):
+        each prober's row goes through the single-device decoder once a
+        source, with that source's candidates, at its slice's global step
+        (an overflow rescans every source's steps)."""
+        B = len(self.targets) * self.p.steps_per_chunk * self.p.block_u
+        C2, found, rebase = self.C2, [], False
+        for prober, row in enumerate(arr):
+            pos = row[:C2]
+            for d, sl in enumerate(self.slices):
+                part = row.copy()
+                part[:C2] = np.where((pos >= d * B) & (pos < (d + 1) * B), pos - d * B, B)
+                if d != prober:
+                    part[3 * C2:-1] = 0
+                f, adv, _ = self._consume_summary(sl.step0 + step, k, part)
+                found += f
+                rebase |= adv
+        return found, rebase
