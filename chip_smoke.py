@@ -17,12 +17,19 @@ any failure exits non-zero before the result line:
    plus K1 against
    ecref at T = 1
    and 16 with P == j*ADV (doubling lanes: j = 1, K/2) and P == -j*ADV
-   (infinity lanes: j = 3, K) planted, K1 and K2 also at the filter
-   build's shape (K = 128; R = 128, U = 4096), K2 with planted dx == 0
-   lanes at block edges, K2 with the level-1 probe (the BSGS chunk's
-   form: its walk held to K2 alone's, its survivor mask to the plain
-   version's and the mask's compaction, kh_mask_compact, to
-   kh_probe_compact's over the same keys, each timed), K3 also
+   (infinity lanes: j = 3, K) planted, with the paired walk's centre lanes
+   as the BSGS chunk runs K1 (every centre against ecref, and row 0's at
+   infinity planted) and without them, K1 and K2 also at the filter
+   build's shape (K = 128; R = 128, U = 4096), K2 as the chunk runs it,
+   the paired walk over K1's centres, with planted dx == 0 lanes at block
+   edges and, apart, every rare lane of tests/pair_walk_model.py (base =
+   +-tab_u, a pair with dx == 0, base = +-c*S, bases off the curve, x3
+   below 2^32 + 977, dy == 0; the planted rows' centres by K1 at K = 1),
+   beside K2 a point a thread on the same bases, K2 with the level-1 probe
+   (the BSGS chunk's form: its walk held to the plain version's, its
+   survivor mask to the plain version's and the mask's compaction,
+   kh_mask_compact, to kh_probe_compact's over the same keys, each timed),
+   K3 also
    against np.bitwise_or.at, with its degeneracy count (degenerate lanes
    planted inside and past the kept prefix) and in its bitmap-only and
    bloom-only forms (the bloom alone also at 2^32 bits, a device table's),
@@ -310,6 +317,19 @@ KERNEL_NOTES = {"insert_keys": {"note": "replaces XLA glue, not a Pallas kernel:
                                         "(filter/bitmap.py:162-188, :570-591), in its "
                                         "bitmap-only and bloom-only forms; no torch call "
                                         "ORs into words (scatter_reduce has no OR)"},
+                "advance_chain": {"note": "ms: K1 with the paired walk's centre lanes, as "
+                                          "the BSGS chunk runs it (T = 1, K = 256: 2K adds, "
+                                          "which bound_ms counts); bases_ms: without them, "
+                                          "as the brute path runs it"},
+                "walk_blocks": {"note": "ms, fused_ms: the paired walk (walk_pairs_kernel) "
+                                        "as the BSGS chunk runs it at R = 256, U = 16384, "
+                                        "alone and with the level-1 probe; point_ms, "
+                                        "point_fused_ms: walk_blocks_kernel, a point a "
+                                        "thread, on the same bases (shapes with U % 64 "
+                                        "!= 0); bound_ms counts 4 products and a squaring "
+                                        "a point (khbench's frozen walk_point_ops), "
+                                        "paired_bound_ms the paired walk's 2.5 and a "
+                                        "squaring"},
                 "minikey_compact_keys": {"note": "replaces XLA glue, not a Pallas kernel: the "
                                                  "count, compaction and key derivation of "
                                                  "_minikey_finish_impl (engine/minikeys.py:"
@@ -491,6 +511,15 @@ def walk_point_ops(points):
     batch's three products per point, lambda, lambda^2, x3, and the
     batch's one inversion shared out."""
     return 2 * (SUB_OPS + 4) + 4 * MUL_OPS + SQR_OPS + 3 * SUB_OPS + INV_OPS / points
+
+
+def walk_pair_point_ops(points):
+    """The least work of the paired walk per point (two points to a pair
+    centre +- t_d): half of a pair's dx (with its zero test), its three
+    chain products, two lambdas, two squarings and five subtractions (dy
+    twice, x_C + x_t, x3 twice), and the batch's one inversion shared out:
+    2.5 products and a squaring a point, against walk_point_ops' 4."""
+    return (SUB_OPS + 4) / 2 + 2.5 * MUL_OPS + SQR_OPS + 2.5 * SUB_OPS + INV_OPS / points
 
 
 def k4_ops(mode, n_endo, T, TB, points):
@@ -818,20 +847,24 @@ def phase1_kernels(dev, results, clock):
         return (torch.stack([limbs(p[0]) for p in pts]).t().contiguous().to(dev),
                 torch.stack([limbs(p[1]) for p in pts]).t().contiguous().to(dev))
 
+    import pair_walk_model as pm  # tests/: the paired walk's rare lanes
+
     stride = 2 * (1 << 28)  # the main path's m
+    s_pt = ecref.point_neg(ecref.scalar_mult(stride))  # the search step S
     adv = ecref.point_neg(ecref.scalar_mult(U * stride))  # the search ADV = U*S
     adv_k = (-U * stride) % ecref.N
-    ax, ay = limbs(adv[0]).to(dev), limbs(adv[1]).to(dev)
-    tab = pwalk.adv_multiples(adv, K, dev)  # the engine's table, built once
+    walk = pwalk.walk_tables(s_pt, U, adv, K, dev)  # the engine's tables, built once
+    ax, ay, tab, ctab = walk.adv_x, walk.adv_y, walk.adv_tab, walk.pair_tab[2:]
+    cS = ecref.scalar_mult(pm.centre_scalar(U), s_pt)  # a row's centre is its base + c*S
 
     def check_k1(ks, adv_pt, ak, got):
         """Every lane of K1's output against ecref: lane s of target t is
         P_t + s*ADV (the next state at s = K; ADV = ak*G); flagged exactly
         where that is the point at infinity. Returns the number of doubling
-        lanes."""
-        bx, by, nx, ny, adeg = (t.cpu().numpy() for t in got)
+        lanes and the bases' points, column t*K + s (None at infinity)."""
+        bx, by, nx, ny, adeg = (t.cpu().numpy() for t in got[:5])
         T_, K_ = adeg.shape
-        n_dbl = 0
+        n_dbl, rows = 0, []
         for t, k in enumerate(ks):
             pt = ecref.scalar_mult(k)
             for s in range(K_ + 1):
@@ -840,84 +873,165 @@ def phase1_kernels(dev, results, clock):
                     pt = ecref.point_add(pt, adv_pt)
                     if bool(adeg[t, s - 1]) != (pt is None):
                         fail(f"K1 flag t={t} s={s - 1} is not the infinity of P + {s}*ADV")
+                if s < K_:
+                    rows.append(pt)
                 if pt is None:
                     continue
                 x, y = ((bx[:, t * K_ + s], by[:, t * K_ + s]) if s < K_
                         else (nx[:, t], ny[:, t]))
                 if (fe.limbs_to_int(x.view(np.uint32)), fe.limbs_to_int(y.view(np.uint32))) != pt:
                     fail(f"K1 lane t={t} s={s} differs from ecref")
-        return n_dbl
+        return n_dbl, rows
 
-    # K1 at the main path's shape T=1 (the kernels line) and planted: a
-    # doubling at the middle lane (P == K/2*ADV) and the point at infinity
-    # in the next state (P == -K*ADV); at T=16 those and P == ADV (lane 1
-    # doubles) and P == -3*ADV (lane 3 is infinite) side by side
+    def check_centres(rows, got, c_pt, what):
+        """K1's centre lanes (got[5:]: centres and flags) against ecref: row
+        r's centre is rows[r] + c*S (c_pt), flagged exactly where rows[r] is
+        at infinity or off the curve or the centre is the point at infinity.
+        Returns the number of flagged rows."""
+        cx, cy, cflag = (t.cpu().numpy() for t in got[5:])
+        for r, b in enumerate(rows):
+            want = None if b is None or not ecref.is_on_curve(b) else ecref.point_add(b, c_pt)
+            if bool(cflag[r]) != (want is None):
+                fail(f"K1 centre flag {what} row {r} is {bool(cflag[r])}, ecref's "
+                     f"{want is None}")
+            if want is not None and (fe.limbs_to_int(cx[:, r].view(np.uint32)),
+                                     fe.limbs_to_int(cy[:, r].view(np.uint32))) != want:
+                fail(f"K1 centre {what} row {r} differs from ecref")
+        return int(cflag.sum())
+
+    # K1 at the main path's shape T=1 (the kernels line), with the paired
+    # walk's centre lanes as the BSGS chunk runs it and without them, and
+    # planted: a doubling at the middle lane (P == K/2*ADV), the point at
+    # infinity in the next state (P == -K*ADV) and row 0's centre at
+    # infinity (P == -c*S); at T=16 those and P == ADV (lane 1 doubles) and
+    # P == -3*ADV (lane 3 is infinite, its row's centre flagged) side by side
     base_k = [0x1234567890ABCDEF + 99991 * t for t in range(16)]
-    plants = [K // 2 * adv_k % ecref.N, -K * adv_k % ecref.N, adv_k, -3 * adv_k % ecref.N]
+    c_k = pm.centre_scalar(U) * stride % ecref.N  # c_k*G = -c*S
+    plants = [K // 2 * adv_k % ecref.N, -K * adv_k % ecref.N, adv_k, -3 * adv_k % ecref.N, c_k]
     for name, ks in (("T=1", base_k[:1]), ("T=1 P=K/2*ADV", plants[:1]),
-                     ("T=1 P=-K*ADV", plants[1:2]), ("T=16 planted", plants + base_k[4:])):
+                     ("T=1 P=-K*ADV", plants[1:2]), ("T=1 P=-c*S", plants[4:]),
+                     ("T=16 planted", plants + base_k[5:])):
         px, py = cols([ecref.scalar_mult(k) for k in ks])
-        ms, got = device_ms(lambda: pwalk.advance_chain(px, py, ax, ay, K, tab), 20)
-        pms, want = timed(lambda: pwalk.advance_chain_ref(px, py, ax, ay, K, tab), 1)
-        err = max_abs_err(got, want)
-        if err:
-            fail(f"K1 advance_chain {name} differs from its plain version (max_abs_err {err})")
-        n_dbl = check_k1(ks, adv, adv_k, got)
-        log(f"K1 advance_chain {name} K={K}: equal to plain and to ecref on every lane "
-            f"({n_dbl} doubling, {int(got[4].sum())} infinite); {ms:.4f} ms (plain {pms:.1f} ms)")
+        bases_ms, got = device_ms(lambda: pwalk.advance_chain(px, py, ax, ay, K, tab), 20)
+        ms, cgot = device_ms(lambda: pwalk.advance_chain(px, py, ax, ay, K, tab, ctab), 20)
+        pms, want = timed(lambda: pwalk.advance_chain_ref(px, py, ax, ay, K, tab, ctab), 1)
+        err = max_abs_err(cgot, want) + max_abs_err(got, cgot[:5])
+        if err or len(cgot) != 8:
+            fail(f"K1 advance_chain {name} differs from its plain version or from K1 without "
+                 f"the centre lanes (max_abs_err {err})")
+        n_dbl, rows = check_k1(ks, adv, adv_k, got)
+        n_cf = check_centres(rows, cgot, cS, name)
+        log(f"K1 advance_chain {name} K={K}: bases and centres equal to plain and to ecref on "
+            f"every lane ({n_dbl} doubling, {int(got[4].sum())} infinite, {n_cf} centres "
+            f"flagged); {ms:.4f} ms with the centre lanes, {bases_ms:.4f} ms without "
+            f"(plain {pms:.1f} ms)")
         if name == "T=1":
-            k1_ms, k1_plain, k1_err = ms, pms, err
+            k1_ms, k1_bases_ms, k1_plain, k1_err = ms, bases_ms, pms, err
     # the latency floor: one inversion on one thread (pinv at n = 1, the
     # same fe_inv_const) plus the tile's product tree
     one = limbs(3).to(dev)[:, None]
     inv1_ms, _ = device_ms(lambda: pinv.inv_batch(one), 20)
-    bms, by_ = bound_ms(k1_ops(1, K), k1_bytes(1, K), clock)
-    log(f"K1 at T=1 K={K}: {k1_ms:.4f} ms; least work {bms:.6f} ms by {by_}; latency floor "
-        f"one inversion on one thread ({inv1_ms:.4f} ms, pinv at n = 1) and the tile's "
-        f"product tree; plain {k1_plain:.1f} ms")
+    bms, by_ = bound_ms(k1_ops(1, 2 * K), k1_bytes(1, 2 * K), clock)
+    log(f"K1 at T=1 K={K} with the centre lanes: {k1_ms:.4f} ms ({k1_bases_ms:.4f} without); "
+        f"least work of its 2K adds {bms:.6f} ms by {by_}; latency floor one inversion on one "
+        f"thread ({inv1_ms:.4f} ms, pinv at n = 1) and the tile's product tree; plain "
+        f"{k1_plain:.1f} ms")
     results["advance_chain"] = dict(max_abs_err=k1_err, ms=k1_ms, plain_ms=k1_plain,
-                                    bound_ms=bms, bound_by=by_)
+                                    bound_ms=bms, bound_by=by_, bases_ms=k1_bases_ms)
 
-    # K2 at R=K=256, U=16384 (T=1) over every lane, with planted dx == 0
-    # lanes: two inside blocks, the rest at the first and last thread of a
-    # block and in the last row
-    s_pt = ecref.point_neg(ecref.scalar_mult(stride))
-    tab_x, tab_y = tables.step_table(s_pt, U)
-    tx = pwalk.table_to_limb_major(tab_x, dev)
-    ty = pwalk.table_to_limb_major(tab_y, dev)
-    px, py = cols([ecref.scalar_mult(0x7CCE5EFDACCF6808 - 12345)])
-    bx, by, _, _, _ = pwalk.advance_chain(px, py, ax, ay, K, tab)
+    def base_rows(bx, by, rows):
+        """The bases (x, y) of columns `rows` as python ints."""
+        xs, ys = (t[:, rows].t().contiguous().cpu().numpy().view(np.uint32) for t in (bx, by))
+        return [(fe.limbs_to_int(x), fe.limbs_to_int(y)) for x, y in zip(xs, ys)]
 
-    def plant_k2(bx, by, tab_x, tab_y, plants):
+    def replant(bx, by, centres, rows, wk, c_pt, what):
+        """Plant `rows` ({row: base (x, y), ints}) in K1's bases, and their
+        centres and flags from K1 itself: K1 with the centre lanes at K = 1
+        over the planted bases as its targets (the centre table c*S), held
+        to its plain version and to ecref, written over centres (K1's (x, y,
+        flags) of the chunk). Returns the number of planted rows flagged."""
+        for r, (x, y) in rows.items():
+            bx[:, r], by[:, r] = limbs(x).to(dev), limbs(y).to(dev)
+        idx = sorted(rows)
+        rx, ry = bx[:, idx].contiguous(), by[:, idx].contiguous()
+        a_tab = tuple(t[:, :1].contiguous() for t in wk.adv_tab)
+        c_tab = tuple(t[:, :1].contiguous() for t in wk.pair_tab[2:])  # j = 0: c*S
+        got = pwalk.advance_chain(rx, ry, wk.adv_x, wk.adv_y, 1, a_tab, c_tab)
+        if max_abs_err(got, pwalk.advance_chain_ref(rx, ry, wk.adv_x, wk.adv_y, 1, a_tab,
+                                                    c_tab)) or len(got) != 8:
+            fail(f"K1's centre lanes over the {what} plants differ from the plain version")
+        n = check_centres(base_rows(bx, by, idx), got, c_pt, what)
+        for dst, src in zip(centres, got[5:]):
+            dst[..., idx] = src
+        return n
+
+    def edge_plants(tab_x, tab_y, plants):
         """base row = tab[u] (sign 1) or -tab[u]: dx == 0 at (row, u)"""
+        out = {}
         for row, u, sign in plants:
             y = fe.limbs_to_int(tab_y[u])
-            bx[:, row] = limbs(fe.limbs_to_int(tab_x[u])).to(dev)
-            by[:, row] = limbs(y if sign > 0 else ecref.P - y).to(dev)
+            out[row] = (fe.limbs_to_int(tab_x[u]), y if sign > 0 else ecref.P - y)
+        return out
 
     def edges(R_, U_):
         return ((0, 0, 1), (1, 127, -1), (R_ // 2, 128, 1), (R_ // 2 + 1, 255, -1),
                 (R_ - 2, U_ // 2, 1), (R_ - 1, U_ - 1, -1))
 
+    def rare_plants(R_, S_, tab_x, tab_y, taken):
+        """tests/pair_walk_model.py's rare lanes of the paired walk, each
+        case's rows moved clear of `taken` (a 32-row group apart where they
+        fit): base = +-tab_u at both columns of a pair and at a block's first
+        and last pair, a pair with dx == 0 on each side, base = +-c*S (the
+        centre at infinity, a doubling centre), bases off the curve, x3
+        below 2^32 + 977 and dy == 0."""
+        pts = [(fe.limbs_to_int(x), fe.limbs_to_int(y)) for x, y in zip(tab_x, tab_y)]
+        out = {}
+        for case in ("plus_minus", "pair_dx_zero", "centre", "off_curve", "fe_edges"):
+            rows = pm.plants(case, len(pts), pts, S_)
+            off = next(o for o in (*range(0, R_, 32), *range(R_))
+                       if all(r + o < R_ and r + o not in taken for r in rows))
+            for r, b in rows.items():
+                out[r + off] = b
+                taken.add(r + off)
+        return out
+
+    # K2 at R=K=256, U=16384 (T=1) as the BSGS chunk runs it: the paired walk
+    # (walk_pairs_kernel) over K1's bases and centres, with planted dx == 0
+    # lanes (two inside blocks, the rest at the first and last thread of a
+    # block and in the last row), which it walks alone after its loop; held
+    # to the plain version over every lane, beside K2 a point a thread
+    # (walk_blocks_kernel, which shapes with U % 64 != 0 run) on the same
+    # bases
+    tab_x, tab_y = tables.step_table(s_pt, U)
+    tx, ty = walk.tab_x, walk.tab_y
+    px, py = cols([ecref.scalar_mult(0x7CCE5EFDACCF6808 - 12345)])
+    bx, by, _, _, _, *centres = pwalk.advance_chain(px, py, ax, ay, K, tab, ctab)
     plants = ((K // 32, U // 164, 1), (K * 25 // 32, U * 5 // 16, -1)) + edges(K, U)
-    plant_k2(bx, by, tab_x, tab_y, plants)
+    replant(bx, by, centres, edge_plants(tab_x, tab_y, plants), walk, cS, "edge")
+    pairs = (*walk.pair_tab[:2], *centres)
     pms, want = timed(lambda: pwalk.walk_blocks_ref(bx, by, tx, ty), 1)
-    ms, got = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty), 20)
-    k2_err = max_abs_err(got, want)
+    ms, got = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty, None, pairs), 20)
+    point_ms, got1 = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty), 20)
+    k2_err = max_abs_err(got, want) + max_abs_err(got1, want)
     if k2_err:
-        fail("K2 walk_blocks differs from its plain version")
+        fail("K2 walk_blocks (the paired walk or a point a thread) differs from its plain "
+             "version")
     deg = got[2].cpu().numpy()
     if not all(deg[row, u] for row, u, _ in plants):
         fail("K2 planted dx == 0 lanes not flagged")
-    log(f"K2 walk_blocks R={K} U={U}: equal to plain over every lane, "
-        f"dx==0 flagged; {ms:.4f} ms (plain {pms:.1f} ms)")
-    bms, by_ = bound_ms(walk_point_ops(K * U) * K * U, 64 * (K + U) + 9 * K * U, clock)
-    results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms,
-                                  bound_ms=bms, bound_by=by_)
+    log(f"K2 walk_blocks R={K} U={U}: the paired walk equal to plain over every lane, "
+        f"dx==0 flagged; {ms:.4f} ms (a point a thread {point_ms:.4f} ms, the same words; "
+        f"plain {pms:.1f} ms)")
+    nbytes = 64 * (K + U) + 9 * K * U
+    bms, by_ = bound_ms(walk_point_ops(K * U) * K * U, nbytes, clock)
+    pbms, _ = bound_ms(walk_pair_point_ops(K * U) * K * U, nbytes, clock)
+    results["walk_blocks"] = dict(max_abs_err=k2_err, ms=ms, plain_ms=pms, bound_ms=bms,
+                                  bound_by=by_, paired_bound_ms=pbms, point_ms=point_ms)
     # K2 with the level-1 probe (the BSGS chunk's form) against a 2^35-bit
-    # bitmap of m = 2^28's density: the walk's words bit for bit the walk
-    # alone's, the survivor mask its plain version's, and its compaction
-    # (kh_mask_compact) kh_probe_compact's over the same keys
+    # bitmap of m = 2^28's density: the walk's words bit for bit the plain
+    # version's, the survivor mask its plain version's, and its compaction
+    # (kh_mask_compact) kh_probe_compact's over the same keys; a point a
+    # thread beside it
     g = torch.Generator(device=dev).manual_seed(35)
     words = torch.randint(-2**31, 2**31, (1 << (MAIN_BITS - 5),), dtype=torch.int32,
                           device=dev, generator=g)
@@ -925,57 +1039,92 @@ def phase1_kernels(dev, results, clock):
         words &= torch.randint(-2**31, 2**31, words.shape, dtype=torch.int32, device=dev,
                                generator=g)
     bm = bmp.DeviceBitmap(words, MAIN_BITS)
-    fms, fused = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty, bm), 20)
+    fms, fused = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty, bm, pairs), 20)
+    point_fms, fused1 = device_ms(lambda: pwalk.walk_blocks(bx, by, tx, ty, bm), 20)
     qhi, qlo = fused[1].reshape(-1), fused[0].reshape(-1)
-    mask_want = bmp.survivor_mask_ref(bm, fused[1], fused[0])
+    mask_want = bmp.survivor_mask_ref(bm, want[1], want[0])
     cms, stage1 = device_ms(lambda: bmp.mask_compact(fused[3], qhi, qlo, CASCADE_C[0]), 20)
     pcms, stage1_want = device_ms(lambda: bmp.probe_compact(bm, qhi, qlo, CASCADE_C[0]), 20)
-    f_err = max_abs_err(fused[:3], got) + max_abs_err([fused[3]], [mask_want])
-    f_err += max_abs_err(stage1, stage1_want)
-    if f_err:
-        fail(f"K2 with the probe differs from K2 alone, its mask from the plain version's or "
-             f"its compaction from kh_probe_compact's (max_abs_err {f_err})")
-    log(f"K2 with the level-1 probe R={K} U={U} 2^{MAIN_BITS} bits: walk equal to K2 alone, "
-        f"mask to plain, {int(stage1.n)} survivors compacted equal to kh_probe_compact's; "
-        f"{fms:.4f} ms against {ms:.4f} alone; kh_mask_compact {cms:.4f} ms against "
+    f_err = max_abs_err(fused[:3], want) + max_abs_err([fused[3]], [mask_want])
+    f_err += max_abs_err(fused1, fused) + max_abs_err(stage1, stage1_want)
+    if f_err or len(fused) != 4:
+        fail(f"K2 with the probe differs from the plain version, its mask from the plain "
+             f"version's, a point a thread from the paired walk or its compaction from "
+             f"kh_probe_compact's (max_abs_err {f_err})")
+    log(f"K2 with the level-1 probe R={K} U={U} 2^{MAIN_BITS} bits: the paired walk equal to "
+        f"plain, mask to plain, {int(stage1.n)} survivors compacted equal to "
+        f"kh_probe_compact's; {fms:.4f} ms against {ms:.4f} alone (a point a thread "
+        f"{point_fms:.4f} / {point_ms:.4f}); kh_mask_compact {cms:.4f} ms against "
         f"kh_probe_compact {pcms:.4f} ms")
     n1 = int(stage1.n)
     cpms, _ = timed(lambda: bmp.mask_compact_ref(mask_want, qhi, qlo, CASCADE_C[0]), 1)
     cbms, cby = bound_ms(0, 4 * len(mask_want.reshape(-1)) + 8 * n1 + 12 * CASCADE_C[0] + 4,
                          clock)
-    results["walk_blocks"] |= dict(fused_ms=fms)
+    results["walk_blocks"] |= dict(fused_ms=fms, point_fused_ms=point_fms)
     results["mask_compact"] = dict(max_abs_err=f_err, ms=cms, plain_ms=cpms, bound_ms=cbms,
                                    bound_by=cby, probe_compact_ms=pcms)
-    del words, bm, fused, qhi, qlo, mask_want, stage1, stage1_want
+
+    def rare_k2(bx, by, centres, wk, S_, tab_x, tab_y, taken, c_pt, bm, what):
+        """The paired walk's rare lanes (rare_plants) planted in the bases
+        and their centres from K1 (replant): K2 alone and, given bm, with the
+        probe, word for word the plain version's. Returns (rows planted,
+        centres flagged, dx == 0 lanes)."""
+        rows = rare_plants(bx.shape[1], S_, tab_x, tab_y, taken)
+        n_cf = replant(bx, by, centres, rows, wk, c_pt, f"{what} rare-lane")
+        prs = (*wk.pair_tab[:2], *centres)
+        ref = pwalk.walk_blocks_ref(bx, by, wk.tab_x, wk.tab_y, bm)
+        err = max_abs_err(pwalk.walk_blocks(bx, by, wk.tab_x, wk.tab_y, None, prs), ref[:3])
+        if bm is not None:
+            got = pwalk.walk_blocks(bx, by, wk.tab_x, wk.tab_y, bm, prs)
+            err += max_abs_err(got, ref) + (len(got) != 4)
+        if err:
+            fail(f"K2's paired walk at the {what} shape with the rare lanes planted differs "
+                 f"from the plain version (max_abs_err {err})")
+        return len(rows), n_cf, int(ref[2].sum())
+
+    n_rows, n_cf, n_deg = rare_k2(bx, by, centres, walk, s_pt, tab_x, tab_y,
+                                  {r for r, _, _ in plants}, cS, bm, "cell")
+    log(f"K2 paired R={K} U={U}: the rare lanes of tests/pair_walk_model.py planted in {n_rows} "
+        f"rows ({n_cf} centres flagged by K1, {n_deg} dx == 0 lanes), alone and with the "
+        f"probe equal to plain")
+    del words, bm, fused, fused1, qhi, qlo, mask_want, stage1, stage1_want, want, got, got1
 
     # K1 and K2 at the streaming filter build's shape: K = BUILD_BLOCKS,
-    # ADV = build_block*G from base 2*build_block*G; R = 128, U = 4096
+    # ADV = build_block*G from base 2*build_block*G; R = 128, U = 4096; the
+    # paired walk and its rare lanes as at the cell's shape
     badv = ecref.scalar_mult(BUILD_BLOCK)
-    btab = pwalk.adv_multiples(badv, BUILD_BLOCKS, dev)
+    bwalk = pwalk.walk_tables(ecref.G, BUILD_BLOCK, badv, BUILD_BLOCKS, dev)
+    bax, bay, btab, bctab = bwalk.adv_x, bwalk.adv_y, bwalk.adv_tab, bwalk.pair_tab[2:]
+    bcS = ecref.scalar_mult(pm.centre_scalar(BUILD_BLOCK))
     bks = [2 * BUILD_BLOCK, 77 * BUILD_BLOCK, -BUILD_BLOCKS * BUILD_BLOCK % ecref.N]
     px, py = cols([ecref.scalar_mult(k) for k in bks])
-    bax, bay = limbs(badv[0]).to(dev), limbs(badv[1]).to(dev)
-    got = pwalk.advance_chain(px, py, bax, bay, BUILD_BLOCKS, btab)
-    err = max_abs_err(got, pwalk.advance_chain_ref(px, py, bax, bay, BUILD_BLOCKS, btab))
-    if err:
+    got = pwalk.advance_chain(px, py, bax, bay, BUILD_BLOCKS, btab, bctab)
+    err = max_abs_err(got, pwalk.advance_chain_ref(px, py, bax, bay, BUILD_BLOCKS, btab, bctab))
+    if err or len(got) != 8:
         fail("K1 at the build shape differs from its plain version")
-    n_dbl = check_k1(bks, badv, BUILD_BLOCK, got)
-    ms1, (bx, by, _, _, _) = device_ms(
+    n_dbl, rows = check_k1(bks, badv, BUILD_BLOCK, got)
+    check_centres(rows, got, bcS, "build")
+    ms1, (bx, by, _, _, _, *centres) = device_ms(
         lambda: pwalk.advance_chain(px[:, :1].contiguous(), py[:, :1].contiguous(), bax, bay,
-                                    BUILD_BLOCKS, btab), 20)
+                                    BUILD_BLOCKS, btab, bctab), 20)
     btab_x, btab_y = tables.step_table(ecref.G, BUILD_BLOCK)
-    btx = pwalk.table_to_limb_major(btab_x, dev)
-    bty = pwalk.table_to_limb_major(btab_y, dev)
+    btx, bty = bwalk.tab_x, bwalk.tab_y
     bplants = edges(BUILD_BLOCKS, BUILD_BLOCK)
-    plant_k2(bx, by, btab_x, btab_y, bplants)
+    replant(bx, by, centres, edge_plants(btab_x, btab_y, bplants), bwalk, bcS, "build edge")
+    bpairs = (*bwalk.pair_tab[:2], *centres)
     want = pwalk.walk_blocks_ref(bx, by, btx, bty)
-    ms2, got = device_ms(lambda: pwalk.walk_blocks(bx, by, btx, bty), 20)
-    if max_abs_err(got, want) or not all(bool(got[2][r, u]) for r, u, _ in bplants):
+    ms2, got = device_ms(lambda: pwalk.walk_blocks(bx, by, btx, bty, None, bpairs), 20)
+    point_ms2, got1 = device_ms(lambda: pwalk.walk_blocks(bx, by, btx, bty), 20)
+    if (max_abs_err(got, want) or max_abs_err(got1, want)
+            or not all(bool(got[2][r, u]) for r, u, _ in bplants)):
         fail("K2 at the build shape differs from its plain version or misses a dx == 0 lane")
-    log(f"build shape: K1 T=3 K={BUILD_BLOCKS} equal to plain and ecref ({n_dbl} doubling, "
-        f"{int(got[2].sum())} dx == 0 lanes in K2), K1 at T=1 {ms1:.4f} ms; K2 "
-        f"R={BUILD_BLOCKS} U={BUILD_BLOCK} equal to plain, block-edge dx == 0 flagged, "
-        f"{ms2:.4f} ms")
+    n_rows, n_cf, n_deg = rare_k2(bx, by, centres, bwalk, ecref.G, btab_x, btab_y,
+                                  {r for r, _, _ in bplants}, bcS, None, "build")
+    log(f"build shape: K1 T=3 K={BUILD_BLOCKS} bases and centres equal to plain and ecref "
+        f"({n_dbl} doubling), K1 at T=1 with the centre lanes {ms1:.4f} ms; K2 "
+        f"R={BUILD_BLOCKS} U={BUILD_BLOCK} the paired walk equal to plain, block-edge dx == 0 "
+        f"flagged, {ms2:.4f} ms (a point a thread {point_ms2:.4f} ms); the rare lanes in "
+        f"{n_rows} rows ({n_cf} centres flagged, {n_deg} dx == 0 lanes) equal to plain")
 
     # K3 against its plain version and np.bitwise_or.at on 4M random keys
     # (a prefix kept) at each size, with the degeneracy counter (degenerate
@@ -2091,7 +2240,7 @@ def phase3_main(dev, m, seconds, results, clock):
     import numpy as np
     import torch
 
-    from keyhuntm1cpu_tpu_torch.curve import pwalk, tables
+    from keyhuntm1cpu_tpu_torch.curve import pwalk
     from keyhuntm1cpu_tpu_torch.engine.bsgs import (BUILD_BLOCKS, BSGSEngine,
                                                      chunk_impl_host, filter_build_step)
     from keyhuntm1cpu_tpu_torch.field import fe
@@ -2178,18 +2327,22 @@ def phase3_main(dev, m, seconds, results, clock):
     px, py = eng64._initial_base(0)
     tot_ms, outs = device_ms(lambda: chunk_impl_host(
         px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y, eng64.bitmap,
-        eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2, adv_tab=eng64.adv_tab), reps)
+        eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2, adv_tab=eng64.adv_tab,
+        pair_tab=eng64.pair_tab), reps)
     pxt, pyt = px.t().contiguous(), py.t().contiguous()
-    k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
-        pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab), reps)
-    k2_ms, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x, eng64.tab_y), reps)
+    pt = eng64.pair_tab  # the paired walk: K1 with the centres, K2 over pairs
+    k1_ms, (bx, by, _, _, _, *cen) = device_ms(lambda: pwalk.advance_chain(
+        pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab, pt and pt[2:]), reps)
+    pairs = (*pt[:2], *cen) if pt else None
+    k2_ms, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x, eng64.tab_y, None,
+                                                   pairs), reps)
     # the cascade on this chunk's queries, once through the probe kernels and
     # once through their plain versions: the level-1 bitmap probe of the
     # T*K*U queries fused with its compaction to C1, the bloom2 probe of the
     # C1 stage-1 survivors, compaction to C2 (bmp.filtered_survivors' stages)
     bm, b2 = eng64.bitmap, eng64.bloom2
     res = pwalk.chunk_multi(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
-                            K=K, U=U, T=1, adv_tab=eng64.adv_tab)
+                            K=K, U=U, T=1, adv_tab=eng64.adv_tab, pair_tab=eng64.pair_tab)
     qhi, qlo = res.qhi.reshape(-1), res.qlo.reshape(-1)
     B = qhi.shape[0]
 
@@ -2258,7 +2411,7 @@ def phase3_main(dev, m, seconds, results, clock):
     chunk_split(eng64, px, py, "phase 3")
     chunk = lambda: chunk_impl_host(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
                                     eng64.bitmap, eng64.bloom2, U=U, K=K, T=1, C1=eng64.C1,
-                                    C2=eng64.C2, adv_tab=eng64.adv_tab)
+                                    C2=eng64.C2, adv_tab=eng64.adv_tab, pair_tab=eng64.pair_tab)
     fig = chunk_before_after(eng64, px, py, chunk, "phase 3", PREV_SECONDS, lambda: BSGSEngine(
         [ecref.scalar_mult(PUZZLE64_KEY)], 1 << 63, 1 << 64, params, device=dev,
         host_table=htab, bitmap=eng.bitmap, bloom2=eng.bloom2))
@@ -2266,17 +2419,14 @@ def phase3_main(dev, m, seconds, results, clock):
         f"{keys_per_sec:.4e} (this phase's window)")
     # one streaming-build step (the first: its keys are in the filters
     # already, so the ORs change nothing), its device operations and time
-    btab_x, btab_y = tables.step_table(ecref.G, BUILD_BLOCK)
-    btx, bty = (pwalk.table_to_limb_major(t, dev) for t in (btab_x, btab_y))
-    badv, bbase = ecref.scalar_mult(BUILD_BLOCK), ecref.scalar_mult(2 * BUILD_BLOCK)
+    bwalk = pwalk.walk_tables(ecref.G, BUILD_BLOCK, ecref.scalar_mult(BUILD_BLOCK),
+                              BUILD_BLOCKS, dev)
+    bbase = ecref.scalar_mult(2 * BUILD_BLOCK)
     limbs = lambda v: torch.from_numpy(fe.int_to_limbs(v).view(np.int32).copy()).to(dev)
-    bax, bay = limbs(badv[0]), limbs(badv[1])
     bpx, bpy = limbs(bbase[0])[None], limbs(bbase[1])[None]
-    btab = pwalk.adv_multiples(badv, BUILD_BLOCKS, dev)
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     nb = BUILD_BLOCKS * BUILD_BLOCK
-    step = lambda: filter_build_step(bpx, bpy, btx, bty, bax, bay, btab, BUILD_BLOCKS,
-                                     BUILD_BLOCK, bm.words, bm.bits_log2, b2.words,
+    step = lambda: filter_build_step(bpx, bpy, bwalk, bm.words, bm.bits_log2, b2.words,
                                      b2.bits_log2, nb, bad)
     w_before = (int(bm.words.sum()), int(b2.words.sum()))
     step()
@@ -2995,10 +3145,12 @@ def chunk_split(eng, px, py, label):
     B = len(eng.targets) * Kc * U
     ms = {"chunk": device_ms(lambda: eng._chunk_fn(px, py), reps)[0]}
     pxt, pyt = px.t().contiguous(), py.t().contiguous()
-    ms["K1"], (bx, by, _, _, adeg) = device_ms(lambda: pwalk.advance_chain(
-        pxt, pyt, eng.adv_x, eng.adv_y, Kc, eng.adv_tab), reps)
+    pt = eng.pair_tab  # the paired walk: K1 with the centres, K2 over pairs
+    ms["K1"], (bx, by, _, _, adeg, *centres) = device_ms(lambda: pwalk.advance_chain(
+        pxt, pyt, eng.adv_x, eng.adv_y, Kc, eng.adv_tab, pt and pt[2:]), reps)
+    pairs = (*pt[:2], *centres) if pt else None
     ms["K2"], (qlo, qhi, deg, mask) = device_ms(lambda: pwalk.walk_blocks(
-        bx, by, eng.tab_x, eng.tab_y, eng.bitmap), reps)
+        bx, by, eng.tab_x, eng.tab_y, eng.bitmap, pairs), reps)
     qhi, qlo, adv = qhi.reshape(-1), qlo.reshape(-1), adeg.reshape(-1)
     ms["mask compaction"], s1 = device_ms(lambda: bmp.mask_compact(mask, qhi, qlo, eng.C1),
                                           reps)
@@ -3013,7 +3165,8 @@ def chunk_split(eng, px, py, label):
         summary = lambda: bsgs.chunk_summary(eng.table, *fs, deg, adv, (deg, adv))
     ms["summary"], _ = device_ms(summary, reps)
     rest = ms["chunk"] - sum(v for k, v in ms.items() if k != "chunk")
-    alone, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng.tab_x, eng.tab_y), reps)
+    alone, _ = device_ms(lambda: pwalk.walk_blocks(bx, by, eng.tab_x, eng.tab_y, None, pairs),
+                         reps)
     probe, _ = device_ms(lambda: bmp.probe_compact(eng.bitmap, qhi, qlo, eng.C1), reps)
     log(f"{label}: a chunk {ms['chunk']:.4f} ms on the card = "
         + " + ".join(f"{k} {v:.4f}" for k, v in ms.items() if k != "chunk")
@@ -3051,7 +3204,7 @@ def chunk_composition(eng, px, py, plain=False):
         level1, probe2 = bmp.probe_compact_ref, bmp.probe_bloom2_ref
     else:
         res, deg, adv = _chunk_walk(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, U, Kc,
-                                    T, eng.adv_tab)
+                                    T, eng.adv_tab, pair_tab=eng.pair_tab)
         qhi, qlo, nxt = res.qhi, res.qlo, (res.next_x, res.next_y)
         level1, probe2 = bmp.probe_compact, bmp.probe_bloom2
     deg[:, U - 1] |= adv
@@ -3231,7 +3384,7 @@ def phase3d_device(dev, m, seconds, clock):
     px, py = eng64._initial_base(0)
     chunk = lambda: bsgs.chunk_impl(px, py, eng64.tab_x, eng64.tab_y, eng64.adv_x, eng64.adv_y,
                                     bm, table, b2, U=U, K=K, T=1, C1=eng64.C1, C2=eng64.C2,
-                                    adv_tab=eng64.adv_tab)
+                                    adv_tab=eng64.adv_tab, pair_tab=eng64.pair_tab)
     got = chunk()[2]
     if got.shape != (3 * eng64.C2 + 3 * K + 1,):
         fail(f"phase 3d: a chunk summary of {tuple(got.shape)} words")
@@ -3240,10 +3393,12 @@ def phase3d_device(dev, m, seconds, clock):
         bitmap=bm))
     tot_ms = fig["after"]["card_ms"]
     pxt, pyt = px.t().contiguous(), py.t().contiguous()
-    k1_ms, (bx, by, _, _, _) = device_ms(lambda: pwalk.advance_chain(
-        pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab), reps)
+    pt = eng64.pair_tab
+    k1_ms, (bx, by, _, _, _, *cen) = device_ms(lambda: pwalk.advance_chain(
+        pxt, pyt, eng64.adv_x, eng64.adv_y, K, eng64.adv_tab, pt and pt[2:]), reps)
+    pairs = (*pt[:2], *cen) if pt else None
     k2_ms, (qlo, qhi, _) = device_ms(lambda: pwalk.walk_blocks(bx, by, eng64.tab_x,
-                                                              eng64.tab_y), reps)
+                                                              eng64.tab_y, None, pairs), reps)
     n1 = int(bmp.probe_compact(bm, qhi.reshape(-1), qlo.reshape(-1), eng64.C1).n)
     chunk_split(eng64, px, py, "phase 3d")
     log(f"phase 3d: a chunk {tot_ms:.3f} ms on the card = K1 {k1_ms:.3f} + K2 {k2_ms:.3f} + "
@@ -3293,7 +3448,7 @@ def phase3d_large(dev, ms):
         chunk_s = time.time() - t0
         # the chunk's level-1 and level-2 survivors, apart
         res = pwalk.chunk_multi(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y, K=K, U=U,
-                                T=1, adv_tab=eng.adv_tab)
+                                T=1, adv_tab=eng.adv_tab, pair_tab=eng.pair_tab)
         pc = bmp.probe_compact(bm, res.qhi.reshape(-1), res.qlo.reshape(-1), eng.C1)
         n2 = int(bmp.probe_bloom2(eng.bloom2, pc.qhi, pc.qlo)[: min(int(pc.n), eng.C1)].sum())
         log(f"phase 3d: m=2^{m.bit_length() - 1}: table built in {t_table:.2f} s, bitmap "

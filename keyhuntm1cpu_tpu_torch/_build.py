@@ -133,10 +133,10 @@ def kernels() -> ctypes.CDLL:
         "kh_hash160_x2": [vp] * 5 + [i, vp],
         # x y lo hi | n stream
         "kh_hash160_u": [vp] * 4 + [i, vp],
-        # px py tab_x tab_y | bx by nx ny adeg | T K stream
-        "kh_advance_chain": [vp] * 9 + [i, i, vp],
-        # bx by tx ty | qlo qhi deg | words mask | R U bits stream
-        "kh_walk_blocks": [vp] * 9 + [i64, i, i, vp],
+        # px py tab_x tab_y | bx by nx ny adeg | ctab_x ctab_y cx cy cflag | T K stream
+        "kh_advance_chain": [vp] * 14 + [i, i, vp],
+        # bx by tx ty | qlo qhi deg | words mask | hx hy cx cy cflag | R U bits stream
+        "kh_walk_blocks": [vp] * 14 + [i64, i, i, vp],
         # words1 words2 qhi qlo | n_keep | deg adeg | n_adeg | bad | bits b2bits stream
         "kh_insert_keys": [vp] * 4 + [i64, vp, vp, i, vp, i, i, vp],
         # bx by tx ty tgt btab hits | K U T TB mode n_endo stream

@@ -22,9 +22,10 @@ Spans and counters (the port's; a registry with no span recorded prints
 exactly the JAX package's snapshot and Prometheus text). Always on: a
 span adds its count and seconds, on ``time.perf_counter``, to its name's
 totals; a search loop's counters (chunks_decoded, candidates_verified,
-false_candidates, cascade_overflows, host_rescans, rebases, and
-probe_fused_chunks: the BSGS chunks whose K2 probed the level-1 bitmap)
-add to the registry's counters. A search loop's call (engine/pipeline.py
+false_candidates, cascade_overflows, host_rescans, rebases,
+probe_fused_chunks: the BSGS chunks whose K2 probed the level-1 bitmap,
+and paired_walk_chunks: the BSGS chunks whose K2 walked pairs) add to the
+registry's counters. A search loop's call (engine/pipeline.py
 ``run``) keeps its own totals, without a lock, and hands them to
 the registry when it returns, with a record: start, end, chunks decoded,
 keys covered (times the multiplier), span totals and counter deltas

@@ -34,6 +34,27 @@ def step_table(point: Tuple[int, int], count: int) -> Tuple[np.ndarray, np.ndarr
     return _step_table_np(point[0], point[1], count)
 
 
+@lru_cache(maxsize=32)
+def _pair_table_np(px: int, py: int, count: int) -> Tuple[np.ndarray, np.ndarray]:
+    xs = np.empty((count, LIMBS), dtype=np.uint32)
+    ys = np.empty((count, LIMBS), dtype=np.uint32)
+    cur = ecref.scalar_mult((ecref.N + 1) // 2, (px, py))  # point / 2
+    for d in range(count):
+        xs[d] = int_to_limbs(cur[0])
+        ys[d] = int_to_limbs(cur[1])
+        cur = ecref.point_add(cur, (px, py))
+    return xs, ys
+
+
+def pair_table(point: Tuple[int, int], count: int) -> Tuple[np.ndarray, np.ndarray]:
+    """(x, y) numpy (count, 8) uint32 limb tables of (d + 1/2)*point, d =
+    0..count-1 (1/2 the inverse of 2 mod the group order): the paired walk's
+    offsets from its half-step centres (curve/pwalk.pair_tables). Against
+    step_table(point, 2*count), entry d is half the difference of columns
+    count + d and count - 1 - d."""
+    return _pair_table_np(point[0], point[1], count)
+
+
 @lru_cache(maxsize=1)
 def gtable_np() -> Tuple[np.ndarray, np.ndarray]:
     """Windowed generator table of the scalar-mult ladder (curve/pladder.py):

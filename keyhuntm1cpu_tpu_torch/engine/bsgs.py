@@ -58,7 +58,7 @@ from .. import _build
 from ..core.checkpoint import fingerprint
 from ..core.log import get_logger
 from ..core.metrics import count, current_call, span, spanned
-from ..curve import pwalk, tables
+from ..curve import pwalk
 from ..field import fe
 from ..filter import bitmap as bmp
 from ..filter import host_table as ht
@@ -134,15 +134,15 @@ def _bloom2_for_table(table: st.SortedXTable) -> bmp.DeviceBloom2:
     return b2
 
 
-def filter_build_step(px, py, tx, ty, ax, ay, adv_tab, K: int, ub: int, words1,
-                      bits_log2: int, words2, b2bits: int, n_keep: int, bad):
+def filter_build_step(px, py, walk, words1, bits_log2: int, words2, b2bits: int,
+                      n_keep: int, bad):
     """One step of the streaming filter build: K1 and K2 walk K*ub baby keys
-    from the base (px, py) ((1, 8) limbs) by the step table (tx, ty) and ADV
-    (ax, ay; adv_tab its multiples); K3 ORs the first n_keep into both
-    filters and adds the kept lanes' degenerate flags and the advance flags
-    to `bad` (a () int64 tensor). Three device operations. Returns the next
-    base."""
-    res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1, adv_tab=adv_tab)
+    from the base (px, py) ((1, 8) limbs) by the walk's tables (walk, a
+    pwalk.WalkTables of K = walk.K steps of ub = walk.U keys); K3 ORs the
+    first n_keep into both filters and adds the kept lanes' degenerate flags
+    and the advance flags to `bad` (a () int64 tensor). Three device
+    operations. Returns the next base."""
+    res = _walk_step(px, py, walk)
     bmp.insert_keys(words1, bits_log2, words2, b2bits, res.qhi.reshape(-1),
                     res.qlo.reshape(-1), n_keep, res.degenerate.reshape(-1),
                     res.adv_degenerate.reshape(-1), bad)
@@ -192,24 +192,28 @@ def _batch_inv(vals: Sequence[int]) -> List[int]:
 
 
 def _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U: int, K: int, T: int, adv_tab,
-                bitmap=None):
+                bitmap=None, pair_tab=None):
     """K1 + K2 of a chunk: (walk result, its (T*K, U) degenerate flags, the
     (T*K,) advance flags). An advance flag marks lane U - 1 of its row too
     (ADV = U*S = tab[U-1]): the summary kernel folds it in. Given the
-    level-1 bitmap, K2 probes the keys too (the result's survivor_mask)."""
+    level-1 bitmap, K2 probes the keys too (the result's survivor_mask);
+    given the pair tables (pwalk.pair_tables), K2 walks pairs on the card,
+    counted in paired_walk_chunks."""
     res = pwalk.chunk_multi(px, py, tab_x, tab_y, adv_x, adv_y, K=K, U=U, T=T,
-                            adv_tab=adv_tab, bitmap=bitmap)
+                            adv_tab=adv_tab, bitmap=bitmap, pair_tab=pair_tab)
+    if res.paired:
+        count("paired_walk_chunks")
     return res, res.degenerate, res.adv_degenerate.reshape(-1)
 
 
 def _chunk_cascade(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2, U, K, T, C1, C2,
-                   adv_tab):
+                   adv_tab, pair_tab):
     """The walk and the cascade of a chunk: K1, K2 with the level-1 probe,
     the compaction of its survivor mask, the bloom2 stage (without bloom2:
     the mask compacted to C2). Counted in probe_fused_chunks. Returns
     (walk result, survivors, degenerate flags, advance flags)."""
     res, deg, adv_flat = _chunk_walk(px, py, tab_x, tab_y, adv_x, adv_y, U, K, T, adv_tab,
-                                     bitmap)
+                                     bitmap, pair_tab)
     fs = bmp.filtered_survivors(bitmap, res.qhi.reshape(-1), res.qlo.reshape(-1), C2,
                                 bm2=bloom2, stage1_max=C1, mask=res.survivor_mask)
     count("probe_fused_chunks")
@@ -315,21 +319,22 @@ chunk_summary_host.launches = 0
 
 
 def chunk_impl_host(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
-                    *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None):
+                    *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None, pair_tab=None):
     """One host-resolve chunk (bsgs._pallas_chunk_impl_host): walk, cascade,
     packed summary. Returns (next_x, next_y, summary (3*C2+3*T*K+1,) int32):
     survivor positions (B = T*K*U where none), their key words qhi, qlo.
-    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None. On the
+    adv_tab: pwalk.adv_multiples(ADV, K), built per call when None;
+    pair_tab: pwalk.pair_tables(S, U, ADV, K) (None: a point a thread). On the
     card: K1, K2 with the level-1 probe, the compaction of its survivor
     mask, the bloom2 stage and the summary. No host sync: the summary stays
     on the device until the caller copies it."""
     res, fs, deg, adv_flat = _chunk_cascade(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
-                                            U, K, T, C1, C2, adv_tab)
+                                            U, K, T, C1, C2, adv_tab, pair_tab)
     return res.next_x, res.next_y, chunk_summary_host(*fs, deg, adv_flat, (deg, adv_flat))
 
 
 def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
-               *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None):
+               *, U: int, K: int, T: int, C1: int, C2: int, adv_tab=None, pair_tab=None):
     """One device-resolve chunk (bsgs._pallas_chunk_impl): walk, cascade
     (with the bloom2 stage unless bloom2 is None), the exact search of the
     C2 survivors in the sorted baby table, packed summary. Returns (next_x,
@@ -340,7 +345,7 @@ def chunk_impl(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, table, bloom2,
     compaction of its survivor mask, the bloom2 stage and the summary with
     the search. No host sync."""
     res, fs, deg, adv_flat = _chunk_cascade(px, py, tab_x, tab_y, adv_x, adv_y, bitmap, bloom2,
-                                            U, K, T, C1, C2, adv_tab)
+                                            U, K, T, C1, C2, adv_tab, pair_tab)
     return res.next_x, res.next_y, chunk_summary(table, *fs, deg, adv_flat, (deg, adv_flat))
 
 
@@ -373,12 +378,19 @@ def write_table(path: str, table: st.SortedXTable) -> None:
              checksum=np.frombuffer(digest, dtype=np.uint8))
 
 
+def _walk_step(px, py, walk):
+    """K1 + K2 of one target (px, py) ((1, 8) limbs) by the walk's tables
+    (a pwalk.WalkTables): pwalk.chunk_multi's result."""
+    return pwalk.chunk_multi(px, py, *walk[:4], K=walk.K, U=walk.U, T=1, adv_tab=walk.adv_tab,
+                             pair_tab=walk.pair_tab)
+
+
 def _baby_walk(m: int, ub: int, dev, step_fn) -> None:
     """Baby keys j = 2*ub + 1..m on `dev`: K1/K2 walk BUILD_BLOCKS blocks of
     ub keys a step from base (2*ub)*G with ADV = ub*G. step_fn(px, py,
     walk, start, n_keep, bad) runs one step over keys start + 1..start +
-    n_keep (the first n_keep of its lanes; walk is (tab_x, tab_y, adv_x,
-    adv_y, adv_tab, K, ub) for pwalk.chunk_multi), adds the kept lanes'
+    n_keep (the first n_keep of its lanes; walk is the pwalk.WalkTables of
+    the step, for _walk_step), adds the kept lanes'
     degenerate flags and the advance flags to `bad` (a () int64 tensor) and
     returns the next base. Base (2*ub)*G is degeneracy-free (a lane would
     need t*ub == +-u, u <= ub); `bad` is checked once per slice of
@@ -387,11 +399,8 @@ def _baby_walk(m: int, ub: int, dev, step_fn) -> None:
     rest = m - 2 * ub
     if rest <= 0:
         return
-    btab_x, btab_y = tables.step_table(ecref.G, ub)
-    adv = ecref.scalar_mult(ub)
     K = min(BUILD_BLOCKS, -(-rest // ub))
-    walk = (pwalk.table_to_limb_major(btab_x, dev), pwalk.table_to_limb_major(btab_y, dev),
-            _limbs(adv[0], dev), _limbs(adv[1], dev), pwalk.adv_multiples(adv, K, dev), K, ub)
+    walk = pwalk.walk_tables(ecref.G, ub, ecref.scalar_mult(ub), K, dev)
     base = ecref.scalar_mult(2 * ub)
     px, py = _limbs(base[0], dev)[None], _limbs(base[1], dev)[None]
     KU = K * ub
@@ -431,8 +440,7 @@ def build_baby_table(m: int, build_block: int, dev) -> st.SortedXTable:
     st.write_keys(key, 0, *_seed_keys(n_seed, dev))
 
     def step(px, py, walk, start, n_keep, bad):
-        tx, ty, ax, ay, adv_tab, K, ub = walk
-        res = pwalk.chunk_multi(px, py, tx, ty, ax, ay, K=K, U=ub, T=1, adv_tab=adv_tab)
+        res = _walk_step(px, py, walk)
         st.write_keys(key, start, res.qhi.reshape(-1)[:n_keep], res.qlo.reshape(-1)[:n_keep])
         bad += res.degenerate.reshape(-1)[:n_keep].sum() + res.adv_degenerate.sum()
         return res.next_x, res.next_y
@@ -476,13 +484,6 @@ class BSGSEngine:
         self.n_steps = math.ceil(n_centers / params.block_u)
 
         U = params.block_u
-        s_pt = ecref.point_neg(ecref.scalar_mult(self.stride))  # S = -(stride)*G
-        tab_x, tab_y = tables.step_table(s_pt, U)
-        self.tab_x = pwalk.table_to_limb_major(tab_x, self.device)
-        self.tab_y = pwalk.table_to_limb_major(tab_y, self.device)
-        big = ecref.point_neg(ecref.scalar_mult(U * self.stride))  # U*S
-        self.adv_x = _limbs(big[0], self.device)
-        self.adv_y = _limbs(big[1], self.device)
 
         self.table = self.host_table = None
         if params.resolve == "device":
@@ -518,7 +519,11 @@ class BSGSEngine:
                     "device memory")
                 self.p = dataclasses.replace(self.p, steps_per_chunk=k_new)
         self._size_cascade(T * self.p.steps_per_chunk * U)
-        self.adv_tab = pwalk.adv_multiples(big, self.p.steps_per_chunk, self.device)
+        # the walk's tables: S = -(stride)*G, ADV = U*S
+        s_pt = ecref.point_neg(ecref.scalar_mult(self.stride))
+        self.walk = pwalk.walk_tables(s_pt, U, ecref.scalar_mult(U, s_pt),
+                                      self.p.steps_per_chunk, self.device)
+        self.tab_x, self.tab_y, self.adv_x, self.adv_y, self.adv_tab, self.pair_tab = self.walk
         self._rebase_tab = None  # _scheduled_bases' host table, built on first use
         self._host_keys = None  # _rescan_table's host copy, made on first use
 
@@ -551,7 +556,7 @@ class BSGSEngine:
         n_seed = min(2 * ub, m)
         bmp.insert_keys(words1, bits_log2, words2, b2bits, *_seed_keys(n_seed, dev), n_seed)
         _baby_walk(m, ub, dev, lambda px, py, walk, start, n_keep, bad: filter_build_step(
-            px, py, *walk, words1, bits_log2, words2, b2bits, n_keep, bad))
+            px, py, walk, words1, bits_log2, words2, b2bits, n_keep, bad))
         return (bmp.DeviceBitmap(words1, bits_log2),
                 bmp.DeviceBloom2(words2, b2bits))
 
@@ -625,7 +630,7 @@ class BSGSEngine:
     def _chunk_fn(self, px, py):
         p = self.p
         shape = dict(U=p.block_u, K=p.steps_per_chunk, T=len(self.targets), C1=self.C1,
-                     C2=self.C2, adv_tab=self.adv_tab)
+                     C2=self.C2, adv_tab=self.adv_tab, pair_tab=self.pair_tab)
         consts = (px, py, self.tab_x, self.tab_y, self.adv_x, self.adv_y, self.bitmap)
         if self.table is None:
             return chunk_impl_host(*consts, self.bloom2, **shape)

@@ -94,15 +94,6 @@ def default_devices(kind: str = "cuda", n: Optional[int] = None) -> List[torch.d
                             for i in range(n)])
 
 
-class _Walk(NamedTuple):
-    """A shard's walk constants on its device."""
-    tab_x: torch.Tensor
-    tab_y: torch.Tensor
-    adv_x: torch.Tensor
-    adv_y: torch.Tensor
-    adv_tab: Tuple[torch.Tensor, torch.Tensor]
-
-
 class _Filters(NamedTuple):
     """A range shard's bitmap, table and bloom2 on its device."""
     bitmap: bmp.DeviceBitmap
@@ -155,9 +146,7 @@ class ShardedBSGSEngine(BSGSEngine):
         self.local_steps = max(1, math.ceil(max(1, math.ceil((b - a) / window))
                                             / self.n_shards))
         # the walk constants, once a distinct device (.to: no copy where they are)
-        self._walk = {d: _Walk(self.tab_x.to(d), self.tab_y.to(d), self.adv_x.to(d),
-                               self.adv_y.to(d), tuple(t.to(d) for t in self.adv_tab))
-                      for d in dict.fromkeys(devs)}
+        self._walk = {d: self.walk.to(d) for d in dict.fromkeys(devs)}
 
     def _bases_at(self, step: int):
         """[(px, py)] of each shard at local step `step`, on its device;
@@ -180,7 +169,8 @@ class ShardedBSGSEngine(BSGSEngine):
                 tr.device_start(d, card)
                 nx, ny, out = chunk_impl(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y, f.bitmap,
                                          f.table, f.bloom2, U=U, K=K, T=T, C1=self.C1,
-                                         C2=self.C2, adv_tab=w.adv_tab)
+                                         C2=self.C2, adv_tab=w.adv_tab,
+                                         pair_tab=w.pair_tab)
                 tr.device_end(d, card)
             nxt.append((nx, ny))
             outs.append(out)
@@ -372,7 +362,7 @@ class ShardedTableBSGSEngine(ShardedBSGSEngine):
             w = self._walk[d]
             with tr.span("dispatch", card):
                 res, deg, adv_flat = _chunk_walk(px, py, w.tab_x, w.tab_y, w.adv_x, w.adv_y,
-                                                 U, K, T, w.adv_tab)
+                                                 U, K, T, w.adv_tab, pair_tab=w.pair_tab)
             nxt.append((res.next_x, res.next_y))
             blocks.append((res.qhi.reshape(-1), res.qlo.reshape(-1), deg, adv_flat))
         probe = self._ring if p.table_comm == "ring" else self._all_gather

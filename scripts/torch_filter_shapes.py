@@ -410,7 +410,7 @@ def main():
 
     import chip_smoke as cs
     from keyhuntm1cpu_tpu_torch import _build
-    from keyhuntm1cpu_tpu_torch.curve import pwalk, tables
+    from keyhuntm1cpu_tpu_torch.curve import pwalk
     from keyhuntm1cpu_tpu_torch.engine import bsgs
     from keyhuntm1cpu_tpu_torch.engine import minikeys as mk
     from keyhuntm1cpu_tpu_torch.field import fe
@@ -535,19 +535,16 @@ def main():
 
     # the build step before and after, on the same walk
     ub, K = cs.BUILD_BLOCK, bsgs.BUILD_BLOCKS
-    btab_x, btab_y = tables.step_table(ecref.G, ub)
-    tx, ty = pwalk.table_to_limb_major(btab_x, dev), pwalk.table_to_limb_major(btab_y, dev)
-    adv = ecref.scalar_mult(ub)
+    walk = pwalk.walk_tables(ecref.G, ub, ecref.scalar_mult(ub), K, dev)
+    tx, ty, ax, ay, adv_tab = walk[:5]
     limbs = lambda v: torch.from_numpy(fe.int_to_limbs(v).view(np.int32).copy()).to(dev)
-    ax, ay = limbs(adv[0]), limbs(adv[1])
     base = ecref.scalar_mult(2 * ub)
     px, py = limbs(base[0])[None], limbs(base[1])[None]
-    adv_tab = pwalk.adv_multiples(adv, K, dev)
     w1, w2 = bmp.empty_filter(35, dev), bmp.empty_filter(35, dev)
     bad = torch.zeros((), dtype=torch.int64, device=dev)
     KU = K * ub
     steps = {"after (filter_build_step)": lambda: bsgs.filter_build_step(
-        px, py, tx, ty, ax, ay, adv_tab, K, ub, w1, 35, w2, 35, KU, bad)}
+        px, py, walk, w1, 35, w2, 35, KU, bad)}
     if pdir:
         plib = libs["k3_parent"][0]
         lane = torch.arange(KU, dtype=torch.int64, device=dev)
@@ -574,7 +571,7 @@ def main():
     if int(bad):
         cs.fail("a degenerate lane in the build step")
     out["build_step"] = step_out
-    del w1, w2, tx, ty, adv_tab
+    del w1, w2, tx, ty, adv_tab, walk
     torch.cuda.empty_cache()
 
     # 3. the minikey compaction and keys: tile widths, and the composition

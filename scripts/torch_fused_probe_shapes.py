@@ -213,14 +213,15 @@ def main():
     k2 = {}
     for kind in ("min4", "nodefer"):
         lib, log = libs[f"k2_{kind}"]
-        lib.kh_walk_blocks.argtypes = [vp] * 9 + [i64, i, i, vp]
+        lib.kh_walk_blocks.argtypes = [vp] * 14 + [i64, i, i, vp]  # no pairs: a point a thread
         q_lo, q_hi = torch.empty_like(qlo), torch.empty_like(qhi)
         d, m_ = torch.empty_like(deg), torch.empty_like(mask)
 
         def run(lib=lib, q_lo=q_lo, q_hi=q_hi, d=d, m_=m_):
             rc = lib.kh_walk_blocks(bx.data_ptr(), by.data_ptr(), tx.data_ptr(), ty.data_ptr(),
                                     q_lo.data_ptr(), q_hi.data_ptr(), d.data_ptr(),
-                                    bm.words.data_ptr(), m_.data_ptr(), R, U, BITS, st)
+                                    bm.words.data_ptr(), m_.data_ptr(), *[None] * 5, R, U,
+                                    BITS, st)
             if rc:
                 cs.fail(f"K2 {kind}: cudaError {rc}")
             return q_lo, q_hi, d, m_

@@ -5,7 +5,9 @@ survivor mask (against K2 alone and kh_probe_compact, word for word, at
 the BSGS cell's shape and a ragged one; a chunk of five launches against
 the unfused composition; the compaction at its tile edges; K2's own field
 arithmetic on adversarial columns: x3 below 2^32 + 977, dy = 0, lambda =
-p - 1, dx = p - 1, 1 and 0), the BSGS
+p - 1, dx = p - 1, 1 and 0; the paired walk and K1's centre lanes, with
+the rare lanes of tests/pair_walk_model.py planted, at the cell's and the
+build's shapes, and the walk's choice of it by shape), the BSGS
 chunk's bloom2 stage and summary (at the main
 path's C1 = 34,816, C2 = 1,536, 256 rows of U = 16,384, a 2^28-key table
 and 2^32- and 2^35-bit blooms, on the cases of tests/bsgs_cascade_cases.py,
@@ -44,6 +46,7 @@ from keyhuntm1cpu_tpu_torch.hash import phash, pminikey  # noqa: E402
 from keyhuntm1cpu_tpu_torch.ref import ecref, hashref  # noqa: E402
 from keyhuntm1cpu_tpu_torch.utils.targets import TargetSet  # noqa: E402
 import bsgs_cascade_cases  # noqa: E402
+import pair_walk_model  # noqa: E402
 import walker_lookup_cases  # noqa: E402
 from brute_compact_cases import CASES, make_case  # noqa: E402
 
@@ -288,6 +291,192 @@ def test_walk_blocks_adversarial_columns(dev, shape):
             x3 & 0xFFFFFFFF, (x3 >> 32) & 0xFFFFFFFF), what
         if what == "x3_small":
             assert x3 < 2**32 + 977
+
+
+def _pair_shape(shape):
+    """(R, U, S, bitmap bits) of K2 at the BSGS cell's shape (256 rows of
+    16,384 columns of S = -(2^29)G, the level-1 probe of 2^35 bits) or the
+    baby build's (128 rows of 4,096 columns of G, no probe)."""
+    if shape == "cell":
+        return 256, 16384, ecref.point_neg(ecref.scalar_mult(1 << 29)), 35
+    return 128, 4096, ecref.G, 0
+
+
+def _paired_inputs(shape, case, dev):
+    """The paired K2's inputs on the card with tests/pair_walk_model.py's
+    plants for `case`, 24 rows down (across the 32-row groups): bases,
+    centres and flags from K1 with its centre lanes (K = R bases of one
+    target), a planted row's centre base + c*S by ecref, flagged where that
+    is infinity or the base is off the curve. Returns (bases x, y, table x,
+    y, bitmap or None, pairs for walk_blocks)."""
+    R, U, S, bits = _pair_shape(shape)
+    adv = ecref.scalar_mult(U, S)
+    tab_x, tab_y = tables.step_table(S, U)
+    pt = pwalk.pair_tables(S, U, adv, R, dev)
+    px, py = _pts([ecref.scalar_mult(0x7CCE5EFDACCF6808)])
+    bx, by, _, _, _, cx, cy, cflag = pwalk.advance_chain(
+        px.to(dev), py.to(dev), _limbs(adv[0]).to(dev), _limbs(adv[1]).to(dev), R,
+        pwalk.adv_multiples(adv, R, dev), pt[2:])
+    tab = [(fe.limbs_to_int(x), fe.limbs_to_int(y)) for x, y in zip(tab_x, tab_y)]
+    cS = ecref.scalar_mult(pair_walk_model.centre_scalar(U), S)
+    for r, b in pair_walk_model.plants(case, U, tab, S).items():
+        r += 24
+        bx[:, r], by[:, r] = _limbs(b[0]).to(dev), _limbs(b[1]).to(dev)
+        cen = ecref.point_add(b, cS) if ecref.is_on_curve(b) else None
+        if cen is not None:
+            cx[:, r], cy[:, r] = _limbs(cen[0]).to(dev), _limbs(cen[1]).to(dev)
+        cflag[r] = cen is None
+    bm = None
+    if bits:
+        g = torch.Generator(device=dev).manual_seed(bits)
+        words = torch.randint(-2**31, 2**31, (1 << (bits - 5),), dtype=torch.int32,
+                              device=dev, generator=g)
+        for _ in range(6):  # m = 2^28's density, 2^-7
+            words &= torch.randint(-2**31, 2**31, (1 << (bits - 5),), dtype=torch.int32,
+                                   device=dev, generator=g)
+        bm = bmp.DeviceBitmap(words, bits)
+    return (bx, by, pwalk.table_to_limb_major(tab_x, dev), pwalk.table_to_limb_major(tab_y, dev),
+            bm, (pt.pair_x, pt.pair_y, cx, cy, cflag))
+
+
+@pytest.mark.parametrize("case", ["plain", "plus_minus", "pair_dx_zero", "centre", "off_curve",
+                                  "fe_edges"])
+@pytest.mark.parametrize("shape", ["cell", "build"])
+def test_walk_pairs_kernel_rare_lanes(dev, shape, case):
+    """The paired K2 word for word against walk_blocks_ref (qlo, qhi, deg and,
+    at the cell's shape, the survivor mask of the level-1 probe), with the
+    rare lanes planted (pair_walk_model.plants): base = +-tab_u at both
+    columns of a pair and at a block's first and last pair, a pair with dx
+    == 0 on each side, base = +-c*S, bases off the curve, x3 below 2^32 +
+    977 and dy == 0; one launch."""
+    bx, by, tx, ty, bm, pairs = _paired_inputs(shape, case, dev)
+    n0 = pwalk.walk_blocks.launches
+    got = pwalk.walk_blocks(bx, by, tx, ty, bm, pairs)
+    torch.cuda.synchronize()
+    assert pwalk.walk_blocks.launches == n0 + 1
+    want = pwalk.walk_blocks_ref(bx, by, tx, ty, bm)  # plain torch on the card
+    assert len(got) == len(want) == (3 if bm is None else 4)
+    for a, b in zip(got, want):
+        assert torch.equal(a, b)
+    if case == "plus_minus":
+        assert int(got[2].sum()) == 12
+
+
+@pytest.mark.parametrize("U,T,K", [(16384, 1, 256), (16384, 2, 64), (4096, 1, 128),
+                                   (300, 1, 16)])
+def test_chunk_walks_pairs_where_the_shape_allows(dev, U, T, K):
+    """chunk_multi with the engine's pair tables: the paired walk at U =
+    16,384 (the cell's K2, with the probe, and T = 2's row layout) and 4,096
+    (the build's), a point a thread at U = 300 (pair_tables is None there);
+    either way every output equals today's kernel's, word for word."""
+    S = ecref.point_neg(ecref.scalar_mult(1 << 29))
+    adv = ecref.scalar_mult(U, S)
+    tab_x, tab_y = tables.step_table(S, U)
+    tx, ty = pwalk.table_to_limb_major(tab_x, dev), pwalk.table_to_limb_major(tab_y, dev)
+    px, py = (t.t().contiguous().to(dev) for t in _pts(
+        [ecref.scalar_mult(0x5EED0000 + 977 * t) for t in range(T)]))
+    pt = pwalk.pair_tables(S, U, adv, K, dev)
+    assert (pt is not None) == (U % 64 == 0)
+    g = torch.Generator(device=dev).manual_seed(U)
+    words = torch.randint(-2**31, 2**31, (1 << 15,), dtype=torch.int32, device=dev, generator=g)
+    bm = bmp.DeviceBitmap(words & torch.randint(-2**31, 2**31, (1 << 15,), dtype=torch.int32,
+                                                device=dev, generator=g), 20)
+    args = (px, py, tx, ty, _limbs(adv[0]).to(dev), _limbs(adv[1]).to(dev))
+    tab = pwalk.adv_multiples(adv, K, dev)
+    got = pwalk.chunk_multi(*args, K=K, U=U, T=T, adv_tab=tab, bitmap=bm, pair_tab=pt)
+    want = pwalk.chunk_multi(*args, K=K, U=U, T=T, adv_tab=tab, bitmap=bm)
+    torch.cuda.synchronize()
+    assert got.paired == (pt is not None) and not want.paired
+    for a, b in zip(got[:7], want[:7]):
+        assert torch.equal(a, b)
+
+
+@pytest.mark.parametrize("T,K", [(1, 256), (3, 7), (2, 300), (4, 16), (130, 16)])
+def test_advance_chain_centre_lanes(dev, T, K):
+    """K1 with the centre lanes against its plain version, all eight outputs
+    word for word, and every unflagged centre against base_s + c*S by
+    ecref; planted: P = -ctab_s (the centre at infinity), P = -j*ADV (base j
+    at infinity), P = ctab_s (a doubling centre) and P off the curve (every
+    row flagged), one tile and several; the bases as without the centres."""
+    U = 16384
+    S = ecref.point_neg(ecref.scalar_mult(1 << 29))
+    adv = ecref.scalar_mult(U, S)
+    ctab = pwalk.centre_offsets(S, U, adv, K, "cpu")
+    col = lambda j: (fe.limbs_to_int(ctab[0][:, j].numpy().view(np.uint32)),
+                     fe.limbs_to_int(ctab[1][:, j].numpy().view(np.uint32)))
+    pts = [ecref.scalar_mult(0xC0FFEE + 7919 * t) for t in range(T)]
+    off = ecref.scalar_mult(4242)
+    plants = {}  # target: (P, its flagged rows); a later plant takes a shared target
+    plants[min(1, T - 1)] = ((off[0], (off[1] + 1) % ecref.P), set(range(K)))
+    plants[T // 2] = (col(0), set())
+    plants[T - 1] = (ecref.scalar_mult((K // 2) * U << 29), {K // 2})  # P = -(K/2)*ADV
+    plants[0] = (ecref.point_neg(col(K - 1)), {K - 1})
+    for t, (p, _) in plants.items():
+        pts[t] = p
+    px, py = _pts(pts)
+    args = (px, py, _limbs(adv[0]), _limbs(adv[1]))
+    tab = pwalk.adv_multiples(adv, K, "cpu")
+    want = pwalk.advance_chain_ref(*args, K, tab, ctab)
+    n0 = pwalk.advance_chain.launches
+    got = pwalk.advance_chain(*(a.to(dev) for a in args), K, tuple(t.to(dev) for t in tab),
+                              tuple(t.to(dev) for t in ctab))
+    torch.cuda.synchronize()
+    assert pwalk.advance_chain.launches == n0 + 1 and len(got) == 8
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+    for g, w in zip(got[:5], pwalk.advance_chain(*(a.to(dev) for a in args), K,
+                                                 tuple(t.to(dev) for t in tab))):
+        assert torch.equal(g, w)
+    bx, by, _, _, _, cx, cy, cflag = (t.cpu() for t in got)
+    flags = {(t, s) for t in range(T) for s in range(K) if cflag[t * K + s]}
+    assert flags == {(t, s) for t, (_, rows) in plants.items() for s in rows}
+    cS = ecref.scalar_mult(pair_walk_model.centre_scalar(U), S)
+    pt = lambda x, y, c: (fe.limbs_to_int(x[:, c].numpy().view(np.uint32)),
+                          fe.limbs_to_int(y[:, c].numpy().view(np.uint32)))
+    for t in range(T):
+        for s in range(K):
+            if (t, s) not in flags:
+                assert pt(cx, cy, t * K + s) == ecref.point_add(pt(bx, by, t * K + s), cS)
+
+
+def test_device_chunk_paired_matches_cpu_and_counts(dev):
+    """test_device_chunk_cuda_matches_cpu's chunk (U = 4096, K = 8, T = 3, a
+    dx == 0 lane and a P == -ADV advance planted) with the engine's pair
+    tables, so K2 walks pairs, equals the CPU's chunk word for word; a
+    search on the card counts every chunk it dispatched in
+    paired_walk_chunks, as probe_fused_chunks does (the planted advance
+    rebases the walk: more than it decodes), and the CPU's search none."""
+    from keyhuntm1cpu_tpu_torch.core.metrics import get_metrics
+
+    U, K, m, a = 4096, 8, 1 << 12, 0xA00000
+
+    def center(step, u):
+        return a + m + (step * U + u - 1) * 2 * m
+
+    ks = [a + 12345, center(1, 5), center(K - 1, U)]
+    pubs = [ecref.scalar_mult(k) for k in ks]
+    params = bsgs.BSGSParams(m=m, block_u=U, steps_per_chunk=K, build_block=128,
+                             bits_log2=20, cascade2="on")
+    got = bsgs.BSGSEngine(pubs, a, a + 4 * K * U * 2 * m, params, device=dev)
+    want = bsgs.BSGSEngine(pubs, a, a + 4 * K * U * 2 * m, params, device="cpu")
+    assert got.pair_tab is not None and want.pair_tab is None
+    outs = []
+    for eng in (got, want):
+        px, py = eng._initial_base(0)
+        outs.append(bsgs.chunk_impl(px, py, eng.tab_x, eng.tab_y, eng.adv_x, eng.adv_y,
+                                    eng.bitmap, eng.table, eng.bloom2, U=U, K=K, T=3,
+                                    C1=eng.C1, C2=eng.C2, adv_tab=eng.adv_tab,
+                                    pair_tab=eng.pair_tab))
+    torch.cuda.synchronize()
+    for g, w in zip(*outs):
+        assert torch.equal(g.cpu(), w)
+    for eng, paired in ((got, True), (want, False)):
+        found = sorted(f.private_key for f in eng.search(stop_on_first=False))
+        assert found == ks
+        rec = get_metrics().last_call("search")
+        n, fused = (rec["counters"].get(k, 0) for k in ("paired_walk_chunks",
+                                                        "probe_fused_chunks"))
+        assert n == (fused if paired else 0) and fused >= rec["chunks_decoded"] > 0
 
 
 @pytest.mark.parametrize("rows,U", [(255, 32), (256, 32), (257, 32), (1, 20), (170, 48),

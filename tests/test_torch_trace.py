@@ -12,6 +12,7 @@ spans. One test, marked cuda, holds each chunk's device interval between
 its dispatch span's start and its wait span's end on the card."""
 
 import contextlib
+import dataclasses
 import json
 import time
 
@@ -130,6 +131,23 @@ def test_probe_fused_chunks_counts_the_chunks_k2_probed():
     rec = REG.last_call("search_sharded")
     assert rec["chunks_decoded"] == 2 and "probe_fused_chunks" not in rec["counters"]
     assert fused() == before + 3
+
+
+def test_paired_walk_chunks_reads_nought_off_the_card():
+    """paired_walk_chunks counts the chunks whose K2 walked pairs, which only
+    the card does: a search on the CPU walks every point by the plain
+    versions and leaves it out of its record, at a U that pairs (64) as at
+    one that does not (16)."""
+    paired = lambda: REG.snapshot()["counters"].get("paired_walk_chunks", 0)
+    before = paired()
+    for u in (16, 64):
+        eng = bsgs.BSGSEngine([ecref.scalar_mult(KEY)], A, B,
+                              dataclasses.replace(BSGS_P, block_u=u), device="cpu")
+        assert eng.pair_tab is None
+        eng.search(max_steps=4 * 16 // u, stop_on_first=False)
+        rec = REG.last_call("search")
+        assert rec["chunks_decoded"] >= 1 and "paired_walk_chunks" not in rec["counters"]
+    assert paired() == before
 
 
 def test_bsgs_search_scheduled_leaves_one_record():
